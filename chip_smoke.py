@@ -5,23 +5,36 @@
 
 Phases, each of which raises on failure (nothing is caught):
   1. device  - the card's name, count, and name + power limit from nvidia-smi
-  2. build   - nvcc builds every kernel from the sources in this checkout
+  2. build   - nvcc builds every kernel from the sources in this checkout,
+               one nvcc per source, all started together
   3. kernels - each Hopper kernel against its plain PyTorch version on the
-               card, at the shapes the main path gives it and at ragged ones:
-               int32 dots and packed words must be equal (tolerance 0)
+               card, at the shapes the main paths give it and at ragged
+               ones: int32 dots and packed words must be equal (tolerance
+               0); attention outputs within rtol = atol = 2^-7 (bf16, one
+               ulp) or 1e-6 (float32, 8 ulps), with equal signs
   4. mlp     - bnn-mnist (784-1024x3-10) frozen, batches of 200 through the
                kernels; hidden words and scores equal the plain path's, the
                fp32-master path's, and the CPU's on a small batch
   5. cnn     - bnn-cifar10 (128,128,256,256,512,512 convs, 1024 FC, 32x32x3)
                frozen with shift-BN, batches of 100; the same checks
-  6. times   - per kernel and shape: CUDA-event time, the plain version's,
-               one PyTorch library call computing the same dots, and the
-               card's bound; then each forward per batch, and one profiled
-               frozen forward each (device busy share, top kernels)
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. Weights, BN statistics and inputs are random
-from the seed; inputs are multiples of 1/128 in [-1, 1], like 8-bit pixels.
-Exits non-zero, printing no result, without a card or without the repo.
+  6. lm      - phi3-medium-14b at full width, depth cut to 2, frozen, served
+               by ServingEngine(kv_bits=1, prefill_chunk=32, slots=4,
+               max_len=512): 8 greedy requests, prompts of 17-200 tokens
+               from the seed, 16 new tokens, one stopping at an eos taken
+               from its own greedy run; tokens equal the plain path's on the
+               card (on a difference, the first differing cache sign bit)
+  7. times   - per kernel and shape: CUDA-event time, the plain version's,
+               one PyTorch library call computing the same function where
+               there is one, and the card's bound; each forward per batch,
+               one profiled frozen forward each; then the LM at depth 8
+               (cut from 40): decode tokens/s, TTFT, ITL, resident bytes,
+               one profiled decode step (device busy share, launches)
+Launch counts are set to 0 just before each main path (mlp, cnn, lm) runs
+and read just after. The line before the last is {"kernels": [...]}; the
+last line is {"ok": true, "device": {...}}. Weights, BN statistics and
+inputs are random from the seed; image inputs are multiples of 1/128 in
+[-1, 1], like 8-bit pixels. Exits non-zero, printing no result, without a
+card or without the repo.
 """
 from __future__ import annotations
 
@@ -32,6 +45,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -39,12 +54,27 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 INT8_TC_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor cores
+FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
 POPC_PER_CLOCK_PER_SM = 16         # 32-bit popc issue rate, compute 9.0
-SOURCE = "src/repro_torch/kernels/csrc/binary_gemm.cu"
+GEMMS = ("binary_gemm_packed", "binary_gemm_packed_rhs", "binary_gemm_fused")
+SOURCES = {**{kn: "src/repro_torch/kernels/csrc/binary_gemm.cu" for kn in GEMMS},
+           "pack_bits": "src/repro_torch/kernels/csrc/pack.cu",
+           "decode_attention_packed": "src/repro_torch/kernels/csrc/attention.cu",
+           "prefill_attention_packed": "src/repro_torch/kernels/csrc/attention.cu"}
 REPLACES = {"binary_gemm_packed": "src/repro/kernels/binary_gemm.py:107",
             "binary_gemm_packed_rhs": "src/repro/kernels/binary_gemm.py:166",
-            "binary_gemm_fused": "src/repro/kernels/binary_gemm.py:242"}
+            "binary_gemm_fused": "src/repro/kernels/binary_gemm.py:242",
+            "pack_bits": "src/repro/kernels/pack.py:35",
+            "decode_attention_packed": "src/repro/kernels/decode_attention.py:137",
+            "prefill_attention_packed": "src/repro/kernels/prefill_attention.py:131"}
 RAGGED = [(9, 100, 48), (17, 64, 10), (3, 37, 33), (130, 257, 129)]
+# the LM serving path: phi3-medium-14b at full width, kv_bits=1, chunked
+# admission; depth cut to LM_CHECK_DEPTH (tokens vs the plain path) and
+# LM_TIMED_DEPTH (timed), since 40 layers of fp32 masters (54.5 GB) and
+# their packing do not fit beside the rest on one card
+LM_ARCH, LM_SLOTS, LM_MAX_LEN, LM_CHUNK = "phi3-medium-14b", 4, 512, 32
+LM_CHECK_DEPTH, LM_TIMED_DEPTH = 2, 8
+LM_REQUESTS, LM_NEW, LM_PROMPT = 8, 16, (17, 200)
 
 
 def smi(query: str) -> str:
@@ -88,6 +118,7 @@ class Operands:
         x[torch.rand(m, k, generator=gen, device=dev) < 0.05] = 0.0
         self.m, self.k, self.n = m, k, n
         self.x = x
+        self.x_bf16 = x.to(torch.bfloat16)
         self.a = pack_bits(x)
         self.b = pack_bits(torch.randn(n, k, generator=gen, device=dev))
         d = int(k ** 0.5)
@@ -98,7 +129,9 @@ class Operands:
 
     def call(self, kernel, lhs, plain=False):
         from repro_torch.kernels import binary_gemm as bg
-        a = self.x if lhs == "float" else self.a
+        a = {"float": self.x, "packed": self.a}.get(lhs)
+        if lhs == "bf16":            # the LM's activations
+            a = self.x_bf16
         if kernel == "binary_gemm_fused":
             fn = bg.binary_gemm_fused_plain if plain else bg.binary_gemm_fused
             return fn(a, self.b, self.thresh, self.flip, self.k)
@@ -215,6 +248,466 @@ def check_equal(what, got, want):
         raise AssertionError(f"{what}: results differ")
 
 
+# ---------------------------------------------------------------------------
+# The LM serving path: kernels A (pack), B (decode attention), C (prefill
+# attention) and the engine
+# ---------------------------------------------------------------------------
+def lm_modules():
+    from repro_torch.kernels import binary_gemm as bg
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import pack as pk
+    from repro_torch.kernels import prefill_attention as pa
+    return bg, pk, da, pa
+
+
+def reset_all_launches() -> None:
+    for mod in lm_modules():
+        mod.reset_launches()
+
+
+def all_launches() -> dict:
+    out = {}
+    for mod in lm_modules():
+        out.update(mod.launches)
+    return out
+
+
+def pack_check_shapes(cfg):
+    """(M, K) of every sign-pack on the LM path, per layer: the normed
+    residual of a decode step and of a chunk (for Q/K/V, then gate/up) and
+    the new K/V rows, (rows * Hkv, hd); the (M, d_ff) lhs too."""
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    return [(LM_SLOTS, cfg.d_model, "decode x2"),
+            (LM_SLOTS * hkv, hd, "decode kv x2"),
+            (LM_CHUNK, cfg.d_model, "chunk x2"),
+            (LM_CHUNK * hkv, hd, "chunk kv x2"),
+            (LM_SLOTS, cfg.d_ff, "check"), (LM_CHUNK, cfg.d_ff, "check")]
+
+
+def attention_case(gen, b, s, t, hkv, g, hd, dtype, dev):
+    """Integer-valued queries (rope'd popcount dots are such values), packed
+    sign K/V and V scales, on the card."""
+    from repro_torch.core.bitpack import pack_bits
+    q = torch.randint(-6, 7, (b, s, hkv * g, hd), generator=gen,
+                      device=dev).to(dtype)
+    k, v = (pack_bits(torch.randn(b, t, hkv, hd, generator=gen, device=dev))
+            for _ in range(2))
+    vs = 0.5 + 0.5 * torch.rand(b, hkv, generator=gen, device=dev)
+    return q, k, v, vs
+
+
+def attention_bound(valid, s, hq, hkv, hd, elt, popc_per_s):
+    """Least time of one packed-attention call: the bytes it must move
+    (q, out, the K/V rows up to each row's last valid position, v_scale)
+    over HBM rate, and its operations over their peaks: hd/32 popcs and hd
+    V adds per valid (query head, position) pair."""
+    b, _, t = valid.shape
+    hdw = (hd + 31) // 32
+    pairs = int(valid.sum()) * hq
+    last = valid.any(dim=1).int() * torch.arange(1, t + 1, device=valid.device)
+    kv_rows = int(last.amax(dim=1).sum())
+    nbytes = 2 * b * s * hq * hd * elt + 2 * kv_rows * hkv * hdw * 4 + b * hkv * 8
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(pairs * hdw / popc_per_s, pairs * hd / FP32_OPS_PER_S) * 1e3
+    return {"bytes_ms": t_bytes, "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops)}
+
+
+def sdpa_call(q, k, v, vs, valid):
+    """One PyTorch call computing the same function (the port never calls
+    it): scaled_dot_product_attention over sign(q) and the unpacked +-1 K/V
+    with the same mask, times v_scale. Operands are prepared outside the
+    timing."""
+    import torch.nn.functional as F
+    from repro_torch.core.bitpack import unpack_bits
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    qs = torch.where(q >= 0, 1.0, -1.0).to(q.dtype).transpose(1, 2)
+    ks, vv = (unpack_bits(x, hd, dtype=q.dtype).transpose(1, 2)
+              .repeat_interleave(g, dim=1).contiguous() for x in (k, v))
+    mask = valid[:, None]
+    scale = vs.repeat_interleave(g, dim=1)[:, :, None, None].to(q.dtype)
+
+    def call():
+        out = F.scaled_dot_product_attention(qs, ks, vv, attn_mask=mask,
+                                             scale=1.0 / hd ** 0.5)
+        return out * scale
+    return lambda: call().transpose(1, 2)
+
+
+# attention outputs, kernel against plain version: the sums are exact in
+# both, exp may differ by an ulp between the CUDA math library and torch's
+ATTN_TOL = {torch.bfloat16: 2.0 ** -7,     # one bf16 ulp at 1
+            torch.float32: 1e-6}           # 8 float32 ulps at 1
+
+
+def check_close(what, got, want, dtype):
+    """Attention outputs: within ATTN_TOL of their type (rtol = atol), and
+    the same sign everywhere (all that the next projection reads)."""
+    eps = ATTN_TOL[dtype]
+    err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+    torch.testing.assert_close(got.float(), want.float(), rtol=eps, atol=eps,
+                               msg=lambda m: f"{what}: {m}")
+    if not torch.equal(got >= 0, want >= 0):
+        raise AssertionError(f"{what}: output signs differ")
+    return err
+
+
+def lm_kernel_checks(cfg, dev_gen, dev):
+    """Kernels A, B, C against their plain versions on the card at the LM's
+    main-path shapes and at ragged ones. Words and integer dots: tolerance
+    0. Attention outputs: ATTN_TOL, signs equal."""
+    _, pk, da, pa = lm_modules()
+    err = {"pack_bits": 0, "decode_attention_packed": 0.0,
+           "prefill_attention_packed": 0.0}
+    hkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    for m, k, where in pack_check_shapes(cfg) + [(3, 31, "ragged"),
+                                                 (5, 33, "ragged"),
+                                                 (7, 1000, "ragged")]:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(m, k, generator=dev_gen, device=dev).to(dtype)
+            x.view(-1)[::13] = -0.0
+            x.view(-1)[5::17] = float("nan")
+            got = pk.pack_bits_kernel(x)
+            torch.cuda.synchronize()
+            d = max_abs_diff(got, pk.pack_bits_plain(x), words=True)
+            err["pack_bits"] = max(err["pack_bits"], d)
+            print(f"check pack_bits {str(dtype)[6:]:8s} M={m:5d} K={k:5d} "
+                  f"{where:12s} max_abs_err={d}")
+            if d:
+                raise AssertionError(f"pack_bits ({m},{k}) differs from its "
+                                     f"plain version by {d}")
+    decode_cases = [(LM_SLOTS, LM_MAX_LEN, hkv, g, hd, 0, "main"),
+                    (3, 37, 2, 1, 33, 0, "ragged"), (2, 70, 1, 8, 64, 9, "ragged"),
+                    (5, 33, 3, 2, 128, 0, "ragged")]
+    for b, t, nkv, gg, d_h, window, where in decode_cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, vs = attention_case(dev_gen, b, 1, t, nkv, gg, d_h,
+                                         dtype, dev)
+            lens = torch.randint(1, t + 1, (b,), generator=dev_gen, device=dev,
+                                 dtype=torch.int32)
+            lens[0] = 1
+            got, dots = da.decode_attention_packed(q, k, v, vs, lens,
+                                                   window=window,
+                                                   return_dots=True)
+            torch.cuda.synchronize()
+            want, wdots = da.decode_attention_packed_plain(
+                q, k, v, vs, lens, window=window, return_dots=True)
+            if not torch.equal(dots, wdots):
+                raise AssertionError(f"decode dots ({b},{t},{nkv},{gg},{d_h})")
+            e = check_close(f"decode ({b},{t},{nkv},{gg},{d_h},{window})",
+                            got, want, dtype)
+            err["decode_attention_packed"] = max(err["decode_attention_packed"], e)
+            print(f"check decode_attention_packed {str(dtype)[6:]:8s} B={b} "
+                  f"T={t} Hkv={nkv} G={gg} hd={d_h} window={window} {where} "
+                  f"dots equal, max_abs_err={e:.3g}")
+    prefill_cases = [(1, LM_CHUNK, LM_MAX_LEN, hkv, g, hd, 96, 0, True, "main"),
+                     (1, LM_CHUNK, LM_MAX_LEN, hkv, g, hd, 0, 0, True, "main"),
+                     (2, 7, 45, 2, 1, 33, 11, 5, True, "ragged"),
+                     (1, 16, 70, 1, 8, 64, 40, 0, False, "ragged"),
+                     (3, 5, 40, 2, 2, 16, 0, 0, True, "ragged")]
+    for b, s, t, nkv, gg, d_h, qp, window, causal, where in prefill_cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, vs = attention_case(dev_gen, b, s, t, nkv, gg, d_h,
+                                         dtype, dev)
+            got, dots = pa.prefill_attention_packed(
+                q, k, v, vs, qp + s, qp, window=window, causal=causal,
+                return_dots=True)
+            torch.cuda.synchronize()
+            want, wdots = pa.prefill_attention_packed_plain(
+                q, k, v, vs, qp + s, qp, window=window, causal=causal,
+                return_dots=True)
+            if not torch.equal(dots, wdots):
+                raise AssertionError(f"prefill dots ({b},{s},{t})")
+            e = check_close(f"prefill ({b},{s},{t},{nkv},{gg},{d_h})", got,
+                            want, dtype)
+            err["prefill_attention_packed"] = max(
+                err["prefill_attention_packed"], e)
+            print(f"check prefill_attention_packed {str(dtype)[6:]:8s} B={b} "
+                  f"S={s} T={t} Hkv={nkv} G={gg} hd={d_h} q_pos={qp} "
+                  f"window={window} causal={causal} {where} dots equal, "
+                  f"max_abs_err={e:.3g}")
+    # a one-row chunk at q_pos = kv_len - 1 is a decode step
+    q, k, v, vs = attention_case(dev_gen, LM_SLOTS, 1, LM_MAX_LEN, hkv, g, hd,
+                                 torch.bfloat16, dev)
+    lens = torch.tensor([1, 100, 333, 512], dtype=torch.int32, device=dev)
+    check_equal("prefill S=1 vs decode",
+                pa.prefill_attention_packed(q, k, v, vs, lens, lens - 1),
+                da.decode_attention_packed(q, k, v, vs, lens))
+    zero = da.decode_attention_packed(q, k, v, vs, 0)
+    if not (zero == 0).all():
+        raise AssertionError("cache_len 0 must give 0")
+    print("check prefill S=1 equals decode; cache_len 0 gives 0")
+    return err
+
+
+def lm_traffic(seed, vocab):
+    """LM_REQUESTS prompts with lengths drawn from the seed in LM_PROMPT."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
+
+
+def lm_engine(cfg, params, **kw):
+    from repro_torch.serving.engine import ServingEngine
+    return ServingEngine(cfg, params, kv_bits=1, prefill_chunk=LM_CHUNK,
+                         slots=LM_SLOTS, max_len=LM_MAX_LEN, **kw)
+
+
+def first_sign_difference(cfg, frozen, prompt, tokens, dev):
+    """Replay one request alone through the kernels and the plain versions
+    (its chunks, then decode steps fed the kernel path's tokens) and return
+    the first (step, layer, position, KV head, bit) whose cache sign bit
+    differs, or None."""
+    from repro_torch.models import transformer as T
+    caches = {p: T.init_cache(cfg, 1, LM_MAX_LEN, device=dev)
+              for p in ("auto", "ref")}
+
+    def diff(step):
+        for name in ("k", "v"):
+            x = caches["auto"][name] ^ caches["ref"][name]
+            if x.any():
+                layer, _, pos, head, word = (int(i) for i in x.nonzero()[0])
+                w = int(x[layer, 0, pos, head, word]) & 0xFFFFFFFF
+                bit = 32 * word + (w & -w).bit_length() - 1
+                return (step, layer, f"{name} position {pos}", head, bit)
+        return None
+
+    for lo in range(0, len(prompt), LM_CHUNK):
+        nv = min(LM_CHUNK, len(prompt) - lo)
+        ch = torch.zeros((1, LM_CHUNK), dtype=torch.int64, device=dev)
+        ch[0, :nv] = torch.from_numpy(prompt[lo:lo + nv].astype(np.int64))
+        for path in caches:
+            T.transformer_prefill_chunk(frozen, cfg, ch, caches[path], 0, lo,
+                                        nv, path=path)
+        found = diff(f"chunk at {lo}")
+        if found:
+            return found
+    for i, tok in enumerate(tokens[:-1]):
+        token = torch.tensor([int(tok)], device=dev)
+        pos = torch.tensor([len(prompt) + i], dtype=torch.int32, device=dev)
+        for path in caches:
+            T.transformer_decode(frozen, cfg, token, caches[path], pos,
+                                 path=path)
+        found = diff(f"decode step {i + 1}")
+        if found:
+            return found
+    return None
+
+
+def lm_engine_check(base_cfg, seed, dev):
+    """Full width, depth LM_CHECK_DEPTH: the engine's greedy tokens through
+    the kernels equal its tokens through the plain versions, on the card.
+    Returns the launch counts of the kernel run (the main path)."""
+    from repro_torch.models.api import get_model
+    from repro_torch.serving.engine import Request
+    cfg = base_cfg.scaled(n_layers=LM_CHECK_DEPTH, kv_bits=1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    masters = get_model(cfg).init(gen, device=dev)
+    eng = lm_engine(cfg, masters, freeze=True, seed=seed)
+    frozen = eng.params
+    del masters
+    torch.cuda.empty_cache()
+    plain = lm_engine(cfg, frozen, kernel_path="ref", seed=seed)
+    prompts = lm_traffic(seed, cfg.vocab)
+    alone = eng.generate([Request(prompts[5], max_new_tokens=LM_NEW)])[0]
+    eos = int(alone[7])          # request 5 stops at its own 8th token
+    reqs = [Request(p, max_new_tokens=LM_NEW, eos_id=eos if i == 5 else None)
+            for i, p in enumerate(prompts)]
+    reset_all_launches()
+    got = eng.generate(reqs)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    want = plain.generate(reqs)
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        if not np.array_equal(a, b):
+            where = first_sign_difference(cfg, frozen, prompts[i], a, dev)
+            raise AssertionError(
+                f"LM request {i}: kernel tokens {a.tolist()} != plain "
+                f"{b.tolist()}; first differing sign bit (step, layer, "
+                f"position, head, bit): {where}")
+    if got[5][-1] != eos or len(got[5]) > 8:
+        raise AssertionError(f"request 5 did not stop at eos {eos}: {got[5]}")
+    if any(len(t) != LM_NEW for i, t in enumerate(got) if i != 5):
+        raise AssertionError("a request did not get its budget")
+    n_chunks = sum(-(-len(p) // LM_CHUNK) for p in prompts)
+    if launches["prefill_attention_packed"] != n_chunks * LM_CHECK_DEPTH:
+        raise AssertionError(f"prefill launches {launches} != "
+                             f"{n_chunks} chunks x {LM_CHECK_DEPTH} layers")
+    for kn in ("pack_bits", "decode_attention_packed", "binary_gemm_packed",
+               "binary_gemm_packed_rhs"):
+        if not launches[kn]:
+            raise AssertionError(f"the LM path launched no {kn}")
+    if launches["binary_gemm_fused"]:
+        raise AssertionError("the LM path has no fused-epilogue GEMM")
+    print(f"lm engine check: {LM_ARCH} full width, depth {LM_CHECK_DEPTH} "
+          f"(cut from {base_cfg.n_layers}), {LM_REQUESTS} requests, prompts "
+          f"{sorted(len(p) for p in prompts)}, {LM_NEW} new tokens, request 5 "
+          f"stops at eos {eos} after {len(got[5])}: tokens equal the plain "
+          f"path's; launches {launches}")
+    del eng, plain, frozen
+    torch.cuda.empty_cache()
+    return launches, n_chunks
+
+
+def percentile(xs, q):
+    return float(np.percentile(np.asarray(xs), q)) if len(xs) else float("nan")
+
+
+def lm_timed_run(base_cfg, seed, dev, card):
+    """Full width, depth LM_TIMED_DEPTH: the same engine and traffic, timed.
+    Returns the report and the frozen engine (for kernel timing and the
+    profiled decode step)."""
+    from repro_torch.models.api import get_model
+    from repro_torch.serving.engine import Request
+    cfg = base_cfg.scaled(n_layers=LM_TIMED_DEPTH, kv_bits=1)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    masters = get_model(cfg).init(gen, device=dev)
+    master_layer = sum(x.numel() * 4 for x in (
+        masters["blocks"]["attn"][w] for w in ("wq", "wk", "wv", "wo"))) + \
+        sum(masters["blocks"]["ffn"][w].numel() * 4
+            for w in ("w_gate", "w_up", "w_down"))
+    master_layer //= cfg.n_layers
+    eng = lm_engine(cfg, masters, freeze=True, seed=seed)
+    del masters
+    torch.cuda.empty_cache()
+    prompts = lm_traffic(seed, cfg.vocab)
+    eng.generate([Request(prompts[0][:40], max_new_tokens=4)])     # warm-up
+    reqs = [Request(p, max_new_tokens=LM_NEW) for p in prompts]
+    sched = eng.scheduler()
+    before = dict(sched.stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    comps = eng.serve(reqs)
+    wall = time.perf_counter() - t0
+    st = {k: sched.stats[k] - before[k] for k in ("decode_s", "prefill_s",
+                                                 "decode_steps", "bursts",
+                                                 "tokens_out")}
+    decode_tokens = sum(len(c.tokens) - 1 for c in comps)
+    itl = np.concatenate([c.itl for c in comps])
+    w = eng.resident_weight_bytes()
+    c = eng.resident_cache_bytes()
+    bf16_cache = 2 * cfg.n_layers * LM_SLOTS * LM_MAX_LEN * cfg.n_kv_heads * \
+        cfg.head_dim * 2
+    rep = {
+        "depth": cfg.n_layers, "depth_cut_from": base_cfg.n_layers,
+        "wall_s": wall, "decode_s": st["decode_s"], "prefill_s": st["prefill_s"],
+        "decode_steps": st["decode_steps"], "bursts": st["bursts"],
+        "decode_tokens": decode_tokens,
+        "decode_tok_per_s": decode_tokens / st["decode_s"],
+        "prefill_tok_per_s": sum(map(len, prompts)) / st["prefill_s"],
+        "ttft_ms_p50": percentile([c.ttft for c in comps], 50) * 1e3,
+        "ttft_ms_p99": percentile([c.ttft for c in comps], 99) * 1e3,
+        "ttft_wall_ms_p50": percentile([c.ttft_wall for c in comps], 50) * 1e3,
+        "itl_ms_p50": percentile(itl, 50) * 1e3,
+        "itl_ms_p99": percentile(itl, 99) * 1e3,
+        "binary_bytes_per_layer": w["binary"] // cfg.n_layers,
+        "master_bytes_per_layer": master_layer,
+        "cache_packed_bytes": c["packed"], "cache_float_bytes": c["float"],
+        "cache_bf16_bytes": bf16_cache}
+    print(f"lm timed run on {card}: {LM_ARCH} full width, depth "
+          f"{cfg.n_layers} (CUT from {base_cfg.n_layers}: fp32 masters of all "
+          f"layers do not fit beside the run), {LM_REQUESTS} requests, "
+          f"{LM_SLOTS} slots, chunk {LM_CHUNK}, max_len {LM_MAX_LEN}")
+    print(f"  wall {wall:.4f} s; decode {decode_tokens} tokens in "
+          f"{st['decode_s']:.4f} s over {st['decode_steps']} steps / "
+          f"{st['bursts']} bursts = {rep['decode_tok_per_s']:.2f} tok/s; "
+          f"prefill {rep['prefill_tok_per_s']:.1f} tok/s")
+    print(f"  TTFT (own admission) p50 {rep['ttft_ms_p50']:.3f} ms, p99 "
+          f"{rep['ttft_ms_p99']:.3f} ms; TTFT wall p50 "
+          f"{rep['ttft_wall_ms_p50']:.3f} ms; ITL p50 {rep['itl_ms_p50']:.3f} "
+          f"ms, p99 {rep['itl_ms_p99']:.3f} ms")
+    print(f"  resident weights per layer: {rep['binary_bytes_per_layer'] / 1e6:.1f}"
+          f" MB packed vs {master_layer / 1e9:.3f} GB fp32 "
+          f"({master_layer / rep['binary_bytes_per_layer']:.1f}x); cache "
+          f"{c['packed'] / 1e6:.2f} MB packed + {c['float']} B V scales vs "
+          f"{bf16_cache / 1e6:.2f} MB bf16 ({bf16_cache / c['packed']:.1f}x)")
+    return rep, eng
+
+
+def lm_kernel_times(cfg, dev_gen, dev, popc_per_s):
+    """CUDA-event times of kernels A, B, C at the LM's main-path shapes
+    (bf16 activations) beside their bounds, plain versions and, for B and
+    C, one PyTorch call (SDPA) computing the same function. Returns the
+    rows and the per-kernel sums over one layer's launches in one decode
+    step and one prefill chunk."""
+    from repro_torch.kernels import ref
+    _, pk, da, pa = lm_modules()
+    hkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    rows = []
+    for m, k, where in pack_check_shapes(cfg)[:4]:
+        x = torch.randn(m, k, generator=dev_gen, device=dev).to(torch.bfloat16)
+        nbytes = m * k * 2 + m * ((k + 31) // 32) * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = m * k / FP32_OPS_PER_S * 1e3
+        rows.append({"kernel": "pack_bits", "where": where, "shape": (m, k),
+                     "per_layer": 2,
+                     "ms": cuda_ms(lambda: pk.pack_bits_kernel(x)),
+                     "plain_ms": cuda_ms(lambda: pk.pack_bits_plain(x),
+                                         warmup=1, max_iters=20),
+                     "library": None, "library_ms": None,
+                     "bytes_ms": t_bytes, "ops_ms": t_ops,
+                     "bound_ms": max(t_bytes, t_ops)})
+    lens = torch.tensor([LM_MAX_LEN, 300, 100, 17], dtype=torch.int32,
+                        device=dev)
+    q, k, v, vs = attention_case(dev_gen, LM_SLOTS, 1, LM_MAX_LEN, hkv, g, hd,
+                                 torch.bfloat16, dev)
+    valid = ref.chunk_valid_mask(LM_SLOTS, 1, LM_MAX_LEN, lens, lens - 1, 0,
+                                 True, device=dev)
+    lib = sdpa_call(q, k, v, vs, valid)
+    check_close_loose("SDPA vs decode kernel", lib(),
+                      da.decode_attention_packed(q, k, v, vs, lens))
+    rows.append({"kernel": "decode_attention_packed",
+                 "where": f"decode B={LM_SLOTS} T={LM_MAX_LEN} lens "
+                          f"{lens.tolist()}", "shape": tuple(q.shape),
+                 "per_layer": 1,
+                 "ms": cuda_ms(lambda: da.decode_attention_packed(q, k, v, vs, lens)),
+                 "plain_ms": cuda_ms(lambda: da.decode_attention_packed_plain(
+                     q, k, v, vs, lens), warmup=1, max_iters=10),
+                 "library": "F.scaled_dot_product_attention",
+                 "library_ms": cuda_ms(lib),
+                 **attention_bound(valid, 1, cfg.n_heads, hkv, hd, 2, popc_per_s)})
+    for qp in (0, 96):
+        q, k, v, vs = attention_case(dev_gen, 1, LM_CHUNK, LM_MAX_LEN, hkv, g,
+                                     hd, torch.bfloat16, dev)
+        kv = qp + LM_CHUNK
+        valid = ref.chunk_valid_mask(1, LM_CHUNK, LM_MAX_LEN, kv, qp, 0, True,
+                                     device=dev)
+        lib = sdpa_call(q, k, v, vs, valid)
+        check_close_loose("SDPA vs prefill kernel", lib(),
+                          pa.prefill_attention_packed(q, k, v, vs, kv, qp))
+        rows.append({"kernel": "prefill_attention_packed",
+                     "where": f"chunk S={LM_CHUNK} q_pos={qp} T={LM_MAX_LEN}",
+                     "shape": tuple(q.shape), "per_layer": 0.5,
+                     "ms": cuda_ms(lambda: pa.prefill_attention_packed(
+                         q, k, v, vs, kv, qp)),
+                     "plain_ms": cuda_ms(lambda: pa.prefill_attention_packed_plain(
+                         q, k, v, vs, kv, qp), warmup=1, max_iters=10),
+                     "library": "F.scaled_dot_product_attention",
+                     "library_ms": cuda_ms(lib),
+                     **attention_bound(valid, LM_CHUNK, cfg.n_heads, hkv, hd,
+                                       2, popc_per_s)})
+    totals = {}
+    for r in rows:
+        t = totals.setdefault(r["kernel"], {"ms": 0.0, "plain_ms": 0.0,
+                                            "bound_ms": 0.0, "bytes_ms": 0.0,
+                                            "ops_ms": 0.0, "library_ms": None})
+        for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms"):
+            t[key] += r[key] * r["per_layer"]
+        if r["library_ms"] is not None:
+            t["library_ms"] = (t["library_ms"] or 0.0) + \
+                r["library_ms"] * r["per_layer"]
+    return rows, totals
+
+
+def check_close_loose(what, lib, kern):
+    """The library call computes the same function: within bf16 rounding of
+    the kernel (atol 2e-2 on outputs of size <= 1)."""
+    err = float((lib.float() - kern.float()).abs().max())
+    if not err <= 2e-2:
+        raise AssertionError(f"{what}: differs by {err}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -267,6 +760,14 @@ def main() -> int:
                    ("binary_gemm_packed_rhs", "float", m, k, n, "ragged"),
                    ("binary_gemm_fused", "float", m, k, n, "ragged"),
                    ("binary_gemm_fused", "packed", m, k, n, "ragged")]
+    # the LM's GEMMs at chunk and decode rows: Q|K|V and gate|up read the
+    # shared packed lhs, wo and w_down a bf16 one
+    for m, where in ((LM_CHUNK, "lm.chunk"), (LM_SLOTS, "lm.decode")):
+        checks += [("binary_gemm_packed", "packed", m, 5120, 1280, where),
+                   ("binary_gemm_packed", "packed", m, 5120, 17920, where),
+                   ("binary_gemm_packed_rhs", "bf16", m, 5120, 5120, where),
+                   ("binary_gemm_packed_rhs", "bf16", m, 17920, 5120, where),
+                   ("binary_gemm_fused", "bf16", m, 300, 77, "ragged")]
     err = {kn: 0 for kn in REPLACES}
     dev_gen = torch.Generator(device=dev).manual_seed(args.seed)
     operands = {}
@@ -285,6 +786,11 @@ def main() -> int:
         if d:
             raise AssertionError(f"{kn} {lhs} ({m},{k},{n}) differs from "
                                  f"its plain version by {d}")
+    for key in [key for key in operands if key[1] in (5120, 17920)]:
+        del operands[key]                  # the LM's GEMM operands
+    from repro_torch.configs.base import get_config
+    lm_cfg = get_config(LM_ARCH)
+    err.update(lm_kernel_checks(lm_cfg, dev_gen, dev))
 
     # ------------------------------------------------------------------ mlp
     cfg = BNN_MNIST
@@ -375,7 +881,11 @@ def main() -> int:
           f"scores and {len(outs[0][1])} hidden words per batch equal the "
           f"plain path; share of +1 bits in fc1/fc2: "
           + ", ".join(f"{float((b > 0).float().mean()):.3f}" for b in bits))
-    path_launches = {kn: mlp_launches[kn] + cnn_launches[kn] for kn in REPLACES}
+
+    # ------------------------------------------------ lm: tokens vs plain
+    lm_launches, lm_chunks = lm_engine_check(lm_cfg, args.seed, dev)
+    path_launches = {kn: mlp_launches.get(kn, 0) + cnn_launches.get(kn, 0)
+                     + lm_launches[kn] for kn in REPLACES}
 
     # ---------------------------------------------------------------- times
     print(f"times on {card} (ms; bound = max(bytes / 3.35 TB/s, popc / "
@@ -448,23 +958,56 @@ def main() -> int:
             print(f"    {ms:9.4f} ms  x{cnt:<3d} {kname}")
     report["traces"] = traces
 
+    # ------------------------------------------- lm: kernel times, timed run
+    lm_rows, lm_totals = lm_kernel_times(lm_cfg, dev_gen, dev, popc_per_s)
+    print(f"lm kernel times on {card} (ms per launch; bound = max(bytes / "
+          f"3.35 TB/s, popc / {popc_per_s / 1e12:.3f} T/s, V adds / 67 "
+          f"TFLOP/s); pack_bits has no single PyTorch call computing it):")
+    for r in lm_rows:
+        lib = "—" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"  {r['kernel']:24s} {r['where']:40s} kernel {r['ms']:.4f}  "
+              f"plain {r['plain_ms']:.3f}  library {lib}  bound "
+              f"{r['bound_ms']:.5f} ({'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'ops'})")
+    totals.update(lm_totals)
+    report["lm_shapes"] = lm_rows
+    timed, eng = lm_timed_run(lm_cfg, args.seed, dev, card)
+    sched = eng.scheduler()
+    pos = torch.full((LM_SLOTS,), 300, dtype=torch.int32, device=dev)
+    step = trace(lambda: sched.model.decode(sched.params, sched._state["cur"],
+                                            sched._cache, pos))
+    share = step["busy_ms"] / step["wall_ms"] if step["wall_ms"] else 0.0
+    print(f"trace lm decode step (depth {LM_TIMED_DEPTH}, {LM_SLOTS} slots at "
+          f"position 300) on {card}: wall {step['wall_ms']:.4f} ms (profiled),"
+          f" device busy {step['busy_ms']:.4f} ms ({share:.3f} of wall), "
+          f"{step['launches']} kernel launches; top kernels:")
+    for kname, cnt, ms in step["top"]:
+        print(f"    {ms:9.4f} ms  x{cnt:<3d} {kname}")
+    timed["decode_step_trace"] = step
+    report["lm_timed"] = timed
+    del eng, sched
+    torch.cuda.empty_cache()
+
     kernels = []
     for kn in REPLACES:
         t = totals[kn]
         kernels.append({
-            "name": kn, "route": "cuda", "source": SOURCE,
+            "name": kn, "route": "cuda", "source": SOURCES[kn],
             "replaces": REPLACES[kn], "launches": path_launches[kn],
             "max_abs_err": err[kn], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
             "library_ms": t["library_ms"]})
     report["kernels"] = kernels
-    report["launches"] = {"mlp": mlp_launches, "cnn": cnn_launches}
+    report["launches"] = {"mlp": mlp_launches, "cnn": cnn_launches,
+                          "lm": lm_launches, "lm_chunks": lm_chunks}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))
-    print("kernel times above are summed over one mlp and one cnn forward's "
-          "launches of each kernel")
+    print("kernels line: GEMM times are summed over one mlp and one cnn "
+          "forward's launches of each kernel; pack_bits, decode and prefill "
+          "attention times over one LM layer's launches in one decode step "
+          "and one prefill chunk (the two chunk shapes weighted 1/2); "
+          "launches count the mlp, cnn and depth-2 LM runs")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -93,11 +93,12 @@ def qmatmul(x: torch.Tensor | PackedActivation, w: torch.Tensor | PackedWeight,
     return torch.matmul(xq, wq)
 
 
-def shared_pack(x: torch.Tensor, weights, mode: QuantMode
-                ) -> torch.Tensor | PackedActivation:
+def shared_pack(x: torch.Tensor, weights, mode: QuantMode, *,
+                path: str = "auto") -> torch.Tensor | PackedActivation:
     """Sign-pack a float activation once when every consumer is a frozen
-    binary weight; fall through to the float tensor otherwise."""
+    binary weight; fall through to the float tensor otherwise. `path` as in
+    `PackedActivation.pack`."""
     if (mode in (QuantMode.BBP, QuantMode.BBP_DET)
             and all(isinstance(w, PackedWeight) for w in weights)):
-        return PackedActivation.pack(x)
+        return PackedActivation.pack(x, path=path)
     return x

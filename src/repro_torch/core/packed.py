@@ -136,9 +136,20 @@ class PackedActivation:
         self.dtype = dtype            # dtype dense results are cast back to
 
     @classmethod
-    def pack(cls, x: torch.Tensor) -> "PackedActivation":
-        """Sign-pack a float activation once, for every GEMM that reads it."""
-        return cls(pack_bits(x), k=x.shape[-1], dtype=x.dtype)
+    def pack(cls, x: torch.Tensor, *, path: str = "auto"
+             ) -> "PackedActivation":
+        """Sign-pack a float activation once, for every GEMM that reads it:
+        path 'auto' through `kernels.pack.pack_bits_kernel` (the Hopper
+        kernel on a CUDA tensor, its plain version on a CPU one), 'ref'
+        through the plain version on any device."""
+        if path == "auto":
+            from repro_torch.kernels.pack import pack_bits_kernel
+            words = pack_bits_kernel(x)
+        elif path == "ref":
+            words = pack_bits(x)
+        else:
+            raise ValueError(path)
+        return cls(words, k=x.shape[-1], dtype=x.dtype)
 
     @property
     def shape(self) -> tuple[int, ...]:

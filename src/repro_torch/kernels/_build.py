@@ -20,18 +20,28 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = {"binary_gemm": CSRC / "binary_gemm.cu"}
+SOURCES = {"binary_gemm": CSRC / "binary_gemm.cu", "pack": CSRC / "pack.cu",
+           "attention": CSRC / "attention.cu"}
+HEADERS = [CSRC / "common.cuh"]      # included by every source
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of each exported function: pointers and the stream as c_void_p,
 # so ctypes never cuts a 64-bit address to an int
 SIGNATURES = {
     "binary_gemm": {
         "binary_gemm_packed": [_P, _P, _P, _I, _I, _I, _I, _P],
-        "binary_gemm_packed_rhs": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "binary_gemm_packed_rhs": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
         "binary_gemm_fused": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "pack": {"pack_bits": [_P, _I, _P, _I, _I, _P]},
+    "attention": {
+        "decode_attention_packed": [_P, _I, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _F, _P],
+        "prefill_attention_packed": [_P, _I, _P, _P, _P, _P, _I, _P, _I, _P,
+                                     _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                     _F, _P],
     },
 }
 
@@ -59,6 +69,8 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in HEADERS:
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

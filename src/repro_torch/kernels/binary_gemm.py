@@ -4,8 +4,9 @@ PyTorch versions, and the dispatch the ops call (port of
 
   * `binary_gemm_packed` — packed (M, KW) lhs x packed (N, KW) rhs -> (M, N)
     int32 dots. Replaces the TPU kernel `binary_gemm_vpu`.
-  * `binary_gemm_packed_rhs` — float (M, K) lhs, sign-packed inside the
-    kernel, x packed rhs -> (M, N) int32. Replaces `binary_gemm_vpu_packed`.
+  * `binary_gemm_packed_rhs` — float32 or bf16 (M, K) lhs, sign-packed
+    inside the kernel, x packed rhs -> (M, N) int32. Replaces
+    `binary_gemm_vpu_packed`.
   * `binary_gemm_fused` — packed or float lhs x packed rhs, with the
     bit-resident epilogue: bit_n = (dot_n >= thresh_n) XOR flip_n, repacked
     along N -> (M, ceil(N/32)) int32 words, pad bits 1. Replaces
@@ -33,6 +34,9 @@ launches = {"binary_gemm_packed": 0, "binary_gemm_packed_rhs": 0,
 # the plain versions reduce over (rows, N, KW) int64 temporaries; rows are
 # taken in chunks of at most this many elements so a full-width layer fits
 _PLAIN_CHUNK = 1 << 24
+# float lhs types the kernels read, by the code the C interface takes (the
+# sign of a bf16 activation is exact, so it is read as it is, not cast)
+_LHS_KIND = {torch.float32: 1, torch.bfloat16: 2}
 
 
 def reset_launches() -> None:
@@ -99,9 +103,9 @@ def _check_operands(a: torch.Tensor, b: torch.Tensor, k: int,
         if a.dtype != torch.int32 or a.ndim != 2 or a.shape[1] != kw:
             raise ValueError(f"packed lhs must be (M, {kw}) int32, got "
                              f"{a.dtype} {tuple(a.shape)}")
-    elif a.dtype != torch.float32 or a.ndim != 2 or a.shape[1] != k:
-        raise ValueError(f"float lhs must be (M, {k}) float32, got "
-                         f"{a.dtype} {tuple(a.shape)}")
+    elif a.dtype not in _LHS_KIND or a.ndim != 2 or a.shape[1] != k:
+        raise ValueError(f"float lhs must be (M, {k}) float32 or bfloat16, "
+                         f"got {a.dtype} {tuple(a.shape)}")
     for t in (a, b, *extra):
         if t.device != a.device:
             raise ValueError(f"operands on {a.device} and {t.device}")
@@ -137,7 +141,7 @@ def binary_gemm_packed(a: torch.Tensor, b: torch.Tensor,
 
 def binary_gemm_packed_rhs(a: torch.Tensor, b: torch.Tensor,
                            k: int) -> torch.Tensor:
-    """a: (M, K) float32 activations, b: (N, KW) int32 frozen weights ->
+    """a: (M, K) float32 or bf16 activations, b: (N, KW) int32 frozen weights ->
     (M, N) int32 = sign(a) . sign-rows(b). a is sign-packed in the kernel
     (bit = a >= 0; K positions past the end read as +1)."""
     _check_operands(a, b, k, False)
@@ -146,14 +150,14 @@ def binary_gemm_packed_rhs(a: torch.Tensor, b: torch.Tensor,
     m, (n, kw) = a.shape[0], b.shape
     out = torch.empty((m, n), dtype=torch.int32, device=a.device)
     if m and n:
-        _launch("binary_gemm_packed_rhs", a, a.data_ptr(), b.data_ptr(),
-                out.data_ptr(), m, n, kw, k)
+        _launch("binary_gemm_packed_rhs", a, a.data_ptr(), _LHS_KIND[a.dtype],
+                b.data_ptr(), out.data_ptr(), m, n, kw, k)
     return out
 
 
 def binary_gemm_fused(a: torch.Tensor, b: torch.Tensor, thresh: torch.Tensor,
                       flip: torch.Tensor, k: int) -> torch.Tensor:
-    """a: (M, KW) int32 words or (M, K) float32; b: (N, KW) int32 words;
+    """a: (M, KW) int32 words or (M, K) float32 / bf16; b: (N, KW) int32 words;
     thresh/flip: (N,) int32. Returns (M, ceil(N/32)) int32 words with
     bit_n = (dot_n >= thresh_n) XOR flip_n and pad bits 1, i.e. the lhs of
     the next binary layer."""
@@ -168,7 +172,8 @@ def binary_gemm_fused(a: torch.Tensor, b: torch.Tensor, thresh: torch.Tensor,
     m, kw = a.shape[0], b.shape[1]
     out = torch.empty((m, packed_width(n)), dtype=torch.int32, device=a.device)
     if m and n:
-        _launch("binary_gemm_fused", a, a.data_ptr(), int(not packed_lhs),
+        _launch("binary_gemm_fused", a, a.data_ptr(),
+                0 if packed_lhs else _LHS_KIND[a.dtype],
                 b.data_ptr(), thresh.data_ptr(), flip.data_ptr(),
                 out.data_ptr(), m, n, kw, k)
     return out
@@ -180,7 +185,7 @@ def binary_gemm_fused(a: torch.Tensor, b: torch.Tensor, thresh: torch.Tensor,
 # ---------------------------------------------------------------------------
 def dispatch_binary_gemm(a: torch.Tensor, b_packed: torch.Tensor,
                          k_true: int) -> torch.Tensor:
-    """Packed-rhs binary GEMM. a: (M, K) float32 or (M, KW) int32 words;
+    """Packed-rhs binary GEMM. a: (M, K) float32 / bf16 or (M, KW) int32 words;
     b_packed: (N, KW) int32. Returns (M, N) int32, the exact sign-dot."""
     if a.dtype == torch.int32:
         return binary_gemm_packed(a, b_packed, k_true)

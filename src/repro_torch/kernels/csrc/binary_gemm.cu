@@ -34,9 +34,13 @@
 // in the kernel; nothing is padded or copied. The fused epilogue computes
 // dot, bit = (dot >= t) != flip, and one ballot over the 32 channels of a
 // lane group emits the output word; channels >= N emit bit 1.
+// A float lhs is float32 or bf16 (the LM's activations); the ballot pack is
+// the one every kernel of the port shares (common.cuh).
 // No tensor cores, TMA or software pipelining yet: simple and exact first.
 #include <cstdint>
-#include <cuda_runtime.h>
+#include <type_traits>
+
+#include "common.cuh"
 
 namespace {
 
@@ -48,9 +52,10 @@ constexpr int kBN = 64;                 // channels per block
 constexpr int kTN = kBN / 32;           // channels per lane, 32 apart
 constexpr int kKC = 16;                 // K words staged per step
 
-template <bool kFloatLhs, bool kFused>
+// TA: uint32_t (packed lhs words), float or __nv_bfloat16 (float lhs)
+template <typename TA, bool kFused>
 __global__ void __launch_bounds__(kThreads)
-popc_gemm_kernel(const void* __restrict__ a_ptr,
+popc_gemm_kernel(const TA* __restrict__ a,
                  const uint32_t* __restrict__ b,
                  const int32_t* __restrict__ thresh,
                  const int32_t* __restrict__ flip,
@@ -72,21 +77,20 @@ popc_gemm_kernel(const void* __restrict__ a_ptr,
     for (int j = 0; j < kTN; ++j) acc[i][j] = 0;
 
   for (int kc0 = 0; kc0 < kw; kc0 += kKC) {
-    if constexpr (kFloatLhs) {
-      const float* a = static_cast<const float*>(a_ptr);
+    if constexpr (!std::is_same_v<TA, uint32_t>) {
 #pragma unroll 8
       for (int q = 0; q < kBM * kKC / kWarps; ++q) {
         const int e = warp + q * kWarps;
         const int r = e / kKC, c = e % kKC;
         const int row = m0 + r, word = kc0 + c;
         const long long col = static_cast<long long>(word) * 32 + lane;
-        bool bit = true;  // +1.0 pad beyond K
-        if (row < m && col < k) bit = a[static_cast<long long>(row) * k + col] >= 0.f;
-        const uint32_t w = __ballot_sync(0xffffffffu, bit);
+        // rows past M read as +1 like the K pad; they are never stored
+        const uint32_t w = row < m
+            ? bnn::pack_word(a + static_cast<long long>(row) * k, col, k)
+            : 0xffffffffu;
         if (lane == 0) sa[r][c] = word < kw ? w : 0u;
       }
     } else {
-      const uint32_t* a = static_cast<const uint32_t*>(a_ptr);
       for (int e = tid; e < kBM * kKC; e += kThreads) {
         const int r = e / kKC, c = e % kKC;
         const int row = m0 + r, word = kc0 + c;
@@ -154,20 +158,33 @@ popc_gemm_kernel(const void* __restrict__ a_ptr,
   }
 }
 
-template <bool kFloatLhs, bool kFused>
+template <typename TA, bool kFused>
 int launch(const void* a, const void* b, const void* thresh, const void* flip,
            void* out, int m, int n, int kw, int k, void* stream) {
   if (m <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int n_tiles = (n + kBN - 1) / kBN;
   const long long blocks = static_cast<long long>((m + kBM - 1) / kBM) * n_tiles;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  popc_gemm_kernel<kFloatLhs, kFused>
+  popc_gemm_kernel<TA, kFused>
       <<<static_cast<unsigned>(blocks), kThreads, 0,
          static_cast<cudaStream_t>(stream)>>>(
-          a, static_cast<const uint32_t*>(b),
+          static_cast<const TA*>(a), static_cast<const uint32_t*>(b),
           static_cast<const int32_t*>(thresh), static_cast<const int32_t*>(flip),
           static_cast<int32_t*>(out), m, n, kw, k, n_tiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+// lhs_kind: 0 packed int32 words, 1 float32, 2 bfloat16
+template <bool kFused>
+int launch_lhs(int lhs_kind, const void* a, const void* b, const void* thresh,
+               const void* flip, void* out, int m, int n, int kw, int k,
+               void* stream) {
+  switch (lhs_kind) {
+    case 0: return launch<uint32_t, kFused>(a, b, thresh, flip, out, m, n, kw, k, stream);
+    case 1: return launch<float, kFused>(a, b, thresh, flip, out, m, n, kw, k, stream);
+    case 2: return launch<__nv_bfloat16, kFused>(a, b, thresh, flip, out, m, n, kw, k, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -177,23 +194,27 @@ extern "C" {
 // a (m, kw) int32 words, b (n, kw) int32 words -> out (m, n) int32 dots.
 int binary_gemm_packed(const void* a, const void* b, void* out, int m, int n,
                        int kw, int k, void* stream) {
-  return launch<false, false>(a, b, nullptr, nullptr, out, m, n, kw, k, stream);
+  return launch_lhs<false>(0, a, b, nullptr, nullptr, out, m, n, kw, k, stream);
 }
 
-// a (m, k) float32, b (n, kw) int32 words -> out (m, n) int32 dots.
-int binary_gemm_packed_rhs(const void* a, const void* b, void* out, int m,
-                           int n, int kw, int k, void* stream) {
-  return launch<true, false>(a, b, nullptr, nullptr, out, m, n, kw, k, stream);
+// a (m, k) float32 (lhs_kind 1) or bfloat16 (lhs_kind 2), b (n, kw) int32
+// words -> out (m, n) int32 dots.
+int binary_gemm_packed_rhs(const void* a, int lhs_kind, const void* b,
+                           void* out, int m, int n, int kw, int k,
+                           void* stream) {
+  if (lhs_kind == 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_lhs<false>(lhs_kind, a, b, nullptr, nullptr, out, m, n, kw, k,
+                           stream);
 }
 
-// a (m, kw) int32 words (lhs_float == 0) or (m, k) float32 (lhs_float != 0),
-// b (n, kw) int32 words, thresh/flip (n,) int32 -> out (m, ceil(n/32)) words.
-int binary_gemm_fused(const void* a, int lhs_float, const void* b,
+// a (m, kw) int32 words (lhs_kind 0) or (m, k) float32 / bfloat16 (lhs_kind
+// 1 / 2), b (n, kw) int32 words, thresh/flip (n,) int32 -> out
+// (m, ceil(n/32)) words.
+int binary_gemm_fused(const void* a, int lhs_kind, const void* b,
                       const void* thresh, const void* flip, void* out, int m,
                       int n, int kw, int k, void* stream) {
-  if (lhs_float)
-    return launch<true, true>(a, b, thresh, flip, out, m, n, kw, k, stream);
-  return launch<false, true>(a, b, thresh, flip, out, m, n, kw, k, stream);
+  return launch_lhs<true>(lhs_kind, a, b, thresh, flip, out, m, n, kw, k,
+                          stream);
 }
 
 const char* binary_gemm_error_string(int code) {
