@@ -23,12 +23,14 @@ Phases, each of which raises on failure (nothing is caught):
                from the seed, 16 new tokens, one stopping at an eos taken
                from its own greedy run; tokens equal the plain path's on the
                card (on a difference, the first differing cache sign bit)
-  7. times   - per kernel and shape: CUDA-event time, the plain version's,
-               one PyTorch library call computing the same function where
-               there is one, and the card's bound; each forward per batch,
-               one profiled frozen forward each; then the LM at depth 8
-               (cut from 40): decode tokens/s, TTFT, ITL, resident bytes,
-               one profiled decode step (device busy share, launches)
+  7. times   - per kernel and shape: its device time (profiler) and its
+               wrapper's CUDA-event time, the plain version's, one PyTorch
+               library call computing the same function where there is one,
+               and the card's bound; each forward per batch, one profiled
+               frozen forward each; then the LM at full depth (40 layers,
+               drawn and frozen one at a time): decode tokens/s, TTFT, ITL,
+               resident bytes, one profiled decode step (device busy
+               share, launches)
 Launch counts are set to 0 just before each main path (mlp, cnn, lm) runs
 and read just after. The line before the last is {"kernels": [...]}; the
 last line is {"ok": true, "device": {...}}. Weights, BN statistics and
@@ -67,13 +69,19 @@ REPLACES = {"binary_gemm_packed": "src/repro/kernels/binary_gemm.py:107",
             "pack_bits": "src/repro/kernels/pack.py:35",
             "decode_attention_packed": "src/repro/kernels/decode_attention.py:137",
             "prefill_attention_packed": "src/repro/kernels/prefill_attention.py:131"}
+# the __global__ function each wrapper launches, as the profiler names it
+DEVICE_KERNEL = {**{kn: "::popc_gemm_kernel<" for kn in GEMMS},
+                 "pack_bits": "::pack_kernel<",
+                 "decode_attention_packed": "::packed_attention_kernel<",
+                 "prefill_attention_packed": "::packed_attention_kernel<"}
 RAGGED = [(9, 100, 48), (17, 64, 10), (3, 37, 33), (130, 257, 129)]
 # the LM serving path: phi3-medium-14b at full width, kv_bits=1, chunked
-# admission; depth cut to LM_CHECK_DEPTH (tokens vs the plain path) and
-# LM_TIMED_DEPTH (timed), since 40 layers of fp32 masters (54.5 GB) and
-# their packing do not fit beside the rest on one card
+# admission; depth cut to LM_CHECK_DEPTH where the tokens are held against
+# the plain path (its SWAR popcount GEMMs are slow), all 40 layers in the
+# timed run (drawn and frozen one layer at a time: all fp32 masters at once
+# would be 54.5 GB)
 LM_ARCH, LM_SLOTS, LM_MAX_LEN, LM_CHUNK = "phi3-medium-14b", 4, 512, 32
-LM_CHECK_DEPTH, LM_TIMED_DEPTH = 2, 8
+LM_CHECK_DEPTH = 2
 LM_REQUESTS, LM_NEW, LM_PROMPT = 8, 16, (17, 200)
 
 
@@ -168,6 +176,30 @@ def cuda_ms(fn, *, warmup=3, budget_s=0.05, max_iters=500) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernel: str | None = None, iters: int = 20) -> float:
+    """Device time of one fn() call in ms, from the profiler's trace of
+    `iters` calls: the summed device time of the kernels whose name holds
+    `kernel` (every kernel when None), over iters. With `kernel` given,
+    the trace must show exactly one such launch per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+           and (kernel is None or kernel in e.key)]
+    launched = sum(e.count for e in evs)
+    if not evs or (kernel is not None and launched != iters):
+        raise AssertionError(f"profiler: {launched} launches of {kernel} "
+                             f"in {iters} calls")
+    return sum(e.self_device_time_total for e in evs) / 1e3 / iters
 
 
 def trace(fn, top=6):
@@ -555,22 +587,24 @@ def percentile(xs, q):
 
 
 def lm_timed_run(base_cfg, seed, dev, card):
-    """Full width, depth LM_TIMED_DEPTH: the same engine and traffic, timed.
-    Returns the report and the frozen engine (for kernel timing and the
-    profiled decode step)."""
+    """Full width and depth: the same engine and traffic, timed, the
+    weights drawn and frozen one layer at a time (`Model.init_frozen`).
+    Returns the report and the frozen engine (for the profiled decode
+    step)."""
     from repro_torch.models.api import get_model
     from repro_torch.serving.engine import Request
-    cfg = base_cfg.scaled(n_layers=LM_TIMED_DEPTH, kv_bits=1)
+    cfg = base_cfg.scaled(kv_bits=1)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    masters = get_model(cfg).init(gen, device=dev)
-    master_layer = sum(x.numel() * 4 for x in (
-        masters["blocks"]["attn"][w] for w in ("wq", "wk", "wv", "wo"))) + \
-        sum(masters["blocks"]["ffn"][w].numel() * 4
-            for w in ("w_gate", "w_up", "w_down"))
-    master_layer //= cfg.n_layers
-    eng = lm_engine(cfg, masters, freeze=True, seed=seed)
-    del masters
-    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    frozen = get_model(cfg).init_frozen(gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    d, hd = cfg.d_model, cfg.head_dim
+    master_layer = 4 * (d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+                        + cfg.n_heads * hd * d + 3 * d * cfg.d_ff)
+    eng = lm_engine(cfg, frozen, freeze=True, seed=seed)
+    del frozen
     prompts = lm_traffic(seed, cfg.vocab)
     eng.generate([Request(prompts[0][:40], max_new_tokens=4)])     # warm-up
     reqs = [Request(p, max_new_tokens=LM_NEW) for p in prompts]
@@ -590,7 +624,8 @@ def lm_timed_run(base_cfg, seed, dev, card):
     bf16_cache = 2 * cfg.n_layers * LM_SLOTS * LM_MAX_LEN * cfg.n_kv_heads * \
         cfg.head_dim * 2
     rep = {
-        "depth": cfg.n_layers, "depth_cut_from": base_cfg.n_layers,
+        "depth": cfg.n_layers, "init_frozen_s": init_s,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
         "wall_s": wall, "decode_s": st["decode_s"], "prefill_s": st["prefill_s"],
         "decode_steps": st["decode_steps"], "bursts": st["bursts"],
         "decode_tokens": decode_tokens,
@@ -605,10 +640,11 @@ def lm_timed_run(base_cfg, seed, dev, card):
         "master_bytes_per_layer": master_layer,
         "cache_packed_bytes": c["packed"], "cache_float_bytes": c["float"],
         "cache_bf16_bytes": bf16_cache}
-    print(f"lm timed run on {card}: {LM_ARCH} full width, depth "
-          f"{cfg.n_layers} (CUT from {base_cfg.n_layers}: fp32 masters of all "
-          f"layers do not fit beside the run), {LM_REQUESTS} requests, "
-          f"{LM_SLOTS} slots, chunk {LM_CHUNK}, max_len {LM_MAX_LEN}")
+    print(f"lm timed run on {card}: {LM_ARCH} full width and depth "
+          f"({cfg.n_layers} layers, not cut; drawn and frozen layer by layer "
+          f"in {init_s:.1f} s), {LM_REQUESTS} requests, {LM_SLOTS} slots, "
+          f"chunk {LM_CHUNK}, max_len {LM_MAX_LEN}; peak device memory "
+          f"{rep['peak_device_bytes'] / 1e9:.2f} GB")
     print(f"  wall {wall:.4f} s; decode {decode_tokens} tokens in "
           f"{st['decode_s']:.4f} s over {st['decode_steps']} steps / "
           f"{st['bursts']} bursts = {rep['decode_tok_per_s']:.2f} tok/s; "
@@ -625,12 +661,27 @@ def lm_timed_run(base_cfg, seed, dev, card):
     return rep, eng
 
 
+def shape_times(call, kernel, plain, library=None):
+    """The times of one kernel at one shape: `ms` its device time (the
+    profiler's), `wrapper_ms` the CUDA-event time of back-to-back wrapper
+    calls (host checks and the ctypes call included), `plain_ms` the
+    CUDA-event time of its plain version, `library_ms` the device time of
+    the library call's kernels and `library_wall_ms` its CUDA-event time."""
+    out = {"ms": device_ms(call, kernel), "wrapper_ms": cuda_ms(call),
+           "plain_ms": cuda_ms(plain, warmup=1, budget_s=0.2, max_iters=10),
+           "library_ms": None, "library_wall_ms": None}
+    if library is not None:
+        out["library_ms"] = device_ms(library)
+        out["library_wall_ms"] = cuda_ms(library)
+    return out
+
+
 def lm_kernel_times(cfg, dev_gen, dev, popc_per_s):
-    """CUDA-event times of kernels A, B, C at the LM's main-path shapes
-    (bf16 activations) beside their bounds, plain versions and, for B and
-    C, one PyTorch call (SDPA) computing the same function. Returns the
-    rows and the per-kernel sums over one layer's launches in one decode
-    step and one prefill chunk."""
+    """Times of kernels A, B, C at the LM's main-path shapes (bf16
+    activations, see `shape_times`) beside their bounds, plain versions and, for
+    B and C, one PyTorch call (SDPA) computing the same function. Returns
+    the rows and the per-kernel sums over one layer's launches in one
+    decode step and one prefill chunk."""
     from repro_torch.kernels import ref
     _, pk, da, pa = lm_modules()
     hkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
@@ -641,11 +692,10 @@ def lm_kernel_times(cfg, dev_gen, dev, popc_per_s):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = m * k / FP32_OPS_PER_S * 1e3
         rows.append({"kernel": "pack_bits", "where": where, "shape": (m, k),
-                     "per_layer": 2,
-                     "ms": cuda_ms(lambda: pk.pack_bits_kernel(x)),
-                     "plain_ms": cuda_ms(lambda: pk.pack_bits_plain(x),
-                                         warmup=1, max_iters=20),
-                     "library": None, "library_ms": None,
+                     "per_layer": 2, "library": None,
+                     **shape_times(lambda: pk.pack_bits_kernel(x),
+                                   DEVICE_KERNEL["pack_bits"],
+                                   lambda: pk.pack_bits_plain(x)),
                      "bytes_ms": t_bytes, "ops_ms": t_ops,
                      "bound_ms": max(t_bytes, t_ops)})
     lens = torch.tensor([LM_MAX_LEN, 300, 100, 17], dtype=torch.int32,
@@ -660,12 +710,12 @@ def lm_kernel_times(cfg, dev_gen, dev, popc_per_s):
     rows.append({"kernel": "decode_attention_packed",
                  "where": f"decode B={LM_SLOTS} T={LM_MAX_LEN} lens "
                           f"{lens.tolist()}", "shape": tuple(q.shape),
-                 "per_layer": 1,
-                 "ms": cuda_ms(lambda: da.decode_attention_packed(q, k, v, vs, lens)),
-                 "plain_ms": cuda_ms(lambda: da.decode_attention_packed_plain(
-                     q, k, v, vs, lens), warmup=1, max_iters=10),
-                 "library": "F.scaled_dot_product_attention",
-                 "library_ms": cuda_ms(lib),
+                 "per_layer": 1, "library": "F.scaled_dot_product_attention",
+                 **shape_times(
+                     lambda: da.decode_attention_packed(q, k, v, vs, lens),
+                     DEVICE_KERNEL["decode_attention_packed"],
+                     lambda: da.decode_attention_packed_plain(
+                         q, k, v, vs, lens), lib),
                  **attention_bound(valid, 1, cfg.n_heads, hkv, hd, 2, popc_per_s)})
     for qp in (0, 96):
         q, k, v, vs = attention_case(dev_gen, 1, LM_CHUNK, LM_MAX_LEN, hkv, g,
@@ -679,24 +729,27 @@ def lm_kernel_times(cfg, dev_gen, dev, popc_per_s):
         rows.append({"kernel": "prefill_attention_packed",
                      "where": f"chunk S={LM_CHUNK} q_pos={qp} T={LM_MAX_LEN}",
                      "shape": tuple(q.shape), "per_layer": 0.5,
-                     "ms": cuda_ms(lambda: pa.prefill_attention_packed(
-                         q, k, v, vs, kv, qp)),
-                     "plain_ms": cuda_ms(lambda: pa.prefill_attention_packed_plain(
-                         q, k, v, vs, kv, qp), warmup=1, max_iters=10),
                      "library": "F.scaled_dot_product_attention",
-                     "library_ms": cuda_ms(lib),
+                     **shape_times(
+                         lambda: pa.prefill_attention_packed(
+                             q, k, v, vs, kv, qp),
+                         DEVICE_KERNEL["prefill_attention_packed"],
+                         lambda: pa.prefill_attention_packed_plain(
+                             q, k, v, vs, kv, qp), lib),
                      **attention_bound(valid, LM_CHUNK, cfg.n_heads, hkv, hd,
                                        2, popc_per_s)})
     totals = {}
     for r in rows:
-        t = totals.setdefault(r["kernel"], {"ms": 0.0, "plain_ms": 0.0,
-                                            "bound_ms": 0.0, "bytes_ms": 0.0,
-                                            "ops_ms": 0.0, "library_ms": None})
-        for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms"):
+        t = totals.setdefault(r["kernel"], {
+            "ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": None,
+            "library_wall_ms": None})
+        for key in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bytes_ms",
+                    "ops_ms"):
             t[key] += r[key] * r["per_layer"]
-        if r["library_ms"] is not None:
-            t["library_ms"] = (t["library_ms"] or 0.0) + \
-                r["library_ms"] * r["per_layer"]
+        for key in ("library_ms", "library_wall_ms"):
+            if r[key] is not None:
+                t[key] = (t[key] or 0.0) + r[key] * r["per_layer"]
     return rows, totals
 
 
@@ -888,10 +941,13 @@ def main() -> int:
                      + lm_launches[kn] for kn in REPLACES}
 
     # ---------------------------------------------------------------- times
-    print(f"times on {card} (ms; bound = max(bytes / 3.35 TB/s, popc / "
+    print(f"times on {card} (ms; kernel and library: device time from the "
+          f"profiler; wrapper, plain and library wall: CUDA events over "
+          f"back-to-back calls; bound = max(bytes / 3.35 TB/s, popc / "
           f"{popc_per_s / 1e12:.3f} T/s); int8 TC = 2MNK / 1979 TOP/s)")
-    totals = {kn: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                   "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": 0.0}
+    totals = {kn: {"ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0,
+                   "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+                   "library_ms": 0.0, "library_wall_ms": 0.0}
               for kn in REPLACES}
     rows = []
     for kn, lhs, m, k, n, where in shapes:
@@ -902,18 +958,18 @@ def main() -> int:
         check_equal(f"{lib_name} vs kernel dots {where}", got.to(torch.int32),
                     ref_dots)
         row = {"kernel": kn, "lhs": lhs, "M": m, "K": k, "N": n,
-               "where": where,
-               "ms": cuda_ms(lambda: op.call(kn, lhs)),
-               "plain_ms": cuda_ms(lambda: op.call(kn, lhs, plain=True),
-                                   warmup=1, budget_s=0.2, max_iters=5),
-               "library": lib_name, "library_ms": cuda_ms(lib_fn),
+               "where": where, "library": lib_name,
+               **shape_times(lambda: op.call(kn, lhs), DEVICE_KERNEL[kn],
+                             lambda: op.call(kn, lhs, plain=True), lib_fn),
                **bound(kn, lhs, m, k, n, popc_per_s)}
         rows.append(row)
         for key in totals[kn]:
             totals[kn][key] += row[key]
         print(f"  {where:9s} {kn:24s} {lhs:6s} M={m:6d} K={k:5d} N={n:5d} "
-              f"kernel {row['ms']:.4f}  plain {row['plain_ms']:.3f}  "
-              f"{lib_name} {row['library_ms']:.4f}  bound "
+              f"kernel {row['ms']:.4f} (wrapper {row['wrapper_ms']:.4f})  "
+              f"plain {row['plain_ms']:.3f}  {lib_name} "
+              f"{row['library_ms']:.4f} (wall {row['library_wall_ms']:.4f})"
+              f"  bound "
               f"{row['bound_ms']:.4f} ({'bytes' if row['bytes_ms'] >= row['ops_ms'] else 'popc'})"
               f"  int8 TC {row['int8_tc_ms']:.4f}")
     operands.clear()
@@ -960,13 +1016,15 @@ def main() -> int:
 
     # ------------------------------------------- lm: kernel times, timed run
     lm_rows, lm_totals = lm_kernel_times(lm_cfg, dev_gen, dev, popc_per_s)
-    print(f"lm kernel times on {card} (ms per launch; bound = max(bytes / "
+    print(f"lm kernel times on {card} (ms per launch, as above; bound = max(bytes / "
           f"3.35 TB/s, popc / {popc_per_s / 1e12:.3f} T/s, V adds / 67 "
           f"TFLOP/s); pack_bits has no single PyTorch call computing it):")
     for r in lm_rows:
-        lib = "—" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"  {r['kernel']:24s} {r['where']:40s} kernel {r['ms']:.4f}  "
-              f"plain {r['plain_ms']:.3f}  library {lib}  bound "
+        lib = "—" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} (wall {r['library_wall_ms']:.4f})"
+        print(f"  {r['kernel']:24s} {r['where']:40s} kernel {r['ms']:.4f} "
+              f"(wrapper {r['wrapper_ms']:.4f})  plain {r['plain_ms']:.3f}  "
+              f"library {lib}  bound "
               f"{r['bound_ms']:.5f} ({'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'ops'})")
     totals.update(lm_totals)
     report["lm_shapes"] = lm_rows
@@ -976,7 +1034,7 @@ def main() -> int:
     step = trace(lambda: sched.model.decode(sched.params, sched._state["cur"],
                                             sched._cache, pos))
     share = step["busy_ms"] / step["wall_ms"] if step["wall_ms"] else 0.0
-    print(f"trace lm decode step (depth {LM_TIMED_DEPTH}, {LM_SLOTS} slots at "
+    print(f"trace lm decode step (depth {lm_cfg.n_layers}, {LM_SLOTS} slots at "
           f"position 300) on {card}: wall {step['wall_ms']:.4f} ms (profiled),"
           f" device busy {step['busy_ms']:.4f} ms ({share:.3f} of wall), "
           f"{step['launches']} kernel launches; top kernels:")
@@ -998,16 +1056,24 @@ def main() -> int:
             "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations",
             "library_ms": t["library_ms"]})
     report["kernels"] = kernels
+    report["kernel_totals"] = totals
+    for kn, t in totals.items():
+        lib = "—" if t["library_ms"] is None else \
+            f"{t['library_ms']:.4f} (wall {t['library_wall_ms']:.4f})"
+        print(f"total {kn:24s} kernel {t['ms']:.4f} (wrapper "
+              f"{t['wrapper_ms']:.4f})  plain {t['plain_ms']:.3f}  library "
+              f"{lib}  bound {t['bound_ms']:.6f}")
     report["launches"] = {"mlp": mlp_launches, "cnn": cnn_launches,
                           "lm": lm_launches, "lm_chunks": lm_chunks}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))
-    print("kernels line: GEMM times are summed over one mlp and one cnn "
-          "forward's launches of each kernel; pack_bits, decode and prefill "
-          "attention times over one LM layer's launches in one decode step "
-          "and one prefill chunk (the two chunk shapes weighted 1/2); "
-          "launches count the mlp, cnn and depth-2 LM runs")
+    print("kernels line: ms and library_ms are device times (profiler), "
+          "plain_ms CUDA-event time; GEMM times are summed over one mlp and "
+          "one cnn forward's launches of each kernel; pack_bits, decode and "
+          "prefill attention times over one LM layer's launches in one "
+          "decode step and one prefill chunk (the two chunk shapes weighted "
+          "1/2); launches count the mlp, cnn and depth-2 LM runs")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -92,12 +92,11 @@ packed_attention_kernel(const T* __restrict__ q,          // (B, S, Hq, hd)
   for (int e = warp; e < rows * hdw; e += nwarps) {
     const int r = e / hdw, w = e % hdw;
     const int i = i0 + r / g;
-    uint32_t word = 0xffffffffu;
-    if (i < geo.s) {  // uniform across the warp
-      const T* qrow = q + ((static_cast<long long>(b) * geo.s + i) * hq +
-                           h * g + r % g) * hd;
-      word = bnn::pack_word(qrow, static_cast<long long>(w) * 32 + lane, hd);
-    }
+    // rows past S pack to all-ones; their scores are never used
+    const T* qrow = q + ((static_cast<long long>(b) * geo.s + i) * hq +
+                         h * g + r % g) * hd;
+    const uint32_t word = bnn::pack_word(
+        qrow, static_cast<long long>(w) * 32 + lane, hd, i < geo.s);
     if (lane == 0) qw[e] = word;
   }
   __syncthreads();

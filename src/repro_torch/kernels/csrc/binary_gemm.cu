@@ -85,9 +85,8 @@ popc_gemm_kernel(const TA* __restrict__ a,
         const int row = m0 + r, word = kc0 + c;
         const long long col = static_cast<long long>(word) * 32 + lane;
         // rows past M read as +1 like the K pad; they are never stored
-        const uint32_t w = row < m
-            ? bnn::pack_word(a + static_cast<long long>(row) * k, col, k)
-            : 0xffffffffu;
+        const uint32_t w = bnn::pack_word(
+            a + static_cast<long long>(row) * k, col, k, row < m);
         if (lane == 0) sa[r][c] = word < kw ? w : 0u;
       }
     } else {

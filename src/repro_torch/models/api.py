@@ -4,6 +4,7 @@
     model = get_model(cfg)
     params = model.init(gen)                 # fp32 masters
     frozen = model.freeze(params)            # 1-bit PackedWeights
+    frozen = model.init_frozen(gen)          # the same, one layer at a time
     cache = model.init_cache(slots, max_len)
     logits, cache = model.prefill_chunk(params, tokens, cache, slot, pos, n)
     logits, cache = model.decode(params, token, cache, pos)
@@ -40,13 +41,27 @@ class Model:
         and cast the LM head to the activation dtype once: `_head` casts
         it on every call otherwise (a 2 GB read per step at full width),
         and the product is the same."""
+        self._check_freezable()
+        return self._cast_head(freeze_params(params))
+
+    def init_frozen(self, gen: torch.Generator, device=None):
+        """Frozen params drawn and frozen one layer at a time, so that only
+        one layer's fp32 masters are ever resident: what `freeze(init(gen))`
+        gives (same shapes, same distribution, other draws) for a model
+        whose masters do not fit on the device."""
+        self._check_freezable()
+        return self._cast_head(T.init_transformer_params(
+            gen, self.cfg, device=device, freeze_layer=freeze_params))
+
+    def _check_freezable(self) -> None:
         if self.cfg.quant == "none":
             raise ValueError(f"{self.cfg.name}: quant='none' has no binary "
                              "weights to freeze")
         if self.cfg.mlp == "sq_relu":
             raise NotImplementedError("the sq_relu fold is not ported yet "
                                       "(ROADMAP Queue A)")
-        frozen = freeze_params(params)
+
+    def _cast_head(self, frozen):
         if "lm_head" in frozen:
             frozen["lm_head"] = frozen["lm_head"].to(self.cfg.activation_dtype)
         return frozen

@@ -35,9 +35,10 @@ from repro_torch.configs.smoke import smoke_config
 from repro_torch.convert import (
     cache_from_numpy, cache_to_numpy, from_numpy_tree, to_numpy_tree,
 )
-from repro_torch.core.packed import PackedWeight
+from repro_torch.core.packed import PackedWeight, map_tree
 from repro_torch.models import transformer as T
 from repro_torch.models.api import cache_batch_axes, get_model
+from repro_torch.serving.engine import Request, ServingEngine
 
 from _torch_parity import jax_to_np, to_port
 
@@ -236,3 +237,36 @@ def test_freeze_casts_head_once(models):
     assert frozen["lm_head"].dtype == torch.bfloat16
     assert params["lm_head"].dtype == torch.float32
     assert isinstance(frozen["blocks"]["ffn"]["w_gate"], PackedWeight)
+
+
+def test_init_frozen_draws_layer_by_layer(models):
+    """init_frozen gives the tree freeze(init(...)) gives: the same leaves,
+    shapes, dtypes and packing, the embedding and head drawn first from the
+    same generator state (so equal), the layers drawn one at a time (so
+    other draws, and each layer its own); the engine serves it as is."""
+    _, cfg, _, _ = models
+    m = get_model(cfg.scaled(n_layers=3))
+    want = m.freeze(m.init(torch.Generator().manual_seed(4), device="cpu"))
+    got = m.init_frozen(torch.Generator().manual_seed(4), device="cpu")
+    leaves = []
+    map_tree(lambda name, p: leaves.append((name, p)), want)
+    got_leaves = []
+    map_tree(lambda name, p: got_leaves.append((name, p)), got)
+    assert [n for n, _ in got_leaves] == [n for n, _ in leaves]
+    for (name, a), (_, b) in zip(got_leaves, leaves):
+        assert type(a) is type(b), name
+        if isinstance(a, PackedWeight):
+            assert (a.k, a.kind, a.packed.shape, a.packed.dtype) == \
+                (b.k, b.kind, b.packed.shape, b.packed.dtype), name
+        else:
+            assert (a.shape, a.dtype) == (b.shape, b.dtype), name
+    torch.testing.assert_close(got["embed"], want["embed"], rtol=0, atol=0)
+    torch.testing.assert_close(got["lm_head"], want["lm_head"], rtol=0,
+                               atol=0)
+    wq = got["blocks"]["attn"]["wq"].packed
+    assert not torch.equal(wq[0], wq[1]) and not torch.equal(wq[1], wq[2])
+    eng = ServingEngine(m.cfg, got, freeze=True, kv_bits=1, prefill_chunk=4,
+                        slots=2, max_len=16)
+    assert eng.params is got
+    out = eng.generate([Request(np.arange(6) % cfg.vocab, max_new_tokens=3)])
+    assert out[0].shape == (3,)
