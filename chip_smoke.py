@@ -23,8 +23,9 @@ Phases, each of which raises on failure (nothing is caught):
                from the seed, 16 new tokens, one stopping at an eos taken
                from its own greedy run; tokens equal the plain path's on the
                card (on a difference, the first differing cache sign bit)
-  7. times   - per kernel and shape: its device time (profiler) and its
-               wrapper's CUDA-event time, the plain version's, one PyTorch
+  7. times   - per kernel and shape: its device time (calls queued behind
+               a spin kernel, CUDA events) and its wrapper's CUDA-event
+               time, the plain version's, one PyTorch
                library call computing the same function where there is one,
                and the card's bound; each forward per batch, one profiled
                frozen forward each; then the LM at full depth (40 layers,
@@ -69,11 +70,7 @@ REPLACES = {"binary_gemm_packed": "src/repro/kernels/binary_gemm.py:107",
             "pack_bits": "src/repro/kernels/pack.py:35",
             "decode_attention_packed": "src/repro/kernels/decode_attention.py:137",
             "prefill_attention_packed": "src/repro/kernels/prefill_attention.py:131"}
-# the __global__ function each wrapper launches, as the profiler names it
-DEVICE_KERNEL = {**{kn: "::popc_gemm_kernel<" for kn in GEMMS},
-                 "pack_bits": "::pack_kernel<",
-                 "decode_attention_packed": "::packed_attention_kernel<",
-                 "prefill_attention_packed": "::packed_attention_kernel<"}
+SPIN_CYCLES_PER_S = 1.98e9         # H100 SXM max SM clock (torch.cuda._sleep)
 RAGGED = [(9, 100, 48), (17, 64, 10), (3, 37, 33), (130, 257, 129)]
 # the LM serving path: phi3-medium-14b at full width, kv_bits=1, chunked
 # admission; depth cut to LM_CHECK_DEPTH where the tokens are held against
@@ -178,28 +175,41 @@ def cuda_ms(fn, *, warmup=3, budget_s=0.05, max_iters=500) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str | None = None, iters: int = 20) -> float:
-    """Device time of one fn() call in ms, from the profiler's trace of
-    `iters` calls: the summed device time of the kernels whose name holds
-    `kernel` (every kernel when None), over iters. With `kernel` given,
-    the trace must show exactly one such launch per call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(fn, iters: int = 20, wrapper: str | None = None) -> float:
+    """Device time of one fn() call in ms, host dispatch hidden: CUDA events
+    around `iters` calls queued behind a spin kernel, so the card runs them
+    back to back after the spin. The spin must outlast the host's enqueuing
+    (the start event still pending when the last call returns), else it is
+    made longer and the calls run again. With `wrapper` given, its launch
+    count must grow by exactly one per call. (The profiler's trace is not
+    used: it misses launches now and then, once all 20 of a kernel's.)"""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    spin_s = 2 * (time.perf_counter() - t0) + 1e-3
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    for _ in range(4):
+        before = all_launches()[wrapper] if wrapper else 0
+        torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
+        start.record()
         for _ in range(iters):
             fn()
+        end.record()
+        hidden = not start.query()
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-           and (kernel is None or kernel in e.key)]
-    launched = sum(e.count for e in evs)
-    if not evs or (kernel is not None and launched != iters):
-        raise AssertionError(f"profiler: {launched} launches of {kernel} "
-                             f"in {iters} calls")
-    return sum(e.self_device_time_total for e in evs) / 1e3 / iters
+        if hidden:
+            break
+        spin_s *= 4
+    else:
+        raise AssertionError(f"{wrapper or 'library call'}: {iters} calls "
+                             f"took longer to enqueue than a {spin_s:.3f} s spin")
+    if wrapper and all_launches()[wrapper] - before != iters:
+        raise AssertionError(f"{wrapper}: not one launch per call")
+    return start.elapsed_time(end) / iters
 
 
 def trace(fn, top=6):
@@ -661,13 +671,14 @@ def lm_timed_run(base_cfg, seed, dev, card):
     return rep, eng
 
 
-def shape_times(call, kernel, plain, library=None):
-    """The times of one kernel at one shape: `ms` its device time (the
-    profiler's), `wrapper_ms` the CUDA-event time of back-to-back wrapper
+def shape_times(call, kn, plain, library=None):
+    """The times of kernel `kn` at one shape: `ms` its device time
+    (`device_ms`), `wrapper_ms` the CUDA-event time of back-to-back wrapper
     calls (host checks and the ctypes call included), `plain_ms` the
     CUDA-event time of its plain version, `library_ms` the device time of
-    the library call's kernels and `library_wall_ms` its CUDA-event time."""
-    out = {"ms": device_ms(call, kernel), "wrapper_ms": cuda_ms(call),
+    the library call and `library_wall_ms` its CUDA-event time."""
+    out = {"ms": device_ms(call, wrapper=kn),
+           "wrapper_ms": cuda_ms(call),
            "plain_ms": cuda_ms(plain, warmup=1, budget_s=0.2, max_iters=10),
            "library_ms": None, "library_wall_ms": None}
     if library is not None:
@@ -694,7 +705,7 @@ def lm_kernel_times(cfg, dev_gen, dev, popc_per_s):
         rows.append({"kernel": "pack_bits", "where": where, "shape": (m, k),
                      "per_layer": 2, "library": None,
                      **shape_times(lambda: pk.pack_bits_kernel(x),
-                                   DEVICE_KERNEL["pack_bits"],
+                                   "pack_bits",
                                    lambda: pk.pack_bits_plain(x)),
                      "bytes_ms": t_bytes, "ops_ms": t_ops,
                      "bound_ms": max(t_bytes, t_ops)})
@@ -713,7 +724,7 @@ def lm_kernel_times(cfg, dev_gen, dev, popc_per_s):
                  "per_layer": 1, "library": "F.scaled_dot_product_attention",
                  **shape_times(
                      lambda: da.decode_attention_packed(q, k, v, vs, lens),
-                     DEVICE_KERNEL["decode_attention_packed"],
+                     "decode_attention_packed",
                      lambda: da.decode_attention_packed_plain(
                          q, k, v, vs, lens), lib),
                  **attention_bound(valid, 1, cfg.n_heads, hkv, hd, 2, popc_per_s)})
@@ -733,7 +744,7 @@ def lm_kernel_times(cfg, dev_gen, dev, popc_per_s):
                      **shape_times(
                          lambda: pa.prefill_attention_packed(
                              q, k, v, vs, kv, qp),
-                         DEVICE_KERNEL["prefill_attention_packed"],
+                         "prefill_attention_packed",
                          lambda: pa.prefill_attention_packed_plain(
                              q, k, v, vs, kv, qp), lib),
                      **attention_bound(valid, LM_CHUNK, cfg.n_heads, hkv, hd,
@@ -941,9 +952,9 @@ def main() -> int:
                      + lm_launches[kn] for kn in REPLACES}
 
     # ---------------------------------------------------------------- times
-    print(f"times on {card} (ms; kernel and library: device time from the "
-          f"profiler; wrapper, plain and library wall: CUDA events over "
-          f"back-to-back calls; bound = max(bytes / 3.35 TB/s, popc / "
+    print(f"times on {card} (ms; kernel and library: device time, CUDA "
+          f"events over calls queued behind a spin kernel; wrapper, plain "
+          f"and library wall: CUDA events over back-to-back calls; bound = max(bytes / 3.35 TB/s, popc / "
           f"{popc_per_s / 1e12:.3f} T/s); int8 TC = 2MNK / 1979 TOP/s)")
     totals = {kn: {"ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0,
                    "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
@@ -959,7 +970,7 @@ def main() -> int:
                     ref_dots)
         row = {"kernel": kn, "lhs": lhs, "M": m, "K": k, "N": n,
                "where": where, "library": lib_name,
-               **shape_times(lambda: op.call(kn, lhs), DEVICE_KERNEL[kn],
+               **shape_times(lambda: op.call(kn, lhs), kn,
                              lambda: op.call(kn, lhs, plain=True), lib_fn),
                **bound(kn, lhs, m, k, n, popc_per_s)}
         rows.append(row)
@@ -1068,7 +1079,7 @@ def main() -> int:
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))
-    print("kernels line: ms and library_ms are device times (profiler), "
+    print("kernels line: ms and library_ms are device times (device_ms), "
           "plain_ms CUDA-event time; GEMM times are summed over one mlp and "
           "one cnn forward's launches of each kernel; pack_bits, decode and "
           "prefill attention times over one LM layer's launches in one "
