@@ -11,7 +11,10 @@ Phases, each of which raises on failure (nothing is caught):
                card, at the shapes the main paths give it and at ragged
                ones: int32 dots and packed words must be equal (tolerance
                0); attention outputs within rtol = atol = 2^-7 (bf16, one
-               ulp) or 1e-6 (float32, 8 ulps), with equal signs
+               ulp) or 1e-6 (float32, 8 ulps), with equal signs; the paged
+               attention kernels (7, 9) bit for bit equal to their plain
+               versions and to the contiguous kernels on the gathered
+               panels, dots at every position included
   4. mlp     - bnn-mnist (784-1024x3-10) frozen, batches of 200 through the
                kernels; hidden words and scores equal the plain path's, the
                fp32-master path's, and the CPU's on a small batch
@@ -23,6 +26,13 @@ Phases, each of which raises on failure (nothing is caught):
                from the seed, 16 new tokens, one stopping at an eos taken
                from its own greedy run; tokens equal the plain path's on the
                card (on a difference, the first differing cache sign bit)
+  6b. paged - the same width at depth 2, served from the paged 1-bit KV
+               pool with the prefix cache (page 32): 8 greedy requests of a
+               shared 128-token prefix plus 17-72 tokens of their own, 16
+               new tokens each, through four engines (paged + prefix cache,
+               paged, contiguous, all through the kernels; paged + prefix
+               cache through the plain versions): all tokens equal, prefix
+               hits >= 1, prefilled + cached tokens = prompt tokens
   7. times   - per kernel and shape: its device time (calls queued behind
                a spin kernel, CUDA events) and its wrapper's CUDA-event
                time, the plain version's, one PyTorch
@@ -31,9 +41,13 @@ Phases, each of which raises on failure (nothing is caught):
                frozen forward each; then the LM at full depth (40 layers,
                drawn and frozen one at a time): decode tokens/s, TTFT, ITL,
                resident bytes, one profiled decode step (device busy
-               share, launches)
-Launch counts are set to 0 just before each main path (mlp, cnn, lm) runs
-and read just after. The line before the last is {"kernels": [...]}; the
+               share, launches); then the same 40-layer weights serving the
+               shared-prefix traffic from the paged pool with the prefix
+               cache and from the contiguous cache: decode tokens/s, TTFT of
+               hit and miss requests, ITL, prefix stats, the page pool,
+               tokens equal
+Launch counts are set to 0 just before each main path (mlp, cnn, lm, paged
+lm) runs and read just after. The line before the last is {"kernels": [...]}; the
 last line is {"ok": true, "device": {...}}. Weights, BN statistics and
 inputs are random from the seed; image inputs are multiples of 1/128 in
 [-1, 1], like 8-bit pixels. Exits non-zero, printing no result, without a
@@ -62,14 +76,22 @@ POPC_PER_CLOCK_PER_SM = 16         # 32-bit popc issue rate, compute 9.0
 GEMMS = ("binary_gemm_packed", "binary_gemm_packed_rhs", "binary_gemm_fused")
 SOURCES = {**{kn: "src/repro_torch/kernels/csrc/binary_gemm.cu" for kn in GEMMS},
            "pack_bits": "src/repro_torch/kernels/csrc/pack.cu",
-           "decode_attention_packed": "src/repro_torch/kernels/csrc/attention.cu",
-           "prefill_attention_packed": "src/repro_torch/kernels/csrc/attention.cu"}
+           **{kn: "src/repro_torch/kernels/csrc/attention.cu" for kn in (
+               "decode_attention_packed", "prefill_attention_packed",
+               "decode_attention_packed_paged",
+               "prefill_attention_packed_paged")}}
 REPLACES = {"binary_gemm_packed": "src/repro/kernels/binary_gemm.py:107",
             "binary_gemm_packed_rhs": "src/repro/kernels/binary_gemm.py:166",
             "binary_gemm_fused": "src/repro/kernels/binary_gemm.py:242",
             "pack_bits": "src/repro/kernels/pack.py:35",
             "decode_attention_packed": "src/repro/kernels/decode_attention.py:137",
-            "prefill_attention_packed": "src/repro/kernels/prefill_attention.py:131"}
+            "prefill_attention_packed": "src/repro/kernels/prefill_attention.py:131",
+            "decode_attention_packed_paged":
+                "src/repro/kernels/decode_attention.py:214",
+            "prefill_attention_packed_paged":
+                "src/repro/kernels/prefill_attention.py:225"}
+PAGED_KERNELS = ("decode_attention_packed_paged",
+                 "prefill_attention_packed_paged")
 SPIN_CYCLES_PER_S = 1.98e9         # H100 SXM max SM clock (torch.cuda._sleep)
 RAGGED = [(9, 100, 48), (17, 64, 10), (3, 37, 33), (130, 257, 129)]
 # the LM serving path: phi3-medium-14b at full width, kv_bits=1, chunked
@@ -80,6 +102,10 @@ RAGGED = [(9, 100, 48), (17, 64, 10), (3, 37, 33), (130, 257, 129)]
 LM_ARCH, LM_SLOTS, LM_MAX_LEN, LM_CHUNK = "phi3-medium-14b", 4, 512, 32
 LM_CHECK_DEPTH = 2
 LM_REQUESTS, LM_NEW, LM_PROMPT = 8, 16, (17, 200)
+# the paged path: pages of 32 positions (16 per slot at max_len 512), the
+# prefix cache on; traffic of a shared 128-token prefix (4 pages) plus a
+# suffix of its own per request; kernel checks on a 64-page pool
+LM_PAGE, LM_POOL, LM_PREFIX, LM_SUFFIX = 32, 64, 128, (17, 72)
 
 
 def smi(query: str) -> str:
@@ -483,6 +509,104 @@ def lm_kernel_checks(cfg, dev_gen, dev):
     return err
 
 
+def paged_case(gen, rng, b, s, ps, n_pages, pool, hkv, g, hd, lens, dtype,
+               dev):
+    """Integer-valued queries, packed sign K/V pools of `pool` pages and V
+    scales on the card, and a page table giving row i ceil(lens[i] / ps)
+    pages of the pool in shuffled order, the sentinel `pool` in its
+    unallocated tail."""
+    from repro_torch.core.bitpack import pack_bits
+    q = torch.randint(-6, 7, (b, s, hkv * g, hd), generator=gen,
+                      device=dev).to(dtype)
+    k, v = (pack_bits(torch.randn(pool, ps, hkv, hd, generator=gen,
+                                  device=dev)) for _ in range(2))
+    vs = 0.5 + 0.5 * torch.rand(b, hkv, generator=gen, device=dev)
+    free = list(rng.permutation(pool))
+    table = np.full((b, n_pages), pool, np.int32)
+    for i, n in enumerate(lens):
+        for j in range(-(-int(n) // ps)):
+            table[i, j] = free.pop()
+    return q, k, v, vs, torch.from_numpy(table).to(dev)
+
+
+def lm_paged_kernel_checks(cfg, dev_gen, seed, dev):
+    """Kernels 7 and 9 on the card at the paged path's shapes (B 4, page 32,
+    16 pages per row, a 64-page pool in shuffled order, lengths
+    512/300/100/17; chunks of 32 at q_pos 0 and 96 against one row) and a
+    ragged one (page 16, hd 33, a row of length 0): outputs and dots at
+    every position equal, bit for bit, the plain version's (gather + the
+    contiguous plain version) and the contiguous kernel's on the gathered
+    panel."""
+    from repro_torch.kernels import ref
+    _, _, da, pa = lm_modules()
+    rng = np.random.default_rng(seed)
+    hkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    n_pages = LM_MAX_LEN // LM_PAGE
+    cases = [(LM_SLOTS, LM_PAGE, n_pages, LM_POOL, hkv, g, hd,
+              (LM_MAX_LEN, 300, 100, 17), 0, "main"),
+             (3, 16, 5, 12, 2, 2, 33, (0, 37, 80), 9, "ragged")]
+
+    def same(what, got, plain, contig):
+        for name, other in (("plain version", plain),
+                            ("contiguous kernel", contig)):
+            if not torch.equal(got, other):
+                d = float((got.float() - other.float()).abs().max())
+                raise AssertionError(f"{what}: differs from the {name} "
+                                     f"(max abs {d})")
+
+    for b, ps, npg, pool, nkv, gg, d_h, lens, window, where in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, vs, pt = paged_case(dev_gen, rng, b, 1, ps, npg, pool,
+                                         nkv, gg, d_h, lens, dtype, dev)
+            lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+            kg, vg = ref.gather_pages(k, pt), ref.gather_pages(v, pt)
+            got, dots = da.decode_attention_packed_paged(
+                q, k, v, vs, pt, lens_t, window=window, return_dots=True)
+            torch.cuda.synchronize()
+            plain = da.decode_attention_packed_paged_plain(
+                q, k, v, vs, pt, lens_t, window=window, return_dots=True)
+            contig = da.decode_attention_packed(q, kg, vg, vs, lens_t,
+                                                window=window,
+                                                return_dots=True)
+            what = f"paged decode ({b},{ps},{npg},{pool},{nkv},{gg},{d_h})"
+            same(what + " dots", dots, plain[1], contig[1])
+            same(what, got, plain[0], contig[0])
+            print(f"check decode_attention_packed_paged {str(dtype)[6:]:8s} "
+                  f"B={b} ps={ps} NP={npg} pool={pool} Hkv={nkv} G={gg} "
+                  f"hd={d_h} lens={list(lens)} window={window} {where}: "
+                  f"outputs and dots equal the plain version's and the "
+                  f"contiguous kernel's on the gathered panel")
+            s = LM_CHUNK if where == "main" else 5
+            q, k, v, vs, pt = paged_case(dev_gen, rng, b, s, ps, npg, pool,
+                                         nkv, gg, d_h, lens, dtype, dev)
+            calls = [(q[1:2], vs[1:2], pt[1:2], qp, qp + s)
+                     for qp in (0, 96)] if where == "main" else []
+            qpos = torch.tensor([max(n - s, 0) for n in lens],
+                                dtype=torch.int32, device=dev)
+            calls.append((q, vs, pt, qpos, qpos + s))
+            for qq, vv, tt, qp, kv in calls:
+                got, dots = pa.prefill_attention_packed_paged(
+                    qq, k, v, vv, tt, kv, qp, window=window, return_dots=True)
+                torch.cuda.synchronize()
+                plain = pa.prefill_attention_packed_paged_plain(
+                    qq, k, v, vv, tt, kv, qp, window=window, return_dots=True)
+                contig = pa.prefill_attention_packed(
+                    qq, ref.gather_pages(k, tt), ref.gather_pages(v, tt), vv,
+                    kv, qp, window=window, return_dots=True)
+                shown = qp if isinstance(qp, int) else qp.tolist()
+                what = f"paged prefill ({qq.shape[0]},{s},{ps},{npg},{d_h}) " \
+                       f"q_pos {shown}"
+                same(what + " dots", dots, plain[1], contig[1])
+                same(what, got, plain[0], contig[0])
+                print(f"check prefill_attention_packed_paged "
+                      f"{str(dtype)[6:]:8s} B={qq.shape[0]} S={s} ps={ps} "
+                      f"NP={npg} pool={pool} q_pos={shown} window={window} "
+                      f"{where}: outputs and dots equal the plain version's "
+                      f"and the contiguous kernel's on the gathered panel")
+    # every output was held equal to its plain version's
+    return {kn: 0.0 for kn in PAGED_KERNELS}
+
+
 def lm_traffic(seed, vocab):
     """LM_REQUESTS prompts with lengths drawn from the seed in LM_PROMPT."""
     rng = np.random.default_rng(seed)
@@ -592,6 +716,84 @@ def lm_engine_check(base_cfg, seed, dev):
     return launches, n_chunks
 
 
+def shared_prefix_traffic(seed, vocab):
+    """LM_REQUESTS prompts: one shared LM_PREFIX-token prefix (a system
+    prompt of 4 pages) plus a suffix of LM_SUFFIX tokens of each its own,
+    all drawn from the seed."""
+    rng = np.random.default_rng(seed + 100)
+    prefix = rng.integers(0, vocab, LM_PREFIX)
+    lens = rng.integers(LM_SUFFIX[0], LM_SUFFIX[1] + 1, LM_REQUESTS)
+    return [np.concatenate([prefix, rng.integers(0, vocab, n)]).astype(np.int32)
+            for n in lens]
+
+
+def lm_paged_engine_check(base_cfg, seed, dev):
+    """Full width, depth LM_CHECK_DEPTH, the shared-prefix traffic through
+    four engines: paged + prefix cache (the main path, launches counted),
+    paged, contiguous (all through the kernels), and paged + prefix cache
+    through the plain versions. All greedy tokens equal; prefix hits >= 1;
+    prefilled plus cached tokens equal the prompt tokens. Returns the main
+    path's launch counts."""
+    from repro_torch.models.api import get_model
+    from repro_torch.serving.engine import Request
+    cfg = base_cfg.scaled(n_layers=LM_CHECK_DEPTH, kv_bits=1)
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    frozen = get_model(cfg).init_frozen(gen, device=dev)
+    prompts = shared_prefix_traffic(seed, cfg.vocab)
+    reqs = [Request(p, max_new_tokens=LM_NEW) for p in prompts]
+    main = lm_engine(cfg, frozen, seed=seed, page_size=LM_PAGE,
+                     prefix_cache=True)
+    reset_all_launches()
+    comps = main.serve(reqs)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    st = dict(main.scheduler().stats)
+    pool = main.scheduler().page_stats()
+    others = {
+        "paged": lm_engine(cfg, frozen, seed=seed, page_size=LM_PAGE),
+        "contiguous": lm_engine(cfg, frozen, seed=seed),
+        "paged + prefix, plain": lm_engine(cfg, frozen, seed=seed,
+                                           page_size=LM_PAGE,
+                                           prefix_cache=True,
+                                           kernel_path="ref")}
+    for name, eng in others.items():
+        for i, (a, b) in enumerate(zip(comps, eng.generate(reqs),
+                                       strict=True)):
+            if not np.array_equal(a.tokens, b):
+                raise AssertionError(
+                    f"paged LM request {i}: paged + prefix tokens "
+                    f"{a.tokens.tolist()} != {name} {b.tolist()}")
+    if any(len(c.tokens) != LM_NEW for c in comps):
+        raise AssertionError("a paged request did not get its budget")
+    total = sum(map(len, prompts))
+    if st["prefix_hits"] < 1:
+        raise AssertionError("the shared prefix was never served from the "
+                             "tree")
+    if st["prefill_tokens"] + st["prefill_tokens_saved"] != total:
+        raise AssertionError(f"prefill accounting {st} != {total} prompt "
+                             f"tokens")
+    for kn in PAGED_KERNELS + ("pack_bits", "binary_gemm_packed",
+                               "binary_gemm_packed_rhs"):
+        if not launches[kn]:
+            raise AssertionError(f"the paged LM path launched no {kn}")
+    for kn in ("decode_attention_packed", "prefill_attention_packed"):
+        if launches[kn]:
+            raise AssertionError(f"the paged LM path launched {kn}")
+    print(f"lm paged engine check: {LM_ARCH} full width, depth "
+          f"{LM_CHECK_DEPTH}, page {LM_PAGE}, prefix cache; {LM_REQUESTS} "
+          f"requests of a shared {LM_PREFIX}-token prefix + "
+          f"{sorted(len(p) - LM_PREFIX for p in prompts)} own tokens, "
+          f"{LM_NEW} new: tokens equal the paged, contiguous and plain "
+          f"engines'; prefix hits {st['prefix_hits']}, tokens saved "
+          f"{st['prefill_tokens_saved']} + prefilled "
+          f"{st['prefill_tokens']} = {total}; cached per request "
+          f"{[c.cached_tokens for c in comps]}; pool {pool}; launches "
+          f"{launches}")
+    del main, others, frozen
+    torch.cuda.empty_cache()
+    return launches
+
+
 def percentile(xs, q):
     return float(np.percentile(np.asarray(xs), q)) if len(xs) else float("nan")
 
@@ -669,6 +871,90 @@ def lm_timed_run(base_cfg, seed, dev, card):
           f"{c['packed'] / 1e6:.2f} MB packed + {c['float']} B V scales vs "
           f"{bf16_cache / 1e6:.2f} MB bf16 ({bf16_cache / c['packed']:.1f}x)")
     return rep, eng
+
+
+def lm_paged_timed_run(cfg, frozen, seed, dev, card):
+    """All 40 layers (the timed run's weights), the shared-prefix traffic
+    served twice: from the paged pool with the prefix cache (page 32,
+    chunk 32, 4 slots, max_len 512) and from the contiguous cache. Tokens
+    must be equal. Reports decode tokens/s, TTFT of the requests that hit
+    the tree and of those that missed, ITL, prefix stats, the page pool and
+    peak device memory of each."""
+    from repro_torch.serving.engine import Request
+    prompts = shared_prefix_traffic(seed, cfg.vocab)
+    warm = np.random.default_rng(seed + 7).integers(0, cfg.vocab, 40)
+    out = {}
+    tokens = {}
+    for name, kw in (("paged + prefix", dict(page_size=LM_PAGE,
+                                             prefix_cache=True)),
+                     ("contiguous", {})):
+        eng = lm_engine(cfg, frozen, seed=seed, **kw)
+        eng.generate([Request(warm, max_new_tokens=4)])   # a page of its own
+        sched = eng.scheduler()
+        before = dict(sched.stats)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        comps = eng.serve([Request(p, max_new_tokens=LM_NEW)
+                           for p in prompts])
+        wall = time.perf_counter() - t0
+        st = {k: sched.stats[k] - before[k] for k in before}
+        tokens[name] = [c.tokens for c in comps]
+        hit = [c.ttft for c in comps if c.cached_tokens]
+        miss = [c.ttft for c in comps if not c.cached_tokens]
+        itl = np.concatenate([c.itl for c in comps])
+        decode_tokens = sum(len(c.tokens) - 1 for c in comps)
+        rep = {"wall_s": wall, "decode_s": st["decode_s"],
+               "prefill_s": st["prefill_s"],
+               "decode_steps": st["decode_steps"], "bursts": st["bursts"],
+               "decode_tokens": decode_tokens,
+               "decode_tok_per_s": decode_tokens / st["decode_s"],
+               "prefill_tokens": st["prefill_tokens"],
+               "prefill_tokens_saved": st["prefill_tokens_saved"],
+               "prefix_hits": st["prefix_hits"],
+               "cached_tokens": [c.cached_tokens for c in comps],
+               "hit_requests": len(hit), "miss_requests": len(miss),
+               "ttft_hit_ms_p50": percentile(hit, 50) * 1e3,
+               "ttft_miss_ms_p50": percentile(miss, 50) * 1e3,
+               "ttft_wall_ms_p50": percentile(
+                   [c.ttft_wall for c in comps], 50) * 1e3,
+               "itl_ms_p50": percentile(itl, 50) * 1e3,
+               "itl_ms_p99": percentile(itl, 99) * 1e3,
+               "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+               "page_pool": sched.page_stats(),
+               "cache_bytes": {k: v for k, v in
+                               eng.resident_cache_bytes().items()
+                               if k != "page_pool"}}
+        out[name] = rep
+        print(f"lm paged timed run on {card}, {name}: {LM_ARCH} full width "
+              f"and depth ({cfg.n_layers} layers), {LM_REQUESTS} requests of "
+              f"a shared {LM_PREFIX}-token prefix + "
+              f"{LM_SUFFIX[0]}-{LM_SUFFIX[1]} own tokens, {LM_NEW} new, "
+              f"{LM_SLOTS} slots, chunk {LM_CHUNK}, max_len {LM_MAX_LEN}")
+        print(f"  wall {wall:.4f} s; decode {decode_tokens} tokens in "
+              f"{st['decode_s']:.4f} s over {st['decode_steps']} steps / "
+              f"{st['bursts']} bursts = {rep['decode_tok_per_s']:.2f} tok/s; "
+              f"prefilled {st['prefill_tokens']} tokens in "
+              f"{st['prefill_s']:.4f} s, {st['prefill_tokens_saved']} served "
+              f"from the tree ({st['prefix_hits']} hits)")
+        print(f"  TTFT (own admission) p50 hit {rep['ttft_hit_ms_p50']:.3f} "
+              f"ms ({len(hit)} requests), miss {rep['ttft_miss_ms_p50']:.3f} "
+              f"ms ({len(miss)}); TTFT wall p50 "
+              f"{rep['ttft_wall_ms_p50']:.3f} ms; ITL p50 "
+              f"{rep['itl_ms_p50']:.3f} ms, p99 {rep['itl_ms_p99']:.3f} ms; "
+              f"peak device memory {rep['peak_device_bytes'] / 1e9:.2f} GB; "
+              f"cache {rep['cache_bytes']}; pool {rep['page_pool']}")
+        del eng, sched
+        torch.cuda.empty_cache()
+    for i, (a, b) in enumerate(zip(tokens["paged + prefix"],
+                                   tokens["contiguous"], strict=True)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"40-layer paged request {i}: tokens "
+                                 f"{a.tolist()} != contiguous {b.tolist()}")
+    if out["paged + prefix"]["prefix_hits"] < 1:
+        raise AssertionError("the 40-layer paged run served no prefix hit")
+    print("  tokens of the paged + prefix run equal the contiguous run's")
+    return out
 
 
 def shape_times(call, kn, plain, library=None):
@@ -749,6 +1035,7 @@ def lm_kernel_times(cfg, dev_gen, dev, popc_per_s):
                              q, k, v, vs, kv, qp), lib),
                      **attention_bound(valid, LM_CHUNK, cfg.n_heads, hkv, hd,
                                        2, popc_per_s)})
+    rows += lm_paged_kernel_times(cfg, dev_gen, dev, popc_per_s)
     totals = {}
     for r in rows:
         t = totals.setdefault(r["kernel"], {
@@ -762,6 +1049,85 @@ def lm_kernel_times(cfg, dev_gen, dev, popc_per_s):
             if r[key] is not None:
                 t[key] = (t[key] or 0.0) + r[key] * r["per_layer"]
     return rows, totals
+
+
+def lm_paged_kernel_times(cfg, dev_gen, dev, popc_per_s):
+    """Times of kernels 7 and 9 at the paged path's shapes (bf16; a 64-page
+    pool in shuffled order, page 32, lengths 512/300/100/17; chunks of 32
+    at q_pos 0 and 96 against one row), as `shape_times`. The library call
+    is SDPA over the unpacked +-1 K/V gathered from the pages; the gather's
+    own device time is printed beside it (`gather_ms`). The bound counts
+    the valid K/V rows, q, out, v_scale and the page table."""
+    from repro_torch.kernels import ref
+    _, _, da, pa = lm_modules()
+    rng = np.random.default_rng(0)
+    hkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    n_pages = LM_MAX_LEN // LM_PAGE
+    lens = torch.tensor([LM_MAX_LEN, 300, 100, 17], dtype=torch.int32,
+                        device=dev)
+    q, k, v, vs, pt = paged_case(dev_gen, rng, LM_SLOTS, 1, LM_PAGE, n_pages,
+                                 LM_POOL, hkv, g, hd, lens.tolist(),
+                                 torch.bfloat16, dev)
+
+    def gathered(table):
+        return ref.gather_pages(k, table), ref.gather_pages(v, table)
+
+    rows = []
+    valid = ref.chunk_valid_mask(LM_SLOTS, 1, LM_MAX_LEN, lens, lens - 1, 0,
+                                 True, device=dev)
+    lib = sdpa_call(q, *gathered(pt), vs, valid)
+    check_close_loose("SDPA vs paged decode kernel", lib(),
+                      da.decode_attention_packed_paged(q, k, v, vs, pt, lens))
+    bnd = attention_bound(valid, 1, cfg.n_heads, hkv, hd, 2, popc_per_s)
+    rows.append({"kernel": "decode_attention_packed_paged",
+                 "where": f"paged decode B={LM_SLOTS} ps={LM_PAGE} "
+                          f"pool={LM_POOL} lens {lens.tolist()}",
+                 "shape": tuple(q.shape), "per_layer": 1,
+                 "library": "F.scaled_dot_product_attention",
+                 "gather_ms": device_ms(lambda: gathered(pt)),
+                 **shape_times(
+                     lambda: da.decode_attention_packed_paged(
+                         q, k, v, vs, pt, lens),
+                     "decode_attention_packed_paged",
+                     lambda: da.decode_attention_packed_paged_plain(
+                         q, k, v, vs, pt, lens), lib),
+                 **paged_bound(bnd, pt)})
+    for qp in (0, 96):
+        qc = torch.randint(-6, 7, (1, LM_CHUNK, hkv * g, hd), generator=dev_gen,
+                           device=dev).to(torch.bfloat16)
+        vc = vs[1:2]
+        row = pt[1:2]                       # the 300-position row
+        kv = qp + LM_CHUNK
+        valid = ref.chunk_valid_mask(1, LM_CHUNK, LM_MAX_LEN, kv, qp, 0, True,
+                                     device=dev)
+        lib = sdpa_call(qc, *gathered(row), vc, valid)
+        check_close_loose("SDPA vs paged prefill kernel", lib(),
+                          pa.prefill_attention_packed_paged(qc, k, v, vc, row,
+                                                            kv, qp))
+        bnd = attention_bound(valid, LM_CHUNK, cfg.n_heads, hkv, hd, 2,
+                              popc_per_s)
+        rows.append({"kernel": "prefill_attention_packed_paged",
+                     "where": f"paged chunk S={LM_CHUNK} q_pos={qp} "
+                              f"ps={LM_PAGE}",
+                     "shape": tuple(qc.shape), "per_layer": 0.5,
+                     "library": "F.scaled_dot_product_attention",
+                     "gather_ms": device_ms(lambda: gathered(row)),
+                     **shape_times(
+                         lambda: pa.prefill_attention_packed_paged(
+                             qc, k, v, vc, row, kv, qp),
+                         "prefill_attention_packed_paged",
+                         lambda: pa.prefill_attention_packed_paged_plain(
+                             qc, k, v, vc, row, kv, qp), lib),
+                     **paged_bound(bnd, row)})
+    return rows
+
+
+def paged_bound(bnd, table):
+    """`attention_bound` plus the page table's bytes read once."""
+    extra = table.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    out = dict(bnd, bytes_ms=bnd["bytes_ms"] + extra)
+    out["bound_ms"] = max(out["bytes_ms"], out["ops_ms"])
+    return out
 
 
 def check_close_loose(what, lib, kern):
@@ -855,6 +1221,7 @@ def main() -> int:
     from repro_torch.configs.base import get_config
     lm_cfg = get_config(LM_ARCH)
     err.update(lm_kernel_checks(lm_cfg, dev_gen, dev))
+    err.update(lm_paged_kernel_checks(lm_cfg, dev_gen, args.seed, dev))
 
     # ------------------------------------------------------------------ mlp
     cfg = BNN_MNIST
@@ -948,8 +1315,10 @@ def main() -> int:
 
     # ------------------------------------------------ lm: tokens vs plain
     lm_launches, lm_chunks = lm_engine_check(lm_cfg, args.seed, dev)
+    paged_launches = lm_paged_engine_check(lm_cfg, args.seed, dev)
     path_launches = {kn: mlp_launches.get(kn, 0) + cnn_launches.get(kn, 0)
-                     + lm_launches[kn] for kn in REPLACES}
+                     + lm_launches[kn] + paged_launches[kn]
+                     for kn in REPLACES}
 
     # ---------------------------------------------------------------- times
     print(f"times on {card} (ms; kernel and library: device time, CUDA "
@@ -1033,7 +1402,9 @@ def main() -> int:
     for r in lm_rows:
         lib = "—" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} (wall {r['library_wall_ms']:.4f})"
-        print(f"  {r['kernel']:24s} {r['where']:40s} kernel {r['ms']:.4f} "
+        if "gather_ms" in r:
+            lib += f" + gather {r['gather_ms']:.4f}"
+        print(f"  {r['kernel']:30s} {r['where']:45s} kernel {r['ms']:.4f} "
               f"(wrapper {r['wrapper_ms']:.4f})  plain {r['plain_ms']:.3f}  "
               f"library {lib}  bound "
               f"{r['bound_ms']:.5f} ({'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'ops'})")
@@ -1053,6 +1424,8 @@ def main() -> int:
         print(f"    {ms:9.4f} ms  x{cnt:<3d} {kname}")
     timed["decode_step_trace"] = step
     report["lm_timed"] = timed
+    report["lm_paged_timed"] = lm_paged_timed_run(
+        lm_cfg.scaled(kv_bits=1), eng.params, args.seed, dev, card)
     del eng, sched
     torch.cuda.empty_cache()
 
@@ -1075,16 +1448,19 @@ def main() -> int:
               f"{t['wrapper_ms']:.4f})  plain {t['plain_ms']:.3f}  library "
               f"{lib}  bound {t['bound_ms']:.6f}")
     report["launches"] = {"mlp": mlp_launches, "cnn": cnn_launches,
-                          "lm": lm_launches, "lm_chunks": lm_chunks}
+                          "lm": lm_launches, "lm_chunks": lm_chunks,
+                          "lm_paged": paged_launches}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))
     print("kernels line: ms and library_ms are device times (device_ms), "
           "plain_ms CUDA-event time; GEMM times are summed over one mlp and "
           "one cnn forward's launches of each kernel; pack_bits, decode and "
-          "prefill attention times over one LM layer's launches in one "
-          "decode step and one prefill chunk (the two chunk shapes weighted "
-          "1/2); launches count the mlp, cnn and depth-2 LM runs")
+          "prefill attention times (contiguous and paged) over one LM "
+          "layer's launches in one decode step and one prefill chunk (the "
+          "two chunk shapes weighted 1/2); the paged kernels' library_ms "
+          "leaves out the gather (printed beside it); launches count the "
+          "mlp, cnn and depth-2 contiguous and paged LM runs")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

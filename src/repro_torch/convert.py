@@ -14,7 +14,9 @@ Every other dict, list and tuple keeps its shape; numpy arrays become
 tensors on `device` (None: the CUDA card). Stacked transformer trees carry
 across as they are: a frozen weight's words keep their leading L axis.
 `to_numpy_tree` is the way back. KV caches carry across with
-`cache_from_numpy` / `cache_to_numpy` (packed K/V words uint32 <-> int32).
+`cache_from_numpy` / `cache_to_numpy`, contiguous or paged: packed K/V
+words (or page pools) uint32 <-> int32, the page table as int32, V scales as
+float32.
 This module imports no jax: turning JAX arrays into numpy is the caller's
 step.
 """
@@ -26,6 +28,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.packed import PackedWeight
 from repro_torch.core.shift_bn import BNParams, BNState
+from repro_torch.models.transformer import new_pool
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -121,8 +124,17 @@ _CACHE_WORDS = ("k", "v")
 
 def cache_from_numpy(cache: dict, device=None) -> dict:
     """A JAX cache (as numpy) -> the port's: uint32 K/V words become int32
-    tensors with the same bits, float leaves stay float."""
-    return {name: tensor(a, device) for name, a in cache.items()}
+    tensors with the same bits, float leaves stay float. A paged cache's
+    (L, P, ps, Hkv, hdw) pools land in the port's pools, whose storage has
+    each layer's sink page behind them (`models.transformer.new_pool`)."""
+    out = {name: tensor(a, device) for name, a in cache.items()}
+    if "page_table" in cache:
+        for name in _CACHE_WORDS:
+            words = out[name]
+            pool = new_pool(*words.shape, device=words.device)
+            pool.copy_(words)
+            out[name] = pool
+    return out
 
 
 def cache_to_numpy(cache: dict) -> dict:

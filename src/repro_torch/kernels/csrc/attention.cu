@@ -2,10 +2,25 @@
 // interface for ctypes.
 //
 // Replaces the Pallas TPU kernels
-//   decode_attention_packed   <- src/repro/kernels/decode_attention.py:137
-//   prefill_attention_packed  <- src/repro/kernels/prefill_attention.py:131
-// Both entry points run one kernel (a decode step is a one-row chunk at
-// q_pos = cache_len - 1), so the two share every float operation.
+//   decode_attention_packed         <- src/repro/kernels/decode_attention.py:137
+//   prefill_attention_packed        <- src/repro/kernels/prefill_attention.py:131
+//   decode_attention_packed_paged   <- src/repro/kernels/decode_attention.py:214
+//   prefill_attention_packed_paged  <- src/repro/kernels/prefill_attention.py:225
+// All four entry points run one kernel body (a decode step is a one-row
+// chunk at q_pos = cache_len - 1), so they share every float operation.
+//
+// Paging is addressing only. The kernel is a template on the cache layout,
+// which maps (batch row b, position t) to the cache row holding its
+// (Hkv, hdw) words:
+//   Contiguous  (B, T, Hkv, hdw):         row = b*T + t
+//   Paged       (P, ps, Hkv, hdw) pool and (B, NP) page table, T = NP*ps:
+//               row = min(pt[b*NP + t/ps], P-1)*ps + t%ps
+// The word of KV head h is then (row*Hkv + h)*hdw. A sentinel entry (P, an
+// unallocated page) clips to page P-1, and the length mask drops its rows,
+// as `ref.gather_pages` does: the paged kernels give the contiguous kernels'
+// bits on the gathered panel, dots at every position included. They read
+// the pool in place, only the rows the table names (V up to the length),
+// never a copy of it.
 //
 // Semantics (src/repro_torch/kernels/ref.py): K and V are sign bitplanes,
 // (B, T, Hkv, ceil(hd/32)) words packed along head_dim, pad bits 1.
@@ -52,22 +67,42 @@ struct Geometry {
   float scale;
 };
 
+// (B, T, Hkv, hdw) cache rows, one panel per batch row
+struct Contiguous {
+  static constexpr bool kPaged = false;
+  int t;
+  __device__ __forceinline__ long long row(int b, int pos) const {
+    return static_cast<long long>(b) * t + pos;
+  }
+};
+
+// (P, ps, Hkv, hdw) pool addressed through a (B, NP) page table
+struct Paged {
+  static constexpr bool kPaged = true;
+  const int* __restrict__ table;
+  int n_pages, page_size, pool;
+  __device__ __forceinline__ long long row(int b, int pos) const {
+    const int page = min(table[b * n_pages + pos / page_size], pool - 1);
+    return static_cast<long long>(page) * page_size + pos % page_size;
+  }
+};
+
 __device__ __forceinline__ bool is_valid(int t, int len, int qi, int causal,
                                          int window) {
   return t < len && (!causal || t <= qi) && (window <= 0 || t > qi - window);
 }
 
-template <typename T>
+template <typename T, typename Layout>
 __global__ void __launch_bounds__(kThreads)
 packed_attention_kernel(const T* __restrict__ q,          // (B, S, Hq, hd)
-                        const uint32_t* __restrict__ kc,  // (B, T, Hkv, hdw)
+                        const uint32_t* __restrict__ kc,  // cache or pool
                         const uint32_t* __restrict__ vc,
                         const float* __restrict__ v_scale,  // (B, Hkv)
                         const int* __restrict__ kv_len, int kv_len0,
                         const int* __restrict__ q_pos, int q_pos0,
                         T* __restrict__ out,               // (B, S, Hq, hd)
                         int* __restrict__ dots,            // (B,Hkv,S,G,T) | null
-                        Geometry geo) {
+                        Geometry geo, Layout lay) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int g = geo.g, hd = geo.hd, hdw = geo.hdw, tl = geo.t;
   const int rows = geo.bq * g;
@@ -84,9 +119,12 @@ packed_attention_kernel(const T* __restrict__ q,          // (B, S, Hq, hd)
   const int qp = geo.decode ? len - 1 : (q_pos ? q_pos[b] : q_pos0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
-  const long long kv_row = static_cast<long long>(geo.hkv) * hdw;  // words per t
-  const uint32_t* kb = kc + static_cast<long long>(b) * tl * kv_row + h * hdw;
-  const uint32_t* vb = vc + static_cast<long long>(b) * tl * kv_row + h * hdw;
+  const long long kv_row = static_cast<long long>(geo.hkv) * hdw;  // words per row
+  // head h's words at this batch row's first position (contiguous), or at
+  // the pool's first row (paged: positions go through the page table)
+  const long long panel = Layout::kPaged ? 0 : lay.row(b, 0) * kv_row;
+  const uint32_t* kb = kc + panel + h * hdw;
+  const uint32_t* vb = vc + panel + h * hdw;
 
   // 1. sign-pack the block's query rows; row r = (i, gg) reads head h*G+gg
   for (int e = warp; e < rows * hdw; e += nwarps) {
@@ -110,7 +148,9 @@ packed_attention_kernel(const T* __restrict__ q,          // (B, S, Hq, hd)
                                              geo.window);
     float s = kNegInf;
     if (i < geo.s && (valid || dots)) {
-      const uint32_t* kt = kb + static_cast<long long>(t) * kv_row;
+      const uint32_t* kt = kb + (Layout::kPaged ? lay.row(b, t)
+                                                : static_cast<long long>(t)) *
+                                                    kv_row;
       int pop = 0;
       for (int w = 0; w < hdw; ++w) pop += __popc(qw[r * hdw + w] ^ kt[w]);
       const int dot = hd - 2 * pop;
@@ -144,7 +184,9 @@ packed_attention_kernel(const T* __restrict__ q,          // (B, S, Hq, hd)
   }
   __syncthreads();
 
-  // 4. V: one thread per (row, d), over the written positions
+  // 4. V: one thread per (row, d), over the written positions (contiguous:
+  //    one pass down the panel; paged: one page at a time, one table read
+  //    per page)
   const int t_hi = min(tl, max(len, 0));
   const float vs = v_scale[b * geo.hkv + h];
   for (int o = threadIdx.x; o < rows * hd; o += blockDim.x) {
@@ -152,12 +194,24 @@ packed_attention_kernel(const T* __restrict__ q,          // (B, S, Hq, hd)
     const int i = i0 + r / g;
     if (i >= geo.s) continue;
     const float* er = sc + static_cast<long long>(r) * tl;
-    const uint32_t* vd = vb + (d >> 5);
     const int bit = d & 31;
     double acc = 0.0;
-    for (int t = 0; t < t_hi; ++t) {
-      const double e = er[t];
-      acc += ((vd[static_cast<long long>(t) * kv_row] >> bit) & 1u) ? e : -e;
+    if constexpr (Layout::kPaged) {
+      for (int t0 = 0; t0 < t_hi; t0 += lay.page_size) {
+        const int n = min(lay.page_size, t_hi - t0);
+        const uint32_t* vd = vb + lay.row(b, t0) * kv_row + (d >> 5);
+        for (int j = 0; j < n; ++j) {
+          const double e = er[t0 + j];
+          acc += ((vd[static_cast<long long>(j) * kv_row] >> bit) & 1u) ? e
+                                                                         : -e;
+        }
+      }
+    } else {
+      const uint32_t* vd = vb + (d >> 5);
+      for (int t = 0; t < t_hi; ++t) {
+        const double e = er[t];
+        acc += ((vd[static_cast<long long>(t) * kv_row] >> bit) & 1u) ? e : -e;
+      }
     }
     const float l = lsum[r];
     const float y = l > 0.f ? vs * (static_cast<float>(acc) / l) : 0.f;
@@ -171,15 +225,15 @@ size_t smem_bytes(const Geometry& geo) {
   return rows * geo.hdw * 4 + rows * geo.t * 4 + rows * 4;
 }
 
-template <typename T>
+template <typename T, typename Layout>
 int launch(const void* q, const void* k, const void* v, const void* v_scale,
            const void* kv_len, int kv_len0, const void* q_pos, int q_pos0,
-           void* out, void* dots, Geometry geo, void* stream) {
+           void* out, void* dots, Geometry geo, Layout lay, void* stream) {
   if (geo.b <= 0 || geo.s <= 0 || geo.t <= 0 || geo.hkv <= 0 || geo.g <= 0 ||
       geo.hd <= 0 || geo.bq <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(geo);
-  auto kernel = packed_attention_kernel<T>;
+  auto kernel = packed_attention_kernel<T, Layout>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -191,21 +245,32 @@ int launch(const void* q, const void* k, const void* v, const void* v_scale,
       static_cast<const uint32_t*>(v), static_cast<const float*>(v_scale),
       static_cast<const int*>(kv_len), kv_len0,
       static_cast<const int*>(q_pos), q_pos0, static_cast<T*>(out),
-      static_cast<int*>(dots), geo);
+      static_cast<int*>(dots), geo, lay);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename Layout>
 int dispatch(int q_bf16, const void* q, const void* k, const void* v,
              const void* v_scale, const void* kv_len, int kv_len0,
              const void* q_pos, int q_pos0, void* out, void* dots,
-             Geometry geo, void* stream) {
+             Geometry geo, Layout lay, void* stream) {
   geo.hdw = (geo.hd + 31) / 32;
   geo.n_qb = (geo.s + geo.bq - 1) / geo.bq;
   if (q_bf16)
     return launch<__nv_bfloat16>(q, k, v, v_scale, kv_len, kv_len0, q_pos,
-                                 q_pos0, out, dots, geo, stream);
+                                 q_pos0, out, dots, geo, lay, stream);
   return launch<float>(q, k, v, v_scale, kv_len, kv_len0, q_pos, q_pos0, out,
-                       dots, geo, stream);
+                       dots, geo, lay, stream);
+}
+
+Paged paged_layout(const void* page_table, int n_pages, int page_size,
+                   int pool) {
+  return Paged{static_cast<const int*>(page_table), n_pages, page_size, pool};
+}
+
+bool paged_ok(const void* page_table, int n_pages, int page_size, int pool) {
+  return page_table && n_pages > 0 && page_size > 0 && pool > 0 &&
+         static_cast<long long>(n_pages) * page_size <= 0x7fffffffLL;
 }
 
 }  // namespace
@@ -222,7 +287,7 @@ int decode_attention_packed(const void* q, int q_bf16, const void* k,
                             float scale, void* stream) {
   Geometry geo{b, 1, t, hkv, g, hd, 0, 1, 0, window, 1, 1, scale};
   return dispatch(q_bf16, q, k, v, v_scale, cache_len, 0, nullptr, 0, out,
-                  dots, geo, stream);
+                  dots, geo, Contiguous{t}, stream);
 }
 
 // q (b, s, hkv*g, hd); k, v, v_scale as above; kv_len and q_pos (b,) int32,
@@ -237,7 +302,46 @@ int prefill_attention_packed(const void* q, int q_bf16, const void* k,
                              float scale, void* stream) {
   Geometry geo{b, s, t, hkv, g, hd, 0, bq, 0, window, causal, 0, scale};
   return dispatch(q_bf16, q, k, v, v_scale, kv_len, kv_len0, q_pos, q_pos0,
-                  out, dots, geo, stream);
+                  out, dots, geo, Contiguous{t}, stream);
+}
+
+// The paged twins. k_pool, v_pool (pool, page_size, hkv, ceil(hd/32)) int32
+// words; page_table (b, n_pages) int32, entries in [0, pool] (pool: the
+// unallocated sentinel); the rest as in the contiguous entry points with
+// t = n_pages * page_size (dots are (b, hkv, g, t) / (b, hkv, s, g, t)).
+int decode_attention_packed_paged(const void* q, int q_bf16,
+                                  const void* k_pool, const void* v_pool,
+                                  const void* v_scale, const void* page_table,
+                                  const void* cache_len, void* out,
+                                  void* dots, int b, int n_pages,
+                                  int page_size, int pool, int hkv, int g,
+                                  int hd, int window, float scale,
+                                  void* stream) {
+  if (!paged_ok(page_table, n_pages, page_size, pool))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Geometry geo{b, 1, n_pages * page_size, hkv, g, hd, 0, 1, 0, window, 1, 1,
+               scale};
+  return dispatch(q_bf16, q, k_pool, v_pool, v_scale, cache_len, 0, nullptr,
+                  0, out, dots, geo,
+                  paged_layout(page_table, n_pages, page_size, pool), stream);
+}
+
+int prefill_attention_packed_paged(const void* q, int q_bf16,
+                                   const void* k_pool, const void* v_pool,
+                                   const void* v_scale, const void* page_table,
+                                   const void* kv_len, int kv_len0,
+                                   const void* q_pos, int q_pos0, void* out,
+                                   void* dots, int b, int s, int n_pages,
+                                   int page_size, int pool, int hkv, int g,
+                                   int hd, int bq, int window, int causal,
+                                   float scale, void* stream) {
+  if (!paged_ok(page_table, n_pages, page_size, pool))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Geometry geo{b, s, n_pages * page_size, hkv, g, hd, 0, bq, 0, window,
+               causal, 0, scale};
+  return dispatch(q_bf16, q, k_pool, v_pool, v_scale, kv_len, kv_len0, q_pos,
+                  q_pos0, out, dots, geo,
+                  paged_layout(page_table, n_pages, page_size, pool), stream);
 }
 
 const char* attention_error_string(int code) {

@@ -1,5 +1,6 @@
 """Plain PyTorch oracles for the binary GEMM and packed-attention kernels
-(port of the GEMM and attention parts of `repro.kernels.ref`).
+(port of the GEMM and attention parts of `repro.kernels.ref`, the paged
+attention oracles included).
 
 They define the semantics the kernels match:
     binary_matmul(x, w) == sign(x) @ sign(w),  sign(0) := +1
@@ -172,3 +173,48 @@ def decode_attention_packed_ref(q: torch.Tensor, k_packed: torch.Tensor,
     lens = _per_row(cache_len, b, q.device)
     return prefill_attention_packed_ref(q, k_packed, v_packed, v_scale, lens,
                                         lens - 1, window=window, causal=True)
+
+
+# ---------------------------------------------------------------------------
+# Paged cache: gather the page-table rows, then the contiguous oracles
+# ---------------------------------------------------------------------------
+def gather_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """A paged cache as its contiguous equivalent.
+
+    pool: (P, ps, Hkv, d) pages shared by every slot; page_table: (B, NP)
+    int32, row b mapping positions [i*ps, (i+1)*ps) to pool page
+    page_table[b, i]. Returns (B, NP*ps, Hkv, d). Unallocated entries hold
+    the sentinel P: they clip to page P-1 here, and the rows they bring are
+    masked by the length masks downstream (the contiguous kernels' t >=
+    kv_len convention), so paged attention is contiguous attention on the
+    gathered panel, bit for bit."""
+    p, ps = pool.shape[0], pool.shape[1]
+    b, n_pages = page_table.shape
+    idx = page_table.clamp(max=p - 1).reshape(-1).long()
+    return pool[idx].reshape((b, n_pages * ps) + tuple(pool.shape[2:]))
+
+
+def decode_attention_packed_paged_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                                      v_pool: torch.Tensor,
+                                      v_scale: torch.Tensor,
+                                      page_table: torch.Tensor, cache_len, *,
+                                      window: int = 0) -> torch.Tensor:
+    """Oracle for kernels.decode_attention.decode_attention_packed_paged:
+    gather the page-table rows into a (B, NP*ps, Hkv, hdw) panel, then the
+    contiguous decode oracle unchanged."""
+    return decode_attention_packed_ref(
+        q, gather_pages(k_pool, page_table), gather_pages(v_pool, page_table),
+        v_scale, cache_len, window=window)
+
+
+def prefill_attention_packed_paged_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                                       v_pool: torch.Tensor,
+                                       v_scale: torch.Tensor,
+                                       page_table: torch.Tensor, kv_len,
+                                       q_pos, *, window: int = 0,
+                                       causal: bool = True) -> torch.Tensor:
+    """Oracle for kernels.prefill_attention.prefill_attention_packed_paged
+    (gather, then the contiguous chunk oracle unchanged)."""
+    return prefill_attention_packed_ref(
+        q, gather_pages(k_pool, page_table), gather_pages(v_pool, page_table),
+        v_scale, kv_len, q_pos, window=window, causal=causal)

@@ -5,7 +5,8 @@
     params = model.init(gen)                 # fp32 masters
     frozen = model.freeze(params)            # 1-bit PackedWeights
     frozen = model.init_frozen(gen)          # the same, one layer at a time
-    cache = model.init_cache(slots, max_len)
+    cache = model.init_cache(slots, max_len)            # contiguous
+    cache = model.init_cache(slots, max_len, page_size=P)   # paged
     logits, cache = model.prefill_chunk(params, tokens, cache, slot, pos, n)
     logits, cache = model.decode(params, token, cache, pos)
 
@@ -94,16 +95,25 @@ def get_model(cfg: ModelConfig, *, path: str = "auto") -> Model:
     )
 
 
-def cache_batch_axes(model: Model, max_len: int) -> dict:
+# marker for cache leaves with no per-slot batch axis: the K/V page pools of
+# a paged cache, shared by every slot and addressed through the page table
+PAGED = "paged"
+
+
+def cache_batch_axes(model: Model, max_len: int, **cache_kw) -> dict:
     """Which axis of each cache leaf is the batch (slot) axis: the one axis
     on which a 1-slot and a 2-slot cache disagree (shapes only, on the meta
-    device)."""
-    c1 = model.init_cache(1, max_len, device="meta")
-    c2 = model.init_cache(2, max_len, device="meta")
+    device). `cache_kw` passes the paged layout's page_size / pool_pages;
+    the pools' shapes do not depend on the slot count (the probe pins
+    pool_pages), so they get `PAGED` instead of an axis."""
+    if cache_kw.get("page_size") is not None:
+        cache_kw = dict(cache_kw, pool_pages=cache_kw.get("pool_pages") or 8)
+    c1 = model.init_cache(1, max_len, device="meta", **cache_kw)
+    c2 = model.init_cache(2, max_len, device="meta", **cache_kw)
     out = {}
     for name in c1:
         diff = [i for i, (x, y) in enumerate(zip(c1[name].shape,
                                                  c2[name].shape)) if x != y]
-        assert len(diff) == 1, f"ambiguous batch axis of {name}"
-        out[name] = diff[0]
+        assert len(diff) <= 1, f"ambiguous batch axis of {name}"
+        out[name] = diff[0] if diff else PAGED
     return out

@@ -12,6 +12,13 @@ scale per (layer, row, KV head). Unlike the JAX package, which returns a new
 cache, the port updates the cache tensors in place and returns the same
 dict: a full-width cache is written one row at a time, never copied.
 
+The paged layout (`init_cache(page_size=, pool_pages=)`) keeps K/V in
+(L, P, ps, Hkv, ceil(hd/32)) pools shared by every slot and a (B, NP) int32
+page table per slot (entries equal to P: unallocated); V scales stay per
+slot. Paging is addressing only: the same writes and the same attention,
+through the page table (kernels 7 and 9, `decode_attention_packed_paged`
+and `prefill_attention_packed_paged`).
+
 `path` ('auto' | 'ref') picks, for every kernel on the path (sign-pack,
 binary GEMMs, packed attention), the hand-written kernel (which one the
 device decides: a CPU tensor runs the plain version) or the plain PyTorch
@@ -19,8 +26,8 @@ version on any device. It is the caller's explicit choice; nothing falls
 back on its own.
 
 Not ported yet (ROADMAP Queue A): the float KV cache and whole-prompt
-`transformer_prefill` (float flash attention), the paged layout, the VLM,
-MoE and audio families, training.
+`transformer_prefill` (float flash attention), the VLM, MoE and audio
+families, training.
 """
 from __future__ import annotations
 
@@ -31,12 +38,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bitpack import packed_width
 from repro_torch.core.layers import QuantMode, qmatmul, shared_pack
 from repro_torch.core.packed import PackedActivation, PackedWeight, map_tree
-from repro_torch.kernels.decode_attention import decode_attention_packed_plain
+from repro_torch.kernels.decode_attention import (
+    decode_attention_packed_paged_plain, decode_attention_packed_plain,
+)
 from repro_torch.kernels.prefill_attention import (
-    prefill_attention_packed_plain,
+    prefill_attention_packed_paged_plain, prefill_attention_packed_plain,
 )
 from repro_torch.models.attention import (
-    decode_attention_packed, prefill_attention_packed,
+    decode_attention_packed, decode_attention_packed_paged,
+    prefill_attention_packed, prefill_attention_packed_paged,
 )
 from repro_torch.models.common import ffn, ffn_param_shapes, rms_norm, rope
 
@@ -178,22 +188,77 @@ def _head(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None,
                page_size: int | None = None,
                pool_pages: int | None = None) -> dict:
-    """Contiguous kv_bits=1 cache: {"k", "v": (L, batch, max_len, Hkv,
-    ceil(hd/32)) int32 words, "v_scale": (L, batch, Hkv) float32}."""
+    """kv_bits=1 cache. Contiguous: {"k", "v": (L, batch, max_len, Hkv,
+    ceil(hd/32)) int32 words, "v_scale": (L, batch, Hkv) float32}.
+
+    With `page_size` the layout is paged (the JAX package's): "k", "v" are
+    (L, pool_pages, page_size, Hkv, ceil(hd/32)) pools shared by every slot
+    (pool_pages defaults to batch * NP, what the contiguous cache holds),
+    "page_table" is (batch, NP = ceil(max_len / page_size)) int32 filled
+    with the sentinel pool_pages, and "v_scale" stays (L, batch, Hkv). Each
+    layer's pool is followed in memory by one more page, the sink, which
+    only writes of inactive rows reach (`_with_sink`) and nothing reads."""
     _check_served(cfg)
     if cfg.kv_bits != 1:
         raise NotImplementedError("the float KV cache (kv_bits=0) comes with "
                                   "the next slice (ROADMAP Queue A)")
-    if page_size is not None or pool_pages is not None:
-        raise NotImplementedError("the paged cache is not ported yet "
-                                  "(ROADMAP Queue A, with kernels 7 and 9)")
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
-             packed_width(cfg.head_dim))
-    return {"k": torch.zeros(shape, dtype=torch.int32, device=dev),
-            "v": torch.zeros(shape, dtype=torch.int32, device=dev),
-            "v_scale": torch.zeros((cfg.n_layers, batch, cfg.n_kv_heads),
-                                   dtype=torch.float32, device=dev)}
+    hkv, hdw = cfg.n_kv_heads, packed_width(cfg.head_dim)
+    cache = {}
+    if page_size is None:
+        if pool_pages is not None:
+            raise ValueError("pool_pages needs page_size (the paged layout)")
+        shape = (cfg.n_layers, batch, max_len, hkv, hdw)
+        cache["k"] = torch.zeros(shape, dtype=torch.int32, device=dev)
+        cache["v"] = torch.zeros(shape, dtype=torch.int32, device=dev)
+    else:
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        n_pages = -(-max_len // page_size)
+        pool = pool_pages if pool_pages is not None else batch * n_pages
+        for name in ("k", "v"):
+            cache[name] = new_pool(cfg.n_layers, pool, page_size, hkv, hdw,
+                                   device=dev)
+        cache["page_table"] = torch.full((batch, n_pages), pool,
+                                         dtype=torch.int32, device=dev)
+    cache["v_scale"] = torch.zeros((cfg.n_layers, batch, hkv),
+                                   dtype=torch.float32, device=dev)
+    return cache
+
+
+def new_pool(n_layers: int, pool: int, page_size: int, hkv: int, hdw: int,
+             *, device) -> torch.Tensor:
+    """Zeroed (L, pool, page_size, Hkv, hdw) int32 page pools: a view of
+    (L, pool + 1, ...) storage, so that each layer's pool is followed by
+    its sink page (see `_with_sink`)."""
+    if pool < 1:
+        raise ValueError(f"pool_pages must be >= 1, got {pool}")
+    storage = torch.zeros((n_layers, pool + 1, page_size, hkv, hdw),
+                          dtype=torch.int32, device=device)
+    return storage[:, :pool]
+
+
+def _with_sink(pool: torch.Tensor) -> torch.Tensor:
+    """One layer's (P, ps, Hkv, hdw) pool seen as P + 1 pages, the last the
+    sink. Rows that must write nothing (inactive decode rows, chunk rows
+    whose table entry is the sentinel P) write page P of this view: a page
+    no table names and no kernel reads. Writing their own old words instead
+    races: a freed slot's all-sentinel row would land on page P - 1, which
+    may be the very (page, row) an active slot writes in the same step."""
+    p = pool.shape[0]
+    end = (pool.storage_offset() + (p + 1) * pool.stride(0)) \
+        * pool.element_size()
+    if pool.untyped_storage().nbytes() < end:
+        raise ValueError("the pool has no sink page: make pools with "
+                         "init_cache or new_pool")
+    return pool.as_strided((p + 1,) + tuple(pool.shape[1:]), pool.stride())
+
+
+def cache_len_max(cache: dict) -> int:
+    """Positions one slot's cache holds: T contiguous, NP * ps paged."""
+    if "page_table" in cache:
+        return cache["page_table"].shape[1] * cache["k"].shape[2]
+    return cache["k"].shape[2]
 
 
 def _write_rows(cache_rows: torch.Tensor, rows: torch.Tensor,
@@ -210,26 +275,53 @@ def _write_rows(cache_rows: torch.Tensor, rows: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Decode: one token per row against the cache
 # ---------------------------------------------------------------------------
-def _decode_self_block(bp, h, kc, vc, vs, cfg, mode, pos, act, path):
+def _decode_self_block(bp, h, kc, vc, vs, cfg, mode, pos, act, path,
+                       pages=None):
     """One-token block. h: (B, 1, D); kc/vc: (B, T, Hkv, hdw) views of the
-    layer's cache; pos: (B,) int32 write positions. Rows with act False
-    (pos < 0: freed or mid-admission slots) compute but write nothing."""
-    b, t_max = h.shape[0], kc.shape[1]
+    layer's cache, or with `pages` = (page_table, write page, write row)
+    the layer's (P, ps, Hkv, hdw) pools; pos: (B,) int32 write positions.
+    Rows with act False (pos < 0: freed or mid-admission slots) compute but
+    write nothing."""
+    b = h.shape[0]
     xn = rms_norm(h, bp["ln1"]["scale"])
     q, k_new, v_new = _qkv(bp["attn"], xn, cfg, mode, path)
     positions = pos[:, None]                                   # (B, 1)
     q = rope(q, positions, cfg.rope_theta)
     k_new = rope(k_new, positions, cfg.rope_theta)
-    rows = torch.arange(b, device=h.device)
-    idx = pos.clamp(0, t_max - 1).long()
-    _write_rows(kc, rows, idx, _pack(k_new[:, 0], path), act)
-    _write_rows(vc, rows, idx, _pack(v_new[:, 0], path), act)
-    attend = decode_attention_packed if path == "auto" \
-        else decode_attention_packed_plain
-    out = attend(q, kc, vc, vs, pos + 1, window=cfg.local_window)
+    k_rows, v_rows = _pack(k_new[:, 0], path), _pack(v_new[:, 0], path)
+    if pages is None:
+        rows = torch.arange(b, device=h.device)
+        idx = pos.clamp(0, kc.shape[1] - 1).long()
+        _write_rows(kc, rows, idx, k_rows, act)
+        _write_rows(vc, rows, idx, v_rows, act)
+        attend = decode_attention_packed if path == "auto" \
+            else decode_attention_packed_plain
+        out = attend(q, kc, vc, vs, pos + 1, window=cfg.local_window)
+    else:
+        pt, wpage, wrow = pages
+        _with_sink(kc)[wpage, wrow] = k_rows
+        _with_sink(vc)[wpage, wrow] = v_rows
+        attend = decode_attention_packed_paged if path == "auto" \
+            else decode_attention_packed_paged_plain
+        out = attend(q, kc, vc, vs, pt, pos + 1, window=cfg.local_window)
     out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim)
     h = h + qmatmul(out, bp["attn"]["wo"], mode, path=path)
     return ffn_sublayer(bp, h, cfg, mode, path=path)
+
+
+def _decode_pages(cache: dict, pos: torch.Tensor, act: torch.Tensor):
+    """(page table, write page, write row) of a paged decode step, the same
+    for every layer: an active row writes at page pt[b, pos // ps], row
+    pos % ps; an inactive one at the sink page P. None when contiguous."""
+    pt = cache.get("page_table")
+    if pt is None:
+        return None
+    p_pool, ps = cache["k"].shape[1], cache["k"].shape[2]
+    posc = pos.clamp(min=0).long()
+    pidx = (posc // ps).clamp(max=pt.shape[1] - 1)
+    rows = torch.arange(pt.shape[0], device=pt.device)
+    wpage = torch.where(act, pt[rows, pidx].long(), p_pool)
+    return pt, wpage, posc % ps
 
 
 def transformer_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
@@ -238,21 +330,22 @@ def transformer_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
     """One decode step. token: (B,) int; pos: int or (B,) int32 tensor (per
     row write position = tokens already in that row's context; pos < 0
     marks a row inactive: it computes but writes nothing to the cache).
-    Returns (logits (B, V), the cache, updated in place)."""
+    The cache is contiguous or paged (`init_cache`). Returns (logits (B, V),
+    the cache, updated in place)."""
     _check_served(cfg)
     mode = QuantMode(cfg.quant)
     b = token.shape[0]
     dev = token.device
     pos = (pos.to(torch.int32) if isinstance(pos, torch.Tensor)
            else torch.full((b,), int(pos), dtype=torch.int32, device=dev))
-    t_max = cache["k"].shape[2]
-    act = (pos >= 0) & (pos < t_max)
+    act = (pos >= 0) & (pos < cache_len_max(cache))
+    pages = _decode_pages(cache, pos, act)
     h = _embed(params, cfg, token[:, None])
     for layer in range(cfg.n_layers):
         h = _decode_self_block(layer_params(params, layer), h,
                                cache["k"][layer], cache["v"][layer],
                                cache["v_scale"][layer], cfg, mode, pos, act,
-                               path)
+                               path, pages)
     return _head(params, cfg, h)[:, 0], cache
 
 
@@ -260,29 +353,45 @@ def transformer_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
 # Chunked prefill: advance one slot's prompt by one fixed-shape chunk
 # ---------------------------------------------------------------------------
 def _chunk_self_block(bp, h, kc, vc, vs, cfg, mode, positions, pos, n_valid,
-                      path):
+                      path, pages=None):
     """One block over a prefill chunk against the slot's cache row.
     h: (1, C, D); kc/vc: (1, T, Hkv, hdw) and vs: (1, Hkv) views of the
-    slot's rows. The chunk's first n_valid K/V rows are written (pad rows
-    write nothing), the V scale becomes the running mean |v| over
-    [0, pos + n_valid), then the chunk attends to everything written."""
+    slot's rows, or with `pages` = (the slot's (1, NP) page-table row, write
+    pages, write rows) kc/vc are the layer's (P, ps, Hkv, hdw) pools. The
+    chunk's first n_valid K/V rows are written (pad rows write nothing),
+    the V scale becomes the running mean |v| over [0, pos + n_valid), then
+    the chunk attends to everything written."""
     c = h.shape[1]
     kv_len = pos + n_valid
     xn = rms_norm(h, bp["ln1"]["scale"])
     q, k_new, v_new = _qkv(bp["attn"], xn, cfg, mode, path)
     q = rope(q, positions, cfg.rope_theta)
     k_new = rope(k_new, positions, cfg.rope_theta)
-    kc[0, pos:kv_len] = _pack(k_new[0, :n_valid], path)
-    vc[0, pos:kv_len] = _pack(v_new[0, :n_valid], path)
+    k_rows = _pack(k_new[0, :n_valid], path)
+    v_rows = _pack(v_new[0, :n_valid], path)
+    if pages is None:
+        kc[0, pos:kv_len] = k_rows
+        vc[0, pos:kv_len] = v_rows
+    else:
+        _, wpage, wrow = pages
+        _with_sink(kc)[wpage, wrow] = k_rows
+        _with_sink(vc)[wpage, wrow] = v_rows
     # running mean |v| over (positions so far, head_dim): equals the
-    # whole-prompt v_cache_scale once the last chunk lands
+    # whole-prompt v_cache_scale once the last chunk lands; the same in
+    # either layout, which keeps paged prefill equal to contiguous
     absm = v_new[0].to(torch.float32).abs().mean(dim=-1)      # (C, Hkv)
     msk = (torch.arange(c, device=h.device) < n_valid)[:, None]
     vs.copy_((vs * float(pos) + (absm * msk).sum(dim=0)[None])
              / float(kv_len))
-    attend = prefill_attention_packed if path == "auto" \
-        else prefill_attention_packed_plain
-    out = attend(q, kc, vc, vs, kv_len, pos, window=cfg.local_window)
+    if pages is None:
+        attend = prefill_attention_packed if path == "auto" \
+            else prefill_attention_packed_plain
+        out = attend(q, kc, vc, vs, kv_len, pos, window=cfg.local_window)
+    else:
+        attend = prefill_attention_packed_paged if path == "auto" \
+            else prefill_attention_packed_paged_plain
+        out = attend(q, kc, vc, vs, pages[0], kv_len, pos,
+                     window=cfg.local_window)
     out = out.reshape(1, c, cfg.n_heads * cfg.head_dim)
     h = h + qmatmul(out, bp["attn"]["wo"], mode, path=path)
     return ffn_sublayer(bp, h, cfg, mode, path=path)
@@ -295,24 +404,38 @@ def transformer_prefill_chunk(params: dict, cfg: ModelConfig,
     """Advance one slot's prefill by one fixed-shape chunk.
 
     tokens: (1, C) int, right-padded (only the first n_valid are real);
-    cache: the scheduler's whole slot cache; slot, pos (tokens already
-    written for this slot) and n_valid are host ints. K/V rows land at
-    positions [pos, pos + n_valid) of the slot's row. Returns (logits
-    (1, V) at the chunk's last real token, the cache, updated in place)."""
+    cache: the scheduler's whole slot cache, contiguous or paged; slot, pos
+    (tokens already written for this slot) and n_valid are host ints. K/V
+    rows land at positions [pos, pos + n_valid) of the slot's row -- paged:
+    at page pt[slot, t // ps], row t % ps, read from the device page table
+    (no host sync); rows whose entry is the sentinel write nothing.
+    Returns (logits (1, V) at the chunk's last real token, the cache,
+    updated in place)."""
     _check_served(cfg)
     if not 1 <= n_valid <= tokens.shape[1]:
         raise ValueError(f"n_valid={n_valid} outside 1..{tokens.shape[1]}")
-    if pos < 0 or pos + n_valid > cache["k"].shape[2]:
+    t_max = cache_len_max(cache)
+    if pos < 0 or pos + n_valid > t_max:
         raise ValueError(f"chunk rows [{pos}, {pos + n_valid}) outside the "
-                         f"cache's {cache['k'].shape[2]} positions")
+                         f"cache's {t_max} positions")
     mode = QuantMode(cfg.quant)
     c = tokens.shape[1]
     positions = torch.arange(c, dtype=torch.int32, device=tokens.device) + pos
+    pages = None
+    if "page_table" in cache:
+        pt_row = cache["page_table"][slot:slot + 1]               # (1, NP)
+        ps = cache["k"].shape[2]
+        written = positions[:n_valid].long()
+        pages = (pt_row, pt_row[0, written // ps].long(), written % ps)
     h = _embed(params, cfg, tokens)
     for layer in range(cfg.n_layers):
+        if pages is None:
+            kc = cache["k"][layer, slot:slot + 1]
+            vc = cache["v"][layer, slot:slot + 1]
+        else:
+            kc, vc = cache["k"][layer], cache["v"][layer]
         h = _chunk_self_block(
-            layer_params(params, layer), h,
-            cache["k"][layer, slot:slot + 1], cache["v"][layer, slot:slot + 1],
+            layer_params(params, layer), h, kc, vc,
             cache["v_scale"][layer, slot:slot + 1], cfg, mode, positions, pos,
-            n_valid, path)
+            n_valid, path, pages)
     return _head(params, cfg, h[:, n_valid - 1:n_valid])[:, 0], cache

@@ -3,6 +3,9 @@ single-device part of `repro.serving.engine`).
 
     eng = ServingEngine(cfg, params, freeze=True, kv_bits=1, prefill_chunk=C)
     tokens = eng.generate([Request(prompt, max_new_tokens=16), ...])
+    # paged 1-bit KV pool with the radix-tree prefix cache
+    eng = ServingEngine(cfg, params, freeze=True, kv_bits=1, prefill_chunk=C,
+                        page_size=P, prefix_cache=True)
 
 `freeze=True` packs the fp32 masters into 1-bit `PackedWeight`s once, at
 load; `kv_bits=1` keeps K/V as sign bitplanes plus a per-head V scale. Every
@@ -11,10 +14,13 @@ hand-written kernels on the card (`kernel_path="auto"`), or through their
 plain PyTorch versions on any device (`kernel_path="ref"`, the yardstick the
 kernels are held to). A CPU tensor always runs the plain versions.
 
+`page_size=P` keeps K/V in a pool of P-token pages shared by every slot
+(`pool_pages`, default what the contiguous cache holds) and `prefix_cache`
+shares full prompt pages across requests (`serving.scheduler`).
+
 Not ported yet (ROADMAP Queue A): `generate_static`; and raising
 NotImplementedError: whole-prompt admission (`prefill_chunk=None`), the
-float KV cache (`kv_bits=0`), the mesh, paging and the prefix cache, the
-bounded queue and fault plans.
+float KV cache (`kv_bits=0`), the mesh, the bounded queue and fault plans.
 """
 from __future__ import annotations
 
@@ -62,6 +68,7 @@ class ServingEngine:
         self.seed = seed
         self.prefill_chunk = prefill_chunk
         self.interleave_steps = interleave_steps
+        self.page_size, self.pool_pages = page_size, pool_pages
         self._sched_kw = dict(page_size=page_size, pool_pages=pool_pages,
                               prefix_cache=prefix_cache, mesh=mesh,
                               queue_cap=queue_cap, fault_plan=fault_plan)
@@ -87,16 +94,36 @@ class ServingEngine:
         """Bytes of weights resident on the device, split binary vs other."""
         return resident_weight_bytes(self.params)
 
+    def _cache_kw(self) -> dict:
+        """init_cache's paging arguments (the scheduler's default pool)."""
+        if self.page_size is None:
+            return {}
+        n_pages = -(-self.max_len // self.page_size)
+        return {"page_size": self.page_size,
+                "pool_pages": (self.pool_pages if self.pool_pages is not None
+                               else self.slots * n_pages)}
+
     def resident_cache_bytes(self) -> dict:
-        """Bytes of the slot cache (`slots` rows at `max_len`), split
-        `packed` (int32 sign bitplanes) vs `float` (V scales). Computed
-        from shapes; nothing is allocated."""
-        cache = self.model.init_cache(self.slots, self.max_len, device="meta")
+        """Bytes of the slot cache (`slots` rows at `max_len`, or the page
+        pool), split `packed` (int32 sign bitplanes, and int32 page tables)
+        vs `float` (V scales). Computed from shapes; nothing is allocated.
+        Paged, `packed` also counts each layer's sink page, and a
+        `page_pool` section holds the scheduler's `page_stats()`: pages,
+        allocated, free, pinned by the prefix tree, the tree's counters."""
+        cache = self.model.init_cache(self.slots, self.max_len, device="meta",
+                                      **self._cache_kw())
         out = {"packed": 0, "float": 0}
-        for leaf in cache.values():
+        for name, leaf in cache.items():
             kind = "packed" if leaf.dtype == torch.int32 else "float"
-            out[kind] += leaf.numel() * leaf.element_size()
+            n = leaf.numel()
+            if name in ("k", "v") and "page_table" in cache:
+                n += n // leaf.shape[1]              # the sink pages
+            out[kind] += n * leaf.element_size()
         out["total"] = out["packed"] + out["float"]
+        if self._sched is not None:
+            stats = self._sched.page_stats()
+            if stats is not None:
+                out["page_pool"] = stats
         return out
 
     def scheduler(self) -> Scheduler:

@@ -1,6 +1,6 @@
 """Continuous-batching scheduler: fixed decode slots over a request queue
-(port of the single-device, contiguous-cache, chunked-admission subset of
-`repro.serving.scheduler`).
+(port of the single-device, chunked-admission subset of
+`repro.serving.scheduler`, contiguous or paged cache, with the prefix cache).
 
 Admission is chunked (`prefill_chunk=C`): a prompt advances through its
 slot's cache row one fixed-shape (1, C) chunk per poll, through
@@ -22,13 +22,28 @@ recycled to the next queued request at the next poll. Completions carry
 `latency` and burst-granularity inter-token intervals `itl`, as in the JAX
 package.
 
+Paged mode (`page_size=P`): the cache's K/V are pools of P-token pages
+shared by every slot plus a per-slot page table (`models.transformer`).
+Pages are refcounted (`serving.pager.PagePool`) and allocated at admission
+for every position the request can reach, evicting cold prefix-tree pages
+when the pool is short; a request the pool cannot take yet waits in its
+place in the queue. With `prefix_cache=True` a radix tree over retired,
+immutable full prompt pages (`serving.prefix_cache.PrefixCache`) lets
+admission pin the longest cached full-page prefix (capped below the whole
+prompt) into the new slot's table with no copy: prefill runs only for the
+unseen suffix, the slot's running V scale is restored from the snapshot
+taken at that page boundary (hence `page_size % prefill_chunk == 0`), and
+`Completion.cached_tokens` counts the pinned tokens (`ttft` charges only
+the suffix). Retirement offers the request's full prompt pages to the tree.
+Paging changes addressing only: tokens equal the contiguous cache's.
+
 Sampling (temperature > 0) draws Gumbel noise from one generator seeded
 from the engine (`serving.sampling`): greedy outputs are the JAX package's,
 sampled ones are not its draws.
 
 Not ported yet, and raising NotImplementedError naming ROADMAP Queue A:
-whole-prompt admission (`prefill_chunk=None`), the mesh, the paged cache
-and its prefix cache, fault plans, the bounded queue and deadlines.
+whole-prompt admission (`prefill_chunk=None`), the mesh, fault plans, the
+bounded queue and deadlines.
 """
 from __future__ import annotations
 
@@ -41,6 +56,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.api import Model
+from repro_torch.serving.pager import PagePool
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.sampling import sample_tokens
 
 
@@ -66,10 +83,20 @@ class Completion:
     latency: float               # seconds, submit -> harvest
     ttft: float = 0.0            # seconds of the request's own admission
     ttft_wall: float = 0.0       # seconds, submit -> first token
+    cached_tokens: int = 0       # prompt tokens served from the prefix cache
     itl: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros((0,)))
-    status: str = "completed"    # "completed" | "error" (non-finite logits)
+    # "completed" | "error" (non-finite logits, or a page pool that cannot
+    # take the request with nothing in flight)
+    status: str = "completed"
     error: str | None = None
+
+
+@dataclasses.dataclass
+class _Running:
+    rid: int
+    prompt_len: int
+    prompt: np.ndarray | None = None   # kept only for prefix-tree insertion
 
 
 @dataclasses.dataclass
@@ -79,6 +106,7 @@ class _Admission:
     req: Request
     n_chunks: int
     next: int = 0
+    start: int = 0      # prompt tokens served from the prefix cache
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -102,16 +130,40 @@ class Scheduler:
                  fault_plan=None):
         if prefill_chunk is None:
             raise _not_ported("whole-prompt admission (prefill_chunk=None)")
-        for name, value in (("the paged cache (page_size)", page_size),
-                            ("pool_pages", pool_pages),
-                            ("the mesh", mesh), ("queue_cap", queue_cap),
+        for name, value in (("the mesh", mesh), ("queue_cap", queue_cap),
                             ("fault plans", fault_plan)):
             if value is not None:
                 raise _not_ported(name)
-        if prefix_cache:
-            raise _not_ported("the prefix cache")
         if prefill_chunk < 1 or interleave_steps < 0:
             raise ValueError("prefill_chunk >= 1 and interleave_steps >= 0")
+        self._paged = page_size is not None
+        cache_kw = {}
+        if self._paged:
+            if page_size < 1:
+                raise ValueError(f"page_size must be >= 1, got {page_size}")
+            self.page_size = page_size
+            self.n_pages = -(-max_len // page_size)
+            self.pool_pages = (pool_pages if pool_pages is not None
+                               else n_slots * self.n_pages)
+            cache_kw = {"page_size": page_size, "pool_pages": self.pool_pages}
+            self._pager = PagePool(self.pool_pages)
+            self._slot_pages: dict[int, list[int]] = {}
+        elif pool_pages is not None:
+            raise ValueError("pool_pages needs the paged cache -- pass "
+                             "page_size")
+        if prefix_cache and not self._paged:
+            raise ValueError("prefix_cache needs the paged cache -- pass "
+                             "page_size")
+        self._use_tree = bool(prefix_cache)
+        if self._use_tree:
+            # running V-scale snapshots are taken at chunk ends, so page
+            # boundaries must land on chunk ends to be insertable
+            if cfg.kv_bits == 1 and page_size % prefill_chunk:
+                raise ValueError(
+                    f"prefix_cache with kv_bits=1 needs page_size divisible "
+                    f"by prefill_chunk ({page_size} % {prefill_chunk})")
+            self._ptree = PrefixCache(self._pager, page_size)
+        self._needs_vs = cfg.kv_bits == 1
         self.cfg, self.model, self.params = cfg, model, params
         self.n_slots, self.max_len = n_slots, max_len
         self.max_out = max_len
@@ -122,13 +174,16 @@ class Scheduler:
         self._next_rid = 0
         self._queue: deque[tuple[int, Request]] = deque()
         self._free = list(range(n_slots))
-        self._running: dict[int, int] = {}    # slot -> rid
+        self._running: dict[int, _Running] = {}
         self._admitting: deque[_Admission] = deque()
         self._temps: dict[int, float] = {}     # slot -> temperature (host)
         self._submit_time: dict[int, float] = {}
         self._ttft: dict[int, float] = {}
         self._ttft_wall: dict[int, float] = {}
         self._req_prefill_s: dict[int, float] = {}
+        self._cached_tokens: dict[int, int] = {}
+        # rid -> {page boundary: that layer-stack's V scales (L, Hkv)}
+        self._vs_snaps: dict[int, dict[int, torch.Tensor | None]] = {}
         self._itl: dict[int, list] = {}
         self._slot_last_tok: dict[int, float] = {}
         self._prev_out_len = np.zeros((n_slots,), np.int64)
@@ -136,9 +191,11 @@ class Scheduler:
         self.stats = {"prefill_tokens": 0, "prefill_s": 0.0, "bursts": 0,
                       "decode_s": 0.0, "tokens_out": 0, "completed": 0,
                       "max_admit_stall_tokens": 0, "errors": 0,
-                      "decode_steps": 0, "host_syncs": 0}
+                      "decode_steps": 0, "host_syncs": 0,
+                      "prefill_tokens_saved": 0, "prefix_hits": 0}
 
-        self._cache = model.init_cache(n_slots, max_len, device=self.device)
+        self._cache = model.init_cache(n_slots, max_len, device=self.device,
+                                       **cache_kw)
         z = dict(dtype=torch.int32, device=self.device)
         self._state = {
             "cur": torch.zeros((n_slots,), **z),
@@ -194,6 +251,12 @@ class Scheduler:
                 f"img_emb is vlm-only (family is {self.cfg.family!r})")
         if req.deadline_s is not None:
             raise _not_ported("deadlines (deadline_s)")
+        if self._paged:
+            need = -(-(int(prompt.size) + req.max_new_tokens - 1)
+                     // self.page_size)
+            if need > self.pool_pages:
+                raise RequestError(f"request needs {need} pages > "
+                                   f"pool_pages={self.pool_pages}")
         return prompt.astype(np.int32)
 
     def submit(self, req: Request) -> int:
@@ -222,13 +285,109 @@ class Scheduler:
             return rid_req
         return q.popleft()
 
+    # -- paged cache --------------------------------------------------------
+    def _set_page_row(self, slot: int, pages: list[int]) -> None:
+        """Write one slot's page-table row: `pages` in position order, the
+        sentinel pool_pages beyond (unallocated: kernels clip and mask)."""
+        row = np.full((self.n_pages,), self.pool_pages, np.int32)
+        row[:len(pages)] = pages
+        self._cache["page_table"][slot] = torch.from_numpy(row).to(self.device)
+
+    def _alloc_pages(self, n: int) -> list[int] | None:
+        """All-or-nothing page allocation, evicting cold prefix-tree
+        entries when the free list alone cannot cover it."""
+        got = self._pager.alloc(n)
+        if got is None and self._use_tree:
+            self._ptree.evict(n - self._pager.free_count())
+            got = self._pager.alloc(n)
+        return got
+
+    def page_stats(self) -> dict | None:
+        """Page-pool use: allocated vs pinned only by the prefix tree vs
+        free, plus the tree's counters. None when the cache is contiguous."""
+        if not self._paged:
+            return None
+        out = self._pager.stats()
+        out["page_size"] = self.page_size
+        out["pinned_by_prefix"] = self._ptree.n_pages if self._use_tree else 0
+        if self._use_tree:
+            out["prefix_tree"] = self._ptree.stats()
+        return out
+
+    def _retire_slot(self, slot: int, info: _Running, ok: bool) -> None:
+        """Release a completed slot's pages. With the prefix tree, its full
+        prompt pages (immutable from here on: decode writes only past the
+        prompt) are offered to the tree first: a new token run hands its
+        page's reference to the tree, a run already cached keeps the
+        incumbent page and ours is released. Every other page drops the
+        slot's reference. A slot retiring with an error donates nothing."""
+        pages = self._slot_pages.pop(slot)
+        taken: set = set()
+        if ok and self._use_tree and info.prompt is not None:
+            ps = self.page_size
+            snaps = self._vs_snaps.get(info.rid, {})
+            payloads = []
+            for i in range(info.prompt_len // ps):
+                if self._needs_vs and snaps.get((i + 1) * ps) is None:
+                    break       # boundary missed its snapshot: stop here
+                payloads.append(snaps.get((i + 1) * ps))
+            taken = self._ptree.insert(info.prompt[:len(payloads) * ps],
+                                       pages[:len(payloads)], payloads)
+        self._vs_snaps.pop(info.rid, None)
+        self._pager.decref([p for p in pages if p not in taken])
+        self._set_page_row(slot, [])
+
     # -- chunked admission --------------------------------------------------
+    def _start_admission(self, slot: int, rid: int, req: Request) -> bool:
+        """Reserve `slot` and queue the request's chunked admission. Paged:
+        allocate every page the request can reach (decode never runs out
+        mid-flight), after pinning the longest cached full-page prefix from
+        the tree (zero copies; only the unseen suffix is prefilled). Returns
+        False, with nothing reserved, when the pool cannot take the request
+        even after evicting cold tree pages."""
+        start = 0
+        if self._paged:
+            plen, ps = int(req.prompt.size), self.page_size
+            pinned: list[int] = []
+            payloads: list = []
+            if self._use_tree:
+                # the last prompt token must prefill here, for the
+                # first-token logits: the match stays below the whole prompt
+                cap = ((plen - 1) // ps) * ps
+                pinned, payloads = self._ptree.lookup(req.prompt[:cap])
+                start = len(pinned) * ps
+            need = -(-(plen + req.max_new_tokens - 1) // ps)
+            fresh = self._alloc_pages(need - len(pinned))
+            if fresh is None:
+                if pinned:
+                    self._pager.decref(pinned)
+                return False
+            pages = pinned + fresh
+            self._slot_pages[slot] = pages
+            self._set_page_row(slot, pages)
+            if start:
+                self.stats["prefix_hits"] += 1
+                self.stats["prefill_tokens_saved"] += start
+                self._cached_tokens[rid] = start
+            # the matched pages' snapshots seed this request's map, and the
+            # running V scale resumes from the last one, so the suffix
+            # prefill continues the mean exactly where the pages left off
+            self._vs_snaps[rid] = {(i + 1) * ps: payloads[i]
+                                   for i in range(len(payloads))}
+            if start and self._needs_vs:
+                self._cache["v_scale"][:, slot] = payloads[-1]
+        n_chunks = max(1, -(-(int(req.prompt.size) - start)
+                            // self.prefill_chunk))
+        self._admitting.append(_Admission(slot, rid, req, n_chunks,
+                                          start=start))
+        return True
+
     def _advance_admission(self) -> None:
         """Advance the head admission by exactly one chunk; the last chunk
         samples the first token and arms the slot's decode state."""
         adm = self._admitting[0]
         req, slot, c = adm.req, adm.slot, self.prefill_chunk
-        lo = adm.next * c
+        lo = adm.start + adm.next * c
         n_valid = min(c, int(req.prompt.size) - lo)
         final = adm.next == adm.n_chunks - 1
         if self._running:   # running slots wait only for THIS chunk
@@ -250,9 +409,20 @@ class Scheduler:
         self.stats["prefill_tokens"] += n_valid
         self._prefill_shapes.add(("chunk", c, final))
         adm.next += 1
+        end = lo + n_valid
+        if self._use_tree and end % self.page_size == 0 and \
+                end not in self._vs_snaps[adm.rid]:
+            # the chunk ended on a page boundary: keep the running V scale
+            # there (a device copy, no host sync), so the page can enter
+            # the tree at retirement and a hit can resume from it
+            self._vs_snaps[adm.rid][end] = (
+                self._cache["v_scale"][:, slot].clone()
+                if self._needs_vs else None)
         if final:
             self._admitting.popleft()
-            self._running[slot] = adm.rid
+            self._running[slot] = _Running(
+                adm.rid, int(req.prompt.size),
+                prompt=req.prompt if self._use_tree else None)
             self._note_first_token(slot, adm.rid)
 
     def _first_token(self, slot: int, logits1: torch.Tensor, prompt_len: int,
@@ -346,7 +516,8 @@ class Scheduler:
         now = time.time()
         dur = now - t_start
         out_len = self._state["out_len"].cpu().numpy()
-        for slot, rid in self._running.items():
+        for slot, info in self._running.items():
+            rid = info.rid
             n = int(out_len[slot] - self._prev_out_len[slot])
             if n > 0:
                 per = dur / n
@@ -370,8 +541,9 @@ class Scheduler:
         slots = [int(s) for s in np.nonzero(done)[0] if int(s) in self._running]
         completed = []
         now = time.time()
-        for slot in sorted(slots, key=lambda s: self._running[s]):
-            rid = self._running.pop(slot)
+        for slot in sorted(slots, key=lambda s: self._running[s].rid):
+            info = self._running.pop(slot)
+            rid = info.rid
             bad = bool(errf[slot])
             toks = (np.zeros((0,), np.int32) if bad else
                     outs[slot, :int(out_len[slot])].astype(np.int32))
@@ -380,6 +552,8 @@ class Scheduler:
             else:
                 self.stats["tokens_out"] += int(toks.size)
                 self.stats["completed"] += 1
+            if self._paged:
+                self._retire_slot(slot, info, ok=not bad)
             self._free.append(slot)
             self._temps.pop(slot, None)
             self._slot_last_tok.pop(slot, None)
@@ -387,6 +561,7 @@ class Scheduler:
                 rid, toks, now - self._submit_time.pop(rid),
                 ttft=self._ttft.pop(rid, 0.0),
                 ttft_wall=self._ttft_wall.pop(rid, 0.0),
+                cached_tokens=self._cached_tokens.pop(rid, 0),
                 itl=np.asarray(self._itl.pop(rid, [])),
                 status="error" if bad else "completed",
                 error="non-finite logits" if bad else None))
@@ -400,15 +575,29 @@ class Scheduler:
         """One round: start admissions into free slots, advance the head
         admission by one chunk, harvest, else decode until the next
         completion event (bounded to `interleave_steps` while an admission
-        is mid-flight)."""
+        is mid-flight). A request the page pool cannot take yet goes back to
+        its place at the head of the queue until running requests retire
+        pages; with nothing in flight it could never be taken, and it
+        completes alone with status 'error'."""
+        completed: list[Completion] = []
         while self._queue and self._free:
             rid, req = self._pop_next()
             slot = self._free.pop(0)
-            n_chunks = -(-int(req.prompt.size) // self.prefill_chunk)
-            self._admitting.append(_Admission(slot, rid, req, n_chunks))
+            if not self._start_admission(slot, rid, req):
+                self._free.insert(0, slot)
+                if not self._running and not self._admitting:
+                    self.stats["errors"] += 1
+                    completed.append(Completion(
+                        rid, np.zeros((0,), np.int32),
+                        time.time() - self._submit_time.pop(rid),
+                        status="error",
+                        error="page pool exhausted with nothing in flight"))
+                    continue
+                self._queue.appendleft((rid, req))
+                break
         if self._admitting:
             self._advance_admission()
-        completed = self._harvest()
+        completed += self._harvest()
         if not completed and self._running:
             bounded = self.interleave_steps if self._admitting else 0
             dr = drain and not self._queue and not self._admitting

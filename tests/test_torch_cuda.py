@@ -189,3 +189,94 @@ def test_cuda_prefill_one_row_equals_decode():
     pre = pa.prefill_attention_packed(q, k, v, vs, lens, lens - 1, window=4)
     torch.cuda.synchronize()
     assert torch.equal(dec, pre)
+
+
+# ---------------------------------------------------------------------------
+# Kernels 7 and 9: decode and prefill attention over a paged pool
+# ---------------------------------------------------------------------------
+def _paged_case(seed, b, ps, n_pages, pool, hkv, g, hd, lens, s=1):
+    """Packed K/V pools of `pool` pages, and a page table giving row i
+    ceil(lens[i] / ps) distinct pages in shuffled order, the sentinel
+    `pool` in its unallocated tail."""
+    rng = np.random.default_rng(seed)
+    k, v = (pack_bits(torch.from_numpy(rng.normal(size=(pool, ps, hkv, hd))
+                                       .astype(np.float32)))
+            for _ in range(2))
+    free = list(rng.permutation(pool))
+    table = np.full((b, n_pages), pool, np.int32)
+    for i, n in enumerate(lens):
+        for j in range(-(-int(n) // ps)):
+            table[i, j] = free.pop()
+    q = torch.from_numpy(rng.integers(-4, 5, (b, s, hkv * g, hd))
+                         .astype(np.float32))
+    vs = torch.from_numpy(rng.uniform(0.5, 1.0, (b, hkv)).astype(np.float32))
+    return q, k, v, vs, torch.from_numpy(table)
+
+
+# (B, ps, NP, pool, Hkv, G, hd, lengths, window): the main path's shape (a
+# 64-page pool, lengths 512/300/100/17) and a ragged one (ps 16, hd 33, a
+# row of length 0, a window)
+PAGED = [(4, 32, 16, 64, 10, 4, 128, (512, 300, 100, 17), 0),
+         (3, 16, 5, 12, 2, 2, 33, (0, 37, 80), 9)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_attention_paged_matches_plain_and_contiguous(dtype):
+    """Outputs and dots at every position equal, bit for bit, the plain
+    version's (gather + contiguous plain) and the contiguous kernel's on
+    the gathered panel."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    _need_card()
+    for b, ps, n_pages, pool, hkv, g, hd, lens, window in PAGED:
+        q, k, v, vs, pt = [a.cuda() for a in _paged_case(
+            hd + ps, b, ps, n_pages, pool, hkv, g, hd, lens)]
+        q = q.to(dtype)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        got, dots = da.decode_attention_packed_paged(
+            q, k, v, vs, pt, lens_t, window=window, return_dots=True)
+        want, wdots = da.decode_attention_packed_paged_plain(
+            q, k, v, vs, pt, lens_t, window=window, return_dots=True)
+        kg, vg = ref.gather_pages(k, pt), ref.gather_pages(v, pt)
+        contig, cdots = da.decode_attention_packed(
+            q, kg, vg, vs, lens_t, window=window, return_dots=True)
+        torch.cuda.synchronize()
+        for other, odots in ((want, wdots), (contig, cdots)):
+            assert torch.equal(dots, odots)
+            assert torch.equal(got, other)
+        assert (got[lens_t == 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_prefill_attention_paged_matches_plain_and_contiguous(dtype):
+    """A chunk of 32 at q_pos 0 and 96 against one slot's table row (as
+    the engine calls it), and per-row q_pos over every row of the table:
+    outputs and dots equal the plain version's and the contiguous
+    kernel's on the gathered panel, bit for bit."""
+    from repro_torch.kernels import prefill_attention as pa
+    from repro_torch.kernels import ref
+    _need_card()
+    for b, ps, n_pages, pool, hkv, g, hd, lens, window in PAGED:
+        s = 32 if hd == 128 else 5
+        q, k, v, vs, pt = [a.cuda() for a in _paged_case(
+            hd + ps + 1, b, ps, n_pages, pool, hkv, g, hd, lens, s)]
+        q = q.to(dtype)
+        rows = [(q[1:2], vs[1:2], pt[1:2], qp, qp + s) for qp in (0, 96)] \
+            if hd == 128 else []
+        qpos = torch.tensor([max(n - s, 0) for n in lens], dtype=torch.int32,
+                            device="cuda")
+        rows.append((q, vs, pt, qpos, qpos + s))
+        for qq, vv, tt, qp, kv in rows:
+            got, dots = pa.prefill_attention_packed_paged(
+                qq, k, v, vv, tt, kv, qp, window=window, return_dots=True)
+            want, wdots = pa.prefill_attention_packed_paged_plain(
+                qq, k, v, vv, tt, kv, qp, window=window, return_dots=True)
+            contig, cdots = pa.prefill_attention_packed(
+                qq, ref.gather_pages(k, tt), ref.gather_pages(v, tt), vv, kv,
+                qp, window=window, return_dots=True)
+            torch.cuda.synchronize()
+            for other, odots in ((want, wdots), (contig, cdots)):
+                assert torch.equal(dots, odots)
+                assert torch.equal(got, other)

@@ -295,14 +295,26 @@ def test_resident_bytes(masters):
 
 
 def test_unported_options_raise(masters):
+    """What is not ported raises NotImplementedError, a fault plan with
+    paging on included. Paging is ported: page_size=8 serves (the same
+    tokens as the contiguous cache), and prefix_cache=True without
+    page_size is the caller's error, a ValueError as the JAX scheduler's
+    assertion."""
     _, cfg, _, pp = masters
     for kw in (dict(prefill_chunk=None), dict(kv_bits=0),
-               dict(page_size=8), dict(prefix_cache=True),
+               dict(page_size=8, fault_plan=object()),
                dict(queue_cap=2), dict(mesh=object())):
         args = dict(freeze=True, kv_bits=1, prefill_chunk=4, max_len=32)
         args.update(kw)
         with pytest.raises(NotImplementedError):
             ServingEngine(cfg, pp, **args)
+    with pytest.raises(ValueError, match="prefix_cache needs the paged"):
+        ServingEngine(cfg, pp, freeze=True, kv_bits=1, prefill_chunk=4,
+                      max_len=32, prefix_cache=True)
+    reqs = [Request(p, max_new_tokens=b) for p, b in traffic()[:2]]
+    for got, want in zip(port_engine(cfg, pp, page_size=8).generate(reqs),
+                         port_engine(cfg, pp).generate(reqs), strict=True):
+        np.testing.assert_array_equal(got, want)
     eng = port_engine(cfg, pp)
     with pytest.raises(NotImplementedError):
         eng.generate([Request(np.array([1, 2]), deadline_s=1.0)])
