@@ -46,8 +46,28 @@ Phases, each of which raises on failure (nothing is caught):
                cache and from the contiguous cache: decode tokens/s, TTFT of
                hit and miss requests, ITL, prefix stats, the page pool,
                tokens equal
+  8. train   - kernel 5 (binary_gemm_mxu, the tensor-core sign GEMM) against
+               its plain version at the five binary-conv shapes of a
+               bnn-cifar10 train step (batch 100) and ragged ones, float32
+               and bf16 x, tolerance 0; bnn-cifar10 at full width, batch
+               100, BBP stochastic from a seeded device generator, shift-BN,
+               S-AdaMax, 3 steps through each route (auto: kernel 5; vpu:
+               sign-pack + XNOR-popcount kernels; ref: plain) from the same
+               weights, batches and draws: step-1 binary-conv outputs and
+               scores, then losses, params, BN and optimizer state equal
+               (tolerance 0), launches 5 per step on auto, 0 on ref; a
+               deterministic step of 2 images on the card against the CPU's
+               (1e-5 of each tensor's largest magnitude; params off by more
+               only where S-AdaMax's per-element normalization carries the
+               moments' difference: a noise-floor gradient, an AP2 boundary,
+               or through a shared AP2 factor); bnn-mnist (batch 200) 3
+               steps; 30 steps of bnn-cifar10 on SyntheticImages lower the
+               loss; kernel 5's
+               times beside its bound, plain version and torch._int_mm; the
+               train step per batch on auto and ref (ms, images/s), one
+               profiled step (busy share, launches), peak memory
 Launch counts are set to 0 just before each main path (mlp, cnn, lm, paged
-lm) runs and read just after. The line before the last is {"kernels": [...]}; the
+lm, train) runs and read just after. The line before the last is {"kernels": [...]}; the
 last line is {"ok": true, "device": {...}}. Weights, BN statistics and
 inputs are random from the seed; image inputs are multiples of 1/128 in
 [-1, 1], like 8-bit pixels. Exits non-zero, printing no result, without a
@@ -74,7 +94,9 @@ INT8_TC_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor cores
 FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
 POPC_PER_CLOCK_PER_SM = 16         # 32-bit popc issue rate, compute 9.0
 GEMMS = ("binary_gemm_packed", "binary_gemm_packed_rhs", "binary_gemm_fused")
+MXU = "binary_gemm_mxu"
 SOURCES = {**{kn: "src/repro_torch/kernels/csrc/binary_gemm.cu" for kn in GEMMS},
+           MXU: "src/repro_torch/kernels/csrc/binary_gemm_mxu.cu",
            "pack_bits": "src/repro_torch/kernels/csrc/pack.cu",
            **{kn: "src/repro_torch/kernels/csrc/attention.cu" for kn in (
                "decode_attention_packed", "prefill_attention_packed",
@@ -83,6 +105,7 @@ SOURCES = {**{kn: "src/repro_torch/kernels/csrc/binary_gemm.cu" for kn in GEMMS}
 REPLACES = {"binary_gemm_packed": "src/repro/kernels/binary_gemm.py:107",
             "binary_gemm_packed_rhs": "src/repro/kernels/binary_gemm.py:166",
             "binary_gemm_fused": "src/repro/kernels/binary_gemm.py:242",
+            MXU: "src/repro/kernels/binary_gemm.py:318",
             "pack_bits": "src/repro/kernels/pack.py:35",
             "decode_attention_packed": "src/repro/kernels/decode_attention.py:137",
             "prefill_attention_packed": "src/repro/kernels/prefill_attention.py:131",
@@ -106,6 +129,12 @@ LM_REQUESTS, LM_NEW, LM_PROMPT = 8, 16, (17, 200)
 # prefix cache on; traffic of a shared 128-token prefix (4 pages) plus a
 # suffix of its own per request; kernel checks on a 64-page pool
 LM_PAGE, LM_POOL, LM_PREFIX, LM_SUFFIX = 32, 64, 128, (17, 72)
+# the training path: bnn-cifar10 at full width and batch 100, BBP with
+# stochastic binarization, shift-BN, S-AdaMax; TRAIN_STEPS steps per route,
+# CONVERGE_STEPS on SyntheticImages, CPU_BATCH images for the CPU step
+TRAIN_ROUTES = ("auto", "vpu", "ref")
+TRAIN_STEPS, CONVERGE_STEPS, CPU_BATCH, TRAIN_TIMED = 3, 30, 2, 10
+TRAIN_REL = 1e-5
 
 
 def smi(query: str) -> str:
@@ -1137,6 +1166,343 @@ def check_close_loose(what, lib, kern):
     if not err <= 2e-2:
         raise AssertionError(f"{what}: differs by {err}")
 
+# ---------------------------------------------------------------------------
+# The training path: kernel 5 (binary_gemm_mxu) and the train step
+# ---------------------------------------------------------------------------
+def train_conv_shapes(cfg):
+    """(M, K, N) of the binary convs (2-6) of one bnn-cifar10 train step:
+    im2col rows of the batch x K = 9 Cin against Cout."""
+    side, cin, out = cfg.img, cfg.widths[0], []
+    for i, cout in enumerate(cfg.widths[1:], start=1):
+        out.append((cfg.batch * side * side, 9 * cin, cout))
+        cin = cout
+        if i % 2 == 1:
+            side //= 2
+    return out
+
+
+def mxu_operands(gen, m, k, n):
+    """x (M, K), w (K, N) float32 on the card with 5% exact zeros."""
+    dev = gen.device
+    x = torch.randn(m, k, generator=gen, device=dev)
+    x[torch.rand(m, k, generator=gen, device=dev) < 0.05] = 0.0
+    w = torch.randn(k, n, generator=gen, device=dev)
+    w[torch.rand(k, n, generator=gen, device=dev) < 0.05] = 0.0
+    return x, w
+
+
+def mxu_bound(m, k, n, x_bytes=4):
+    """Least time of sign(x) @ sign(w): x, w read once and the float32
+    output written once over HBM rate, or the 2MNK int8 tensor-core ops."""
+    nbytes = m * k * x_bytes + k * n * 4 + m * n * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * n * k / INT8_TC_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "ops": 2 * m * n * k, "bytes_ms": t_bytes,
+            "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops)}
+
+
+def mxu_kernel_checks(dev_gen, shapes):
+    """Kernel 5 against its plain version, float32 and bf16 x: equal."""
+    from repro_torch.kernels import binary_gemm as bg
+    err = 0
+    for m, k, n in shapes:
+        x, w = mxu_operands(dev_gen, m, k, n)
+        for xs in (x, x.to(torch.bfloat16)):
+            got = bg.binary_gemm_mxu(xs, w)
+            torch.cuda.synchronize()
+            d = float((got - bg.binary_gemm_mxu_plain(xs, w)).abs().max())
+            err = max(err, d)
+            print(f"check {MXU:24s} {str(xs.dtype)[6:]:8s} M={m:6d} K={k:5d} "
+                  f"N={n:5d} max_abs_err={d}")
+            if d:
+                raise AssertionError(f"{MXU} {xs.dtype} ({m},{k},{n}) differs "
+                                     f"from its plain version by {d}")
+    return err
+
+
+class Recorder:
+    """Records the outputs of module attributes while active (the binary
+    convs and the scores of a train forward)."""
+
+    def __init__(self, module, names):
+        self.module, self.names, self.seen = module, names, {n: [] for n in names}
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.module, n) for n in self.names}
+        for n in self.names:
+            def spy(*a, _n=n, **kw):
+                out = self.orig[_n](*a, **kw)
+                self.seen[_n].append((out if _n != "square_hinge_loss"
+                                      else a[0]).detach().clone())
+                return out
+            setattr(self.module, n, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.module, n, fn)
+
+
+def leaves_equal(a, b) -> bool:
+    from repro_torch.optim.base import tree_leaves
+    return all(torch.equal(x, y) for x, y in
+               zip(tree_leaves(a), tree_leaves(b), strict=True))
+
+
+def max_rel(got, want) -> float:
+    """max |got - want| / max |want| over one tensor (0 for equal zeros)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    return err / scale if scale else (0.0 if err == 0 else float("inf"))
+
+
+def train_routes_check(cfg, seed, dev):
+    """bnn-cifar10 at full width: TRAIN_STEPS steps through every route from
+    the same weights, batches and draws. Returns the auto route's launches
+    (the main path) and each route's."""
+    from repro_torch.models import paper_nets as pn
+    from repro_torch.train import paper as tp
+    data = tp.synthetic_data(cfg, seed)
+    batches = [tuple(torch.from_numpy(a).to(dev) for a in data.batch(i, cfg.batch))
+               for i in range(TRAIN_STEPS)]
+    runs = {}
+    for path in TRAIN_ROUTES:
+        params, bn = tp.init_params(cfg, torch.Generator().manual_seed(seed), dev)
+        opt = tp.make_optimizer(cfg)
+        st = opt.init(params)
+        step = tp.make_train_step(cfg, opt, kernel_path=path)
+        gen = torch.Generator(device=dev).manual_seed(seed + 8)
+        losses = []
+        torch.cuda.synchronize()
+        reset_all_launches()
+        for i, (x, y) in enumerate(batches):
+            if i == 0:
+                with Recorder(pn, ("binary_conv2d", "square_hinge_loss")) as rec:
+                    params, bn, st, loss = step(params, bn, st, x, y, gen)
+            else:
+                params, bn, st, loss = step(params, bn, st, x, y, gen)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        runs[path] = {"launches": {k: v for k, v in all_launches().items() if v},
+                      "convs": rec.seen["binary_conv2d"],
+                      "scores": rec.seen["square_hinge_loss"][0],
+                      "losses": [float(v) for v in losses],
+                      "state": (params, bn, st)}
+    n_convs = len(cfg.widths) - 1
+    base = runs["auto"]
+    for path, run in runs.items():
+        if len(run["convs"]) != n_convs:
+            raise AssertionError(f"{path}: {len(run['convs'])} binary convs")
+        for i, (a, b) in enumerate(zip(run["convs"], base["convs"])):
+            check_equal(f"step-1 binary conv {i + 2} output, {path} vs auto",
+                        a, b)
+        check_equal(f"step-1 scores, {path} vs auto", run["scores"],
+                    base["scores"])
+        if run["losses"] != base["losses"] \
+                or not leaves_equal(run["state"], base["state"]):
+            raise AssertionError(f"{path}: losses or params/BN/optimizer state "
+                                 f"after {TRAIN_STEPS} steps differ from auto")
+    want = {"auto": {MXU: n_convs * TRAIN_STEPS}, "ref": {},
+            "vpu": {"binary_gemm_packed": n_convs * TRAIN_STEPS,
+                    "pack_bits": 2 * n_convs * TRAIN_STEPS}}
+    for path, run in runs.items():
+        if run["launches"] != want[path]:
+            raise AssertionError(f"{path} launches {run['launches']} != "
+                                 f"{want[path]}")
+    print(f"train routes: {cfg.name} full width, batch {cfg.batch}, BBP "
+          f"stochastic, shift-BN, S-AdaMax, {TRAIN_STEPS} steps per route: "
+          f"step-1 binary-conv outputs and scores equal across "
+          f"{'/'.join(TRAIN_ROUTES)} (tolerance 0); losses "
+          f"{base['losses']} and params, BN and optimizer state after "
+          f"{TRAIN_STEPS} steps equal bit for bit (tolerance 0: the backward "
+          f"is the same code on every route and takes no atomics); launches "
+          + ", ".join(f"{p} {r['launches']}" for p, r in runs.items()))
+    return base["launches"], {p: r["launches"] for p, r in runs.items()}
+
+
+def train_cpu_check(cfg, seed, dev):
+    """One deterministic step of a CPU_BATCH batch at full width on the
+    card and on the CPU, from the same weights: loss, BN state and moments
+    within TRAIN_REL of the largest magnitude of each tensor; params there
+    too, except where S-AdaMax's per-element normalization carries the
+    moments' difference further (tests/test_torch_train.py): a gradient at
+    the noise floor of its tensor (|m| <= TRAIN_REL max|m| on both sides:
+    its sign is rounding), two AP2 factors AP2(1 / (u + eps)) that differ,
+    or |dp| <= s |dm| AP2(1 / (u + eps)) through a shared factor."""
+    import dataclasses
+    from repro_torch.core.ap2 import ap2_exponent
+    from repro_torch.optim.base import tree_leaves
+    from repro_torch.train import paper as tp
+    small = dataclasses.replace(cfg, batch=CPU_BATCH)
+    x, y = (torch.from_numpy(a)
+            for a in tp.synthetic_data(small, seed).batch(0, CPU_BATCH))
+
+    def one_step(d):
+        params, bn = tp.init_params(small, torch.Generator().manual_seed(seed), d)
+        opt = tp.make_optimizer(small)
+        return tp.make_train_step(small, opt)(params, bn, opt.init(params),
+                                              x.to(d), y.to(d), None)
+
+    (pg, bgr, sg, lg), (pc, bc, sc, lc) = one_step(dev), one_step("cpu")
+    worst = max_rel(lg, lc)
+    for a, b in zip(tree_leaves((bgr, sg.m, sg.u)), tree_leaves((bc, sc.m, sc.u)),
+                    strict=True):
+        worst = max(worst, max_rel(a, b) if a.is_floating_point() else
+                    (0.0 if torch.equal(a.cpu(), b) else float("inf")))
+    if not worst <= TRAIN_REL:
+        raise AssertionError(f"card step vs CPU step: {worst} > {TRAIN_REL}")
+    # S-AdaMax's first step: p - s * m * AP2(1 / (u + eps)), s = AP2(lr / 0.1)
+    lr = torch.tensor(small.base_lr, dtype=torch.float64)
+    s = float(2.0 ** torch.round(torch.log2(lr / (1 - 0.9))))
+    n_off = n_floor = n_ap2 = n_carried = 0
+    for p_g, p_c, m_g, m_c, u_g, u_c in zip(
+            tree_leaves(pg), tree_leaves(pc), tree_leaves(sg.m),
+            tree_leaves(sc.m), tree_leaves(sg.u), tree_leaves(sc.u)):
+        # each side's AP2 exponent of 1 / (u + eps), as its optimizer took it
+        e_g = ap2_exponent(1.0 / (u_g + 1e-8)).cpu()
+        e_c = ap2_exponent(1.0 / (u_c + 1e-8))
+        p_g, m_g, u_g = p_g.cpu(), m_g.cpu(), u_g.cpu()
+        diff = (p_g.double() - p_c).abs()
+        off = diff > TRAIN_REL * p_c.abs().max()
+        floor = TRAIN_REL * m_c.abs().max()
+        noise = (m_g.abs() <= floor) & (m_c.abs() <= floor)
+        ap2 = ~noise & (e_g != e_c)
+        carried = ~noise & (e_g == e_c) & (
+            diff <= s * (m_g.double() - m_c).abs() * 2.0 ** e_c.double()
+            * (1 + 1e-6) + TRAIN_REL * p_c.abs().max())
+        bad = off & ~noise & ~ap2 & ~carried
+        if bad.any():
+            for j in bad.flatten().nonzero()[:8, 0].tolist():
+                print("  unexplained:", [float(t.flatten()[j]) for t in
+                                         (p_g, p_c, m_g, m_c, u_g, u_c)],
+                      int(e_g.flatten()[j]), int(e_c.flatten()[j]))
+            raise AssertionError("card step vs CPU step: params differ beyond "
+                                 "what the moments' difference explains")
+        n_off += int(off.sum())
+        n_floor += int((off & noise).sum())
+        n_ap2 += int((off & ap2).sum())
+        n_carried += int((off & carried).sum())
+    print(f"train CPU check: one deterministic step of {CPU_BATCH} images at "
+          f"full width, card vs CPU: loss {float(lg):.6f} / {float(lc):.6f}, "
+          f"loss, BN state and moments within {worst:.3g} of the largest "
+          f"magnitude of each tensor (tolerance {TRAIN_REL}); params off by "
+          f"more in {n_off} elements: {n_floor} at the noise floor of their "
+          f"gradient, {n_ap2} at an AP2 boundary, {n_carried} by the "
+          f"moments' difference through a shared AP2 factor")
+
+
+def train_times(cfg, seed, dev, card, dev_gen):
+    """Kernel 5 at the train step's conv shapes (`shape_times`, with
+    torch._int_mm on the same +-1 int8 operands as the library call), then
+    the train step per batch on each route, and one step's busy share,
+    launches and peak memory."""
+    from repro_torch.kernels import binary_gemm as bg
+    from repro_torch.train import paper as tp
+    rows = []
+    print(f"{MXU} times on {card} (ms; kernel: device_ms; wrapper and plain: "
+          f"CUDA events; library: torch._int_mm on +-1 int8, device_ms; bound "
+          f"= max(bytes / 3.35 TB/s, 2MNK / 1979 TOP/s))")
+    for m, k, n in train_conv_shapes(cfg):
+        x, w = mxu_operands(dev_gen, m, k, n)
+        xi = torch.where(x >= 0, 1, -1).to(torch.int8)
+        # (K, N) column-major, the layout phase 7's torch._int_mm calls use
+        wi = torch.where(w.t() >= 0, 1, -1).to(torch.int8).contiguous().t()
+        lib = (lambda xi=xi, wi=wi: torch._int_mm(xi, wi))
+        check_equal(f"torch._int_mm vs {MXU} ({m},{k},{n})",
+                    lib().to(torch.float32), bg.binary_gemm_mxu(x, w))
+        row = {"kernel": MXU, "M": m, "K": k, "N": n,
+               "library": "torch._int_mm",
+               **shape_times(lambda x=x, w=w: bg.binary_gemm_mxu(x, w), MXU,
+                             lambda x=x, w=w: bg.binary_gemm_mxu_plain(x, w),
+                             lib),
+               **mxu_bound(m, k, n)}
+        rows.append(row)
+        print(f"  {MXU} M={m:6d} K={k:5d} N={n:4d} kernel {row['ms']:.4f} "
+              f"(wrapper {row['wrapper_ms']:.4f})  plain {row['plain_ms']:.3f}"
+              f"  torch._int_mm {row['library_ms']:.4f} (wall "
+              f"{row['library_wall_ms']:.4f})  bound {row['bound_ms']:.4f} "
+              f"({'bytes' if row['bytes_ms'] >= row['ops_ms'] else 'ops'}; "
+              f"int8 TC {row['ops_ms']:.4f})")
+        del x, w, xi, wi
+    data = tp.synthetic_data(cfg, seed)
+    x, y = (torch.from_numpy(a).to(dev) for a in data.batch(0, cfg.batch))
+    steps = {}
+    for path in ("auto", "ref"):
+        params, bn = tp.init_params(cfg, torch.Generator().manual_seed(seed), dev)
+        opt = tp.make_optimizer(cfg)
+        st = opt.init(params)
+        step = tp.make_train_step(cfg, opt, kernel_path=path)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        call = (lambda step=step, params=params, bn=bn, st=st:
+                step(params, bn, st, x, y, gen))
+        for _ in range(2):
+            call()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(TRAIN_TIMED):
+            call()
+        end.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
+        ms = start.elapsed_time(end) / TRAIN_TIMED
+        torch.cuda.reset_peak_memory_stats()
+        call()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        tr = trace(call)
+        steps[path] = {"ms": ms, "host_wall_ms": wall,
+                       "images_per_s": cfg.batch / ms * 1e3,
+                       "peak_bytes": peak, "trace": tr}
+        share = tr["busy_ms"] / tr["wall_ms"] if tr["wall_ms"] else 0.0
+        print(f"train step {cfg.name} batch {cfg.batch} on {path} on {card}: "
+              f"{ms:.3f} ms per step by CUDA events over {TRAIN_TIMED} steps "
+              f"(host wall {wall:.3f}), {cfg.batch / ms * 1e3:.1f} images/s; "
+              f"peak memory {peak / 1e9:.3f} GB; one profiled step: wall "
+              f"{tr['wall_ms']:.3f} ms, device busy {tr['busy_ms']:.3f} ms "
+              f"({share:.3f}), {tr['launches']} kernel launches; top kernels:")
+        for kname, cnt, kms in tr["top"]:
+            print(f"    {kms:9.4f} ms  x{cnt:<3d} {kname}")
+    return rows, steps
+
+
+def train_phase(seed, dev, card, dev_gen):
+    """Phase 8: kernel 5 against its plain version, the routes against each
+    other at full width, a CPU step against the card's, bnn-mnist on the
+    card, convergence, times. Returns (max error, main-path launches,
+    per-shape rows, report); the launches are kernel 5's on the main path,
+    the auto route's TRAIN_STEPS steps."""
+    from repro_torch.configs.bnn_paper import BNN_CIFAR10, BNN_MNIST
+    from repro_torch.train import paper as tp
+    t0 = time.perf_counter()
+    cfg = BNN_CIFAR10
+    shapes = train_conv_shapes(cfg) + list(RAGGED) + [(17, 1, 10), (130, 33, 129)]
+    err = mxu_kernel_checks(dev_gen, shapes)
+    launches, route_launches = train_routes_check(cfg, seed, dev)
+    train_cpu_check(cfg, seed, dev)
+    mnist = tp.train(BNN_MNIST, TRAIN_STEPS, seed=seed, device=dev)
+    if not all(np.isfinite(mnist)):
+        raise AssertionError(f"bnn-mnist losses {mnist}")
+    print(f"train {BNN_MNIST.name}: full width, batch {BNN_MNIST.batch}, "
+          f"{TRAIN_STEPS} steps on the card, losses {mnist}")
+    losses = tp.train(cfg, CONVERGE_STEPS, seed=seed, device=dev)
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    print(f"train convergence: {cfg.name} on SyntheticImages (img {cfg.img}, "
+          f"{cfg.in_ch} channels, noise {tp.DATA_NOISE}), {CONVERGE_STEPS} "
+          f"steps, losses {[round(v, 3) for v in losses]}; mean of the first "
+          f"5 {first:.4f}, of the last 5 {last:.4f}")
+    if not last < first:
+        raise AssertionError("the training loss did not fall")
+    rows, steps = train_times(cfg, seed, dev, card, dev_gen)
+    print(f"phase 8 (train): {time.perf_counter() - t0:.1f} s")
+    return err, launches.get(MXU, 0), rows, {"route_launches": route_launches,
+                                 "mnist_losses": mnist,
+                                 "converge_losses": losses, "steps": steps,
+                                 "shapes": rows}
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1240,7 +1606,8 @@ def main() -> int:
     torch.cuda.synchronize()
     mlp_launches = dict(bg.launches)
     want = {"binary_gemm_fused": 2 * n_batches,
-            "binary_gemm_packed": n_batches, "binary_gemm_packed_rhs": 0}
+            "binary_gemm_packed": n_batches, "binary_gemm_packed_rhs": 0,
+            MXU: 0}
     if mlp_launches != want:
         raise AssertionError(f"mlp launches {mlp_launches} != {want}")
     for x, (scores, hidden) in zip(xs, outs):
@@ -1289,7 +1656,7 @@ def main() -> int:
     n_binary_convs = len(cfg.widths) - 1
     want = {"binary_gemm_packed_rhs": n_binary_convs * n_batches,
             "binary_gemm_fused": 2 * n_batches,
-            "binary_gemm_packed": n_batches}
+            "binary_gemm_packed": n_batches, MXU: 0}
     if cnn_launches != want:
         raise AssertionError(f"cnn launches {cnn_launches} != {want}")
     for x, (scores, hidden) in zip(xs, outs):
@@ -1429,6 +1796,14 @@ def main() -> int:
     del eng, sched
     torch.cuda.empty_cache()
 
+    # ----------------------------------------------------------------- train
+    err[MXU], train_launches, mxu_rows, report["train"] = train_phase(
+        args.seed, dev, card, dev_gen)
+    path_launches[MXU] += train_launches
+    for row in mxu_rows:
+        for key in totals[MXU]:
+            totals[MXU][key] += row[key]
+
     kernels = []
     for kn in REPLACES:
         t = totals[kn]
@@ -1454,13 +1829,15 @@ def main() -> int:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))
     print("kernels line: ms and library_ms are device times (device_ms), "
-          "plain_ms CUDA-event time; GEMM times are summed over one mlp and "
-          "one cnn forward's launches of each kernel; pack_bits, decode and "
-          "prefill attention times (contiguous and paged) over one LM "
-          "layer's launches in one decode step and one prefill chunk (the "
-          "two chunk shapes weighted 1/2); the paged kernels' library_ms "
-          "leaves out the gather (printed beside it); launches count the "
-          "mlp, cnn and depth-2 contiguous and paged LM runs")
+          "plain_ms CUDA-event time; the popcount GEMMs' times are summed "
+          "over one mlp and one cnn forward's launches of each kernel, "
+          f"{MXU}'s over one bnn-cifar10 train step's five; pack_bits, "
+          "decode and prefill attention times (contiguous and paged) over "
+          "one LM layer's launches in one decode step and one prefill chunk "
+          "(the two chunk shapes weighted 1/2); the paged kernels' "
+          "library_ms leaves out the gather (printed beside it); launches "
+          "count the mlp, cnn, depth-2 contiguous and paged LM runs and the "
+          f"auto route's {TRAIN_STEPS} train steps")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

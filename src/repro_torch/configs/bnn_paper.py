@@ -1,8 +1,9 @@
 """The paper's own experiment configs (§5): MNIST MLP, CIFAR-10 / SVHN CNN.
 
 These are not LM architectures; they parameterize repro_torch.models.paper_nets
-and are read by chip_smoke.py. A copy of repro.configs.bnn_paper, kept here
-so the port imports nothing of the JAX package.
+and are read by train/paper.py and chip_smoke.py. A copy of
+repro.configs.bnn_paper, kept here so the port imports nothing of the JAX
+package.
 """
 from __future__ import annotations
 

@@ -6,12 +6,17 @@ records written as dicts:
 
   * BN params   {"gamma", "beta"}           -> shift_bn.BNParams
   * BN state    {"mean", "var", "count"}    -> shift_bn.BNState
+  * optimizer state {"m", "u", "step"}      -> optim.shift_adamax.AdaMaxState
+    (m and u are trees shaped like the params, BN records included)
   * a frozen weight {"packed", "k", "kind", "conv_shape", "orig_dtype",
     "thresh", "flip", "fold"} -> core.packed.PackedWeight (uint32 words
     become int32 tensors holding the same bits)
 
 Every other dict, list and tuple keeps its shape; numpy arrays become
-tensors on `device` (None: the CUDA card). Stacked transformer trees carry
+tensors on `device` (None: the CUDA card). The fp32-master training trees of
+the paper nets (params with BN params, BN running state, S-AdaMax state)
+carry across this way, so a JAX (params, bn_state, opt_state) becomes the
+port's and back. Stacked transformer trees carry
 across as they are: a frozen weight's words keep their leading L axis.
 `to_numpy_tree` is the way back. KV caches carry across with
 `cache_from_numpy` / `cache_to_numpy`, contiguous or paged: packed K/V
@@ -29,6 +34,7 @@ from repro_torch._device import resolve_device
 from repro_torch.core.packed import PackedWeight
 from repro_torch.core.shift_bn import BNParams, BNState
 from repro_torch.models.transformer import new_pool
+from repro_torch.optim.shift_adamax import AdaMaxState
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -65,6 +71,9 @@ def from_numpy_tree(tree, device=None):
                 return BNState(tensor(node["mean"], dev),
                                tensor(node["var"], dev),
                                tensor(node["count"], dev))
+            if keys == {"m", "u", "step"}:
+                return AdaMaxState(walk(node["m"]), walk(node["u"]),
+                                   tensor(node["step"], dev))
             if "packed" in keys:
                 opt = (lambda v: None if v is None else tensor(v, dev))
                 return PackedWeight(
@@ -109,6 +118,9 @@ def to_numpy_tree(tree):
     if isinstance(tree, BNState):
         return {"mean": _array(tree.mean), "var": _array(tree.var),
                 "count": _array(tree.count)}
+    if isinstance(tree, AdaMaxState):
+        return {"m": to_numpy_tree(tree.m), "u": to_numpy_tree(tree.u),
+                "step": _array(tree.step)}
     if isinstance(tree, dict):
         return {k: to_numpy_tree(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

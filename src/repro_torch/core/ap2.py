@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 
-def _pow2(e: torch.Tensor) -> torch.Tensor:
+def pow2(e: torch.Tensor) -> torch.Tensor:
     """Exact float32 2^e for int32 e, built from the exponent bits where e
     is a normal exponent (torch.ldexp multiplies by pow(2, e), which is not
     promised to be exact on every device)."""
@@ -30,7 +30,7 @@ def ap2_exponent(z: torch.Tensor) -> torch.Tensor:
 def ap2(z: torch.Tensor) -> torch.Tensor:
     """Round each element of z to sign(z) * 2^round(log2 |z|). ap2(0) = 0."""
     mag = z.abs()
-    out = torch.sign(z) * _pow2(ap2_exponent(z))
+    out = torch.sign(z) * pow2(ap2_exponent(z))
     return torch.where(mag > 0, out, 0.0).to(z.dtype)
 
 

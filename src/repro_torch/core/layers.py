@@ -1,4 +1,4 @@
-"""Quantized linear layers at inference (port of `repro.core.layers`).
+"""Quantized linear layers (port of `repro.core.layers`).
 
 `QuantMode` selects the arithmetic of every MAC-dominated projection:
 
@@ -8,7 +8,11 @@
   BBP_DET — BBP with deterministic binarization at train time as well
 
 At inference every binary mode binarizes deterministically (sign(0) := +1).
-The stochastic train-time draws and the STE come with the training slice.
+At train time (`train=True` with a generator or noise) BC and BBP binarize
+stochastically (Eq. 2), BBP_DET deterministically; every binarizer carries
+the STE. Where JAX splits one key into a weight key and an activation key,
+`qmatmul` takes two independent draws from `gen`, the activation's first and
+the weight's second, or reads them from `noise["act"]` and `noise["w"]`.
 """
 from __future__ import annotations
 
@@ -27,18 +31,33 @@ class QuantMode(str, enum.Enum):
     BBP_DET = "bbp_det"
 
 
-def quant_weights(w: torch.Tensor, mode: QuantMode) -> torch.Tensor:
+def _stochastic(train: bool, gen, noise) -> bool:
+    return train and (gen is not None or noise is not None)
+
+
+def quant_weights(w: torch.Tensor, mode: QuantMode, *, train: bool = False,
+                  gen: torch.Generator | None = None,
+                  noise: torch.Tensor | None = None) -> torch.Tensor:
     if mode == QuantMode.NONE:
         return w
-    if mode in (QuantMode.BC, QuantMode.BBP, QuantMode.BBP_DET):
+    if mode in (QuantMode.BC, QuantMode.BBP):
+        # stochastic at train (Eq. 2), deterministic sign at test (Eq. 5)
+        return binarize(w, stochastic=_stochastic(train, gen, noise),
+                        gen=gen, noise=noise)
+    if mode == QuantMode.BBP_DET:
         return binarize(w)
     raise ValueError(mode)
 
 
-def quant_acts(x: torch.Tensor, mode: QuantMode) -> torch.Tensor:
+def quant_acts(x: torch.Tensor, mode: QuantMode, *, train: bool = False,
+               gen: torch.Generator | None = None,
+               noise: torch.Tensor | None = None) -> torch.Tensor:
     if mode in (QuantMode.NONE, QuantMode.BC):
         return x
-    if mode in (QuantMode.BBP, QuantMode.BBP_DET):
+    if mode == QuantMode.BBP:
+        return binary_act(x, stochastic=_stochastic(train, gen, noise),
+                          gen=gen, noise=noise)
+    if mode == QuantMode.BBP_DET:
         return binary_act(x)
     raise ValueError(mode)
 
@@ -79,17 +98,28 @@ def packed_qmatmul_fused(x: torch.Tensor | PackedActivation, w: PackedWeight,
 
 
 def qmatmul(x: torch.Tensor | PackedActivation, w: torch.Tensor | PackedWeight,
-            mode: QuantMode, *, path: str = "auto") -> torch.Tensor:
+            mode: QuantMode, *, train: bool = False,
+            gen: torch.Generator | None = None, noise: dict | None = None,
+            path: str = "auto") -> torch.Tensor:
     """Quantized x @ w with the mode's weight/activation treatment.
 
-    w: (K, N) fp32 master, or a PackedWeight (the packed serving path)."""
+    w: (K, N) fp32 master, or a PackedWeight (the packed serving path,
+    inference only). At train time the activation's noise is drawn from
+    `gen` before the weight's (or read from noise["act"], noise["w"])."""
     if isinstance(w, PackedWeight):
+        if train:
+            raise ValueError("packed params are frozen sign bits, inference "
+                             "only; keep the fp32 masters for training "
+                             "(paper Alg. 1)")
         return packed_qmatmul(x, w, mode, path=path)
     if isinstance(x, PackedActivation):
         raise ValueError("PackedActivation lhs requires a frozen "
                          "PackedWeight rhs")
-    xq = quant_acts(x, mode)
-    wq = quant_weights(w.to(xq.dtype), mode)
+    noise = noise or {}
+    xq = quant_acts(x, mode, train=train, gen=gen, noise=noise.get("act"))
+    # the master is cast to the compute dtype before it is binarized
+    wq = quant_weights(w.to(xq.dtype), mode, train=train, gen=gen,
+                       noise=noise.get("w"))
     return torch.matmul(xq, wq)
 
 

@@ -1,6 +1,5 @@
-"""Binary (XNOR+popcount) GEMMs: hand-written Hopper kernels, their plain
-PyTorch versions, and the dispatch the ops call (port of
-`repro.kernels.binary_gemm`).
+"""Binary GEMMs: hand-written Hopper kernels, their plain PyTorch versions,
+and the dispatch the ops call (port of `repro.kernels.binary_gemm`).
 
   * `binary_gemm_packed` — packed (M, KW) lhs x packed (N, KW) rhs -> (M, N)
     int32 dots. Replaces the TPU kernel `binary_gemm_vpu`.
@@ -11,9 +10,14 @@ PyTorch versions, and the dispatch the ops call (port of
     bit-resident epilogue: bit_n = (dot_n >= thresh_n) XOR flip_n, repacked
     along N -> (M, ceil(N/32)) int32 words, pad bits 1. Replaces
     `binary_gemm_vpu_packed_io`.
+  * `binary_gemm_mxu` — float32 or bf16 (M, K) x float32 (K, N) -> (M, N)
+    float32 = sign(x) @ sign(w), both operands signed to +-1 int8 inside the
+    kernel and multiplied on the tensor cores: the GEMM of the training
+    path's binary convs. Replaces `binary_gemm_mxu`.
 
-The kernels are CUDA C++ for sm_90a in `csrc/binary_gemm.cu` (its header
-says what bounds them and what the design does about it). A wrapper
+The kernels are CUDA C++ for sm_90a in `csrc/binary_gemm.cu` (the XNOR +
+popcount GEMMs) and `csrc/binary_gemm_mxu.cu` (the tensor-core GEMM); each
+header says what bounds its kernels and what the design does about it. A wrapper
 launches its kernel on CUDA tensors, or raises; it runs the plain version
 only because its inputs lie on the CPU. `launches[name]` counts the
 wrapper's kernel launches, so a run can show that it went through them.
@@ -29,7 +33,7 @@ from repro_torch.core.bitpack import pack_bits, packed_width
 from repro_torch.kernels import _build, ref
 
 launches = {"binary_gemm_packed": 0, "binary_gemm_packed_rhs": 0,
-            "binary_gemm_fused": 0}
+            "binary_gemm_fused": 0, "binary_gemm_mxu": 0}
 
 # the plain versions reduce over (rows, N, KW) int64 temporaries; rows are
 # taken in chunks of at most this many elements so a full-width layer fits
@@ -37,6 +41,8 @@ _PLAIN_CHUNK = 1 << 24
 # float lhs types the kernels read, by the code the C interface takes (the
 # sign of a bf16 activation is exact, so it is read as it is, not cast)
 _LHS_KIND = {torch.float32: 1, torch.bfloat16: 2}
+# binary_gemm_mxu's K step: its signed w scratch pads K to a multiple of it
+_MXU_BK = 32
 
 
 def reset_launches() -> None:
@@ -88,6 +94,12 @@ def binary_gemm_fused_plain(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def binary_gemm_mxu_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sign(x) @ sign(w) in float32 (`ref.binary_matmul_ref`): exact, since
+    every partial sum of +-1 products is an integer below 2^24."""
+    return ref.binary_matmul_ref(x, w)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
@@ -115,12 +127,13 @@ def _check_operands(a: torch.Tensor, b: torch.Tensor, k: int,
         raise ValueError(f"no binary GEMM for device {a.device}")
 
 
-def _launch(name: str, a: torch.Tensor, *args) -> None:
-    """Launch kernel `name` on a's device and current stream, raise on a
-    CUDA error, and count the launch."""
-    fn = getattr(_build.library("binary_gemm"), name)
+def _launch(name: str, a: torch.Tensor, *args,
+            lib: str = "binary_gemm") -> None:
+    """Launch kernel `name` of library `lib` on a's device and current
+    stream, raise on a CUDA error, and count the launch."""
+    fn = getattr(_build.library(lib), name)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    _build.check("binary_gemm", fn(*args, stream), name)
+    _build.check(lib, fn(*args, stream), name)
     launches[name] += 1
 
 
@@ -176,6 +189,37 @@ def binary_gemm_fused(a: torch.Tensor, b: torch.Tensor, thresh: torch.Tensor,
                 0 if packed_lhs else _LHS_KIND[a.dtype],
                 b.data_ptr(), thresh.data_ptr(), flip.data_ptr(),
                 out.data_ptr(), m, n, kw, k)
+    return out
+
+
+def binary_gemm_mxu(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (M, K) float32 or bf16, w: (K, N) float32 -> (M, N) float32 =
+    sign(x) @ sign(w), sign(0) := +1. Any floats: the kernel signs them."""
+    if x.dtype not in _LHS_KIND or x.ndim != 2:
+        raise ValueError(f"x must be (M, K) float32 or bfloat16, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if w.dtype != torch.float32 or w.ndim != 2 or w.shape[0] != x.shape[1]:
+        raise ValueError(f"w must be ({x.shape[1]}, N) float32, got "
+                         f"{w.dtype} {tuple(w.shape)}")
+    if w.device != x.device:
+        raise ValueError(f"operands on {x.device} and {w.device}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("operands must be contiguous")
+    if x.device.type == "cpu":
+        return binary_gemm_mxu_plain(x, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"no binary GEMM for device {x.device}")
+    (m, k), n = x.shape, w.shape[1]
+    if not m or not n or not k:
+        return torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    # scratch for sign(w) as (N, Kp) int8, K padded to the kernel's step
+    kp = -(-k // _MXU_BK) * _MXU_BK
+    wt = torch.empty((n, kp), dtype=torch.int8, device=x.device)
+    vec = k % 4 == 0 and x.data_ptr() % 16 == 0
+    _launch("binary_gemm_mxu", x, x.data_ptr(), _LHS_KIND[x.dtype], int(vec),
+            w.data_ptr(), wt.data_ptr(), out.data_ptr(), m, n, k, kp,
+            lib="binary_gemm_mxu")
     return out
 
 

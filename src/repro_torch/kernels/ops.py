@@ -1,29 +1,92 @@
-"""Packed-weight inference ops around the binary GEMM kernels (port of the
-inference half of `repro.kernels.ops`).
+"""Ops around the binary GEMM kernels (port of `repro.kernels.ops`).
 
-Weights are frozen to wire-format words at load time (`core.packed`); per
-call only the activations are sign-packed, inside the kernel. Inference
-only: `binary_matmul` with its STE backward comes with the training slice.
+Training: `binary_matmul(x, w, path)` is sign(x) @ sign(w) for float
+masters, a `torch.autograd.Function` whose backward is the paper's STE
+(Eq. 6), as the JAX package's `custom_vjp`. Its forward routes:
+  * 'mxu'  — `binary_gemm_mxu`, signs both operands to +-1 int8 and
+             multiplies them on the tensor cores (plain version on the CPU)
+  * 'vpu'  — sign-pack x and w.T (`pack_bits_kernel`), then the XNOR +
+             popcount kernel `binary_gemm_packed`
+  * 'ref'  — the plain float oracle on any device
+  * 'auto' — 'mxu': the tensor-core kernel on CUDA tensors, its plain
+             version on CPU tensors
+All four give the same exact integers as float32. The backward products are
+float32 `torch.matmul`s outside any kernel, as the JAX package leaves them
+to XLA (TF32 stays off, torch's default, so they are float32 on the card).
 
-`path` selects the realization of every binary GEMM here: 'auto' goes
-through `dispatch_binary_gemm{,_fused}` (the Hopper kernels on CUDA tensors,
-their plain versions on CPU tensors), 'ref' through the plain versions on
-any device (the oracles of `kernels.ref`, taken in row chunks). Both are
-bit-exact.
+Inference: weights frozen to wire-format words at load time
+(`core.packed`); per call only the activations are sign-packed, inside the
+kernel. There `path` is 'auto' (`dispatch_binary_gemm{,_fused}`: the Hopper
+kernels on CUDA tensors, their plain versions on CPU tensors) or 'ref' (the
+plain versions on any device, in row chunks). Both are bit-exact.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.binarize import binarize_det, ste_mask
 from repro_torch.core.bitpack import packed_width
 from repro_torch.core.packed import PackedActivation, PackedWeight
 from repro_torch.kernels import ref
 from repro_torch.kernels.binary_gemm import (
-    binary_gemm_fused_plain, binary_gemm_packed_plain,
-    binary_gemm_packed_rhs_plain, dispatch_binary_gemm,
-    dispatch_binary_gemm_fused,
+    binary_gemm_fused_plain, binary_gemm_mxu, binary_gemm_packed,
+    binary_gemm_packed_plain, binary_gemm_packed_rhs_plain,
+    dispatch_binary_gemm, dispatch_binary_gemm_fused,
 )
+from repro_torch.kernels.pack import pack_bits_kernel
+
+MATMUL_PATHS = ("auto", "mxu", "vpu", "ref")
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor, path: str) -> torch.Tensor:
+    """sign(x) @ sign(w) as float32 over x's leading dims, by `path`."""
+    k, n = w.shape
+    x2 = x.reshape(-1, k).contiguous()
+    if path in ("auto", "mxu"):
+        out = binary_gemm_mxu(x2, w.contiguous())
+    elif path == "vpu":
+        out = binary_gemm_packed(pack_bits_kernel(x2),
+                                 pack_bits_kernel(w.t().contiguous()),
+                                 k).to(torch.float32)
+    elif path == "ref":
+        out = ref.binary_matmul_ref(x2, w)
+    else:
+        raise ValueError(f"binary_matmul path {path!r} not in {MATMUL_PATHS}")
+    return out.reshape(x.shape[:-1] + (n,))
+
+
+class _BinaryMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, path):
+        ctx.save_for_backward(x, w)
+        return _forward(x, w, path)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        wb = ref.sign_pm1(w)
+        # STE: the gradient flows through each operand's sign() where the
+        # operand is unsaturated (JAX ops.py `_bwd`, the same op order)
+        gx = torch.matmul(g, wb.t()) * ste_mask(x)
+        xb = ref.sign_pm1(x).reshape(-1, x.shape[-1])
+        gw = torch.matmul(xb.t(), g.reshape(-1, g.shape[-1])) * ste_mask(w)
+        return gx.to(x.dtype), gw.to(w.dtype), None
+
+
+def binary_matmul(x: torch.Tensor, w: torch.Tensor,
+                  path: str = "auto") -> torch.Tensor:
+    """sign(x) @ sign(w) with STE gradients (paper Eq. 6). x: (..., K)
+    float32 or bf16, w: (K, N) float32. Returns (..., N) float32."""
+    return _BinaryMatmul.apply(x, w, path)
+
+
+def binary_matmul_vpu(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return binary_matmul(x, w, "vpu")
+
+
+def binary_matmul_mxu(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return binary_matmul(x, w, "mxu")
 
 
 def _lhs_rows(x: torch.Tensor | PackedActivation, w: PackedWeight):
@@ -123,14 +186,20 @@ def binary_conv2d(x: torch.Tensor, w: torch.Tensor | PackedWeight, *,
     """Binary conv (SAME padding, stride 1): conv(sign(x), sign(w)).
 
     x: (B, H, W, Cin) float; w: a frozen conv PackedWeight (the packed
-    runtime path, realized by `path`) or a (kh, kw, Cin, Cout) float master
-    (im2col + the float sign-matmul oracle, the JAX package's 'ref' path).
-    Returns (B, H, W, Cout) float32.
+    runtime path: `path` 'ref' takes the plain versions, any other the
+    kernels) or a (kh, kw, Cin, Cout) float master (im2col + `binary_matmul`
+    by `path`, with its STE backward). Returns (B, H, W, Cout) float32.
+
+    x is signed before the patches are taken, so the zero border reads as
+    +1 (sign(0) := +1). For float masters that sign is straight-through
+    (`binarize_det`), so the gradient reaches x, as Algorithm 1 has it; the
+    JAX package signs with the zero-gradient `ref.sign_pm1` there, which
+    stops the gradient at every binary conv (ROADMAP Queue C).
     """
     if isinstance(w, PackedWeight):
-        return packed_conv2d(x, w, path=path)
+        return packed_conv2d(x, w, path="ref" if path == "ref" else "auto")
     kh, kw, cin, cout = w.shape
     b, h, wd, _ = x.shape
-    cols = im2col(ref.sign_pm1(x), kh, kw)
+    cols = im2col(binarize_det(x), kh, kw)
     wmat = w.permute(2, 0, 1, 3).reshape(cin * kh * kw, cout)
-    return ref.binary_matmul_ref(cols, wmat).reshape(b, h, wd, cout)
+    return binary_matmul(cols, wmat, path).reshape(b, h, wd, cout)

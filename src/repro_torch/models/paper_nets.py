@@ -1,4 +1,4 @@
-"""The paper's experiment networks (§5) at inference (port of
+"""The paper's experiment networks (§5), trained and served (port of
 `repro.models.paper_nets`).
 
   * MNIST MLP: 3 binary hidden layers x 1024, L2-SVM output, no batch norm
@@ -6,16 +6,33 @@
   * CIFAR-10 / SVHN CNN: 2x(128C3)-MP2-2x(256C3)-MP2-2x(512C3)-MP2-
     1024FC-1024FC-L2SVM with (shift-)BN.
 
-Both forwards take fp32 masters or frozen trees (`freeze_mlp`/`freeze_cnn`).
-Frozen, they run bit-resident: the binary layers are XNOR+popcount GEMMs
-whose activations stay packed between layers, through the Hopper kernels
-on CUDA tensors. Params and BN running stats are separate trees, as in the
-JAX package; layouts are NHWC images, (K, N) dense and HWIO conv weights.
+Training (`train=True`, fp32 masters) follows Algorithm 1: W_b =
+binarize(W), h_b = binarize(HT(W_b h)), the STE (Eq. 6) in the backward,
+BN on batch moments with the running statistics returned updated. With a
+generator `gen` (or `noise`) weights and activations binarize
+stochastically in mode 'bbp'; with neither, deterministically, as `key=None`
+in JAX. Inference takes fp32 masters or frozen trees (`freeze_mlp` /
+`freeze_cnn`); frozen, the nets run bit-resident: XNOR+popcount GEMMs whose
+activations stay packed between layers. Params and BN running stats are
+separate trees, as in the JAX package; layouts are NHWC images, (K, N)
+dense and HWIO conv weights.
 
-`kernel_path` picks the realization of the frozen binary GEMMs ('auto':
-the kernels, or their plain versions on the CPU; 'ref': the plain oracles
-on any device). `hidden`, when a list, collects the PackedActivations the
-bit-resident chain passes between layers.
+`kernel_path`: for fp32 masters, the route of the CNN's binary convs
+(`kernels.ops.binary_matmul`: 'auto' | 'mxu' | 'vpu' | 'ref'); for frozen
+weights 'ref' takes the plain versions of the packed GEMMs and any other
+value the kernels (their plain versions on CPU tensors). `hidden`, when a
+list, collects the PackedActivations of the bit-resident chain.
+
+Stochastic noise. Each stochastic binarization draws u ~ U[0, 1) of its
+input's shape from `gen`, in the order the forward visits these sites, or
+reads it from the dict `noise` by site name:
+  MLP, layer i:   'layers.{i}.qact' (input of a BBP qmatmul), 'layers.{i}.w'
+                  (its weight, BC and BBP), 'layers.{i}.act' (hidden act)
+  CNN, conv i:    'convs.{i}.w', 'convs.{i}.act' (i > 0), mode 'bbp' only
+  CNN, fc1 / fc2: '{name}.act', '{name}.qact', '{name}.w'; out: 'out.qact',
+                  'out.w'
+These are where JAX folds or splits its key (fold_in(key, i), its split
+into weight and activation keys, fold_in(kk, 7 | 3 | 5)).
 """
 from __future__ import annotations
 
@@ -26,7 +43,9 @@ import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
 from repro_torch.core.ap2 import ap2
-from repro_torch.core.binarize import binarize, binary_act
+from repro_torch.core.binarize import (
+    binarize, binary_act, clip_weights, hard_tanh, uniform_noise,
+)
 from repro_torch.core.layers import (
     QuantMode, packed_qmatmul, packed_qmatmul_fused, qmatmul,
 )
@@ -35,9 +54,49 @@ from repro_torch.core.packed import (
     fold_bn_sign_threshold, freeze_params,
 )
 from repro_torch.core.shift_bn import batch_norm, init_bn, shift_batch_norm
-from repro_torch.kernels.ops import binary_conv2d, im2col
+from repro_torch.kernels.ops import MATMUL_PATHS, binary_conv2d, im2col
+from repro_torch.optim.base import tree_map_with_path
 
 _MODES = {"bbp": QuantMode.BBP, "bc": QuantMode.BC, "float": QuantMode.NONE}
+
+
+class _Draws:
+    """The noise of each stochastic site: noise[site] when a dict is given,
+    else a fresh U[0, 1) draw from `gen` of the input's shape."""
+
+    def __init__(self, train: bool, gen: torch.Generator | None,
+                 noise: dict | None):
+        self.gen, self.noise = gen, noise
+        self.on = train and (gen is not None or noise is not None)
+
+    def __call__(self, site: str, like: torch.Tensor) -> torch.Tensor:
+        if self.noise is not None:
+            return self.noise[site]
+        return uniform_noise(like, self.gen)
+
+    def act(self, x: torch.Tensor, site: str, stochastic: bool):
+        """binary_act(x), stochastic from this site's draw where asked."""
+        return binary_act(x, stochastic=stochastic,
+                          noise=self(site, x) if stochastic else None)
+
+    def qmatmul(self, site: str, x: torch.Tensor, w: torch.Tensor,
+                qm: QuantMode) -> dict | None:
+        """qmatmul's noise at train time: its input's draw, then its
+        weight's, where the mode binarizes them."""
+        if not self.on:
+            return None
+        noise = {}
+        if qm == QuantMode.BBP:
+            noise["act"] = self(f"{site}.qact", x)
+        if qm in (QuantMode.BC, QuantMode.BBP):
+            noise["w"] = self(f"{site}.w", w)
+        return noise
+
+
+def _frozen_path(kernel_path: str) -> str:
+    if kernel_path not in MATMUL_PATHS:
+        raise ValueError(f"kernel_path {kernel_path!r} not in {MATMUL_PATHS}")
+    return "ref" if kernel_path == "ref" else "auto"
 
 
 def _uniform(gen: torch.Generator, shape, device) -> torch.Tensor:
@@ -111,26 +170,33 @@ def _mlp_forward_bit_resident(params: dict, x: torch.Tensor, path: str,
 
 
 def mlp_forward(params: dict, x: torch.Tensor, *, mode: str = "bbp",
-                kernel_path: str = "auto",
+                train: bool = False, gen: torch.Generator | None = None,
+                noise: dict | None = None, kernel_path: str = "auto",
                 hidden: list | None = None) -> torch.Tensor:
     """x: (B, 784) in [-1, 1]. Returns L2-SVM scores (B, 10).
 
     mode: 'bbp' (paper), 'bc' (BinaryConnect baseline), 'float'."""
     qm = _MODES[mode]
-    if qm == QuantMode.BBP and _mlp_bit_resident_ok(params):
-        return _mlp_forward_bit_resident(params, x, kernel_path, hidden)
+    packed_path = _frozen_path(kernel_path)
+    if qm == QuantMode.BBP and not train and _mlp_bit_resident_ok(params):
+        return _mlp_forward_bit_resident(params, x, packed_path, hidden)
+    draws = _Draws(train, gen, noise)
+    stoch = draws.on and mode == "bbp"
     n = len(params["layers"])
     h = x
     for i, lp in enumerate(params["layers"]):
         # the input layer consumes real-valued pixels (the paper binarizes
         # hidden neurons only)
         qm_i = QuantMode.BC if (qm == QuantMode.BBP and i == 0) else qm
-        pre = qmatmul(h, lp["w"], qm_i, path=kernel_path) + lp["b"]
+        pre = qmatmul(h, lp["w"], qm_i, train=train,
+                      noise=draws.qmatmul(f"layers.{i}", h, lp["w"], qm_i),
+                      path=packed_path) + lp["b"]
         if qm != QuantMode.NONE:
             # fixed shift normalization: AP2 proxy of 1/sqrt(fan_in)
             pre = pre * _fan_in_shift(lp["w"].shape[0])
         if i < n - 1:
-            h = binary_act(pre) if mode == "bbp" else pre.clamp(-1.0, 1.0)
+            h = draws.act(pre, f"layers.{i}.act", stoch) if mode == "bbp" \
+                else hard_tanh(pre)
         else:
             h = pre  # L2-SVM scores
     return h
@@ -201,51 +267,65 @@ def _conv_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _max_pool2(h: torch.Tensor) -> torch.Tensor:
-    """2x2 max-pool, stride 2, VALID, on NHWC."""
+    """2x2 max-pool, stride 2, VALID, on NHWC. The gradient goes to the
+    first maximum of each window in row-major order, as JAX's gradient of
+    reduce_window max gives it (clipped activations tie at +-1 often)."""
     b, hh, ww, c = h.shape
     h = h[:, :hh // 2 * 2, :ww // 2 * 2]
-    return h.reshape(b, hh // 2, 2, ww // 2, 2, c).amax(dim=(2, 4))
+    win = h.reshape(b, hh // 2, 2, ww // 2, 2, c).permute(0, 1, 3, 5, 2, 4) \
+        .reshape(b, hh // 2, ww // 2, c, 4)
+    return win.gather(-1, win.argmax(dim=-1, keepdim=True)).squeeze(-1)
 
 
 def cnn_forward(params: dict, bn_state: dict, x: torch.Tensor, *,
-                mode: str = "bbp", bn_kind: str = "shift",
-                kernel_path: str = "auto", hidden: list | None = None
-                ) -> tuple[torch.Tensor, dict]:
-    """x: (B, 32, 32, 3) NHWC. Returns (scores (B, 10), bn_state).
+                mode: str = "bbp", train: bool = False,
+                gen: torch.Generator | None = None, noise: dict | None = None,
+                bn_kind: str = "shift", kernel_path: str = "auto",
+                hidden: list | None = None) -> tuple[torch.Tensor, dict]:
+    """x: (B, 32, 32, 3) NHWC. Returns (scores (B, 10), new_bn_state).
 
-    bn_kind: 'shift' (paper's shift-BN) or 'exact'. Running statistics are
-    only read at inference, so bn_state comes back unchanged.
+    bn_kind: 'shift' (paper's shift-BN) or 'exact'. At train time BN
+    normalizes by the batch moments and the running statistics come back
+    updated; at inference they are read and come back unchanged.
     """
     qm = _MODES[mode]
+    packed_path = _frozen_path(kernel_path)
     bn_fn = shift_batch_norm if bn_kind == "shift" else batch_norm
+    draws = _Draws(train, gen, noise)
+    stoch = draws.on and mode == "bbp"
     new_bn: dict[str, Any] = {"convs": []}
     h = x
     for i, cp in enumerate(params["convs"]):
         frozen = isinstance(cp["w"], PackedWeight)
-        if frozen and qm == QuantMode.NONE:
+        if frozen and (train or qm == QuantMode.NONE):
             raise ValueError("frozen packed conv weights serve binary "
                              "inference only; keep fp32 masters otherwise")
         if qm == QuantMode.NONE:
             hq, wq = h, cp["w"]
         else:
-            wq = cp["w"] if frozen else binarize(cp["w"])
-            hq = binary_act(h) if (qm == QuantMode.BBP and i > 0) else h
+            wq = cp["w"] if frozen else binarize(
+                cp["w"], stochastic=stoch,
+                noise=draws(f"convs.{i}.w", cp["w"]) if stoch else None)
+            hq = draws.act(h, f"convs.{i}.act", stoch) \
+                if (qm == QuantMode.BBP and i > 0) else h
         if qm == QuantMode.BBP and i > 0:
-            # fully binary conv: im2col + the packed GEMM when frozen
+            # fully binary conv: im2col + the binary GEMM of `kernel_path`
+            # (masters), or the packed GEMM (frozen)
             pre = binary_conv2d(hq, wq, path=kernel_path)
         else:
             wmat = wq.unpack(hq.dtype) if frozen else wq.to(hq.dtype)
             pre = _conv_same(hq, wmat)
-        pre, bns_new = bn_fn(cp["bn"], bn_state["convs"][i], pre)
+        pre, bns_new = bn_fn(cp["bn"], bn_state["convs"][i], pre, train=train)
         new_bn["convs"].append(bns_new)
-        h = pre.clamp(-1.0, 1.0)
+        h = hard_tanh(pre)
         if i % 2 == 1:  # max-pool after every second conv
             h = _max_pool2(h)
 
     h = h.reshape(h.shape[0], -1)
 
     fc1w, fc2w, outw = params["fc1"]["w"], params["fc2"]["w"], params["out"]["w"]
-    if (qm == QuantMode.BBP and isinstance(outw, PackedWeight)
+    if (qm == QuantMode.BBP and not train
+            and isinstance(outw, PackedWeight)
             and isinstance(fc1w, PackedWeight)
             and isinstance(fc2w, PackedWeight)):
         # bit-resident FC tail: fc1 signs the conv features in the kernel
@@ -259,25 +339,29 @@ def cnn_forward(params: dict, bn_state: dict, x: torch.Tensor, *,
                 params[name]["bn"].gamma, params[name]["bn"].beta,
                 bn_state[name].mean, bn_state[name].var, kind=bn_kind)
             hb = packed_qmatmul_fused(hb, pw, qm, thresh=t, flip=f,
-                                      path=kernel_path)
+                                      path=packed_path)
             if hidden is not None:
                 hidden.append(hb)
             new_bn[name] = bn_state[name]
-        scores = packed_qmatmul(hb, outw, qm, path=kernel_path) \
+        scores = packed_qmatmul(hb, outw, qm, path=packed_path) \
             + params["out"]["b"]
         return scores, new_bn
 
     for name in ("fc1", "fc2"):
         lp = params[name]
         if qm == QuantMode.BBP:
-            h = binary_act(h)
-        pre = qmatmul(h, lp["w"], qm, path=kernel_path)
-        pre, bns_new = bn_fn(lp["bn"], bn_state[name], pre)
+            h = draws.act(h, f"{name}.act", stoch)
+        pre = qmatmul(h, lp["w"], qm, train=train,
+                      noise=draws.qmatmul(name, h, lp["w"], qm),
+                      path=packed_path)
+        pre, bns_new = bn_fn(lp["bn"], bn_state[name], pre, train=train)
         new_bn[name] = bns_new
-        h = pre.clamp(-1.0, 1.0)
+        h = hard_tanh(pre)
 
-    scores = qmatmul(h, params["out"]["w"], qm, path=kernel_path) \
-        + params["out"]["b"]
+    outw = params["out"]["w"]
+    scores = qmatmul(h, outw, qm, train=train,
+                     noise=draws.qmatmul("out", h, outw, qm),
+                     path=packed_path) + params["out"]["b"]
     return scores, new_bn
 
 
@@ -291,3 +375,10 @@ def square_hinge_loss(scores: torch.Tensor, labels: torch.Tensor,
     margins = torch.clamp(1.0 - t * scores.to(torch.float32), min=0.0)
     return torch.mean(torch.sum(margins * margins, dim=-1))
 
+
+
+def clip_all_weights(params):
+    """Algorithm 1: clip(W) after every update, for weight matrices only
+    (leaves with the dict key 'w' on their path)."""
+    return tree_map_with_path(
+        lambda path, p: clip_weights(p) if "w" in path else p, params)

@@ -6,6 +6,7 @@ import numpy as np
 
 from repro.core.packed import PackedWeight
 from repro.core.shift_bn import BNParams, BNState
+from repro.optim.shift_adamax import AdaMaxState
 from repro_torch.convert import from_numpy_tree
 from repro_torch.convert import words_to_numpy as words  # noqa: F401
 
@@ -66,6 +67,9 @@ def np_to_jax(tree):
         if set(tree) == {"mean", "var", "count"}:
             return BNState(jnp.asarray(tree["mean"]), jnp.asarray(tree["var"]),
                            jnp.asarray(tree["count"]))
+        if set(tree) == {"m", "u", "step"}:
+            return AdaMaxState(np_to_jax(tree["m"]), np_to_jax(tree["u"]),
+                               jnp.asarray(tree["step"]))
         return {k: np_to_jax(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(np_to_jax(v) for v in tree)
@@ -85,6 +89,9 @@ def jax_to_np(tree):
     if isinstance(tree, BNState):
         return {"mean": np.asarray(tree.mean), "var": np.asarray(tree.var),
                 "count": np.asarray(tree.count)}
+    if isinstance(tree, AdaMaxState):
+        return {"m": jax_to_np(tree.m), "u": jax_to_np(tree.u),
+                "step": np.asarray(tree.step)}
     if isinstance(tree, dict):
         return {k: jax_to_np(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -95,3 +102,33 @@ def jax_to_np(tree):
 def to_port(np_tree):
     """numpy tree -> the port's tree, on the CPU."""
     return from_numpy_tree(np_tree, device="cpu")
+
+
+def np_leaves(tree) -> list:
+    """The numpy leaves of a numpy tree (the form `jax_to_np` and
+    `repro_torch.convert.to_numpy_tree` give), in a fixed order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in np_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in np_leaves(v)]
+    return [np.asarray(tree)]
+
+
+def assert_rel(got, want, rel=1e-5, what=""):
+    """|got - want| <= rel * max|want| elementwise: a float output or
+    gradient held relative to the largest magnitude of its tensor."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    scale = np.abs(want).max() if want.size else 0.0
+    err = np.abs(got - want).max() if want.size else 0.0
+    assert err <= rel * scale, f"{what}: max abs err {err} > {rel} * {scale}"
+
+
+def ap2_straddles(za, zb):
+    """Where AP2 rounds two float32 inputs that differ only by float
+    rounding (|log2|za| - log2|zb|| < 1e-4, in float64) to different
+    powers of two: round(log2 |z|) differs, so a half-integer lies between
+    the two logarithms. Returns the boolean mask of such elements."""
+    la = np.log2(np.abs(np.asarray(za, np.float64)))
+    lb = np.log2(np.abs(np.asarray(zb, np.float64)))
+    return (np.round(la) != np.round(lb)) & (np.abs(la - lb) < 1e-4)

@@ -81,6 +81,60 @@ def test_cuda_binary_gemm_fused_matches_plain(packed_lhs):
 
 
 # ---------------------------------------------------------------------------
+# Kernel 5: the tensor-core sign GEMM of the training path
+# ---------------------------------------------------------------------------
+# the bnn-cifar10 train step's five binary convs at batch 100, then ragged
+# shapes: K of 1, 31, 33 and 1000, M and N off the 128x128 tile
+MXU_SHAPES = [(102400, 1152, 128), (25600, 1152, 256), (25600, 2304, 256),
+              (6400, 2304, 512), (6400, 4608, 512),
+              (5, 1, 7), (129, 31, 131), (70, 33, 200), (300, 1000, 257),
+              (9, 100, 48), (3, 37, 33)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_binary_gemm_mxu_matches_plain(dtype):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for m, k, n in MXU_SHAPES:
+        x = torch.randn(m, k, generator=g, device="cuda")
+        x.view(-1)[::13] = 0.0                     # sign(0) := +1
+        x.view(-1)[1::17] = -0.0
+        w = torch.randn(k, n, generator=g, device="cuda")
+        w.view(-1)[::7] = 0.0
+        xs = x.to(dtype)
+        bg.reset_launches()
+        got = bg.binary_gemm_mxu(xs, w)
+        torch.cuda.synchronize()
+        assert bg.launches["binary_gemm_mxu"] == 1
+        assert torch.equal(got, bg.binary_gemm_mxu_plain(xs, w)), (m, k, n)
+    # a tensor that starts off 16-byte alignment is read one value at a time
+    x = torch.randn(65 * 128 + 1, generator=g, device="cuda")[1:].view(65, 128)
+    assert x.data_ptr() % 16 != 0
+    w = torch.randn(128, 40, generator=g, device="cuda")
+    assert torch.equal(bg.binary_gemm_mxu(x, w), bg.binary_gemm_mxu_plain(x, w))
+
+
+@pytest.mark.cuda
+def test_cuda_binary_matmul_routes_agree_with_gradients():
+    from repro_torch.kernels import ops
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(300, 1000, generator=g, device="cuda")
+    w = torch.randn(1000, 70, generator=g, device="cuda")
+    up = torch.randn(300, 70, generator=g, device="cuda")
+    outs = {}
+    for path in ops.MATMUL_PATHS:
+        xt, wt = x.clone().requires_grad_(), w.clone().requires_grad_()
+        out = ops.binary_matmul(xt, wt, path)
+        out.backward(up)
+        outs[path] = (out.detach(), xt.grad, wt.grad)
+    for path, (out, gx, gw) in outs.items():
+        for a, b in zip((out, gx, gw), outs["ref"]):
+            assert torch.equal(a, b), path
+
+
+# ---------------------------------------------------------------------------
 # Kernels A (sign-pack), B (decode attention), C (prefill attention)
 # ---------------------------------------------------------------------------
 @pytest.mark.cuda
