@@ -46,12 +46,12 @@ Phases, each of which raises on failure (nothing is caught):
                cache and from the contiguous cache: decode tokens/s, TTFT of
                hit and miss requests, ITL, prefix stats, the page pool,
                tokens equal
-  8. train   - kernel 5 (binary_gemm_mxu, the tensor-core sign GEMM) against
+  8. train   - kernel 4 (binary_gemm_mxu, the tensor-core sign GEMM) against
                its plain version at the five binary-conv shapes of a
                bnn-cifar10 train step (batch 100) and ragged ones, float32
                and bf16 x, tolerance 0; bnn-cifar10 at full width, batch
                100, BBP stochastic from a seeded device generator, shift-BN,
-               S-AdaMax, 3 steps through each route (auto: kernel 5; vpu:
+               S-AdaMax, 3 steps through each route (auto: kernel 4; vpu:
                sign-pack + XNOR-popcount kernels; ref: plain) from the same
                weights, batches and draws: step-1 binary-conv outputs and
                scores, then losses, params, BN and optimizer state equal
@@ -62,13 +62,30 @@ Phases, each of which raises on failure (nothing is caught):
                moments' difference: a noise-floor gradient, an AP2 boundary,
                or through a shared AP2 factor); bnn-mnist (batch 200) 3
                steps; 30 steps of bnn-cifar10 on SyntheticImages lower the
-               loss; kernel 5's
+               loss; kernel 4's
                times beside its bound, plain version and torch._int_mm; the
                train step per batch on auto and ref (ms, images/s), one
                profiled step (busy share, launches), peak memory
+  9. ssm     - kernel 10 (selective_scan) against its plain version on the
+               card, tolerance 0: the decode step (4, 1, 8192, 16) from a
+               state, the prefill chunk (1, 32, 8192, 16) with and without
+               one, a long prefill (1, 4096, 8192, 16), ragged shapes (D
+               8200, N 2 / 4 / 16, T 1 / 7 / 33, float32 and bf16 xi); two
+               chained launches equal one, dt = 0 pads keep h bit for bit;
+               falcon-mamba-7b at full width, depth cut to 2, frozen, served
+               by ServingEngine(prefill_chunk=32, slots=4, max_len=512) on
+               phase 6's traffic through the kernels and the plain
+               versions: tokens equal, kernel 10 launched layers x (chunks +
+               decode steps) times, kernel 2 three times that, nothing
+               else; kernel 10's times at the decode, chunk and long
+               prefill shapes beside its bound and plain version; all 64
+               layers (drawn and frozen one at a time) on the same
+               traffic: decode tokens/s, TTFT, ITL, resident weight and
+               state bytes, peak memory, one profiled decode step
 Launch counts are set to 0 just before each main path (mlp, cnn, lm, paged
-lm, train) runs and read just after. The line before the last is {"kernels": [...]}; the
-last line is {"ok": true, "device": {...}}. Weights, BN statistics and
+lm, train, ssm) runs and read just after. The line before the last is
+{"kernels": [...]} (ten kernels); the last line is {"ok": true, "device":
+{...}}. Weights, BN statistics and
 inputs are random from the seed; image inputs are multiples of 1/128 in
 [-1, 1], like 8-bit pixels. Exits non-zero, printing no result, without a
 card or without the repo.
@@ -93,11 +110,14 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 INT8_TC_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor cores
 FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
 POPC_PER_CLOCK_PER_SM = 16         # 32-bit popc issue rate, compute 9.0
+EXP_PER_CLOCK_PER_SM = 16          # SFU exp issue rate, compute 9.0
 GEMMS = ("binary_gemm_packed", "binary_gemm_packed_rhs", "binary_gemm_fused")
 MXU = "binary_gemm_mxu"
+SCAN = "selective_scan"
 SOURCES = {**{kn: "src/repro_torch/kernels/csrc/binary_gemm.cu" for kn in GEMMS},
            MXU: "src/repro_torch/kernels/csrc/binary_gemm_mxu.cu",
            "pack_bits": "src/repro_torch/kernels/csrc/pack.cu",
+           SCAN: "src/repro_torch/kernels/csrc/selective_scan.cu",
            **{kn: "src/repro_torch/kernels/csrc/attention.cu" for kn in (
                "decode_attention_packed", "prefill_attention_packed",
                "decode_attention_packed_paged",
@@ -112,7 +132,8 @@ REPLACES = {"binary_gemm_packed": "src/repro/kernels/binary_gemm.py:107",
             "decode_attention_packed_paged":
                 "src/repro/kernels/decode_attention.py:214",
             "prefill_attention_packed_paged":
-                "src/repro/kernels/prefill_attention.py:225"}
+                "src/repro/kernels/prefill_attention.py:225",
+            SCAN: "src/repro/kernels/selective_scan.py:64"}
 PAGED_KERNELS = ("decode_attention_packed_paged",
                  "prefill_attention_packed_paged")
 SPIN_CYCLES_PER_S = 1.98e9         # H100 SXM max SM clock (torch.cuda._sleep)
@@ -135,6 +156,12 @@ LM_PAGE, LM_POOL, LM_PREFIX, LM_SUFFIX = 32, 64, 128, (17, 72)
 TRAIN_ROUTES = ("auto", "vpu", "ref")
 TRAIN_STEPS, CONVERGE_STEPS, CPU_BATCH, TRAIN_TIMED = 3, 30, 2, 10
 TRAIN_REL = 1e-5
+# the Mamba serving path: falcon-mamba-7b at full width (d_inner 8192, N 16)
+# on the LM's traffic, engine and chunk; depth cut to SSM_CHECK_DEPTH where
+# tokens are held to the plain path, all 64 layers in the timed run (drawn
+# and frozen one layer at a time: all fp32 masters at once are ~29 GB);
+# kernel 10 also checked and timed at a SSM_LONG-step prefill
+SSM_ARCH, SSM_CHECK_DEPTH, SSM_LONG = "falcon-mamba-7b", 2, 4096
 
 
 def smi(query: str) -> str:
@@ -346,7 +373,7 @@ def check_equal(what, got, want):
 
 
 # ---------------------------------------------------------------------------
-# The LM serving path: kernels A (pack), B (decode attention), C (prefill
+# The LM serving path: kernels 5 (pack), 6 (decode attention), 8 (prefill
 # attention) and the engine
 # ---------------------------------------------------------------------------
 def lm_modules():
@@ -354,7 +381,8 @@ def lm_modules():
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import pack as pk
     from repro_torch.kernels import prefill_attention as pa
-    return bg, pk, da, pa
+    from repro_torch.kernels import selective_scan as ss
+    return bg, pk, da, pa, ss
 
 
 def reset_all_launches() -> None:
@@ -451,10 +479,10 @@ def check_close(what, got, want, dtype):
 
 
 def lm_kernel_checks(cfg, dev_gen, dev):
-    """Kernels A, B, C against their plain versions on the card at the LM's
+    """Kernels 5, 6, 8 against their plain versions on the card at the LM's
     main-path shapes and at ragged ones. Words and integer dots: tolerance
     0. Attention outputs: ATTN_TOL, signs equal."""
-    _, pk, da, pa = lm_modules()
+    _, pk, da, pa, _ = lm_modules()
     err = {"pack_bits": 0, "decode_attention_packed": 0.0,
            "prefill_attention_packed": 0.0}
     hkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
@@ -567,7 +595,7 @@ def lm_paged_kernel_checks(cfg, dev_gen, seed, dev):
     contiguous plain version) and the contiguous kernel's on the gathered
     panel."""
     from repro_torch.kernels import ref
-    _, _, da, pa = lm_modules()
+    _, _, da, pa, _ = lm_modules()
     rng = np.random.default_rng(seed)
     hkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
     n_pages = LM_MAX_LEN // LM_PAGE
@@ -1003,13 +1031,13 @@ def shape_times(call, kn, plain, library=None):
 
 
 def lm_kernel_times(cfg, dev_gen, dev, popc_per_s):
-    """Times of kernels A, B, C at the LM's main-path shapes (bf16
+    """Times of kernels 5, 6, 8 at the LM's main-path shapes (bf16
     activations, see `shape_times`) beside their bounds, plain versions and, for
     B and C, one PyTorch call (SDPA) computing the same function. Returns
     the rows and the per-kernel sums over one layer's launches in one
     decode step and one prefill chunk."""
     from repro_torch.kernels import ref
-    _, pk, da, pa = lm_modules()
+    _, pk, da, pa, _ = lm_modules()
     hkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
     rows = []
     for m, k, where in pack_check_shapes(cfg)[:4]:
@@ -1088,7 +1116,7 @@ def lm_paged_kernel_times(cfg, dev_gen, dev, popc_per_s):
     own device time is printed beside it (`gather_ms`). The bound counts
     the valid K/V rows, q, out, v_scale and the page table."""
     from repro_torch.kernels import ref
-    _, _, da, pa = lm_modules()
+    _, _, da, pa, _ = lm_modules()
     rng = np.random.default_rng(0)
     hkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
     n_pages = LM_MAX_LEN // LM_PAGE
@@ -1167,7 +1195,7 @@ def check_close_loose(what, lib, kern):
         raise AssertionError(f"{what}: differs by {err}")
 
 # ---------------------------------------------------------------------------
-# The training path: kernel 5 (binary_gemm_mxu) and the train step
+# The training path: kernel 4 (binary_gemm_mxu) and the train step
 # ---------------------------------------------------------------------------
 def train_conv_shapes(cfg):
     """(M, K, N) of the binary convs (2-6) of one bnn-cifar10 train step:
@@ -1202,7 +1230,7 @@ def mxu_bound(m, k, n, x_bytes=4):
 
 
 def mxu_kernel_checks(dev_gen, shapes):
-    """Kernel 5 against its plain version, float32 and bf16 x: equal."""
+    """Kernel 4 against its plain version, float32 and bf16 x: equal."""
     from repro_torch.kernels import binary_gemm as bg
     err = 0
     for m, k, n in shapes:
@@ -1393,7 +1421,7 @@ def train_cpu_check(cfg, seed, dev):
 
 
 def train_times(cfg, seed, dev, card, dev_gen):
-    """Kernel 5 at the train step's conv shapes (`shape_times`, with
+    """Kernel 4 at the train step's conv shapes (`shape_times`, with
     torch._int_mm on the same +-1 int8 operands as the library call), then
     the train step per batch on each route, and one step's busy share,
     launches and peak memory."""
@@ -1470,10 +1498,10 @@ def train_times(cfg, seed, dev, card, dev_gen):
 
 
 def train_phase(seed, dev, card, dev_gen):
-    """Phase 8: kernel 5 against its plain version, the routes against each
+    """Phase 8: kernel 4 against its plain version, the routes against each
     other at full width, a CPU step against the card's, bnn-mnist on the
     card, convergence, times. Returns (max error, main-path launches,
-    per-shape rows, report); the launches are kernel 5's on the main path,
+    per-shape rows, report); the launches are kernel 4's on the main path,
     the auto route's TRAIN_STEPS steps."""
     from repro_torch.configs.bnn_paper import BNN_CIFAR10, BNN_MNIST
     from repro_torch.train import paper as tp
@@ -1502,6 +1530,303 @@ def train_phase(seed, dev, card, dev_gen):
                                  "mnist_losses": mnist,
                                  "converge_losses": losses, "steps": steps,
                                  "shapes": rows}
+
+
+# ---------------------------------------------------------------------------
+# The Mamba serving path: kernel 10 (selective_scan) and falcon-mamba-7b
+# ---------------------------------------------------------------------------
+def scan_case(gen, b, t, d, n, dev, h0=True, xi_dtype=torch.bfloat16):
+    """Operands of one selective scan on the card, in the ranges the
+    falcon-mamba path gives them: dt = softplus(normal - 4) (about 1e-3 to
+    0.1, as softplus(dt_b) at init), A = -(1..N) on every channel (S4D-real
+    init), xi normal, B and C integer dots of +-1 vectors of length 8192
+    (x_proj's), h0 normal."""
+    import torch.nn.functional as F
+    dt = F.softplus(torch.randn(b, t, d, generator=gen, device=dev) - 4.0)
+    xi = torch.randn(b, t, d, generator=gen, device=dev).to(xi_dtype)
+    bm, cm = (torch.round(torch.randn(b, t, n, generator=gen, device=dev)
+                          * 90.0) for _ in range(2))
+    am = -torch.arange(1, n + 1, dtype=torch.float32, device=dev) \
+        .expand(d, n).contiguous()
+    h = torch.randn(b, d, n, generator=gen, device=dev) if h0 else None
+    return dt, xi, bm, cm, am, h
+
+
+def scan_kernel_checks(dev_gen, dev, di, n_state):
+    """Kernel 10 against its plain version on the card (both take CUDA's
+    double exp), tolerance 0: the decode step (4, 1, di, N) from a state,
+    the prefill chunk (1, 32, di, N) with and without one, a long prefill
+    (1, 4096, di, N), ragged shapes (D di + 8, N 2 / 4 / 16, T 1 / 7 / 33)
+    with float32 and bf16 xi; two chained launches against one over the
+    concatenation, and dt = 0 pads leaving h bit for bit. Returns the
+    largest error (0)."""
+    from repro_torch.kernels import selective_scan as ss
+    cases = [((LM_SLOTS, 1, di, n_state), True, torch.bfloat16, "decode"),
+             ((1, LM_CHUNK, di, n_state), True, torch.bfloat16, "chunk"),
+             ((1, LM_CHUNK, di, n_state), False, torch.bfloat16,
+              "first chunk"),
+             ((1, SSM_LONG, di, n_state), False, torch.bfloat16,
+              "long prefill")]
+    for n in (2, 4, 16):
+        for t in (1, 7, 33):
+            for xd in (torch.float32, torch.bfloat16):
+                cases.append(((2, t, di + 8, n), t != 7, xd, "ragged"))
+    err = 0.0
+    for (b, t, d, n), with_h0, xd, where in cases:
+        ops = scan_case(dev_gen, b, t, d, n, dev, with_h0, xd)
+        got = ss.selective_scan(*ops)
+        torch.cuda.synchronize()
+        want = ss.selective_scan_plain(*ops)
+        torch.cuda.synchronize()
+        e = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        err = max(err, e)
+        print(f"check {SCAN} {where:12s} B={b} T={t:4d} D={d} N={n:2d} xi "
+              f"{str(xd)[6:]:8s} h0 {with_h0!s:5s} max_abs_err={e}")
+        if e:
+            raise AssertionError(f"{SCAN} {where} ({b},{t},{d},{n}) differs "
+                                 f"from its plain version by {e}")
+        del ops, got, want
+    dt, xi, bm, cm, am, h0 = scan_case(dev_gen, 2, 100, di + 8, n_state, dev)
+    y, h = ss.selective_scan(dt, xi, bm, cm, am, h0)
+    cut = 37
+
+    def part(s, h_in):
+        return ss.selective_scan(dt[:, s].contiguous(), xi[:, s].contiguous(),
+                                 bm[:, s].contiguous(), cm[:, s].contiguous(),
+                                 am, h_in)
+    y1, h1 = part(slice(0, cut), h0)
+    y2, h2 = part(slice(cut, 100), h1)
+    check_equal(f"{SCAN}: chained y", torch.cat([y1, y2], dim=1), y)
+    check_equal(f"{SCAN}: chained h", h2, h)
+    dt_pad = dt.clone()
+    dt_pad[:, cut:] = 0.0
+    _, hp = ss.selective_scan(dt_pad, xi, bm, cm, am, h0)
+    check_equal(f"{SCAN}: dt = 0 pads", hp, h1)
+    print(f"check {SCAN}: two chained launches (37 + 63 steps) equal one "
+          f"over 100, y and h bit for bit; 63 dt = 0 pads leave h as after "
+          f"step 37, bit for bit")
+    return err
+
+
+def ssm_engine(cfg, params, **kw):
+    from repro_torch.serving.engine import ServingEngine
+    return ServingEngine(cfg, params, prefill_chunk=LM_CHUNK, slots=LM_SLOTS,
+                         max_len=LM_MAX_LEN, **kw)
+
+
+def ssm_engine_check(base_cfg, seed, dev):
+    """falcon-mamba-7b at full width, depth SSM_CHECK_DEPTH, frozen, on the
+    LM phase's traffic through the kernels and through the plain versions:
+    all greedy tokens equal; kernel 10 launched once per layer in every
+    prefill chunk and decode step, kernel 2 three times (in_proj, x_proj,
+    out_proj with a bf16 lhs), no other kernel. Returns the launch counts
+    of the kernel run (the main path) and its chunk and decode-step
+    counts."""
+    from repro_torch.serving.engine import Request
+    from repro_torch.models.api import get_model
+    cfg = base_cfg.scaled(n_layers=SSM_CHECK_DEPTH)
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    masters = get_model(cfg).init(gen, device=dev)
+    eng = ssm_engine(cfg, masters, freeze=True, seed=seed)
+    frozen = eng.params
+    del masters
+    torch.cuda.empty_cache()
+    plain = ssm_engine(cfg, frozen, kernel_path="ref", seed=seed)
+    prompts = lm_traffic(seed, cfg.vocab)
+    alone = eng.generate([Request(prompts[5], max_new_tokens=LM_NEW)])[0]
+    eos = int(alone[7])          # request 5 stops at its own 8th token
+    reqs = [Request(p, max_new_tokens=LM_NEW, eos_id=eos if i == 5 else None)
+            for i, p in enumerate(prompts)]
+    sched = eng.scheduler()
+    steps0 = sched.stats["decode_steps"]
+    reset_all_launches()
+    got = eng.generate(reqs)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    steps = sched.stats["decode_steps"] - steps0
+    want = plain.generate(reqs)
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{SSM_ARCH} request {i}: kernel tokens "
+                                 f"{a.tolist()} != plain {b.tolist()}")
+    if got[5][-1] != eos or len(got[5]) > 8:
+        raise AssertionError(f"request 5 did not stop at eos {eos}: {got[5]}")
+    if any(len(t) != LM_NEW for i, t in enumerate(got) if i != 5):
+        raise AssertionError("a request did not get its budget")
+    n_chunks = sum(-(-len(p) // LM_CHUNK) for p in prompts)
+    calls = SSM_CHECK_DEPTH * (n_chunks + steps)
+    want_launches = {kn: 0 for kn in launches}
+    want_launches.update({SCAN: calls, "binary_gemm_packed_rhs": 3 * calls})
+    if launches != want_launches:
+        raise AssertionError(f"{SSM_ARCH} launches {launches} != "
+                             f"{want_launches} ({SSM_CHECK_DEPTH} layers x "
+                             f"({n_chunks} chunks + {steps} decode steps))")
+    print(f"ssm engine check: {SSM_ARCH} full width (d_model {cfg.d_model}, "
+          f"d_inner {cfg.expand * cfg.d_model}, N {cfg.ssm_state}), "
+          f"depth {SSM_CHECK_DEPTH} (cut from {base_cfg.n_layers}), "
+          f"{LM_REQUESTS} requests, prompts {sorted(len(p) for p in prompts)}, "
+          f"{LM_NEW} new tokens, request 5 stops at eos {eos} after "
+          f"{len(got[5])}: tokens equal the plain path's; {SCAN} launches "
+          f"{launches[SCAN]} = {SSM_CHECK_DEPTH} layers x ({n_chunks} chunks + "
+          f"{steps} decode steps); launches {launches}")
+    del eng, plain, frozen
+    torch.cuda.empty_cache()
+    return launches, n_chunks, steps
+
+
+def ssm_timed_run(base_cfg, seed, dev, card):
+    """All 64 layers, drawn and frozen one layer at a time, on the same
+    traffic, timed: decode tokens/s, TTFT, ITL, resident weight bytes
+    (binary vs other; the binary layers against their fp32 masters), state
+    bytes, peak device memory, and one profiled decode step."""
+    from repro_torch.models.api import get_model
+    from repro_torch.serving.engine import Request
+    cfg = base_cfg
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    frozen = get_model(cfg).init_frozen(gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = ssm_engine(cfg, frozen, freeze=True, seed=seed)
+    del frozen
+    prompts = lm_traffic(seed, cfg.vocab)
+    eng.generate([Request(prompts[0][:40], max_new_tokens=4)])     # warm-up
+    sched = eng.scheduler()
+    before = dict(sched.stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    comps = eng.serve([Request(p, max_new_tokens=LM_NEW) for p in prompts])
+    wall = time.perf_counter() - t0
+    st = {k: sched.stats[k] - before[k] for k in ("decode_s", "prefill_s",
+                                                 "decode_steps", "bursts")}
+    decode_tokens = sum(len(c.tokens) - 1 for c in comps)
+    itl = np.concatenate([c.itl for c in comps])
+    w = eng.resident_weight_bytes()
+    c = eng.resident_cache_bytes()
+    d, n, r = cfg.d_model, cfg.ssm_state, cfg.dt_rank
+    di = cfg.expand * d
+    master_binary = 4 * cfg.n_layers * (d * 2 * di + di * (r + 2 * n)
+                                        + di * d)
+    rep = {
+        "depth": cfg.n_layers, "init_frozen_s": init_s,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+        "wall_s": wall, "decode_s": st["decode_s"],
+        "prefill_s": st["prefill_s"], "decode_steps": st["decode_steps"],
+        "bursts": st["bursts"], "decode_tokens": decode_tokens,
+        "decode_tok_per_s": decode_tokens / st["decode_s"],
+        "prefill_tok_per_s": sum(map(len, prompts)) / st["prefill_s"],
+        "ttft_ms_p50": percentile([c.ttft for c in comps], 50) * 1e3,
+        "ttft_ms_p99": percentile([c.ttft for c in comps], 99) * 1e3,
+        "ttft_wall_ms_p50": percentile([c.ttft_wall for c in comps], 50) * 1e3,
+        "itl_ms_p50": percentile(itl, 50) * 1e3,
+        "itl_ms_p99": percentile(itl, 99) * 1e3,
+        "binary_bytes": w["binary"], "other_bytes": w["other"],
+        "binary_master_bytes": master_binary,
+        "state_bytes": c["total"]}
+    if master_binary != 32 * w["binary"]:
+        raise AssertionError(f"binary layers {w['binary']} B are not 1/32 of "
+                             f"their fp32 masters {master_binary} B")
+    print(f"ssm timed run on {card}: {SSM_ARCH} full width and depth "
+          f"({cfg.n_layers} layers, not cut; drawn and frozen layer by layer "
+          f"in {init_s:.1f} s), {LM_REQUESTS} requests, {LM_SLOTS} slots, "
+          f"chunk {LM_CHUNK}, max_len {LM_MAX_LEN}; peak device memory "
+          f"{rep['peak_device_bytes'] / 1e9:.3f} GB")
+    print(f"  wall {wall:.4f} s; decode {decode_tokens} tokens in "
+          f"{st['decode_s']:.4f} s over {st['decode_steps']} steps / "
+          f"{st['bursts']} bursts = {rep['decode_tok_per_s']:.2f} tok/s; "
+          f"prefill {rep['prefill_tok_per_s']:.1f} tok/s")
+    print(f"  TTFT (own admission) p50 {rep['ttft_ms_p50']:.3f} ms, p99 "
+          f"{rep['ttft_ms_p99']:.3f} ms; TTFT wall p50 "
+          f"{rep['ttft_wall_ms_p50']:.3f} ms; ITL p50 {rep['itl_ms_p50']:.3f} "
+          f"ms, p99 {rep['itl_ms_p99']:.3f} ms")
+    print(f"  resident weights: binary {w['binary'] / 1e9:.4f} GB (in_proj, "
+          f"x_proj, out_proj; fp32 masters {master_binary / 1e9:.3f} GB, "
+          f"32x), other {w['other'] / 1e9:.4f} GB (embed fp32, head bf16, "
+          f"dt_w, A_log, D, conv taps, norms); state {c['total'] / 1e6:.3f} "
+          f"MB for {LM_SLOTS} slots (conv + h, float)")
+    pos = torch.full((LM_SLOTS,), 300, dtype=torch.int32, device=dev)
+    step = trace(lambda: sched.model.decode(sched.params, sched._state["cur"],
+                                            sched._cache, pos))
+    share = step["busy_ms"] / step["wall_ms"] if step["wall_ms"] else 0.0
+    print(f"trace ssm decode step (depth {cfg.n_layers}, {LM_SLOTS} slots) on "
+          f"{card}: wall {step['wall_ms']:.4f} ms (profiled), device busy "
+          f"{step['busy_ms']:.4f} ms ({share:.3f} of wall), "
+          f"{step['launches']} kernel launches; top kernels:")
+    for kname, cnt, ms in step["top"]:
+        print(f"    {ms:9.4f} ms  x{cnt:<3d} {kname}")
+    rep["decode_step_trace"] = step
+    del eng, sched
+    torch.cuda.empty_cache()
+    return rep
+
+
+def scan_bound(b, t, d, n, h0, xi_bytes, exp_per_s):
+    """Least time of one scan: the bytes it must move (dt, xi, B, C, A, h0
+    read once; y, h_final written once) over HBM rate, and its B*T*D*N exps
+    over the card's exp rate (16 per clock per SM)."""
+    nbytes = b * t * d * (4 + xi_bytes + 4) + 2 * b * t * n * 4 + d * n * 4 \
+        + (2 if h0 else 1) * b * d * n * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = b * t * d * n / exp_per_s * 1e3
+    return {"bytes_ms": t_bytes, "ops_ms": t_ops,
+            "bound_ms": max(t_bytes, t_ops)}
+
+
+def scan_kernel_times(dev_gen, dev, card, exp_per_s, di, n):
+    """Kernel 10 at the decode step, the prefill chunk and a long prefill
+    (bf16 xi, as the path gives it): device ms, wrapper ms, plain ms, bound.
+    No single PyTorch call computes a selective scan: library none. Returns
+    the rows and the sums over one layer's launches in one decode step and
+    one prefill chunk."""
+    from repro_torch.kernels import selective_scan as ss
+    rows = []
+    print(f"{SCAN} times on {card} (ms; kernel: device_ms; wrapper and plain:"
+          f" CUDA events; bound = max(bytes / 3.35 TB/s, exps / "
+          f"{exp_per_s / 1e12:.3f} T/s); no library call computes it)")
+    for (b, t), with_h0, where, per_layer in (
+            ((LM_SLOTS, 1), True, "decode", 1), ((1, LM_CHUNK), True,
+                                                  "chunk", 1),
+            ((1, SSM_LONG), False, "long prefill", 0)):
+        ops = scan_case(dev_gen, b, t, di, n, dev, with_h0)
+        row = {"kernel": SCAN, "where": where, "shape": (b, t, di, n),
+               "per_layer": per_layer, "library": None,
+               **shape_times(lambda ops=ops: ss.selective_scan(*ops), SCAN,
+                             lambda ops=ops: ss.selective_scan_plain(*ops)),
+               **scan_bound(b, t, di, n, with_h0, 2, exp_per_s)}
+        rows.append(row)
+        print(f"  {SCAN} {where:12s} B={b} T={t:4d} D={di} N={n} kernel "
+              f"{row['ms']:.4f} (wrapper {row['wrapper_ms']:.4f})  plain "
+              f"{row['plain_ms']:.3f}  bound {row['bound_ms']:.5f} "
+              f"({'bytes' if row['bytes_ms'] >= row['ops_ms'] else 'exps'})")
+        del ops
+    total = {"ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+             "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": None,
+             "library_wall_ms": None}
+    for r in rows:
+        for key in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bytes_ms",
+                    "ops_ms"):
+            total[key] += r[key] * r["per_layer"]
+    return rows, total
+
+
+def ssm_phase(seed, dev, card, dev_gen, exp_per_s):
+    """Phase 9: kernel 10 against its plain version, falcon-mamba-7b at full
+    width and depth 2 through the kernels and the plain versions, kernel
+    10's times, the 64-layer timed run. Returns (max error, main-path
+    launches, kernel-10 total, report)."""
+    from repro_torch.configs.base import get_config
+    t0 = time.perf_counter()
+    cfg = get_config(SSM_ARCH)
+    di, n = cfg.expand * cfg.d_model, cfg.ssm_state
+    err = scan_kernel_checks(dev_gen, dev, di, n)
+    launches, n_chunks, steps = ssm_engine_check(cfg, seed, dev)
+    rows, total = scan_kernel_times(dev_gen, dev, card, exp_per_s, di, n)
+    timed = ssm_timed_run(cfg, seed, dev, card)
+    print(f"phase 9 (ssm): {time.perf_counter() - t0:.1f} s")
+    return err, launches, total, {"launches": launches, "chunks": n_chunks,
+                                  "decode_steps": steps, "shapes": rows,
+                                  "timed": timed}
 
 
 def main() -> int:
@@ -1804,6 +2129,13 @@ def main() -> int:
         for key in totals[MXU]:
             totals[MXU][key] += row[key]
 
+    # ------------------------------------------------------------------- ssm
+    exp_per_s = sms * EXP_PER_CLOCK_PER_SM * max_mhz * 1e6
+    err[SCAN], ssm_launches, totals[SCAN], report["ssm"] = ssm_phase(
+        args.seed, dev, card, dev_gen, exp_per_s)
+    for kn in REPLACES:
+        path_launches[kn] += ssm_launches[kn]
+
     kernels = []
     for kn in REPLACES:
         t = totals[kn]
@@ -1824,7 +2156,7 @@ def main() -> int:
               f"{lib}  bound {t['bound_ms']:.6f}")
     report["launches"] = {"mlp": mlp_launches, "cnn": cnn_launches,
                           "lm": lm_launches, "lm_chunks": lm_chunks,
-                          "lm_paged": paged_launches}
+                          "lm_paged": paged_launches, "ssm": ssm_launches}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))
@@ -1834,10 +2166,12 @@ def main() -> int:
           f"{MXU}'s over one bnn-cifar10 train step's five; pack_bits, "
           "decode and prefill attention times (contiguous and paged) over "
           "one LM layer's launches in one decode step and one prefill chunk "
-          "(the two chunk shapes weighted 1/2); the paged kernels' "
-          "library_ms leaves out the gather (printed beside it); launches "
-          "count the mlp, cnn, depth-2 contiguous and paged LM runs and the "
-          f"auto route's {TRAIN_STEPS} train steps")
+          "(the two chunk shapes weighted 1/2), and selective_scan's over "
+          "one falcon-mamba layer's in one decode step and one prefill "
+          "chunk; the paged kernels' library_ms leaves out the gather "
+          "(printed beside it); launches count the mlp, cnn, depth-2 "
+          f"contiguous and paged LM runs, the auto route's {TRAIN_STEPS} "
+          "train steps and the depth-2 falcon-mamba run")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

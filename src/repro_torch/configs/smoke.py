@@ -1,5 +1,5 @@
 """Reduced same-family configs for CPU tests (a copy of
-`repro.configs.smoke` for the families the port serves)."""
+`repro.configs.smoke` for the families the port serves: dense and ssm)."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,9 +9,16 @@ from repro_torch.configs.base import ModelConfig, get_config
 
 def smoke_config(name: str) -> ModelConfig:
     cfg = get_config(name)
-    if cfg.family != "dense":
+    over: dict = dict(
+        d_model=64, d_ff=128, vocab=128, head_dim=16, dtype="float32",
+        attn_chunk=16, remat=True,
+    )
+    if cfg.family == "ssm":
+        over.update(n_layers=3, ssm_state=4, dt_rank=8, expand=2,
+                    n_heads=0, n_kv_heads=0, head_dim=0, d_ff=0)
+    elif cfg.family == "dense":
+        over.update(n_layers=2, n_heads=4, n_kv_heads=2)
+    else:
         raise KeyError(f"{cfg.family} family is not ported yet "
                        "(ROADMAP Queue A)")
-    return dataclasses.replace(
-        cfg, d_model=64, d_ff=128, vocab=128, head_dim=16, dtype="float32",
-        attn_chunk=16, remat=True, n_layers=2, n_heads=4, n_kv_heads=2)
+    return dataclasses.replace(cfg, **over)

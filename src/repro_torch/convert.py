@@ -17,11 +17,14 @@ tensors on `device` (None: the CUDA card). The fp32-master training trees of
 the paper nets (params with BN params, BN running state, S-AdaMax state)
 carry across this way, so a JAX (params, bn_state, opt_state) becomes the
 port's and back. Stacked transformer trees carry
-across as they are: a frozen weight's words keep their leading L axis.
+across as they are: a frozen weight's words keep their leading L axis
+(the transformer's and the Mamba stack's alike).
 `to_numpy_tree` is the way back. KV caches carry across with
 `cache_from_numpy` / `cache_to_numpy`, contiguous or paged: packed K/V
 words (or page pools) uint32 <-> int32, the page table as int32, V scales as
-float32.
+float32; so does the Mamba stack's recurrent state {"conv", "h"} (float
+leaves; a bfloat16 conv history comes back from `cache_to_numpy` as
+float32, which holds it exactly).
 This module imports no jax: turning JAX arrays into numpy is the caller's
 step.
 """
@@ -41,10 +44,14 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 def tensor(a, device=None) -> torch.Tensor:
-    """numpy -> torch on `device`; uint32 words -> int32 with the same bits."""
+    """numpy -> torch on `device`; uint32 words -> int32 with the same bits;
+    a bfloat16 array (JAX's, numpy's extension type) -> torch.bfloat16."""
     a = np.array(a, copy=True, order="C")       # writable, contiguous
     if a.dtype == np.uint32:
         a = a.view(np.int32)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16) \
+            .to(resolve_device(device))
     return torch.from_numpy(a).to(resolve_device(device))
 
 

@@ -4,7 +4,7 @@
 // -0.0 packs to 1 and NaN to 0), 32 values per word, little-endian along the
 // packed axis, positions past the end are pad bits 1. One warp makes one
 // word: lane i reads element 32w+i and __ballot_sync sets bit i, which is the
-// wire format itself. binary_gemm.cu (float lhs), pack.cu (kernel A) and
+// wire format itself. binary_gemm.cu (float lhs), pack.cu (kernel 5) and
 // attention.cu (the query) all pack through `pack_word`.
 #pragma once
 

@@ -1,6 +1,7 @@
-"""Plain PyTorch oracles for the binary GEMM and packed-attention kernels
-(port of the GEMM and attention parts of `repro.kernels.ref`, the paged
-attention oracles included).
+"""Plain PyTorch oracles for the binary GEMM, packed-attention and
+selective-scan kernels (port of the GEMM and attention parts of
+`repro.kernels.ref`, the paged attention oracles included, and of the scan
+the JAX package's Mamba block runs, `repro.models.ssm._mamba_chunk_scan`).
 
 They define the semantics the kernels match:
     binary_matmul(x, w) == sign(x) @ sign(w),  sign(0) := +1
@@ -218,3 +219,59 @@ def prefill_attention_packed_paged_ref(q: torch.Tensor, k_pool: torch.Tensor,
     return prefill_attention_packed_ref(
         q, gather_pages(k_pool, page_table), gather_pages(v_pool, page_table),
         v_scale, kv_len, q_pos, window=window, causal=causal)
+
+
+# ---------------------------------------------------------------------------
+# Selective scan (the Mamba-1 recurrence)
+# ---------------------------------------------------------------------------
+# time steps whose states are stacked before their outputs are summed
+_SCAN_Y_STEPS = 64
+
+
+def selective_scan_ref(dt: torch.Tensor, xi: torch.Tensor, bmat: torch.Tensor,
+                       cmat: torch.Tensor, a_mat: torch.Tensor,
+                       h0: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Oracle for kernels.selective_scan.selective_scan:
+
+        h_t = exp(dt_t * A) * h_{t-1} + (dt_t * xi_t) * B_t
+        y_t = sum_n h_t[:, n] * C_t[n]
+
+    dt: (B, T, D) float32; xi: (B, T, D) float32 | bf16; bmat, cmat: (B, T,
+    N) float32; a_mat: (D, N) float32 (negative); h0: (B, D, N) float32 or
+    None (zeros). Returns y (B, T, D) and h_final (B, D, N), float32.
+
+    One fixed order of operations, the CUDA kernel's: dt * A rounded to
+    float32, its exp taken in float64 and rounded once to float32 (the CUDA
+    math library's float exp and torch's can part by an ulp, its double exp
+    is the one both sides call on the card); each product and sum of the
+    update rounded on its own (no fused multiply-add); y summed over n = 0,
+    1, ..., N-1 in sequence. With dt = 0 at a step, a = 1 and the input term
+    is 0, so h passes through the step unchanged."""
+    b, t, d = dt.shape
+    n = bmat.shape[-1]
+    dev = dt.device
+    h = (torch.zeros((b, d, n), dtype=torch.float32, device=dev)
+         if h0 is None else h0.to(torch.float32).clone())
+    dt, xi = dt.to(torch.float32), xi.to(torch.float32)
+    bmat, cmat = bmat.to(torch.float32), cmat.to(torch.float32)
+    a_mat = a_mat.to(torch.float32)
+    y = torch.empty((b, t, d), dtype=torch.float32, device=dev)
+    hist: list[torch.Tensor] = []
+    for i in range(t):
+        dti = dt[:, i]                                          # (B, D)
+        a = torch.exp((dti[:, :, None] * a_mat).to(torch.float64)) \
+            .to(torch.float32)                                  # (B, D, N)
+        dx = dti * xi[:, i]
+        h = a * h + dx[:, :, None] * bmat[:, i, None, :]
+        hist.append(h)
+        if len(hist) == _SCAN_Y_STEPS or i == t - 1:
+            lo = i + 1 - len(hist)
+            hs = torch.stack(hist, dim=1)                       # (B, S, D, N)
+            c = cmat[:, lo:i + 1, None, :]                      # (B, S, 1, N)
+            acc = hs[..., 0] * c[..., 0]
+            for k in range(1, n):
+                acc = acc + hs[..., k] * c[..., k]
+            y[:, lo:i + 1] = acc
+            hist = []
+    return y, h

@@ -1,17 +1,21 @@
 """Family-dispatching model API used by the serving engine (port of
-`repro.models.api` for the dense family).
+`repro.models.api` for the dense family and the Mamba stack, `ssm`).
 
     model = get_model(cfg)
     params = model.init(gen)                 # fp32 masters
     frozen = model.freeze(params)            # 1-bit PackedWeights
     frozen = model.init_frozen(gen)          # the same, one layer at a time
     cache = model.init_cache(slots, max_len)            # contiguous
-    cache = model.init_cache(slots, max_len, page_size=P)   # paged
+    cache = model.init_cache(slots, max_len, page_size=P)   # paged (dense)
     logits, cache = model.prefill_chunk(params, tokens, cache, slot, pos, n)
     logits, cache = model.decode(params, token, cache, pos)
 
 `path` ('auto' | 'ref'), passed to get_model, picks the kernels or their
 plain versions for every call of the model (see `models.transformer`).
+
+The `ssm` family's "cache" is its recurrent state ({"conv", "h"},
+`models.ssm_lm`), O(1) per slot: `init_cache` takes and ignores `max_len`
+and the paging arguments, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -22,7 +26,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.packed import freeze_params
+from repro_torch.models import ssm_lm as S
 from repro_torch.models import transformer as T
+
+# families whose cache is a KV cache (paging, the prefix cache and the V
+# scale apply to them only); the rest carry O(1) recurrent state per slot
+ATTENTION_FAMILIES = ("dense", "moe", "audio", "vlm")
 
 
 @dataclass(frozen=True)
@@ -51,8 +60,10 @@ class Model:
         gives (same shapes, same distribution, other draws) for a model
         whose masters do not fit on the device."""
         self._check_freezable()
-        return self._cast_head(T.init_transformer_params(
-            gen, self.cfg, device=device, freeze_layer=freeze_params))
+        init = S.init_mamba_params if self.cfg.family == "ssm" \
+            else T.init_transformer_params
+        return self._cast_head(init(gen, self.cfg, device=device,
+                                    freeze_layer=freeze_params))
 
     def _check_freezable(self) -> None:
         if self.cfg.quant == "none":
@@ -69,14 +80,28 @@ class Model:
 
 
 def _whole_prompt(*args, **kwargs):
-    raise NotImplementedError("whole-prompt prefill (float flash attention) "
-                              "comes with the next slice (ROADMAP Queue A); "
-                              "admit through prefill_chunk")
+    raise NotImplementedError("whole-prompt prefill (float flash attention, "
+                              "mamba_prefill) is not ported yet (ROADMAP "
+                              "Queue A); admit through prefill_chunk")
 
 
 def get_model(cfg: ModelConfig, *, path: str = "auto") -> Model:
     if path not in ("auto", "ref"):
         raise ValueError(path)
+    if cfg.family == "ssm":
+        return Model(
+            cfg=cfg,
+            init=lambda gen, device=None: S.init_mamba_params(
+                gen, cfg, device=device),
+            prefill=_whole_prompt,
+            decode=lambda p, token, cache, pos: S.mamba_decode(
+                p, cfg, token, cache, pos, path=path),
+            init_cache=lambda batch, max_len, device=None, **kw:
+                S.mamba_init_state(cfg, batch, device=device),
+            prefill_chunk=lambda p, tokens, cache, slot, pos, n_valid:
+                S.mamba_prefill_chunk(p, cfg, tokens, cache, slot, pos,
+                                      n_valid, path=path),
+        )
     if cfg.family != "dense":
         raise NotImplementedError(f"{cfg.family} family is not ported yet "
                                   "(ROADMAP Queue A)")

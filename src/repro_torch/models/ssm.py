@@ -1,0 +1,195 @@
+"""The Mamba-1 block of falcon-mamba-7b (port of the Mamba part of
+`repro.models.ssm`): the causal depthwise conv, the block's params and
+init, and the block over one prefill chunk or one decode step from
+explicit state.
+
+The recurrence runs through `kernels.selective_scan` (kernel 10) on
+`path="auto"` -- the hand-written kernel on a CUDA tensor, its plain version
+on a CPU one -- and through the plain version on any device on
+`path="ref"`. A prefill chunk is one launch per block (the JAX package
+loops `lax.scan` over its steps); a decode step is the same kernel at
+T = 1 from the slot's state (the JAX step's `a * h + bx` and its einsum,
+one launch).
+
+in_proj, x_proj and out_proj route through `core.layers.qmatmul` (the
+paper's technique, 1-bit `PackedWeight`s once frozen); dt_w, A_log, D and
+the conv taps stay float, as in the JAX package. The RG-LRU block of the
+recurrentgemma hybrid is not ported yet (ROADMAP Queue A).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.layers import QuantMode, qmatmul
+from repro_torch.kernels.selective_scan import (
+    selective_scan, selective_scan_plain,
+)
+from repro_torch.models.common import rms_norm
+
+
+def dt_rank(cfg: ModelConfig) -> int:
+    return cfg.dt_rank or max(1, cfg.d_model // 16)
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv1d (the Mamba temporal conv)
+# ---------------------------------------------------------------------------
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+                  state: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, L, F); w: (K, F) depthwise taps; state: (B, K-1, F) history.
+    Returns (y (B, L, F), new_state (B, K-1, F)). Taps are summed in order
+    k = 0..K-1 in x's dtype, as the JAX package sums them."""
+    k, n = w.shape[0], x.shape[1]
+    if state is None:
+        state = torch.zeros((x.shape[0], k - 1, x.shape[-1]), dtype=x.dtype,
+                            device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)
+    y = xp[:, 0:n] * w[0].to(x.dtype)
+    for i in range(1, k):
+        y = y + xp[:, i:i + n] * w[i].to(x.dtype)
+    if b is not None:
+        y = y + b.to(x.dtype)
+    new_state = xp[:, -(k - 1):] if k > 1 else state
+    return y, new_state
+
+
+def _conv_state_at(conv_state: torch.Tensor, x_pre: torch.Tensor,
+                   n_valid: int, k: int) -> torch.Tensor:
+    """Conv history as of the chunk's last REAL token: rows
+    [n_valid, n_valid + K-1) of concat(state, x_pre), so pad rows beyond
+    `n_valid` never enter the state."""
+    xp = torch.cat([conv_state.to(x_pre.dtype), x_pre], dim=1)
+    return xp[:, n_valid:n_valid + k - 1].to(conv_state.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+def mamba_block_shapes(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    di = cfg.expand * d
+    n = cfg.ssm_state
+    return {
+        "ln": {"scale": (d,)},
+        "in_proj": (d, 2 * di),
+        "conv_w": (cfg.d_conv, di),
+        "conv_b": (di,),
+        "x_proj": (di, dt_rank(cfg) + 2 * n),
+        "dt_w": (dt_rank(cfg), di),
+        "dt_b": (di,),
+        "A_log": (di, n),
+        "D": (di,),
+        "out_proj": (di, d),
+    }
+
+
+def init_mamba_blocks(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
+                      device: torch.device) -> dict:
+    """`n_layers` stacked blocks (leading axis L) by the JAX package's rules
+    (`_mamba_init_block`): A_log = log(1..N) on every channel (S4D-real
+    A = -(1..N)); dt_b so that softplus(dt_b) = dt with log dt uniform in
+    [log 1e-3, log 1e-1]; D ones; other matrices N(0, 0.02^2); other
+    vectors zeros. Draws come from `gen`, on its device."""
+    def draw(name, shp):
+        full = (n_layers,) + shp
+        if name == "A_log":
+            a = torch.arange(1, cfg.ssm_state + 1, dtype=torch.float32)
+            return torch.log(a).expand(full).contiguous().to(device)
+        if name == "dt_b":
+            u = torch.rand(full, generator=gen, device=gen.device)
+            u = math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3))
+            dt = torch.exp(u)
+            return (dt + torch.log(-torch.expm1(-dt))).to(device)
+        if name == "D":
+            return torch.ones(full, dtype=torch.float32, device=device)
+        if len(shp) >= 2:
+            return (torch.randn(full, generator=gen, device=gen.device)
+                    * 0.02).to(device)
+        return torch.zeros(full, dtype=torch.float32, device=device)
+
+    def init(shapes):
+        return {name: init(shp) if isinstance(shp, dict) else draw(name, shp)
+                for name, shp in shapes.items()}
+    return init(mamba_block_shapes(cfg))
+
+
+# ---------------------------------------------------------------------------
+# The block
+# ---------------------------------------------------------------------------
+def scan(dt, xi, bmat, cmat, a_mat, h0, path: str):
+    """The selective scan by `path`: 'auto' kernel 10 (its plain version on
+    a CPU tensor), 'ref' the plain version on any device."""
+    if path == "auto":
+        return selective_scan(dt, xi, bmat, cmat, a_mat, h0)
+    if path == "ref":
+        return selective_scan_plain(dt, xi, bmat, cmat, a_mat, h0)
+    raise ValueError(path)
+
+
+def _ssm_inputs(bp: dict, xi: torch.Tensor, cfg: ModelConfig,
+                mode: QuantMode, path: str):
+    """From the conv output xi (B, L, di): dt (B, L, di) float32 and B, C
+    (B, L, N) float32, contiguous (the kernel's operands), and A (di, N)."""
+    dtr, n = dt_rank(cfg), cfg.ssm_state
+    dbc = qmatmul(xi, bp["x_proj"], mode, path=path)
+    dt_lr, bmat, cmat = dbc.split([dtr, n, n], dim=-1)
+    dt = F.softplus(torch.matmul(dt_lr.to(torch.float32),
+                                 bp["dt_w"].to(torch.float32)) + bp["dt_b"])
+    a_mat = -torch.exp(bp["A_log"].to(torch.float32))
+    return (dt, bmat.to(torch.float32).contiguous(),
+            cmat.to(torch.float32).contiguous(), a_mat.contiguous())
+
+
+def _output(bp: dict, x: torch.Tensor, y: torch.Tensor, xi: torch.Tensor,
+            z: torch.Tensor, mode: QuantMode, path: str) -> torch.Tensor:
+    y = (y + bp["D"] * xi.to(torch.float32)).to(x.dtype)
+    y = y * F.silu(z)
+    return x + qmatmul(y, bp["out_proj"], mode, path=path)
+
+
+def mamba_block_chunk(bp: dict, x: torch.Tensor, conv_state: torch.Tensor,
+                      h0: torch.Tensor, n_valid: int, cfg: ModelConfig,
+                      mode: QuantMode, *, path: str = "auto"
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Mamba block over one prefill chunk from explicit state.
+
+    x: (1, C, D) right-padded chunk; conv_state: (1, K-1, di); h0: (1, di,
+    N) float32; n_valid: host count of real tokens. Pads are masked out of
+    the recurrence (dt -> 0 gives a = 1 and an input term of 0, so the state
+    passes through them bit for bit) and out of the conv history, so
+    chained chunks give the whole prompt's recurrence step for step.
+    Returns (y (1, C, D), conv_state', h')."""
+    c = x.shape[1]
+    xn = rms_norm(x, bp["ln"]["scale"])
+    xz = qmatmul(xn, bp["in_proj"], mode, path=path)
+    xi_pre, z = xz.chunk(2, dim=-1)
+    xi, _ = causal_conv1d(xi_pre, bp["conv_w"], bp["conv_b"], conv_state)
+    new_conv = _conv_state_at(conv_state, xi_pre, n_valid, cfg.d_conv)
+    xi = F.silu(xi)
+    dt, bmat, cmat, a_mat = _ssm_inputs(bp, xi, cfg, mode, path)
+    live = torch.arange(c, device=x.device) < n_valid
+    dt = dt * live[None, :, None]                  # pads: a = 1, input 0
+    y, h_fin = scan(dt, xi.contiguous(), bmat, cmat, a_mat, h0, path)
+    return _output(bp, x, y, xi, z, mode, path), new_conv, h_fin
+
+
+def mamba_block_step(bp: dict, x: torch.Tensor, conv_state: torch.Tensor,
+                     h: torch.Tensor, cfg: ModelConfig, mode: QuantMode, *,
+                     path: str = "auto"
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-token step. x: (B, 1, D); conv_state: (B, K-1, di); h: (B,
+    di, N) float32. The recurrence is the scan at T = 1 from h. Returns
+    (y (B, 1, D), new conv_state, new h)."""
+    xn = rms_norm(x, bp["ln"]["scale"])
+    xz = qmatmul(xn, bp["in_proj"], mode, path=path)
+    xi, z = xz.chunk(2, dim=-1)
+    xi, conv_state = causal_conv1d(xi, bp["conv_w"], bp["conv_b"], conv_state)
+    xi = F.silu(xi)
+    dt, bmat, cmat, a_mat = _ssm_inputs(bp, xi, cfg, mode, path)
+    y, h = scan(dt, xi.contiguous(), bmat, cmat, a_mat, h, path)
+    return _output(bp, x, y, xi, z, mode, path), conv_state, h

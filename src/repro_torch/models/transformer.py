@@ -166,7 +166,7 @@ def ffn_sublayer(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _pack(x: torch.Tensor, path: str) -> torch.Tensor:
-    """Sign words of new K/V rows (kernel A, or its plain version)."""
+    """Sign words of new K/V rows (kernel 5, or its plain version)."""
     return PackedActivation.pack(x, path=path).packed
 
 

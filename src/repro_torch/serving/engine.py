@@ -18,6 +18,15 @@ kernels are held to). A CPU tensor always runs the plain versions.
 (`pool_pages`, default what the contiguous cache holds) and `prefix_cache`
 shares full prompt pages across requests (`serving.scheduler`).
 
+falcon-mamba-7b (`family="ssm"`) serves the same way from O(1) recurrent
+state per slot, its selective scan through kernel 10:
+
+    eng = ServingEngine(get_config("falcon-mamba-7b"), params, freeze=True,
+                        prefill_chunk=C)
+
+`kv_bits`, `page_size`, `pool_pages` and `prefix_cache` have no effect
+there, as in the JAX package.
+
 Not ported yet (ROADMAP Queue A): `generate_static`; and raising
 NotImplementedError: whole-prompt admission (`prefill_chunk=None`), the
 float KV cache (`kv_bits=0`), the mesh, the bounded queue and fault plans.
@@ -29,7 +38,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.packed import params_frozen, resident_weight_bytes
-from repro_torch.models.api import get_model
+from repro_torch.models.api import ATTENTION_FAMILIES, get_model
 from repro_torch.serving.scheduler import (
     Completion, Request, RequestError, Scheduler,
 )
@@ -52,7 +61,7 @@ class ServingEngine:
                 raise ValueError(f"kv_bits must be 0 (float cache) or 1 "
                                  f"(packed sign bitplanes), got {kv_bits}")
             cfg = cfg.scaled(kv_bits=kv_bits)
-        if cfg.kv_bits != 1:
+        if cfg.kv_bits != 1 and cfg.family in ATTENTION_FAMILIES:
             raise NotImplementedError("the float KV cache (kv_bits=0) comes "
                                       "with the next slice (ROADMAP Queue A)")
         if prefill_chunk is None:
@@ -95,8 +104,10 @@ class ServingEngine:
         return resident_weight_bytes(self.params)
 
     def _cache_kw(self) -> dict:
-        """init_cache's paging arguments (the scheduler's default pool)."""
-        if self.page_size is None:
+        """init_cache's paging arguments (the scheduler's default pool);
+        none for a recurrent family, whose state is never paged."""
+        if self.page_size is None or \
+                self.cfg.family not in ATTENTION_FAMILIES:
             return {}
         n_pages = -(-self.max_len // self.page_size)
         return {"page_size": self.page_size,
@@ -106,7 +117,7 @@ class ServingEngine:
     def resident_cache_bytes(self) -> dict:
         """Bytes of the slot cache (`slots` rows at `max_len`, or the page
         pool), split `packed` (int32 sign bitplanes, and int32 page tables)
-        vs `float` (V scales). Computed from shapes; nothing is allocated.
+        vs `float` (V scales; the Mamba stack's conv and SSM states). Computed from shapes; nothing is allocated.
         Paged, `packed` also counts each layer's sink page, and a
         `page_pool` section holds the scheduler's `page_stats()`: pages,
         allocated, free, pinned by the prefix tree, the tree's counters."""

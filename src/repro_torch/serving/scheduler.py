@@ -22,8 +22,9 @@ recycled to the next queued request at the next poll. Completions carry
 `latency` and burst-granularity inter-token intervals `itl`, as in the JAX
 package.
 
-Paged mode (`page_size=P`): the cache's K/V are pools of P-token pages
-shared by every slot plus a per-slot page table (`models.transformer`).
+Paged mode (`page_size=P`, attention families only): the cache's K/V are
+pools of P-token pages shared by every slot plus a per-slot page table
+(`models.transformer`).
 Pages are refcounted (`serving.pager.PagePool`) and allocated at admission
 for every position the request can reach, evicting cold prefix-tree pages
 when the pool is short; a request the pool cannot take yet waits in its
@@ -35,7 +36,9 @@ unseen suffix, the slot's running V scale is restored from the snapshot
 taken at that page boundary (hence `page_size % prefill_chunk == 0`), and
 `Completion.cached_tokens` counts the pinned tokens (`ttft` charges only
 the suffix). Retirement offers the request's full prompt pages to the tree.
-Paging changes addressing only: tokens equal the contiguous cache's.
+Paging changes addressing only: tokens equal the contiguous cache's. The
+Mamba stack (`ssm`) keeps O(1) recurrent state per slot: `page_size`,
+`pool_pages` and `prefix_cache` are ignored for it, as in the JAX package.
 
 Sampling (temperature > 0) draws Gumbel noise from one generator seeded
 from the engine (`serving.sampling`): greedy outputs are the JAX package's,
@@ -55,7 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.api import Model
+from repro_torch.models.api import ATTENTION_FAMILIES, Model
 from repro_torch.serving.pager import PagePool
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.sampling import sample_tokens
@@ -136,7 +139,12 @@ class Scheduler:
                 raise _not_ported(name)
         if prefill_chunk < 1 or interleave_steps < 0:
             raise ValueError("prefill_chunk >= 1 and interleave_steps >= 0")
-        self._paged = page_size is not None
+        # paging, the prefix cache and the V scale apply to the attention
+        # families only: a recurrent family's state is O(1) per slot and
+        # stays slot-resident, so page_size, pool_pages and prefix_cache
+        # are ignored there, as in the JAX scheduler
+        attn_fam = cfg.family in ATTENTION_FAMILIES
+        self._paged = page_size is not None and attn_fam
         cache_kw = {}
         if self._paged:
             if page_size < 1:
@@ -148,13 +156,13 @@ class Scheduler:
             cache_kw = {"page_size": page_size, "pool_pages": self.pool_pages}
             self._pager = PagePool(self.pool_pages)
             self._slot_pages: dict[int, list[int]] = {}
-        elif pool_pages is not None:
+        elif pool_pages is not None and attn_fam:
             raise ValueError("pool_pages needs the paged cache -- pass "
                              "page_size")
-        if prefix_cache and not self._paged:
+        if prefix_cache and not self._paged and attn_fam:
             raise ValueError("prefix_cache needs the paged cache -- pass "
                              "page_size")
-        self._use_tree = bool(prefix_cache)
+        self._use_tree = bool(prefix_cache) and self._paged
         if self._use_tree:
             # running V-scale snapshots are taken at chunk ends, so page
             # boundaries must land on chunk ends to be insertable
@@ -163,7 +171,7 @@ class Scheduler:
                     f"prefix_cache with kv_bits=1 needs page_size divisible "
                     f"by prefill_chunk ({page_size} % {prefill_chunk})")
             self._ptree = PrefixCache(self._pager, page_size)
-        self._needs_vs = cfg.kv_bits == 1
+        self._needs_vs = cfg.kv_bits == 1 and attn_fam
         self.cfg, self.model, self.params = cfg, model, params
         self.n_slots, self.max_len = n_slots, max_len
         self.max_out = max_len

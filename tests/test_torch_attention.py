@@ -1,5 +1,5 @@
 """The port's attention over a bit-resident KV cache (kernels/ref.py, the
-plain versions of kernels B and C) against the JAX package's oracles
+plain versions of kernels 6 and 8) against the JAX package's oracles
 `repro.kernels.ref.{decode,prefill}_attention_packed_ref`.
 
 Integer score dots are compared exactly. Outputs are compared in float32

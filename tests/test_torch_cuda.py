@@ -135,7 +135,7 @@ def test_cuda_binary_matmul_routes_agree_with_gradients():
 
 
 # ---------------------------------------------------------------------------
-# Kernels A (sign-pack), B (decode attention), C (prefill attention)
+# Kernels 5 (sign-pack), 6 (decode attention), 8 (prefill attention)
 # ---------------------------------------------------------------------------
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -334,3 +334,70 @@ def test_cuda_prefill_attention_paged_matches_plain_and_contiguous(dtype):
             for other, odots in ((want, wdots), (contig, cdots)):
                 assert torch.equal(dots, odots)
                 assert torch.equal(got, other)
+
+
+# kernel 10, the selective scan: (B, T, D, N, with h0). falcon-mamba-7b's
+# decode step and prefill chunk (d_inner 8192, N 16), and ragged shapes: D
+# off the 64-channel block, T off the 64-step tile, N of 2 and 4
+SCAN_SHAPES = [(4, 1, 8192, 16, True), (1, 32, 8192, 16, True),
+               (1, 32, 8192, 16, False), (2, 7, 8200, 2, True),
+               (1, 33, 8200, 4, False), (3, 1, 8200, 16, True),
+               (1, 130, 70, 16, True)]
+
+
+def _scan_case(seed, b, t, d, n, xi_dtype):
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.normal(size=(b, t, d)) - 2.0))
+    arrays = [dt, rng.normal(size=(b, t, d)), rng.normal(size=(b, t, n)),
+              rng.normal(size=(b, t, n)),
+              -np.exp(rng.normal(size=(d, n)) * 0.5),
+              rng.normal(size=(b, d, n))]
+    dt, xi, bm, cm, am, h0 = (_t(a.astype(np.float32)).cuda() for a in arrays)
+    return dt, xi.to(xi_dtype), bm, cm, am, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xi_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_selective_scan_matches_plain(xi_dtype):
+    """Kernel 10 against its plain version on the card (both take the CUDA
+    double exp), tolerance 0: y and h_final equal bit for bit."""
+    from repro_torch.kernels import selective_scan as ss
+    _need_card()
+    for b, t, d, n, with_h0 in SCAN_SHAPES:
+        dt, xi, bm, cm, am, h0 = _scan_case(b * t + d + n, b, t, d, n,
+                                            xi_dtype)
+        h0 = h0 if with_h0 else None
+        y, h = ss.selective_scan(dt, xi, bm, cm, am, h0)
+        torch.cuda.synchronize()
+        yr, hr = ss.selective_scan_plain(dt, xi, bm, cm, am, h0)
+        assert torch.equal(y, yr), (b, t, d, n)
+        assert torch.equal(h, hr), (b, t, d, n)
+
+
+@pytest.mark.cuda
+def test_cuda_selective_scan_chains_and_passes_pads():
+    """Two chained launches equal one over the concatenated steps; dt = 0
+    steps leave h_final equal to the state before them, bit for bit; an N
+    the kernel does not hold raises, with no fallback."""
+    from repro_torch.kernels import selective_scan as ss
+    _need_card()
+    dt, xi, bm, cm, am, h0 = _scan_case(0, 2, 100, 8200, 16, torch.float32)
+    y, h = ss.selective_scan(dt, xi, bm, cm, am, h0)
+    y1, h1 = ss.selective_scan(dt[:, :37].contiguous(),
+                               xi[:, :37].contiguous(),
+                               bm[:, :37].contiguous(),
+                               cm[:, :37].contiguous(), am, h0)
+    y2, h2 = ss.selective_scan(dt[:, 37:].contiguous(),
+                               xi[:, 37:].contiguous(),
+                               bm[:, 37:].contiguous(),
+                               cm[:, 37:].contiguous(), am, h1)
+    assert torch.equal(torch.cat([y1, y2], dim=1), y)
+    assert torch.equal(h2, h)
+    dt_pad = dt.clone()
+    dt_pad[:, 37:] = 0.0
+    _, hp = ss.selective_scan(dt_pad, xi, bm, cm, am, h0)
+    assert torch.equal(hp, h1)
+    wide = torch.zeros(2, 100, 17, device="cuda")
+    with pytest.raises(ValueError, match="N=17"):
+        ss.selective_scan(dt, xi, wide, wide, torch.zeros(8200, 17,
+                                                          device="cuda"), None)
