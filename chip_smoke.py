@@ -14,7 +14,10 @@ Phases, each of which raises on failure (nothing is caught):
                ulp) or 1e-6 (float32, 8 ulps), with equal signs; the paged
                attention kernels (7, 9) bit for bit equal to their plain
                versions and to the contiguous kernels on the gathered
-               panels, dots at every position included
+               panels, dots at every position included; kernels 1-3 also
+               at the LM's GEMM shapes (phi3-medium-14b, falcon-mamba-7b)
+               at 4 and 32 rows and kernels 2-3 at the edges of their
+               dispatch rule (`gemm_plan`), one launch per call
   4. mlp     - bnn-mnist (784-1024x3-10) frozen, batches of 200 through the
                kernels; hidden words and scores equal the plain path's, the
                fp32-master path's, and the CPU's on a small batch
@@ -37,7 +40,10 @@ Phases, each of which raises on failure (nothing is caught):
                a spin kernel, CUDA events) and its wrapper's CUDA-event
                time, the plain version's, one PyTorch
                library call computing the same function where there is one,
-               and the card's bound; each forward per batch, one profiled
+               and the card's bound (bytes against the faster of popc and
+               int8 tensor cores); kernels 1 and 2 at the LM's GEMM
+               shapes at 4 and 32 rows, apart from the kernels line;
+               each forward per batch, one profiled
                frozen forward each; then the LM at full depth (40 layers,
                drawn and frozen one at a time): decode tokens/s, TTFT, ITL,
                resident bytes, one profiled decode step (device busy
@@ -334,20 +340,89 @@ def library_call(op: Operands):
 
 
 def bound(kernel, lhs, m, k, n, popc_per_s):
-    """Least time for the work: bytes each read or written once over HBM
-    rate, popc words over the card's popc rate; plus the int8 tensor-core
-    time of the same dots (2*M*N*K ops), printed beside it."""
+    """Least time for the work: the larger of the bytes (each operand read
+    once, the output written once; a float32 lhs 4 bytes a value, bf16 2,
+    packed words 4 per 32) over the HBM rate and the operations, the faster
+    of the two ways the card computes the +-1 dots: popc words over its popc
+    rate, or 2*M*N*K int8 ops over its int8 tensor-core rate."""
     kw = (k + 31) // 32
-    a_bytes = m * k * 4 if lhs == "float" else m * kw * 4
+    a_bytes = {"float": m * k * 4, "bf16": m * k * 2, "packed": m * kw * 4}[lhs]
     out_bytes = m * ((n + 31) // 32) * 4 if kernel == "binary_gemm_fused" \
         else m * n * 4
     extra = 2 * n * 4 if kernel == "binary_gemm_fused" else 0
     nbytes = a_bytes + n * kw * 4 + extra + out_bytes
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = m * n * kw / popc_per_s * 1e3
+    t_popc = m * n * kw / popc_per_s * 1e3
+    t_tc = 2 * m * n * k / INT8_TC_OPS_PER_S * 1e3
+    t_ops = min(t_popc, t_tc)
     return {"bytes": nbytes, "popc": m * n * kw, "bytes_ms": t_bytes,
-            "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
-            "int8_tc_ms": 2 * m * n * k / INT8_TC_OPS_PER_S * 1e3}
+            "popc_ms": t_popc, "int8_tc_ms": t_tc, "ops_ms": t_ops,
+            "bound_ms": max(t_bytes, t_ops)}
+
+
+def bound_by(row):
+    if row["bytes_ms"] >= row["ops_ms"]:
+        return "bytes"
+    return "popc" if row["popc_ms"] <= row["int8_tc_ms"] else "int8 TC"
+
+
+def plan_text(kn, m, k, n, sms):
+    """The dispatch rule's choice for kernels 2 and 3, for the printed rows."""
+    from repro_torch.kernels import binary_gemm as bg
+    if kn not in ("binary_gemm_packed_rhs", "binary_gemm_fused"):
+        return "popc tiles"
+    p = bg.gemm_plan(kn, m, n, k, sms)
+    return (f"{'small-M' if p.small_m else 'TC tiles'} split {p.split} "
+            f"blocks {p.blocks}")
+
+
+# the LM's popcount GEMMs (kernel, lhs, K, N, what), timed at decode and
+# chunk rows apart from the kernels line: phi3-medium-14b's K|V and gate|up
+# (packed lhs), wo and w_down (bf16 lhs); falcon-mamba-7b's in_proj,
+# x_proj and out_proj (bf16 lhs)
+LM_GEMMS = [("binary_gemm_packed", "packed", 5120, 1280, "phi3.kv"),
+            ("binary_gemm_packed", "packed", 5120, 17920, "phi3.gate"),
+            ("binary_gemm_packed_rhs", "bf16", 5120, 5120, "phi3.wo"),
+            ("binary_gemm_packed_rhs", "bf16", 17920, 5120, "phi3.down"),
+            ("binary_gemm_packed_rhs", "bf16", 4096, 16384, "mamba.in"),
+            ("binary_gemm_packed_rhs", "bf16", 8192, 288, "mamba.x"),
+            ("binary_gemm_packed_rhs", "bf16", 8192, 4096, "mamba.out")]
+# kernels 2 and 3 at the edges of the dispatch rule (kernel, lhs, M, K, N):
+# small-M rows 1..32 and tensor-core tiles from 33, K not a multiple of 32,
+# KW % 4 != 0 (tiles at small M), a full 8-block cluster (K 8190, N 200),
+# kernel 3 at M <= 32, 256-channel tiles at an odd N
+REGIME_EDGES = [(kn, lhs, m, k, n)
+                for m in (1, 16, 33, 64, 100)
+                for k, n in ((1000, 288), (3961, 130), (300, 77))
+                for kn, lhs in (("binary_gemm_packed_rhs", "float"),
+                                ("binary_gemm_packed_rhs", "bf16"),
+                                ("binary_gemm_fused", "packed"),
+                                ("binary_gemm_fused", "bf16"))] + [
+    ("binary_gemm_packed_rhs", "bf16", m, 8190, 200) for m in (1, 4, 32)] + [
+    ("binary_gemm_packed_rhs", "float", 12831, 300, 301)]
+
+
+def lm_gemm_times(dev_gen, popc_per_s, sms):
+    """Kernels 1 and 2 at the LM's shapes (LM_GEMMS) at decode and chunk
+    rows: device, wrapper, plain, library and bound times (`shape_times`,
+    `bound`), the library's dots held to the kernel's first."""
+    rows = []
+    for m, rows_of in ((LM_SLOTS, "decode"), (LM_CHUNK, "chunk")):
+        for kn, lhs, k, n, what in LM_GEMMS:
+            op = Operands(dev_gen, m, k, n)
+            lib_name, lib_fn = library_call(op)
+            check_equal(f"{lib_name} vs kernel dots {what}",
+                        lib_fn().to(torch.int32),
+                        op.call("binary_gemm_packed", "packed"))
+            rows.append({"kernel": kn, "lhs": lhs, "M": m, "K": k, "N": n,
+                         "where": f"{what}.{rows_of}", "library": lib_name,
+                         "plan": plan_text(kn, m, k, n, sms),
+                         **shape_times(lambda: op.call(kn, lhs), kn,
+                                       lambda: op.call(kn, lhs, plain=True),
+                                       lib_fn),
+                         **bound(kn, lhs, m, k, n, popc_per_s)})
+            del op, lib_fn
+    return rows
 
 
 def random_bn(gen, n, fan_in, spread, dev):
@@ -1881,14 +1956,12 @@ def main() -> int:
                    ("binary_gemm_packed_rhs", "float", m, k, n, "ragged"),
                    ("binary_gemm_fused", "float", m, k, n, "ragged"),
                    ("binary_gemm_fused", "packed", m, k, n, "ragged")]
-    # the LM's GEMMs at chunk and decode rows: Q|K|V and gate|up read the
-    # shared packed lhs, wo and w_down a bf16 one
+    # the LM's GEMMs at chunk and decode rows (phi3's and falcon-mamba's),
+    # then kernels 2 and 3 at the edges of their dispatch rule
     for m, where in ((LM_CHUNK, "lm.chunk"), (LM_SLOTS, "lm.decode")):
-        checks += [("binary_gemm_packed", "packed", m, 5120, 1280, where),
-                   ("binary_gemm_packed", "packed", m, 5120, 17920, where),
-                   ("binary_gemm_packed_rhs", "bf16", m, 5120, 5120, where),
-                   ("binary_gemm_packed_rhs", "bf16", m, 17920, 5120, where),
-                   ("binary_gemm_fused", "bf16", m, 300, 77, "ragged")]
+        checks += [(kn, lhs, m, k, n, where) for kn, lhs, k, n, _ in LM_GEMMS]
+        checks.append(("binary_gemm_fused", "bf16", m, 300, 77, "ragged"))
+    checks += [(*edge, "edge") for edge in REGIME_EDGES]
     err = {kn: 0 for kn in REPLACES}
     dev_gen = torch.Generator(device=dev).manual_seed(args.seed)
     operands = {}
@@ -1896,19 +1969,23 @@ def main() -> int:
         if (m, k, n) not in operands:
             operands[(m, k, n)] = Operands(dev_gen, m, k, n)
         op = operands[(m, k, n)]
+        before = bg.launches[kn]
         got = op.call(kn, lhs)
         torch.cuda.synchronize()
+        if bg.launches[kn] - before != 1:
+            raise AssertionError(f"{kn} ({m},{k},{n}): not one launch")
         want = op.call(kn, lhs, plain=True)
         torch.cuda.synchronize()
         d = max_abs_diff(got, want, words=kn == "binary_gemm_fused")
         err[kn] = max(err[kn], d)
         print(f"check {kn:24s} {lhs:6s} M={m:6d} K={k:5d} N={n:5d} "
-              f"{where:9s} max_abs_err={d}")
+              f"{where:9s} {plan_text(kn, m, k, n, sms):28s} max_abs_err={d}")
         if d:
             raise AssertionError(f"{kn} {lhs} ({m},{k},{n}) differs from "
                                  f"its plain version by {d}")
-    for key in [key for key in operands if key[1] in (5120, 17920)]:
-        del operands[key]                  # the LM's GEMM operands
+    main_keys = {(m, k, n) for _, _, m, k, n, _ in shapes}
+    for key in [key for key in operands if key not in main_keys]:
+        del operands[key]                  # kept: the main paths' operands
     from repro_torch.configs.base import get_config
     lm_cfg = get_config(LM_ARCH)
     err.update(lm_kernel_checks(lm_cfg, dev_gen, dev))
@@ -2015,8 +2092,9 @@ def main() -> int:
     # ---------------------------------------------------------------- times
     print(f"times on {card} (ms; kernel and library: device time, CUDA "
           f"events over calls queued behind a spin kernel; wrapper, plain "
-          f"and library wall: CUDA events over back-to-back calls; bound = max(bytes / 3.35 TB/s, popc / "
-          f"{popc_per_s / 1e12:.3f} T/s); int8 TC = 2MNK / 1979 TOP/s)")
+          f"and library wall: CUDA events over back-to-back calls; bound = "
+          f"max(bytes / 3.35 TB/s, min(popc / {popc_per_s / 1e12:.3f} T/s, "
+          f"2MNK / 1979 TOP/s int8 TC)))")
     totals = {kn: {"ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0,
                    "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
                    "library_ms": 0.0, "library_wall_ms": 0.0}
@@ -2041,11 +2119,22 @@ def main() -> int:
               f"kernel {row['ms']:.4f} (wrapper {row['wrapper_ms']:.4f})  "
               f"plain {row['plain_ms']:.3f}  {lib_name} "
               f"{row['library_ms']:.4f} (wall {row['library_wall_ms']:.4f})"
-              f"  bound "
-              f"{row['bound_ms']:.4f} ({'bytes' if row['bytes_ms'] >= row['ops_ms'] else 'popc'})"
-              f"  int8 TC {row['int8_tc_ms']:.4f}")
+              f"  bound {row['bound_ms']:.4f} ({bound_by(row)}; popc "
+              f"{row['popc_ms']:.4f}, int8 TC {row['int8_tc_ms']:.4f})  "
+              f"{plan_text(kn, m, k, n, sms)}")
     operands.clear()
     report["shapes"] = rows
+    lm_gemm_rows = lm_gemm_times(dev_gen, popc_per_s, sms)
+    print(f"lm gemm times on {card} (ms per launch, as above; not in the "
+          f"kernels line):")
+    for r in lm_gemm_rows:
+        print(f"  {r['where']:16s} {r['kernel']:24s} {r['lhs']:6s} "
+              f"M={r['M']:3d} K={r['K']:5d} N={r['N']:5d} kernel "
+              f"{r['ms']:.4f} (wrapper {r['wrapper_ms']:.4f})  plain "
+              f"{r['plain_ms']:.3f}  {r['library']} {r['library_ms']:.4f} "
+              f"(wall {r['library_wall_ms']:.4f})  bound {r['bound_ms']:.5f} "
+              f"({bound_by(r)})  {r['plan']}")
+    report["lm_gemm_shapes"] = lm_gemm_rows
 
     fwd = {}
     cfg_m, cfg_c = BNN_MNIST, BNN_CIFAR10

@@ -24,7 +24,8 @@ SOURCES = {"binary_gemm": CSRC / "binary_gemm.cu", "pack": CSRC / "pack.cu",
            "attention": CSRC / "attention.cu",
            "binary_gemm_mxu": CSRC / "binary_gemm_mxu.cu",
            "selective_scan": CSRC / "selective_scan.cu"}
-HEADERS = [CSRC / "common.cuh"]      # included by every source
+HEADERS = [CSRC / "common.cuh",       # included by every source
+           CSRC / "mma_tile.cuh"]     # the tensor-core GEMMs' tile code
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -34,8 +35,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "binary_gemm": {
         "binary_gemm_packed": [_P, _P, _P, _I, _I, _I, _I, _P],
-        "binary_gemm_packed_rhs": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
-        "binary_gemm_fused": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "binary_gemm_packed_rhs": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _I, _P],
+        "binary_gemm_fused": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _P],
     },
     "pack": {"pack_bits": [_P, _I, _P, _I, _I, _P]},
     "binary_gemm_mxu": {"binary_gemm_mxu": [_P, _I, _I, _P, _P, _P, _I, _I,

@@ -3,8 +3,8 @@ and the dispatch the ops call (port of `repro.kernels.binary_gemm`).
 
   * `binary_gemm_packed` — packed (M, KW) lhs x packed (N, KW) rhs -> (M, N)
     int32 dots. Replaces the TPU kernel `binary_gemm_vpu`.
-  * `binary_gemm_packed_rhs` — float32 or bf16 (M, K) lhs, sign-packed
-    inside the kernel, x packed rhs -> (M, N) int32. Replaces
+  * `binary_gemm_packed_rhs` — float32 or bf16 (M, K) lhs, signed inside
+    the kernel, x packed rhs -> (M, N) int32. Replaces
     `binary_gemm_vpu_packed`.
   * `binary_gemm_fused` — packed or float lhs x packed rhs, with the
     bit-resident epilogue: bit_n = (dot_n >= thresh_n) XOR flip_n, repacked
@@ -15,17 +15,35 @@ and the dispatch the ops call (port of `repro.kernels.binary_gemm`).
     kernel and multiplied on the tensor cores: the GEMM of the training
     path's binary convs. Replaces `binary_gemm_mxu`.
 
-The kernels are CUDA C++ for sm_90a in `csrc/binary_gemm.cu` (the XNOR +
-popcount GEMMs) and `csrc/binary_gemm_mxu.cu` (the tensor-core GEMM); each
-header says what bounds its kernels and what the design does about it. A wrapper
-launches its kernel on CUDA tensors, or raises; it runs the plain version
-only because its inputs lie on the CPU. `launches[name]` counts the
-wrapper's kernel launches, so a run can show that it went through them.
+The kernels are CUDA C++ for sm_90a in `csrc/binary_gemm.cu` and
+`csrc/binary_gemm_mxu.cu`, with the int8 tensor-core tile code both share in
+`csrc/mma_tile.cuh`; each header says what bounds its kernels and what the
+design does about it. `binary_gemm_packed` is an XNOR-popcount tile kernel.
+`binary_gemm_packed_rhs` and `binary_gemm_fused` run one of two kernels,
+chosen by `gemm_plan`, a fixed rule of M, N, K and the card's SM count:
 
+  * small M (`binary_gemm_packed_rhs` at M <= 32, the LM's decode and chunk
+    rows): a block packs the M real rows of its K slice once and streams
+    its channels' weight words past them (popcounts);
+  * otherwise (the convs, every `binary_gemm_fused` call): int8
+    tensor-core tiles of 64 rows and 128 or 256 channels, the packed words
+    expanded to +-1 bytes in shared memory.
+
+Where either would launch too few blocks for the card, K is split over a
+thread-block cluster and the partial dots are summed through distributed
+shared memory, inside the same launch: every call is one launch. There is
+no tuning cache and no fallback: a launch that fails raises.
+
+A wrapper launches its kernel on CUDA tensors, or raises; it runs the plain
+version only because its inputs lie on the CPU. `launches[name]` counts the
+wrapper's kernel launches, so a run can show that it went through them.
 Words are int32 tensors holding the uint32 bits of the JAX package's wire
-format. There is no tuning cache and no route choice: the device decides.
+format.
 """
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -43,11 +61,90 @@ _PLAIN_CHUNK = 1 << 24
 _LHS_KIND = {torch.float32: 1, torch.bfloat16: 2}
 # binary_gemm_mxu's K step: its signed w scratch pads K to a multiple of it
 _MXU_BK = 32
+# gemm_plan's rule: the small-M kernel's rows and shared memory, the tensor-
+# core tile and its K stage, the largest portable cluster, and the least K
+# per block of a split (in 4-word groups, in tensor-core stages)
+SMALL_M_ROWS = 32
+_SMEM_BYTES = 227 * 1024
+_TC_BM, _TC_BN, _TC_WIDE_BN, _TC_BK = 64, 128, 256, 128
+_CLUSTER_MAX = 8
+_MIN_SMALL_M_UNITS, _MIN_TC_STAGES = 8, 2
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+@dataclass(frozen=True)
+class GemmPlan:
+    """How one `binary_gemm_packed_rhs` or `binary_gemm_fused` call runs:
+    the small-M kernel or tensor-core tiles, `split` blocks per cluster
+    along K, `block_n` channels per block, `blocks` in the grid, and always
+    one launch."""
+    small_m: bool
+    split: int
+    block_n: int
+    blocks: int
+    launches: int = 1
+
+
+def _split(blocks: int, units: int, min_units: int, sms: int) -> int:
+    """Blocks per cluster along K: doubled while the grid has fewer than
+    1.5 blocks per SM and each block keeps at least `min_units` of K."""
+    split = 1
+    while (split < _CLUSTER_MAX and 2 * blocks * split < 3 * sms
+           and units >= 2 * split * min_units):
+        split *= 2
+    return split
+
+
+def gemm_plan(kernel: str, m: int, n: int, k: int, sms: int,
+              rhs_aligned: bool = True) -> GemmPlan:
+    """The fixed rule that picks the float-lhs / fused kernel and its split.
+
+    `binary_gemm_packed_rhs` at M <= SMALL_M_ROWS runs the small-M kernel
+    where its weight rows are 16-byte aligned words (KW % 4 == 0,
+    `rhs_aligned`) and its packed lhs slice fits in shared memory, with 32
+    channels per block, or 64 where N / 32 is at least 3 blocks per SM
+    (fewer packs of the same lhs); everything else runs tensor-core tiles
+    of 64 rows, 256 channels for `binary_gemm_packed_rhs` where N > 128 and
+    such tiles fill the card without a split (the float lhs read by half as
+    many N tiles), else 128. Either splits K over a cluster (`_split`) where
+    its blocks are fewer than 1.5 per SM."""
+    if kernel not in ("binary_gemm_packed_rhs", "binary_gemm_fused"):
+        raise ValueError(f"no plan for {kernel}")
+    kw = packed_width(k)
+    if kernel == "binary_gemm_packed_rhs" and m <= SMALL_M_ROWS \
+            and kw % 4 == 0 and rhs_aligned:
+        block_n = 64 if -(-n // 32) >= 3 * sms else 32
+        blocks = -(-n // block_n)
+        split = _split(blocks, kw // 4, _MIN_SMALL_M_UNITS, sms)
+        ks = -(-kw // (4 * split)) * 4
+        if 4 * m * (ks + block_n) <= _SMEM_BYTES:
+            return GemmPlan(True, split, block_n, blocks * split)
+    m_tiles = -(-m // _TC_BM)
+    wide = m_tiles * -(-n // _TC_WIDE_BN)
+    if kernel == "binary_gemm_packed_rhs" and n > _TC_BN and 2 * wide >= 3 * sms:
+        return GemmPlan(False, 1, _TC_WIDE_BN, wide)
+    tiles = m_tiles * -(-n // _TC_BN)
+    split = _split(tiles, -(-k // _TC_BK), _MIN_TC_STAGES, sms)
+    return GemmPlan(False, split, _TC_BN, tiles * split)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _plan(kernel: str, a: torch.Tensor, b: torch.Tensor, k: int) -> GemmPlan:
+    return gemm_plan(kernel, a.shape[0], b.shape[0], k,
+                     _sm_count(a.device.index), b.data_ptr() % 16 == 0)
+
+
+def _vec(a: torch.Tensor, k: int) -> int:
+    """A float lhs whose rows the tensor-core tiles read 16 bytes at a time."""
+    return int(a.dtype != torch.int32 and k % 4 == 0 and a.data_ptr() % 16 == 0)
 
 
 def _row_chunks(m: int, n: int, kw: int):
@@ -155,16 +252,18 @@ def binary_gemm_packed(a: torch.Tensor, b: torch.Tensor,
 def binary_gemm_packed_rhs(a: torch.Tensor, b: torch.Tensor,
                            k: int) -> torch.Tensor:
     """a: (M, K) float32 or bf16 activations, b: (N, KW) int32 frozen weights ->
-    (M, N) int32 = sign(a) . sign-rows(b). a is sign-packed in the kernel
-    (bit = a >= 0; K positions past the end read as +1)."""
+    (M, N) int32 = sign(a) . sign-rows(b). a is signed inside the kernel
+    that `gemm_plan` picks (+1 where a >= 0; NaN is -1)."""
     _check_operands(a, b, k, False)
     if a.device.type == "cpu":
         return binary_gemm_packed_rhs_plain(a, b, k)
     m, (n, kw) = a.shape[0], b.shape
     out = torch.empty((m, n), dtype=torch.int32, device=a.device)
     if m and n:
+        plan = _plan("binary_gemm_packed_rhs", a, b, k)
         _launch("binary_gemm_packed_rhs", a, a.data_ptr(), _LHS_KIND[a.dtype],
-                b.data_ptr(), out.data_ptr(), m, n, kw, k)
+                _vec(a, k), b.data_ptr(), out.data_ptr(), m, n, kw, k,
+                int(plan.small_m), plan.split, plan.block_n)
     return out
 
 
@@ -185,10 +284,11 @@ def binary_gemm_fused(a: torch.Tensor, b: torch.Tensor, thresh: torch.Tensor,
     m, kw = a.shape[0], b.shape[1]
     out = torch.empty((m, packed_width(n)), dtype=torch.int32, device=a.device)
     if m and n:
+        plan = _plan("binary_gemm_fused", a, b, k)
         _launch("binary_gemm_fused", a, a.data_ptr(),
-                0 if packed_lhs else _LHS_KIND[a.dtype],
+                0 if packed_lhs else _LHS_KIND[a.dtype], _vec(a, k),
                 b.data_ptr(), thresh.data_ptr(), flip.data_ptr(),
-                out.data_ptr(), m, n, kw, k)
+                out.data_ptr(), m, n, kw, k, plan.split)
     return out
 
 
@@ -216,8 +316,7 @@ def binary_gemm_mxu(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     # scratch for sign(w) as (N, Kp) int8, K padded to the kernel's step
     kp = -(-k // _MXU_BK) * _MXU_BK
     wt = torch.empty((n, kp), dtype=torch.int8, device=x.device)
-    vec = k % 4 == 0 and x.data_ptr() % 16 == 0
-    _launch("binary_gemm_mxu", x, x.data_ptr(), _LHS_KIND[x.dtype], int(vec),
+    _launch("binary_gemm_mxu", x, x.data_ptr(), _LHS_KIND[x.dtype], _vec(x, k),
             w.data_ptr(), wt.data_ptr(), out.data_ptr(), m, n, k, kp,
             lib="binary_gemm_mxu")
     return out

@@ -3,62 +3,93 @@
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/binary_gemm.py:
 //   binary_gemm_packed      <- binary_gemm_vpu            (packed lhs, int32 dots)
-//   binary_gemm_packed_rhs  <- binary_gemm_vpu_packed     (float lhs packed here)
+//   binary_gemm_packed_rhs  <- binary_gemm_vpu_packed     (float lhs, int32 dots)
 //   binary_gemm_fused       <- binary_gemm_vpu_packed_io  (threshold + repack)
 //
 // Wire format (src/repro_torch/core/bitpack.py): bit 1 is +1, words are
 // little-endian along K, pad bits are 1, so dot = K - 2 * popcount(a ^ b).
+// A float lhs is float32 or bf16 and signs as the wire format does: +1
+// where x >= 0 (so -0.0 is +1), -1 below 0 and for NaN.
 //
-// What bounds them on the card. Per output the work is ceil(K/32) xor +
-// popc + add, and the integer pipe issues 16 popc per clock per SM (a quarter
-// of the fp32 rate), so with packed operands these GEMMs are bound by popc
-// issue, not by bytes: a (M,KW) x (N,KW) product reads 4*(M+N)*KW bytes but
-// does M*N*KW popcs. With a float lhs (the chain entry and the im2col'd
-// convolutions) the float operand is 32x wider than its bits; where N is
-// small against M (the CNN's second conv: M = B*H*W, N = 128) the bytes
-// of A bound the kernel instead.
+// Three kernels; the wrapper (kernels/binary_gemm.py, `gemm_plan`) picks the
+// float-lhs kernel and the split of K by a fixed rule from M, N, K and the
+// SM count. Every call is one launch.
 //
-// What the design does about it. One 64x64 output tile per block of 8 warps;
-// each warp owns 8 rows and each lane 2 channels 32 apart, so one thread
-// keeps 16 int32 accumulators in registers and the K loop runs inside the
-// block (on the TPU the K grid axis carried the sum between grid steps;
-// Hopper blocks run in no order, so nothing carries between them). Each
-// K step stages a 64x16-word tile of A and of B in shared memory: A reads
-// are warp-uniform (broadcast), B rows are padded to an odd stride so the
-// 32 lanes hit 32 banks. A float lhs is read once, coalesced, and packed
-// on the fly: lane i loads element 32w+i of a row and __ballot_sync(x >= 0)
-// makes bit i of word w, which is the wire format itself. Positions >= K
-// read as +1 (bit 1, matching the weights' pad bits). Blocks walk the N
-// tiles of one M tile next to each other, so a float A tile is fetched from
-// device memory once and read again from L2. The M and N edges are masked
-// in the kernel; nothing is padded or copied. The fused epilogue computes
-// dot, bit = (dot >= t) != flip, and one ballot over the 32 channels of a
-// lane group emits the output word; channels >= N emit bit 1.
-// A float lhs is float32 or bf16 (the LM's activations); the ballot pack is
-// the one every kernel of the port shares (common.cuh).
-// No tensor cores, TMA or software pipelining yet: simple and exact first.
+// popc tiles (binary_gemm_packed, packed lhs). One 64x64 output tile per
+// block of 8 warps, 16 int32 accumulators per thread, K inside the block;
+// bound by popc issue (16 per clock per SM) where both operands are words.
+//
+// Small M (binary_gemm_packed_rhs at M <= 32: the LM's decode and chunk
+// rows). The weights bound it: (N, KW) words read once against M rows of
+// activations, so at M = 4 a 64-row popcount tile wastes its rows, and a
+// lhs packed by a warp ballot per word waits on one load after another.
+// Here a block owns a slice of K and 32 or 64 channels. It sign-packs the
+// M real rows of its K slice into shared memory once, a word per thread
+// from 16-byte loads all in flight together, then each warp streams weight
+// rows with 16-byte loads, two channels at a time, popcounts them against
+// the M packed rows and reduces across the warp with a butterfly of
+// shuffles that leaves row r's sum in lane r (M = 32). Where N gives too
+// few blocks for the card, K is split over a thread-block cluster of up to
+// 8 blocks: each keeps its partial popcounts in shared memory and, after a
+// cluster barrier, each block sums a share of the outputs from all blocks'
+// shared memory (distributed shared memory) and writes it. The sums are
+// exact integers; no workspace, no atomics, one launch. Every block still
+// packs the lhs of its own K slice, so N / channels-per-block blocks read
+// the same rows (from L2).
+//
+// Tensor-core tiles (binary_gemm_packed_rhs at M > 32: the CNN's convs;
+// binary_gemm_fused at every M). With a float lhs the float operand is 32x
+// wider than its bits and bytes bound the convs; popcounts would bound them
+// at ~0.5 ms on the integer pipe, the int8 tensor cores do the same +-1
+// dots in ~0.06 ms. Each block of 8 warps computes a 64-row tile of 128
+// channels, or of 256 where N > 128 and such tiles fill the card (the
+// float lhs is then read by half as many N tiles), with mma.sync m16n8k32
+// s8 x s8 -> s32 (the tile code of mma_tile.cuh, shared with kernel 4), K
+// in stages of 128 values (four mma steps). A float lhs is loaded with
+// 16-byte loads and signed to +-1 int8 as it is staged; a packed lhs and
+// the packed weight words are expanded from bits to +-1 bytes in shared
+// memory in the mma's fragment layout (a multiply spreads four bits to four
+// bytes), so the int8 form never goes to device memory. Positions >= K
+// expand to 0 (the pad bits would add +1 each as products). The next
+// stage's raw loads are in flight while the tensor cores work on this one.
+// K is split over a cluster as above where the tiles are too few (the
+// fused chain steps have 16-64). Without a split, int32 dots go from the
+// accumulators to device memory in 32-byte row pieces; with one, and for
+// the fused epilogue, they go through shared memory (the stages' space):
+// each block of the cluster sums a share of the rows over all blocks, then
+// writes int32 dots coalesced, or, fused, bit = (dot >= t) != flip for 32
+// channels of a row in one warp and one ballot per output word (channels
+// >= N emit 1).
+// Not yet: wgmma, TMA, a ring of stages in shared memory, one read of the
+// float lhs for all N tiles (each re-reads it from L2 where N > 256).
+#include <cooperative_groups.h>
+
 #include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma_tile.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;           // 8 warps
+constexpr int kThreads = 256;           // 8 warps, every kernel here
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxSplit = 8;            // portable cluster size, a power of 2
+
+// ---------------------------------------------------------------------------
+// popc tiles: binary_gemm_packed
+// ---------------------------------------------------------------------------
 constexpr int kBM = 64;                 // rows per block
 constexpr int kTM = kBM / kWarps;       // rows per warp
 constexpr int kBN = 64;                 // channels per block
 constexpr int kTN = kBN / 32;           // channels per lane, 32 apart
 constexpr int kKC = 16;                 // K words staged per step
 
-// TA: uint32_t (packed lhs words), float or __nv_bfloat16 (float lhs)
-template <typename TA, bool kFused>
 __global__ void __launch_bounds__(kThreads)
-popc_gemm_kernel(const TA* __restrict__ a,
+popc_gemm_kernel(const uint32_t* __restrict__ a,
                  const uint32_t* __restrict__ b,
-                 const int32_t* __restrict__ thresh,
-                 const int32_t* __restrict__ flip,
                  int32_t* __restrict__ out,
                  int m, int n, int kw, int k, int n_tiles) {
   __shared__ uint32_t sa[kBM][kKC];
@@ -77,25 +108,11 @@ popc_gemm_kernel(const TA* __restrict__ a,
     for (int j = 0; j < kTN; ++j) acc[i][j] = 0;
 
   for (int kc0 = 0; kc0 < kw; kc0 += kKC) {
-    if constexpr (!std::is_same_v<TA, uint32_t>) {
-#pragma unroll 8
-      for (int q = 0; q < kBM * kKC / kWarps; ++q) {
-        const int e = warp + q * kWarps;
-        const int r = e / kKC, c = e % kKC;
-        const int row = m0 + r, word = kc0 + c;
-        const long long col = static_cast<long long>(word) * 32 + lane;
-        // rows past M read as +1 like the K pad; they are never stored
-        const uint32_t w = bnn::pack_word(
-            a + static_cast<long long>(row) * k, col, k, row < m);
-        if (lane == 0) sa[r][c] = word < kw ? w : 0u;
-      }
-    } else {
-      for (int e = tid; e < kBM * kKC; e += kThreads) {
-        const int r = e / kKC, c = e % kKC;
-        const int row = m0 + r, word = kc0 + c;
-        sa[r][c] = (row < m && word < kw)
-                       ? a[static_cast<long long>(row) * kw + word] : 0u;
-      }
+    for (int e = tid; e < kBM * kKC; e += kThreads) {
+      const int r = e / kKC, c = e % kKC;
+      const int row = m0 + r, word = kc0 + c;
+      sa[r][c] = (row < m && word < kw)
+                     ? a[static_cast<long long>(row) * kw + word] : 0u;
     }
     for (int e = tid; e < kBN * kKC; e += kThreads) {
       const int r = e / kKC, c = e % kKC;
@@ -119,69 +136,521 @@ popc_gemm_kernel(const TA* __restrict__ a,
     __syncthreads();
   }
 
-  if constexpr (kFused) {
-    const int nw = (n + 31) / 32;
-    int t[kTN];
-    bool f[kTN];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int row = m0 + warp * kTM + i;
 #pragma unroll
     for (int j = 0; j < kTN; ++j) {
       const int ch = n0 + 32 * j + lane;
-      t[j] = ch < n ? thresh[ch] : 0;
-      f[j] = ch < n ? flip[ch] != 0 : false;
-    }
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int row = m0 + warp * kTM + i;
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int ch = n0 + 32 * j + lane;
-        const int dot = k - 2 * acc[i][j];
-        const bool bit = ch < n ? ((dot >= t[j]) != f[j]) : true;
-        const uint32_t word = __ballot_sync(0xffffffffu, bit);
-        const int wc = n0 / 32 + j;
-        if (lane == 0 && row < m && wc < nw)
-          out[static_cast<long long>(row) * nw + wc] = static_cast<int32_t>(word);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int row = m0 + warp * kTM + i;
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int ch = n0 + 32 * j + lane;
-        if (row < m && ch < n)
-          out[static_cast<long long>(row) * n + ch] = k - 2 * acc[i][j];
-      }
+      if (row < m && ch < n)
+        out[static_cast<long long>(row) * n + ch] = k - 2 * acc[i][j];
     }
   }
 }
 
-template <typename TA, bool kFused>
-int launch(const void* a, const void* b, const void* thresh, const void* flip,
-           void* out, int m, int n, int kw, int k, void* stream) {
-  if (m <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_tiles = (n + kBN - 1) / kBN;
-  const long long blocks = static_cast<long long>((m + kBM - 1) / kBM) * n_tiles;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  popc_gemm_kernel<TA, kFused>
-      <<<static_cast<unsigned>(blocks), kThreads, 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const TA*>(a), static_cast<const uint32_t*>(b),
-          static_cast<const int32_t*>(thresh), static_cast<const int32_t*>(flip),
-          static_cast<int32_t*>(out), m, n, kw, k, n_tiles);
+// ---------------------------------------------------------------------------
+// Small M: binary_gemm_packed_rhs at M <= 32
+// ---------------------------------------------------------------------------
+constexpr int kSmallMaxRows = 32;
+
+__device__ __forceinline__ int popc4(uint4 a, uint4 b) {
+  return __popc(a.x ^ b.x) + __popc(a.y ^ b.y) + __popc(a.z ^ b.z) +
+         __popc(a.w ^ b.w);
+}
+
+// One halving step of `reduce_rows` and the ones after it: of its 2 kH live
+// rows a lane keeps the upper or lower kH, by its lane bit o, and adds its
+// partner's (the recursion keeps every index a constant: acc stays in
+// registers)
+template <int kRows, int kH>
+__device__ __forceinline__ void halve_rows(int (&acc)[kRows], int lane) {
+  if constexpr (kH >= 1) {
+    constexpr int o = kH * (32 / kRows);
+    const bool upper = (lane & o) != 0;
+#pragma unroll
+    for (int i = 0; i < kH; ++i) {
+      const int send = upper ? acc[i] : acc[i + kH];
+      const int keep = upper ? acc[i + kH] : acc[i];
+      acc[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+    halve_rows<kRows, kH / 2>(acc, lane);
+  }
+}
+
+// Sum of acc[r] over the warp's 32 lanes, for row r = lane / (32 / kRows):
+// log2(kRows) halving steps, then a plain butterfly over the lanes that
+// share a row
+template <int kRows>
+__device__ __forceinline__ int reduce_rows(int (&acc)[kRows], int lane) {
+  halve_rows<kRows, kRows / 2>(acc, lane);
+  int s = acc[0];
+#pragma unroll
+  for (int o = 16 / kRows; o >= 1; o /= 2)
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// Word col0 / 32 of a row of length k, packed by one thread (no ballot):
+// bit i = row[col0 + i] >= 0, positions >= k are +1 (the wire format's pad).
+// kVec: the row is 16-byte aligned and k a multiple of a 16-byte load, so
+// each load is all in range or all out, and the 32 values come in 8
+// (float32) or 4 (bf16) loads in flight together.
+template <typename TA, bool kVec>
+__device__ __forceinline__ uint32_t pack_own_word(const TA* __restrict__ row,
+                                                  long long col0, int k) {
+  uint32_t word = 0;
+  if constexpr (kVec) {
+    constexpr int kPer = 16 / static_cast<int>(sizeof(TA));
+    uint4 raw[32 / kPer];
+#pragma unroll
+    for (int j = 0; j < 32 / kPer; ++j)
+      raw[j] = col0 + j * kPer < k
+                   ? __ldg(reinterpret_cast<const uint4*>(row + col0) + j)
+                   : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int j = 0; j < 32 / kPer; ++j) {
+      const TA* v = reinterpret_cast<const TA*>(&raw[j]);
+      const bool in = col0 + j * kPer < k;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+        word |= static_cast<uint32_t>(!in || bnn::to_float(v[i]) >= 0.f)
+                << (j * kPer + i);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      word |= static_cast<uint32_t>(col0 + i >= k ||
+                                    bnn::to_float(row[col0 + i]) >= 0.f)
+              << i;
+  }
+  return word;
+}
+
+// One cluster of `split` blocks per `block_n` channels; block rank r owns
+// words [r ks, r ks + ks) of K. kRows >= m rows are computed, m stored.
+// Shared memory: sa (m, ks) packed lhs words, part (m, block_n) popcounts.
+template <typename TA, int kRows, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+small_m_kernel(const TA* __restrict__ a, const uint32_t* __restrict__ b,
+               int32_t* __restrict__ out, int m, int n, int kw, int k,
+               int ks, int block_n) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* sa = smem;
+  int32_t* part = reinterpret_cast<int32_t*>(smem + m * ks);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int n0 = static_cast<int>(blockIdx.x / split) * block_n;
+  const int w0 = rank * ks;
+  const int nwords = max(0, min(ks, kw - w0));   // a multiple of 4
+
+  // the m real rows of this K slice, packed once, a word per thread
+#pragma unroll 2
+  for (int e = tid; e < m * ks; e += kThreads) {
+    const int r = e / ks, c = e % ks;
+    sa[e] = c < nwords
+                ? pack_own_word<TA, kVec>(a + static_cast<long long>(r) * k,
+                                          32LL * (w0 + c), k)
+                : 0u;
+  }
+  __syncthreads();
+
+  // two channels per warp at a time: their weight loads in flight together
+  for (int c = warp; c < block_n; c += 2 * kWarps) {
+    const int ch0 = n0 + c, ch1 = ch0 + kWarps;
+    const bool ok0 = ch0 < n, ok1 = ch1 < n && c + kWarps < block_n;
+    const uint32_t* b0 = b + static_cast<long long>(ok0 ? ch0 : 0) * kw + w0;
+    const uint32_t* b1 = b + static_cast<long long>(ok1 ? ch1 : 0) * kw + w0;
+    int acc0[kRows], acc1[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc0[r] = acc1[r] = 0;
+    for (int w = 4 * lane; w < nwords; w += 128) {
+      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+      const uint4 bv0 = ok0 ? __ldg(reinterpret_cast<const uint4*>(b0 + w))
+                            : zero;
+      const uint4 bv1 = ok1 ? __ldg(reinterpret_cast<const uint4*>(b1 + w))
+                            : zero;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (r < m) {
+          const uint4 av = *reinterpret_cast<const uint4*>(sa + r * ks + w);
+          acc0[r] += popc4(av, bv0);
+          acc1[r] += popc4(av, bv1);
+        }
+      }
+    }
+    const int s0 = reduce_rows<kRows>(acc0, lane);
+    const int s1 = reduce_rows<kRows>(acc1, lane);
+    const int row = lane / (32 / kRows);
+    if (lane % (32 / kRows) == 0 && row < m) {
+      if (ok0) part[row * block_n + c] = s0;
+      if (ok1) part[row * block_n + c + kWarps] = s1;
+    }
+  }
+  cluster.sync();
+
+  // block `rank` sums outputs rank, rank + split, ... (in 256-wide runs)
+  // over the cluster's blocks, in rank order
+  for (int e = rank * kThreads + tid; e < m * block_n; e += split * kThreads) {
+    const int row = e / block_n, c = e % block_n;
+    if (n0 + c >= n) continue;
+    int popc = 0;
+#pragma unroll
+    for (int q = 0; q < kMaxSplit; ++q)
+      if (q < split) popc += cluster.map_shared_rank(part, q)[e];
+    out[static_cast<long long>(row) * n + n0 + c] = k - 2 * popc;
+  }
+  cluster.sync();              // keep this block's part alive for the others
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core tiles: binary_gemm_packed_rhs at M > 32, binary_gemm_fused
+// ---------------------------------------------------------------------------
+constexpr int kTcBM = 64;                  // rows per block
+constexpr int kTcBN = 128;                 // channels per block (fused, split)
+constexpr int kTcWideBN = 256;             // channels per block (wide N)
+constexpr int kTcSW = 4;                   // packed words (k32 mmas) a stage
+constexpr int kTcRowWords = 8 * kTcSW;    // staged int8 words of a row
+constexpr int kTcRowStride = kTcRowWords + 4;  // padded: no bank conflicts
+constexpr int kTcWarpM = 32;               // rows per warp (2 warps along M)
+constexpr int kTcMI = kTcWarpM / 16;       // m16 tiles per warp
+constexpr int kPartStride = kTcBN + 8;     // int2 stores hit 2 wavefronts
+static_assert(kTcBM * kTcSW == kThreads, "one lhs word a stage per thread");
+
+// `n` packed words of one stage, raw: words w0 .. w0 + n - 1 of row r (none
+// past `rows` or KW), with the bits of each that lie below K
+template <int kN>
+struct Words {
+  uint32_t bits[kN], valid[kN];
+
+  __device__ __forceinline__ void load(const uint32_t* __restrict__ p, int r,
+                                       int rows, int kw, int k, int w0) {
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      const bool ok = r < rows && w0 + j < kw;
+      bits[j] = ok ? __ldg(p + static_cast<long long>(r) * kw + w0 + j) : 0u;
+      valid[j] = ok ? bnn::valid_bits(w0 + j, k) : 0u;
+    }
+  }
+
+  // as +-1 bytes into a staged row from word w of the stage on
+  __device__ __forceinline__ void store(uint32_t* row, int w) const {
+#pragma unroll
+    for (int j = 0; j < kN; ++j) bnn::expand_word(row + 8 * (w + j), bits[j],
+                                                  valid[j]);
+  }
+};
+
+// kFused: bit-resident epilogue, else int32 dots. TA uint32_t is a packed
+// lhs; float / __nv_bfloat16 a float lhs (kVec: 16-byte row loads). kBN:
+// channels per block, 128 (4 warps along N, 32 channels each) or 256 (64
+// each; int32 dots without a split only). A stage is kTcSW packed words
+// (128 values) of K; with a split or the fused epilogue the shared stages
+// are reused for the partial dots once the K loop is done, else the dots go
+// from registers to device memory.
+template <typename TA, bool kVec, bool kFused, int kBN>
+__global__ void __launch_bounds__(kThreads, 2)
+tc_gemm_kernel(const TA* __restrict__ a, const uint32_t* __restrict__ b,
+               const int32_t* __restrict__ thresh,
+               const int32_t* __restrict__ flip, int32_t* __restrict__ out,
+               int m, int n, int kw, int k, int n_tiles, int split_stages) {
+  constexpr bool kPackedLhs = std::is_same_v<TA, uint32_t>;
+  constexpr int kWarpN = kBN / 4;          // channels per warp (4 along N)
+  constexpr int kNI = kWarpN / 8;          // n8 tiles per warp
+  constexpr int kRhsWords = kTcSW * kBN / kThreads;   // per thread a stage
+  constexpr bool kViaShared = kBN == kTcBN;
+  static_assert(kViaShared || !kFused, "the fused epilogue has 128 channels");
+  struct Stages {
+    uint32_t a[kTcBM][kTcRowStride];       // lhs stage, (row, k words)
+    uint32_t b[kBN][kTcRowStride];         // rhs stage, (channel, k words)
+  };
+  union Smem {
+    Stages st;
+    int32_t part[kViaShared ? kTcBM : 1][kPartStride];   // this block's dots
+  };
+  __shared__ __align__(16) Smem sm;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;                 // mma group: row / column in tile
+  const int t = lane & 3;                  // thread in group: k word
+  const int wm = warp >> 2;                // warp's 32-row slab
+  const int wn = warp & 3;                 // warp's 32-channel slab
+  const int tile = static_cast<int>(blockIdx.x / split);
+  const int m0 = (tile / n_tiles) * kTcBM;
+  const int n0 = (tile % n_tiles) * kBN;
+  const int stages = (kw + kTcSW - 1) / kTcSW;
+  const int s0 = min(stages, rank * split_stages);
+  const int s1 = min(stages, s0 + split_stages);
+
+  int acc[kTcMI][kNI][4];
+#pragma unroll
+  for (int i = 0; i < kTcMI; ++i)
+#pragma unroll
+    for (int j = 0; j < kNI; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0;
+
+  // thread tid stages kRhsWords words of channel tid / (kTcSW / kRhsWords)'s
+  // stage and, for a packed lhs, word tid % 4 of row tid / 4's
+  const uint32_t* bp = b + static_cast<long long>(n0) * kw;
+  const int wch = tid / (kTcSW / kRhsWords);
+  const int wword = tid % (kTcSW / kRhsWords) * kRhsWords;
+  Words<kRhsWords> ws;
+  Words<1> as;
+  bnn::XStep<std::conditional_t<kPackedLhs, float, TA>, kVec, kTcBM, kThreads,
+             kTcRowWords> xs;
+  auto load = [&](int s) {
+    ws.load(bp, wch, n - n0, kw, k, kTcSW * s + wword);
+    if constexpr (kPackedLhs) {
+      as.load(a + static_cast<long long>(m0) * kw, tid >> 2, m - m0, kw, k,
+              kTcSW * s + (tid & 3));
+    } else {
+      xs.load(a, m, k, m0, 32 * kTcSW * s, tid);
+    }
+  };
+  if (s0 < s1) load(s0);
+  for (int s = s0; s < s1; ++s) {
+    ws.store(sm.st.b[wch], wword);
+    if constexpr (kPackedLhs) {
+      as.store(sm.st.a[tid >> 2], tid & 3);
+    } else {
+      xs.store(sm.st.a, m, k, m0, 32 * kTcSW * s, tid);
+    }
+    if (s + 1 < s1) load(s + 1);           // the next stage, in flight
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kTcSW; ++kk) {
+      uint32_t af[kTcMI][4], bf[kNI][2];
+#pragma unroll
+      for (int i = 0; i < kTcMI; ++i)
+        bnn::frag_a(af[i], sm.st.a, wm * kTcWarpM + i * 16, 8 * kk, g, t);
+#pragma unroll
+      for (int j = 0; j < kNI; ++j)
+        bnn::frag_b(bf[j], sm.st.b, wn * kWarpN + j * 8, 8 * kk, g, t);
+#pragma unroll
+      for (int i = 0; i < kTcMI; ++i)
+#pragma unroll
+        for (int j = 0; j < kNI; ++j) bnn::mma_s8(acc[i][j], af[i], bf[j]);
+    }
+    __syncthreads();
+  }
+
+  // accumulator c of tile (i, j): row g (+8 for c >= 2), column 2t + (c & 1)
+  if (!kFused && split == 1) {             // int32 dots, 32-byte row pieces
+#pragma unroll
+    for (int i = 0; i < kTcMI; ++i) {
+#pragma unroll
+      for (int j = 0; j < kNI; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + wm * kTcWarpM + i * 16 + g + 8 * h;
+          const int col = n0 + wn * kWarpN + j * 8 + 2 * t;
+          int32_t* o = out + static_cast<long long>(row) * n + col;
+          if (row < m && col + 1 < n && n % 2 == 0)
+            *reinterpret_cast<int2*>(o) =
+                make_int2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+          else if (row < m) {
+            if (col < n) o[0] = acc[i][j][2 * h];
+            if (col + 1 < n) o[1] = acc[i][j][2 * h + 1];
+          }
+        }
+      }
+    }
+    return;
+  }
+  if constexpr (kViaShared) {
+#pragma unroll
+    for (int i = 0; i < kTcMI; ++i) {
+#pragma unroll
+      for (int j = 0; j < kNI; ++j) {
+        const int r = wm * kTcWarpM + i * 16 + g;
+        const int c = wn * kWarpN + j * 8 + 2 * t;
+        *reinterpret_cast<int2*>(&sm.part[r][c]) =
+            make_int2(acc[i][j][0], acc[i][j][1]);
+        *reinterpret_cast<int2*>(&sm.part[r + 8][c]) =
+            make_int2(acc[i][j][2], acc[i][j][3]);
+      }
+    }
+    // this lane's channels' thresholds, read while the cluster gathers
+    constexpr int kCW = kBN / 32;          // channel words of the tile
+    int th[kCW];
+    bool fl[kCW];
+#pragma unroll
+    for (int c = 0; c < kCW; ++c) {
+      const int ch = n0 + 32 * c + lane;
+      th[c] = kFused && ch < n ? __ldg(thresh + ch) : 0;
+      fl[c] = kFused && ch < n ? __ldg(flip + ch) != 0 : false;
+    }
+    cluster.sync();
+
+    // block `rank` finishes rows [rank rows, (rank + 1) rows) of the tile,
+    // summing them over the cluster's blocks in rank order (the loads from
+    // all blocks in flight together); a warp per row, a lane per channel
+    const int rows = kTcBM / split;
+    const int nw = (n + 31) / 32;
+    for (int rr = warp; rr < rows; rr += kWarps) {
+      const int r = rank * rows + rr;
+      const int row = m0 + r;
+      if (row >= m) break;
+      int dot[kCW] = {};
+#pragma unroll
+      for (int q = 0; q < kMaxSplit; ++q) {
+        if (q < split) {
+          const int32_t* src = cluster.map_shared_rank(&sm.part[0][0], q) +
+                               r * kPartStride + lane;
+#pragma unroll
+          for (int c = 0; c < kCW; ++c) dot[c] += src[32 * c];
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kCW; ++c) {
+        const int ch = n0 + 32 * c + lane;
+        if constexpr (kFused) {
+          const bool bit = ch < n ? (dot[c] >= th[c]) != fl[c] : true;
+          const uint32_t word = __ballot_sync(0xffffffffu, bit);
+          const int wc = n0 / 32 + c;
+          if (lane == 0 && wc < nw)
+            out[static_cast<long long>(row) * nw + wc] =
+                static_cast<int32_t>(word);
+        } else {
+          if (ch < n) out[static_cast<long long>(row) * n + ch] = dot[c];
+        }
+      }
+    }
+    cluster.sync();            // keep this block's part alive for the others
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launches
+// ---------------------------------------------------------------------------
+constexpr int kSmemDefault = 48 * 1024;
+constexpr int kSmemMax = 227 * 1024;
+
+// One launch of `blocks` blocks in clusters of `split` along x
+template <typename... Params, typename... Args>
+int launch_cluster(void (*kernel)(Params...), long long blocks, int split,
+                   int smem, void* stream, Args... args) {
+  if (blocks <= 0 || blocks > 0x7fffffffLL || split < 1 ||
+      split > kMaxSplit || (split & (split - 1)) != 0 || smem > kSmemMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > kSmemDefault) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(split);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TA, int kRows>
+int launch_small_m(const void* a, bool vec, const void* b, void* out, int m,
+                   int n, int kw, int k, int split, int block_n, void* stream) {
+  const int ks = (kw + 4 * split - 1) / (4 * split) * 4;
+  const int smem = (m * ks + m * block_n) * 4;
+  const long long blocks =
+      static_cast<long long>((n + block_n - 1) / block_n) * split;
+  const auto at = static_cast<const TA*>(a);
+  const auto bt = static_cast<const uint32_t*>(b);
+  const auto ot = static_cast<int32_t*>(out);
+  // a 16-byte load holds 4 float32 or 8 bf16 values: k must be a multiple
+  if (vec && k % (16 / static_cast<int>(sizeof(TA))) == 0)
+    return launch_cluster(small_m_kernel<TA, kRows, true>, blocks, split,
+                          smem, stream, at, bt, ot, m, n, kw, k, ks, block_n);
+  return launch_cluster(small_m_kernel<TA, kRows, false>, blocks, split, smem,
+                        stream, at, bt, ot, m, n, kw, k, ks, block_n);
+}
+
+template <typename TA>
+int small_m_rows(const void* a, bool vec, const void* b, void* out, int m,
+                 int n, int kw, int k, int split, int block_n, void* stream) {
+  if (m > kSmallMaxRows || kw % 4 != 0 || (block_n != 32 && block_n != 64) ||
+      reinterpret_cast<uintptr_t>(b) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (m <= 4)
+    return launch_small_m<TA, 4>(a, vec, b, out, m, n, kw, k, split, block_n,
+                                 stream);
+  if (m <= 8)
+    return launch_small_m<TA, 8>(a, vec, b, out, m, n, kw, k, split, block_n,
+                                 stream);
+  if (m <= 16)
+    return launch_small_m<TA, 16>(a, vec, b, out, m, n, kw, k, split, block_n,
+                                  stream);
+  return launch_small_m<TA, 32>(a, vec, b, out, m, n, kw, k, split, block_n,
+                                stream);
+}
+
+template <typename TA, bool kVec, bool kFused>
+int launch_tc(const void* a, const void* b, const void* thresh,
+              const void* flip, void* out, int m, int n, int kw, int k,
+              int split, int block_n, void* stream) {
+  const int n_tiles = (n + block_n - 1) / block_n;
+  const long long blocks =
+      static_cast<long long>((m + kTcBM - 1) / kTcBM) * n_tiles * split;
+  const int stages = (kw + kTcSW - 1) / kTcSW;
+  const int split_stages = (stages + split - 1) / split;
+  const auto args = [&](auto kernel) {
+    return launch_cluster(kernel, blocks, split, 0, stream,
+                          static_cast<const TA*>(a),
+                          static_cast<const uint32_t*>(b),
+                          static_cast<const int32_t*>(thresh),
+                          static_cast<const int32_t*>(flip),
+                          static_cast<int32_t*>(out), m, n, kw, k, n_tiles,
+                          split_stages);
+  };
+  if (block_n == kTcBN) return args(tc_gemm_kernel<TA, kVec, kFused, kTcBN>);
+  if constexpr (!kFused) {
+    if (block_n == kTcWideBN && split == 1)
+      return args(tc_gemm_kernel<TA, kVec, false, kTcWideBN>);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // lhs_kind: 0 packed int32 words, 1 float32, 2 bfloat16
 template <bool kFused>
-int launch_lhs(int lhs_kind, const void* a, const void* b, const void* thresh,
-               const void* flip, void* out, int m, int n, int kw, int k,
-               void* stream) {
+int tc_lhs(int lhs_kind, bool vec, const void* a, const void* b,
+           const void* thresh, const void* flip, void* out, int m, int n,
+           int kw, int k, int split, int block_n, void* stream) {
   switch (lhs_kind) {
-    case 0: return launch<uint32_t, kFused>(a, b, thresh, flip, out, m, n, kw, k, stream);
-    case 1: return launch<float, kFused>(a, b, thresh, flip, out, m, n, kw, k, stream);
-    case 2: return launch<__nv_bfloat16, kFused>(a, b, thresh, flip, out, m, n, kw, k, stream);
+    case 0:
+      return launch_tc<uint32_t, false, kFused>(a, b, thresh, flip, out, m, n,
+                                                kw, k, split, block_n, stream);
+    case 1:
+      return vec ? launch_tc<float, true, kFused>(a, b, thresh, flip, out, m,
+                                                  n, kw, k, split, block_n,
+                                                  stream)
+                 : launch_tc<float, false, kFused>(a, b, thresh, flip, out, m,
+                                                   n, kw, k, split, block_n,
+                                                   stream);
+    case 2:
+      return vec ? launch_tc<__nv_bfloat16, true, kFused>(
+                       a, b, thresh, flip, out, m, n, kw, k, split, block_n,
+                       stream)
+                 : launch_tc<__nv_bfloat16, false, kFused>(
+                       a, b, thresh, flip, out, m, n, kw, k, split, block_n,
+                       stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -193,27 +662,52 @@ extern "C" {
 // a (m, kw) int32 words, b (n, kw) int32 words -> out (m, n) int32 dots.
 int binary_gemm_packed(const void* a, const void* b, void* out, int m, int n,
                        int kw, int k, void* stream) {
-  return launch_lhs<false>(0, a, b, nullptr, nullptr, out, m, n, kw, k, stream);
+  if (m <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_tiles = (n + kBN - 1) / kBN;
+  const long long blocks =
+      static_cast<long long>((m + kBM - 1) / kBM) * n_tiles;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  popc_gemm_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
+      static_cast<int32_t*>(out), m, n, kw, k, n_tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // a (m, k) float32 (lhs_kind 1) or bfloat16 (lhs_kind 2), b (n, kw) int32
-// words -> out (m, n) int32 dots.
-int binary_gemm_packed_rhs(const void* a, int lhs_kind, const void* b,
-                           void* out, int m, int n, int kw, int k,
+// words -> out (m, n) int32 dots. small_m 1: the small-M kernel with
+// block_n channels per block (32 or 64; m <= 32, kw % 4 == 0, b 16-byte
+// aligned); small_m 0: tensor-core tiles of block_n channels (128, or 256
+// with split 1; vec: a's rows are read 16 bytes at a time, k % 4 == 0 and a
+// 16-byte aligned). split: blocks per cluster along K, 1, 2, 4 or 8.
+int binary_gemm_packed_rhs(const void* a, int lhs_kind, int vec,
+                           const void* b, void* out, int m, int n, int kw,
+                           int k, int small_m, int split, int block_n,
                            void* stream) {
+  if (m <= 0 || n <= 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (small_m) {
+    switch (lhs_kind) {
+      case 1: return small_m_rows<float>(a, vec != 0, b, out, m, n, kw, k,
+                                         split, block_n, stream);
+      case 2: return small_m_rows<__nv_bfloat16>(a, vec != 0, b, out, m, n,
+                                                 kw, k, split, block_n, stream);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   if (lhs_kind == 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_lhs<false>(lhs_kind, a, b, nullptr, nullptr, out, m, n, kw, k,
-                           stream);
+  return tc_lhs<false>(lhs_kind, vec != 0, a, b, nullptr, nullptr, out, m, n,
+                       kw, k, split, block_n, stream);
 }
 
 // a (m, kw) int32 words (lhs_kind 0) or (m, k) float32 / bfloat16 (lhs_kind
 // 1 / 2), b (n, kw) int32 words, thresh/flip (n,) int32 -> out
-// (m, ceil(n/32)) words.
-int binary_gemm_fused(const void* a, int lhs_kind, const void* b,
+// (m, ceil(n/32)) words; tensor-core tiles, vec and split as above.
+int binary_gemm_fused(const void* a, int lhs_kind, int vec, const void* b,
                       const void* thresh, const void* flip, void* out, int m,
-                      int n, int kw, int k, void* stream) {
-  return launch_lhs<true>(lhs_kind, a, b, thresh, flip, out, m, n, kw, k,
-                          stream);
+                      int n, int kw, int k, int split, void* stream) {
+  if (m <= 0 || n <= 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return tc_lhs<true>(lhs_kind, vec != 0, a, b, thresh, flip, out, m, n, kw,
+                      k, split, kTcBN, stream);
 }
 
 const char* binary_gemm_error_string(int code) {

@@ -39,31 +39,25 @@
 // K and the subtraction of the pad count are not needed. ~120 registers
 // leave room for two blocks on an SM. Blocks walk the N tiles of one M tile
 // next to each other, so an x tile read by several N tiles comes from L2
-// after the first. No wgmma, TMA or x ring in shared memory yet.
+// after the first. The x staging, the sign bytes, the fragment loads and
+// the mma are mma_tile.cuh's, shared with binary_gemm.cu's tensor-core
+// tiles. No wgmma, TMA or x ring in shared memory yet.
 #include <cstdint>
-#include <type_traits>
 
-#include "common.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
+using bnn::kTcStride;
 constexpr int kThreads = 256;              // 8 warps
 constexpr int kBM = 128;                   // rows per block
 constexpr int kBN = 128;                   // columns per block
-constexpr int kBK = 32;                    // K values per step: one k32 mma
-constexpr int kKW = kBK / 4;               // 32-bit words of a staged row
-constexpr int kStride = kKW + 4;           // padded row stride in words
+constexpr int kBK = bnn::kTcBK;            // K values per step: one k32 mma
 constexpr int kWarpM = 32;                 // rows per warp
 constexpr int kWarpN = 64;                 // columns per warp
 constexpr int kMI = kWarpM / 16;           // m16 tiles per warp
 constexpr int kNI = kWarpN / 8;            // n8 tiles per warp
-constexpr int kXW = kBM * kKW / kThreads;  // x words per thread and step
 constexpr int kSignThreads = 256;
-
-// +-1 as an int8 byte (0x01 / 0xFF), 0 where the position is out of range
-__device__ __forceinline__ uint32_t sign_byte(float v, bool in_range) {
-  return in_range ? (v >= 0.f ? 0x01u : 0xFFu) : 0u;
-}
 
 // wt (n, kp) int8 <- sign(w (k, n) float32), zero for k <= position < kp:
 // word c of column col holds positions 4c..4c+3; neighbouring threads take
@@ -82,74 +76,15 @@ sign_w_kernel(const float* __restrict__ w, uint32_t* __restrict__ wt, int k,
   for (int j = 0; j < 4; ++j) {
     const int kk = 4 * c + j;
     const bool ok = kk < k;
-    word |= sign_byte(ok ? w[static_cast<long long>(kk) * n + col] : 0.f, ok)
-            << (8 * j);
+    word |= bnn::sign_byte(ok ? w[static_cast<long long>(kk) * n + col] : 0.f,
+                           ok) << (8 * j);
   }
   wt[static_cast<long long>(col) * words + c] = word;
 }
 
-// This thread's share of one K step of x, raw: word q is row e / kKW and
-// positions 4 (e % kKW) .. + 3 of the step (e = tid + q * kThreads), so
-// the 8 threads of a row read its 32 values side by side.
-template <typename TA, bool kVec>
-struct XStep {
-  float v[kXW][4];
-
-  __device__ __forceinline__ void load(const TA* __restrict__ x, int m, int k,
-                                       int m0, int k0, int tid) {
-#pragma unroll
-    for (int q = 0; q < kXW; ++q) {
-      const int e = tid + q * kThreads;
-      const int row = m0 + e / kKW, col = k0 + 4 * (e % kKW);
-      const TA* p = x + static_cast<long long>(row) * k + col;
-      if constexpr (kVec) {        // k % 4 == 0: all four in range or none
-        const bool ok = row < m && col < k;
-        if constexpr (std::is_same_v<TA, float>) {
-          float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (ok) f = *reinterpret_cast<const float4*>(p);
-          v[q][0] = f.x; v[q][1] = f.y; v[q][2] = f.z; v[q][3] = f.w;
-        } else {
-          uint2 raw = make_uint2(0u, 0u);
-          if (ok) raw = *reinterpret_cast<const uint2*>(p);
-          const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) v[q][j] = bnn::to_float(h[j]);
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          v[q][j] = (row < m && col + j < k) ? bnn::to_float(p[j]) : 0.f;
-      }
-    }
-  }
-
-  // word q as four +-1 bytes, 0 past the M or K edge
-  __device__ __forceinline__ uint32_t word(int q, int m, int k, int m0,
-                                           int k0, int tid) const {
-    const int e = tid + q * kThreads;
-    const bool row_ok = m0 + e / kKW < m;
-    const int col = k0 + 4 * (e % kKW);
-    uint32_t out = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      out |= sign_byte(v[q][j], row_ok && col + j < k) << (8 * j);
-    return out;
-  }
-};
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // one K step of wt into stage `dst`: thread tid copies 16 bytes, half a
 // column's 32 positions; columns past n are zero-filled (nothing is read)
-__device__ __forceinline__ void copy_w_step(uint32_t (*dst)[kStride],
+__device__ __forceinline__ void copy_w_step(uint32_t (*dst)[kTcStride],
                                             const int8_t* __restrict__ wt,
                                             int n, int kp, int n0, int k0,
                                             int tid) {
@@ -169,8 +104,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 mxu_gemm_kernel(const TA* __restrict__ x, const int8_t* __restrict__ wt,
                 float* __restrict__ out, int m, int n, int k, int kp,
                 int n_tiles) {
-  __shared__ uint32_t sa[kBM][kStride];        // sign(x) step, (row, k words)
-  __shared__ uint32_t sb[2][kBN][kStride];     // wt steps, (column, k words)
+  __shared__ uint32_t sa[kBM][kTcStride];        // sign(x) step, (row, k words)
+  __shared__ uint32_t sb[2][kBN][kTcStride];     // wt steps, (column, k words)
   static_assert(kBN * 2 == kThreads, "one 16-byte wt copy per thread");
 
   const int tid = threadIdx.x;
@@ -191,17 +126,13 @@ mxu_gemm_kernel(const TA* __restrict__ x, const int8_t* __restrict__ wt,
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[i][j][c] = 0;
 
-  XStep<TA, kVec> xs;
+  bnn::XStep<TA, kVec, kBM, kThreads> xs;
   xs.load(x, m, k, m0, 0, tid);
   copy_w_step(sb[0], wt, n, kp, n0, 0, tid);
   asm volatile("cp.async.commit_group;\n" ::);
   int stage = 0;
   for (int k0 = 0; k0 < k; k0 += kBK) {
-#pragma unroll
-    for (int q = 0; q < kXW; ++q) {
-      const int e = tid + q * kThreads;
-      sa[e / kKW][e % kKW] = xs.word(q, m, k, m0, k0, tid);
-    }
+    xs.store(sa, m, k, m0, k0, tid);
     if (k0 + kBK < k) {                    // the next step, in flight
       copy_w_step(sb[stage ^ 1], wt, n, kp, n0, k0 + kBK, tid);
       asm volatile("cp.async.commit_group;\n" ::);
@@ -213,23 +144,15 @@ mxu_gemm_kernel(const TA* __restrict__ x, const int8_t* __restrict__ wt,
     __syncthreads();
     uint32_t a[kMI][4], b[kNI][2];
 #pragma unroll
-    for (int i = 0; i < kMI; ++i) {
-      const int r = wm * kWarpM + i * 16 + g;
-      a[i][0] = sa[r][t];
-      a[i][1] = sa[r + 8][t];
-      a[i][2] = sa[r][4 + t];
-      a[i][3] = sa[r + 8][4 + t];
-    }
+    for (int i = 0; i < kMI; ++i)
+      bnn::frag_a(a[i], sa, wm * kWarpM + i * 16, 0, g, t);
 #pragma unroll
-    for (int j = 0; j < kNI; ++j) {
-      const int c = wn * kWarpN + j * 8 + g;
-      b[j][0] = sb[stage][c][t];
-      b[j][1] = sb[stage][c][4 + t];
-    }
+    for (int j = 0; j < kNI; ++j)
+      bnn::frag_b(b[j], sb[stage], wn * kWarpN + j * 8, 0, g, t);
 #pragma unroll
     for (int i = 0; i < kMI; ++i)
 #pragma unroll
-      for (int j = 0; j < kNI; ++j) mma_s8(acc[i][j], a[i], b[j]);
+      for (int j = 0; j < kNI; ++j) bnn::mma_s8(acc[i][j], a[i], b[j]);
     __syncthreads();
     stage ^= 1;
   }

@@ -12,7 +12,7 @@
 // What the design does about it. One warp makes one word: lane i reads
 // element 32w+i, so a warp reads 128 (float32) or 64 (bf16) consecutive
 // bytes, coalesced, and __ballot_sync(x >= 0) is the word itself
-// (common.cuh, shared with binary_gemm.cu's in-kernel lhs pack). Positions
+// (common.cuh, shared with attention.cu's query pack). Positions
 // >= K read as +1. Nothing is padded or copied; no shared memory.
 #include <cstdint>
 

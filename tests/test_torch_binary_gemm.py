@@ -92,6 +92,82 @@ def test_fused_plain_matches_jax_ref(m, k, n, packed_lhs):
                                            _t(thresh), _t(flip), k)), want)
 
 
+# the edges of the kernels' dispatch rule (`gemm_plan`): small-M rows up to
+# 32, tensor-core tiles from 33; K not a multiple of 32, N under one word,
+# N = 288 (falcon-mamba's x_proj), float32 and bf16 lhs
+EDGE_ROWS = [1, 4, 16, 32, 33, 64, 100]
+EDGE_KN = [(100, 10), (300, 288), (1000, 33)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", EDGE_KN)
+@pytest.mark.parametrize("m", EDGE_ROWS)
+def test_regime_edges_plain_match_jax_ref(m, k, n, dtype):
+    x, w, thresh, flip = _case(m * 11 + k + n, m, k, n)
+    xt = _t(x).to(dtype)
+    ja, jb = _jax_operands(xt.float().numpy(), w)    # bf16 keeps every sign
+    want = np.asarray(jref.binary_matmul_packed_ref(ja, jb, k))
+    want_words = np.asarray(jref.binary_matmul_fused_ref(
+        ja, jb, jnp.asarray(thresh), jnp.asarray(flip), k))
+    b = pack_bits(_t(w.T))
+    np.testing.assert_array_equal(bg.binary_gemm_packed_rhs(xt, b, k).numpy(),
+                                  want)
+    for lhs in (xt, pack_bits(xt)):
+        np.testing.assert_array_equal(
+            words(bg.binary_gemm_fused(lhs, b, _t(thresh), _t(flip), k)),
+            want_words)
+
+
+@pytest.mark.parametrize("kernel,m,k,n,small_m,split", [
+    ("binary_gemm_packed_rhs", 4, 4096, 16384, True, 1),   # mamba in_proj
+    ("binary_gemm_packed_rhs", 4, 8192, 288, True, 8),     # x_proj: a cluster
+    ("binary_gemm_packed_rhs", 4, 8192, 4096, True, 2),    # out_proj
+    ("binary_gemm_packed_rhs", 4, 5120, 5120, True, 2),    # phi3 wo
+    ("binary_gemm_packed_rhs", 32, 4096, 16384, True, 1),  # in_proj, a chunk
+    ("binary_gemm_packed_rhs", 32, 17920, 5120, True, 2),  # phi3 w_down
+    ("binary_gemm_packed_rhs", 1, 100, 10, True, 1),       # 4 words: no split
+    ("binary_gemm_packed_rhs", 33, 8192, 288, False, 8),   # past 32 rows
+    ("binary_gemm_packed_rhs", 4, 300, 77, False, 1),      # KW % 4 != 0
+    ("binary_gemm_packed_rhs", 32, 499968, 20000, False, 2),  # lhs too wide
+    ("binary_gemm_packed_rhs", 102400, 1152, 128, False, 1),  # conv 2
+    ("binary_gemm_packed_rhs", 6400, 4608, 512, False, 1),    # conv 6
+    ("binary_gemm_fused", 200, 1024, 1024, False, 4),      # mlp layer 2
+    ("binary_gemm_fused", 100, 8192, 1024, False, 8),      # cnn fc1
+    ("binary_gemm_fused", 4, 8192, 288, False, 8),         # kernel 3: tiles
+    ("binary_gemm_fused", 4000, 1024, 1024, False, 1),
+])
+def test_gemm_plan_rule(kernel, m, k, n, small_m, split):
+    """The fixed dispatch rule on a 132-SM card: which kernel, how many
+    blocks per cluster along K, and always one launch."""
+    plan = bg.gemm_plan(kernel, m, n, k, 132)
+    assert (plan.small_m, plan.split, plan.launches) == (small_m, split, 1)
+    if small_m:
+        assert plan.block_n == (64 if n >= 32 * 3 * 132 else 32)
+        assert plan.blocks == -(-n // plan.block_n) * split
+    else:
+        assert plan.block_n == (256 if kernel == "binary_gemm_packed_rhs"
+                                and n > 128 and split == 1 else 128)
+        assert plan.blocks == -(-m // 64) * -(-n // plan.block_n) * split
+
+
+def test_gemm_plan_splits_to_fill_the_card():
+    """A split is a power of two up to 8 that stops doubling once the grid
+    holds 1.5 blocks per SM or a block would keep too little of K; unaligned
+    weight rows never take the small-M kernel; other kernels have no plan."""
+    for sms in (66, 114, 132):
+        for m in (1, 4, 32, 33, 200):
+            for k, n in ((1000, 33), (8192, 288), (17920, 5120), (784, 1024)):
+                for kernel in ("binary_gemm_packed_rhs", "binary_gemm_fused"):
+                    plan = bg.gemm_plan(kernel, m, n, k, sms)
+                    assert plan.split in (1, 2, 4, 8)
+                    if plan.split > 1:
+                        assert 2 * (plan.blocks // 2) < 3 * sms
+    assert not bg.gemm_plan("binary_gemm_packed_rhs", 4, 4096, 4096, 132,
+                            rhs_aligned=False).small_m
+    with pytest.raises(ValueError):
+        bg.gemm_plan("binary_gemm_packed", 4, 4096, 4096, 132)
+
+
 def test_fused_output_pad_bits_are_plus_one():
     """Pad bits of the emitted word are 1 (+1), the wire format's pad that
     the next layer's weight pad bits cancel against."""

@@ -80,6 +80,118 @@ def test_cuda_binary_gemm_fused_matches_plain(packed_lhs):
             got.cpu(), bg.binary_gemm_fused_plain(lhs, b, _t(thresh), _t(flip), k))
 
 
+def _card_operands(g, m, k, n, dtype):
+    """Card operands with the sign edge cases: +0.0 and -0.0 (+1), NaN (-1)."""
+    x = torch.randn(m, k, generator=g, device="cuda")
+    x.view(-1)[::13] = 0.0
+    x.view(-1)[1::17] = -0.0
+    x.view(-1)[2::19] = float("nan")
+    b = pack_bits(torch.randn(n, k, generator=g, device="cuda"))
+    d = int(k ** 0.5)
+    thresh = torch.randint(-d, d + 1, (n,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    flip = torch.randint(0, 2, (n,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    return x.to(dtype), b, thresh, flip
+
+
+def _one_launch(name, fn):
+    bg.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    assert bg.launches[name] == 1
+    return out
+
+
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+# Kernel 2's two regimes at their edges: the small-M kernel up to 32 rows
+# (K not a multiple of 32, N under one word, N = 288), tensor-core tiles from
+# 33 rows on and wherever KW % 4 != 0 (K = 300); (M, K, N)
+REGIME_SHAPES = [(m, k, n) for m in (1, 4, 16, 32, 33, 64, 100)
+                 for k, n in ((100, 10), (1000, 288), (3961, 130), (300, 77))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_binary_gemm_packed_rhs_regimes_match_plain(dtype):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for m, k, n in REGIME_SHAPES:
+        x, b, _, _ = _card_operands(g, m, k, n, dtype)
+        plan = bg.gemm_plan("binary_gemm_packed_rhs", m, n, k, _sms())
+        assert plan.small_m == (m <= bg.SMALL_M_ROWS and k != 300)
+        got = _one_launch("binary_gemm_packed_rhs",
+                          lambda: bg.binary_gemm_packed_rhs(x, b, k))
+        assert torch.equal(got, bg.binary_gemm_packed_rhs_plain(x, b, k)), \
+            (m, k, n, plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_binary_gemm_packed_rhs_wide_tiles_match_plain(dtype):
+    """256-channel tiles (N > 128, enough tiles to fill the card): ragged
+    N, odd N (element stores), K off the 128-value stage."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for m, k, n in ((12800, 1000, 384), (12831, 300, 301), (25600, 1152, 256)):
+        x, b, _, _ = _card_operands(g, m, k, n, dtype)
+        plan = bg.gemm_plan("binary_gemm_packed_rhs", m, n, k, _sms())
+        assert plan.block_n == 256 and plan.split == 1
+        got = _one_launch("binary_gemm_packed_rhs",
+                          lambda: bg.binary_gemm_packed_rhs(x, b, k))
+        assert torch.equal(got, bg.binary_gemm_packed_rhs_plain(x, b, k)), \
+            (m, k, n, plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 32])
+def test_cuda_binary_gemm_packed_rhs_cluster_split_matches_plain(m):
+    """K >= 8192 with N <= 288 splits K over a full cluster (falcon-mamba's
+    x_proj); the LM's other shapes split it in 2 or 4."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for k, n, split in ((8192, 288, 8), (8190, 200, 8), (17920, 5120, None),
+                        (8192, 4096, None)):
+        x, b, _, _ = _card_operands(g, m, k, n, torch.bfloat16)
+        plan = bg.gemm_plan("binary_gemm_packed_rhs", m, n, k, _sms())
+        assert plan.small_m and plan.split > 1
+        if split:
+            assert plan.split == split
+        got = _one_launch("binary_gemm_packed_rhs",
+                          lambda: bg.binary_gemm_packed_rhs(x, b, k))
+        assert torch.equal(got, bg.binary_gemm_packed_rhs_plain(x, b, k)), \
+            (m, k, n, plan)
+
+
+# kernel 3's main-path shapes: MLP layers 1-2 at batch 200 (layer 1 of the
+# MNIST input width, then 1024), CNN fc1 and fc2 at batch 100
+FUSED_MAIN_SHAPES = [(200, 784, 1024), (200, 1024, 1024), (100, 8192, 1024),
+                     (100, 1024, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lhs", ["packed", "float32", "bfloat16"])
+def test_cuda_binary_gemm_fused_main_and_small_shapes_match_plain(lhs):
+    """Kernel 3 on tensor-core tiles split over a cluster at its main-path
+    shapes, and at M <= 32, where it stays on the tiles."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    dtype = torch.bfloat16 if lhs == "bfloat16" else torch.float32
+    for m, k, n in FUSED_MAIN_SHAPES + [(1, 300, 77), (4, 8192, 288),
+                                        (32, 1000, 33)]:
+        x, b, thresh, flip = _card_operands(g, m, k, n, dtype)
+        a = pack_bits(x) if lhs == "packed" else x
+        plan = bg.gemm_plan("binary_gemm_fused", m, n, k, _sms())
+        assert not plan.small_m
+        got = _one_launch("binary_gemm_fused",
+                          lambda: bg.binary_gemm_fused(a, b, thresh, flip, k))
+        assert torch.equal(got, bg.binary_gemm_fused_plain(a, b, thresh, flip,
+                                                           k)), (m, k, n, plan)
+
+
 # ---------------------------------------------------------------------------
 # Kernel 5: the tensor-core sign GEMM of the training path
 # ---------------------------------------------------------------------------
