@@ -17,7 +17,14 @@ Phases, each of which raises on failure (nothing is caught):
                panels, dots at every position included; kernels 1-3 also
                at the LM's GEMM shapes (phi3-medium-14b, falcon-mamba-7b)
                at 4 and 32 rows and kernels 2-3 at the edges of their
-               dispatch rule (`gemm_plan`), one launch per call
+               dispatch rule (`gemm_plan`), one launch per call; the
+               prefill kernels (8, 9) at T 2,048 and 4,096, past ~1,770,
+               where a (32, T) score panel no longer fits shared memory (a
+               window shorter than the chunk, kv_len 0 rows, shuffled pools
+               with sentinel tails, T splits of 1, 2, 4 and 8 over a
+               cluster): dots exact, outputs within the
+               tolerance, paged equal to contiguous bit for bit; a one-row
+               prefill equal to decode bit for bit, paged and contiguous
   4. mlp     - bnn-mnist (784-1024x3-10) frozen, batches of 200 through the
                kernels; hidden words and scores equal the plain path's, the
                fp32-master path's, and the CPU's on a small batch
@@ -43,7 +50,10 @@ Phases, each of which raises on failure (nothing is caught):
                and the card's bound (bytes against the faster of popc and
                int8 tensor cores); kernels 1 and 2 at the LM's GEMM
                shapes at 4 and 32 rows, apart from the kernels line;
-               each forward per batch, one profiled
+               kernels 8 and 9 on a 32-row chunk at the end of a
+               4,096-position context beside SDPA and the bound, and
+               kernel 8 at each T split of 1, 2, 4 and 8, apart from the
+               kernels line; each forward per batch, one profiled
                frozen forward each; then the LM at full depth (40 layers,
                drawn and frozen one at a time): decode tokens/s, TTFT, ITL,
                resident bytes, one profiled decode step (device busy
@@ -52,10 +62,13 @@ Phases, each of which raises on failure (nothing is caught):
                cache and from the contiguous cache: decode tokens/s, TTFT of
                hit and miss requests, ITL, prefix stats, the page pool,
                tokens equal
-  8. train   - kernel 4 (binary_gemm_mxu, the tensor-core sign GEMM) against
-               its plain version at the five binary-conv shapes of a
-               bnn-cifar10 train step (batch 100) and ragged ones, float32
-               and bf16 x, tolerance 0; bnn-cifar10 at full width, batch
+  8. train   - kernel 4 (binary_gemm_mxu: w sign-packed along K, then
+               kernel 2's tensor-core tiles or small-M kernel with a float32
+               store) against its plain version at the five binary-conv
+               shapes of a bnn-cifar10 train step (batch 100), ragged ones
+               and each regime of its plan (small M, split K), float32 and
+               bf16 x, NaN and -0.0 in x and w, tolerance 0, one launch per
+               call; bnn-cifar10 at full width, batch
                100, BBP stochastic from a seeded device generator, shift-BN,
                S-AdaMax, 3 steps through each route (auto: kernel 4; vpu:
                sign-pack + XNOR-popcount kernels; ref: plain) from the same
@@ -69,7 +82,8 @@ Phases, each of which raises on failure (nothing is caught):
                or through a shared AP2 factor); bnn-mnist (batch 200) 3
                steps; 30 steps of bnn-cifar10 on SyntheticImages lower the
                loss; kernel 4's
-               times beside its bound, plain version and torch._int_mm; the
+               times beside its bound, plain version, torch._int_mm on
+               +-1 int8 and signing x and w to int8 + torch._int_mm; the
                train step per batch on auto and ref (ms, images/s), one
                profiled step (busy share, launches), peak memory
   9. ssm     - kernel 10 (selective_scan) against its plain version on the
@@ -120,8 +134,8 @@ EXP_PER_CLOCK_PER_SM = 16          # SFU exp issue rate, compute 9.0
 GEMMS = ("binary_gemm_packed", "binary_gemm_packed_rhs", "binary_gemm_fused")
 MXU = "binary_gemm_mxu"
 SCAN = "selective_scan"
-SOURCES = {**{kn: "src/repro_torch/kernels/csrc/binary_gemm.cu" for kn in GEMMS},
-           MXU: "src/repro_torch/kernels/csrc/binary_gemm_mxu.cu",
+SOURCES = {**{kn: "src/repro_torch/kernels/csrc/binary_gemm.cu"
+              for kn in (*GEMMS, MXU)},
            "pack_bits": "src/repro_torch/kernels/csrc/pack.cu",
            SCAN: "src/repro_torch/kernels/csrc/selective_scan.cu",
            **{kn: "src/repro_torch/kernels/csrc/attention.cu" for kn in (
@@ -369,7 +383,7 @@ def bound_by(row):
 def plan_text(kn, m, k, n, sms):
     """The dispatch rule's choice for kernels 2 and 3, for the printed rows."""
     from repro_torch.kernels import binary_gemm as bg
-    if kn not in ("binary_gemm_packed_rhs", "binary_gemm_fused"):
+    if kn not in ("binary_gemm_packed_rhs", MXU, "binary_gemm_fused"):
         return "popc tiles"
     p = bg.gemm_plan(kn, m, n, k, sms)
     return (f"{'small-M' if p.small_m else 'TC tiles'} split {p.split} "
@@ -737,6 +751,160 @@ def lm_paged_kernel_checks(cfg, dev_gen, seed, dev):
                       f"and the contiguous kernel's on the gathered panel")
     # every output was held equal to its plain version's
     return {kn: 0.0 for kn in PAGED_KERNELS}
+
+
+# prefill past T ~1,770, where a (32, T) score panel no longer fits shared
+# memory (B, S, T, Hkv, kv_lens, q_pos, window): 32-row chunks at the end
+# of 2,048- and 4,096-position contexts, a window shorter than the chunk,
+# kv_len 0 rows; on the H100 their grids take T splits of 8, 4, 2 and 1
+# (`attention_plan`)
+LONG_PAGE = 64
+LONG_PREFILL = [(1, 32, 2048, 2, (2048,), (2016,), 0),
+                (1, 32, 4096, 10, (4096,), (4064,), 0),
+                (2, 32, 4096, 10, (0, 4000), (0, 3968), 8),
+                (4, 64, 2048, 10, (2048, 0, 700, 64), (1984, 0, 636, 0), 0)]
+
+
+def lm_long_prefill_checks(cfg, dev_gen, seed, dev, sms):
+    """Kernels 8 and 9 at T 2,048 and 4,096 (LONG_PREFILL; G and hd of the
+    LM; a pool of 64-position pages in shuffled order, the sentinel in each
+    row's unallocated tail): the contiguous kernel on the gathered panel
+    against its plain version (dots at every position equal, outputs within
+    ATTN_TOL with equal signs, kv_len 0 rows exactly 0) and the paged
+    kernel against the contiguous one (outputs and dots bit for bit); then
+    a one-row chunk at q_pos = kv_len - 1 against decode at the LM's decode
+    shape, paged and contiguous, bit for bit. Every T split of 1, 2, 4 and
+    8 is taken at least once."""
+    from repro_torch.kernels import ref
+    _, _, da, pa, _ = lm_modules()
+    rng = np.random.default_rng(seed + 1)
+    g, hd = cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    err = {kn: 0.0 for kn in ("prefill_attention_packed",
+                              "prefill_attention_packed_paged")}
+    splits = set()
+    for b, s, t, hkv, lens, qpos, window in LONG_PREFILL:
+        plan = pa.attention_plan(b, s, t, hkv, g, hd, sms)
+        splits.add(plan.split)
+        pool = b * t // LONG_PAGE + 3
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, vs, pt = paged_case(dev_gen, rng, b, s, LONG_PAGE,
+                                         t // LONG_PAGE, pool, hkv, g, hd,
+                                         lens, dtype, dev)
+            kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+            qp = torch.tensor(qpos, dtype=torch.int32, device=dev)
+            kg, vg = ref.gather_pages(k, pt), ref.gather_pages(v, pt)
+            got, dots = pa.prefill_attention_packed(
+                q, kg, vg, vs, kv, qp, window=window, return_dots=True)
+            paged, pdots = pa.prefill_attention_packed_paged(
+                q, k, v, vs, pt, kv, qp, window=window, return_dots=True)
+            torch.cuda.synchronize()
+            want, wdots = pa.prefill_attention_packed_plain(
+                q, kg, vg, vs, kv, qp, window=window, return_dots=True)
+            what = f"long prefill ({b},{s},{t},{hkv}) lens {list(lens)}"
+            if not (torch.equal(dots, wdots) and torch.equal(pdots, dots)):
+                raise AssertionError(f"{what}: dots differ")
+            if not torch.equal(paged, got):
+                raise AssertionError(f"{what}: paged differs from contiguous")
+            if not (got[kv == 0] == 0).all():
+                raise AssertionError(f"{what}: a kv_len 0 row is not 0")
+            e = check_close(what, got, want, dtype)
+            for kn in err:
+                err[kn] = max(err[kn], e)
+            print(f"check prefill_attention_packed[_paged] {str(dtype)[6:]:8s} "
+                  f"B={b} S={s} T={t} Hkv={hkv} lens={list(lens)} q_pos="
+                  f"{list(qpos)} window={window} split {plan.split}: dots "
+                  f"equal, max_abs_err={e:.3g}, paged equals contiguous bit "
+                  f"for bit (ps {LONG_PAGE}, pool {pool} shuffled, sentinel "
+                  f"tails)")
+    if splits != {1, 2, 4, 8}:
+        raise AssertionError(f"long prefill checks took splits {splits}")
+    lens = (1, 100, 333, LM_MAX_LEN)
+    q, k, v, vs, pt = paged_case(dev_gen, rng, LM_SLOTS, 1, LM_PAGE,
+                                 LM_MAX_LEN // LM_PAGE, LM_POOL,
+                                 cfg.n_kv_heads, g, hd, lens, torch.bfloat16,
+                                 dev)
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kg, vg = ref.gather_pages(k, pt), ref.gather_pages(v, pt)
+    check_equal("paged prefill S=1 vs paged decode",
+                pa.prefill_attention_packed_paged(q, k, v, vs, pt, kv, kv - 1),
+                da.decode_attention_packed_paged(q, k, v, vs, pt, kv))
+    check_equal("prefill S=1 vs decode (gathered)",
+                pa.prefill_attention_packed(q, kg, vg, vs, kv, kv - 1),
+                da.decode_attention_packed(q, kg, vg, vs, kv))
+    split = pa.attention_plan(LM_SLOTS, 1, LM_MAX_LEN, cfg.n_kv_heads, g, hd,
+                              sms).split
+    print(f"check prefill S=1 equals decode bit for bit, paged and contiguous "
+          f"(lens {list(lens)}, split {split})")
+    return err
+
+
+def lm_long_prefill_times(cfg, dev_gen, dev, popc_per_s):
+    """A 32-row chunk at the end of a 4,096-position context (q_pos 4064,
+    one row, the LM's heads, bf16): kernel 8 on the contiguous cache and
+    kernel 9 on a shuffled pool of 32-position pages, as `shape_times`,
+    beside SDPA (paged: on the gathered pages, the gather's time printed
+    beside it) and the bound. Not in the kernels line (no main-path call
+    reaches this context)."""
+    from repro_torch.kernels import ref
+    _, _, _, pa, _ = lm_modules()
+    rng = np.random.default_rng(4096)
+    hkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    t, qp = 4096, 4096 - LM_CHUNK
+    q, k, v, vs, pt = paged_case(dev_gen, rng, 1, LM_CHUNK, LM_PAGE,
+                                 t // LM_PAGE, t // LM_PAGE + 8, hkv, g, hd,
+                                 (t,), torch.bfloat16, dev)
+    kg, vg = ref.gather_pages(k, pt), ref.gather_pages(v, pt)
+    valid = ref.chunk_valid_mask(1, LM_CHUNK, t, t, qp, 0, True, device=dev)
+    lib = sdpa_call(q, kg, vg, vs, valid)
+    bnd = attention_bound(valid, LM_CHUNK, cfg.n_heads, hkv, hd, 2, popc_per_s)
+    rows = []
+    for kn, call, plain in (
+            ("prefill_attention_packed",
+             lambda: pa.prefill_attention_packed(q, kg, vg, vs, t, qp),
+             lambda: pa.prefill_attention_packed_plain(q, kg, vg, vs, t, qp)),
+            ("prefill_attention_packed_paged",
+             lambda: pa.prefill_attention_packed_paged(q, k, v, vs, pt, t, qp),
+             lambda: pa.prefill_attention_packed_paged_plain(
+                 q, k, v, vs, pt, t, qp))):
+        check_close_loose(f"SDPA vs {kn} at T {t}", lib(), call())
+        row = {"kernel": kn, "where": f"chunk S={LM_CHUNK} q_pos={qp} T={t}",
+               "library": "F.scaled_dot_product_attention",
+               **shape_times(call, kn, plain, lib),
+               **(paged_bound(bnd, pt) if kn.endswith("paged") else bnd)}
+        if kn.endswith("paged"):
+            row["gather_ms"] = device_ms(lambda: (ref.gather_pages(k, pt),
+                                                  ref.gather_pages(v, pt)))
+        rows.append(row)
+    return rows
+
+
+def prefill_split_sweep(cfg, dev_gen, dev, sms):
+    """Kernel 8's device time at each T split (1, 2, 4, 8) on one slot's
+    32-row chunk at q_pos 0 and 96 of a 512-position table and at the end
+    of a 4,096-position one, beside the split `attention_plan` picks: the
+    measurement its rule rests on. Outputs are held equal across splits
+    within ATTN_TOL (the sums' order changes with the split)."""
+    from unittest import mock
+    _, _, _, pa, _ = lm_modules()
+    hkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    rows = []
+    for t, qp in ((LM_MAX_LEN, 0), (LM_MAX_LEN, 96), (4096, 4096 - LM_CHUNK)):
+        q, k, v, vs = attention_case(dev_gen, 1, LM_CHUNK, t, hkv, g, hd,
+                                     torch.bfloat16, dev)
+        plan = pa.attention_plan(1, LM_CHUNK, t, hkv, g, hd, sms)
+        call = (lambda: pa.prefill_attention_packed(q, k, v, vs, qp + LM_CHUNK,
+                                                    qp))
+        want = call()
+        ms = {}
+        for split in (1, 2, 4, 8):
+            forced = pa.AttentionPlan(plan.bq, split, plan.blocks
+                                      // plan.split * split)
+            with mock.patch.object(pa, "attention_plan",
+                                   lambda *a, forced=forced: forced):
+                check_close(f"split {split}", call(), want, torch.bfloat16)
+                ms[split] = device_ms(call, wrapper="prefill_attention_packed")
+        rows.append({"T": t, "q_pos": qp, "plan_split": plan.split, "ms": ms})
+    return rows
 
 
 def lm_traffic(seed, vocab):
@@ -1284,14 +1452,26 @@ def train_conv_shapes(cfg):
     return out
 
 
-def mxu_operands(gen, m, k, n):
-    """x (M, K), w (K, N) float32 on the card with 5% exact zeros."""
+def mxu_operands(gen, m, k, n, edges=False):
+    """x (M, K), w (K, N) float32 on the card with 5% exact zeros; with
+    `edges` also -0.0 (signs +1) and NaN (signs -1) in both."""
     dev = gen.device
     x = torch.randn(m, k, generator=gen, device=dev)
     x[torch.rand(m, k, generator=gen, device=dev) < 0.05] = 0.0
     w = torch.randn(k, n, generator=gen, device=dev)
     w[torch.rand(k, n, generator=gen, device=dev) < 0.05] = 0.0
+    if edges:
+        for t in (x, w):
+            t.view(-1)[1::17] = -0.0
+            t.view(-1)[2::19] = float("nan")
     return x, w
+
+
+# kernel 4 in each regime of its plan besides the convs' tiles: small-M
+# rows, small M split over an 8-block cluster, tiles at small M (KW % 4 !=
+# 0), tiles split over a cluster
+MXU_REGIMES = [(4, 1024, 300), (32, 8190, 200), (17, 300, 48),
+               (300, 1000, 257)]
 
 
 def mxu_bound(m, k, n, x_bytes=4):
@@ -1304,22 +1484,27 @@ def mxu_bound(m, k, n, x_bytes=4):
             "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops)}
 
 
-def mxu_kernel_checks(dev_gen, shapes):
-    """Kernel 4 against its plain version, float32 and bf16 x: equal."""
+def mxu_kernel_checks(dev_gen, shapes, sms):
+    """Kernel 4 against its plain version, float32 and bf16 x, with NaN,
+    -0.0 and 0.0 in x and w: equal (tolerance 0), one launch per call."""
     from repro_torch.kernels import binary_gemm as bg
     err = 0
     for m, k, n in shapes:
-        x, w = mxu_operands(dev_gen, m, k, n)
+        x, w = mxu_operands(dev_gen, m, k, n, edges=True)
         for xs in (x, x.to(torch.bfloat16)):
+            before = bg.launches[MXU]
             got = bg.binary_gemm_mxu(xs, w)
             torch.cuda.synchronize()
-            d = float((got - bg.binary_gemm_mxu_plain(xs, w)).abs().max())
-            err = max(err, d)
-            print(f"check {MXU:24s} {str(xs.dtype)[6:]:8s} M={m:6d} K={k:5d} "
-                  f"N={n:5d} max_abs_err={d}")
-            if d:
+            if bg.launches[MXU] - before != 1:
+                raise AssertionError(f"{MXU} ({m},{k},{n}): not one launch")
+            want = bg.binary_gemm_mxu_plain(xs, w)
+            if not torch.equal(got, want):
+                d = float((got - want).abs().max())
                 raise AssertionError(f"{MXU} {xs.dtype} ({m},{k},{n}) differs "
                                      f"from its plain version by {d}")
+            print(f"check {MXU:24s} {str(xs.dtype)[6:]:8s} M={m:6d} K={k:5d} "
+                  f"N={n:5d} {plan_text(MXU, m, k, n, sms):28s} "
+                  f"NaN/-0.0 in x and w, max_abs_err=0.0")
     return err
 
 
@@ -1497,37 +1682,57 @@ def train_cpu_check(cfg, seed, dev):
 
 def train_times(cfg, seed, dev, card, dev_gen):
     """Kernel 4 at the train step's conv shapes (`shape_times`, with
-    torch._int_mm on the same +-1 int8 operands as the library call), then
-    the train step per batch on each route, and one step's busy share,
-    launches and peak memory."""
+    torch._int_mm on the same +-1 int8 operands as the library call; beside
+    it `library_sign_ms`, the device time of signing x and w to int8 and
+    then torch._int_mm, the same function from kernel 4's own float
+    inputs), then the train step per batch on each route, and one step's
+    busy share, launches and peak memory."""
     from repro_torch.kernels import binary_gemm as bg
     from repro_torch.train import paper as tp
     rows = []
-    print(f"{MXU} times on {card} (ms; kernel: device_ms; wrapper and plain: "
-          f"CUDA events; library: torch._int_mm on +-1 int8, device_ms; bound "
-          f"= max(bytes / 3.35 TB/s, 2MNK / 1979 TOP/s))")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    one, neg = (torch.tensor(v, dtype=torch.int8, device=dev) for v in (1, -1))
+    print(f"{MXU} times on {card} (ms; kernel: device_ms, its signing pass "
+          f"included; wrapper and plain: CUDA events; library: torch._int_mm "
+          f"on +-1 int8, device_ms; sign+lib: signing x and w to int8 and "
+          f"torch._int_mm, device_ms; bound = max(bytes / 3.35 TB/s, 2MNK / "
+          f"1979 TOP/s))")
     for m, k, n in train_conv_shapes(cfg):
         x, w = mxu_operands(dev_gen, m, k, n)
         xi = torch.where(x >= 0, 1, -1).to(torch.int8)
         # (K, N) column-major, the layout phase 7's torch._int_mm calls use
         wi = torch.where(w.t() >= 0, 1, -1).to(torch.int8).contiguous().t()
         lib = (lambda xi=xi, wi=wi: torch._int_mm(xi, wi))
+
+        def signed_lib(x=x, w=w):
+            return torch._int_mm(torch.where(x >= 0, one, neg), torch.where(
+                w.t() >= 0, one, neg).contiguous().t())
+        got = bg.binary_gemm_mxu(x, w)
         check_equal(f"torch._int_mm vs {MXU} ({m},{k},{n})",
-                    lib().to(torch.float32), bg.binary_gemm_mxu(x, w))
+                    lib().to(torch.float32), got)
+        check_equal(f"sign + torch._int_mm vs {MXU} ({m},{k},{n})",
+                    signed_lib().to(torch.float32), got)
         row = {"kernel": MXU, "M": m, "K": k, "N": n,
-               "library": "torch._int_mm",
+               "library": "torch._int_mm", "plan": plan_text(MXU, m, k, n, sms),
                **shape_times(lambda x=x, w=w: bg.binary_gemm_mxu(x, w), MXU,
                              lambda x=x, w=w: bg.binary_gemm_mxu_plain(x, w),
                              lib),
+               "library_sign_ms": device_ms(signed_lib),
                **mxu_bound(m, k, n)}
         rows.append(row)
         print(f"  {MXU} M={m:6d} K={k:5d} N={n:4d} kernel {row['ms']:.4f} "
               f"(wrapper {row['wrapper_ms']:.4f})  plain {row['plain_ms']:.3f}"
               f"  torch._int_mm {row['library_ms']:.4f} (wall "
-              f"{row['library_wall_ms']:.4f})  bound {row['bound_ms']:.4f} "
+              f"{row['library_wall_ms']:.4f})  sign+lib "
+              f"{row['library_sign_ms']:.4f}  bound {row['bound_ms']:.4f} "
               f"({'bytes' if row['bytes_ms'] >= row['ops_ms'] else 'ops'}; "
-              f"int8 TC {row['ops_ms']:.4f})")
-        del x, w, xi, wi
+              f"int8 TC {row['ops_ms']:.4f})  {row['plan']}")
+        del x, w, xi, wi, got
+    print(f"  {MXU} over the {len(rows)} convs: kernel "
+          f"{sum(r['ms'] for r in rows):.4f}  torch._int_mm "
+          f"{sum(r['library_ms'] for r in rows):.4f}  sign+lib "
+          f"{sum(r['library_sign_ms'] for r in rows):.4f}  bound "
+          f"{sum(r['bound_ms'] for r in rows):.4f}")
     data = tp.synthetic_data(cfg, seed)
     x, y = (torch.from_numpy(a).to(dev) for a in data.batch(0, cfg.batch))
     steps = {}
@@ -1583,7 +1788,8 @@ def train_phase(seed, dev, card, dev_gen):
     t0 = time.perf_counter()
     cfg = BNN_CIFAR10
     shapes = train_conv_shapes(cfg) + list(RAGGED) + [(17, 1, 10), (130, 33, 129)]
-    err = mxu_kernel_checks(dev_gen, shapes)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    err = mxu_kernel_checks(dev_gen, shapes + MXU_REGIMES, sms)
     launches, route_launches = train_routes_check(cfg, seed, dev)
     train_cpu_check(cfg, seed, dev)
     mnist = tp.train(BNN_MNIST, TRAIN_STEPS, seed=seed, device=dev)
@@ -1990,6 +2196,9 @@ def main() -> int:
     lm_cfg = get_config(LM_ARCH)
     err.update(lm_kernel_checks(lm_cfg, dev_gen, dev))
     err.update(lm_paged_kernel_checks(lm_cfg, dev_gen, args.seed, dev))
+    for kn, e in lm_long_prefill_checks(lm_cfg, dev_gen, args.seed, dev,
+                                        sms).items():
+        err[kn] = max(err[kn], e)
 
     # ------------------------------------------------------------------ mlp
     cfg = BNN_MNIST
@@ -2191,6 +2400,26 @@ def main() -> int:
               f"{r['bound_ms']:.5f} ({'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'ops'})")
     totals.update(lm_totals)
     report["lm_shapes"] = lm_rows
+    long_rows = lm_long_prefill_times(lm_cfg, dev_gen, dev, popc_per_s)
+    print(f"lm long-context prefill times on {card} (ms, as above; not in "
+          f"the kernels line):")
+    for r in long_rows:
+        lib = f"{r['library_ms']:.4f} (wall {r['library_wall_ms']:.4f})"
+        if "gather_ms" in r:
+            lib += f" + gather {r['gather_ms']:.4f}"
+        print(f"  {r['kernel']:30s} {r['where']:30s} kernel {r['ms']:.4f} "
+              f"(wrapper {r['wrapper_ms']:.4f})  plain {r['plain_ms']:.3f}  "
+              f"library {lib}  bound {r['bound_ms']:.5f} "
+              f"({'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'ops'})")
+    report["lm_long_prefill"] = long_rows
+    sweep = prefill_split_sweep(lm_cfg, dev_gen, dev, sms)
+    print(f"prefill T split sweep on {card} (kernel 8, one slot's 32-row "
+          f"chunk, bf16; device ms at split 1 / 2 / 4 / 8):")
+    for r in sweep:
+        print(f"  T={r['T']:5d} q_pos={r['q_pos']:5d}  "
+              + " / ".join(f"{r['ms'][sp]:.4f}" for sp in (1, 2, 4, 8))
+              + f"  (attention_plan: split {r['plan_split']})")
+    report["prefill_split_sweep"] = sweep
     timed, eng = lm_timed_run(lm_cfg, args.seed, dev, card)
     sched = eng.scheduler()
     pos = torch.full((LM_SLOTS,), 300, dtype=torch.int32, device=dev)

@@ -1,5 +1,7 @@
-"""Where the port's entry points put their tensors."""
+"""Where the port's entry points put their tensors, and what the card has."""
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -16,3 +18,15 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
                                "device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of CUDA `device` (the kernels' launch
+    plans fill the card by it)."""
+    index = torch.device(device).index
+    return _sms(torch.cuda.current_device() if index is None else index)

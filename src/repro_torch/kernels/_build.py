@@ -22,10 +22,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = {"binary_gemm": CSRC / "binary_gemm.cu", "pack": CSRC / "pack.cu",
            "attention": CSRC / "attention.cu",
-           "binary_gemm_mxu": CSRC / "binary_gemm_mxu.cu",
            "selective_scan": CSRC / "selective_scan.cu"}
 HEADERS = [CSRC / "common.cuh",       # included by every source
-           CSRC / "mma_tile.cuh"]     # the tensor-core GEMMs' tile code
+           CSRC / "mma_tile.cuh"]     # the tensor-core GEMM's tile code
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -39,10 +38,10 @@ SIGNATURES = {
                                    _I, _I, _P],
         "binary_gemm_fused": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _P],
+        "binary_gemm_mxu": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _P],
     },
     "pack": {"pack_bits": [_P, _I, _P, _I, _I, _P]},
-    "binary_gemm_mxu": {"binary_gemm_mxu": [_P, _I, _I, _P, _P, _P, _I, _I,
-                                            _I, _I, _P]},
     "selective_scan": {"selective_scan": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
                                           _I, _I, _I, _I, _P]},
     "attention": {
@@ -50,13 +49,14 @@ SIGNATURES = {
                                     _I, _I, _I, _I, _I, _I, _F, _P],
         "prefill_attention_packed": [_P, _I, _P, _P, _P, _P, _I, _P, _I, _P,
                                      _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                     _F, _P],
+                                     _I, _F, _P],
         "decode_attention_packed_paged": [_P, _I, _P, _P, _P, _P, _P, _P, _P,
                                           _I, _I, _I, _I, _I, _I, _I, _I,
                                           _F, _P],
         "prefill_attention_packed_paged": [_P, _I, _P, _P, _P, _P, _P, _I, _P,
                                            _I, _P, _P, _I, _I, _I, _I, _I,
-                                           _I, _I, _I, _I, _I, _I, _F, _P],
+                                           _I, _I, _I, _I, _I, _I, _I, _F,
+                                           _P],
     },
 }
 

@@ -11,20 +11,22 @@ and the dispatch the ops call (port of `repro.kernels.binary_gemm`).
     along N -> (M, ceil(N/32)) int32 words, pad bits 1. Replaces
     `binary_gemm_vpu_packed_io`.
   * `binary_gemm_mxu` — float32 or bf16 (M, K) x float32 (K, N) -> (M, N)
-    float32 = sign(x) @ sign(w), both operands signed to +-1 int8 inside the
-    kernel and multiplied on the tensor cores: the GEMM of the training
-    path's binary convs. Replaces `binary_gemm_mxu`.
+    float32 = sign(x) @ sign(w): the GEMM of the training path's binary
+    convs. Replaces `binary_gemm_mxu`. A pass sign-packs w along K into the
+    wire format once per call, then `binary_gemm_packed_rhs`'s kernels run x
+    against those words with a float32 store (the dots are exact).
 
-The kernels are CUDA C++ for sm_90a in `csrc/binary_gemm.cu` and
-`csrc/binary_gemm_mxu.cu`, with the int8 tensor-core tile code both share in
-`csrc/mma_tile.cuh`; each header says what bounds its kernels and what the
-design does about it. `binary_gemm_packed` is an XNOR-popcount tile kernel.
-`binary_gemm_packed_rhs` and `binary_gemm_fused` run one of two kernels,
-chosen by `gemm_plan`, a fixed rule of M, N, K and the card's SM count:
+The kernels are CUDA C++ for sm_90a in `csrc/binary_gemm.cu`, with the int8
+tensor-core tile code in `csrc/mma_tile.cuh`; the header says what bounds
+the kernels and what the design does about it. `binary_gemm_packed` is an
+XNOR-popcount tile kernel. `binary_gemm_packed_rhs`, `binary_gemm_mxu` and
+`binary_gemm_fused` run one of two kernels, chosen by `gemm_plan`, a fixed
+rule of M, N, K and the card's SM count:
 
-  * small M (`binary_gemm_packed_rhs` at M <= 32, the LM's decode and chunk
-    rows): a block packs the M real rows of its K slice once and streams
-    its channels' weight words past them (popcounts);
+  * small M (`binary_gemm_packed_rhs` and `binary_gemm_mxu` at M <= 32,
+    the LM's decode and chunk rows): a block packs the M real rows of its
+    K slice once and streams its channels' weight words past them
+    (popcounts);
   * otherwise (the convs, every `binary_gemm_fused` call): int8
     tensor-core tiles of 64 rows and 128 or 256 channels, the packed words
     expanded to +-1 bytes in shared memory.
@@ -42,11 +44,11 @@ format.
 """
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 
 import torch
 
+from repro_torch._device import sm_count
 from repro_torch.core.bitpack import pack_bits, packed_width
 from repro_torch.kernels import _build, ref
 
@@ -59,8 +61,6 @@ _PLAIN_CHUNK = 1 << 24
 # float lhs types the kernels read, by the code the C interface takes (the
 # sign of a bf16 activation is exact, so it is read as it is, not cast)
 _LHS_KIND = {torch.float32: 1, torch.bfloat16: 2}
-# binary_gemm_mxu's K step: its signed w scratch pads K to a multiple of it
-_MXU_BK = 32
 # gemm_plan's rule: the small-M kernel's rows and shared memory, the tensor-
 # core tile and its K stage, the largest portable cluster, and the least K
 # per block of a split (in 4-word groups, in tensor-core stages)
@@ -78,10 +78,10 @@ def reset_launches() -> None:
 
 @dataclass(frozen=True)
 class GemmPlan:
-    """How one `binary_gemm_packed_rhs` or `binary_gemm_fused` call runs:
-    the small-M kernel or tensor-core tiles, `split` blocks per cluster
-    along K, `block_n` channels per block, `blocks` in the grid, and always
-    one launch."""
+    """How one `binary_gemm_packed_rhs`, `binary_gemm_mxu` or
+    `binary_gemm_fused` call runs: the small-M kernel or tensor-core tiles,
+    `split` blocks per cluster along K, `block_n` channels per block,
+    `blocks` in the grid, and always one launch."""
     small_m: bool
     split: int
     block_n: int
@@ -103,20 +103,22 @@ def gemm_plan(kernel: str, m: int, n: int, k: int, sms: int,
               rhs_aligned: bool = True) -> GemmPlan:
     """The fixed rule that picks the float-lhs / fused kernel and its split.
 
-    `binary_gemm_packed_rhs` at M <= SMALL_M_ROWS runs the small-M kernel
-    where its weight rows are 16-byte aligned words (KW % 4 == 0,
-    `rhs_aligned`) and its packed lhs slice fits in shared memory, with 32
-    channels per block, or 64 where N / 32 is at least 3 blocks per SM
-    (fewer packs of the same lhs); everything else runs tensor-core tiles
-    of 64 rows, 256 channels for `binary_gemm_packed_rhs` where N > 128 and
-    such tiles fill the card without a split (the float lhs read by half as
-    many N tiles), else 128. Either splits K over a cluster (`_split`) where
-    its blocks are fewer than 1.5 per SM."""
-    if kernel not in ("binary_gemm_packed_rhs", "binary_gemm_fused"):
+    `binary_gemm_packed_rhs`, and `binary_gemm_mxu` against its signed w
+    (the same kernels with a float32 store), at M <= SMALL_M_ROWS run the
+    small-M kernel where the weight rows are 16-byte aligned words (KW % 4
+    == 0, `rhs_aligned`) and the packed lhs slice fits in shared memory,
+    with 32 channels per block, or 64 where N / 32 is at least 3 blocks per
+    SM (fewer packs of the same lhs); everything else runs tensor-core tiles
+    of 64 rows, 256 channels for the two where N > 128 and such tiles fill
+    the card without a split (the float lhs read by half as many N tiles),
+    else 128. Either splits K over a cluster (`_split`) where its blocks
+    are fewer than 1.5 per SM."""
+    if kernel not in ("binary_gemm_packed_rhs", "binary_gemm_mxu",
+                      "binary_gemm_fused"):
         raise ValueError(f"no plan for {kernel}")
+    dots = kernel != "binary_gemm_fused"
     kw = packed_width(k)
-    if kernel == "binary_gemm_packed_rhs" and m <= SMALL_M_ROWS \
-            and kw % 4 == 0 and rhs_aligned:
+    if dots and m <= SMALL_M_ROWS and kw % 4 == 0 and rhs_aligned:
         block_n = 64 if -(-n // 32) >= 3 * sms else 32
         blocks = -(-n // block_n)
         split = _split(blocks, kw // 4, _MIN_SMALL_M_UNITS, sms)
@@ -125,21 +127,16 @@ def gemm_plan(kernel: str, m: int, n: int, k: int, sms: int,
             return GemmPlan(True, split, block_n, blocks * split)
     m_tiles = -(-m // _TC_BM)
     wide = m_tiles * -(-n // _TC_WIDE_BN)
-    if kernel == "binary_gemm_packed_rhs" and n > _TC_BN and 2 * wide >= 3 * sms:
+    if dots and n > _TC_BN and 2 * wide >= 3 * sms:
         return GemmPlan(False, 1, _TC_WIDE_BN, wide)
     tiles = m_tiles * -(-n // _TC_BN)
     split = _split(tiles, -(-k // _TC_BK), _MIN_TC_STAGES, sms)
     return GemmPlan(False, split, _TC_BN, tiles * split)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _plan(kernel: str, a: torch.Tensor, b: torch.Tensor, k: int) -> GemmPlan:
     return gemm_plan(kernel, a.shape[0], b.shape[0], k,
-                     _sm_count(a.device.index), b.data_ptr() % 16 == 0)
+                     sm_count(a.device), b.data_ptr() % 16 == 0)
 
 
 def _vec(a: torch.Tensor, k: int) -> int:
@@ -224,13 +221,12 @@ def _check_operands(a: torch.Tensor, b: torch.Tensor, k: int,
         raise ValueError(f"no binary GEMM for device {a.device}")
 
 
-def _launch(name: str, a: torch.Tensor, *args,
-            lib: str = "binary_gemm") -> None:
-    """Launch kernel `name` of library `lib` on a's device and current
-    stream, raise on a CUDA error, and count the launch."""
-    fn = getattr(_build.library(lib), name)
+def _launch(name: str, a: torch.Tensor, *args) -> None:
+    """Launch kernel `name` on a's device and current stream, raise on a
+    CUDA error, and count the launch."""
+    fn = getattr(_build.library("binary_gemm"), name)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    _build.check(lib, fn(*args, stream), name)
+    _build.check("binary_gemm", fn(*args, stream), name)
     launches[name] += 1
 
 
@@ -294,7 +290,9 @@ def binary_gemm_fused(a: torch.Tensor, b: torch.Tensor, thresh: torch.Tensor,
 
 def binary_gemm_mxu(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (M, K) float32 or bf16, w: (K, N) float32 -> (M, N) float32 =
-    sign(x) @ sign(w), sign(0) := +1. Any floats: the kernel signs them."""
+    sign(x) @ sign(w), sign(v) = +1 where v >= 0 (-0.0 is +1, NaN -1). Any
+    floats: the kernel signs them (w once per call, into packed words,
+    then x against them in the kernel `gemm_plan` picks)."""
     if x.dtype not in _LHS_KIND or x.ndim != 2:
         raise ValueError(f"x must be (M, K) float32 or bfloat16, got "
                          f"{x.dtype} {tuple(x.shape)}")
@@ -313,12 +311,12 @@ def binary_gemm_mxu(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if not m or not n or not k:
         return torch.zeros((m, n), dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    # scratch for sign(w) as (N, Kp) int8, K padded to the kernel's step
-    kp = -(-k // _MXU_BK) * _MXU_BK
-    wt = torch.empty((n, kp), dtype=torch.int8, device=x.device)
+    # scratch for sign(w) packed along K: (N, KW) words, 16-byte aligned
+    wp = torch.empty((n, packed_width(k)), dtype=torch.int32, device=x.device)
+    plan = gemm_plan("binary_gemm_mxu", m, n, k, sm_count(x.device))
     _launch("binary_gemm_mxu", x, x.data_ptr(), _LHS_KIND[x.dtype], _vec(x, k),
-            w.data_ptr(), wt.data_ptr(), out.data_ptr(), m, n, k, kp,
-            lib="binary_gemm_mxu")
+            w.data_ptr(), wp.data_ptr(), out.data_ptr(), m, n, k,
+            int(plan.small_m), plan.split, plan.block_n)
     return out
 
 

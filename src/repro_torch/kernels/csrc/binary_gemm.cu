@@ -1,10 +1,12 @@
-// XNOR-popcount GEMMs for Hopper (sm_90a): the binary GEMM kernels of the
-// bit-resident forward pass, with a plain C interface for ctypes.
+// XNOR-popcount and +-1 GEMMs for Hopper (sm_90a): the binary GEMM kernels
+// of the bit-resident forward pass and of training, with a plain C
+// interface for ctypes.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/binary_gemm.py:
 //   binary_gemm_packed      <- binary_gemm_vpu            (packed lhs, int32 dots)
 //   binary_gemm_packed_rhs  <- binary_gemm_vpu_packed     (float lhs, int32 dots)
 //   binary_gemm_fused       <- binary_gemm_vpu_packed_io  (threshold + repack)
+//   binary_gemm_mxu         <- binary_gemm_mxu            (float x float, f32 out)
 //
 // Wire format (src/repro_torch/core/bitpack.py): bit 1 is +1, words are
 // little-endian along K, pad bits are 1, so dot = K - 2 * popcount(a ^ b).
@@ -13,16 +15,24 @@
 //
 // Three kernels; the wrapper (kernels/binary_gemm.py, `gemm_plan`) picks the
 // float-lhs kernel and the split of K by a fixed rule from M, N, K and the
-// SM count. Every call is one launch.
+// SM count. Every call is one launch (kernel 4: its signing pass, then one).
+//
+// Kernel 4 (binary_gemm_mxu, the training path's binary convs: sign(x) @
+// sign(w) with a float32 (K, N) w) is binary_gemm_packed_rhs with a float32
+// store: a pass packs sign(w) once along K into the wire format (N, KW),
+// an eighth of the bytes of w as +-1 int8, then the small-M kernel or the
+// tensor-core tiles run x against those words as they run kernel 2. The
+// dots are integers of magnitude <= K < 2^24, so float32 holds them exactly.
 //
 // popc tiles (binary_gemm_packed, packed lhs). One 64x64 output tile per
 // block of 8 warps, 16 int32 accumulators per thread, K inside the block;
 // bound by popc issue (16 per clock per SM) where both operands are words.
 //
-// Small M (binary_gemm_packed_rhs at M <= 32: the LM's decode and chunk
-// rows). The weights bound it: (N, KW) words read once against M rows of
-// activations, so at M = 4 a 64-row popcount tile wastes its rows, and a
-// lhs packed by a warp ballot per word waits on one load after another.
+// Small M (binary_gemm_packed_rhs and binary_gemm_mxu at M <= 32: the LM's
+// decode and chunk rows). The weights bound it: (N, KW) words read once
+// against M rows of activations, so at M = 4 a 64-row popcount tile wastes
+// its rows, and a lhs packed by a warp ballot per word waits on one load
+// after another.
 // Here a block owns a slice of K and 32 or 64 channels. It sign-packs the
 // M real rows of its K slice into shared memory once, a word per thread
 // from 16-byte loads all in flight together, then each warp streams weight
@@ -37,14 +47,14 @@
 // packs the lhs of its own K slice, so N / channels-per-block blocks read
 // the same rows (from L2).
 //
-// Tensor-core tiles (binary_gemm_packed_rhs at M > 32: the CNN's convs;
-// binary_gemm_fused at every M). With a float lhs the float operand is 32x
-// wider than its bits and bytes bound the convs; popcounts would bound them
-// at ~0.5 ms on the integer pipe, the int8 tensor cores do the same +-1
-// dots in ~0.06 ms. Each block of 8 warps computes a 64-row tile of 128
-// channels, or of 256 where N > 128 and such tiles fill the card (the
-// float lhs is then read by half as many N tiles), with mma.sync m16n8k32
-// s8 x s8 -> s32 (the tile code of mma_tile.cuh, shared with kernel 4), K
+// Tensor-core tiles (binary_gemm_packed_rhs and binary_gemm_mxu at M > 32:
+// the CNN's convs; binary_gemm_fused at every M). With a float lhs the
+// float operand is 32x wider than its bits and bytes bound the convs;
+// popcounts would bound them at ~0.5 ms on the integer pipe, the int8
+// tensor cores do the same +-1 dots in ~0.06 ms. Each block of 8 warps
+// computes a 64-row tile of 128 channels, or of 256 where N > 128 and such
+// tiles fill the card (the float lhs is then read by half as many N tiles),
+// with mma.sync m16n8k32 s8 x s8 -> s32 (the tile code of mma_tile.cuh), K
 // in stages of 128 values (four mma steps). A float lhs is loaded with
 // 16-byte loads and signed to +-1 int8 as it is staged; a packed lhs and
 // the packed weight words are expanded from bits to +-1 bytes in shared
@@ -53,13 +63,13 @@
 // expand to 0 (the pad bits would add +1 each as products). The next
 // stage's raw loads are in flight while the tensor cores work on this one.
 // K is split over a cluster as above where the tiles are too few (the
-// fused chain steps have 16-64). Without a split, int32 dots go from the
-// accumulators to device memory in 32-byte row pieces; with one, and for
-// the fused epilogue, they go through shared memory (the stages' space):
-// each block of the cluster sums a share of the rows over all blocks, then
-// writes int32 dots coalesced, or, fused, bit = (dot >= t) != flip for 32
-// channels of a row in one warp and one ballot per output word (channels
-// >= N emit 1).
+// fused chain steps have 16-64). Without a split, dots go from the
+// accumulators to device memory in 32-byte row pieces (int32, or float32
+// for kernel 4); with one, and for the fused epilogue, they go through
+// shared memory (the stages' space): each block of the cluster sums a
+// share of the rows over all blocks, then writes dots coalesced, or, fused,
+// bit = (dot >= t) != flip for 32 channels of a row in one warp and one
+// ballot per output word (channels >= N emit 1).
 // Not yet: wgmma, TMA, a ring of stages in shared memory, one read of the
 // float lhs for all N tiles (each re-reads it from L2 where N > 256).
 #include <cooperative_groups.h>
@@ -76,7 +86,7 @@ namespace {
 
 constexpr int kThreads = 256;           // 8 warps, every kernel here
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxSplit = 8;            // portable cluster size, a power of 2
+using bnn::kMaxSplit;                   // portable cluster size
 
 // ---------------------------------------------------------------------------
 // popc tiles: binary_gemm_packed
@@ -190,50 +200,14 @@ __device__ __forceinline__ int reduce_rows(int (&acc)[kRows], int lane) {
   return s;
 }
 
-// Word col0 / 32 of a row of length k, packed by one thread (no ballot):
-// bit i = row[col0 + i] >= 0, positions >= k are +1 (the wire format's pad).
-// kVec: the row is 16-byte aligned and k a multiple of a 16-byte load, so
-// each load is all in range or all out, and the 32 values come in 8
-// (float32) or 4 (bf16) loads in flight together.
-template <typename TA, bool kVec>
-__device__ __forceinline__ uint32_t pack_own_word(const TA* __restrict__ row,
-                                                  long long col0, int k) {
-  uint32_t word = 0;
-  if constexpr (kVec) {
-    constexpr int kPer = 16 / static_cast<int>(sizeof(TA));
-    uint4 raw[32 / kPer];
-#pragma unroll
-    for (int j = 0; j < 32 / kPer; ++j)
-      raw[j] = col0 + j * kPer < k
-                   ? __ldg(reinterpret_cast<const uint4*>(row + col0) + j)
-                   : make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-    for (int j = 0; j < 32 / kPer; ++j) {
-      const TA* v = reinterpret_cast<const TA*>(&raw[j]);
-      const bool in = col0 + j * kPer < k;
-#pragma unroll
-      for (int i = 0; i < kPer; ++i)
-        word |= static_cast<uint32_t>(!in || bnn::to_float(v[i]) >= 0.f)
-                << (j * kPer + i);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 32; ++i)
-      word |= static_cast<uint32_t>(col0 + i >= k ||
-                                    bnn::to_float(row[col0 + i]) >= 0.f)
-              << i;
-  }
-  return word;
-}
-
 // One cluster of `split` blocks per `block_n` channels; block rank r owns
 // words [r ks, r ks + ks) of K. kRows >= m rows are computed, m stored.
 // Shared memory: sa (m, ks) packed lhs words, part (m, block_n) popcounts.
-template <typename TA, int kRows, bool kVec>
+template <typename TA, int kRows, bool kVec, typename TO>
 __global__ void __launch_bounds__(kThreads)
 small_m_kernel(const TA* __restrict__ a, const uint32_t* __restrict__ b,
-               int32_t* __restrict__ out, int m, int n, int kw, int k,
-               int ks, int block_n) {
+               TO* __restrict__ out, int m, int n, int kw, int k, int ks,
+               int block_n) {
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* sa = smem;
   int32_t* part = reinterpret_cast<int32_t*>(smem + m * ks);
@@ -252,10 +226,10 @@ small_m_kernel(const TA* __restrict__ a, const uint32_t* __restrict__ b,
 #pragma unroll 2
   for (int e = tid; e < m * ks; e += kThreads) {
     const int r = e / ks, c = e % ks;
-    sa[e] = c < nwords
-                ? pack_own_word<TA, kVec>(a + static_cast<long long>(r) * k,
-                                          32LL * (w0 + c), k)
-                : 0u;
+    sa[e] = c < nwords ? bnn::pack_own_word<TA, kVec>(
+                             a + static_cast<long long>(r) * k,
+                             32LL * (w0 + c), k)
+                       : 0u;
   }
   __syncthreads();
 
@@ -302,7 +276,8 @@ small_m_kernel(const TA* __restrict__ a, const uint32_t* __restrict__ b,
 #pragma unroll
     for (int q = 0; q < kMaxSplit; ++q)
       if (q < split) popc += cluster.map_shared_rank(part, q)[e];
-    out[static_cast<long long>(row) * n + n0 + c] = k - 2 * popc;
+    out[static_cast<long long>(row) * n + n0 + c] =
+        static_cast<TO>(k - 2 * popc);
   }
   cluster.sync();              // keep this block's part alive for the others
 }
@@ -345,20 +320,32 @@ struct Words {
   }
 };
 
-// kFused: bit-resident epilogue, else int32 dots. TA uint32_t is a packed
+// Two dots of a row into out[0..1] (8-byte aligned), as int32 or float32
+template <typename TO>
+__device__ __forceinline__ void store_pair(TO* o, int d0, int d1) {
+  if constexpr (std::is_same_v<TO, float>)
+    *reinterpret_cast<float2*>(o) =
+        make_float2(static_cast<float>(d0), static_cast<float>(d1));
+  else
+    *reinterpret_cast<int2*>(o) = make_int2(d0, d1);
+}
+
+// kFused: bit-resident epilogue, else dots stored as TO: int32, or float32
+// for kernel 4 (|dot| <= K < 2^24, so exactly). TA uint32_t is a packed
 // lhs; float / __nv_bfloat16 a float lhs (kVec: 16-byte row loads). kBN:
 // channels per block, 128 (4 warps along N, 32 channels each) or 256 (64
-// each; int32 dots without a split only). A stage is kTcSW packed words
-// (128 values) of K; with a split or the fused epilogue the shared stages
-// are reused for the partial dots once the K loop is done, else the dots go
+// each; dots without a split only). A stage is kTcSW packed words (128
+// values) of K; with a split or the fused epilogue the shared stages are
+// reused for the partial dots once the K loop is done, else the dots go
 // from registers to device memory.
-template <typename TA, bool kVec, bool kFused, int kBN>
+template <typename TA, bool kVec, bool kFused, int kBN, typename TO>
 __global__ void __launch_bounds__(kThreads, 2)
 tc_gemm_kernel(const TA* __restrict__ a, const uint32_t* __restrict__ b,
                const int32_t* __restrict__ thresh,
-               const int32_t* __restrict__ flip, int32_t* __restrict__ out,
+               const int32_t* __restrict__ flip, TO* __restrict__ out,
                int m, int n, int kw, int k, int n_tiles, int split_stages) {
   constexpr bool kPackedLhs = std::is_same_v<TA, uint32_t>;
+  static_assert(!kFused || std::is_same_v<TO, int32_t>, "fused: int32 words");
   constexpr int kWarpN = kBN / 4;          // channels per warp (4 along N)
   constexpr int kNI = kWarpN / 8;          // n8 tiles per warp
   constexpr int kRhsWords = kTcSW * kBN / kThreads;   // per thread a stage
@@ -445,7 +432,7 @@ tc_gemm_kernel(const TA* __restrict__ a, const uint32_t* __restrict__ b,
   }
 
   // accumulator c of tile (i, j): row g (+8 for c >= 2), column 2t + (c & 1)
-  if (!kFused && split == 1) {             // int32 dots, 32-byte row pieces
+  if (!kFused && split == 1) {             // dots, 32-byte row pieces
 #pragma unroll
     for (int i = 0; i < kTcMI; ++i) {
 #pragma unroll
@@ -454,13 +441,12 @@ tc_gemm_kernel(const TA* __restrict__ a, const uint32_t* __restrict__ b,
         for (int h = 0; h < 2; ++h) {
           const int row = m0 + wm * kTcWarpM + i * 16 + g + 8 * h;
           const int col = n0 + wn * kWarpN + j * 8 + 2 * t;
-          int32_t* o = out + static_cast<long long>(row) * n + col;
+          TO* o = out + static_cast<long long>(row) * n + col;
           if (row < m && col + 1 < n && n % 2 == 0)
-            *reinterpret_cast<int2*>(o) =
-                make_int2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+            store_pair(o, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
           else if (row < m) {
-            if (col < n) o[0] = acc[i][j][2 * h];
-            if (col + 1 < n) o[1] = acc[i][j][2 * h + 1];
+            if (col < n) o[0] = static_cast<TO>(acc[i][j][2 * h]);
+            if (col + 1 < n) o[1] = static_cast<TO>(acc[i][j][2 * h + 1]);
           }
         }
       }
@@ -522,7 +508,8 @@ tc_gemm_kernel(const TA* __restrict__ a, const uint32_t* __restrict__ b,
             out[static_cast<long long>(row) * nw + wc] =
                 static_cast<int32_t>(word);
         } else {
-          if (ch < n) out[static_cast<long long>(row) * n + ch] = dot[c];
+          if (ch < n)
+            out[static_cast<long long>(row) * n + ch] = static_cast<TO>(dot[c]);
         }
       }
     }
@@ -531,41 +518,35 @@ tc_gemm_kernel(const TA* __restrict__ a, const uint32_t* __restrict__ b,
 }
 
 // ---------------------------------------------------------------------------
-// Launches
+// Kernel 4's signing pass
 // ---------------------------------------------------------------------------
-constexpr int kSmemDefault = 48 * 1024;
-constexpr int kSmemMax = 227 * 1024;
-
-// One launch of `blocks` blocks in clusters of `split` along x
-template <typename... Params, typename... Args>
-int launch_cluster(void (*kernel)(Params...), long long blocks, int split,
-                   int smem, void* stream, Args... args) {
-  if (blocks <= 0 || blocks > 0x7fffffffLL || split < 1 ||
-      split > kMaxSplit || (split & (split - 1)) != 0 || smem > kSmemMax)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > kSmemDefault) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = static_cast<unsigned>(split);
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+// wp (n, kw) words <- sign(w (k, n) float32) packed along K in the wire
+// format: bit 1 where w >= 0 (so -0.0 is +1 and NaN is -1), pad bits 1.
+// Thread i packs word i / n of column i % n: neighbouring threads take
+// neighbouring columns, so each of a word's 32 reads of w is coalesced.
+__global__ void __launch_bounds__(kThreads)
+sign_pack_cols_kernel(const float* __restrict__ w, uint32_t* __restrict__ wp,
+                      int k, int n, int kw) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (i >= static_cast<long long>(n) * kw) return;
+  const int col = static_cast<int>(i % n);
+  const int c = static_cast<int>(i / n);
+  float v[32];                  // positions >= k read as 0: pad bits 1
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+    v[j] = 32 * c + j < k ? w[static_cast<long long>(32 * c + j) * n + col]
+                          : 0.f;
+  uint32_t word = 0;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) word |= static_cast<uint32_t>(v[j] >= 0.f) << j;
+  wp[static_cast<long long>(col) * kw + c] = word;
 }
 
-template <typename TA, int kRows>
+// ---------------------------------------------------------------------------
+// Launches
+// ---------------------------------------------------------------------------
+template <typename TA, int kRows, typename TO>
 int launch_small_m(const void* a, bool vec, const void* b, void* out, int m,
                    int n, int kw, int k, int split, int block_n, void* stream) {
   const int ks = (kw + 4 * split - 1) / (4 * split) * 4;
@@ -574,35 +555,37 @@ int launch_small_m(const void* a, bool vec, const void* b, void* out, int m,
       static_cast<long long>((n + block_n - 1) / block_n) * split;
   const auto at = static_cast<const TA*>(a);
   const auto bt = static_cast<const uint32_t*>(b);
-  const auto ot = static_cast<int32_t*>(out);
+  const auto ot = static_cast<TO*>(out);
   // a 16-byte load holds 4 float32 or 8 bf16 values: k must be a multiple
   if (vec && k % (16 / static_cast<int>(sizeof(TA))) == 0)
-    return launch_cluster(small_m_kernel<TA, kRows, true>, blocks, split,
-                          smem, stream, at, bt, ot, m, n, kw, k, ks, block_n);
-  return launch_cluster(small_m_kernel<TA, kRows, false>, blocks, split, smem,
-                        stream, at, bt, ot, m, n, kw, k, ks, block_n);
+    return bnn::launch_cluster(small_m_kernel<TA, kRows, true, TO>, blocks,
+                               kThreads, split, smem, stream, at, bt, ot, m, n,
+                               kw, k, ks, block_n);
+  return bnn::launch_cluster(small_m_kernel<TA, kRows, false, TO>, blocks,
+                             kThreads, split, smem, stream, at, bt, ot, m, n,
+                             kw, k, ks, block_n);
 }
 
-template <typename TA>
+template <typename TA, typename TO>
 int small_m_rows(const void* a, bool vec, const void* b, void* out, int m,
                  int n, int kw, int k, int split, int block_n, void* stream) {
   if (m > kSmallMaxRows || kw % 4 != 0 || (block_n != 32 && block_n != 64) ||
       reinterpret_cast<uintptr_t>(b) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (m <= 4)
-    return launch_small_m<TA, 4>(a, vec, b, out, m, n, kw, k, split, block_n,
-                                 stream);
+    return launch_small_m<TA, 4, TO>(a, vec, b, out, m, n, kw, k, split,
+                                     block_n, stream);
   if (m <= 8)
-    return launch_small_m<TA, 8>(a, vec, b, out, m, n, kw, k, split, block_n,
-                                 stream);
+    return launch_small_m<TA, 8, TO>(a, vec, b, out, m, n, kw, k, split,
+                                     block_n, stream);
   if (m <= 16)
-    return launch_small_m<TA, 16>(a, vec, b, out, m, n, kw, k, split, block_n,
-                                  stream);
-  return launch_small_m<TA, 32>(a, vec, b, out, m, n, kw, k, split, block_n,
-                                stream);
+    return launch_small_m<TA, 16, TO>(a, vec, b, out, m, n, kw, k, split,
+                                      block_n, stream);
+  return launch_small_m<TA, 32, TO>(a, vec, b, out, m, n, kw, k, split,
+                                    block_n, stream);
 }
 
-template <typename TA, bool kVec, bool kFused>
+template <typename TA, bool kVec, bool kFused, typename TO>
 int launch_tc(const void* a, const void* b, const void* thresh,
               const void* flip, void* out, int m, int n, int kw, int k,
               int split, int block_n, void* stream) {
@@ -612,47 +595,70 @@ int launch_tc(const void* a, const void* b, const void* thresh,
   const int stages = (kw + kTcSW - 1) / kTcSW;
   const int split_stages = (stages + split - 1) / split;
   const auto args = [&](auto kernel) {
-    return launch_cluster(kernel, blocks, split, 0, stream,
-                          static_cast<const TA*>(a),
-                          static_cast<const uint32_t*>(b),
-                          static_cast<const int32_t*>(thresh),
-                          static_cast<const int32_t*>(flip),
-                          static_cast<int32_t*>(out), m, n, kw, k, n_tiles,
-                          split_stages);
+    return bnn::launch_cluster(kernel, blocks, kThreads, split, 0, stream,
+                               static_cast<const TA*>(a),
+                               static_cast<const uint32_t*>(b),
+                               static_cast<const int32_t*>(thresh),
+                               static_cast<const int32_t*>(flip),
+                               static_cast<TO*>(out), m, n, kw, k, n_tiles,
+                               split_stages);
   };
-  if (block_n == kTcBN) return args(tc_gemm_kernel<TA, kVec, kFused, kTcBN>);
+  if (block_n == kTcBN)
+    return args(tc_gemm_kernel<TA, kVec, kFused, kTcBN, TO>);
   if constexpr (!kFused) {
     if (block_n == kTcWideBN && split == 1)
-      return args(tc_gemm_kernel<TA, kVec, false, kTcWideBN>);
+      return args(tc_gemm_kernel<TA, kVec, false, kTcWideBN, TO>);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // lhs_kind: 0 packed int32 words, 1 float32, 2 bfloat16
-template <bool kFused>
+template <bool kFused, typename TO = int32_t>
 int tc_lhs(int lhs_kind, bool vec, const void* a, const void* b,
            const void* thresh, const void* flip, void* out, int m, int n,
            int kw, int k, int split, int block_n, void* stream) {
   switch (lhs_kind) {
     case 0:
-      return launch_tc<uint32_t, false, kFused>(a, b, thresh, flip, out, m, n,
-                                                kw, k, split, block_n, stream);
+      return launch_tc<uint32_t, false, kFused, TO>(
+          a, b, thresh, flip, out, m, n, kw, k, split, block_n, stream);
     case 1:
-      return vec ? launch_tc<float, true, kFused>(a, b, thresh, flip, out, m,
-                                                  n, kw, k, split, block_n,
-                                                  stream)
-                 : launch_tc<float, false, kFused>(a, b, thresh, flip, out, m,
-                                                   n, kw, k, split, block_n,
-                                                   stream);
-    case 2:
-      return vec ? launch_tc<__nv_bfloat16, true, kFused>(
+      return vec ? launch_tc<float, true, kFused, TO>(
                        a, b, thresh, flip, out, m, n, kw, k, split, block_n,
                        stream)
-                 : launch_tc<__nv_bfloat16, false, kFused>(
+                 : launch_tc<float, false, kFused, TO>(
+                       a, b, thresh, flip, out, m, n, kw, k, split, block_n,
+                       stream);
+    case 2:
+      return vec ? launch_tc<__nv_bfloat16, true, kFused, TO>(
+                       a, b, thresh, flip, out, m, n, kw, k, split, block_n,
+                       stream)
+                 : launch_tc<__nv_bfloat16, false, kFused, TO>(
                        a, b, thresh, flip, out, m, n, kw, k, split, block_n,
                        stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// A float lhs (lhs_kind 1 float32, 2 bfloat16) against packed words: the
+// small-M kernel or tensor-core tiles, dots stored as TO
+template <typename TO>
+int float_lhs(const void* a, int lhs_kind, bool vec, const void* b, void* out,
+              int m, int n, int kw, int k, int small_m, int split,
+              int block_n, void* stream) {
+  if (small_m) {
+    switch (lhs_kind) {
+      case 1: return small_m_rows<float, TO>(a, vec, b, out, m, n, kw, k,
+                                             split, block_n, stream);
+      case 2: return small_m_rows<__nv_bfloat16, TO>(a, vec, b, out, m, n, kw,
+                                                     k, split, block_n,
+                                                     stream);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (lhs_kind != 1 && lhs_kind != 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return tc_lhs<false, TO>(lhs_kind, vec, a, b, nullptr, nullptr, out, m, n,
+                           kw, k, split, block_n, stream);
 }
 
 }  // namespace
@@ -685,18 +691,8 @@ int binary_gemm_packed_rhs(const void* a, int lhs_kind, int vec,
                            int k, int small_m, int split, int block_n,
                            void* stream) {
   if (m <= 0 || n <= 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (small_m) {
-    switch (lhs_kind) {
-      case 1: return small_m_rows<float>(a, vec != 0, b, out, m, n, kw, k,
-                                         split, block_n, stream);
-      case 2: return small_m_rows<__nv_bfloat16>(a, vec != 0, b, out, m, n,
-                                                 kw, k, split, block_n, stream);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  if (lhs_kind == 0) return static_cast<int>(cudaErrorInvalidValue);
-  return tc_lhs<false>(lhs_kind, vec != 0, a, b, nullptr, nullptr, out, m, n,
-                       kw, k, split, block_n, stream);
+  return float_lhs<int32_t>(a, lhs_kind, vec != 0, b, out, m, n, kw, k,
+                            small_m, split, block_n, stream);
 }
 
 // a (m, kw) int32 words (lhs_kind 0) or (m, k) float32 / bfloat16 (lhs_kind
@@ -708,6 +704,28 @@ int binary_gemm_fused(const void* a, int lhs_kind, int vec, const void* b,
   if (m <= 0 || n <= 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
   return tc_lhs<true>(lhs_kind, vec != 0, a, b, thresh, flip, out, m, n, kw,
                       k, split, kTcBN, stream);
+}
+
+// Kernel 4: x (m, k) float32 (x_kind 1) or bfloat16 (x_kind 2), w (k, n)
+// float32 -> out (m, n) float32 = sign(x) @ sign(w). wp: scratch of
+// n * ceil(k/32) words, 16-byte aligned, that w is sign-packed into first;
+// then binary_gemm_packed_rhs's kernels (small_m, split, block_n and vec as
+// there) run x against it with a float32 store.
+int binary_gemm_mxu(const void* x, int x_kind, int vec, const void* w,
+                    void* wp, void* out, int m, int n, int k, int small_m,
+                    int split, int block_n, void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int kw = (k + 31) / 32;
+  const long long words = static_cast<long long>(n) * kw;
+  const long long sign_blocks = (words + kThreads - 1) / kThreads;
+  if (sign_blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  sign_pack_cols_kernel<<<static_cast<unsigned>(sign_blocks), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(w), static_cast<uint32_t*>(wp), k, n, kw);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return float_lhs<float>(x, x_kind, vec != 0, wp, out, m, n, kw, k, small_m,
+                          split, block_n, stream);
 }
 
 const char* binary_gemm_error_string(int code) {

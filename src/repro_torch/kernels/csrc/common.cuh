@@ -1,13 +1,15 @@
-// Shared device helpers of the port's kernels: the wire format's sign-pack.
+// Shared helpers of the port's kernels: the wire format's sign-pack, and the
+// launch of a grid in thread-block clusters.
 //
 // Wire format (src/repro_torch/core/bitpack.py): bit 1 is +1 (x >= 0, so
 // -0.0 packs to 1 and NaN to 0), 32 values per word, little-endian along the
 // packed axis, positions past the end are pad bits 1. One warp makes one
 // word: lane i reads element 32w+i and __ballot_sync sets bit i, which is the
-// wire format itself. pack.cu (kernel 5) and attention.cu (the query) pack
-// through `pack_word`; binary_gemm.cu's small-M kernel packs a word per
-// thread from 16-byte loads instead (its rows are few and short, so a
-// ballot per word leaves too few loads in flight).
+// wire format itself. pack.cu (kernel 5) and attention.cu's decode body pack
+// through `pack_word`; binary_gemm.cu's small-M kernel and attention.cu's
+// prefill body pack a word per thread from 16-byte loads instead
+// (`pack_own_word`: their rows are few and short, so a ballot per word
+// leaves too few loads in flight).
 #pragma once
 
 #include <cstdint>
@@ -39,6 +41,79 @@ __device__ __forceinline__ uint32_t pack_word(const T* row, long long col,
                                               bool in_range = true) {
   const bool bit = (in_range && col < k) ? to_float(row[col]) >= 0.f : true;
   return __ballot_sync(0xffffffffu, bit);
+}
+
+// Word col0 / 32 of a row of length k, packed by one thread (no ballot):
+// bit i = row[col0 + i] >= 0, positions >= k are +1 (the wire format's pad).
+// kVec: the row is 16-byte aligned and k a multiple of a 16-byte load, so
+// each load is all in range or all out, and the 32 values come in 8
+// (float32) or 4 (bf16) loads in flight together.
+template <typename TA, bool kVec>
+__device__ __forceinline__ uint32_t pack_own_word(const TA* __restrict__ row,
+                                                  long long col0, int k) {
+  uint32_t word = 0;
+  if constexpr (kVec) {
+    constexpr int kPer = 16 / static_cast<int>(sizeof(TA));
+    uint4 raw[32 / kPer];
+#pragma unroll
+    for (int j = 0; j < 32 / kPer; ++j)
+      raw[j] = col0 + j * kPer < k
+                   ? __ldg(reinterpret_cast<const uint4*>(row + col0) + j)
+                   : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int j = 0; j < 32 / kPer; ++j) {
+      const TA* v = reinterpret_cast<const TA*>(&raw[j]);
+      const bool in = col0 + j * kPer < k;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+        word |= static_cast<uint32_t>(!in || to_float(v[i]) >= 0.f)
+                << (j * kPer + i);
+    }
+  } else {
+    float v[32];                // positions >= k read as 0: pad bits 1
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      v[i] = col0 + i < k ? to_float(row[col0 + i]) : 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      word |= static_cast<uint32_t>(v[i] >= 0.f) << i;
+  }
+  return word;
+}
+
+constexpr int kMaxSplit = 8;       // portable cluster size, a power of 2
+constexpr int kSmemDefault = 48 * 1024;
+constexpr int kSmemMax = 227 * 1024;
+
+// One launch of `blocks` blocks of `threads` in clusters of `split` along x
+// (split 1, 2, 4 or 8), with `smem` bytes of dynamic shared memory; returns
+// the launch's CUDA error code
+template <typename... Params, typename... Args>
+int launch_cluster(void (*kernel)(Params...), long long blocks, int threads,
+                   int split, int smem, void* stream, Args... args) {
+  if (blocks <= 0 || blocks > 0x7fffffffLL || split < 1 ||
+      split > kMaxSplit || (split & (split - 1)) != 0 || smem > kSmemMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > kSmemDefault) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(split);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace bnn

@@ -1,12 +1,10 @@
-// Shared tile code of the port's int8 tensor-core GEMMs: +-1 operands as
-// int8 bytes in shared memory, multiplied by mma.sync m16n8k32 s8 x s8 ->
-// s32. binary_gemm_mxu.cu (kernel 4: float x float) and binary_gemm.cu
-// (kernels 2 and 3 at large M: float or packed lhs x packed words) build
-// their K loops from these pieces.
+// Tile code of the port's int8 tensor-core GEMM (binary_gemm.cu's
+// tensor-core tiles, which run kernels 2, 3 and 4): +-1 operands as int8
+// bytes in shared memory, multiplied by mma.sync m16n8k32 s8 x s8 -> s32.
 //
 // Layout. A staged row (of the lhs, or a column of the rhs) holds one K
-// step as 32-bit words of four int8 values each, 8 words per k32 mma,
-// padded by 4 words (a stride of 12 for one mma step, 36 for four), so the
+// stage as 32-bit words of four int8 values each, 8 words per k32 mma,
+// padded by 4 words (a stride of 36 for a stage of four mma steps), so the
 // 8 x 4 words of an mma fragment load (row g = lane / 4, word t = lane % 4)
 // hit 32 distinct banks. Every fragment register is one 32-bit shared load.
 //
@@ -23,10 +21,6 @@
 #include "common.cuh"
 
 namespace bnn {
-
-constexpr int kTcBK = 32;                  // K values per step: one k32 mma
-constexpr int kTcKW = kTcBK / 4;           // 32-bit words of a staged row
-constexpr int kTcStride = kTcKW + 4;       // padded row stride in words
 
 // +-1 as an int8 byte (0x01 / 0xFF), 0 where the position is out of range;
 // sign(v) = +1 where v >= 0, so -0.0 is +1 and NaN is -1
@@ -78,7 +72,7 @@ __device__ __forceinline__ void expand_word(uint32_t* dst, uint32_t bits,
 // threads of a row read its values side by side. With kVec (k % 4 == 0,
 // 16-byte aligned rows) all four values of a word are in range or none, and
 // they come in one 16-byte (float32) or 8-byte (bf16) load.
-template <typename TA, bool kVec, int kRows, int kThreads, int kKW = kTcKW>
+template <typename TA, bool kVec, int kRows, int kThreads, int kKW>
 struct XStep {
   static constexpr int kStride = kKW + 4;               // staged row stride
   static constexpr int kXW = kRows * kKW / kThreads;    // words per thread

@@ -141,7 +141,7 @@ def decode_attention_packed(q: torch.Tensor, k_packed: torch.Tensor,
     g = q.shape[2] // hkv
     if smem_bytes(g, t, hd) > SMEM_LIMIT:
         raise ValueError(f"a (G={g}, T={t}) score panel does not fit one "
-                         "block's shared memory (no T-tiled kernel yet)")
+                         "block's shared memory (the decode body keeps one)")
     lens = row_lengths(cache_len, b, q.device)
     out = torch.empty_like(q)
     dots = (torch.empty((b, hkv, g, t), dtype=torch.int32, device=q.device)
@@ -197,7 +197,7 @@ def decode_attention_packed_paged(q: torch.Tensor, k_pool: torch.Tensor,
     g = q.shape[2] // hkv
     if smem_bytes(g, t, hd) > SMEM_LIMIT:
         raise ValueError(f"a (G={g}, T={t}) score panel does not fit one "
-                         "block's shared memory (no T-tiled kernel yet)")
+                         "block's shared memory (the decode body keeps one)")
     lens = row_lengths(cache_len, b, q.device)
     out = torch.empty_like(q)
     dots = (torch.empty((b, hkv, g, t), dtype=torch.int32, device=q.device)

@@ -18,19 +18,33 @@ pools addressed through a page table (see
 `decode_attention.decode_attention_packed_paged`); the same kernel body,
 templated on the layout. `launches["prefill_attention_packed_paged"]`
 counts its launches.
+
+The kernel body splits a block's positions over a thread-block cluster and
+keeps no (rows, T) score panel, so any T is taken. `attention_plan` is the
+fixed rule of its launch (chunk rows per block, split); `block_positions`
+and `rank_positions` are the positions a block reads, as the kernel
+computes them.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
+from repro_torch._device import sm_count
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.decode_attention import (
-    SMEM_LIMIT, _Q_BF16, check_operands, row_lengths, smem_bytes,
+    _Q_BF16, check_operands, row_lengths,
 )
 
 launches = {"prefill_attention_packed": 0, "prefill_attention_packed_paged": 0}
-# query rows (chunk rows x grouped heads) one block takes at most
-_MAX_ROWS = 32
+# the kernel's block: at most 32 query rows (chunk rows x grouped heads, a
+# lane each) and head_dim up to 256 (4 n8 tensor-core tiles per warp)
+_MAX_ROWS, _MAX_HD = 32, 256
+# attention_plan's rule: the largest portable cluster, the blocks an SM
+# keeps resident (128 registers a thread), and the least table positions
+# per block of a split
+_CLUSTER_MAX, _RESIDENT, _MIN_SPLIT_POSITIONS = 8, 2, 256
 
 
 def reset_launches() -> None:
@@ -38,16 +52,64 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def block_rows(s: int, g: int, t: int, hd: int) -> int:
-    """Chunk rows per block: as many as keep bq*G <= 32 query rows and the
-    block's score panel inside shared memory."""
-    bq = max(1, min(s, _MAX_ROWS // g))
-    while bq > 1 and smem_bytes(bq * g, t, hd) > SMEM_LIMIT:
-        bq //= 2
-    if smem_bytes(bq * g, t, hd) > SMEM_LIMIT:
-        raise ValueError(f"a (G={g}, T={t}) score panel does not fit one "
-                         "block's shared memory (no T-tiled kernel yet)")
-    return bq
+@dataclass(frozen=True)
+class AttentionPlan:
+    """How one prefill call runs: `bq` chunk rows per block (bq * G query
+    rows), `split` blocks per cluster along T, `blocks` in the grid, and
+    always one launch."""
+    bq: int
+    split: int
+    blocks: int
+    launches: int = 1
+
+
+def block_rows(s: int, g: int, hd: int) -> int:
+    """Chunk rows per block: as many as keep bq*G <= 32 query rows. Any T:
+    the kernel keeps no score panel."""
+    if g > _MAX_ROWS or hd > _MAX_HD:
+        raise ValueError(f"no prefill kernel for G={g} query heads per KV "
+                         f"head at hd={hd} (G <= {_MAX_ROWS}, hd <= "
+                         f"{_MAX_HD})")
+    return max(1, min(s, _MAX_ROWS // g))
+
+
+def attention_plan(b: int, s: int, t: int, hkv: int, g: int, hd: int,
+                   sms: int) -> AttentionPlan:
+    """The fixed rule of a prefill launch: `block_rows` chunk rows per
+    block, then T split over a cluster, doubled (up to 8) while the doubled
+    grid stays within one wave (2 resident blocks per SM) and each block
+    keeps at least 256 of the T table positions. On the H100 a second wave
+    cost more than a shorter share saved (one 32-row phi3 chunk, 40
+    blocks: split 8 twice as slow as 2), and a split pays only where its
+    share's V sums outweigh the cluster's fixed costs (T 512: split 2
+    best; T 4,096: 4 to 8)."""
+    bq = block_rows(s, g, hd)
+    base = b * hkv * -(-s // bq)
+    split = 1
+    while (split < _CLUSTER_MAX and 2 * base * split <= _RESIDENT * sms
+           and t >= 2 * split * _MIN_SPLIT_POSITIONS):
+        split *= 2
+    return AttentionPlan(bq, split, base * split)
+
+
+def block_positions(kv_len: int, q_pos: int, i0: int, i1: int, t: int, *,
+                    window: int = 0, causal: bool = True) -> tuple[int, int]:
+    """[lo, hi): the positions chunk rows [i0, i1) of one cache row can
+    see, as the kernel bounds a block's reads: below kv_len and T, up to
+    q_pos + i1 - 1 when causal, from q_pos + i0 - window + 1 with a
+    window."""
+    hi = min(t, kv_len)
+    if causal:
+        hi = min(hi, q_pos + i1)
+    lo = max(0, q_pos + i0 - window + 1) if window > 0 else 0
+    return lo, max(lo, hi)
+
+
+def rank_positions(lo: int, hi: int, split: int, rank: int) -> tuple[int, int]:
+    """Block `rank`'s share of [lo, hi): `split` contiguous shares."""
+    per = -(-(hi - lo) // split)
+    start = min(hi, lo + rank * per)
+    return start, min(hi, start + per)
 
 
 def prefill_attention_packed_plain(q, k_packed, v_packed, v_scale, kv_len,
@@ -85,7 +147,7 @@ def prefill_attention_packed(q: torch.Tensor, k_packed: torch.Tensor,
     b, t, hkv, _ = k_packed.shape
     s, hd = q.shape[1], q.shape[-1]
     g = q.shape[2] // hkv
-    bq = block_rows(s, g, t, hd)
+    plan = attention_plan(b, s, t, hkv, g, hd, sm_count(q.device))
     # scalar lengths and positions go by value: no tensor to copy per chunk
     lens = row_lengths(kv_len, b, q.device) \
         if isinstance(kv_len, torch.Tensor) else None
@@ -104,8 +166,9 @@ def prefill_attention_packed(q: torch.Tensor, k_packed: torch.Tensor,
         None if qpos is None else qpos.data_ptr(),
         0 if qpos is not None else int(q_pos),
         out.data_ptr(), None if dots is None else dots.data_ptr(),
-        b, s, t, hkv, g, hd, bq, int(window), int(bool(causal)),
-        1.0 / float(hd) ** 0.5, stream), "prefill_attention_packed")
+        b, s, t, hkv, g, hd, plan.bq, plan.split, int(window),
+        int(bool(causal)), 1.0 / float(hd) ** 0.5, stream),
+        "prefill_attention_packed")
     launches["prefill_attention_packed"] += 1
     return (out, dots) if return_dots else out
 
@@ -146,7 +209,7 @@ def prefill_attention_packed_paged(q: torch.Tensor, k_pool: torch.Tensor,
     t = n_pages * ps
     s, hd = q.shape[1], q.shape[-1]
     g = q.shape[2] // hkv
-    bq = block_rows(s, g, t, hd)
+    plan = attention_plan(b, s, t, hkv, g, hd, sm_count(q.device))
     lens = row_lengths(kv_len, b, q.device) \
         if isinstance(kv_len, torch.Tensor) else None
     qpos = row_lengths(q_pos, b, q.device) \
@@ -164,8 +227,8 @@ def prefill_attention_packed_paged(q: torch.Tensor, k_pool: torch.Tensor,
         None if qpos is None else qpos.data_ptr(),
         0 if qpos is not None else int(q_pos),
         out.data_ptr(), None if dots is None else dots.data_ptr(),
-        b, s, n_pages, ps, pool, hkv, g, hd, bq, int(window),
-        int(bool(causal)), 1.0 / float(hd) ** 0.5, stream),
+        b, s, n_pages, ps, pool, hkv, g, hd, plan.bq, plan.split,
+        int(window), int(bool(causal)), 1.0 / float(hd) ** 0.5, stream),
         "prefill_attention_packed_paged")
     launches["prefill_attention_packed_paged"] += 1
     return (out, dots) if return_dots else out

@@ -21,6 +21,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (
     decode_attention_packed, v_cache_scale,
 )
+from repro_torch.kernels import prefill_attention as pa
 from repro_torch.kernels.prefill_attention import prefill_attention_packed
 
 ATOL = RTOL = 1e-5
@@ -104,6 +105,92 @@ def test_prefill_plain_matches_jax(b, s, t, hkv, g, hd, window, causal):
         return_dots=True)
     np.testing.assert_array_equal(dots.numpy(), _jax_dots(q, k))
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
+# past T ~1,770, where a (32, T) score panel would not fit shared memory:
+# narrow heads, a chunk at the end of a 2,048-position cache and one in its
+# middle, with and without a window
+LONG = [(1, 4, 2048, 1, 2, 16, 0), (2, 4, 2048, 1, 2, 16, 300)]
+
+
+@pytest.mark.parametrize("b,s,t,hkv,g,hd,window", LONG)
+def test_prefill_plain_past_the_old_cap_matches_jax(b, s, t, hkv, g, hd,
+                                                    window):
+    """The prefill wrapper takes any T (its kernel keeps no score panel);
+    its plain version still equals the JAX oracle there."""
+    rng = np.random.default_rng(t + hd + window)
+    k, v, vs = _cache(rng, b, t, hkv, hd)
+    q = _query(rng, (b, s, hkv * g, hd))
+    q_pos = np.full(b, t - s, np.int32)
+    q_pos[-1] = t // 2
+    kv_len = q_pos + s
+    want = np.asarray(jref.prefill_attention_packed_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(vs),
+        jnp.asarray(kv_len), jnp.asarray(q_pos), window=window))
+    got, dots = prefill_attention_packed(
+        *_port(q, k, v, vs), torch.from_numpy(kv_len),
+        torch.from_numpy(q_pos), window=window, return_dots=True)
+    np.testing.assert_array_equal(dots.numpy(), _jax_dots(q, k))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("b,s,t,hkv,g,hd,bq,split", [
+    (1, 32, 512, 10, 4, 128, 8, 2),     # phi3 chunk, one slot: 40 blocks
+    (4, 1, 512, 10, 4, 128, 1, 2),      # one-row chunks of 4 slots
+    (1, 32, 4096, 10, 4, 128, 8, 4),    # no T cap
+    (2, 32, 4096, 10, 4, 128, 8, 2),    # 80 blocks
+    (4, 32, 512, 10, 4, 128, 8, 1),     # 160: a split would need 2 waves
+    (4, 64, 2048, 10, 4, 128, 8, 1),
+    (1, 32, 2048, 2, 4, 128, 8, 8),     # 8 blocks: the largest cluster
+    (1, 32, 500, 2, 4, 128, 8, 1),      # 256 positions a block at least
+    (1, 7, 45, 2, 1, 33, 7, 1),
+    (1, 64, 512, 1, 32, 256, 1, 2),     # 32 heads, the widest head_dim
+])
+def test_attention_plan_rule(b, s, t, hkv, g, hd, bq, split):
+    """The prefill launch rule on a 132-SM card: bq*G <= 32 query rows a
+    block, T split in clusters of at most 8 blocks while the doubled grid
+    fits one wave of 2 blocks per SM, one launch, no limit on T."""
+    plan = pa.attention_plan(b, s, t, hkv, g, hd, 132)
+    assert (plan.bq, plan.split, plan.launches) == (bq, split, 1)
+    assert plan.blocks == b * hkv * -(-s // bq) * split
+    assert plan.bq * g <= 32 and plan.split in (1, 2, 4, 8)
+    assert plan.split == 1 or plan.blocks <= 2 * 132
+
+
+def test_attention_plan_rejects_what_no_block_holds():
+    for g, hd in ((33, 16), (4, 512)):
+        with pytest.raises(ValueError, match="no prefill kernel"):
+            pa.attention_plan(1, 8, 512, 1, g, hd, 132)
+
+
+def test_block_positions_hold_every_valid_position():
+    """A block's position range and its ranks' shares, as the kernel
+    computes them: every position `ref.chunk_valid_mask` allows for the
+    block's rows lies inside, the range is tight, and the shares tile it
+    in order."""
+    for t, s, kv_len, q_pos, window, causal in [
+            (512, 32, 32, 0, 0, True), (512, 32, 128, 96, 0, True),
+            (4096, 32, 4096, 4064, 0, True), (45, 7, 16, 9, 5, True),
+            (70, 16, 56, 40, 0, False), (70, 16, 56, 40, 9, False),
+            (40, 5, 0, 0, 0, True), (40, 5, 3, 0, 0, True),
+            (64, 8, 100, 20, 4, True)]:
+        valid = ref.chunk_valid_mask(1, s, t, kv_len, q_pos, window, causal)[0]
+        bq = pa.block_rows(s, 4, 64)
+        for i0 in range(0, s, bq):
+            i1 = min(s, i0 + bq)
+            lo, hi = pa.block_positions(kv_len, q_pos, i0, i1, t,
+                                        window=window, causal=causal)
+            seen = valid[i0:i1].any(dim=0).nonzero().flatten().tolist()
+            assert all(lo <= x < hi for x in seen)
+            if seen:
+                assert (lo, hi) == (seen[0], seen[-1] + 1)
+            else:
+                assert lo == hi
+            for split in (1, 2, 4, 8):
+                shares = [pa.rank_positions(lo, hi, split, r)
+                          for r in range(split)]
+                assert shares[0][0] == lo and shares[-1][1] == hi
+                assert all(a[1] == c[0] for a, c in zip(shares, shares[1:]))
 
 
 @pytest.mark.parametrize("window", [0, 3])

@@ -135,6 +135,17 @@ def test_regime_edges_plain_match_jax_ref(m, k, n, dtype):
     ("binary_gemm_fused", 100, 8192, 1024, False, 8),      # cnn fc1
     ("binary_gemm_fused", 4, 8192, 288, False, 8),         # kernel 3: tiles
     ("binary_gemm_fused", 4000, 1024, 1024, False, 1),
+    # kernel 4 (its signed w as the packed rhs): the five bnn-cifar10 train
+    # convs at batch 100, small M, tiles at small M (KW % 4 != 0), a split
+    ("binary_gemm_mxu", 102400, 1152, 128, False, 1),
+    ("binary_gemm_mxu", 25600, 1152, 256, False, 1),
+    ("binary_gemm_mxu", 25600, 2304, 256, False, 1),
+    ("binary_gemm_mxu", 6400, 2304, 512, False, 1),
+    ("binary_gemm_mxu", 6400, 4608, 512, False, 1),
+    ("binary_gemm_mxu", 4, 1024, 300, True, 1),
+    ("binary_gemm_mxu", 32, 8190, 200, True, 8),
+    ("binary_gemm_mxu", 17, 300, 48, False, 1),
+    ("binary_gemm_mxu", 300, 1000, 257, False, 4),
 ])
 def test_gemm_plan_rule(kernel, m, k, n, small_m, split):
     """The fixed dispatch rule on a 132-SM card: which kernel, how many
@@ -145,7 +156,7 @@ def test_gemm_plan_rule(kernel, m, k, n, small_m, split):
         assert plan.block_n == (64 if n >= 32 * 3 * 132 else 32)
         assert plan.blocks == -(-n // plan.block_n) * split
     else:
-        assert plan.block_n == (256 if kernel == "binary_gemm_packed_rhs"
+        assert plan.block_n == (256 if kernel != "binary_gemm_fused"
                                 and n > 128 and split == 1 else 128)
         assert plan.blocks == -(-m // 64) * -(-n // plan.block_n) * split
 
@@ -157,11 +168,15 @@ def test_gemm_plan_splits_to_fill_the_card():
     for sms in (66, 114, 132):
         for m in (1, 4, 32, 33, 200):
             for k, n in ((1000, 33), (8192, 288), (17920, 5120), (784, 1024)):
-                for kernel in ("binary_gemm_packed_rhs", "binary_gemm_fused"):
+                for kernel in ("binary_gemm_packed_rhs", "binary_gemm_mxu",
+                               "binary_gemm_fused"):
                     plan = bg.gemm_plan(kernel, m, n, k, sms)
                     assert plan.split in (1, 2, 4, 8)
                     if plan.split > 1:
                         assert 2 * (plan.blocks // 2) < 3 * sms
+                # kernel 4 runs kernel 2's kernels on its signed w
+                assert bg.gemm_plan("binary_gemm_mxu", m, n, k, sms) == \
+                    bg.gemm_plan("binary_gemm_packed_rhs", m, n, k, sms)
     assert not bg.gemm_plan("binary_gemm_packed_rhs", 4, 4096, 4096, 132,
                             rhs_aligned=False).small_m
     with pytest.raises(ValueError):

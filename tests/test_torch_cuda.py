@@ -193,7 +193,8 @@ def test_cuda_binary_gemm_fused_main_and_small_shapes_match_plain(lhs):
 
 
 # ---------------------------------------------------------------------------
-# Kernel 5: the tensor-core sign GEMM of the training path
+# Kernel 4: the +-1 GEMM of the training path (w sign-packed, then the
+# tensor-core tiles or the small-M kernel with a float32 store)
 # ---------------------------------------------------------------------------
 # the bnn-cifar10 train step's five binary convs at batch 100, then ragged
 # shapes: K of 1, 31, 33 and 1000, M and N off the 128x128 tile
@@ -225,6 +226,40 @@ def test_cuda_binary_gemm_mxu_matches_plain(dtype):
     assert x.data_ptr() % 16 != 0
     w = torch.randn(128, 40, generator=g, device="cuda")
     assert torch.equal(bg.binary_gemm_mxu(x, w), bg.binary_gemm_mxu_plain(x, w))
+
+
+# kernel 4 through each of its plan's regimes (shape, small_m, split):
+# small-M rows (a 16-byte-word K and an 8-block split of K 8190), tiles at
+# small M where KW % 4 != 0, tiles split over a cluster, 256-channel tiles
+MXU_REGIMES = [((4, 1024, 300), True, 1), ((32, 8190, 200), True, 8),
+               ((17, 300, 48), False, 1), ((300, 1000, 257), False, 4),
+               ((25600, 1152, 256), False, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_binary_gemm_mxu_regimes_match_plain(dtype):
+    """Kernel 4 equals its plain version (tolerance 0) in every regime of
+    `gemm_plan`, with NaN, -0.0 and 0.0 in both x and w (sign: +1 where
+    v >= 0, so -0.0 is +1 and NaN -1), one launch per call."""
+    from repro_torch._device import sm_count
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for (m, k, n), small_m, split in MXU_REGIMES:
+        plan = bg.gemm_plan("binary_gemm_mxu", m, n, k, sm_count("cuda"))
+        assert (plan.small_m, plan.split) == (small_m, split), (m, k, n)
+        x = torch.randn(m, k, generator=g, device="cuda")
+        w = torch.randn(k, n, generator=g, device="cuda")
+        for t in (x, w):
+            t.view(-1)[::13] = 0.0
+            t.view(-1)[1::17] = -0.0
+            t.view(-1)[2::19] = float("nan")
+        xs = x.to(dtype)
+        bg.reset_launches()
+        got = bg.binary_gemm_mxu(xs, w)
+        torch.cuda.synchronize()
+        assert bg.launches["binary_gemm_mxu"] == 1
+        assert torch.equal(got, bg.binary_gemm_mxu_plain(xs, w)), (m, k, n)
 
 
 @pytest.mark.cuda
@@ -446,6 +481,79 @@ def test_cuda_prefill_attention_paged_matches_plain_and_contiguous(dtype):
             for other, odots in ((want, wdots), (contig, cdots)):
                 assert torch.equal(dots, odots)
                 assert torch.equal(got, other)
+
+
+# (B, S, T, Hkv, G, hd, kv_lens, q_pos, window, split): 32-row chunks at
+# the end of 2,048- and 4,096-position contexts (past ~1,770, where a
+# (32, T) score panel no longer fits shared memory), a window shorter than
+# the chunk, kv_len 0 rows, and grids that take a split of 8, 4, 2 and 1
+LONG = [(1, 32, 2048, 2, 4, 128, (2048,), (2016,), 0, 8),
+        (1, 32, 4096, 10, 4, 128, (4096,), (4064,), 0, 4),
+        (2, 32, 4096, 10, 4, 128, (0, 4000), (0, 3968), 8, 2),
+        (4, 64, 2048, 10, 4, 128, (2048, 0, 700, 64), (1984, 0, 636, 0), 0, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_prefill_attention_long_contexts_match_plain(dtype):
+    """Kernels 8 and 9 at T 2,048 and 4,096: dots at every position equal
+    the plain version's, outputs within TOL with equal signs, rows of
+    kv_len 0 give 0, and paged (shuffled pool pages, sentinel entries
+    past each row's length) equals contiguous bit for bit."""
+    from repro_torch._device import sm_count
+    from repro_torch.kernels import prefill_attention as pa
+    from repro_torch.kernels import ref
+    _need_card()
+    ps = 64
+    for b, s, t, hkv, g, hd, lens, qpos, window, split in LONG:
+        plan = pa.attention_plan(b, s, t, hkv, g, hd, sm_count("cuda"))
+        assert plan.split == split, (b, s, t)
+        pool = b * t // ps + 3
+        q, k, v, vs, pt = _paged_case(t + s + window, b, ps, t // ps, pool,
+                                      hkv, g, hd, lens, s)
+        q, k, v, vs, pt = [a.cuda() for a in (q.to(dtype), k, v, vs, pt)]
+        kv = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        qp = torch.tensor(qpos, dtype=torch.int32, device="cuda")
+        kg, vg = ref.gather_pages(k, pt), ref.gather_pages(v, pt)
+        got, dots = pa.prefill_attention_packed(q, kg, vg, vs, kv, qp,
+                                                window=window,
+                                                return_dots=True)
+        want, wdots = pa.prefill_attention_packed_plain(
+            q, kg, vg, vs, kv, qp, window=window, return_dots=True)
+        paged, pdots = pa.prefill_attention_packed_paged(
+            q, k, v, vs, pt, kv, qp, window=window, return_dots=True)
+        torch.cuda.synchronize()
+        assert torch.equal(dots, wdots) and torch.equal(pdots, dots)
+        assert torch.equal(paged, got)
+        tol = TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        assert torch.equal(got >= 0, want >= 0)
+        assert (got[kv == 0] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_one_row_equals_decode_at_the_main_shape():
+    """A one-row chunk at q_pos = kv_len - 1 through the prefill body (a
+    T split of 2) equals the decode body bit for bit at the LM's decode
+    shape (B 4, T 512, Hkv 10, G 4, hd 128), contiguous and paged."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import prefill_attention as pa
+    from repro_torch.kernels import ref
+    _need_card()
+    lens = (1, 100, 333, 512)
+    q, k, v, vs, pt = [a.cuda() for a in _paged_case(
+        7, 4, 32, 16, 64, 10, 4, 128, lens)]
+    q = q.to(torch.bfloat16)
+    kv = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    kg, vg = ref.gather_pages(k, pt), ref.gather_pages(v, pt)
+    for dec, pre in (
+            (da.decode_attention_packed_paged(q, k, v, vs, pt, kv),
+             pa.prefill_attention_packed_paged(q, k, v, vs, pt, kv, kv - 1)),
+            (da.decode_attention_packed(q, kg, vg, vs, kv),
+             pa.prefill_attention_packed(q, kg, vg, vs, kv, kv - 1))):
+        torch.cuda.synchronize()
+        assert torch.equal(dec, pre)
 
 
 # kernel 10, the selective scan: (B, T, D, N, with h0). falcon-mamba-7b's

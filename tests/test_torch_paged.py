@@ -152,6 +152,28 @@ def test_paged_prefill_plain_matches_jax(b, ps, n_pages, pool, hkv, g, hd,
     np.testing.assert_array_equal(dots.numpy(), _jax_dots(q, panel))
 
 
+def test_paged_prefill_plain_past_the_old_cap_matches_jax():
+    """A 2,048-position table (past ~1,770, where a (32, T) score panel
+    would not fit shared memory; the wrapper takes any T): a chunk at the end of one row and in the middle of
+    another, shuffled pages, sentinel entries in the shorter row's tail."""
+    rng = np.random.default_rng(2048)
+    b, ps, n_pages, pool, hkv, g, hd, s = 2, 64, 32, 52, 1, 2, 16, 4
+    k, v, table, vs = _pools(rng, pool, ps, hkv, hd, b, n_pages, (2048, 1200))
+    q = rng.integers(-4, 5, (b, s, hkv * g, hd)).astype(np.float32)
+    kv_len = np.asarray((2048, 1200), np.int32)
+    q_pos = kv_len - s
+    want = np.asarray(jref.prefill_attention_packed_paged_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(vs),
+        jnp.asarray(table), jnp.asarray(kv_len), jnp.asarray(q_pos)))
+    got, dots = prefill_attention_packed_paged(
+        torch.from_numpy(q), tensor(k, "cpu"), tensor(v, "cpu"),
+        torch.from_numpy(vs), torch.from_numpy(table),
+        torch.from_numpy(kv_len), torch.from_numpy(q_pos), return_dots=True)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+    panel = jref.gather_pages(jnp.asarray(k), jnp.asarray(table))
+    np.testing.assert_array_equal(dots.numpy(), _jax_dots(q, panel))
+
+
 @pytest.mark.parametrize(CASE_ARGS, PAGED_CASES)
 def test_paged_plain_is_contiguous_on_the_gathered_panel(
         b, ps, n_pages, pool, hkv, g, hd, lens, window):
