@@ -24,7 +24,12 @@ Phases, each of which raises on failure (nothing is caught):
                with sentinel tails, T splits of 1, 2, 4 and 8 over a
                cluster): dots exact, outputs within the
                tolerance, paged equal to contiguous bit for bit; a one-row
-               prefill equal to decode bit for bit, paged and contiguous
+               prefill equal to decode bit for bit, paged and contiguous;
+               the decode kernels (6, 7) at T 2,048, 4,096 and 16,384, past
+               the old panel body's ~14,500 (a window, cache_len 0 rows,
+               shuffled pools with sentinel tails, T splits of 1, 2, 4 and
+               8): dots exact, outputs within the tolerance, paged equal to
+               contiguous bit for bit, with dots and as served
   4. mlp     - bnn-mnist (784-1024x3-10) frozen, batches of 200 through the
                kernels; hidden words and scores equal the plain path's, the
                fp32-master path's, and the CPU's on a small batch
@@ -52,8 +57,11 @@ Phases, each of which raises on failure (nothing is caught):
                shapes at 4 and 32 rows, apart from the kernels line;
                kernels 8 and 9 on a 32-row chunk at the end of a
                4,096-position context beside SDPA and the bound, and
-               kernel 8 at each T split of 1, 2, 4 and 8, apart from the
-               kernels line; each forward per batch, one profiled
+               kernel 8 at each T split of 1, 2, 4 and 8, kernels 6 and 7
+               on 4 slots' decode step against a 4,096-position table
+               beside SDPA and the bound, and at each T split at T 512 and
+               4,096, apart from the kernels line; each forward per batch,
+               one profiled
                frozen forward each; then the LM at full depth (40 layers,
                drawn and frozen one at a time): decode tokens/s, TTFT, ITL,
                resident bytes, one profiled decode step (device busy
@@ -109,6 +117,14 @@ lm, train, ssm) runs and read just after. The line before the last is
 inputs are random from the seed; image inputs are multiples of 1/128 in
 [-1, 1], like 8-bit pixels. Exits non-zero, printing no result, without a
 card or without the repo.
+
+    python3 chip_smoke.py --attention-times [--port-src DIR]
+
+builds the kernels and times only the attention kernels (phase 7's lm
+kernel, long-context prefill and long-context decode times), of this
+checkout or of the port under DIR (another tree's src, such as a parent
+commit's unpacked into build/parent: run parent, change, change, parent in
+one call to compare them on one card).
 """
 from __future__ import annotations
 
@@ -905,6 +921,188 @@ def prefill_split_sweep(cfg, dev_gen, dev, sms):
                 ms[split] = device_ms(call, wrapper="prefill_attention_packed")
         rows.append({"T": t, "q_pos": qp, "plan_split": plan.split, "ms": ms})
     return rows
+
+
+# decode past the old panel body's cap of ~14,500 positions at G 4
+# (B, T, Hkv, lengths, window), the LM's G and hd: the table's 4-slot
+# step at T 4,096, two slots at 16,384 (a cache_len 0 row), three with a
+# window, and grids of 80, 160 and 320 blocks at T 2,048 (lengths from the
+# seed, a full and an empty row each), so the decode rule
+# (`attention_plan` at S = 1) takes each split of 8, 4, 2 and 1
+LONG_DECODE = [(4, 4096, 10, (4096, 3000, 1000, 17), 0),
+               (2, 16384, 1, (16384, 0), 0),
+               (3, 16384, 2, (16384, 9001, 12000), 700),
+               (8, 2048, 10, None, 0), (16, 2048, 10, None, 0),
+               (32, 2048, 10, None, 0)]
+
+
+def lm_long_decode_checks(cfg, dev_gen, seed, dev, sms):
+    """Kernels 6 and 7 at T 2,048, 4,096 and 16,384 (LONG_DECODE; G and hd
+    of the LM; a pool of 64-position pages in shuffled order, the sentinel
+    in each row's unallocated tail): the contiguous kernel on the gathered
+    pages against its plain version (dots at every position equal, outputs
+    within ATTN_TOL with equal signs, cache_len 0 rows exactly 0) and the
+    paged kernel against the contiguous one, with dots (every table
+    position streamed) and without (as served: shares held whole where
+    they fit), bit for bit. Every T split of 1, 2, 4 and 8 is taken."""
+    from repro_torch.kernels import ref
+    _, _, da, pa, _ = lm_modules()
+    rng = np.random.default_rng(seed + 2)
+    g, hd = cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    err = {kn: 0.0 for kn in ("decode_attention_packed",
+                              "decode_attention_packed_paged")}
+    splits = set()
+    for b, t, hkv, lens, window in LONG_DECODE:
+        if lens is None:
+            lens = (t, 0, *rng.integers(1, t + 1, b - 2).tolist())
+        plan = pa.attention_plan(b, 1, t, hkv, g, hd, sms)
+        splits.add(plan.split)
+        pool = b * t // LONG_PAGE + 3
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, vs, pt = paged_case(dev_gen, rng, b, 1, LONG_PAGE,
+                                         t // LONG_PAGE, pool, hkv, g, hd,
+                                         lens, dtype, dev)
+            kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+            kg, vg = ref.gather_pages(k, pt), ref.gather_pages(v, pt)
+            got, dots = da.decode_attention_packed(
+                q, kg, vg, vs, kv, window=window, return_dots=True)
+            paged, pdots = da.decode_attention_packed_paged(
+                q, k, v, vs, pt, kv, window=window, return_dots=True)
+            served = (da.decode_attention_packed(q, kg, vg, vs, kv,
+                                                 window=window),
+                      da.decode_attention_packed_paged(q, k, v, vs, pt, kv,
+                                                       window=window))
+            torch.cuda.synchronize()
+            want, wdots = da.decode_attention_packed_plain(
+                q, kg, vg, vs, kv, window=window, return_dots=True)
+            what = f"long decode ({b},{t},{hkv}) window {window}"
+            if not (torch.equal(dots, wdots) and torch.equal(pdots, dots)):
+                raise AssertionError(f"{what}: dots differ")
+            for name, other in (("paged", paged), ("contiguous, served",
+                                                   served[0]),
+                                ("paged, served", served[1])):
+                if not torch.equal(other, got):
+                    raise AssertionError(f"{what}: {name} differs from "
+                                         "contiguous with dots")
+            if not (got[kv == 0] == 0).all():
+                raise AssertionError(f"{what}: a cache_len 0 row is not 0")
+            e = check_close(what, got, want, dtype)
+            for kn in err:
+                err[kn] = max(err[kn], e)
+            shown = list(lens) if b <= 4 else f"{b} rows from the seed"
+            print(f"check decode_attention_packed[_paged] {str(dtype)[6:]:8s} "
+                  f"B={b} T={t} Hkv={hkv} lens={shown} window={window} split "
+                  f"{plan.split}: dots equal, max_abs_err={e:.3g}, paged "
+                  f"equals contiguous bit for bit, with dots and as served "
+                  f"(ps {LONG_PAGE}, pool {pool} shuffled, sentinel tails)")
+    if splits != {1, 2, 4, 8}:
+        raise AssertionError(f"long decode checks took splits {splits}")
+    return err
+
+
+def decode_case(dev_gen, dev, t, lens, ps, hkv, g, hd):
+    """The decode step of LM_SLOTS slots at `lens` against a T-position
+    table, bf16: q, a shuffled pool of `ps`-position pages (sentinel tails),
+    its table, the gathered pages and the V scales."""
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(t)
+    q, k, v, vs, pt = paged_case(dev_gen, rng, LM_SLOTS, 1, ps, t // ps,
+                                 LM_SLOTS * t // ps + 8, hkv, g, hd, lens,
+                                 torch.bfloat16, dev)
+    return q, k, v, vs, pt, ref.gather_pages(k, pt), ref.gather_pages(v, pt)
+
+
+def lm_long_decode_times(cfg, dev_gen, dev, popc_per_s):
+    """The decode step of 4 slots at lengths 4096/3000/1000/17 against a
+    4,096-position table (the LM's heads, bf16): kernel 6 on the contiguous
+    cache and kernel 7 on a shuffled pool of 32-position pages, as
+    `shape_times`, beside SDPA (paged: on the gathered pages, the gather's
+    time printed beside it) and the bound. Not in the kernels line (no
+    main-path call reaches this context)."""
+    from repro_torch.kernels import ref
+    _, _, da, _, _ = lm_modules()
+    hkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    t, lens = 4096, (4096, 3000, 1000, 17)
+    q, k, v, vs, pt, kg, vg = decode_case(dev_gen, dev, t, lens, LM_PAGE,
+                                          hkv, g, hd)
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    valid = ref.chunk_valid_mask(LM_SLOTS, 1, t, kv, kv - 1, 0, True,
+                                 device=dev)
+    lib = sdpa_call(q, kg, vg, vs, valid)
+    bnd = attention_bound(valid, 1, cfg.n_heads, hkv, hd, 2, popc_per_s)
+    rows = []
+    for kn, call, plain in (
+            ("decode_attention_packed",
+             lambda: da.decode_attention_packed(q, kg, vg, vs, kv),
+             lambda: da.decode_attention_packed_plain(q, kg, vg, vs, kv)),
+            ("decode_attention_packed_paged",
+             lambda: da.decode_attention_packed_paged(q, k, v, vs, pt, kv),
+             lambda: da.decode_attention_packed_paged_plain(
+                 q, k, v, vs, pt, kv))):
+        check_close_loose(f"SDPA vs {kn} at T {t}", lib(), call())
+        row = {"kernel": kn, "where": f"decode B={LM_SLOTS} T={t} lens "
+                                      f"{list(lens)}",
+               "library": "F.scaled_dot_product_attention",
+               **shape_times(call, kn, plain, lib),
+               **(paged_bound(bnd, pt) if kn.endswith("paged") else bnd)}
+        if kn.endswith("paged"):
+            row["gather_ms"] = device_ms(lambda: (ref.gather_pages(k, pt),
+                                                  ref.gather_pages(v, pt)))
+        rows.append(row)
+    return rows
+
+
+def decode_split_sweep(cfg, dev_gen, dev, sms):
+    """Kernels 6 and 7's device time at each T split (1, 2, 4, 8) on the
+    decode step of 4 slots at the table's lengths (512/300/100/17 against
+    512 positions) and at 4096/3000/1000/17 against 4,096 (paged: shuffled
+    32-position pages), beside the split `attention_plan` picks: the
+    measurement the decode rule rests on. Outputs are held equal across
+    splits within ATTN_TOL (the sums' order changes with the split)."""
+    from unittest import mock
+    _, _, da, pa, _ = lm_modules()
+    hkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    rows = []
+    for t, lens in ((LM_MAX_LEN, (LM_MAX_LEN, 300, 100, 17)),
+                    (4096, (4096, 3000, 1000, 17))):
+        q, k, v, vs, pt, kg, vg = decode_case(dev_gen, dev, t, lens, LM_PAGE,
+                                              hkv, g, hd)
+        kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+        plan = pa.attention_plan(LM_SLOTS, 1, t, hkv, g, hd, sms)
+        for kn, call in (
+                ("decode_attention_packed",
+                 lambda: da.decode_attention_packed(q, kg, vg, vs, kv)),
+                ("decode_attention_packed_paged",
+                 lambda: da.decode_attention_packed_paged(q, k, v, vs, pt,
+                                                          kv))):
+            want = call()
+            ms = {}
+            for split in (1, 2, 4, 8):
+                forced = pa.AttentionPlan(plan.bq, split, plan.blocks
+                                          // plan.split * split)
+                with mock.patch.object(da, "attention_plan",
+                                       lambda *a, forced=forced: forced):
+                    check_close(f"{kn} split {split}", call(), want,
+                                torch.bfloat16)
+                    ms[split] = device_ms(call, wrapper=kn)
+            rows.append({"kernel": kn, "T": t, "lens": list(lens),
+                         "plan_split": plan.split, "ms": ms})
+    return rows
+
+
+def print_attention_rows(title, rows, width=30):
+    """Attention time rows (`shape_times` plus bound) under a title."""
+    print(title)
+    for r in rows:
+        lib = "—" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} (wall {r['library_wall_ms']:.4f})"
+        if "gather_ms" in r:
+            lib += f" + gather {r['gather_ms']:.4f}"
+        print(f"  {r['kernel']:30s} {r['where']:{width}s} kernel "
+              f"{r['ms']:.4f} (wrapper {r['wrapper_ms']:.4f})  plain "
+              f"{r['plain_ms']:.3f}  library {lib}  bound "
+              f"{r['bound_ms']:.5f} "
+              f"({'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'ops'})")
 
 
 def lm_traffic(seed, vocab):
@@ -2110,12 +2308,44 @@ def ssm_phase(seed, dev, card, dev_gen, exp_per_s):
                                   "timed": timed}
 
 
+def attention_times(card, popc_per_s) -> int:
+    """The attention kernels' times alone (`--attention-times`): the lm
+    kernel times of kernels 5-9 at the main path's shapes, then the
+    long-context prefill and decode times, with the port imported from the
+    checkout or from `--port-src`."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import decode_attention as da
+    cfg = get_config(LM_ARCH)
+    dev = torch.device("cuda", 0)
+    dev_gen = torch.Generator(device=dev).manual_seed(0)
+    print(f"attention times of the port in {Path(da.__file__).parents[2]}")
+    rows, _ = lm_kernel_times(cfg, dev_gen, dev, popc_per_s)
+    print_attention_rows(f"lm kernel times on {card} (ms):", rows, 45)
+    print_attention_rows(f"lm long-context prefill times on {card} (ms):",
+                         lm_long_prefill_times(cfg, dev_gen, dev, popc_per_s))
+    print_attention_rows(f"lm long-context decode times on {card} (ms):",
+                         lm_long_decode_times(cfg, dev_gen, dev, popc_per_s),
+                         40)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the full report as JSON here")
+    ap.add_argument("--attention-times", action="store_true",
+                    help="only build the kernels and time the attention "
+                         "kernels (the lm kernel, long-context prefill and "
+                         "long-context decode times), then stop")
+    ap.add_argument("--port-src", type=Path, default=None,
+                    help="import the port from this src directory instead "
+                         "of the checkout's (with --attention-times: time "
+                         "another tree's kernels, such as a parent "
+                         "commit's, in the same call)")
     args = ap.parse_args()
+    if args.port_src is not None:
+        sys.path.insert(0, str(args.port_src.resolve()))
 
     # ---------------------------------------------------------------- device
     if not torch.cuda.is_available():
@@ -2152,6 +2382,8 @@ def main() -> int:
             if "registers" in line or "Compiling entry" in line \
                     or "spill" in line:
                 print(f"    {line.strip()}")
+    if args.attention_times:
+        return attention_times(card, popc_per_s)
 
     # --------------------------------------------- kernels vs plain on card
     gen = torch.Generator().manual_seed(args.seed)
@@ -2198,6 +2430,9 @@ def main() -> int:
     err.update(lm_paged_kernel_checks(lm_cfg, dev_gen, args.seed, dev))
     for kn, e in lm_long_prefill_checks(lm_cfg, dev_gen, args.seed, dev,
                                         sms).items():
+        err[kn] = max(err[kn], e)
+    for kn, e in lm_long_decode_checks(lm_cfg, dev_gen, args.seed, dev,
+                                       sms).items():
         err[kn] = max(err[kn], e)
 
     # ------------------------------------------------------------------ mlp
@@ -2386,31 +2621,16 @@ def main() -> int:
 
     # ------------------------------------------- lm: kernel times, timed run
     lm_rows, lm_totals = lm_kernel_times(lm_cfg, dev_gen, dev, popc_per_s)
-    print(f"lm kernel times on {card} (ms per launch, as above; bound = max(bytes / "
-          f"3.35 TB/s, popc / {popc_per_s / 1e12:.3f} T/s, V adds / 67 "
-          f"TFLOP/s); pack_bits has no single PyTorch call computing it):")
-    for r in lm_rows:
-        lib = "—" if r["library_ms"] is None else \
-            f"{r['library_ms']:.4f} (wall {r['library_wall_ms']:.4f})"
-        if "gather_ms" in r:
-            lib += f" + gather {r['gather_ms']:.4f}"
-        print(f"  {r['kernel']:30s} {r['where']:45s} kernel {r['ms']:.4f} "
-              f"(wrapper {r['wrapper_ms']:.4f})  plain {r['plain_ms']:.3f}  "
-              f"library {lib}  bound "
-              f"{r['bound_ms']:.5f} ({'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'ops'})")
+    print_attention_rows(
+        f"lm kernel times on {card} (ms per launch, as above; bound = "
+        f"max(bytes / 3.35 TB/s, popc / {popc_per_s / 1e12:.3f} T/s, V adds "
+        f"/ 67 TFLOP/s); pack_bits has no single PyTorch call computing it):",
+        lm_rows, 45)
     totals.update(lm_totals)
     report["lm_shapes"] = lm_rows
     long_rows = lm_long_prefill_times(lm_cfg, dev_gen, dev, popc_per_s)
-    print(f"lm long-context prefill times on {card} (ms, as above; not in "
-          f"the kernels line):")
-    for r in long_rows:
-        lib = f"{r['library_ms']:.4f} (wall {r['library_wall_ms']:.4f})"
-        if "gather_ms" in r:
-            lib += f" + gather {r['gather_ms']:.4f}"
-        print(f"  {r['kernel']:30s} {r['where']:30s} kernel {r['ms']:.4f} "
-              f"(wrapper {r['wrapper_ms']:.4f})  plain {r['plain_ms']:.3f}  "
-              f"library {lib}  bound {r['bound_ms']:.5f} "
-              f"({'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'ops'})")
+    print_attention_rows(f"lm long-context prefill times on {card} (ms, as "
+                         f"above; not in the kernels line):", long_rows)
     report["lm_long_prefill"] = long_rows
     sweep = prefill_split_sweep(lm_cfg, dev_gen, dev, sms)
     print(f"prefill T split sweep on {card} (kernel 8, one slot's 32-row "
@@ -2420,6 +2640,18 @@ def main() -> int:
               + " / ".join(f"{r['ms'][sp]:.4f}" for sp in (1, 2, 4, 8))
               + f"  (attention_plan: split {r['plan_split']})")
     report["prefill_split_sweep"] = sweep
+    long_rows = lm_long_decode_times(lm_cfg, dev_gen, dev, popc_per_s)
+    print_attention_rows(f"lm long-context decode times on {card} (ms, as "
+                         f"above; not in the kernels line):", long_rows, 40)
+    report["lm_long_decode"] = long_rows
+    sweep = decode_split_sweep(lm_cfg, dev_gen, dev, sms)
+    print(f"decode split sweep on {card} (kernels 6 and 7, 4 slots' decode "
+          f"step, bf16; device ms at split 1 / 2 / 4 / 8):")
+    for r in sweep:
+        print(f"  {r['kernel']:30s} T={r['T']:5d} lens {r['lens']}  "
+              + " / ".join(f"{r['ms'][sp]:.4f}" for sp in (1, 2, 4, 8))
+              + f"  (attention_plan: split {r['plan_split']})")
+    report["decode_split_sweep"] = sweep
     timed, eng = lm_timed_run(lm_cfg, args.seed, dev, card)
     sched = eng.scheduler()
     pos = torch.full((LM_SLOTS,), 300, dtype=torch.int32, device=dev)

@@ -45,14 +45,14 @@ SIGNATURES = {
     "selective_scan": {"selective_scan": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
                                           _I, _I, _I, _I, _P]},
     "attention": {
-        "decode_attention_packed": [_P, _I, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _I, _F, _P],
+        "decode_attention_packed": [_P, _I, _P, _P, _P, _P, _I, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _I, _F, _P],
         "prefill_attention_packed": [_P, _I, _P, _P, _P, _P, _I, _P, _I, _P,
                                      _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                      _I, _F, _P],
-        "decode_attention_packed_paged": [_P, _I, _P, _P, _P, _P, _P, _P, _P,
-                                          _I, _I, _I, _I, _I, _I, _I, _I,
-                                          _F, _P],
+        "decode_attention_packed_paged": [_P, _I, _P, _P, _P, _P, _P, _I, _P,
+                                          _P, _I, _I, _I, _I, _I, _I, _I,
+                                          _I, _I, _F, _P],
         "prefill_attention_packed_paged": [_P, _I, _P, _P, _P, _P, _P, _I, _P,
                                            _I, _P, _P, _I, _I, _I, _I, _I,
                                            _I, _I, _I, _I, _I, _I, _I, _F,

@@ -5,11 +5,10 @@
 // -0.0 packs to 1 and NaN to 0), 32 values per word, little-endian along the
 // packed axis, positions past the end are pad bits 1. One warp makes one
 // word: lane i reads element 32w+i and __ballot_sync sets bit i, which is the
-// wire format itself. pack.cu (kernel 5) and attention.cu's decode body pack
-// through `pack_word`; binary_gemm.cu's small-M kernel and attention.cu's
-// prefill body pack a word per thread from 16-byte loads instead
-// (`pack_own_word`: their rows are few and short, so a ballot per word
-// leaves too few loads in flight).
+// wire format itself. pack.cu (kernel 5) packs through `pack_word`;
+// binary_gemm.cu's small-M kernel and attention.cu's body pack a word per
+// thread from 16-byte loads instead (`pack_own_word`: their rows are few
+// and short, so a ballot per word leaves too few loads in flight).
 #pragma once
 
 #include <cstdint>

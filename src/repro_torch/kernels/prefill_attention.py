@@ -15,15 +15,15 @@ runs the plain version only because its inputs lie on the CPU.
 `prefill_attention_packed_paged` is its paged twin (replaces
 src/repro/kernels/prefill_attention.py:225): the same chunk against K/V
 pools addressed through a page table (see
-`decode_attention.decode_attention_packed_paged`); the same kernel body,
-templated on the layout. `launches["prefill_attention_packed_paged"]`
-counts its launches.
+`decode_attention.decode_attention_packed_paged`).
+`launches["prefill_attention_packed_paged"]` counts its launches.
 
-The kernel body splits a block's positions over a thread-block cluster and
+All four attention wrappers (these and `decode_attention`'s) launch one
+kernel body. It splits a block's positions over a thread-block cluster and
 keeps no (rows, T) score panel, so any T is taken. `attention_plan` is the
 fixed rule of its launch (chunk rows per block, split); `block_positions`
 and `rank_positions` are the positions a block reads, as the kernel
-computes them.
+computes them. The operand checks the wrappers share live here too.
 """
 from __future__ import annotations
 
@@ -32,19 +32,22 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch._device import sm_count
+from repro_torch.core.bitpack import packed_width
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.decode_attention import (
-    _Q_BF16, check_operands, row_lengths,
-)
 
 launches = {"prefill_attention_packed": 0, "prefill_attention_packed_paged": 0}
-# the kernel's block: at most 32 query rows (chunk rows x grouped heads, a
-# lane each) and head_dim up to 256 (4 n8 tensor-core tiles per warp)
-_MAX_ROWS, _MAX_HD = 32, 256
-# attention_plan's rule: the largest portable cluster, the blocks an SM
-# keeps resident (128 registers a thread), and the least table positions
-# per block of a split
-_CLUSTER_MAX, _RESIDENT, _MIN_SPLIT_POSITIONS = 8, 2, 256
+_Q_BF16 = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's block: at most 32 query rows (chunk rows x grouped heads) and
+# head_dim up to 256 (4 n8 tensor-core tiles per warp); a block of at most
+# 8 rows (a decode step's G heads) takes the narrow body
+_MAX_ROWS, _MAX_HD, _NARROW_ROWS = 32, 256, 8
+# attention_plan's rule: the largest portable cluster; per body (narrow:
+# True), the blocks an SM keeps resident (80 registers a thread, or 128)
+# and the least table positions per block of a split (one 64-position
+# tile, or 256)
+_CLUSTER_MAX = 8
+_RESIDENT = {True: 3, False: 2}
+_MIN_SPLIT_POSITIONS = {True: 64, False: 256}
 
 
 def reset_launches() -> None:
@@ -52,9 +55,62 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def check_operands(q: torch.Tensor, k_packed: torch.Tensor,
+                   v_packed: torch.Tensor, v_scale: torch.Tensor,
+                   page_table: torch.Tensor | None = None) -> None:
+    """Raise unless q (B, S, Hkv*G, hd) float32|bf16, K/V (B, T, Hkv,
+    ceil(hd/32)) int32 and v_scale (B, Hkv) float32 agree, lie on one
+    device and are contiguous. With a `page_table`, K/V are (P, ps, Hkv,
+    ceil(hd/32)) pools and the table is (B, NP) int32."""
+    if q.dtype not in _Q_BF16 or q.ndim != 4:
+        raise TypeError(f"q must be (B, S, Hq, hd) float32 or bfloat16, got "
+                        f"{q.dtype} {tuple(q.shape)}")
+    b, _, hq, hd = q.shape
+    if k_packed.ndim != 4:
+        raise ValueError(f"K must be 4-D words, got {tuple(k_packed.shape)}")
+    hkv = k_packed.shape[2]
+    lead = (b, k_packed.shape[1]) if page_table is None \
+        else tuple(k_packed.shape[:2])
+    want = lead + (hkv, packed_width(hd))
+    for name, c in (("K", k_packed), ("V", v_packed)):
+        if c.dtype != torch.int32 or tuple(c.shape) != want:
+            raise ValueError(f"{name} must be {want} int32 words, got "
+                             f"{c.dtype} {tuple(c.shape)}")
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads do not group over {hkv} KV heads")
+    if v_scale.dtype != torch.float32 or tuple(v_scale.shape) != (b, hkv):
+        raise ValueError(f"v_scale must be ({b}, {hkv}) float32, got "
+                         f"{v_scale.dtype} {tuple(v_scale.shape)}")
+    tensors = [q, k_packed, v_packed, v_scale]
+    if page_table is not None:
+        if page_table.dtype != torch.int32 or page_table.ndim != 2 \
+                or page_table.shape[0] != b:
+            raise ValueError(f"page_table must be ({b}, NP) int32, got "
+                             f"{page_table.dtype} {tuple(page_table.shape)}")
+        tensors.append(page_table)
+    for x in tensors[1:]:
+        if x.device != q.device:
+            raise ValueError(f"operands on {q.device} and {x.device}")
+    for x in tensors:
+        if not x.is_contiguous():
+            raise ValueError("operands must be contiguous")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no attention kernel for device {q.device}")
+
+
+def row_lengths(x, b: int, device) -> torch.Tensor | None:
+    """A (B,) tensor of lengths or positions -> (B,) int32 contiguous on
+    `device` (no host sync for a tensor already there); an int -> None,
+    for the kernel takes a scalar by value (no tensor to copy per call)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int32).reshape(-1) \
+            .expand(b).contiguous()
+    return None
+
+
 @dataclass(frozen=True)
 class AttentionPlan:
-    """How one prefill call runs: `bq` chunk rows per block (bq * G query
+    """How one attention call runs: `bq` chunk rows per block (bq * G query
     rows), `split` blocks per cluster along T, `blocks` in the grid, and
     always one launch."""
     bq: int
@@ -75,19 +131,25 @@ def block_rows(s: int, g: int, hd: int) -> int:
 
 def attention_plan(b: int, s: int, t: int, hkv: int, g: int, hd: int,
                    sms: int) -> AttentionPlan:
-    """The fixed rule of a prefill launch: `block_rows` chunk rows per
-    block, then T split over a cluster, doubled (up to 8) while the doubled
-    grid stays within one wave (2 resident blocks per SM) and each block
-    keeps at least 256 of the T table positions. On the H100 a second wave
-    cost more than a shorter share saved (one 32-row phi3 chunk, 40
-    blocks: split 8 twice as slow as 2), and a split pays only where its
-    share's V sums outweigh the cluster's fixed costs (T 512: split 2
-    best; T 4,096: 4 to 8)."""
+    """The fixed rule of a launch: `block_rows` chunk rows per block, then
+    T split over a cluster, doubled (up to 8) while the doubled grid stays
+    within one wave of resident blocks (2 per SM for the wide body, 3 for
+    the narrow one of <= 8 query rows, a decode step's) and each block
+    keeps at least 256 of the T table positions (narrow: 64). On the H100
+    a second wave cost more than a shorter share saved (one 32-row phi3
+    chunk, 40 blocks: split 8 twice as slow as 2), and a wide block's
+    split pays only where its share's V sums outweigh the cluster's fixed
+    costs (T 512: split 2 best; T 4,096: 4 to 8). A decode block's 4 rows
+    cost little per position, so its split pays down to one tile a block
+    (4 slots at T 512: split 8 0.0150 ms, 2 0.0191; T 4,096: 8 0.0338, 2
+    0.1075; `chip_smoke.decode_split_sweep`)."""
     bq = block_rows(s, g, hd)
+    narrow = bq * g <= _NARROW_ROWS
     base = b * hkv * -(-s // bq)
     split = 1
-    while (split < _CLUSTER_MAX and 2 * base * split <= _RESIDENT * sms
-           and t >= 2 * split * _MIN_SPLIT_POSITIONS):
+    while (split < _CLUSTER_MAX
+           and 2 * base * split <= _RESIDENT[narrow] * sms
+           and t >= 2 * split * _MIN_SPLIT_POSITIONS[narrow]):
         split *= 2
     return AttentionPlan(bq, split, base * split)
 
@@ -148,11 +210,8 @@ def prefill_attention_packed(q: torch.Tensor, k_packed: torch.Tensor,
     s, hd = q.shape[1], q.shape[-1]
     g = q.shape[2] // hkv
     plan = attention_plan(b, s, t, hkv, g, hd, sm_count(q.device))
-    # scalar lengths and positions go by value: no tensor to copy per chunk
-    lens = row_lengths(kv_len, b, q.device) \
-        if isinstance(kv_len, torch.Tensor) else None
-    qpos = row_lengths(q_pos, b, q.device) \
-        if isinstance(q_pos, torch.Tensor) else None
+    lens = row_lengths(kv_len, b, q.device)
+    qpos = row_lengths(q_pos, b, q.device)
     out = torch.empty_like(q)
     dots = (torch.empty((b, hkv, s, g, t), dtype=torch.int32, device=q.device)
             if return_dots else None)
@@ -210,10 +269,8 @@ def prefill_attention_packed_paged(q: torch.Tensor, k_pool: torch.Tensor,
     s, hd = q.shape[1], q.shape[-1]
     g = q.shape[2] // hkv
     plan = attention_plan(b, s, t, hkv, g, hd, sm_count(q.device))
-    lens = row_lengths(kv_len, b, q.device) \
-        if isinstance(kv_len, torch.Tensor) else None
-    qpos = row_lengths(q_pos, b, q.device) \
-        if isinstance(q_pos, torch.Tensor) else None
+    lens = row_lengths(kv_len, b, q.device)
+    qpos = row_lengths(q_pos, b, q.device)
     out = torch.empty_like(q)
     dots = (torch.empty((b, hkv, s, g, t), dtype=torch.int32, device=q.device)
             if return_dots else None)

@@ -134,9 +134,28 @@ def test_prefill_plain_past_the_old_cap_matches_jax(b, s, t, hkv, g, hd,
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
 
 
+def test_decode_plain_past_the_old_cap_matches_jax():
+    """The decode wrapper takes any T (one-row chunks of the panel-free
+    body); its plain version equals the JAX oracle at T 16,384, past the
+    old panel body's cap, rows of every length class and a window."""
+    rng = np.random.default_rng(16384)
+    b, t, hkv, g, hd = 3, 16384, 1, 4, 16
+    k, v, vs = _cache(rng, b, t, hkv, hd)
+    q = _query(rng, (b, 1, hkv * g, hd))
+    lens = np.array([t, 9001, 1], np.int32)
+    want = np.asarray(jref.decode_attention_packed_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(vs),
+        jnp.asarray(lens), window=700))
+    got, dots = decode_attention_packed(*_port(q, k, v, vs),
+                                        torch.from_numpy(lens), window=700,
+                                        return_dots=True)
+    np.testing.assert_array_equal(dots.numpy(), _jax_dots(q, k)[:, :, 0])
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
 @pytest.mark.parametrize("b,s,t,hkv,g,hd,bq,split", [
     (1, 32, 512, 10, 4, 128, 8, 2),     # phi3 chunk, one slot: 40 blocks
-    (4, 1, 512, 10, 4, 128, 1, 2),      # one-row chunks of 4 slots
+    (4, 1, 512, 10, 4, 128, 1, 8),      # one-row chunks of 4 slots
     (1, 32, 4096, 10, 4, 128, 8, 4),    # no T cap
     (2, 32, 4096, 10, 4, 128, 8, 2),    # 80 blocks
     (4, 32, 512, 10, 4, 128, 8, 1),     # 160: a split would need 2 waves
@@ -149,12 +168,36 @@ def test_prefill_plain_past_the_old_cap_matches_jax(b, s, t, hkv, g, hd,
 def test_attention_plan_rule(b, s, t, hkv, g, hd, bq, split):
     """The prefill launch rule on a 132-SM card: bq*G <= 32 query rows a
     block, T split in clusters of at most 8 blocks while the doubled grid
-    fits one wave of 2 blocks per SM, one launch, no limit on T."""
+    fits one wave of 2 blocks per SM (3 for blocks of <= 8 rows), one
+    launch, no limit on T."""
     plan = pa.attention_plan(b, s, t, hkv, g, hd, 132)
     assert (plan.bq, plan.split, plan.launches) == (bq, split, 1)
     assert plan.blocks == b * hkv * -(-s // bq) * split
     assert plan.bq * g <= 32 and plan.split in (1, 2, 4, 8)
-    assert plan.split == 1 or plan.blocks <= 2 * 132
+    resident = 3 if plan.bq * g <= 8 else 2
+    assert plan.split == 1 or plan.blocks <= resident * 132
+
+
+@pytest.mark.parametrize("b,t,hkv,g,hd,split", [
+    (4, 512, 10, 4, 128, 8),            # phi3 decode, 4 slots: 320 blocks
+    (4, 4096, 10, 4, 128, 8),
+    (4, 16384, 10, 4, 128, 8),          # no T cap
+    (1, 512, 10, 4, 128, 8),
+    (1, 4096, 10, 4, 128, 8),
+    (4, 200, 10, 4, 128, 2),            # a tile a block at least
+    (4, 100, 10, 4, 128, 1),
+    (16, 4096, 10, 8, 128, 2),          # 320 blocks: 4 would need 2 waves
+    (32, 2048, 10, 4, 128, 1),          # 320 blocks unsplit
+])
+def test_decode_plan_rule(b, t, hkv, g, hd, split):
+    """The launch rule at S = 1 (a decode step) on a 132-SM card: one chunk
+    row a block (G query rows, the narrow body), T split in clusters of at
+    most 8 blocks while the doubled grid fits one wave of 3 narrow blocks
+    per SM and each block keeps a 64-position tile, one launch."""
+    plan = pa.attention_plan(b, 1, t, hkv, g, hd, 132)
+    assert (plan.bq, plan.split, plan.launches) == (1, split, 1)
+    assert plan.blocks == b * hkv * split
+    assert plan.split == 1 or plan.blocks <= 3 * 132
 
 
 def test_attention_plan_rejects_what_no_block_holds():
@@ -173,7 +216,11 @@ def test_block_positions_hold_every_valid_position():
             (4096, 32, 4096, 4064, 0, True), (45, 7, 16, 9, 5, True),
             (70, 16, 56, 40, 0, False), (70, 16, 56, 40, 9, False),
             (40, 5, 0, 0, 0, True), (40, 5, 3, 0, 0, True),
-            (64, 8, 100, 20, 4, True)]:
+            (64, 8, 100, 20, 4, True),
+            # decode steps: one row at q_pos = kv_len - 1 (kv_len 0: -1)
+            (512, 1, 512, 511, 0, True), (512, 1, 17, 16, 0, True),
+            (4096, 1, 3000, 2999, 700, True), (40, 1, 5, 4, 9, True),
+            (40, 1, 0, -1, 0, True), (40, 1, 0, -1, 3, True)]:
         valid = ref.chunk_valid_mask(1, s, t, kv_len, q_pos, window, causal)[0]
         bq = pa.block_rows(s, 4, 64)
         for i0 in range(0, s, bq):

@@ -381,6 +381,10 @@ def test_cuda_prefill_attention_matches_plain(dtype):
 
 @pytest.mark.cuda
 def test_cuda_prefill_one_row_equals_decode():
+    """A one-row chunk at q_pos = kv_len - 1 through the prefill wrapper
+    equals the decode wrapper's step bit for bit: both launch the one
+    attention body with the same plan, decode reading q_pos from the
+    length."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import prefill_attention as pa
     _need_card()
@@ -534,9 +538,10 @@ def test_cuda_prefill_attention_long_contexts_match_plain(dtype):
 
 @pytest.mark.cuda
 def test_cuda_prefill_one_row_equals_decode_at_the_main_shape():
-    """A one-row chunk at q_pos = kv_len - 1 through the prefill body (a
-    T split of 2) equals the decode body bit for bit at the LM's decode
-    shape (B 4, T 512, Hkv 10, G 4, hd 128), contiguous and paged."""
+    """A one-row chunk at q_pos = kv_len - 1 through the prefill wrappers
+    equals the decode wrappers' step bit for bit at the LM's decode shape
+    (B 4, T 512, Hkv 10, G 4, hd 128), contiguous and paged: the same
+    body, plan and split, q_pos given or read from the length."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import prefill_attention as pa
     from repro_torch.kernels import ref
@@ -554,6 +559,51 @@ def test_cuda_prefill_one_row_equals_decode_at_the_main_shape():
              pa.prefill_attention_packed(q, kg, vg, vs, kv, kv - 1))):
         torch.cuda.synchronize()
         assert torch.equal(dec, pre)
+
+
+# (B, T, Hkv, lengths, window): decode at the LM's G and hd (4, 128) past
+# the old panel body's cap of ~14,500 positions, with a window and a
+# cache_len 0 row
+LONG_DECODE = [(4, 4096, 10, (4096, 3000, 1000, 17), 0),
+               (3, 16384, 2, (16384, 0, 9001), 0),
+               (2, 16384, 1, (16384, 12000), 700)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_attention_long_contexts_match_plain(dtype):
+    """Kernels 6 and 7 at T 4,096 and 16,384: dots at every position equal
+    the plain version's, outputs within TOL with equal signs, cache_len 0
+    rows give 0, and paged (shuffled 64-position pages, sentinel entries
+    past each row's length) equals contiguous bit for bit."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    _need_card()
+    ps = 64
+    for b, t, hkv, lens, window in LONG_DECODE:
+        pool = b * t // ps + 3
+        q, k, v, vs, pt = _paged_case(t + b + window, b, ps, t // ps, pool,
+                                      hkv, 4, 128, lens)
+        q, k, v, vs, pt = [a.cuda() for a in (q.to(dtype), k, v, vs, pt)]
+        kv = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        kg, vg = ref.gather_pages(k, pt), ref.gather_pages(v, pt)
+        got, dots = da.decode_attention_packed(q, kg, vg, vs, kv,
+                                               window=window,
+                                               return_dots=True)
+        want, wdots = da.decode_attention_packed_plain(
+            q, kg, vg, vs, kv, window=window, return_dots=True)
+        paged, pdots = da.decode_attention_packed_paged(
+            q, k, v, vs, pt, kv, window=window, return_dots=True)
+        served = da.decode_attention_packed_paged(q, k, v, vs, pt, kv,
+                                                  window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(dots, wdots) and torch.equal(pdots, dots)
+        assert torch.equal(paged, got) and torch.equal(served, got)
+        tol = TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        assert torch.equal(got >= 0, want >= 0)
+        assert (got[kv == 0] == 0).all()
 
 
 # kernel 10, the selective scan: (B, T, D, N, with h0). falcon-mamba-7b's
