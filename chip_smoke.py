@@ -16,8 +16,10 @@ Phases, each of which raises on failure (nothing is caught):
                versions and to the contiguous kernels on the gathered
                panels, dots at every position included; kernels 1-3 also
                at the LM's GEMM shapes (phi3-medium-14b, falcon-mamba-7b)
-               at 4 and 32 rows and kernels 2-3 at the edges of their
-               dispatch rule (`gemm_plan`), one launch per call; the
+               at 4 and 32 rows and at the edges of their dispatch rule
+               (`gemm_plan`; kernel 1 at 1, 8, 9, 16 and 33 rows too, K
+               off a word, KW % 4 != 0, and its small-M kernel forced to
+               every K split and width), one launch per call; the
                prefill kernels (8, 9) at T 2,048 and 4,096, past ~1,770,
                where a (32, T) score panel no longer fits shared memory (a
                window shorter than the chunk, kv_len 0 rows, shuffled pools
@@ -106,7 +108,8 @@ Phases, each of which raises on failure (nothing is caught):
                versions: tokens equal, kernel 10 launched layers x (chunks +
                decode steps) times, kernel 2 three times that, nothing
                else; kernel 10's times at the decode, chunk and long
-               prefill shapes beside its bound and plain version; all 64
+               prefill shapes beside its bound, its float64-exp floor and
+               its plain version; all 64
                layers (drawn and frozen one at a time) on the same
                traffic: decode tokens/s, TTFT, ITL, resident weight and
                state bytes, peak memory, one profiled decode step
@@ -125,6 +128,12 @@ kernel, long-context prefill and long-context decode times), of this
 checkout or of the port under DIR (another tree's src, such as a parent
 commit's unpacked into build/parent: run parent, change, change, parent in
 one call to compare them on one card).
+
+    python3 chip_smoke.py --gemm-scan-times [--port-src DIR]
+
+does the same for kernels 1 and 10: kernel 1 at phi3's q, K|V and gate|up
+at 4 and 32 rows and at the MLP and CNN output layers, kernel 10 at the
+decode, chunk and 4,096-step prefill shapes.
 """
 from __future__ import annotations
 
@@ -147,6 +156,9 @@ INT8_TC_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor cores
 FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
 POPC_PER_CLOCK_PER_SM = 16         # 32-bit popc issue rate, compute 9.0
 EXP_PER_CLOCK_PER_SM = 16          # SFU exp issue rate, compute 9.0
+FP64_PER_CLOCK_PER_SM = 64         # float64 FMA issue rate, compute 9.0
+FP64_OPS_PER_EXP = 17              # float64 instructions of CUDA's double
+                                   # exp (its sm_90a SASS): kernel 10's floor
 GEMMS = ("binary_gemm_packed", "binary_gemm_packed_rhs", "binary_gemm_fused")
 MXU = "binary_gemm_mxu"
 SCAN = "selective_scan"
@@ -397,20 +409,23 @@ def bound_by(row):
 
 
 def plan_text(kn, m, k, n, sms):
-    """The dispatch rule's choice for kernels 2 and 3, for the printed rows."""
+    """The dispatch rule's choice (`gemm_plan`), for the printed rows."""
     from repro_torch.kernels import binary_gemm as bg
-    if kn not in ("binary_gemm_packed_rhs", MXU, "binary_gemm_fused"):
-        return "popc tiles"
+    if kn == "binary_gemm_packed" and not hasattr(bg, "PLANNED"):
+        return "popc tiles"        # kernel 1 of a port from before its plan
     p = bg.gemm_plan(kn, m, n, k, sms)
-    return (f"{'small-M' if p.small_m else 'TC tiles'} split {p.split} "
-            f"blocks {p.blocks}")
+    kind = "TC tiles"
+    if p.small_m:
+        kind = "small-M b1" if kn == "binary_gemm_packed" else "small-M"
+    return f"{kind} split {p.split} blocks {p.blocks}"
 
 
 # the LM's popcount GEMMs (kernel, lhs, K, N, what), timed at decode and
-# chunk rows apart from the kernels line: phi3-medium-14b's K|V and gate|up
-# (packed lhs), wo and w_down (bf16 lhs); falcon-mamba-7b's in_proj,
-# x_proj and out_proj (bf16 lhs)
-LM_GEMMS = [("binary_gemm_packed", "packed", 5120, 1280, "phi3.kv"),
+# chunk rows apart from the kernels line: phi3-medium-14b's q, K|V and
+# gate|up (packed lhs), wo and w_down (bf16 lhs); falcon-mamba-7b's
+# in_proj, x_proj and out_proj (bf16 lhs)
+LM_GEMMS = [("binary_gemm_packed", "packed", 5120, 5120, "phi3.q"),
+            ("binary_gemm_packed", "packed", 5120, 1280, "phi3.kv"),
             ("binary_gemm_packed", "packed", 5120, 17920, "phi3.gate"),
             ("binary_gemm_packed_rhs", "bf16", 5120, 5120, "phi3.wo"),
             ("binary_gemm_packed_rhs", "bf16", 17920, 5120, "phi3.down"),
@@ -430,15 +445,26 @@ REGIME_EDGES = [(kn, lhs, m, k, n)
                                 ("binary_gemm_fused", "bf16"))] + [
     ("binary_gemm_packed_rhs", "bf16", m, 8190, 200) for m in (1, 4, 32)] + [
     ("binary_gemm_packed_rhs", "float", 12831, 300, 301)]
+# kernel 1 at the edges of its rule (M, K, N), beside the LM rows' 4 and 32:
+# the packed small-M kernel at 1 to 32 rows on phi3's q, K|V and gate|up,
+# tiles from 33; K off a word with KW % 4 == 0 (1000, 3961) and KW % 4 != 0
+# (300: tiles at every M)
+PACKED_EDGES = [(m, 5120, n) for m in (1, 8, 9, 16, 33)
+                for n in (5120, 1280, 17920)] + [
+    (m, k, n) for m in (1, 9, 32) for k, n in ((1000, 33), (3961, 130),
+                                               (300, 77))]
 
 
-def lm_gemm_times(dev_gen, popc_per_s, sms):
-    """Kernels 1 and 2 at the LM's shapes (LM_GEMMS) at decode and chunk
-    rows: device, wrapper, plain, library and bound times (`shape_times`,
-    `bound`), the library's dots held to the kernel's first."""
+def lm_gemm_times(dev_gen, popc_per_s, sms, kernels=GEMMS):
+    """Kernels 1 and 2 (those of `kernels`) at the LM's shapes (LM_GEMMS) at
+    decode and chunk rows: device, wrapper, plain, library and bound times
+    (`shape_times`, `bound`), the library's dots held to the kernel's
+    first."""
     rows = []
     for m, rows_of in ((LM_SLOTS, "decode"), (LM_CHUNK, "chunk")):
         for kn, lhs, k, n, what in LM_GEMMS:
+            if kn not in kernels:
+                continue
             op = Operands(dev_gen, m, k, n)
             lib_name, lib_fn = library_call(op)
             check_equal(f"{lib_name} vs kernel dots {what}",
@@ -453,6 +479,57 @@ def lm_gemm_times(dev_gen, popc_per_s, sms):
                          **bound(kn, lhs, m, k, n, popc_per_s)})
             del op, lib_fn
     return rows
+
+
+def print_gemm_rows(title, rows):
+    """GEMM time rows (`lm_gemm_times`) under a title."""
+    print(title)
+    for r in rows:
+        print(f"  {r['where']:16s} {r['kernel']:24s} {r['lhs']:6s} "
+              f"M={r['M']:3d} K={r['K']:5d} N={r['N']:5d} kernel "
+              f"{r['ms']:.4f} (wrapper {r['wrapper_ms']:.4f})  plain "
+              f"{r['plain_ms']:.3f}  {r['library']} {r['library_ms']:.4f} "
+              f"(wall {r['library_wall_ms']:.4f})  bound {r['bound_ms']:.5f} "
+              f"({bound_by(r)})  {r['plan']}")
+
+
+def packed_split_checks(dev_gen, sms):
+    """Kernel 1's packed small-M kernel with its plan forced to each K split
+    (1, 2, 4, 8 blocks of a cluster) and each width (32 to 256 channels a
+    block), at phi3's K|V shape and at K 8190, N 200, at 4 and 32 rows: every
+    result equals the plain version's (tolerance 0), one launch a call.
+    Returns the largest error (0)."""
+    from dataclasses import replace
+    from unittest import mock
+    from repro_torch.kernels import binary_gemm as bg
+    kn, calls = "binary_gemm_packed", 0
+    for m in (LM_SLOTS, LM_CHUNK):
+        for k, n in ((5120, 1280), (8190, 200)):
+            op = Operands(dev_gen, m, k, n)
+            want = op.call(kn, "packed", plain=True)
+            plan = bg.gemm_plan(kn, m, n, k, sms)
+            for split in (1, 2, 4, 8):
+                for block_n in (32, 64, 128, 256):
+                    forced = replace(plan, split=split, block_n=block_n,
+                                     blocks=-(-n // block_n) * split)
+                    with mock.patch.object(bg, "gemm_plan",
+                                           lambda *_, forced=forced: forced):
+                        before = bg.launches[kn]
+                        got = op.call(kn, "packed")
+                        torch.cuda.synchronize()
+                    if bg.launches[kn] - before != 1:
+                        raise AssertionError(f"{kn}: not one launch")
+                    d = max_abs_diff(got, want, words=False)
+                    if d:
+                        raise AssertionError(
+                            f"{kn} ({m},{k},{n}) split {split} block_n "
+                            f"{block_n} differs from its plain version by {d}")
+                    calls += 1
+    print(f"check {kn}: the small-M kernel at every K split (1, 2, 4, 8) and "
+          f"width (32, 64, 128, 256 channels a block), {calls} forced plans at "
+          f"M {LM_SLOTS} and {LM_CHUNK}, K|V (5120, 1280) and (8190, 200): "
+          f"max_abs_err=0")
+    return 0
 
 
 def random_bn(gen, n, fan_in, spread, dev):
@@ -2240,19 +2317,22 @@ def ssm_timed_run(base_cfg, seed, dev, card):
     return rep
 
 
-def scan_bound(b, t, d, n, h0, xi_bytes, exp_per_s):
+def scan_bound(b, t, d, n, h0, xi_bytes, exp_per_s, fp64_per_s):
     """Least time of one scan: the bytes it must move (dt, xi, B, C, A, h0
     read once; y, h_final written once) over HBM rate, and its B*T*D*N exps
-    over the card's exp rate (16 per clock per SM)."""
+    over the card's exp rate (16 per clock per SM). Beside it the floor of
+    the exact design, `fp64_ms`: each exp a float64 exp (FP64_OPS_PER_EXP
+    float64 instructions) on the card's float64 lanes."""
     nbytes = b * t * d * (4 + xi_bytes + 4) + 2 * b * t * n * 4 + d * n * 4 \
         + (2 if h0 else 1) * b * d * n * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = b * t * d * n / exp_per_s * 1e3
     return {"bytes_ms": t_bytes, "ops_ms": t_ops,
-            "bound_ms": max(t_bytes, t_ops)}
+            "bound_ms": max(t_bytes, t_ops),
+            "fp64_ms": b * t * d * n * FP64_OPS_PER_EXP / fp64_per_s * 1e3}
 
 
-def scan_kernel_times(dev_gen, dev, card, exp_per_s, di, n):
+def scan_kernel_times(dev_gen, dev, card, exp_per_s, fp64_per_s, di, n):
     """Kernel 10 at the decode step, the prefill chunk and a long prefill
     (bf16 xi, as the path gives it): device ms, wrapper ms, plain ms, bound.
     No single PyTorch call computes a selective scan: library none. Returns
@@ -2262,7 +2342,9 @@ def scan_kernel_times(dev_gen, dev, card, exp_per_s, di, n):
     rows = []
     print(f"{SCAN} times on {card} (ms; kernel: device_ms; wrapper and plain:"
           f" CUDA events; bound = max(bytes / 3.35 TB/s, exps / "
-          f"{exp_per_s / 1e12:.3f} T/s); no library call computes it)")
+          f"{exp_per_s / 1e12:.3f} T/s); float64-exp floor = exps x "
+          f"{FP64_OPS_PER_EXP} / {fp64_per_s / 1e12:.3f} T FP64/s; no library "
+          f"call computes it)")
     for (b, t), with_h0, where, per_layer in (
             ((LM_SLOTS, 1), True, "decode", 1), ((1, LM_CHUNK), True,
                                                   "chunk", 1),
@@ -2272,12 +2354,13 @@ def scan_kernel_times(dev_gen, dev, card, exp_per_s, di, n):
                "per_layer": per_layer, "library": None,
                **shape_times(lambda ops=ops: ss.selective_scan(*ops), SCAN,
                              lambda ops=ops: ss.selective_scan_plain(*ops)),
-               **scan_bound(b, t, di, n, with_h0, 2, exp_per_s)}
+               **scan_bound(b, t, di, n, with_h0, 2, exp_per_s, fp64_per_s)}
         rows.append(row)
         print(f"  {SCAN} {where:12s} B={b} T={t:4d} D={di} N={n} kernel "
               f"{row['ms']:.4f} (wrapper {row['wrapper_ms']:.4f})  plain "
               f"{row['plain_ms']:.3f}  bound {row['bound_ms']:.5f} "
-              f"({'bytes' if row['bytes_ms'] >= row['ops_ms'] else 'exps'})")
+              f"({'bytes' if row['bytes_ms'] >= row['ops_ms'] else 'exps'})"
+              f"  float64-exp floor {row['fp64_ms']:.5f}")
         del ops
     total = {"ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
              "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": None,
@@ -2289,7 +2372,7 @@ def scan_kernel_times(dev_gen, dev, card, exp_per_s, di, n):
     return rows, total
 
 
-def ssm_phase(seed, dev, card, dev_gen, exp_per_s):
+def ssm_phase(seed, dev, card, dev_gen, exp_per_s, fp64_per_s):
     """Phase 9: kernel 10 against its plain version, falcon-mamba-7b at full
     width and depth 2 through the kernels and the plain versions, kernel
     10's times, the 64-layer timed run. Returns (max error, main-path
@@ -2300,7 +2383,8 @@ def ssm_phase(seed, dev, card, dev_gen, exp_per_s):
     di, n = cfg.expand * cfg.d_model, cfg.ssm_state
     err = scan_kernel_checks(dev_gen, dev, di, n)
     launches, n_chunks, steps = ssm_engine_check(cfg, seed, dev)
-    rows, total = scan_kernel_times(dev_gen, dev, card, exp_per_s, di, n)
+    rows, total = scan_kernel_times(dev_gen, dev, card, exp_per_s,
+                                    fp64_per_s, di, n)
     timed = ssm_timed_run(cfg, seed, dev, card)
     print(f"phase 9 (ssm): {time.perf_counter() - t0:.1f} s")
     return err, launches, total, {"launches": launches, "chunks": n_chunks,
@@ -2329,6 +2413,78 @@ def attention_times(card, popc_per_s) -> int:
     return 0
 
 
+def packed_plan_sweep(dev_gen, sms):
+    """Kernel 1's small-M kernel at each width (32, 64, 128, 256 channels a
+    block) and K split (1, 2, 4, 8) on phi3's q, K|V and gate|up at 4 and
+    32 rows (the plan forced, device ms, one launch a call, each result
+    equal to the plan's), beside the width and split `gemm_plan` picks: the
+    measurement its rule rests on."""
+    from dataclasses import replace
+    from unittest import mock
+    from repro_torch.kernels import binary_gemm as bg
+    kn, rows = "binary_gemm_packed", []
+    for m in (LM_SLOTS, LM_CHUNK):
+        for kname, _, k, n, what in LM_GEMMS:
+            if kname != kn:
+                continue
+            op = Operands(dev_gen, m, k, n)
+            plan = bg.gemm_plan(kn, m, n, k, sms)
+            want = op.call(kn, "packed")
+            ms = {}
+            for block_n in (32, 64, 128, 256):
+                for split in (1, 2, 4, 8):
+                    forced = replace(plan, split=split, block_n=block_n,
+                                     blocks=-(-n // block_n) * split)
+                    with mock.patch.object(bg, "gemm_plan",
+                                           lambda *_, forced=forced: forced):
+                        check_equal(f"{kn} {block_n}/{split}",
+                                    op.call(kn, "packed"), want)
+                        ms[(block_n, split)] = device_ms(
+                            lambda: op.call(kn, "packed"), wrapper=kn)
+            rows.append({"where": f"{what}.M{m}", "M": m, "K": k, "N": n,
+                         "plan": (plan.block_n, plan.split), "ms": ms})
+    return rows
+
+
+def gemm_scan_times(card, popc_per_s, exp_per_s, fp64_per_s, sms) -> int:
+    """Kernels 1 and 10 alone (`--gemm-scan-times`): kernel 1 at the LM's
+    packed-lhs shapes (phi3's q, K|V, gate|up) at decode and chunk rows and
+    at the MLP and CNN output layers, kernel 10 at the decode, chunk and
+    long-prefill shapes, with the port imported from the checkout or from
+    `--port-src`."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.bnn_paper import BNN_CIFAR10, BNN_MNIST
+    from repro_torch.kernels import binary_gemm as bg
+    dev = torch.device("cuda", 0)
+    dev_gen = torch.Generator(device=dev).manual_seed(0)
+    kn = "binary_gemm_packed"
+    print(f"gemm and scan times of the port in {Path(bg.__file__).parents[2]}")
+    rows = lm_gemm_times(dev_gen, popc_per_s, sms, kernels=(kn,))
+    for kname, lhs, m, k, n, where in main_path_shapes(BNN_MNIST, BNN_CIFAR10):
+        if kname == kn:
+            op = Operands(dev_gen, m, k, n)
+            lib_name, lib_fn = library_call(op)
+            rows.append({"kernel": kn, "lhs": lhs, "M": m, "K": k, "N": n,
+                         "where": where, "library": lib_name,
+                         "plan": plan_text(kn, m, k, n, sms),
+                         **shape_times(lambda: op.call(kn, lhs), kn,
+                                       lambda: op.call(kn, lhs, plain=True),
+                                       lib_fn),
+                         **bound(kn, lhs, m, k, n, popc_per_s)})
+    print_gemm_rows(f"{kn} times on {card} (ms per launch, as phase 7):", rows)
+    if hasattr(bg, "PLANNED"):
+        print(f"{kn} plan sweep on {card} (small-M kernel, device ms at "
+              f"channels a block / K split; * the plan's pick):")
+        for r in packed_plan_sweep(dev_gen, sms):
+            print(f"  {r['where']:14s} " + "  ".join(
+                f"{bn}/{sp} {t:.4f}{'*' if (bn, sp) == r['plan'] else ''}"
+                for (bn, sp), t in r["ms"].items()))
+    cfg = get_config(SSM_ARCH)
+    scan_kernel_times(dev_gen, dev, card, exp_per_s, fp64_per_s,
+                      cfg.expand * cfg.d_model, cfg.ssm_state)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2338,11 +2494,16 @@ def main() -> int:
                     help="only build the kernels and time the attention "
                          "kernels (the lm kernel, long-context prefill and "
                          "long-context decode times), then stop")
+    ap.add_argument("--gemm-scan-times", action="store_true",
+                    help="only build the kernels and time kernels 1 and 10 "
+                         "(binary_gemm_packed at its LM and output-layer "
+                         "shapes, selective_scan at its decode, chunk and "
+                         "long-prefill shapes), then stop")
     ap.add_argument("--port-src", type=Path, default=None,
                     help="import the port from this src directory instead "
-                         "of the checkout's (with --attention-times: time "
-                         "another tree's kernels, such as a parent "
-                         "commit's, in the same call)")
+                         "of the checkout's (with --attention-times or "
+                         "--gemm-scan-times: time another tree's kernels, "
+                         "such as a parent commit's, in the same call)")
     args = ap.parse_args()
     if args.port_src is not None:
         sys.path.insert(0, str(args.port_src.resolve()))
@@ -2362,6 +2523,8 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     max_mhz = float(smi("clocks.max.sm").split()[0])
     popc_per_s = sms * POPC_PER_CLOCK_PER_SM * max_mhz * 1e6
+    exp_per_s = sms * EXP_PER_CLOCK_PER_SM * max_mhz * 1e6
+    fp64_per_s = sms * FP64_PER_CLOCK_PER_SM * max_mhz * 1e6
     print(f"device: {name}, count {count}, {sms} SMs, max SM clock "
           f"{max_mhz:.0f} MHz, popc peak {popc_per_s / 1e12:.3f} T/s")
     print(card)
@@ -2384,6 +2547,8 @@ def main() -> int:
                 print(f"    {line.strip()}")
     if args.attention_times:
         return attention_times(card, popc_per_s)
+    if args.gemm_scan_times:
+        return gemm_scan_times(card, popc_per_s, exp_per_s, fp64_per_s, sms)
 
     # --------------------------------------------- kernels vs plain on card
     gen = torch.Generator().manual_seed(args.seed)
@@ -2400,6 +2565,8 @@ def main() -> int:
         checks += [(kn, lhs, m, k, n, where) for kn, lhs, k, n, _ in LM_GEMMS]
         checks.append(("binary_gemm_fused", "bf16", m, 300, 77, "ragged"))
     checks += [(*edge, "edge") for edge in REGIME_EDGES]
+    checks += [("binary_gemm_packed", "packed", m, k, n, "edge")
+               for m, k, n in PACKED_EDGES]
     err = {kn: 0 for kn in REPLACES}
     dev_gen = torch.Generator(device=dev).manual_seed(args.seed)
     operands = {}
@@ -2424,6 +2591,7 @@ def main() -> int:
     main_keys = {(m, k, n) for _, _, m, k, n, _ in shapes}
     for key in [key for key in operands if key not in main_keys]:
         del operands[key]                  # kept: the main paths' operands
+    packed_split_checks(dev_gen, sms)
     from repro_torch.configs.base import get_config
     lm_cfg = get_config(LM_ARCH)
     err.update(lm_kernel_checks(lm_cfg, dev_gen, dev))
@@ -2569,15 +2737,8 @@ def main() -> int:
     operands.clear()
     report["shapes"] = rows
     lm_gemm_rows = lm_gemm_times(dev_gen, popc_per_s, sms)
-    print(f"lm gemm times on {card} (ms per launch, as above; not in the "
-          f"kernels line):")
-    for r in lm_gemm_rows:
-        print(f"  {r['where']:16s} {r['kernel']:24s} {r['lhs']:6s} "
-              f"M={r['M']:3d} K={r['K']:5d} N={r['N']:5d} kernel "
-              f"{r['ms']:.4f} (wrapper {r['wrapper_ms']:.4f})  plain "
-              f"{r['plain_ms']:.3f}  {r['library']} {r['library_ms']:.4f} "
-              f"(wall {r['library_wall_ms']:.4f})  bound {r['bound_ms']:.5f} "
-              f"({bound_by(r)})  {r['plan']}")
+    print_gemm_rows(f"lm gemm times on {card} (ms per launch, as above; not "
+                    f"in the kernels line):", lm_gemm_rows)
     report["lm_gemm_shapes"] = lm_gemm_rows
 
     fwd = {}
@@ -2680,9 +2841,8 @@ def main() -> int:
             totals[MXU][key] += row[key]
 
     # ------------------------------------------------------------------- ssm
-    exp_per_s = sms * EXP_PER_CLOCK_PER_SM * max_mhz * 1e6
     err[SCAN], ssm_launches, totals[SCAN], report["ssm"] = ssm_phase(
-        args.seed, dev, card, dev_gen, exp_per_s)
+        args.seed, dev, card, dev_gen, exp_per_s, fp64_per_s)
     for kn in REPLACES:
         path_launches[kn] += ssm_launches[kn]
 

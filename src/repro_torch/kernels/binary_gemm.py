@@ -16,22 +16,25 @@ and the dispatch the ops call (port of `repro.kernels.binary_gemm`).
     wire format once per call, then `binary_gemm_packed_rhs`'s kernels run x
     against those words with a float32 store (the dots are exact).
 
-The kernels are CUDA C++ for sm_90a in `csrc/binary_gemm.cu`, with the int8
+The kernels are CUDA C++ for sm_90a in `csrc/binary_gemm.cu`, with the
 tensor-core tile code in `csrc/mma_tile.cuh`; the header says what bounds
-the kernels and what the design does about it. `binary_gemm_packed` is an
-XNOR-popcount tile kernel. `binary_gemm_packed_rhs`, `binary_gemm_mxu` and
-`binary_gemm_fused` run one of two kernels, chosen by `gemm_plan`, a fixed
-rule of M, N, K and the card's SM count:
+the kernels and what the design does about it. Each wrapper runs one of
+its kernels, chosen by `gemm_plan`, a fixed rule of M, N, K and the card's
+SM count:
 
-  * small M (`binary_gemm_packed_rhs` and `binary_gemm_mxu` at M <= 32,
-    the LM's decode and chunk rows): a block packs the M real rows of its
-    K slice once and streams its channels' weight words past them
-    (popcounts);
-  * otherwise (the convs, every `binary_gemm_fused` call): int8
-    tensor-core tiles of 64 rows and 128 or 256 channels, the packed words
-    expanded to +-1 bytes in shared memory.
+  * small M, packed lhs (`binary_gemm_packed` at M <= 32, the LM's q, K, V,
+    gate and up at decode and chunk rows): a block copies the M rows of its
+    K slice once and streams its channels' weight words past them into the
+    single-bit tensor cores (AND-popcounts, no unpacking);
+  * small M, float lhs (`binary_gemm_packed_rhs` and `binary_gemm_mxu` at
+    M <= 32, the LM's wo, w_down and projections): a block packs the M
+    real rows of its K slice once and streams its channels' weight words
+    past them (popcounts);
+  * otherwise (the convs, the output layers, every `binary_gemm_fused`
+    call): int8 tensor-core tiles of 64 rows and 128 or 256 channels, the
+    packed words expanded to +-1 bytes in shared memory.
 
-Where either would launch too few blocks for the card, K is split over a
+Where any would launch too few blocks for the card, K is split over a
 thread-block cluster and the partial dots are summed through distributed
 shared memory, inside the same launch: every call is one launch. There is
 no tuning cache and no fallback: a launch that fails raises.
@@ -61,14 +64,19 @@ _PLAIN_CHUNK = 1 << 24
 # float lhs types the kernels read, by the code the C interface takes (the
 # sign of a bf16 activation is exact, so it is read as it is, not cast)
 _LHS_KIND = {torch.float32: 1, torch.bfloat16: 2}
-# gemm_plan's rule: the small-M kernel's rows and shared memory, the tensor-
+# gemm_plan's rule: the small-M kernels' rows and shared memory, the tensor-
 # core tile and its K stage, the largest portable cluster, and the least K
-# per block of a split (in 4-word groups, in tensor-core stages)
+# per block of a split (in 4-word groups, in tensor-core stages); the packed
+# small-M kernel's channels per warp and K words per warp step
 SMALL_M_ROWS = 32
 _SMEM_BYTES = 227 * 1024
 _TC_BM, _TC_BN, _TC_WIDE_BN, _TC_BK = 64, 128, 256, 128
 _CLUSTER_MAX = 8
 _MIN_SMALL_M_UNITS, _MIN_TC_STAGES = 8, 2
+_PK_WARP_N, _PK_GROUP = 32, 16
+# the kernels whose launch `gemm_plan` decides
+PLANNED = ("binary_gemm_packed", "binary_gemm_packed_rhs", "binary_gemm_mxu",
+           "binary_gemm_fused")
 
 
 def reset_launches() -> None:
@@ -78,9 +86,8 @@ def reset_launches() -> None:
 
 @dataclass(frozen=True)
 class GemmPlan:
-    """How one `binary_gemm_packed_rhs`, `binary_gemm_mxu` or
-    `binary_gemm_fused` call runs: the small-M kernel or tensor-core tiles,
-    `split` blocks per cluster along K, `block_n` channels per block,
+    """How one binary GEMM call runs: a small-M kernel or tensor-core
+    tiles, `split` blocks per cluster along K, `block_n` channels per block,
     `blocks` in the grid, and always one launch."""
     small_m: bool
     split: int
@@ -99,26 +106,54 @@ def _split(blocks: int, units: int, min_units: int, sms: int) -> int:
     return split
 
 
+def _packed_lhs_stride(ks: int) -> int:
+    """The packed small-M kernel's lhs row stride in shared memory (words):
+    whole 16-word groups, 16 mod 32 (csrc/binary_gemm.cu)."""
+    whole = -(-ks // _PK_GROUP) * _PK_GROUP
+    return whole if whole % 32 == 16 else whole + 16
+
+
 def gemm_plan(kernel: str, m: int, n: int, k: int, sms: int,
-              rhs_aligned: bool = True) -> GemmPlan:
-    """The fixed rule that picks the float-lhs / fused kernel and its split.
+              aligned: bool = True) -> GemmPlan:
+    """The fixed rule that picks each binary GEMM's kernel and its split.
+
+    `binary_gemm_packed` at M <= SMALL_M_ROWS runs the packed small-M
+    kernel where its operands are 16-byte aligned words (KW % 4 == 0,
+    `aligned`: both operands' base) and the lhs slice fits in shared
+    memory: the most channels per block (256, 128, 64 or 32) that still
+    give every SM a block, and where even 32 do not, K split over a cluster
+    (doubled while the grid has fewer blocks than half the SMs and each
+    block keeps at least one 16-word group: a split adds a reduction
+    through distributed shared memory, and on phi3's K|V 80 blocks beat
+    160, `chip_smoke.py --gemm-scan-times`). Everything else runs the
+    tensor-core tiles as kernel 2's dots do (below).
 
     `binary_gemm_packed_rhs`, and `binary_gemm_mxu` against its signed w
     (the same kernels with a float32 store), at M <= SMALL_M_ROWS run the
     small-M kernel where the weight rows are 16-byte aligned words (KW % 4
-    == 0, `rhs_aligned`) and the packed lhs slice fits in shared memory,
+    == 0, `aligned`) and the packed lhs slice fits in shared memory,
     with 32 channels per block, or 64 where N / 32 is at least 3 blocks per
     SM (fewer packs of the same lhs); everything else runs tensor-core tiles
     of 64 rows, 256 channels for the two where N > 128 and such tiles fill
     the card without a split (the float lhs read by half as many N tiles),
     else 128. Either splits K over a cluster (`_split`) where its blocks
     are fewer than 1.5 per SM."""
-    if kernel not in ("binary_gemm_packed_rhs", "binary_gemm_mxu",
-                      "binary_gemm_fused"):
+    if kernel not in PLANNED:
         raise ValueError(f"no plan for {kernel}")
     dots = kernel != "binary_gemm_fused"
     kw = packed_width(k)
-    if dots and m <= SMALL_M_ROWS and kw % 4 == 0 and rhs_aligned:
+    if kernel == "binary_gemm_packed":
+        if m <= SMALL_M_ROWS and kw % 4 == 0 and aligned:
+            block_n = next((bn for bn in (256, 128, 64)
+                            if -(-n // bn) >= sms), _PK_WARP_N)
+            blocks, split, groups = -(-n // block_n), 1, -(-kw // _PK_GROUP)
+            while (split < _CLUSTER_MAX and 2 * blocks * split < sms
+                   and groups >= 2 * split):
+                split *= 2
+            ks = -(-kw // (4 * split)) * 4
+            if 4 * m * (_packed_lhs_stride(ks) + block_n) <= _SMEM_BYTES:
+                return GemmPlan(True, split, block_n, blocks * split)
+    elif dots and m <= SMALL_M_ROWS and kw % 4 == 0 and aligned:
         block_n = 64 if -(-n // 32) >= 3 * sms else 32
         blocks = -(-n // block_n)
         split = _split(blocks, kw // 4, _MIN_SMALL_M_UNITS, sms)
@@ -135,8 +170,10 @@ def gemm_plan(kernel: str, m: int, n: int, k: int, sms: int,
 
 
 def _plan(kernel: str, a: torch.Tensor, b: torch.Tensor, k: int) -> GemmPlan:
-    return gemm_plan(kernel, a.shape[0], b.shape[0], k,
-                     sm_count(a.device), b.data_ptr() % 16 == 0)
+    aligned = b.data_ptr() % 16 == 0 and (
+        kernel != "binary_gemm_packed" or a.data_ptr() % 16 == 0)
+    return gemm_plan(kernel, a.shape[0], b.shape[0], k, sm_count(a.device),
+                     aligned)
 
 
 def _vec(a: torch.Tensor, k: int) -> int:
@@ -240,8 +277,10 @@ def binary_gemm_packed(a: torch.Tensor, b: torch.Tensor,
     m, (n, kw) = a.shape[0], b.shape
     out = torch.empty((m, n), dtype=torch.int32, device=a.device)
     if m and n:
+        plan = _plan("binary_gemm_packed", a, b, k)
         _launch("binary_gemm_packed", a, a.data_ptr(), b.data_ptr(),
-                out.data_ptr(), m, n, kw, k)
+                out.data_ptr(), m, n, kw, k, int(plan.small_m), plan.split,
+                plan.block_n)
     return out
 
 

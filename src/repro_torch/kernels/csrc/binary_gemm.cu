@@ -14,8 +14,8 @@
 // where x >= 0 (so -0.0 is +1), -1 below 0 and for NaN.
 //
 // Three kernels; the wrapper (kernels/binary_gemm.py, `gemm_plan`) picks the
-// float-lhs kernel and the split of K by a fixed rule from M, N, K and the
-// SM count. Every call is one launch (kernel 4: its signing pass, then one).
+// kernel and the split of K by a fixed rule from M, N, K and the SM count.
+// Every call is one launch (kernel 4: its signing pass, then one).
 //
 // Kernel 4 (binary_gemm_mxu, the training path's binary convs: sign(x) @
 // sign(w) with a float32 (K, N) w) is binary_gemm_packed_rhs with a float32
@@ -24,9 +24,21 @@
 // tensor-core tiles run x against those words as they run kernel 2. The
 // dots are integers of magnitude <= K < 2^24, so float32 holds them exactly.
 //
-// popc tiles (binary_gemm_packed, packed lhs). One 64x64 output tile per
-// block of 8 warps, 16 int32 accumulators per thread, K inside the block;
-// bound by popc issue (16 per clock per SM) where both operands are words.
+// Small M, packed lhs (binary_gemm_packed at M <= 32: the LM's q, K, V,
+// gate and up at decode and chunk rows, 200 launches a 40-layer phi3 decode
+// step). The weights bound it: (N, KW) words streamed once against M rows.
+// Popcounts do not keep up with that stream (M per weight word, on a pipe
+// that issues 16 a clock per SM), nor do int8 tensor cores, whose operands
+// must first be expanded from bits to bytes (8 integer ops per weight
+// word). The single-bit tensor cores (mma m16n8k256 b1, AND-popc) take the
+// words as they are: a block owns 32 to 256 channels and a slice of K,
+// copies the M real rows of its slice into shared memory once, and each
+// warp streams two 16-channel tiles of weight rows with 16-byte loads (the
+// first ones issued before the lhs copy), one mma per 16 channels, 8 lhs
+// rows and 256 positions; the xor count follows from popc(a) + popc(b) - 2
+// popc(a & b). Where N gives fewer blocks than half the SMs, K is split
+// over a cluster and the partial counts are summed through distributed
+// shared memory, as below.
 //
 // Small M (binary_gemm_packed_rhs and binary_gemm_mxu at M <= 32: the LM's
 // decode and chunk rows). The weights bound it: (N, KW) words read once
@@ -47,9 +59,10 @@
 // packs the lhs of its own K slice, so N / channels-per-block blocks read
 // the same rows (from L2).
 //
-// Tensor-core tiles (binary_gemm_packed_rhs and binary_gemm_mxu at M > 32:
-// the CNN's convs; binary_gemm_fused at every M). With a float lhs the
-// float operand is 32x wider than its bits and bytes bound the convs;
+// Tensor-core tiles (binary_gemm_packed, binary_gemm_packed_rhs and
+// binary_gemm_mxu at M > 32: the CNN's convs, the MLP and CNN output
+// layers; binary_gemm_fused at every M). With a float lhs the float
+// operand is 32x wider than its bits and bytes bound the convs;
 // popcounts would bound them at ~0.5 ms on the integer pipe, the int8
 // tensor cores do the same +-1 dots in ~0.06 ms. Each block of 8 warps
 // computes a 64-row tile of 128 channels, or of 256 where N > 128 and such
@@ -63,13 +76,13 @@
 // expand to 0 (the pad bits would add +1 each as products). The next
 // stage's raw loads are in flight while the tensor cores work on this one.
 // K is split over a cluster as above where the tiles are too few (the
-// fused chain steps have 16-64). Without a split, dots go from the
-// accumulators to device memory in 32-byte row pieces (int32, or float32
-// for kernel 4); with one, and for the fused epilogue, they go through
-// shared memory (the stages' space): each block of the cluster sums a
-// share of the rows over all blocks, then writes dots coalesced, or, fused,
-// bit = (dot >= t) != flip for 32 channels of a row in one warp and one
-// ballot per output word (channels >= N emit 1).
+// fused chain steps have 16-64, the output layers 8-16). Without a split,
+// dots go from the accumulators to device memory in 32-byte row pieces
+// (int32, or float32 for kernel 4); with one, and for the fused epilogue,
+// they go through shared memory (the stages' space): each block of the
+// cluster sums a share of the rows over all blocks, then writes dots
+// coalesced, or, fused, bit = (dot >= t) != flip for 32 channels of a row
+// in one warp and one ballot per output word (channels >= N emit 1).
 // Not yet: wgmma, TMA, a ring of stages in shared memory, one read of the
 // float lhs for all N tiles (each re-reads it from L2 where N > 256).
 #include <cooperative_groups.h>
@@ -87,76 +100,6 @@ namespace {
 constexpr int kThreads = 256;           // 8 warps, every kernel here
 constexpr int kWarps = kThreads / 32;
 using bnn::kMaxSplit;                   // portable cluster size
-
-// ---------------------------------------------------------------------------
-// popc tiles: binary_gemm_packed
-// ---------------------------------------------------------------------------
-constexpr int kBM = 64;                 // rows per block
-constexpr int kTM = kBM / kWarps;       // rows per warp
-constexpr int kBN = 64;                 // channels per block
-constexpr int kTN = kBN / 32;           // channels per lane, 32 apart
-constexpr int kKC = 16;                 // K words staged per step
-
-__global__ void __launch_bounds__(kThreads)
-popc_gemm_kernel(const uint32_t* __restrict__ a,
-                 const uint32_t* __restrict__ b,
-                 int32_t* __restrict__ out,
-                 int m, int n, int kw, int k, int n_tiles) {
-  __shared__ uint32_t sa[kBM][kKC];
-  __shared__ uint32_t sb[kBN][kKC + 1];  // odd stride: conflict-free columns
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int m0 = (blockIdx.x / n_tiles) * kBM;
-  const int n0 = (blockIdx.x % n_tiles) * kBN;
-
-  int acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0;
-
-  for (int kc0 = 0; kc0 < kw; kc0 += kKC) {
-    for (int e = tid; e < kBM * kKC; e += kThreads) {
-      const int r = e / kKC, c = e % kKC;
-      const int row = m0 + r, word = kc0 + c;
-      sa[r][c] = (row < m && word < kw)
-                     ? a[static_cast<long long>(row) * kw + word] : 0u;
-    }
-    for (int e = tid; e < kBN * kKC; e += kThreads) {
-      const int r = e / kKC, c = e % kKC;
-      const int ch = n0 + r, word = kc0 + c;
-      sb[r][c] = (ch < n && word < kw)
-                     ? b[static_cast<long long>(ch) * kw + word] : 0u;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < kKC; ++c) {
-      uint32_t av[kTM], bv[kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) av[i] = sa[warp * kTM + i][c];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) bv[j] = sb[lane + 32 * j][c];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] += __popc(av[i] ^ bv[j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int row = m0 + warp * kTM + i;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int ch = n0 + 32 * j + lane;
-      if (row < m && ch < n)
-        out[static_cast<long long>(row) * n + ch] = k - 2 * acc[i][j];
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Small M: binary_gemm_packed_rhs at M <= 32
@@ -278,6 +221,205 @@ small_m_kernel(const TA* __restrict__ a, const uint32_t* __restrict__ b,
       if (q < split) popc += cluster.map_shared_rank(part, q)[e];
     out[static_cast<long long>(row) * n + n0 + c] =
         static_cast<TO>(k - 2 * popc);
+  }
+  cluster.sync();              // keep this block's part alive for the others
+}
+
+// ---------------------------------------------------------------------------
+// Small M, packed lhs: binary_gemm_packed at M <= 32
+// ---------------------------------------------------------------------------
+constexpr int kPkTiles = 2;                 // 16-channel tiles per warp
+constexpr int kPkWarpN = 16 * kPkTiles;     // channels per warp
+constexpr int kPkGroup = 16;                // K words per warp step (4 a lane)
+
+// Row stride of the lhs slice in shared memory: whole groups of 16 words,
+// = 16 mod 32 words, so that the 16-byte reads of two rows by a quarter
+// warp (8 lanes: 2 rows x 16 words) hit 32 distinct banks
+__host__ __device__ constexpr int packed_lhs_stride(int ks) {
+  const int whole = (ks + kPkGroup - 1) / kPkGroup * kPkGroup;
+  return whole % 32 == 16 ? whole : whole + 16;
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ int popc4(uint4 v) {
+  return __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
+}
+
+// One cluster of `split` blocks per block_n = 32 (8 / kp) channels; block
+// rank r owns words [r ks, r ks + ks) of K. Warp w takes the 32 channels
+// 32 (w / kp) .. + 31 (two 16-channel tiles) and every kp-th 16-word group
+// of the slice from w % kp on. Lane (g, t) = (lane / 4, lane % 4) streams
+// words 4t .. 4t + 3 of each group of channels g and g + 8 of each tile, one
+// 16-byte load per channel, the next group's loads in flight while this one
+// is computed (the first ones while the lhs is copied in).
+// The dots run on the single-bit tensor cores: mma m16n8k256 b1 AND-popc,
+// a tile's 16 channels as A's rows, lhs rows as B's columns (kRows / 8 n8
+// tiles). A lane's k slots are 32t .. 32t + 31 and 128 + 32t .. 159 + 32t
+// in A and in B alike, so a step fills them with words q and q + 1 of the
+// lane's four (channels g, g + 8 in A, its lhs row in B): A and B pair the
+// same K position in every slot, and two steps cover the group's 512
+// positions once. popc(a ^ b) = popc(a) + popc(b) - 2 popc(a & b): each
+// lane adds its channels' word popcounts, the block its lhs rows' over the
+// slice. Words past the slice are 0 in both operands (the lhs slice is
+// zero-padded to whole groups), so they add nothing; the wire format's pad
+// bits past K are 1 in both and cancel as in the xor.
+// Shared memory: sa (m, packed_lhs_stride(ks)) lhs words, part (m, block_n)
+// the block's popc(a ^ b), added by the warps with shared atomics and
+// summed over the cluster as in small_m_kernel: dot = K - 2 sum.
+template <int kRows>
+__global__ void __launch_bounds__(kThreads, 2)
+small_m_packed_kernel(const uint32_t* __restrict__ a,
+                      const uint32_t* __restrict__ b,
+                      int32_t* __restrict__ out, int m, int n, int kw, int k,
+                      int ks, int kp) {
+  constexpr int kNI = kRows / 8;                // n8 tiles of lhs rows
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int stride = packed_lhs_stride(ks);
+  const int block_n = kPkWarpN * (kWarps / kp);
+  uint32_t* sa = smem;
+  int32_t* part = reinterpret_cast<int32_t*>(smem + m * stride);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n0 = static_cast<int>(blockIdx.x / split) * block_n;
+  const int w0 = rank * ks;
+  const int nwords = max(0, min(ks, kw - w0));   // a multiple of 4
+  const int groups = (nwords + kPkGroup - 1) / kPkGroup;
+
+  const int c_loc = (warp / kp) * kPkWarpN;     // the warp's first channel
+  const int kpart = warp % kp;
+  const uint32_t* bp[kPkTiles][2];
+  bool ok[kPkTiles][2];
+#pragma unroll
+  for (int j = 0; j < kPkTiles; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ch = n0 + c_loc + 16 * j + 8 * h + g;
+      ok[j][h] = ch < n;
+      bp[j][h] = b + static_cast<long long>(ok[j][h] ? ch : 0) * kw + w0 +
+                 4 * t;
+    }
+  uint4 wv[kPkTiles][2], wn[kPkTiles][2];
+  auto load = [&](uint4 (&w)[kPkTiles][2], int grp) {
+    const bool in = kPkGroup * grp + 4 * t < nwords;
+#pragma unroll
+    for (int j = 0; j < kPkTiles; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        w[j][h] = in && ok[j][h]
+                      ? __ldg(reinterpret_cast<const uint4*>(
+                            bp[j][h] + kPkGroup * grp))
+                      : make_uint4(0u, 0u, 0u, 0u);
+  };
+  if (kpart < groups) load(wv, kpart);     // in flight while the lhs comes
+
+  // the m lhs rows of this slice, whole groups (0 past the slice), and the
+  // block's sums zeroed
+  const int row4 = groups * (kPkGroup / 4);
+  for (int e = tid; e < m * row4; e += kThreads) {
+    const int r = e / row4, c = 4 * (e % row4);
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (c < nwords)
+      v = __ldg(reinterpret_cast<const uint4*>(
+          a + static_cast<long long>(r) * kw + w0 + c));
+    *reinterpret_cast<uint4*>(sa + r * stride + c) = v;
+  }
+  for (int e = tid; e < m * block_n; e += kThreads) part[e] = 0;
+  __syncthreads();
+
+  int acc[kPkTiles][kNI][4];                    // popc(a & b)
+  int pb[kPkTiles][2];                          // popc(b), this lane's words
+#pragma unroll
+  for (int j = 0; j < kPkTiles; ++j) {
+    pb[j][0] = pb[j][1] = 0;
+#pragma unroll
+    for (int i = 0; i < kNI; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[j][i][c] = 0;
+  }
+  for (int grp = kpart; grp < groups; grp += kp) {
+    if (grp + kp < groups) load(wn, grp + kp);
+    uint4 bv[kNI];
+#pragma unroll
+    for (int i = 0; i < kNI; ++i) {
+      const int row = 8 * i + g;
+      bv[i] = row < m ? *reinterpret_cast<const uint4*>(
+                            sa + row * stride + kPkGroup * grp + 4 * t)
+                      : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int j = 0; j < kPkTiles; ++j) {
+      pb[j][0] += popc4(wv[j][0]);
+      pb[j][1] += popc4(wv[j][1]);
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const uint32_t af[4] = {
+            word_of(wv[j][0], 2 * s), word_of(wv[j][1], 2 * s),
+            word_of(wv[j][0], 2 * s + 1), word_of(wv[j][1], 2 * s + 1)};
+#pragma unroll
+        for (int i = 0; i < kNI; ++i) {
+          const uint32_t bf[2] = {word_of(bv[i], 2 * s),
+                                  word_of(bv[i], 2 * s + 1)};
+          bnn::mma_b1(acc[j][i], af, bf);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPkTiles; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) wv[j][h] = wn[j][h];
+  }
+  // accumulator c of tile (j, i): channel g (+8 for c >= 2), lhs row
+  // 8i + 2t + (c & 1); a channel's popc(b) sums over its four lanes
+#pragma unroll
+  for (int j = 0; j < kPkTiles; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      pb[j][h] += __shfl_xor_sync(0xffffffffu, pb[j][h], 1);
+      pb[j][h] += __shfl_xor_sync(0xffffffffu, pb[j][h], 2);
+    }
+#pragma unroll
+  for (int j = 0; j < kPkTiles; ++j)
+#pragma unroll
+    for (int i = 0; i < kNI; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int row = 8 * i + 2 * t + (c & 1);
+        if (row < m)
+          atomicAdd(&part[row * block_n + c_loc + 16 * j + 8 * (c >> 1) + g],
+                    pb[j][c >> 1] - 2 * acc[j][i][c]);
+      }
+  // popc(a) of each lhs row over the slice, added once to its outputs
+  for (int r = warp; r < m; r += kWarps) {
+    int v = 0;
+    for (int c = 4 * lane; c < nwords; c += 128)
+      v += popc4(*reinterpret_cast<const uint4*>(sa + r * stride + c));
+#pragma unroll
+    for (int o = 16; o >= 1; o /= 2) v += __shfl_xor_sync(0xffffffffu, v, o);
+    for (int c = lane; c < block_n; c += 32)
+      atomicAdd(&part[r * block_n + c], v);
+  }
+  cluster.sync();
+
+  // block `rank` sums outputs rank, rank + split, ... (in 256-wide runs)
+  // over the cluster's blocks, in rank order
+  for (int e = rank * kThreads + tid; e < m * block_n; e += split * kThreads) {
+    const int row = e / block_n, c = e % block_n;
+    if (n0 + c >= n) continue;
+    int sum = 0;
+#pragma unroll
+    for (int q = 0; q < kMaxSplit; ++q)
+      if (q < split) sum += cluster.map_shared_rank(part, q)[e];
+    out[static_cast<long long>(row) * n + n0 + c] = k - 2 * sum;
   }
   cluster.sync();              // keep this block's part alive for the others
 }
@@ -585,6 +727,42 @@ int small_m_rows(const void* a, bool vec, const void* b, void* out, int m,
                                     block_n, stream);
 }
 
+template <int kRows>
+int launch_small_m_packed(const void* a, const void* b, void* out, int m,
+                          int n, int kw, int k, int split, int block_n,
+                          void* stream) {
+  const int ks = (kw + 4 * split - 1) / (4 * split) * 4;
+  const int smem = (m * packed_lhs_stride(ks) + m * block_n) * 4;
+  const long long blocks =
+      static_cast<long long>((n + block_n - 1) / block_n) * split;
+  return bnn::launch_cluster(small_m_packed_kernel<kRows>, blocks, kThreads,
+                             split, smem, stream,
+                             static_cast<const uint32_t*>(a),
+                             static_cast<const uint32_t*>(b),
+                             static_cast<int32_t*>(out), m, n, kw, k, ks,
+                             kWarps * kPkWarpN / block_n);
+}
+
+// the small-M packed kernel at m <= 32 (1 to 4 n8 tiles of lhs rows)
+int small_m_packed(const void* a, const void* b, void* out, int m, int n,
+                   int kw, int k, int split, int block_n, void* stream) {
+  if (m > kSmallMaxRows || kw % 4 != 0 || block_n % kPkWarpN != 0 ||
+      kWarps * kPkWarpN % block_n != 0 ||
+      reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(b) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch ((m + 7) / 8) {
+    case 1: return launch_small_m_packed<8>(a, b, out, m, n, kw, k, split,
+                                            block_n, stream);
+    case 2: return launch_small_m_packed<16>(a, b, out, m, n, kw, k, split,
+                                             block_n, stream);
+    case 3: return launch_small_m_packed<24>(a, b, out, m, n, kw, k, split,
+                                             block_n, stream);
+    default: return launch_small_m_packed<32>(a, b, out, m, n, kw, k, split,
+                                              block_n, stream);
+  }
+}
+
 template <typename TA, bool kVec, bool kFused, typename TO>
 int launch_tc(const void* a, const void* b, const void* thresh,
               const void* flip, void* out, int m, int n, int kw, int k,
@@ -666,18 +844,18 @@ int float_lhs(const void* a, int lhs_kind, bool vec, const void* b, void* out,
 extern "C" {
 
 // a (m, kw) int32 words, b (n, kw) int32 words -> out (m, n) int32 dots.
+// small_m 1: the small-M kernel with block_n channels per block (32, 64,
+// 128 or 256; m <= 32, kw % 4 == 0, a and b 16-byte aligned); small_m 0:
+// tensor-core tiles of block_n channels (128, or 256 with split 1). split:
+// blocks per cluster along K, 1, 2, 4 or 8.
 int binary_gemm_packed(const void* a, const void* b, void* out, int m, int n,
-                       int kw, int k, void* stream) {
-  if (m <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_tiles = (n + kBN - 1) / kBN;
-  const long long blocks =
-      static_cast<long long>((m + kBM - 1) / kBM) * n_tiles;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  popc_gemm_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
-      static_cast<int32_t*>(out), m, n, kw, k, n_tiles);
-  return static_cast<int>(cudaGetLastError());
+                       int kw, int k, int small_m, int split, int block_n,
+                       void* stream) {
+  if (m <= 0 || n <= 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (small_m)
+    return small_m_packed(a, b, out, m, n, kw, k, split, block_n, stream);
+  return tc_lhs<false>(0, false, a, b, nullptr, nullptr, out, m, n, kw, k,
+                       split, block_n, stream);
 }
 
 // a (m, k) float32 (lhs_kind 1) or bfloat16 (lhs_kind 2), b (n, kw) int32

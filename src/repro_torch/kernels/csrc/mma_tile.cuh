@@ -1,6 +1,8 @@
-// Tile code of the port's int8 tensor-core GEMM (binary_gemm.cu's
-// tensor-core tiles, which run kernels 2, 3 and 4): +-1 operands as int8
-// bytes in shared memory, multiplied by mma.sync m16n8k32 s8 x s8 -> s32.
+// Tile code of the port's tensor-core GEMMs (binary_gemm.cu): the int8
+// tiles, which run kernels 1 to 4 past 32 rows: +-1 operands as int8 bytes
+// in shared memory, multiplied by mma.sync m16n8k32 s8 x s8 -> s32; and the
+// single-bit mma of kernel 1's small-M kernel (`mma_b1`), which takes the
+// packed words as they are.
 //
 // Layout. A staged row (of the lhs, or a column of the rhs) holds one K
 // stage as 32-bit words of four int8 values each, 8 words per k32 mma,
@@ -135,6 +137,20 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
                                        const uint32_t (&b)[2]) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// D += popc(A_row & B_col) over 256 one-bit positions: mma.sync m16n8k256
+// b1 AND-popc. Fragments: a0 / a2 row g, a1 / a3 row g + 8, b0 / b1 column
+// g (g = lane / 4); a0, a1, b0 hold k 32t .. 32t + 31 (t = lane % 4), a2,
+// a3, b1 k 128 + 32t .. 159 + 32t
+__device__ __forceinline__ void mma_b1(int (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])

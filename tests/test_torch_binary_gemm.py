@@ -118,7 +118,46 @@ def test_regime_edges_plain_match_jax_ref(m, k, n, dtype):
             want_words)
 
 
+# kernel 1 (packed lhs) at the edges of its rule: the packed small-M kernel
+# up to 32 rows (1 to 4 n8 tiles of rows) and the tensor-core tiles from 33
+# rows and wherever KW % 4 != 0; M, K, N
+PACKED_EDGES = [(m, k, n) for m in (1, 4, 8, 9, 16, 32, 33)
+                for k, n in ((100, 10), (1000, 33), (300, 77), (5120, 1280))]
+
+
+@pytest.mark.parametrize("m,k,n", PACKED_EDGES)
+def test_packed_regime_edges_plain_match_jax_ref(m, k, n):
+    x, w, _, _ = _case(m * 13 + k + n, m, k, n)
+    ja, jb = _jax_operands(x, w)
+    want = np.asarray(jref.binary_matmul_packed_ref(ja, jb, k))
+    a, b = pack_bits(_t(x)), pack_bits(_t(w.T))
+    np.testing.assert_array_equal(words(a), np.asarray(ja))
+    np.testing.assert_array_equal(bg.binary_gemm_packed_plain(a, b, k).numpy(),
+                                  want)
+    np.testing.assert_array_equal(bg.binary_gemm_packed(a, b, k).numpy(), want)
+
+
+# channels per block of kernel 1's small-M kernel on a 132-SM card, by N: the
+# most that still give every SM a block (K|V: 40 blocks of 32, then K split
+# in 2)
+PACKED_BLOCK_N = {1280: 32, 5120: 32, 17920: 128}
+
+
 @pytest.mark.parametrize("kernel,m,k,n,small_m,split", [
+    # kernel 1 on phi3-medium-14b's q, K|V and gate|up at decode and chunk
+    # rows, K split over a cluster at N 1280, tiles past 32 rows (33, the
+    # MLP's output layer at 200) and at KW % 4 != 0
+    ("binary_gemm_packed", 1, 5120, 5120, True, 1),
+    ("binary_gemm_packed", 4, 5120, 5120, True, 1),
+    ("binary_gemm_packed", 32, 5120, 5120, True, 1),
+    ("binary_gemm_packed", 4, 5120, 17920, True, 1),
+    ("binary_gemm_packed", 32, 5120, 17920, True, 1),
+    ("binary_gemm_packed", 1, 5120, 1280, True, 2),
+    ("binary_gemm_packed", 4, 5120, 1280, True, 2),
+    ("binary_gemm_packed", 32, 5120, 1280, True, 2),
+    ("binary_gemm_packed", 33, 5120, 1280, False, 8),
+    ("binary_gemm_packed", 200, 1024, 10, False, 4),
+    ("binary_gemm_packed", 4, 300, 77, False, 1),
     ("binary_gemm_packed_rhs", 4, 4096, 16384, True, 1),   # mamba in_proj
     ("binary_gemm_packed_rhs", 4, 8192, 288, True, 8),     # x_proj: a cluster
     ("binary_gemm_packed_rhs", 4, 8192, 4096, True, 2),    # out_proj
@@ -152,7 +191,10 @@ def test_gemm_plan_rule(kernel, m, k, n, small_m, split):
     blocks per cluster along K, and always one launch."""
     plan = bg.gemm_plan(kernel, m, n, k, 132)
     assert (plan.small_m, plan.split, plan.launches) == (small_m, split, 1)
-    if small_m:
+    if small_m and kernel == "binary_gemm_packed":
+        assert plan.block_n == PACKED_BLOCK_N[n]
+        assert plan.blocks == -(-n // plan.block_n) * split
+    elif small_m:
         assert plan.block_n == (64 if n >= 32 * 3 * 132 else 32)
         assert plan.blocks == -(-n // plan.block_n) * split
     else:
@@ -163,13 +205,14 @@ def test_gemm_plan_rule(kernel, m, k, n, small_m, split):
 
 def test_gemm_plan_splits_to_fill_the_card():
     """A split is a power of two up to 8 that stops doubling once the grid
-    holds 1.5 blocks per SM or a block would keep too little of K; unaligned
-    weight rows never take the small-M kernel; other kernels have no plan."""
+    holds 1.5 blocks per SM (half for kernel 1's small-M kernel) or a block
+    would keep too little of K; unaligned operands never take the small-M
+    kernels; other kernels have no plan."""
     for sms in (66, 114, 132):
         for m in (1, 4, 32, 33, 200):
             for k, n in ((1000, 33), (8192, 288), (17920, 5120), (784, 1024)):
-                for kernel in ("binary_gemm_packed_rhs", "binary_gemm_mxu",
-                               "binary_gemm_fused"):
+                for kernel in ("binary_gemm_packed", "binary_gemm_packed_rhs",
+                               "binary_gemm_mxu", "binary_gemm_fused"):
                     plan = bg.gemm_plan(kernel, m, n, k, sms)
                     assert plan.split in (1, 2, 4, 8)
                     if plan.split > 1:
@@ -177,10 +220,11 @@ def test_gemm_plan_splits_to_fill_the_card():
                 # kernel 4 runs kernel 2's kernels on its signed w
                 assert bg.gemm_plan("binary_gemm_mxu", m, n, k, sms) == \
                     bg.gemm_plan("binary_gemm_packed_rhs", m, n, k, sms)
-    assert not bg.gemm_plan("binary_gemm_packed_rhs", 4, 4096, 4096, 132,
-                            rhs_aligned=False).small_m
+    for kernel in ("binary_gemm_packed", "binary_gemm_packed_rhs"):
+        assert not bg.gemm_plan(kernel, 4, 4096, 4096, 132,
+                                aligned=False).small_m
     with pytest.raises(ValueError):
-        bg.gemm_plan("binary_gemm_packed", 4, 4096, 4096, 132)
+        bg.gemm_plan("pack_bits", 4, 4096, 4096, 132)
 
 
 def test_fused_output_pad_bits_are_plus_one():

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.bitpack import pack_bits
+from repro_torch.core.bitpack import pack_bits, packed_width
 from repro_torch.kernels import binary_gemm as bg
 
 # ragged shapes of tests/test_bit_resident.py plus one word-aligned case
@@ -164,6 +164,58 @@ def test_cuda_binary_gemm_packed_rhs_cluster_split_matches_plain(m):
                           lambda: bg.binary_gemm_packed_rhs(x, b, k))
         assert torch.equal(got, bg.binary_gemm_packed_rhs_plain(x, b, k)), \
             (m, k, n, plan)
+
+
+# Kernel 1's regimes: the packed small-M kernel (single-bit tensor cores,
+# 1 to 32 rows) at phi3's K|V shape, ragged K and N; tensor-core tiles from
+# 33 rows (the MLP's output layer at 200) and wherever KW % 4 != 0 (K 300,
+# 37); (M, K, N)
+PACKED_REGIMES = [(m, k, n) for m in (1, 4, 8, 9, 16, 32, 33, 200)
+                  for k, n in ((5120, 1280), (1000, 33), (3961, 130),
+                               (300, 77), (37, 33))]
+
+
+@pytest.mark.cuda
+def test_cuda_binary_gemm_packed_regimes_match_plain():
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for m, k, n in PACKED_REGIMES:
+        x, b, _, _ = _card_operands(g, m, k, n, torch.float32)
+        a = pack_bits(x)
+        plan = bg.gemm_plan("binary_gemm_packed", m, n, k, _sms())
+        assert plan.small_m == (m <= bg.SMALL_M_ROWS
+                                and packed_width(k) % 4 == 0)
+        got = _one_launch("binary_gemm_packed",
+                          lambda: bg.binary_gemm_packed(a, b, k))
+        assert torch.equal(got, bg.binary_gemm_packed_plain(a, b, k)), \
+            (m, k, n, plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 32])
+def test_cuda_binary_gemm_packed_each_split_matches_plain(m):
+    """The packed small-M kernel with K split over 1, 2, 4 and 8 blocks of a
+    cluster and 32 to 256 channels a block (the plan forced), at one and at
+    four n8 tiles of rows: every combination equals the plain version."""
+    from dataclasses import replace
+    from unittest import mock
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for k, n in ((5120, 1280), (8190, 200)):
+        x, b, _, _ = _card_operands(g, m, k, n, torch.float32)
+        a = pack_bits(x)
+        want = bg.binary_gemm_packed_plain(a, b, k)
+        plan = bg.gemm_plan("binary_gemm_packed", m, n, k, _sms())
+        assert plan.small_m
+        for split in (1, 2, 4, 8):
+            for block_n in (32, 64, 128, 256):
+                forced = replace(plan, split=split, block_n=block_n,
+                                 blocks=-(-n // block_n) * split)
+                with mock.patch.object(bg, "gemm_plan",
+                                       lambda *_, forced=forced: forced):
+                    got = _one_launch("binary_gemm_packed",
+                                      lambda: bg.binary_gemm_packed(a, b, k))
+                assert torch.equal(got, want), (m, k, n, split, block_n)
 
 
 # kernel 3's main-path shapes: MLP layers 1-2 at batch 200 (layer 1 of the
@@ -608,7 +660,7 @@ def test_cuda_decode_attention_long_contexts_match_plain(dtype):
 
 # kernel 10, the selective scan: (B, T, D, N, with h0). falcon-mamba-7b's
 # decode step and prefill chunk (d_inner 8192, N 16), and ragged shapes: D
-# off the 64-channel block, T off the 64-step tile, N of 2 and 4
+# off the 32-channel block, T off the 64-step tile, N of 2 and 4
 SCAN_SHAPES = [(4, 1, 8192, 16, True), (1, 32, 8192, 16, True),
                (1, 32, 8192, 16, False), (2, 7, 8200, 2, True),
                (1, 33, 8200, 4, False), (3, 1, 8200, 16, True),
@@ -642,6 +694,26 @@ def test_cuda_selective_scan_matches_plain(xi_dtype):
         yr, hr = ss.selective_scan_plain(dt, xi, bm, cm, am, h0)
         assert torch.equal(y, yr), (b, t, d, n)
         assert torch.equal(h, hr), (b, t, d, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xi_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_selective_scan_each_n_matches_plain(xi_dtype):
+    """Kernel 10 at every N it holds, 1 to 16 (4, 2 or 1 lanes a channel,
+    states past N idle), T of 1, 7 and 33 (runs of 8 steps cut short) and D
+    off the 32-channel block: y and h_final equal the plain version's."""
+    from repro_torch.kernels import selective_scan as ss
+    _need_card()
+    for n in range(1, ss.MAX_N + 1):
+        for t in (1, 7, 33):
+            dt, xi, bm, cm, am, h0 = _scan_case(n * 100 + t, 2, t, 70, n,
+                                                xi_dtype)
+            h0 = h0 if t != 7 else None
+            y, h = ss.selective_scan(dt, xi, bm, cm, am, h0)
+            torch.cuda.synchronize()
+            yr, hr = ss.selective_scan_plain(dt, xi, bm, cm, am, h0)
+            assert torch.equal(y, yr), (n, t)
+            assert torch.equal(h, hr), (n, t)
 
 
 @pytest.mark.cuda
