@@ -29,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # argtypes of each exported function: pointers and the stream as c_void_p,
 # so ctypes never cuts a 64-bit address to an int
 SIGNATURES = {
@@ -41,7 +42,8 @@ SIGNATURES = {
         "binary_gemm_mxu": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P],
     },
-    "pack": {"pack_bits": [_P, _I, _P, _I, _I, _P]},
+    "pack": {"pack_bits": [_P, _I, _P, _I, _I, _P],
+             "pack_rows_into": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _L, _P]},
     "selective_scan": {"selective_scan": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
                                           _I, _I, _I, _I, _P]},
     "attention": {

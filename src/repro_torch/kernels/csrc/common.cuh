@@ -5,10 +5,11 @@
 // -0.0 packs to 1 and NaN to 0), 32 values per word, little-endian along the
 // packed axis, positions past the end are pad bits 1. One warp makes one
 // word: lane i reads element 32w+i and __ballot_sync sets bit i, which is the
-// wire format itself. pack.cu (kernel 5) packs through `pack_word`;
-// binary_gemm.cu's small-M kernel and attention.cu's body pack a word per
-// thread from 16-byte loads instead (`pack_own_word`: their rows are few
-// and short, so a ballot per word leaves too few loads in flight).
+// wire format itself. Where rows are few and short, a ballot per word
+// leaves too few loads in flight: binary_gemm.cu's small-M kernel,
+// attention.cu's body and pack.cu (kernel 5, wherever a row is made of
+// whole 16-byte loads) pack a word per thread from 16-byte loads instead
+// (`pack_own_word`); pack.cu's other rows take `pack_word`.
 #pragma once
 
 #include <cstdint>

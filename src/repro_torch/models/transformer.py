@@ -37,10 +37,11 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bitpack import packed_width
 from repro_torch.core.layers import QuantMode, qmatmul, shared_pack
-from repro_torch.core.packed import PackedActivation, PackedWeight, map_tree
+from repro_torch.core.packed import PackedWeight, map_tree
 from repro_torch.kernels.decode_attention import (
     decode_attention_packed_paged_plain, decode_attention_packed_plain,
 )
+from repro_torch.kernels.pack import pack_rows_into, pack_rows_into_plain
 from repro_torch.kernels.prefill_attention import (
     prefill_attention_packed_paged_plain, prefill_attention_packed_plain,
 )
@@ -165,9 +166,17 @@ def ffn_sublayer(p: dict, x: torch.Tensor, cfg: ModelConfig,
     return x + ffn(p["ffn"], xn, cfg.mlp, mode, path=path)
 
 
-def _pack(x: torch.Tensor, path: str) -> torch.Tensor:
-    """Sign words of new K/V rows (kernel 5, or its plain version)."""
-    return PackedActivation.pack(x, path=path).packed
+def _pack_into(path: str, srcs, pools, rows: torch.Tensor) -> None:
+    """Sign-pack the new K and V rows into their cache rows, in place: one
+    launch of kernel 5's `pack_rows_into` ('auto'), or its plain version
+    ('ref'). rows: one int64 row of the pools' (rows, Hkv, hdw) view per
+    source row; rows outside the view write nothing."""
+    if path == "auto":
+        pack_rows_into(srcs, pools, rows)
+    elif path == "ref":
+        pack_rows_into_plain(srcs, pools, rows)
+    else:
+        raise ValueError(path)
 
 
 def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
@@ -261,46 +270,30 @@ def cache_len_max(cache: dict) -> int:
     return cache["k"].shape[2]
 
 
-def _write_rows(cache_rows: torch.Tensor, rows: torch.Tensor,
-                idx: torch.Tensor, new: torch.Tensor,
-                act: torch.Tensor) -> None:
-    """cache_rows[rows, idx] = new where act, unchanged elsewhere: the
-    JAX package's `.set(mode="drop")` for inactive rows, without a host
-    sync (an inactive row rewrites its own old words; rows are distinct,
-    so no two writes land on one position)."""
-    old = cache_rows[rows, idx]
-    cache_rows[rows, idx] = torch.where(act[:, None, None], new, old)
-
-
 # ---------------------------------------------------------------------------
 # Decode: one token per row against the cache
 # ---------------------------------------------------------------------------
-def _decode_self_block(bp, h, kc, vc, vs, cfg, mode, pos, act, path,
-                       pages=None):
+def _decode_self_block(bp, h, kc, vc, vs, cfg, mode, pos, rows, path,
+                       pt=None):
     """One-token block. h: (B, 1, D); kc/vc: (B, T, Hkv, hdw) views of the
-    layer's cache, or with `pages` = (page_table, write page, write row)
-    the layer's (P, ps, Hkv, hdw) pools; pos: (B,) int32 write positions.
-    Rows with act False (pos < 0: freed or mid-admission slots) compute but
-    write nothing."""
+    layer's cache, or with the page table `pt` the layer's (P, ps, Hkv,
+    hdw) pools; pos: (B,) int32 write positions; rows: (B,) int64 write
+    rows (`_decode_rows`). Rows with pos < 0 (freed or mid-admission
+    slots) compute but write nothing a table names."""
     b = h.shape[0]
     xn = rms_norm(h, bp["ln1"]["scale"])
     q, k_new, v_new = _qkv(bp["attn"], xn, cfg, mode, path)
     positions = pos[:, None]                                   # (B, 1)
     q = rope(q, positions, cfg.rope_theta)
     k_new = rope(k_new, positions, cfg.rope_theta)
-    k_rows, v_rows = _pack(k_new[:, 0], path), _pack(v_new[:, 0], path)
-    if pages is None:
-        rows = torch.arange(b, device=h.device)
-        idx = pos.clamp(0, kc.shape[1] - 1).long()
-        _write_rows(kc, rows, idx, k_rows, act)
-        _write_rows(vc, rows, idx, v_rows, act)
+    if pt is None:
+        _pack_into(path, (k_new[:, 0], v_new[:, 0]), (kc, vc), rows)
         attend = decode_attention_packed if path == "auto" \
             else decode_attention_packed_plain
         out = attend(q, kc, vc, vs, pos + 1, window=cfg.local_window)
     else:
-        pt, wpage, wrow = pages
-        _with_sink(kc)[wpage, wrow] = k_rows
-        _with_sink(vc)[wpage, wrow] = v_rows
+        _pack_into(path, (k_new[:, 0], v_new[:, 0]),
+                   (_with_sink(kc), _with_sink(vc)), rows)
         attend = decode_attention_packed_paged if path == "auto" \
             else decode_attention_packed_paged_plain
         out = attend(q, kc, vc, vs, pt, pos + 1, window=cfg.local_window)
@@ -309,19 +302,24 @@ def _decode_self_block(bp, h, kc, vc, vs, cfg, mode, pos, act, path,
     return ffn_sublayer(bp, h, cfg, mode, path=path)
 
 
-def _decode_pages(cache: dict, pos: torch.Tensor, act: torch.Tensor):
-    """(page table, write page, write row) of a paged decode step, the same
-    for every layer: an active row writes at page pt[b, pos // ps], row
-    pos % ps; an inactive one at the sink page P. None when contiguous."""
+def _decode_rows(cache: dict, pos: torch.Tensor, act: torch.Tensor):
+    """Write rows of a decode step, the same for every layer, as (B,) int64
+    rows of the layer's cache seen as (rows, Hkv, hdw). Contiguous: row b
+    writes b * T + pos[b], an inactive row -1 (nothing: it keeps its old
+    words). Paged (the pools seen with their sink page): page pt[b, pos //
+    ps], row pos % ps; an inactive row the sink page P."""
+    b = pos.shape[0]
     pt = cache.get("page_table")
-    if pt is None:
-        return None
-    p_pool, ps = cache["k"].shape[1], cache["k"].shape[2]
     posc = pos.clamp(min=0).long()
+    if pt is None:
+        t = cache["k"].shape[2]
+        base = torch.arange(b, device=pos.device) * t
+        return torch.where(act, base + posc, -1)
+    p_pool, ps = cache["k"].shape[1], cache["k"].shape[2]
     pidx = (posc // ps).clamp(max=pt.shape[1] - 1)
-    rows = torch.arange(pt.shape[0], device=pt.device)
-    wpage = torch.where(act, pt[rows, pidx].long(), p_pool)
-    return pt, wpage, posc % ps
+    slots = torch.arange(b, device=pos.device)
+    wpage = torch.where(act, pt[slots, pidx].long(), p_pool)
+    return wpage * ps + posc % ps
 
 
 def transformer_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
@@ -339,13 +337,14 @@ def transformer_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
     pos = (pos.to(torch.int32) if isinstance(pos, torch.Tensor)
            else torch.full((b,), int(pos), dtype=torch.int32, device=dev))
     act = (pos >= 0) & (pos < cache_len_max(cache))
-    pages = _decode_pages(cache, pos, act)
+    rows = _decode_rows(cache, pos, act)
+    pt = cache.get("page_table")
     h = _embed(params, cfg, token[:, None])
     for layer in range(cfg.n_layers):
         h = _decode_self_block(layer_params(params, layer), h,
                                cache["k"][layer], cache["v"][layer],
-                               cache["v_scale"][layer], cfg, mode, pos, act,
-                               path, pages)
+                               cache["v_scale"][layer], cfg, mode, pos, rows,
+                               path, pt)
     return _head(params, cfg, h)[:, 0], cache
 
 
@@ -353,29 +352,22 @@ def transformer_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
 # Chunked prefill: advance one slot's prompt by one fixed-shape chunk
 # ---------------------------------------------------------------------------
 def _chunk_self_block(bp, h, kc, vc, vs, cfg, mode, positions, pos, n_valid,
-                      path, pages=None):
+                      rows, path, pt_row=None):
     """One block over a prefill chunk against the slot's cache row.
     h: (1, C, D); kc/vc: (1, T, Hkv, hdw) and vs: (1, Hkv) views of the
-    slot's rows, or with `pages` = (the slot's (1, NP) page-table row, write
-    pages, write rows) kc/vc are the layer's (P, ps, Hkv, hdw) pools. The
-    chunk's first n_valid K/V rows are written (pad rows write nothing),
-    the V scale becomes the running mean |v| over [0, pos + n_valid), then
-    the chunk attends to everything written."""
+    slot's rows, or with the slot's (1, NP) page-table row `pt_row` the
+    layer's (P, ps, Hkv, hdw) pools; rows: (C,) int64 write rows
+    (`_chunk_rows`). The chunk's first n_valid K/V rows are written (pad
+    rows write nothing), the V scale becomes the running mean |v| over
+    [0, pos + n_valid), then the chunk attends to everything written."""
     c = h.shape[1]
     kv_len = pos + n_valid
     xn = rms_norm(h, bp["ln1"]["scale"])
     q, k_new, v_new = _qkv(bp["attn"], xn, cfg, mode, path)
     q = rope(q, positions, cfg.rope_theta)
     k_new = rope(k_new, positions, cfg.rope_theta)
-    k_rows = _pack(k_new[0, :n_valid], path)
-    v_rows = _pack(v_new[0, :n_valid], path)
-    if pages is None:
-        kc[0, pos:kv_len] = k_rows
-        vc[0, pos:kv_len] = v_rows
-    else:
-        _, wpage, wrow = pages
-        _with_sink(kc)[wpage, wrow] = k_rows
-        _with_sink(vc)[wpage, wrow] = v_rows
+    pools = (kc, vc) if pt_row is None else (_with_sink(kc), _with_sink(vc))
+    _pack_into(path, (k_new[0], v_new[0]), pools, rows)
     # running mean |v| over (positions so far, head_dim): equals the
     # whole-prompt v_cache_scale once the last chunk lands; the same in
     # either layout, which keeps paged prefill equal to contiguous
@@ -383,18 +375,34 @@ def _chunk_self_block(bp, h, kc, vc, vs, cfg, mode, positions, pos, n_valid,
     msk = (torch.arange(c, device=h.device) < n_valid)[:, None]
     vs.copy_((vs * float(pos) + (absm * msk).sum(dim=0)[None])
              / float(kv_len))
-    if pages is None:
+    if pt_row is None:
         attend = prefill_attention_packed if path == "auto" \
             else prefill_attention_packed_plain
         out = attend(q, kc, vc, vs, kv_len, pos, window=cfg.local_window)
     else:
         attend = prefill_attention_packed_paged if path == "auto" \
             else prefill_attention_packed_paged_plain
-        out = attend(q, kc, vc, vs, pages[0], kv_len, pos,
+        out = attend(q, kc, vc, vs, pt_row, kv_len, pos,
                      window=cfg.local_window)
     out = out.reshape(1, c, cfg.n_heads * cfg.head_dim)
     h = h + qmatmul(out, bp["attn"]["wo"], mode, path=path)
     return ffn_sublayer(bp, h, cfg, mode, path=path)
+
+
+def _chunk_rows(cache: dict, pt_row, positions: torch.Tensor,
+                n_valid: int) -> torch.Tensor:
+    """Write rows of a chunk, the same for every layer, as (C,) int64 rows
+    of the layer's cache seen as (rows, Hkv, hdw): contiguous, position t
+    of the slot's (1, T) panel; paged (the pools seen with their sink
+    page), page pt_row[t // ps], row t % ps, where an unallocated entry
+    (the sentinel P) writes the sink page. Pad rows: -1 (nothing)."""
+    live = torch.arange(positions.shape[0], device=positions.device) < n_valid
+    t = positions.long()
+    if pt_row is not None:
+        ps = cache["k"].shape[2]
+        pidx = (t // ps).clamp(max=pt_row.shape[1] - 1)
+        t = pt_row[0, pidx].long() * ps + t % ps
+    return torch.where(live, t, -1)
 
 
 def transformer_prefill_chunk(params: dict, cfg: ModelConfig,
@@ -421,15 +429,12 @@ def transformer_prefill_chunk(params: dict, cfg: ModelConfig,
     mode = QuantMode(cfg.quant)
     c = tokens.shape[1]
     positions = torch.arange(c, dtype=torch.int32, device=tokens.device) + pos
-    pages = None
-    if "page_table" in cache:
-        pt_row = cache["page_table"][slot:slot + 1]               # (1, NP)
-        ps = cache["k"].shape[2]
-        written = positions[:n_valid].long()
-        pages = (pt_row, pt_row[0, written // ps].long(), written % ps)
+    pt_row = cache["page_table"][slot:slot + 1] if "page_table" in cache \
+        else None
+    rows = _chunk_rows(cache, pt_row, positions, n_valid)
     h = _embed(params, cfg, tokens)
     for layer in range(cfg.n_layers):
-        if pages is None:
+        if pt_row is None:
             kc = cache["k"][layer, slot:slot + 1]
             vc = cache["v"][layer, slot:slot + 1]
         else:
@@ -437,5 +442,5 @@ def transformer_prefill_chunk(params: dict, cfg: ModelConfig,
         h = _chunk_self_block(
             layer_params(params, layer), h, kc, vc,
             cache["v_scale"][layer, slot:slot + 1], cfg, mode, positions, pos,
-            n_valid, path, pages)
+            n_valid, rows, path, pt_row)
     return _head(params, cfg, h[:, n_valid - 1:n_valid])[:, 0], cache

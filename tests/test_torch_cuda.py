@@ -350,6 +350,55 @@ def test_cuda_pack_bits_matches_plain(dtype):
         np.testing.assert_array_equal(got.cpu(), pack_bits_plain(x))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,hkv,hd,inactive", [
+    (4, 10, 128, (1, 3)),      # phi3's decode step, two rows inactive
+    (32, 10, 128, ()),         # a chunk (pads: -1)
+    (200, 10, 128, ()),        # a whole prompt
+    (5, 2, 37, (0,)),          # K off a word, K % 8 != 0 (ballot body)
+    (3, 3, 72, ()),            # K % 8 == 0, off a word
+])
+def test_cuda_pack_rows_into_matches_plain(dtype, n, hkv, hd, inactive):
+    """Kernel 5's cache entry against its plain version: both pools equal
+    bit for bit, written rows and untouched rows alike; one launch a
+    call."""
+    from repro_torch.kernels import pack as pk
+    _need_card()
+    rng = np.random.default_rng(n * hd)
+    kw = packed_width(hd)
+    rows_total = n + 7
+    srcs = []
+    for _ in range(2):
+        x = torch.from_numpy(rng.normal(size=(n, hkv, hd)).astype(np.float32))
+        x.view(-1)[1::17] = -0.0
+        x.view(-1)[2::19] = float("nan")
+        srcs.append(x.to(dtype).cuda())
+    pools = [torch.from_numpy(rng.integers(-2**31, 2**31, (rows_total, hkv, kw))
+                              .astype(np.int32)).cuda() for _ in range(2)]
+    dst = torch.from_numpy(rng.permutation(rows_total)[:n].astype(np.int64))
+    dst[list(inactive)] = -1
+    dst = dst.cuda()
+    want = [p.clone() for p in pools]
+    pk.pack_rows_into_plain(srcs, want, dst)
+    before = pk.launches["pack_bits"]
+    pk.pack_rows_into(srcs, pools, dst)
+    torch.cuda.synchronize()
+    assert pk.launches["pack_bits"] - before == 1
+    for got, ref in zip(pools, want, strict=True):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_pack_rows_into_rejects_a_strided_source():
+    from repro_torch.kernels import pack as pk
+    _need_card()
+    x = torch.ones(4, 2, 64, device="cuda")[:, :, :32]
+    pool = torch.zeros(4, 2, 1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        pk.pack_rows_into([x], [pool], torch.arange(4, device="cuda"))
+
+
 def _attention_case(seed, b, t, hkv, g, hd, s=1):
     rng = np.random.default_rng(seed)
     kv = [pack_bits(torch.from_numpy(rng.normal(size=(b, t, hkv, hd))
