@@ -31,7 +31,14 @@ Phases, each of which raises on failure (nothing is caught):
                the old panel body's ~14,500 (a window, cache_len 0 rows,
                shuffled pools with sentinel tails, T splits of 1, 2, 4 and
                8): dots exact, outputs within the tolerance, paged equal to
-               contiguous bit for bit, with dots and as served
+               contiguous bit for bit, with dots and as served; kernel 5's
+               cache entry (`pack_rows_into`: K and V rows packed into
+               their cache rows in one launch) at a decode step with
+               inactive rows, a 32-row chunk with n_valid < 32, a 200-row
+               prompt, paged rows with sentinel and sink writes, K off a
+               word and K % 8 != 0, float32 and bf16 with -0.0 and NaN:
+               both caches equal the plain version's bit for bit, one
+               launch per call
   4. mlp     - bnn-mnist (784-1024x3-10) frozen, batches of 200 through the
                kernels; hidden words and scores equal the plain path's, the
                fp32-master path's, and the CPU's on a small batch
@@ -50,6 +57,16 @@ Phases, each of which raises on failure (nothing is caught):
                paged, contiguous, all through the kernels; paged + prefix
                cache through the plain versions): all tokens equal, prefix
                hits >= 1, prefilled + cached tokens = prompt tokens
+  6c. default - the JAX package's default serving call at the same width
+               and depth 2: ServingEngine(cfg, params, freeze=True)
+               (whole-prompt admission, float KV cache), the same at
+               kv_bits=1, and kv_bits=0 chunked, contiguous and paged, on
+               phase 6's traffic: tokens through the kernels equal the
+               plain versions' in each, paged equals contiguous, kernel 5
+               launched 2 (float cache) or 3 (packed) times per layer and
+               forward call; generate_static through the kernels equals
+               the plain versions' on 4 prompts of one length;
+               whole-prompt against chunked agreement printed, not held
   7. times   - per kernel and shape: its device time (calls queued behind
                a spin kernel, CUDA events) and its wrapper's CUDA-event
                time, the plain version's, one PyTorch
@@ -71,7 +88,12 @@ Phases, each of which raises on failure (nothing is caught):
                shared-prefix traffic from the paged pool with the prefix
                cache and from the contiguous cache: decode tokens/s, TTFT of
                hit and miss requests, ITL, prefix stats, the page pool,
-               tokens equal
+               tokens equal; then the default engine (whole prompt, float
+               cache) on the same weights and traffic: decode tokens/s,
+               TTFT, ITL, cache bytes beside the packed cache's, one
+               profiled decode step; the float attention (plain PyTorch)
+               beside SDPA at the decode step and a 200-token prefill;
+               what a kernel-5 wrapper call's time is made of
   8. train   - kernel 4 (binary_gemm_mxu: w sign-packed along K, then
                kernel 2's tensor-core tiles or small-M kernel with a float32
                store) against its plain version at the five binary-conv
@@ -107,14 +129,16 @@ Phases, each of which raises on failure (nothing is caught):
                phase 6's traffic through the kernels and the plain
                versions: tokens equal, kernel 10 launched layers x (chunks +
                decode steps) times, kernel 2 three times that, nothing
-               else; kernel 10's times at the decode, chunk and long
+               else; the same with whole-prompt admission (kernel 10 at T
+               = S): tokens equal; kernel 10's times at the decode, chunk and long
                prefill shapes beside its bound, its float64-exp floor and
                its plain version; all 64
                layers (drawn and frozen one at a time) on the same
                traffic: decode tokens/s, TTFT, ITL, resident weight and
                state bytes, peak memory, one profiled decode step
 Launch counts are set to 0 just before each main path (mlp, cnn, lm, paged
-lm, train, ssm) runs and read just after. The line before the last is
+lm, default lm, train, ssm chunked and whole-prompt) runs and read just
+after. The line before the last is
 {"kernels": [...]} (ten kernels); the last line is {"ok": true, "device":
 {...}}. Weights, BN statistics and
 inputs are random from the seed; image inputs are multiples of 1/128 in
@@ -748,6 +772,89 @@ def lm_kernel_checks(cfg, dev_gen, dev):
     return err
 
 
+def pack_rows_cases(cfg):
+    """(where, n source rows, sub-rows per row, K, pool, destination rows)
+    of kernel 5's `pack_rows_into` on the LM's path (K and V rows of a
+    decode step, a 32-row chunk with n_valid < 32, a whole 200-token prompt,
+    paged rows with sentinel and sink writes) and at ragged K (off a word;
+    K % 8 != 0: the ballot body). `pool` is ("contiguous", B, T) or
+    ("paged", pages, page size); rows index the pool seen as (rows, per,
+    ceil(K/32)), paged with its sink page."""
+    hkv, hd, t, ps = cfg.n_kv_heads, cfg.head_dim, LM_MAX_LEN, LM_PAGE
+    sink = LM_POOL * ps
+    cases = [
+        ("decode, rows 1 and 3 inactive", LM_SLOTS, hkv, hd,
+         ("contiguous", LM_SLOTS, t), [0 * t + 511, -1, 2 * t + 17, -1]),
+        ("chunk of 32, n_valid 20", LM_CHUNK, hkv, hd, ("contiguous", 1, t),
+         [96 + i if i < 20 else -1 for i in range(LM_CHUNK)]),
+        ("whole prompt of 200 into slot 2", 200, hkv, hd,
+         ("contiguous", LM_SLOTS, t), [2 * t + i for i in range(200)]),
+        ("paged decode: sentinel, sink", LM_SLOTS, hkv, hd,
+         ("paged", LM_POOL, ps), [7 * ps + 3, sink + 3, sink, 40 * ps]),
+        ("paged chunk: sentinel tail, pads", LM_CHUNK, hkv, hd,
+         ("paged", LM_POOL, ps),
+         [(5 * ps + 16 + i) if i < 16 else (sink + i - 16) if i < 24 else -1
+          for i in range(LM_CHUNK)]),
+        ("K 37 (ballot body)", 5, 3, 37, ("contiguous", 2, 9),
+         [0, 17, -1, 8, 3]),
+        ("K 72 (off a word)", 6, 2, 72, ("contiguous", 1, 8),
+         [7, 0, 5, 1, -1, 2]),
+    ]
+    return cases
+
+
+def pack_rows_checks(cfg, dev_gen, dev):
+    """Kernel 5's `pack_rows_into` against its plain version on the card at
+    `pack_rows_cases`, float32 and bf16 sources with -0.0 and NaN: both
+    whole cache tensors (the pools without their sink page, which several
+    rows may write) equal bit for bit, one launch per call. Returns the
+    max error (0)."""
+    from repro_torch.models import transformer as T
+    _, pk, _, _, _ = lm_modules()
+
+    def fresh(pool, per, kw):
+        if pool[0] == "paged":                   # the pool has a sink page
+            return T.new_pool(1, pool[1], pool[2], per, kw, device=dev)[0]
+        return torch.zeros((pool[1], pool[2], per, kw), dtype=torch.int32,
+                           device=dev)
+
+    err = 0
+    for where, n, per, k, pool, rows in pack_rows_cases(cfg):
+        kw = (k + 31) // 32
+        dst = torch.tensor(rows, dtype=torch.int64, device=dev)
+
+        def view(ps):
+            return [T._with_sink(p) for p in ps] if pool[0] == "paged" \
+                else ps
+        for dtype in (torch.bfloat16, torch.float32):
+            srcs = []
+            for _ in range(2):
+                x = torch.randn(n, per, k, generator=dev_gen, device=dev)
+                x.view(-1)[::13] = -0.0
+                x.view(-1)[5::17] = float("nan")
+                srcs.append(x.to(dtype))
+            pools = [fresh(pool, per, kw) for _ in range(2)]
+            for p in pools:
+                p.random_(-2**31, 2**31 - 1, generator=dev_gen)
+            want = [fresh(pool, per, kw).copy_(p) for p in pools]
+            pk.pack_rows_into_plain(srcs, view(want), dst)
+            before = pk.launches["pack_bits"]
+            pk.pack_rows_into(srcs, view(pools), dst)
+            torch.cuda.synchronize()
+            if pk.launches["pack_bits"] - before != 1:
+                raise AssertionError(f"pack_rows_into {where}: not one launch")
+            d = max(max_abs_diff(g, w, words=True)
+                    for g, w in zip(pools, want))
+            if d or not all(torch.equal(g, w) for g, w in zip(pools, want)):
+                raise AssertionError(f"pack_rows_into {where} {dtype}: the "
+                                     f"cache differs from the plain version's")
+            err = max(err, d)
+            print(f"check pack_rows_into {str(dtype)[6:]:8s} n={n:4d} "
+                  f"per={per:3d} K={k:4d} {where}: both caches equal, "
+                  f"one launch, max_abs_err={d}")
+    return err
+
+
 def paged_case(gen, rng, b, s, ps, n_pages, pool, hkv, g, hd, lens, dtype,
                dev):
     """Integer-valued queries, packed sign K/V pools of `pool` pages and V
@@ -1255,10 +1362,13 @@ def lm_engine_check(base_cfg, seed, dev):
     eos = int(alone[7])          # request 5 stops at its own 8th token
     reqs = [Request(p, max_new_tokens=LM_NEW, eos_id=eos if i == 5 else None)
             for i, p in enumerate(prompts)]
+    sched = eng.scheduler()
+    steps0 = sched.stats["decode_steps"]
     reset_all_launches()
     got = eng.generate(reqs)
     torch.cuda.synchronize()
     launches = all_launches()
+    steps = sched.stats["decode_steps"] - steps0
     want = plain.generate(reqs)
     for i, (a, b) in enumerate(zip(got, want, strict=True)):
         if not np.array_equal(a, b):
@@ -1275,6 +1385,12 @@ def lm_engine_check(base_cfg, seed, dev):
     if launches["prefill_attention_packed"] != n_chunks * LM_CHECK_DEPTH:
         raise AssertionError(f"prefill launches {launches} != "
                              f"{n_chunks} chunks x {LM_CHECK_DEPTH} layers")
+    # kernel 5 per layer and forward call: the two shared packs of the
+    # normed residual and one launch packing the K and V rows into the cache
+    if launches["pack_bits"] != 3 * LM_CHECK_DEPTH * (n_chunks + steps):
+        raise AssertionError(f"pack_bits launches {launches['pack_bits']} != "
+                             f"3 x {LM_CHECK_DEPTH} layers x ({n_chunks} "
+                             f"chunks + {steps} decode steps)")
     for kn in ("pack_bits", "decode_attention_packed", "binary_gemm_packed",
                "binary_gemm_packed_rhs"):
         if not launches[kn]:
@@ -1285,7 +1401,8 @@ def lm_engine_check(base_cfg, seed, dev):
           f"(cut from {base_cfg.n_layers}), {LM_REQUESTS} requests, prompts "
           f"{sorted(len(p) for p in prompts)}, {LM_NEW} new tokens, request 5 "
           f"stops at eos {eos} after {len(got[5])}: tokens equal the plain "
-          f"path's; launches {launches}")
+          f"path's; pack_bits 3 x {LM_CHECK_DEPTH} layers x ({n_chunks} "
+          f"chunks + {steps} decode steps); launches {launches}")
     del eng, plain, frozen
     torch.cuda.empty_cache()
     return launches, n_chunks
@@ -1369,6 +1486,105 @@ def lm_paged_engine_check(base_cfg, seed, dev):
     return launches
 
 
+def lm_default_engine_check(base_cfg, seed, dev):
+    """Phase 6c, the JAX package's default serving call at full width,
+    depth LM_CHECK_DEPTH, frozen, on phase 6's traffic: the default engine
+    `ServingEngine(cfg, params, freeze=True)` (whole-prompt admission,
+    float KV cache; the main path, launches counted), the same at
+    kv_bits=1, and kv_bits=0 chunked, contiguous and paged. In each, tokens
+    through the kernels equal tokens through the plain versions; at
+    kv_bits=0 paged equals contiguous; generate_static through the kernels
+    equals it through the plain versions on 4 prompts of one length.
+    Kernel 5 launches 2 (kv_bits=0) or 3 (kv_bits=1: the K|V rows into the
+    cache) times per layer and forward call. Whole-prompt against chunked
+    at kv_bits=0 is printed, not held: flash and masked-chunk softmax round
+    differently, and a sign near zero can move a greedy token. Returns the
+    main path's launch counts."""
+    from repro_torch.models.api import get_model
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = base_cfg.scaled(n_layers=LM_CHECK_DEPTH, kv_bits=0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    frozen = get_model(cfg).init_frozen(gen, device=dev)
+    prompts = lm_traffic(seed, cfg.vocab)
+    reqs = [Request(p, max_new_tokens=LM_NEW) for p in prompts]
+    base = dict(slots=LM_SLOTS, max_len=LM_MAX_LEN, seed=seed)
+    variants = {"default (kv_bits=0, whole prompt)": {},
+                "kv_bits=1, whole prompt": dict(kv_bits=1),
+                "kv_bits=0, chunked": dict(prefill_chunk=LM_CHUNK),
+                "kv_bits=0, chunked, paged": dict(prefill_chunk=LM_CHUNK,
+                                                  page_size=LM_PAGE)}
+    tokens, launches = {}, None
+    for name, kw in variants.items():
+        eng = ServingEngine(cfg, frozen, freeze=True, **base, **kw)
+        sched = eng.scheduler()
+        steps0 = sched.stats["decode_steps"]
+        reset_all_launches()
+        got = eng.generate(reqs)
+        torch.cuda.synchronize()
+        counts = all_launches()
+        steps = sched.stats["decode_steps"] - steps0
+        if launches is None:
+            launches = counts                    # the default engine's run
+        want = ServingEngine(cfg, frozen, kernel_path="ref", **base,
+                             **kw).generate(reqs)
+        for i, (a, b) in enumerate(zip(got, want, strict=True)):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"default-engine phase, {name}, request "
+                                     f"{i}: kernel tokens {a.tolist()} != "
+                                     f"plain {b.tolist()}")
+        if any(len(t) != LM_NEW for t in got):
+            raise AssertionError(f"{name}: a request did not get its budget")
+        calls = (len(prompts) if "whole" in name else
+                 sum(-(-len(p) // LM_CHUNK) for p in prompts)) + steps
+        per_call = 3 if kw.get("kv_bits") == 1 else 2
+        if counts["pack_bits"] != per_call * LM_CHECK_DEPTH * calls:
+            raise AssertionError(f"{name}: pack_bits launched "
+                                 f"{counts['pack_bits']} times, not "
+                                 f"{per_call} x {LM_CHECK_DEPTH} layers x "
+                                 f"{calls} forward calls")
+        attn = {kn: n for kn, n in counts.items() if "attention" in kn and n}
+        if kw.get("kv_bits") != 1 and attn:
+            raise AssertionError(f"{name}: a float-cache engine launched "
+                                 f"packed attention {attn}")
+        tokens[name] = got
+        print(f"default-engine check, {name}: tokens equal the plain "
+              f"path's; {steps} decode steps, pack_bits {per_call} x "
+              f"{LM_CHECK_DEPTH} layers x {calls} calls; launches {counts}")
+        del eng
+    paged, contig = (tokens["kv_bits=0, chunked, paged"],
+                     tokens["kv_bits=0, chunked"])
+    for i, (a, b) in enumerate(zip(paged, contig, strict=True)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"kv_bits=0 request {i}: paged tokens "
+                                 f"{a.tolist()} != contiguous {b.tolist()}")
+    whole = tokens["default (kv_bits=0, whole prompt)"]
+    same = [int(np.array_equal(a, b)) for a, b in zip(whole, contig)]
+    agree = [int(np.argmin(np.r_[a == b, False])) for a, b in
+             zip(whole, contig)]
+    print(f"default-engine check: kv_bits=0 paged tokens equal contiguous; "
+          f"whole-prompt against chunked (a figure, not held): "
+          f"{sum(same)} of {len(same)} requests equal, leading tokens in "
+          f"common {agree}")
+    rng = np.random.default_rng(seed + 9)
+    static = [Request(rng.integers(0, cfg.vocab, 64).astype(np.int32),
+                      max_new_tokens=n) for n in (LM_NEW, 8, 12, LM_NEW)]
+    eng = ServingEngine(cfg, frozen, freeze=True, **base)
+    got = eng.generate_static(static)
+    want = ServingEngine(cfg, frozen, kernel_path="ref",
+                         **base).generate_static(static)
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"generate_static request {i}: kernel "
+                                 f"tokens {a.tolist()} != plain {b.tolist()}")
+    print(f"default-engine check: generate_static on 4 prompts of 64 tokens "
+          f"(budgets {[r.max_new_tokens for r in static]}): tokens equal "
+          f"the plain path's")
+    del eng, frozen
+    torch.cuda.empty_cache()
+    return launches, {"agree_whole_vs_chunked": same,
+                      "leading_tokens_in_common": agree}
+
+
 def percentile(xs, q):
     return float(np.percentile(np.asarray(xs), q)) if len(xs) else float("nan")
 
@@ -1446,6 +1662,145 @@ def lm_timed_run(base_cfg, seed, dev, card):
           f"{c['packed'] / 1e6:.2f} MB packed + {c['float']} B V scales vs "
           f"{bf16_cache / 1e6:.2f} MB bf16 ({bf16_cache / c['packed']:.1f}x)")
     return rep, eng
+
+
+def lm_default_timed_run(cfg, frozen, seed, dev, card, packed_bytes):
+    """All 40 layers (the timed run's frozen weights) served by the default
+    engine `ServingEngine(cfg, params)` (whole-prompt admission, float KV
+    cache in bf16) on the LM's traffic: decode tokens/s, TTFT, ITL,
+    resident cache bytes beside the packed cache's `packed_bytes`, peak
+    device memory and one profiled decode step at position 300."""
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = cfg.scaled(kv_bits=0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = ServingEngine(cfg, frozen, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                        seed=seed)
+    prompts = lm_traffic(seed, cfg.vocab)
+    eng.generate([Request(prompts[0][:40], max_new_tokens=4)])     # warm-up
+    sched = eng.scheduler()
+    before = dict(sched.stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    comps = eng.serve([Request(p, max_new_tokens=LM_NEW) for p in prompts])
+    wall = time.perf_counter() - t0
+    st = {k: sched.stats[k] - before[k] for k in ("decode_s", "prefill_s",
+                                                 "decode_steps", "bursts")}
+    decode_tokens = sum(len(c.tokens) - 1 for c in comps)
+    itl = np.concatenate([c.itl for c in comps])
+    c = eng.resident_cache_bytes()
+    pos = torch.full((LM_SLOTS,), 300, dtype=torch.int32, device=dev)
+    step = trace(lambda: sched.model.decode(sched.params, sched._state["cur"],
+                                            sched._cache, pos))
+    rep = {
+        "depth": cfg.n_layers, "wall_s": wall, "decode_s": st["decode_s"],
+        "prefill_s": st["prefill_s"], "decode_steps": st["decode_steps"],
+        "bursts": st["bursts"], "decode_tokens": decode_tokens,
+        "decode_tok_per_s": decode_tokens / st["decode_s"],
+        "prefill_tok_per_s": sum(map(len, prompts)) / st["prefill_s"],
+        "ttft_ms_p50": percentile([x.ttft for x in comps], 50) * 1e3,
+        "ttft_ms_p99": percentile([x.ttft for x in comps], 99) * 1e3,
+        "ttft_wall_ms_p50": percentile([x.ttft_wall for x in comps], 50) * 1e3,
+        "itl_ms_p50": percentile(itl, 50) * 1e3,
+        "itl_ms_p99": percentile(itl, 99) * 1e3,
+        "cache_float_bytes": c["float"], "cache_packed_bytes": c["packed"],
+        "packed_cache_bytes": packed_bytes,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+        "prefill_shapes": sched.prefill_shape_count,
+        "decode_step_trace": step}
+    share = step["busy_ms"] / step["wall_ms"] if step["wall_ms"] else 0.0
+    print(f"lm default engine (kv_bits=0, whole prompt) timed run on {card}: "
+          f"{LM_ARCH} 40 layers, {LM_REQUESTS} requests, {LM_SLOTS} slots, "
+          f"max_len {LM_MAX_LEN}; peak device memory "
+          f"{rep['peak_device_bytes'] / 1e9:.2f} GB")
+    print(f"  wall {wall:.4f} s; decode {decode_tokens} tokens in "
+          f"{st['decode_s']:.4f} s over {st['decode_steps']} steps / "
+          f"{st['bursts']} bursts = {rep['decode_tok_per_s']:.2f} tok/s; "
+          f"prefill {rep['prefill_tok_per_s']:.1f} tok/s "
+          f"({rep['prefill_shapes']} prompt shapes)")
+    print(f"  TTFT (own admission) p50 {rep['ttft_ms_p50']:.3f} ms, p99 "
+          f"{rep['ttft_ms_p99']:.3f} ms; TTFT wall p50 "
+          f"{rep['ttft_wall_ms_p50']:.3f} ms; ITL p50 {rep['itl_ms_p50']:.3f} "
+          f"ms, p99 {rep['itl_ms_p99']:.3f} ms")
+    print(f"  cache {c['float'] / 1e6:.2f} MB float K/V (bf16) vs "
+          f"{packed_bytes / 1e6:.2f} MB packed (kv_bits=1; "
+          f"{c['float'] / packed_bytes:.1f}x)")
+    print(f"trace lm default-engine decode step (depth {cfg.n_layers}, "
+          f"{LM_SLOTS} slots at position 300) on {card}: wall "
+          f"{step['wall_ms']:.4f} ms (profiled), device busy "
+          f"{step['busy_ms']:.4f} ms ({share:.3f} of wall), "
+          f"{step['launches']} kernel launches; top kernels:")
+    for kname, cnt, ms in step["top"]:
+        print(f"    {ms:9.4f} ms  x{cnt:<3d} {kname}")
+    del eng, sched
+    torch.cuda.empty_cache()
+    return rep
+
+
+def float_attention_times(cfg, dev_gen, dev, card):
+    """The float attention (plain PyTorch, `models.attention`; the JAX
+    package has no Pallas kernel for it) beside SDPA on the same inputs, at
+    the default engine's shapes, bf16: one decode step of LM_SLOTS slots
+    against a LM_MAX_LEN-position cache (lengths 512/300/100/17) and a
+    200-token whole prompt (causal flash over attn_chunk positions). Device
+    time (`device_ms`) and CUDA-event time of back-to-back calls; the bytes
+    each must move over HBM rate beside them. Outputs agree within bf16
+    rounding (atol 5e-2 on outputs of size ~1)."""
+    import torch.nn.functional as F
+    from repro_torch.models import attention as A
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = hq // hkv
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=dev_gen, device=dev).to(bf)
+
+    def gqa(x):                     # (B, T, Hkv, hd) -> (B, Hq, T, hd)
+        return x.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+
+    def decode_case():
+        q = randn(LM_SLOTS, 1, hq, hd)
+        k, v = (randn(LM_SLOTS, LM_MAX_LEN, hkv, hd) for _ in range(2))
+        lens = torch.tensor([LM_MAX_LEN, 300, 100, 17], dtype=torch.int32,
+                            device=dev)
+        qs, ks, vs = q.transpose(1, 2).contiguous(), gqa(k), gqa(v)
+        mask = (torch.arange(LM_MAX_LEN, device=dev)[None]
+                < lens[:, None])[:, None, None]
+        nbytes = 2 * int(lens.sum()) * hkv * hd * 2 + 2 * LM_SLOTS * hq * hd * 2
+        return ("decode step", lambda: A.decode_attention(q, k, v, lens),
+                lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                       attn_mask=mask),
+                nbytes)
+
+    def prefill_case(s):
+        q = randn(1, s, hq, hd)
+        k, v = (randn(1, s, hkv, hd) for _ in range(2))
+        qs, ks, vs = q.transpose(1, 2).contiguous(), gqa(k), gqa(v)
+        return (f"prefill of {s} tokens",
+                lambda: A.flash_attention(q, k, v, True, 0, cfg.attn_chunk, 0),
+                lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                       is_causal=True),
+                (2 * s * hq * hd + 2 * s * hkv * hd) * 2)
+
+    rows = [decode_case(), prefill_case(200)]
+    out = []
+    for where, fn, lib, nbytes in rows:
+        err = float((fn() - lib().transpose(1, 2)).float().abs().max())
+        if not err <= 5e-2:
+            raise AssertionError(f"float attention {where} differs from "
+                                 f"SDPA by {err}")
+        r = {"where": where, "ms": device_ms(fn), "wall_ms": cuda_ms(fn),
+             "sdpa_ms": device_ms(lib), "sdpa_wall_ms": cuda_ms(lib),
+             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "max_abs_diff": err}
+        out.append(r)
+    print(f"float attention times on {card} (bf16; plain PyTorch, "
+          f"models/attention.py; ms: device time, wall = CUDA events over "
+          f"back-to-back calls; SDPA is timed, never called by the port):")
+    for r in out:
+        print(f"  {r['where']:22s} ours {r['ms']:.4f} (wall "
+              f"{r['wall_ms']:.4f})  SDPA {r['sdpa_ms']:.4f} (wall "
+              f"{r['sdpa_wall_ms']:.4f})  bytes bound {r['bytes_ms']:.5f}  "
+              f"max |ours - SDPA| {r['max_abs_diff']:.3g}")
+    return out
 
 
 def lm_paged_timed_run(cfg, frozen, seed, dev, card):
@@ -1548,6 +1903,93 @@ def shape_times(call, kn, plain, library=None):
     return out
 
 
+def pack_times(cfg, dev_gen, dev):
+    """Kernel 5's three launches of an LM layer-step (bf16): the normed
+    residual's shared packs for Q/K/V and gate/up (`pack_bits_kernel`,
+    x2) and the new K and V rows packed into the cache (`pack_rows_into`,
+    x1), in a decode step of LM_SLOTS rows and a chunk of LM_CHUNK rows,
+    as `shape_times`. Bound: the bytes each call moves (values read,
+    words written, destination rows read) over HBM rate, or one compare a
+    value at the fp32 rate."""
+    _, pk, _, _, _ = lm_modules()
+    hkv, hd, t = cfg.n_kv_heads, cfg.head_dim, LM_MAX_LEN
+    rows = []
+
+    def bound(nbytes, values):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = values / FP32_OPS_PER_S * 1e3
+        return {"bytes_ms": t_bytes, "ops_ms": t_ops,
+                "bound_ms": max(t_bytes, t_ops)}
+
+    for m, where in ((LM_SLOTS, "decode"), (LM_CHUNK, "chunk")):
+        x = torch.randn(m, cfg.d_model, generator=dev_gen,
+                        device=dev).to(torch.bfloat16)
+        rows.append({"kernel": "pack_bits", "where": f"{where} x2 (shared)",
+                     "shape": (m, cfg.d_model), "per_layer": 2,
+                     "library": None,
+                     **shape_times(lambda: pk.pack_bits_kernel(x),
+                                   "pack_bits",
+                                   lambda: pk.pack_bits_plain(x)),
+                     **bound(m * cfg.d_model * 2
+                             + m * ((cfg.d_model + 31) // 32) * 4,
+                             m * cfg.d_model)})
+        kv = [torch.randn(m, hkv, hd, generator=dev_gen,
+                          device=dev).to(torch.bfloat16) for _ in range(2)]
+        pools = [torch.zeros((LM_SLOTS, t, hkv, (hd + 31) // 32),
+                             dtype=torch.int32, device=dev) for _ in range(2)]
+        dst = (torch.arange(m, device=dev) * 7 % (LM_SLOTS * t)).long()
+        rows.append({"kernel": "pack_bits", "where": f"{where} K|V rows "
+                                                     f"into the cache",
+                     "shape": (2, m, hkv, hd), "per_layer": 1,
+                     "library": None,
+                     **shape_times(lambda: pk.pack_rows_into(kv, pools, dst),
+                                   "pack_bits",
+                                   lambda: pk.pack_rows_into_plain(
+                                       kv, pools, dst)),
+                     **bound(2 * m * hkv * hd * 2
+                             + 2 * m * hkv * ((hd + 31) // 32) * 4 + m * 8,
+                             2 * m * hkv * hd)})
+    return rows
+
+
+def pack_wrapper_parts(cfg, dev_gen, dev):
+    """What a kernel-5 wrapper call's time is made of, at the decode step's
+    shapes (ms per call, CUDA events over back-to-back calls): the whole
+    wrapper; the bare C entry called with its arguments ready (the launch,
+    through ctypes); torch.empty of the output (pack_bits_kernel only); the
+    rest is the wrapper's Python checks and argument reads."""
+    _, pk, _, _, _ = lm_modules()
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    x = torch.randn(LM_SLOTS, cfg.d_model, generator=dev_gen,
+                    device=dev).to(torch.bfloat16)
+    out = torch.empty((LM_SLOTS, (cfg.d_model + 31) // 32),
+                      dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fn = pk._entry("pack_bits")
+    args = (x.data_ptr(), 1, out.data_ptr(), LM_SLOTS, cfg.d_model, stream)
+    parts = {"pack_bits_kernel": {
+        "wrapper_ms": cuda_ms(lambda: pk.pack_bits_kernel(x)),
+        "c_entry_ms": cuda_ms(lambda: fn(*args)),
+        "alloc_ms": cuda_ms(lambda: torch.empty(
+            (LM_SLOTS, (cfg.d_model + 31) // 32), dtype=torch.int32,
+            device=dev))}}
+    kv = [torch.randn(LM_SLOTS, hkv, hd, generator=dev_gen,
+                      device=dev).to(torch.bfloat16) for _ in range(2)]
+    pools = [torch.zeros((LM_SLOTS, LM_MAX_LEN, hkv, (hd + 31) // 32),
+                         dtype=torch.int32, device=dev) for _ in range(2)]
+    dst = torch.arange(LM_SLOTS, device=dev) * LM_MAX_LEN + 300
+    fn = pk._entry("pack_rows_into")
+    args = (kv[0].data_ptr(), kv[1].data_ptr(), 1, pools[0].data_ptr(),
+            pools[1].data_ptr(), dst.data_ptr(), LM_SLOTS, hkv, hd,
+            LM_SLOTS * LM_MAX_LEN, stream)
+    parts["pack_rows_into"] = {
+        "wrapper_ms": cuda_ms(lambda: pk.pack_rows_into(kv, pools, dst)),
+        "c_entry_ms": cuda_ms(lambda: fn(*args)), "alloc_ms": 0.0}
+    for p in parts.values():
+        p["checks_ms"] = p["wrapper_ms"] - p["c_entry_ms"] - p["alloc_ms"]
+    return parts
+
+
 def lm_kernel_times(cfg, dev_gen, dev, popc_per_s):
     """Times of kernels 5, 6, 8 at the LM's main-path shapes (bf16
     activations, see `shape_times`) beside their bounds, plain versions and, for
@@ -1557,19 +1999,7 @@ def lm_kernel_times(cfg, dev_gen, dev, popc_per_s):
     from repro_torch.kernels import ref
     _, pk, da, pa, _ = lm_modules()
     hkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
-    rows = []
-    for m, k, where in pack_check_shapes(cfg)[:4]:
-        x = torch.randn(m, k, generator=dev_gen, device=dev).to(torch.bfloat16)
-        nbytes = m * k * 2 + m * ((k + 31) // 32) * 4
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = m * k / FP32_OPS_PER_S * 1e3
-        rows.append({"kernel": "pack_bits", "where": where, "shape": (m, k),
-                     "per_layer": 2, "library": None,
-                     **shape_times(lambda: pk.pack_bits_kernel(x),
-                                   "pack_bits",
-                                   lambda: pk.pack_bits_plain(x)),
-                     "bytes_ms": t_bytes, "ops_ms": t_ops,
-                     "bound_ms": max(t_bytes, t_ops)})
+    rows = pack_times(cfg, dev_gen, dev)
     lens = torch.tensor([LM_MAX_LEN, 300, 100, 17], dtype=torch.int32,
                         device=dev)
     q, k, v, vs = attention_case(dev_gen, LM_SLOTS, 1, LM_MAX_LEN, hkv, g, hd,
@@ -2166,8 +2596,8 @@ def scan_kernel_checks(dev_gen, dev, di, n_state):
 
 def ssm_engine(cfg, params, **kw):
     from repro_torch.serving.engine import ServingEngine
-    return ServingEngine(cfg, params, prefill_chunk=LM_CHUNK, slots=LM_SLOTS,
-                         max_len=LM_MAX_LEN, **kw)
+    return ServingEngine(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                         **{"prefill_chunk": LM_CHUNK, **kw})
 
 
 def ssm_engine_check(base_cfg, seed, dev):
@@ -2217,6 +2647,35 @@ def ssm_engine_check(base_cfg, seed, dev):
         raise AssertionError(f"{SSM_ARCH} launches {launches} != "
                              f"{want_launches} ({SSM_CHECK_DEPTH} layers x "
                              f"({n_chunks} chunks + {steps} decode steps))")
+    # whole-prompt admission (the JAX default): each prompt is one launch
+    # of kernel 10 per layer at T = S
+    whole = ssm_engine(cfg, frozen, seed=seed, prefill_chunk=None)
+    wsched = whole.scheduler()
+    reset_all_launches()
+    got_whole = whole.generate(reqs)
+    torch.cuda.synchronize()
+    whole_launches = all_launches()
+    wsteps = wsched.stats["decode_steps"]
+    want_whole = ssm_engine(cfg, frozen, kernel_path="ref", seed=seed,
+                            prefill_chunk=None).generate(reqs)
+    for i, (a, b) in enumerate(zip(got_whole, want_whole, strict=True)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{SSM_ARCH} whole-prompt request {i}: "
+                                 f"kernel tokens {a.tolist()} != plain "
+                                 f"{b.tolist()}")
+    wcalls = SSM_CHECK_DEPTH * (len(prompts) + wsteps)
+    if whole_launches[SCAN] != wcalls:
+        raise AssertionError(f"{SSM_ARCH} whole-prompt {SCAN} launches "
+                             f"{whole_launches[SCAN]} != {SSM_CHECK_DEPTH} "
+                             f"layers x ({len(prompts)} prompts + {wsteps} "
+                             f"decode steps)")
+    same = sum(np.array_equal(a, b) for a, b in zip(got_whole, got))
+    print(f"ssm whole-prompt check: tokens through the kernels equal the "
+          f"plain path's; {SCAN} launches {whole_launches[SCAN]} = "
+          f"{SSM_CHECK_DEPTH} layers x ({len(prompts)} prompts at T = S + "
+          f"{wsteps} decode steps); whole-prompt against chunked tokens "
+          f"(a figure): {same} of {len(got)} requests equal")
+    del whole
     print(f"ssm engine check: {SSM_ARCH} full width (d_model {cfg.d_model}, "
           f"d_inner {cfg.expand * cfg.d_model}, N {cfg.ssm_state}), "
           f"depth {SSM_CHECK_DEPTH} (cut from {base_cfg.n_layers}), "
@@ -2227,7 +2686,7 @@ def ssm_engine_check(base_cfg, seed, dev):
           f"{steps} decode steps); launches {launches}")
     del eng, plain, frozen
     torch.cuda.empty_cache()
-    return launches, n_chunks, steps
+    return launches, n_chunks, steps, whole_launches
 
 
 def ssm_timed_run(base_cfg, seed, dev, card):
@@ -2374,22 +2833,25 @@ def scan_kernel_times(dev_gen, dev, card, exp_per_s, fp64_per_s, di, n):
 
 def ssm_phase(seed, dev, card, dev_gen, exp_per_s, fp64_per_s):
     """Phase 9: kernel 10 against its plain version, falcon-mamba-7b at full
-    width and depth 2 through the kernels and the plain versions, kernel
-    10's times, the 64-layer timed run. Returns (max error, main-path
-    launches, kernel-10 total, report)."""
+    width and depth 2 through the kernels and the plain versions (chunked
+    and whole-prompt admission), kernel 10's times, the 64-layer timed
+    run. Returns (max error, the two main paths' launches summed, kernel-10
+    total, report)."""
     from repro_torch.configs.base import get_config
     t0 = time.perf_counter()
     cfg = get_config(SSM_ARCH)
     di, n = cfg.expand * cfg.d_model, cfg.ssm_state
     err = scan_kernel_checks(dev_gen, dev, di, n)
-    launches, n_chunks, steps = ssm_engine_check(cfg, seed, dev)
+    launches, n_chunks, steps, whole = ssm_engine_check(cfg, seed, dev)
     rows, total = scan_kernel_times(dev_gen, dev, card, exp_per_s,
                                     fp64_per_s, di, n)
     timed = ssm_timed_run(cfg, seed, dev, card)
     print(f"phase 9 (ssm): {time.perf_counter() - t0:.1f} s")
-    return err, launches, total, {"launches": launches, "chunks": n_chunks,
-                                  "decode_steps": steps, "shapes": rows,
-                                  "timed": timed}
+    both = {kn: launches[kn] + whole[kn] for kn in launches}
+    return err, both, total, {"launches": launches, "chunks": n_chunks,
+                              "decode_steps": steps,
+                              "whole_prompt_launches": whole, "shapes": rows,
+                              "timed": timed}
 
 
 def attention_times(card, popc_per_s) -> int:
@@ -2595,6 +3057,8 @@ def main() -> int:
     from repro_torch.configs.base import get_config
     lm_cfg = get_config(LM_ARCH)
     err.update(lm_kernel_checks(lm_cfg, dev_gen, dev))
+    err["pack_bits"] = max(err["pack_bits"],
+                           pack_rows_checks(lm_cfg, dev_gen, dev))
     err.update(lm_paged_kernel_checks(lm_cfg, dev_gen, args.seed, dev))
     for kn, e in lm_long_prefill_checks(lm_cfg, dev_gen, args.seed, dev,
                                         sms).items():
@@ -2697,9 +3161,11 @@ def main() -> int:
     # ------------------------------------------------ lm: tokens vs plain
     lm_launches, lm_chunks = lm_engine_check(lm_cfg, args.seed, dev)
     paged_launches = lm_paged_engine_check(lm_cfg, args.seed, dev)
+    default_launches, report["lm_default"] = lm_default_engine_check(
+        lm_cfg, args.seed, dev)
     path_launches = {kn: mlp_launches.get(kn, 0) + cnn_launches.get(kn, 0)
                      + lm_launches[kn] + paged_launches[kn]
-                     for kn in REPLACES}
+                     + default_launches[kn] for kn in REPLACES}
 
     # ---------------------------------------------------------------- times
     print(f"times on {card} (ms; kernel and library: device time, CUDA "
@@ -2789,6 +3255,16 @@ def main() -> int:
         lm_rows, 45)
     totals.update(lm_totals)
     report["lm_shapes"] = lm_rows
+    parts = pack_wrapper_parts(lm_cfg, dev_gen, dev)
+    print(f"pack_bits wrapper call on {card}, decode-step shapes (ms per "
+          f"call, CUDA events over back-to-back calls): the whole wrapper = "
+          f"the bare C entry (ctypes launch) + torch.empty of the output + "
+          f"the wrapper's checks and argument reads:")
+    for entry, p in parts.items():
+        print(f"  {entry:16s} wrapper {p['wrapper_ms']:.4f} = C entry "
+              f"{p['c_entry_ms']:.4f} + alloc {p['alloc_ms']:.4f} + checks "
+              f"{p['checks_ms']:.4f}")
+    report["pack_wrapper_parts"] = parts
     long_rows = lm_long_prefill_times(lm_cfg, dev_gen, dev, popc_per_s)
     print_attention_rows(f"lm long-context prefill times on {card} (ms, as "
                          f"above; not in the kernels line):", long_rows)
@@ -2829,7 +3305,12 @@ def main() -> int:
     report["lm_timed"] = timed
     report["lm_paged_timed"] = lm_paged_timed_run(
         lm_cfg.scaled(kv_bits=1), eng.params, args.seed, dev, card)
+    report["lm_default_timed"] = lm_default_timed_run(
+        lm_cfg, eng.params, args.seed, dev, card, timed["cache_packed_bytes"])
     del eng, sched
+    torch.cuda.empty_cache()
+    report["float_attention"] = float_attention_times(lm_cfg, dev_gen, dev,
+                                                      card)
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- train
@@ -2866,22 +3347,25 @@ def main() -> int:
               f"{lib}  bound {t['bound_ms']:.6f}")
     report["launches"] = {"mlp": mlp_launches, "cnn": cnn_launches,
                           "lm": lm_launches, "lm_chunks": lm_chunks,
-                          "lm_paged": paged_launches, "ssm": ssm_launches}
+                          "lm_paged": paged_launches,
+                          "lm_default": default_launches, "ssm": ssm_launches}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))
     print("kernels line: ms and library_ms are device times (device_ms), "
           "plain_ms CUDA-event time; the popcount GEMMs' times are summed "
           "over one mlp and one cnn forward's launches of each kernel, "
-          f"{MXU}'s over one bnn-cifar10 train step's five; pack_bits, "
-          "decode and prefill attention times (contiguous and paged) over "
+          f"{MXU}'s over one bnn-cifar10 train step's five; pack_bits "
+          "(two shared packs and one K|V rows pack each), decode and "
+          "prefill attention times (contiguous and paged) over "
           "one LM layer's launches in one decode step and one prefill chunk "
           "(the two chunk shapes weighted 1/2), and selective_scan's over "
           "one falcon-mamba layer's in one decode step and one prefill "
           "chunk; the paged kernels' library_ms leaves out the gather "
           "(printed beside it); launches count the mlp, cnn, depth-2 "
-          f"contiguous and paged LM runs, the auto route's {TRAIN_STEPS} "
-          "train steps and the depth-2 falcon-mamba run")
+          "contiguous and paged LM runs, the depth-2 default engine's run, "
+          f"the auto route's {TRAIN_STEPS} train steps and the depth-2 "
+          "falcon-mamba runs (chunked and whole-prompt)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -21,10 +21,11 @@ across as they are: a frozen weight's words keep their leading L axis
 (the transformer's and the Mamba stack's alike).
 `to_numpy_tree` is the way back. KV caches carry across with
 `cache_from_numpy` / `cache_to_numpy`, contiguous or paged: packed K/V
-words (or page pools) uint32 <-> int32, the page table as int32, V scales as
-float32; so does the Mamba stack's recurrent state {"conv", "h"} (float
-leaves; a bfloat16 conv history comes back from `cache_to_numpy` as
-float32, which holds it exactly).
+words (or page pools) uint32 <-> int32, float K/V (kv_bits=0) in their
+dtype, the page table as int32, V scales as float32; so does the Mamba
+stack's recurrent state {"conv", "h"}. bfloat16 leaves (float K/V, the
+conv history) come back from `cache_to_numpy` as float32, which holds them
+exactly.
 This module imports no jax: turning JAX arrays into numpy is the caller's
 step.
 """
@@ -137,26 +138,30 @@ def to_numpy_tree(tree):
     return tree
 
 
-# cache leaves holding packed sign words (uint32 in the JAX package)
-_CACHE_WORDS = ("k", "v")
+# cache leaves holding K/V: packed sign words (uint32 in the JAX package)
+# at kv_bits=1, float rows at kv_bits=0
+_CACHE_KV = ("k", "v")
 
 
 def cache_from_numpy(cache: dict, device=None) -> dict:
     """A JAX cache (as numpy) -> the port's: uint32 K/V words become int32
-    tensors with the same bits, float leaves stay float. A paged cache's
-    (L, P, ps, Hkv, hdw) pools land in the port's pools, whose storage has
-    each layer's sink page behind them (`models.transformer.new_pool`)."""
+    tensors with the same bits, float leaves (float K/V included) keep
+    their dtype. A paged cache's (L, P, ps, Hkv, w) pools land in the
+    port's pools, whose storage has each layer's sink page behind them
+    (`models.transformer.new_pool`)."""
     out = {name: tensor(a, device) for name, a in cache.items()}
     if "page_table" in cache:
-        for name in _CACHE_WORDS:
-            words = out[name]
-            pool = new_pool(*words.shape, device=words.device)
-            pool.copy_(words)
+        for name in _CACHE_KV:
+            kv = out[name]
+            pool = new_pool(*kv.shape, device=kv.device, dtype=kv.dtype)
+            pool.copy_(kv)
             out[name] = pool
     return out
 
 
 def cache_to_numpy(cache: dict) -> dict:
-    """The port's cache -> the JAX package's numpy form (K/V words uint32)."""
-    return {name: words_to_numpy(t) if name in _CACHE_WORDS else _array(t)
+    """The port's cache -> the JAX package's numpy form (K/V words uint32;
+    float K/V as float32 arrays, bfloat16 widened exactly)."""
+    return {name: words_to_numpy(t)
+            if name in _CACHE_KV and t.dtype == torch.int32 else _array(t)
             for name, t in cache.items()}

@@ -22,7 +22,7 @@
 // number of 16-byte loads and 16-byte aligned (K % 8 == 0 in bf16, % 4 in
 // float32), one thread packs one word from 4 (bf16) or 8 (float32) 16-byte
 // loads (common.cuh `pack_own_word`), as the small-M GEMM packs its lhs
-// (PR 16: a ballot per word left too few loads in flight for short rows).
+// (there a ballot per word left too few loads in flight for short rows).
 // Other rows take the warp-ballot body (`pack_word`): lane i reads element
 // 32w + i, coalesced, and __ballot_sync is the word. Positions >= K read as
 // +1. No shared memory; a skipped row reads nothing.

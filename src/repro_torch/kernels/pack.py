@@ -19,6 +19,8 @@ run the plain versions only because their inputs lie on the CPU.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core.bitpack import pack_bits, packed_width
@@ -97,7 +99,7 @@ def _rows_geometry(srcs, dst_pools, dst_rows):
     if x0.ndim < 2:
         raise ValueError(f"sources are (n, ..., K), got {tuple(x0.shape)}")
     n, k = x0.shape[0], x0.shape[-1]
-    per = x0[0].numel() // k if k else 0
+    per = math.prod(x0.shape[1:-1])
     if dst_rows.dtype != torch.int64 or tuple(dst_rows.shape) != (n,) or \
             dst_rows.device != x0.device:
         raise ValueError(f"dst_rows must be ({n},) int64 on {x0.device}, got "

@@ -64,7 +64,10 @@ def binary_conv2d_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # Attention over a bit-resident KV cache
 # ---------------------------------------------------------------------------
 def _per_row(x, b: int, device) -> torch.Tensor:
-    """scalar or (B,) int -> (B,) int32 tensor."""
+    """scalar or (B,) int -> (B,) int32 tensor. A host int is filled on the
+    device (no host-to-device copy, which would wait for the stream)."""
+    if isinstance(x, int):
+        return torch.full((b,), x, dtype=torch.int32, device=device)
     return torch.as_tensor(x, dtype=torch.int32, device=device).reshape(-1) \
         .expand(b)
 

@@ -5,8 +5,11 @@
     params = model.init(gen)                 # fp32 masters
     frozen = model.freeze(params)            # 1-bit PackedWeights
     frozen = model.init_frozen(gen)          # the same, one layer at a time
+    logits, aux = model.logits(params, tokens)           # (B, S, V)
     cache = model.init_cache(slots, max_len)            # contiguous
     cache = model.init_cache(slots, max_len, page_size=P)   # paged (dense)
+    logits, cache = model.prefill(params, tokens, max_len=T)     # new cache
+    logits, cache = model.prefill(params, tokens, cache=c, slot=s)  # in place
     logits, cache = model.prefill_chunk(params, tokens, cache, slot, pos, n)
     logits, cache = model.decode(params, token, cache, pos)
 
@@ -14,8 +17,8 @@
 plain versions for every call of the model (see `models.transformer`).
 
 The `ssm` family's "cache" is its recurrent state ({"conv", "h"},
-`models.ssm_lm`), O(1) per slot: `init_cache` takes and ignores `max_len`
-and the paging arguments, as the JAX package's does.
+`models.ssm_lm`), O(1) per slot: `init_cache` and `prefill` take and ignore
+`max_len` and the paging arguments, as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -38,6 +41,12 @@ ATTENTION_FAMILIES = ("dense", "moe", "audio", "vlm")
 class Model:
     cfg: ModelConfig
     init: Callable[..., Any]
+    # logits(params, tokens (B, S)) -> (logits (B, S, V), aux): the
+    # inference forward
+    logits: Callable[..., tuple[torch.Tensor, dict]]
+    # prefill(params, tokens (B, S), *, max_len=None, cache=None, slot=0)
+    # -> (logits (B, V), cache): whole prompts into cache rows [slot,
+    # slot + B), in place, or into a new cache when none is given
     prefill: Callable[..., tuple[torch.Tensor, Any]]
     decode: Callable[..., tuple[torch.Tensor, Any]]
     init_cache: Callable[..., Any]
@@ -79,12 +88,6 @@ class Model:
         return frozen
 
 
-def _whole_prompt(*args, **kwargs):
-    raise NotImplementedError("whole-prompt prefill (float flash attention, "
-                              "mamba_prefill) is not ported yet (ROADMAP "
-                              "Queue A); admit through prefill_chunk")
-
-
 def get_model(cfg: ModelConfig, *, path: str = "auto") -> Model:
     if path not in ("auto", "ref"):
         raise ValueError(path)
@@ -93,7 +96,11 @@ def get_model(cfg: ModelConfig, *, path: str = "auto") -> Model:
             cfg=cfg,
             init=lambda gen, device=None: S.init_mamba_params(
                 gen, cfg, device=device),
-            prefill=_whole_prompt,
+            logits=lambda p, tokens: S.mamba_logits(p, cfg, tokens,
+                                                    path=path),
+            prefill=lambda p, tokens, max_len=None, cache=None, slot=0:
+                S.mamba_prefill(p, cfg, tokens, cache=cache, slot=slot,
+                                path=path),
             decode=lambda p, token, cache, pos: S.mamba_decode(
                 p, cfg, token, cache, pos, path=path),
             init_cache=lambda batch, max_len, device=None, **kw:
@@ -109,7 +116,11 @@ def get_model(cfg: ModelConfig, *, path: str = "auto") -> Model:
         cfg=cfg,
         init=lambda gen, device=None: T.init_transformer_params(
             gen, cfg, device=device),
-        prefill=_whole_prompt,
+        logits=lambda p, tokens: T.transformer_logits(p, cfg, tokens,
+                                                      path=path),
+        prefill=lambda p, tokens, max_len=None, cache=None, slot=0:
+            T.transformer_prefill(p, cfg, tokens, max_len=max_len,
+                                  cache=cache, slot=slot, path=path),
         decode=lambda p, token, cache, pos: T.transformer_decode(
             p, cfg, token, cache, pos, path=path),
         init_cache=lambda batch, max_len, device=None, **kw: T.init_cache(

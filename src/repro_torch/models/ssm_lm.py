@@ -11,9 +11,12 @@ port's transformer cache it is updated in place and the same dict returned.
 `path` ('auto' | 'ref') picks the kernels (the binary GEMMs and kernel 10,
 the selective scan) or their plain versions, as in `models.transformer`.
 
-Not ported yet (ROADMAP Queue A): whole-prompt `mamba_prefill` and
-`mamba_logits` (with whole-prompt admission), training, and the
-recurrentgemma hybrid.
+Whole-prompt `mamba_prefill` and the inference forward `mamba_logits` run
+each block as the chunk block from zero state over the whole sequence, so
+the scan is one launch of kernel 10 at T = S per layer (the JAX package
+runs its jnp `_mamba_chunk_scan` there).
+
+Not ported yet (ROADMAP Queue A): training and the recurrentgemma hybrid.
 """
 from __future__ import annotations
 
@@ -133,3 +136,53 @@ def mamba_prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         cs.copy_(cs_new)
         hs.copy_(hs_new)
     return _head(params, cfg, h[:, n_valid - 1:n_valid])[:, 0], cache
+
+
+def _whole_sequence(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                    path: str, states: list | None = None) -> torch.Tensor:
+    """Every block over tokens (B, S) from zero state (the chunk block with
+    all S rows real); appends each layer's (conv, h) state to `states`.
+    Returns the residual stream (B, S, D)."""
+    mode = QuantMode(cfg.quant)
+    b = tokens.shape[0]
+    di = cfg.expand * cfg.d_model
+    conv0 = torch.zeros((b, cfg.d_conv - 1, di), dtype=cfg.activation_dtype,
+                        device=tokens.device)
+    h = _embed(params, cfg, tokens)
+    for layer in range(cfg.n_layers):
+        h, cs, hs = mamba_block_chunk(layer_params(params, layer), h, conv0,
+                                      None, tokens.shape[1], cfg, mode,
+                                      path=path)
+        if states is not None:
+            states.append((cs, hs))
+    return h
+
+
+def mamba_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+                  cache: dict | None = None, slot: int = 0,
+                  path: str = "auto") -> tuple[torch.Tensor, dict]:
+    """Run whole prompts tokens (B, S) from zero state; their final conv and
+    SSM states land in state rows [slot, slot + B) of `cache` (None: a new
+    state of B rows, as the JAX package returns one), in place. Returns
+    (logits (B, V) at the last position, the state)."""
+    _check_served(cfg)
+    b = tokens.shape[0]
+    if cache is None:
+        cache = mamba_init_state(cfg, b, device=tokens.device)
+    if slot < 0 or slot + b > cache["h"].shape[1]:
+        raise ValueError(f"slots [{slot}, {slot + b}) outside the state's "
+                         f"{cache['h'].shape[1]}")
+    states: list = []
+    h = _whole_sequence(params, cfg, tokens, path, states)
+    for layer, (cs, hs) in enumerate(states):
+        cache["conv"][layer, slot:slot + b] = cs
+        cache["h"][layer, slot:slot + b] = hs
+    return _head(params, cfg, h[:, -1:])[:, 0], cache
+
+
+def mamba_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+                 path: str = "auto") -> tuple[torch.Tensor, dict]:
+    """Inference forward: tokens (B, S) -> (logits (B, S, V), {}). (The
+    training forward comes with the LM trainer, ROADMAP Queue A.)"""
+    _check_served(cfg)
+    return _head(params, cfg, _whole_sequence(params, cfg, tokens, path)), {}

@@ -1,33 +1,43 @@
-"""Decoder-only transformer, dense family, served from a bit-resident KV
-cache (port of the dense serving path of `repro.models.transformer`).
+"""Decoder-only transformer, dense family: inference forward, whole-prompt
+and chunked prefill, and decode from a float or bit-resident KV cache (port
+of the dense serving path of `repro.models.transformer`).
 
 Params are the JAX package's tree: dicts of tensors, the blocks' leaves
 stacked along a leading L axis (frozen weights are `PackedWeight`s whose
 words carry that axis too), so trees carry across with `convert`. The loop
 over layers is a Python loop over views of the stacked leaves.
 
-The cache is bit-resident (`kv_bits=1`): K/V are sign bitplanes packed
-along head_dim, (L, B, T, Hkv, ceil(hd/32)) int32 words, plus a float32 V
-scale per (layer, row, KV head). Unlike the JAX package, which returns a new
-cache, the port updates the cache tensors in place and returns the same
-dict: a full-width cache is written one row at a time, never copied.
+The cache is float (`kv_bits=0`, the JAX default): K/V (L, B, T, Hkv, hd)
+in the activation dtype; or bit-resident (`kv_bits=1`): K/V sign bitplanes
+packed along head_dim, (L, B, T, Hkv, ceil(hd/32)) int32 words, plus a
+float32 V scale per (layer, row, KV head). Unlike the JAX package, which
+returns a new cache, the port updates the cache tensors in place and
+returns the same dict: a full-width cache is written one row at a time,
+never copied. A bit-resident cache's new rows are packed and stored in one
+launch of kernel 5's `pack_rows_into` (K and V together, at the rows
+`_decode_rows` / `_chunk_rows` / the prompt's give).
 
 The paged layout (`init_cache(page_size=, pool_pages=)`) keeps K/V in
-(L, P, ps, Hkv, ceil(hd/32)) pools shared by every slot and a (B, NP) int32
-page table per slot (entries equal to P: unallocated); V scales stay per
-slot. Paging is addressing only: the same writes and the same attention,
-through the page table (kernels 7 and 9, `decode_attention_packed_paged`
-and `prefill_attention_packed_paged`).
+(L, P, ps, Hkv, ·) pools shared by every slot and a (B, NP) int32 page
+table per slot (entries equal to P: unallocated); V scales stay per slot.
+Paging is addressing only: the same writes and the same attention, through
+the page table (kernels 7 and 9 on a bit-resident pool; the float
+attention on the gathered pages). It fills through chunked prefill only,
+as in the JAX package.
+
+Whole-prompt prefill (`transformer_prefill`) runs the float flash
+attention over the prompt whatever the cache, then writes the K/V rows
+(packed at `kv_bits=1`, with the V scale `v_cache_scale` fixes), as JAX
+does.
 
 `path` ('auto' | 'ref') picks, for every kernel on the path (sign-pack,
 binary GEMMs, packed attention), the hand-written kernel (which one the
 device decides: a CPU tensor runs the plain version) or the plain PyTorch
-version on any device. It is the caller's explicit choice; nothing falls
-back on its own.
+version on any device. The float attention is plain PyTorch on both. It is
+the caller's explicit choice; nothing falls back on its own.
 
-Not ported yet (ROADMAP Queue A): the float KV cache and whole-prompt
-`transformer_prefill` (float flash attention), the VLM, MoE and audio
-families, training.
+Not ported yet (ROADMAP Queue A): the VLM, MoE and audio families,
+training.
 """
 from __future__ import annotations
 
@@ -46,8 +56,10 @@ from repro_torch.kernels.prefill_attention import (
     prefill_attention_packed_paged_plain, prefill_attention_packed_plain,
 )
 from repro_torch.models.attention import (
+    chunk_attention, chunk_attention_paged, decode_attention,
     decode_attention_packed, decode_attention_packed_paged,
-    prefill_attention_packed, prefill_attention_packed_paged,
+    decode_attention_paged, flash_attention, prefill_attention_packed,
+    prefill_attention_packed_paged, v_cache_scale,
 )
 from repro_torch.models.common import ffn, ffn_param_shapes, rms_norm, rope
 
@@ -166,6 +178,35 @@ def ffn_sublayer(p: dict, x: torch.Tensor, cfg: ModelConfig,
     return x + ffn(p["ffn"], xn, cfg.mlp, mode, path=path)
 
 
+def self_attn(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
+              *, path: str = "auto", pos_offset: int = 0,
+              return_kv: bool = False):
+    """Causal self-attention sublayer over a whole sequence (x: (B, S, D)
+    at positions pos_offset..), float flash attention over the rope'd
+    K/V. With `return_kv` also returns (k, v), each (B, S, Hkv, hd), for
+    the cache."""
+    xn = rms_norm(x, p["ln1"]["scale"])
+    q, k, v = _qkv(p["attn"], xn, cfg, mode, path)
+    positions = torch.arange(x.shape[1], device=x.device) + pos_offset
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    out = flash_attention(q, k, v, True, cfg.local_window, cfg.attn_chunk,
+                          pos_offset)
+    out = out.reshape(x.shape[0], x.shape[1], cfg.n_heads * cfg.head_dim)
+    y = x + qmatmul(out, p["attn"]["wo"], mode, path=path)
+    return (y, (k, v)) if return_kv else y
+
+
+def _self_block(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
+                *, path: str = "auto", pos_offset: int = 0,
+                return_kv: bool = False):
+    """self_attn then the FFN sublayer; returns (y, (k, v) or None)."""
+    res = self_attn(p, x, cfg, mode, path=path, pos_offset=pos_offset,
+                    return_kv=return_kv)
+    y, kv = res if return_kv else (res, None)
+    return ffn_sublayer(p, y, cfg, mode, path=path), kv
+
+
 def _pack_into(path: str, srcs, pools, rows: torch.Tensor) -> None:
     """Sign-pack the new K and V rows into their cache rows, in place: one
     launch of kernel 5's `pack_rows_into` ('auto'), or its plain version
@@ -192,63 +233,74 @@ def _head(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Bit-resident KV cache
+# KV cache
 # ---------------------------------------------------------------------------
+def _kv_leaf(cfg: ModelConfig) -> tuple[torch.dtype, int]:
+    """dtype and last-axis width of the K/V leaves: the activation dtype
+    and hd (kv_bits=0), or int32 sign words, ceil(hd/32) (kv_bits=1)."""
+    if cfg.kv_bits == 1:
+        return torch.int32, packed_width(cfg.head_dim)
+    if cfg.kv_bits != 0:
+        raise ValueError(f"kv_bits must be 0 or 1, got {cfg.kv_bits}")
+    return cfg.activation_dtype, cfg.head_dim
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None,
                page_size: int | None = None,
                pool_pages: int | None = None) -> dict:
-    """kv_bits=1 cache. Contiguous: {"k", "v": (L, batch, max_len, Hkv,
-    ceil(hd/32)) int32 words, "v_scale": (L, batch, Hkv) float32}.
+    """Zeroed KV cache. Contiguous: {"k", "v": (L, batch, max_len, Hkv, w)}
+    with w = hd in the activation dtype (kv_bits=0) or ceil(hd/32) int32
+    words (kv_bits=1, plus "v_scale": (L, batch, Hkv) float32).
 
     With `page_size` the layout is paged (the JAX package's): "k", "v" are
-    (L, pool_pages, page_size, Hkv, ceil(hd/32)) pools shared by every slot
+    (L, pool_pages, page_size, Hkv, w) pools shared by every slot
     (pool_pages defaults to batch * NP, what the contiguous cache holds),
     "page_table" is (batch, NP = ceil(max_len / page_size)) int32 filled
-    with the sentinel pool_pages, and "v_scale" stays (L, batch, Hkv). Each
-    layer's pool is followed in memory by one more page, the sink, which
-    only writes of inactive rows reach (`_with_sink`) and nothing reads."""
+    with the sentinel pool_pages, and "v_scale" (kv_bits=1) stays (L,
+    batch, Hkv). Each layer's pool is followed in memory by one more page,
+    the sink, which only writes of inactive rows reach (`_with_sink`) and
+    nothing reads."""
     _check_served(cfg)
-    if cfg.kv_bits != 1:
-        raise NotImplementedError("the float KV cache (kv_bits=0) comes with "
-                                  "the next slice (ROADMAP Queue A)")
+    dtype, w = _kv_leaf(cfg)
     dev = resolve_device(device)
-    hkv, hdw = cfg.n_kv_heads, packed_width(cfg.head_dim)
+    hkv = cfg.n_kv_heads
     cache = {}
     if page_size is None:
         if pool_pages is not None:
             raise ValueError("pool_pages needs page_size (the paged layout)")
-        shape = (cfg.n_layers, batch, max_len, hkv, hdw)
-        cache["k"] = torch.zeros(shape, dtype=torch.int32, device=dev)
-        cache["v"] = torch.zeros(shape, dtype=torch.int32, device=dev)
+        shape = (cfg.n_layers, batch, max_len, hkv, w)
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
     else:
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         n_pages = -(-max_len // page_size)
         pool = pool_pages if pool_pages is not None else batch * n_pages
         for name in ("k", "v"):
-            cache[name] = new_pool(cfg.n_layers, pool, page_size, hkv, hdw,
-                                   device=dev)
+            cache[name] = new_pool(cfg.n_layers, pool, page_size, hkv, w,
+                                   device=dev, dtype=dtype)
         cache["page_table"] = torch.full((batch, n_pages), pool,
                                          dtype=torch.int32, device=dev)
-    cache["v_scale"] = torch.zeros((cfg.n_layers, batch, hkv),
-                                   dtype=torch.float32, device=dev)
+    if cfg.kv_bits == 1:
+        cache["v_scale"] = torch.zeros((cfg.n_layers, batch, hkv),
+                                       dtype=torch.float32, device=dev)
     return cache
 
 
-def new_pool(n_layers: int, pool: int, page_size: int, hkv: int, hdw: int,
-             *, device) -> torch.Tensor:
-    """Zeroed (L, pool, page_size, Hkv, hdw) int32 page pools: a view of
-    (L, pool + 1, ...) storage, so that each layer's pool is followed by
-    its sink page (see `_with_sink`)."""
+def new_pool(n_layers: int, pool: int, page_size: int, hkv: int, w: int,
+             *, device, dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """Zeroed (L, pool, page_size, Hkv, w) page pools (int32 words, or the
+    float cache's dtype): a view of (L, pool + 1, ...) storage, so that
+    each layer's pool is followed by its sink page (see `_with_sink`)."""
     if pool < 1:
         raise ValueError(f"pool_pages must be >= 1, got {pool}")
-    storage = torch.zeros((n_layers, pool + 1, page_size, hkv, hdw),
-                          dtype=torch.int32, device=device)
+    storage = torch.zeros((n_layers, pool + 1, page_size, hkv, w),
+                          dtype=dtype, device=device)
     return storage[:, :pool]
 
 
 def _with_sink(pool: torch.Tensor) -> torch.Tensor:
-    """One layer's (P, ps, Hkv, hdw) pool seen as P + 1 pages, the last the
+    """One layer's (P, ps, Hkv, w) pool seen as P + 1 pages, the last the
     sink. Rows that must write nothing (inactive decode rows, chunk rows
     whose table entry is the sentinel P) write page P of this view: a page
     no table names and no kernel reads. Writing their own old words instead
@@ -263,6 +315,12 @@ def _with_sink(pool: torch.Tensor) -> torch.Tensor:
     return pool.as_strided((p + 1,) + tuple(pool.shape[1:]), pool.stride())
 
 
+def _rows_view(panel: torch.Tensor) -> torch.Tensor:
+    """A (B | P, T | ps, Hkv, w) panel or pool as (rows, Hkv, w), a view
+    (it raises rather than copy)."""
+    return panel.view((-1,) + tuple(panel.shape[2:]))
+
+
 def cache_len_max(cache: dict) -> int:
     """Positions one slot's cache holds: T contiguous, NP * ps paged."""
     if "page_table" in cache:
@@ -275,28 +333,44 @@ def cache_len_max(cache: dict) -> int:
 # ---------------------------------------------------------------------------
 def _decode_self_block(bp, h, kc, vc, vs, cfg, mode, pos, rows, path,
                        pt=None):
-    """One-token block. h: (B, 1, D); kc/vc: (B, T, Hkv, hdw) views of the
-    layer's cache, or with the page table `pt` the layer's (P, ps, Hkv,
-    hdw) pools; pos: (B,) int32 write positions; rows: (B,) int64 write
-    rows (`_decode_rows`). Rows with pos < 0 (freed or mid-admission
-    slots) compute but write nothing a table names."""
+    """One-token block. h: (B, 1, D); kc/vc: (B, T, Hkv, w) views of the
+    layer's cache, or with the page table `pt` the layer's (P, ps, Hkv, w)
+    pools; vs: the layer's (B, Hkv) V scales (kv_bits=1) or None; pos: (B,)
+    int32 write positions; rows: (B,) int64 write rows (`_decode_rows`).
+    Rows with pos < 0 (freed or mid-admission slots) compute but write
+    nothing a table names."""
     b = h.shape[0]
     xn = rms_norm(h, bp["ln1"]["scale"])
     q, k_new, v_new = _qkv(bp["attn"], xn, cfg, mode, path)
     positions = pos[:, None]                                   # (B, 1)
     q = rope(q, positions, cfg.rope_theta)
     k_new = rope(k_new, positions, cfg.rope_theta)
-    if pt is None:
-        _pack_into(path, (k_new[:, 0], v_new[:, 0]), (kc, vc), rows)
-        attend = decode_attention_packed if path == "auto" \
-            else decode_attention_packed_plain
-        out = attend(q, kc, vc, vs, pos + 1, window=cfg.local_window)
+    new = (k_new[:, 0], v_new[:, 0])
+    window = cfg.local_window
+    if cfg.kv_bits == 1:
+        if pt is None:
+            _pack_into(path, new, (kc, vc), rows)
+            attend = decode_attention_packed if path == "auto" \
+                else decode_attention_packed_plain
+            out = attend(q, kc, vc, vs, pos + 1, window=window)
+        else:
+            _pack_into(path, new, (_with_sink(kc), _with_sink(vc)), rows)
+            attend = decode_attention_packed_paged if path == "auto" \
+                else decode_attention_packed_paged_plain
+            out = attend(q, kc, vc, vs, pt, pos + 1, window=window)
+    elif pt is None:
+        # an inactive row rewrites its own old values (rows are distinct,
+        # so no two writes land on one position; no host sync)
+        act = (rows >= 0)[:, None, None]
+        bi = torch.arange(b, device=h.device)
+        idx = pos.clamp(0, kc.shape[1] - 1).long()
+        for c, x in zip((kc, vc), new):
+            c[bi, idx] = torch.where(act, x.to(c.dtype), c[bi, idx])
+        out = decode_attention(q, kc, vc, pos + 1, window=window)
     else:
-        _pack_into(path, (k_new[:, 0], v_new[:, 0]),
-                   (_with_sink(kc), _with_sink(vc)), rows)
-        attend = decode_attention_packed_paged if path == "auto" \
-            else decode_attention_packed_paged_plain
-        out = attend(q, kc, vc, vs, pt, pos + 1, window=cfg.local_window)
+        for c, x in zip((kc, vc), new):
+            _rows_view(_with_sink(c))[rows] = x.to(c.dtype)
+        out = decode_attention_paged(q, kc, vc, pt, pos + 1, window=window)
     out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim)
     h = h + qmatmul(out, bp["attn"]["wo"], mode, path=path)
     return ffn_sublayer(bp, h, cfg, mode, path=path)
@@ -304,7 +378,7 @@ def _decode_self_block(bp, h, kc, vc, vs, cfg, mode, pos, rows, path,
 
 def _decode_rows(cache: dict, pos: torch.Tensor, act: torch.Tensor):
     """Write rows of a decode step, the same for every layer, as (B,) int64
-    rows of the layer's cache seen as (rows, Hkv, hdw). Contiguous: row b
+    rows of the layer's cache seen as (rows, Hkv, w). Contiguous: row b
     writes b * T + pos[b], an inactive row -1 (nothing: it keeps its old
     words). Paged (the pools seen with their sink page): page pt[b, pos //
     ps], row pos % ps; an inactive row the sink page P."""
@@ -339,12 +413,13 @@ def transformer_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
     act = (pos >= 0) & (pos < cache_len_max(cache))
     rows = _decode_rows(cache, pos, act)
     pt = cache.get("page_table")
+    vs = cache.get("v_scale")
     h = _embed(params, cfg, token[:, None])
     for layer in range(cfg.n_layers):
         h = _decode_self_block(layer_params(params, layer), h,
                                cache["k"][layer], cache["v"][layer],
-                               cache["v_scale"][layer], cfg, mode, pos, rows,
-                               path, pt)
+                               None if vs is None else vs[layer], cfg, mode,
+                               pos, rows, path, pt)
     return _head(params, cfg, h)[:, 0], cache
 
 
@@ -354,19 +429,31 @@ def transformer_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
 def _chunk_self_block(bp, h, kc, vc, vs, cfg, mode, positions, pos, n_valid,
                       rows, path, pt_row=None):
     """One block over a prefill chunk against the slot's cache row.
-    h: (1, C, D); kc/vc: (1, T, Hkv, hdw) and vs: (1, Hkv) views of the
-    slot's rows, or with the slot's (1, NP) page-table row `pt_row` the
-    layer's (P, ps, Hkv, hdw) pools; rows: (C,) int64 write rows
-    (`_chunk_rows`). The chunk's first n_valid K/V rows are written (pad
-    rows write nothing), the V scale becomes the running mean |v| over
+    h: (1, C, D); kc/vc: (1, T, Hkv, w) and vs: (1, Hkv) (kv_bits=1; else
+    None) views of the slot's rows, or with the slot's (1, NP) page-table
+    row `pt_row` the layer's (P, ps, Hkv, w) pools; rows: (C,) int64 write
+    rows (`_chunk_rows`). The chunk's first n_valid K/V rows are written
+    (pad rows write nothing), the V scale becomes the running mean |v| over
     [0, pos + n_valid), then the chunk attends to everything written."""
     c = h.shape[1]
     kv_len = pos + n_valid
+    window = cfg.local_window
     xn = rms_norm(h, bp["ln1"]["scale"])
     q, k_new, v_new = _qkv(bp["attn"], xn, cfg, mode, path)
     q = rope(q, positions, cfg.rope_theta)
     k_new = rope(k_new, positions, cfg.rope_theta)
     pools = (kc, vc) if pt_row is None else (_with_sink(kc), _with_sink(vc))
+    if cfg.kv_bits == 0:
+        for pool, x in zip(pools, (k_new[0], v_new[0])):
+            _rows_view(pool)[rows[:n_valid]] = x[:n_valid].to(pool.dtype)
+        if pt_row is None:
+            out = chunk_attention(q, kc, vc, kv_len, pos, window=window)
+        else:
+            out = chunk_attention_paged(q, kc, vc, pt_row, kv_len, pos,
+                                        window=window)
+        out = out.reshape(1, c, cfg.n_heads * cfg.head_dim)
+        h = h + qmatmul(out, bp["attn"]["wo"], mode, path=path)
+        return ffn_sublayer(bp, h, cfg, mode, path=path)
     _pack_into(path, (k_new[0], v_new[0]), pools, rows)
     # running mean |v| over (positions so far, head_dim): equals the
     # whole-prompt v_cache_scale once the last chunk lands; the same in
@@ -378,12 +465,11 @@ def _chunk_self_block(bp, h, kc, vc, vs, cfg, mode, positions, pos, n_valid,
     if pt_row is None:
         attend = prefill_attention_packed if path == "auto" \
             else prefill_attention_packed_plain
-        out = attend(q, kc, vc, vs, kv_len, pos, window=cfg.local_window)
+        out = attend(q, kc, vc, vs, kv_len, pos, window=window)
     else:
         attend = prefill_attention_packed_paged if path == "auto" \
             else prefill_attention_packed_paged_plain
-        out = attend(q, kc, vc, vs, pt_row, kv_len, pos,
-                     window=cfg.local_window)
+        out = attend(q, kc, vc, vs, pt_row, kv_len, pos, window=window)
     out = out.reshape(1, c, cfg.n_heads * cfg.head_dim)
     h = h + qmatmul(out, bp["attn"]["wo"], mode, path=path)
     return ffn_sublayer(bp, h, cfg, mode, path=path)
@@ -392,7 +478,7 @@ def _chunk_self_block(bp, h, kc, vc, vs, cfg, mode, positions, pos, n_valid,
 def _chunk_rows(cache: dict, pt_row, positions: torch.Tensor,
                 n_valid: int) -> torch.Tensor:
     """Write rows of a chunk, the same for every layer, as (C,) int64 rows
-    of the layer's cache seen as (rows, Hkv, hdw): contiguous, position t
+    of the layer's cache seen as (rows, Hkv, w): contiguous, position t
     of the slot's (1, T) panel; paged (the pools seen with their sink
     page), page pt_row[t // ps], row t % ps, where an unallocated entry
     (the sentinel P) writes the sink page. Pad rows: -1 (nothing)."""
@@ -432,6 +518,7 @@ def transformer_prefill_chunk(params: dict, cfg: ModelConfig,
     pt_row = cache["page_table"][slot:slot + 1] if "page_table" in cache \
         else None
     rows = _chunk_rows(cache, pt_row, positions, n_valid)
+    vs = cache.get("v_scale")
     h = _embed(params, cfg, tokens)
     for layer in range(cfg.n_layers):
         if pt_row is None:
@@ -441,6 +528,69 @@ def transformer_prefill_chunk(params: dict, cfg: ModelConfig,
             kc, vc = cache["k"][layer], cache["v"][layer]
         h = _chunk_self_block(
             layer_params(params, layer), h, kc, vc,
-            cache["v_scale"][layer, slot:slot + 1], cfg, mode, positions, pos,
-            n_valid, rows, path, pt_row)
+            None if vs is None else vs[layer, slot:slot + 1], cfg, mode,
+            positions, pos, n_valid, rows, path, pt_row)
     return _head(params, cfg, h[:, n_valid - 1:n_valid])[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Whole-prompt prefill and the inference forward
+# ---------------------------------------------------------------------------
+def transformer_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                        *, max_len: int | None = None,
+                        cache: dict | None = None, slot: int = 0,
+                        path: str = "auto") -> tuple[torch.Tensor, dict]:
+    """Run whole prompts: tokens (B, S) int. Every layer attends over the
+    prompt with the float flash attention, then its K/V rows 0..S-1 land
+    in cache rows [slot, slot + B) -- kv_bits=1: packed and stored in one
+    launch of kernel 5 (`pack_rows_into`), the V scale `v_cache_scale`.
+    With `cache` None a new contiguous cache of B rows at max_len (default
+    S) is made, as the JAX package returns one; a given cache is written in
+    place (positions past S keep what they held: lengths mask them). A
+    paged cache fills through chunked prefill only (ValueError). Returns
+    (logits (B, V) at the last position, the cache)."""
+    _check_served(cfg)
+    b, s = tokens.shape
+    if cache is None:
+        cache = init_cache(cfg, b, max_len or s, device=tokens.device)
+    elif "page_table" in cache:
+        raise ValueError("a paged cache fills through chunked admission: "
+                         "pass prefill_chunk")
+    t_max = cache["k"].shape[2]
+    if not (1 <= s <= t_max and 0 <= slot and slot + b <= cache["k"].shape[1]):
+        raise ValueError(f"prompt rows {s} x slots [{slot}, {slot + b}) "
+                         f"outside the cache's {tuple(cache['k'].shape[1:3])}")
+    mode = QuantMode(cfg.quant)
+    if cfg.kv_bits == 1:
+        dev = tokens.device
+        rows = ((torch.arange(b, device=dev)[:, None] + slot) * t_max
+                + torch.arange(s, device=dev)[None]).reshape(-1)
+    h = _embed(params, cfg, tokens)
+    for layer in range(cfg.n_layers):
+        h, (k, v) = _self_block(layer_params(params, layer), h, cfg, mode,
+                                path=path, return_kv=True)
+        kc, vc = cache["k"][layer], cache["v"][layer]
+        if cfg.kv_bits == 1:
+            _pack_into(path, (k.flatten(0, 1), v.flatten(0, 1)), (kc, vc),
+                       rows)
+            cache["v_scale"][layer, slot:slot + b] = v_cache_scale(v)
+        else:
+            kc[slot:slot + b, :s] = k.to(kc.dtype)
+            vc[slot:slot + b, :s] = v.to(vc.dtype)
+    return _head(params, cfg, h[:, -1:])[:, 0], cache
+
+
+def transformer_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                       *, path: str = "auto") -> tuple[torch.Tensor, dict]:
+    """Inference forward: tokens (B, S) -> (logits (B, S, V), {"lb_loss":
+    0}), causal float flash attention in every layer, no cache. (The
+    training forward and its loss come with the LM trainer, ROADMAP Queue
+    A.)"""
+    _check_served(cfg)
+    mode = QuantMode(cfg.quant)
+    h = _embed(params, cfg, tokens)
+    for layer in range(cfg.n_layers):
+        h, _ = _self_block(layer_params(params, layer), h, cfg, mode,
+                           path=path)
+    return _head(params, cfg, h), \
+        {"lb_loss": torch.zeros((), dtype=torch.float32, device=h.device)}

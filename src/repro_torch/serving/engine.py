@@ -1,37 +1,43 @@
-"""Serving engine over the bit-resident LM (port of the chunked-admission,
-single-device part of `repro.serving.engine`).
+"""Serving engine over the LM (port of the single-device part of
+`repro.serving.engine`).
 
-    eng = ServingEngine(cfg, params, freeze=True, kv_bits=1, prefill_chunk=C)
+    eng = ServingEngine(cfg, params, freeze=True)     # the JAX defaults:
     tokens = eng.generate([Request(prompt, max_new_tokens=16), ...])
+    # whole-prompt admission, float KV cache (kv_bits=0)
+    eng = ServingEngine(cfg, params, freeze=True, kv_bits=1, prefill_chunk=C)
     # paged 1-bit KV pool with the radix-tree prefix cache
     eng = ServingEngine(cfg, params, freeze=True, kv_bits=1, prefill_chunk=C,
                         page_size=P, prefix_cache=True)
+    tokens = eng.generate_static([Request(p, max_new_tokens=8), ...])
+    # same-length prompts, one batched prefill then decode steps
 
 `freeze=True` packs the fp32 masters into 1-bit `PackedWeight`s once, at
-load; `kv_bits=1` keeps K/V as sign bitplanes plus a per-head V scale. Every
-binarized matmul, sign-pack and attention then runs through the port's
-hand-written kernels on the card (`kernel_path="auto"`), or through their
-plain PyTorch versions on any device (`kernel_path="ref"`, the yardstick the
-kernels are held to). A CPU tensor always runs the plain versions.
+load. `kv_bits=0` (the default, as in the JAX package) keeps K/V in the
+activation dtype; `kv_bits=1` keeps them as sign bitplanes plus a per-head
+V scale. `prefill_chunk=None` (the default) admits each prompt whole,
+`prefill_chunk=C` in chunks of C. Every binarized matmul, sign-pack, packed
+attention and selective scan then runs through the port's hand-written
+kernels on the card (`kernel_path="auto"`), or through their plain
+PyTorch versions on any device (`kernel_path="ref"`, the yardstick the
+kernels are held to); the float attention is plain PyTorch on both. A CPU
+tensor always runs the plain versions.
 
 `page_size=P` keeps K/V in a pool of P-token pages shared by every slot
-(`pool_pages`, default what the contiguous cache holds) and `prefix_cache`
-shares full prompt pages across requests (`serving.scheduler`).
+(`pool_pages`, default what the contiguous cache holds; needs
+`prefill_chunk`) and `prefix_cache` shares full prompt pages across
+requests (`serving.scheduler`).
 
 falcon-mamba-7b (`family="ssm"`) serves the same way from O(1) recurrent
-state per slot, its selective scan through kernel 10:
+state per slot, its selective scan through kernel 10; `kv_bits`,
+`page_size`, `pool_pages` and `prefix_cache` have no effect there, as in
+the JAX package.
 
-    eng = ServingEngine(get_config("falcon-mamba-7b"), params, freeze=True,
-                        prefill_chunk=C)
-
-`kv_bits`, `page_size`, `pool_pages` and `prefix_cache` have no effect
-there, as in the JAX package.
-
-Not ported yet (ROADMAP Queue A): `generate_static`; and raising
-NotImplementedError: whole-prompt admission (`prefill_chunk=None`), the
-float KV cache (`kv_bits=0`), the mesh, the bounded queue and fault plans.
+Not ported yet, and raising NotImplementedError (ROADMAP Queue A): the
+mesh, the bounded queue and fault plans.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -39,6 +45,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.packed import params_frozen, resident_weight_bytes
 from repro_torch.models.api import ATTENTION_FAMILIES, get_model
+from repro_torch.serving.sampling import sample_tokens
 from repro_torch.serving.scheduler import (
     Completion, Request, RequestError, Scheduler,
 )
@@ -61,13 +68,6 @@ class ServingEngine:
                 raise ValueError(f"kv_bits must be 0 (float cache) or 1 "
                                  f"(packed sign bitplanes), got {kv_bits}")
             cfg = cfg.scaled(kv_bits=kv_bits)
-        if cfg.kv_bits != 1 and cfg.family in ATTENTION_FAMILIES:
-            raise NotImplementedError("the float KV cache (kv_bits=0) comes "
-                                      "with the next slice (ROADMAP Queue A)")
-        if prefill_chunk is None:
-            raise NotImplementedError("whole-prompt admission "
-                                      "(prefill_chunk=None) comes with the "
-                                      "next slice (ROADMAP Queue A)")
         self.cfg = cfg
         self.kernel_path = kernel_path
         self.model = get_model(cfg, path=kernel_path)
@@ -83,6 +83,9 @@ class ServingEngine:
                               queue_cap=queue_cap, fault_plan=fault_plan)
         self.frozen = params_frozen(params)
         self._sched: Scheduler | None = None
+        self._gen: torch.Generator | None = None
+        self.stats = {"prefill_tokens": 0, "decode_steps": 0,
+                      "prefill_s": 0.0, "decode_s": 0.0}
         if freeze:
             self.freeze()
         self.scheduler()      # raises now for what is not ported
@@ -117,7 +120,8 @@ class ServingEngine:
     def resident_cache_bytes(self) -> dict:
         """Bytes of the slot cache (`slots` rows at `max_len`, or the page
         pool), split `packed` (int32 sign bitplanes, and int32 page tables)
-        vs `float` (V scales; the Mamba stack's conv and SSM states). Computed from shapes; nothing is allocated.
+        vs `float` (float K/V at kv_bits=0, V scales; the Mamba stack's conv
+        and SSM states). Computed from shapes; nothing is allocated.
         Paged, `packed` also counts each layer's sink page, and a
         `page_pool` section holds the scheduler's `page_stats()`: pages,
         allocated, free, pinned by the prefix tree, the tree's counters."""
@@ -160,3 +164,55 @@ class ServingEngine:
         """Tokens of each request, in request order (ragged prompts,
         per-request budgets and eos)."""
         return [c.tokens for c in self.serve(requests)]
+
+    def generate_static(self, requests: list[Request]) -> list[np.ndarray]:
+        """The static batch loop: same-length prompts prefilled together in
+        one batch (`Model.prefill`, a new cache of max_len), then every
+        request decoded for the batch's largest budget; each gets its own
+        budget back. Greedy rows take the argmax; if any request samples,
+        rows draw from the engine's generator (`serving.sampling`, seeded
+        from `seed`). Tokens stay on the device until one transfer at the
+        end."""
+        if not requests:
+            raise ValueError("empty batch")
+        lens = {len(r.prompt) for r in requests}
+        if len(lens) != 1:
+            raise ValueError("the static path batches same-length prompts")
+        s = lens.pop()
+        max_new = max(r.max_new_tokens for r in requests)
+        if s + max_new > self.max_len:
+            raise ValueError(f"prompt ({s}) + max_new_tokens ({max_new}) "
+                             f"exceeds max_len={self.max_len}")
+        dev = self.params["embed"].device
+        tokens = torch.from_numpy(np.stack(
+            [np.asarray(r.prompt, np.int64) for r in requests])).to(dev)
+        temps = torch.tensor([float(r.temperature) for r in requests],
+                             dtype=torch.float32, device=dev)
+        gen = None                      # greedy rows draw nothing
+        if any(r.temperature > 0 for r in requests):
+            if self._gen is None:
+                self._gen = torch.Generator(device=dev).manual_seed(self.seed)
+            gen = self._gen
+        t0 = time.time()
+        logits, cache = self.model.prefill(self.params, tokens,
+                                           max_len=self.max_len)
+        cur = sample_tokens(logits, temps, generator=gen)
+        _sync(dev)
+        self.stats["prefill_s"] += time.time() - t0
+        self.stats["prefill_tokens"] += int(tokens.numel())
+        steps = [cur]
+        t0 = time.time()
+        for i in range(max_new - 1):
+            logits, cache = self.model.decode(self.params, cur, cache, s + i)
+            cur = sample_tokens(logits, temps, generator=gen)
+            steps.append(cur)
+            self.stats["decode_steps"] += 1
+        out = torch.stack(steps, dim=1).cpu().numpy()      # one transfer
+        self.stats["decode_s"] += time.time() - t0
+        return [out[j, :r.max_new_tokens].astype(np.int32)
+                for j, r in enumerate(requests)]
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -1,14 +1,20 @@
 """Continuous-batching scheduler: fixed decode slots over a request queue
-(port of the single-device, chunked-admission subset of
-`repro.serving.scheduler`, contiguous or paged cache, with the prefix cache).
+(port of the single-device subset of `repro.serving.scheduler`: whole-prompt
+or chunked admission, contiguous or paged cache, with the prefix cache).
 
-Admission is chunked (`prefill_chunk=C`): a prompt advances through its
-slot's cache row one fixed-shape (1, C) chunk per poll, through
-`Model.prefill_chunk` (packed K/V rows and the running V scale land
-incrementally). Between chunks the scheduler runs a decode burst bounded to
-`interleave_steps`, so admitting a long prompt does not freeze the running
-slots. Rows mid-admission decode with a pos = -1 sentinel: they compute but
-write nothing, so a burst cannot corrupt a partially prefilled row.
+Admission is whole-prompt by default (`prefill_chunk=None`, the JAX
+package's default): `Model.prefill` runs the request's prompt at batch 1
+straight into its slot's cache rows, in place, and samples its first
+token; in-flight slots stall for the whole prefill, and `prefill_shape_
+count` grows with every new prompt length (("whole", S)), as in the JAX
+package. Chunked admission (`prefill_chunk=C`): a prompt advances through
+its slot's cache row one fixed-shape (1, C) chunk per poll, through
+`Model.prefill_chunk` (K/V rows and, packed, the running V scale land
+incrementally). Between chunks the scheduler runs a decode burst bounded
+to `interleave_steps`, so admitting a long prompt does not freeze the
+running slots. Rows mid-admission decode with a pos = -1 sentinel: they
+compute but write nothing, so a burst cannot corrupt a partially prefilled
+row.
 
 Decode: one step advances every slot together (per-slot position,
 temperature and eos). Slot state and output tokens live on the device; the
@@ -22,9 +28,10 @@ recycled to the next queued request at the next poll. Completions carry
 `latency` and burst-granularity inter-token intervals `itl`, as in the JAX
 package.
 
-Paged mode (`page_size=P`, attention families only): the cache's K/V are
-pools of P-token pages shared by every slot plus a per-slot page table
-(`models.transformer`).
+Paged mode (`page_size=P`, attention families only, with `prefill_chunk`:
+paged caches fill through chunked admission, a ValueError otherwise where
+the JAX scheduler asserts): the cache's K/V are pools of P-token pages
+shared by every slot plus a per-slot page table (`models.transformer`).
 Pages are refcounted (`serving.pager.PagePool`) and allocated at admission
 for every position the request can reach, evicting cold prefix-tree pages
 when the pool is short; a request the pool cannot take yet waits in its
@@ -45,8 +52,7 @@ from the engine (`serving.sampling`): greedy outputs are the JAX package's,
 sampled ones are not its draws.
 
 Not ported yet, and raising NotImplementedError naming ROADMAP Queue A:
-whole-prompt admission (`prefill_chunk=None`), the mesh, fault plans, the
-bounded queue and deadlines.
+the mesh, fault plans, the bounded queue and deadlines.
 """
 from __future__ import annotations
 
@@ -131,14 +137,14 @@ class Scheduler:
                  pool_pages: int | None = None, prefix_cache: bool = False,
                  mesh=None, queue_cap: int | None = None,
                  fault_plan=None):
-        if prefill_chunk is None:
-            raise _not_ported("whole-prompt admission (prefill_chunk=None)")
         for name, value in (("the mesh", mesh), ("queue_cap", queue_cap),
                             ("fault plans", fault_plan)):
             if value is not None:
                 raise _not_ported(name)
-        if prefill_chunk < 1 or interleave_steps < 0:
-            raise ValueError("prefill_chunk >= 1 and interleave_steps >= 0")
+        if (prefill_chunk is not None and prefill_chunk < 1) \
+                or interleave_steps < 0:
+            raise ValueError("prefill_chunk >= 1 (or None: whole-prompt "
+                             "admission) and interleave_steps >= 0")
         # paging, the prefix cache and the V scale apply to the attention
         # families only: a recurrent family's state is O(1) per slot and
         # stays slot-resident, so page_size, pool_pages and prefix_cache
@@ -149,6 +155,9 @@ class Scheduler:
         if self._paged:
             if page_size < 1:
                 raise ValueError(f"page_size must be >= 1, got {page_size}")
+            if prefill_chunk is None:
+                raise ValueError("paged KV fills through chunked admission "
+                                 "-- pass prefill_chunk")
             self.page_size = page_size
             self.n_pages = -(-max_len // page_size)
             self.pool_pages = (pool_pages if pool_pages is not None
@@ -344,6 +353,30 @@ class Scheduler:
         self._vs_snaps.pop(info.rid, None)
         self._pager.decref([p for p in pages if p not in taken])
         self._set_page_row(slot, [])
+
+    # -- whole-prompt admission ---------------------------------------------
+    def _admit(self, slot: int, rid: int, req: Request) -> None:
+        """Prefill the whole prompt at batch 1 straight into `slot`'s cache
+        rows, sample the first token and arm the slot (in-flight slots
+        stall for the whole prefill)."""
+        plen = int(req.prompt.size)
+        if self._running:
+            self.stats["max_admit_stall_tokens"] = max(
+                self.stats["max_admit_stall_tokens"], plen)
+        t0 = time.time()
+        tokens = torch.from_numpy(req.prompt[None].astype(np.int64)) \
+            .to(self.device)
+        logits, self._cache = self.model.prefill(self.params, tokens,
+                                                 cache=self._cache, slot=slot)
+        self._first_token(slot, logits, plen, req)
+        self._sync()                                  # honest prefill_s
+        dt = time.time() - t0
+        self.stats["prefill_s"] += dt
+        self._req_prefill_s[rid] = dt
+        self._prefill_shapes.add(("whole", plen))
+        self._running[slot] = _Running(rid, plen)
+        self.stats["prefill_tokens"] += plen
+        self._note_first_token(slot, rid)
 
     # -- chunked admission --------------------------------------------------
     def _start_admission(self, slot: int, rid: int, req: Request) -> bool:
@@ -580,10 +613,10 @@ class Scheduler:
 
     # -- the loop -----------------------------------------------------------
     def poll(self, drain: bool = False) -> list[Completion]:
-        """One round: start admissions into free slots, advance the head
-        admission by one chunk, harvest, else decode until the next
-        completion event (bounded to `interleave_steps` while an admission
-        is mid-flight). A request the page pool cannot take yet goes back to
+        """One round: admit into free slots (whole-prompt, or start chunked
+        admissions and advance the head one by one chunk), harvest, else
+        decode until the next completion event (bounded to
+        `interleave_steps` while an admission is mid-flight). A request the page pool cannot take yet goes back to
         its place at the head of the queue until running requests retire
         pages; with nothing in flight it could never be taken, and it
         completes alone with status 'error'."""
@@ -591,6 +624,9 @@ class Scheduler:
         while self._queue and self._free:
             rid, req = self._pop_next()
             slot = self._free.pop(0)
+            if self.prefill_chunk is None:
+                self._admit(slot, rid, req)
+                continue
             if not self._start_admission(slot, rid, req):
                 self._free.insert(0, slot)
                 if not self._running and not self._admitting:

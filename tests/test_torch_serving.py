@@ -296,13 +296,20 @@ def test_resident_bytes(masters):
 
 def test_unported_options_raise(masters):
     """What is not ported raises NotImplementedError, a fault plan with
-    paging on included. Paging is ported: page_size=8 serves (the same
-    tokens as the contiguous cache), and prefix_cache=True without
-    page_size is the caller's error, a ValueError as the JAX scheduler's
-    assertion."""
+    paging on included. Whole-prompt admission (prefill_chunk=None) and the
+    float cache (kv_bits=0) are ported: each serves the packed chunked
+    engine's prompts to their budgets. Paging is ported: page_size=8
+    serves (the same tokens as the contiguous cache), and prefix_cache=True
+    without page_size is the caller's error, a ValueError as the JAX
+    scheduler's assertion."""
     _, cfg, _, pp = masters
-    for kw in (dict(prefill_chunk=None), dict(kv_bits=0),
-               dict(page_size=8, fault_plan=object()),
+    served = [Request(p, max_new_tokens=b) for p, b in traffic()[:2]]
+    for kw in (dict(prefill_chunk=None), dict(kv_bits=0)):
+        args = dict(freeze=True, kv_bits=1, prefill_chunk=4, max_len=32)
+        args.update(kw)
+        got = ServingEngine(cfg, pp, **args).generate(served)
+        assert [len(t) for t in got] == [r.max_new_tokens for r in served]
+    for kw in (dict(page_size=8, fault_plan=object()),
                dict(queue_cap=2), dict(mesh=object())):
         args = dict(freeze=True, kv_bits=1, prefill_chunk=4, max_len=32)
         args.update(kw)

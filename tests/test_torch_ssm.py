@@ -386,8 +386,11 @@ def test_engine_options_behave_as_jax_for_ssm(models, jax_engine):
     dense = smoke_config("phi3-medium-14b")
     dp = get_model(dense.scaled(kv_bits=1)).init(
         torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="kv_bits=0"):
-        ServingEngine(dense, dp, freeze=True, kv_bits=0, prefill_chunk=4)
+    # the float KV cache serves the dense family now: K/V in its dtype
+    float_eng = ServingEngine(dense, dp, freeze=True, kv_bits=0,
+                              prefill_chunk=4, max_len=32)
+    assert len(float_eng.generate(reqs[:1])[0]) == reqs[0].max_new_tokens
+    assert float_eng.resident_cache_bytes()["packed"] == 0
     with pytest.raises(ValueError, match="prefix_cache needs the paged"):
         ServingEngine(dense, dp, freeze=True, kv_bits=1, prefill_chunk=4,
                       max_len=32, prefix_cache=True)
@@ -396,8 +399,11 @@ def test_engine_options_behave_as_jax_for_ssm(models, jax_engine):
 def test_ssm_path_runs_the_plain_scan_on_cpu_and_unported_families_raise(
         models):
     """On the CPU, path 'auto' (kernel 10's wrapper) and 'ref' give the same
-    tokens and launch nothing; the other families and whole-prompt prefill
-    still raise, and the transformer's serving check stays dense-only."""
+    tokens and launch nothing; the other families still raise, and the
+    transformer's serving check stays dense-only. Whole-prompt prefill
+    serves: `Model.prefill` gives the logits of the last chunk of a chunked
+    admission of the same prompt, and the whole-prompt engine the chunked
+    engine's tokens."""
     _, cfg, _, _, pp, _ = models
     reqs = [Request(p, max_new_tokens=b) for p, b in _traffic(2)[:2]]
     ss.reset_launches()
@@ -410,9 +416,15 @@ def test_ssm_path_runs_the_plain_scan_on_cpu_and_unported_families_raise(
     for family in ("moe", "hybrid", "audio", "vlm"):
         with pytest.raises(NotImplementedError):
             get_model(cfg.scaled(family=family))
-    with pytest.raises(NotImplementedError, match="whole-prompt"):
-        get_model(cfg).prefill(pp, torch.zeros((1, 3), dtype=torch.long))
+    frozen = ServingEngine(cfg, pp, freeze=True, **ENGINE).params
+    prompt = torch.tensor([[5, 1, 7]])
+    whole, _ = get_model(cfg).prefill(frozen, prompt)
+    state = L.mamba_init_state(cfg, 1, device="cpu")
+    chunked, _ = L.mamba_prefill_chunk(frozen, cfg, prompt, state, 0, 0, 3)
+    assert_rel(whole.numpy(), chunked.numpy(), what="whole vs chunked")
     with pytest.raises(NotImplementedError):
         T.init_cache(cfg.scaled(kv_bits=1), 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ServingEngine(cfg, pp, freeze=True, prefill_chunk=None)
+    got = ServingEngine(cfg, pp, freeze=True, slots=2, max_len=32,
+                        prefill_chunk=None).generate(reqs)
+    for a, b in zip(got, auto, strict=True):
+        np.testing.assert_array_equal(a, b)

@@ -180,11 +180,17 @@ def test_config_fields_equal_jax():
 
 
 def test_unported_archs_raise():
+    """Unported archs and families raise; the float cache (kv_bits=0, the
+    config's default) is ported: K/V in the activation dtype, no V scale,
+    the JAX package's shapes."""
     with pytest.raises(KeyError, match="ROADMAP Queue A"):
         get_config("dbrx-132b")
     cfg = smoke_config(ARCH)
-    with pytest.raises(NotImplementedError, match="kv_bits=0"):
-        T.init_cache(cfg, 1, 8, device="cpu")
+    c = T.init_cache(cfg, 1, 8, device="cpu")
+    jc = JT.init_cache(jax_smoke(ARCH), 1, 8)
+    assert {k: tuple(v.shape) for k, v in c.items()} == \
+        {k: v.shape for k, v in jc.items()}
+    assert c["k"].dtype == cfg.activation_dtype and "v_scale" not in c
     with pytest.raises(NotImplementedError):
         get_model(cfg.scaled(family="moe"))
 
