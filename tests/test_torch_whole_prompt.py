@@ -37,8 +37,9 @@ Denormals: XLA's CPU backend (like the TPU) flushes them to zero; torch
 keeps them. Where a float attention output is a sum of denormal terms
 (softmax weights below 2^-126 on V values of 0 elsewhere), JAX returns 0,
 a +1 sign for the next binarized matmul, and the port a denormal of either
-sign. This module runs the port with `torch.set_flush_denormal(True)`, the
-float mode the JAX side runs in (ROADMAP Queue C records the difference).
+sign. This module runs the port with `torch.set_flush_denormal(True)` on
+one thread, the float mode the JAX side runs in (ROADMAP Queue C records
+the difference).
 
 The JAX side runs inside `tune.gspmd_safe()` (its packed kernels on their
 jnp oracles).
@@ -81,10 +82,15 @@ MAX_LEN = 32
 @pytest.fixture(autouse=True, scope="module")
 def _flush_denormals():
     """The port in XLA's float mode (denormals flushed to zero), for this
-    module's tests only."""
+    module's tests only. The flag is the calling thread's (MXCSR): torch's
+    intra-op pool threads, started earlier in the process, keep theirs, so
+    the module runs torch on this thread alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     torch.set_flush_denormal(True)
     yield
     torch.set_flush_denormal(False)
+    torch.set_num_threads(threads)
 
 
 @functools.lru_cache(maxsize=None)
