@@ -38,7 +38,13 @@ Phases, each of which raises on failure (nothing is caught):
                prompt, paged rows with sentinel and sink writes, K off a
                word and K % 8 != 0, float32 and bf16 with -0.0 and NaN:
                both caches equal the plain version's bit for bit, one
-               launch per call
+               launch per call; at recurrentgemma-2b's shapes: kernel 6 on
+               its ring (B 4, T 2,048, one KV head, G 10, hd 256: the
+               wide body; cache lengths 0, 1, 17, 2,047, 2,048), kernel
+               5's `pack_rows_into` of hd-256 K|V rows into the ring's
+               (B*W, 1, 8) view (wrapped slots, -1 drops, a chunk after
+               the ring, whole prompts of 200 and of 3,000 wrapped), and
+               kernels 1 and 2 at its GEMM shapes at 4, 32 and 200 rows
   4. mlp     - bnn-mnist (784-1024x3-10) frozen, batches of 200 through the
                kernels; hidden words and scores equal the plain path's, the
                fp32-master path's, and the CPU's on a small batch
@@ -136,14 +142,35 @@ Phases, each of which raises on failure (nothing is caught):
                layers (drawn and frozen one at a time) on the same
                traffic: decode tokens/s, TTFT, ITL, resident weight and
                state bytes, peak memory, one profiled decode step
+  10. hybrid - recurrentgemma-2b at full width, depth cut to 5 (one group
+               of rec, rec, attn and a tail of two rec layers), frozen,
+               on phase 6's traffic plus one request of 2,100 prompt and
+               24 new tokens (the ring of 2,048 wraps in whole-prompt
+               and chunked prefill and in decode), through four engines:
+               chunked at kv_bits=1 (the main path), the default engine
+               (whole prompt, float ring), whole prompt at kv_bits=1,
+               chunked at kv_bits=0: tokens through the kernels equal the plain
+               versions' (on a difference, the first differing state
+               element and ring sign bit), launches of kernels 1, 2, 5
+               and 6 per forward call and decode step as counted from the
+               layers; generate_static against the plain versions; whole
+               prompt against chunked printed, not held; kernel 6 at the
+               ring shape timed beside SDPA and the bound; all 26 layers
+               (drawn and frozen one at a time), chunked kv_bits=1 and
+               the default engine: decode tokens/s, TTFT, ITL, weight,
+               ring and state bytes, peak memory, one profiled decode
+               step (214 launches of the four kernels at kv_bits=1) and
+               the float32 gate products' device time
 Launch counts are set to 0 just before each main path (mlp, cnn, lm, paged
-lm, default lm, train, ssm chunked and whole-prompt) runs and read just
-after. The line before the last is
+lm, default lm, train, ssm chunked and whole-prompt, hybrid chunked and
+default) runs and read just after. The line before the last is
 {"kernels": [...]} (ten kernels); the last line is {"ok": true, "device":
 {...}}. Weights, BN statistics and
 inputs are random from the seed; image inputs are multiples of 1/128 in
 [-1, 1], like 8-bit pixels. Exits non-zero, printing no result, without a
-card or without the repo.
+card or without the repo. It finds the port in the `src` beside it, else in
+the working directory's `src` (a copy of the script run from a checkout's
+root), else on PYTHONPATH.
 
     python3 chip_smoke.py --attention-times [--port-src DIR]
 
@@ -162,7 +189,9 @@ decode, chunk and 4,096-step prefill shapes.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
+import os
 import subprocess
 import sys
 import time
@@ -171,7 +200,25 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
+
+
+def find_port() -> str:
+    """Put the port on the import path: the `src` beside this script first,
+    then the `src` of the working directory (a copy of the script run from a
+    checkout's root), then whatever PYTHONPATH already gives. Exits non-zero,
+    naming the places it looked, when none holds `repro_torch`."""
+    looked = []
+    for src in dict.fromkeys((ROOT / "src", Path.cwd() / "src")):
+        looked.append(str(src))
+        if (src / "repro_torch" / "__init__.py").is_file():
+            sys.path.insert(0, str(src))
+            return str(src)
+    spec = importlib.util.find_spec("repro_torch")
+    if spec is not None and spec.origin:
+        return str(Path(spec.origin).parents[1])
+    raise SystemExit(f"chip_smoke: no repro_torch package in {looked} or on "
+                     f"PYTHONPATH ({os.environ.get('PYTHONPATH', '')!r})")
+
 
 import torch  # noqa: E402
 
@@ -234,6 +281,16 @@ TRAIN_REL = 1e-5
 # and frozen one layer at a time: all fp32 masters at once are ~29 GB);
 # kernel 10 also checked and timed at a SSM_LONG-step prefill
 SSM_ARCH, SSM_CHECK_DEPTH, SSM_LONG = "falcon-mamba-7b", 2, 4096
+# the hybrid serving path: recurrentgemma-2b at full width (d 2560, 10 query
+# heads over one KV head of 256, lru width 2560, a ring of 2048 K/V rows per
+# attention layer at t % 2048); depth cut to HYBRID_CHECK_DEPTH (one group
+# of rec, rec, attn and a tail of two rec layers) where tokens are held to
+# the plain path, all 26 layers in the timed run (drawn and frozen one layer
+# at a time); phase 6's traffic plus one request whose prompt and new
+# tokens (HYBRID_WRAP) pass the ring's 2048 positions, so the ring wraps in
+# whole-prompt and chunked prefill and in decode
+HYBRID_ARCH, HYBRID_CHECK_DEPTH = "recurrentgemma-2b", 5
+HYBRID_WRAP, HYBRID_MAX_LEN = (2100, 24), 2176
 
 
 def smi(query: str) -> str:
@@ -803,9 +860,10 @@ def pack_rows_cases(cfg):
     return cases
 
 
-def pack_rows_checks(cfg, dev_gen, dev):
+def pack_rows_checks(cases, dev_gen, dev):
     """Kernel 5's `pack_rows_into` against its plain version on the card at
-    `pack_rows_cases`, float32 and bf16 sources with -0.0 and NaN: both
+    `cases` (as `pack_rows_cases` gives them), float32 and bf16 sources with
+    -0.0 and NaN: both
     whole cache tensors (the pools without their sink page, which several
     rows may write) equal bit for bit, one launch per call. Returns the
     max error (0)."""
@@ -819,7 +877,7 @@ def pack_rows_checks(cfg, dev_gen, dev):
                            device=dev)
 
     err = 0
-    for where, n, per, k, pool, rows in pack_rows_cases(cfg):
+    for where, n, per, k, pool, rows in cases:
         kw = (k + 31) // 32
         dst = torch.tensor(rows, dtype=torch.int64, device=dev)
 
@@ -2854,6 +2912,468 @@ def ssm_phase(seed, dev, card, dev_gen, exp_per_s, fp64_per_s):
                               "timed": timed}
 
 
+# ---------------------------------------------------------------------------
+# The hybrid serving path: recurrentgemma-2b (RG-LRU + local attention over a
+# ring), through kernels 1, 2, 5 and 6
+# ---------------------------------------------------------------------------
+def hybrid_gemms(cfg):
+    """The hybrid's popcount GEMMs (kernel, lhs, K, N, what): q, k and v
+    after the attention layer's shared pack and the MLP's gate and up after
+    its shared pack (packed lhs); the RG-LRU's w_x, w_gate and w_out and
+    attention's wo (2560 -> 2560) and the MLP's w_down (bf16 lhs)."""
+    d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff
+    w = cfg.lru_width or d
+    return [("binary_gemm_packed", "packed", d, cfg.n_heads * hd, "rg.q"),
+            ("binary_gemm_packed", "packed", d, cfg.n_kv_heads * hd, "rg.kv"),
+            ("binary_gemm_packed", "packed", d, f, "rg.gate"),
+            ("binary_gemm_packed_rhs", "bf16", d, w, "rg.w_x"),
+            ("binary_gemm_packed_rhs", "bf16", f, d, "rg.down")]
+
+
+def hybrid_pack_rows_cases(cfg):
+    """Kernel 5's `pack_rows_into` at the hybrid's ring (as
+    `pack_rows_cases`): hd-256 K|V rows into the (B*W, 1, 8) view of a
+    4-slot ring at decode (slots wrapped by t % W, inactive rows -1), a
+    chunk's 32 rows after the slot's ring (the [ring | chunk] buffer the
+    chunk attends over), and whole prompts: 200 rows into slot 2's ring and
+    a 3,000-token prompt's last 2,048 positions, wrapped."""
+    hkv, hd, wnd = cfg.n_kv_heads, cfg.head_dim, cfg.local_window
+    ring = ("contiguous", LM_SLOTS, wnd)
+    return [
+        ("ring decode, wrapped slots, rows 1 inactive", LM_SLOTS, hkv, hd,
+         ring, [wnd - 1, -1, 2 * wnd + 5000 % wnd, 3 * wnd]),
+        ("chunk of 32 after the ring", LM_CHUNK, hkv, hd,
+         ("contiguous", 1, wnd + LM_CHUNK), [wnd + i for i in range(LM_CHUNK)]),
+        ("whole prompt of 200 into slot 2's ring", 200, hkv, hd, ring,
+         [2 * wnd + i for i in range(200)]),
+        ("whole prompt of 3000: its last 2048 positions", wnd, hkv, hd, ring,
+         [wnd + t % wnd for t in range(3000 - wnd, 3000)])]
+
+
+def hybrid_kernel_checks(cfg, dev_gen, dev, sms):
+    """Kernel 6 at the hybrid's ring shape (B 4, T 2048, one KV head, G 10,
+    hd 256: a decode step's 10 query rows take the wide body), cache
+    lengths 0, 1, 17, 2,047 and 2,048, float32 and bf16 q, against its
+    plain version: dots at every position equal, outputs within ATTN_TOL
+    with equal signs, cache_len 0 rows exactly 0, the call with dots equal
+    to the call without, one launch a call. Returns the largest error."""
+    _, _, da, pa, _ = lm_modules()
+    hkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    t = cfg.local_window
+    plan = pa.attention_plan(LM_SLOTS, 1, t, hkv, g, hd, sms)
+    body = "narrow" if plan.bq * g <= pa._NARROW_ROWS else "wide"
+    err = 0.0
+    for lens in ((t, t - 1, 17, 1), (0, t, 1, 17)):
+        kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, vs = attention_case(dev_gen, LM_SLOTS, 1, t, hkv, g, hd,
+                                         dtype, dev)
+            before = da.launches["decode_attention_packed"]
+            got, dots = da.decode_attention_packed(q, k, v, vs, kv,
+                                                   return_dots=True)
+            served = da.decode_attention_packed(q, k, v, vs, kv)
+            torch.cuda.synchronize()
+            if da.launches["decode_attention_packed"] - before != 2:
+                raise AssertionError("hybrid ring decode: not one launch a "
+                                     "call")
+            want, wdots = da.decode_attention_packed_plain(
+                q, k, v, vs, kv, return_dots=True)
+            what = f"hybrid ring decode lens {list(lens)} {dtype}"
+            if not torch.equal(dots, wdots):
+                raise AssertionError(f"{what}: dots differ")
+            if not torch.equal(served, got):
+                raise AssertionError(f"{what}: the call without dots differs")
+            if not (got[kv == 0] == 0).all():
+                raise AssertionError(f"{what}: a cache_len 0 row is not 0")
+            e = check_close(what, got, want, dtype)
+            err = max(err, e)
+            print(f"check decode_attention_packed {str(dtype)[6:]:8s} hybrid "
+                  f"ring B={LM_SLOTS} T={t} Hkv={hkv} G={g} hd={hd} lens "
+                  f"{list(lens)} ({body} body, bq {plan.bq}, split "
+                  f"{plan.split}, {plan.blocks} blocks): dots equal, "
+                  f"max_abs_err={e:.3g}")
+    return err
+
+
+def hybrid_ring_decode_times(cfg, dev_gen, dev, popc_per_s):
+    """Kernel 6 on 4 slots' decode step over full rings (B 4, T 2048, G 10,
+    hd 256, bf16 q), as `shape_times`, beside SDPA over the unpacked +-1
+    K/V and the bound. Not in the kernels line."""
+    from repro_torch.kernels import ref
+    _, _, da, _, _ = lm_modules()
+    hkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    t = cfg.local_window
+    q, k, v, vs = attention_case(dev_gen, LM_SLOTS, 1, t, hkv, g, hd,
+                                 torch.bfloat16, dev)
+    kv = torch.full((LM_SLOTS,), t, dtype=torch.int32, device=dev)
+    valid = ref.chunk_valid_mask(LM_SLOTS, 1, t, kv, kv - 1, 0, True,
+                                 device=dev)
+    lib = sdpa_call(q, k, v, vs, valid)
+    kn = "decode_attention_packed"
+    check_close_loose("SDPA vs kernel 6 on the hybrid ring", lib(),
+                      da.decode_attention_packed(q, k, v, vs, kv))
+    return [{"kernel": kn, "where": f"ring B={LM_SLOTS} T={t} G={g} hd={hd}",
+             "library": "F.scaled_dot_product_attention",
+             **shape_times(lambda: da.decode_attention_packed(q, k, v, vs, kv),
+                           kn, lambda: da.decode_attention_packed_plain(
+                               q, k, v, vs, kv), lib),
+             **attention_bound(valid, 1, cfg.n_heads, hkv, hd, 2,
+                               popc_per_s)}]
+
+
+def hybrid_traffic(seed, vocab):
+    """Phase 6's prompts and budgets, plus one request (HYBRID_WRAP) whose
+    prompt passes the ring's positions."""
+    prompts = lm_traffic(seed, vocab)
+    rng = np.random.default_rng(seed + 11)
+    prompts.append(rng.integers(0, vocab, HYBRID_WRAP[0]).astype(np.int32))
+    return prompts, [LM_NEW] * LM_REQUESTS + [HYBRID_WRAP[1]]
+
+
+def hybrid_engine(cfg, params, **kw):
+    from repro_torch.serving.engine import ServingEngine
+    return ServingEngine(cfg, params, slots=LM_SLOTS,
+                         max_len=HYBRID_MAX_LEN, **kw)
+
+
+def hybrid_per_call(cfg) -> dict:
+    """Launches of kernels 1, 2 and 5 per forward call (a prefill chunk, a
+    whole prompt or a decode step) of the hybrid: a rec layer launches
+    kernel 2 four times (w_x, w_gate, w_out, w_down), kernel 1 twice (gate,
+    up) and kernel 5 once (the MLP's shared pack); an attention layer kernel
+    1 five times (q, k, v, gate, up), kernel 2 twice (wo, w_down) and kernel
+    5 three times at kv_bits=1 (the Q/K/V and MLP shared packs, the K|V
+    rows into the ring) or twice at kv_bits=0. Kernel 6 runs once per
+    attention layer and decode step at kv_bits=1 (`hybrid_attn_layers`)."""
+    n_attn, n_rec = hybrid_layers(cfg)
+    return {"binary_gemm_packed_rhs": 4 * n_rec + 2 * n_attn,
+            "binary_gemm_packed": 2 * n_rec + 5 * n_attn,
+            "pack_bits": n_rec + (3 if cfg.kv_bits == 1 else 2) * n_attn}
+
+
+def hybrid_layers(cfg) -> tuple[int, int]:
+    """(attention layers, rec layers) of the hybrid config."""
+    from repro_torch.models import ssm_lm as L
+    g, tail = L.rg_layout(cfg)
+    return g, cfg.n_layers - g
+
+
+def hybrid_first_difference(cfg, frozen, prompt, tokens, chunked, dev):
+    """Replay one request alone through the kernels and the plain versions
+    (its prompt in chunks or whole, then decode steps fed the kernel path's
+    tokens) and return the first state element that differs after a call:
+    (call, leaf, index, and for ring words the sign bit), or None."""
+    from repro_torch.models import ssm_lm as L
+    states = {p: L.rg_init_state(cfg, 1, device=dev) for p in ("auto", "ref")}
+
+    def diff(step):
+        for name, a in states["auto"].items():
+            b = states["ref"][name]
+            x = (a ^ b) if a.dtype == torch.int32 else (a != b)
+            if x.any():
+                idx = tuple(int(i) for i in x.nonzero()[0])
+                if a.dtype != torch.int32:
+                    return (step, name, idx)
+                w = int(x[idx]) & 0xFFFFFFFF
+                return (step, name, idx,
+                        f"bit {32 * idx[-1] + (w & -w).bit_length() - 1}")
+        return None
+
+    ids = torch.from_numpy(prompt.astype(np.int64)).to(dev)[None]
+    if chunked:
+        for lo in range(0, len(prompt), LM_CHUNK):
+            nv = min(LM_CHUNK, len(prompt) - lo)
+            ch = torch.zeros((1, LM_CHUNK), dtype=torch.int64, device=dev)
+            ch[0, :nv] = ids[0, lo:lo + nv]
+            for path in states:
+                L.rg_prefill_chunk(frozen, cfg, ch, states[path], 0, lo, nv,
+                                   path=path)
+            found = diff(f"chunk at {lo}")
+            if found:
+                return found
+    else:
+        for path in states:
+            L.rg_prefill(frozen, cfg, ids, cache=states[path], path=path)
+        found = diff("whole prompt")
+        if found:
+            return found
+    for i, tok in enumerate(tokens[:-1]):
+        token = torch.tensor([int(tok)], device=dev)
+        pos = torch.tensor([len(prompt) + i], dtype=torch.int32, device=dev)
+        for path in states:
+            L.rg_decode(frozen, cfg, token, states[path], pos, path=path)
+        found = diff(f"decode step {i + 1}")
+        if found:
+            return found
+    return None
+
+
+def hybrid_engine_check(base_cfg, seed, dev):
+    """recurrentgemma-2b at full width, depth HYBRID_CHECK_DEPTH, frozen, on
+    `hybrid_traffic` through four engines: chunked at kv_bits=1 (the main
+    path), the default engine `ServingEngine(cfg, params, freeze=True)`
+    (whole prompt, float ring), whole prompt at kv_bits=1 and chunked at
+    kv_bits=0. In each, greedy tokens through the kernels equal the plain
+    versions' (on a difference, the first differing state element), every
+    request gets its budget, and the launches of kernels 1, 2, 5 and 6 are
+    `hybrid_per_call` per forward call and kernel 6 once per attention
+    layer and decode step at kv_bits=1; one direct decode step too. Then
+    generate_static (default engine and kv_bits=1) through the kernels
+    against the plain versions. Whole prompt against chunked is printed,
+    not held. Returns the main path's and the default engine's launch
+    counts, and a report."""
+    from repro_torch.models import ssm_lm as L
+    from repro_torch.models.api import get_model
+    from repro_torch.serving.engine import Request
+    cfg = base_cfg.scaled(n_layers=HYBRID_CHECK_DEPTH)
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    frozen = get_model(cfg).init_frozen(gen, device=dev)
+    n_attn, n_rec = hybrid_layers(cfg)
+    prompts, budgets = hybrid_traffic(seed, cfg.vocab)
+    reqs = [Request(p, max_new_tokens=b) for p, b in zip(prompts, budgets)]
+    variants = {"chunked, kv_bits=1": dict(kv_bits=1, prefill_chunk=LM_CHUNK),
+                "default (kv_bits=0, whole prompt)": {},
+                "kv_bits=1, whole prompt": dict(kv_bits=1),
+                "kv_bits=0, chunked": dict(prefill_chunk=LM_CHUNK)}
+    tokens, counted, rep = {}, {}, {}
+    for name, kw in variants.items():
+        eng = hybrid_engine(cfg, frozen, freeze=True, seed=seed, **kw)
+        ecfg = eng.cfg
+        sched = eng.scheduler()
+        reset_all_launches()
+        got = eng.generate(reqs)
+        torch.cuda.synchronize()
+        counts = all_launches()
+        steps = sched.stats["decode_steps"]
+        want = hybrid_engine(cfg, frozen, kernel_path="ref", seed=seed,
+                             **kw).generate(reqs)
+        chunked = kw.get("prefill_chunk") is not None
+        for i, (a, b) in enumerate(zip(got, want, strict=True)):
+            if not np.array_equal(a, b):
+                where = hybrid_first_difference(ecfg, frozen, prompts[i], a,
+                                                chunked, dev)
+                raise AssertionError(
+                    f"hybrid, {name}, request {i}: kernel tokens {a.tolist()}"
+                    f" != plain {b.tolist()}; first differing state element "
+                    f"(call, leaf, index, bit): {where}")
+        if [len(t) for t in got] != budgets:
+            raise AssertionError(f"hybrid, {name}: a request did not get its "
+                                 f"budget")
+        calls = (sum(-(-len(p) // LM_CHUNK) for p in prompts) if chunked
+                 else len(prompts)) + steps
+        expect = {kn: 0 for kn in counts}
+        expect.update({kn: n * calls
+                       for kn, n in hybrid_per_call(ecfg).items()})
+        if ecfg.kv_bits == 1:
+            expect["decode_attention_packed"] = n_attn * steps
+        if counts != expect:
+            raise AssertionError(f"hybrid, {name}: launches {counts} != "
+                                 f"{expect} ({calls} forward calls, {steps} "
+                                 f"decode steps)")
+        # one decode step called directly: the per-step launches
+        reset_all_launches()
+        pos = torch.full((LM_SLOTS,), 2100, dtype=torch.int32, device=dev)
+        sched.model.decode(sched.params, sched._state["cur"], sched._cache,
+                           pos)
+        torch.cuda.synchronize()
+        step = {kn: n for kn, n in all_launches().items() if n}
+        tokens[name] = got
+        counted[name] = counts
+        rep[name] = {"launches": counts, "decode_steps": steps,
+                     "forward_calls": calls, "decode_step_launches": step}
+        print(f"hybrid engine check, {name}: tokens equal the plain path's; "
+              f"{calls} forward calls ({steps} decode steps), launches "
+              f"{ {kn: n for kn, n in counts.items() if n} }; one decode step "
+              f"({n_rec} rec + {n_attn} attention layers): {step} "
+              f"({sum(step.values())} launches)")
+        del eng
+    agree = {}
+    for kv in (0, 1):
+        whole = tokens["default (kv_bits=0, whole prompt)" if kv == 0
+                       else "kv_bits=1, whole prompt"]
+        chunk = tokens[f"{'chunked, kv_bits=1' if kv else 'kv_bits=0, chunked'}"]
+        agree[kv] = [int(np.argmin(np.r_[a == b, False]))
+                     for a, b in zip(whole, chunk)]
+    rng = np.random.default_rng(seed + 12)
+    static = [Request(rng.integers(0, cfg.vocab, 64).astype(np.int32),
+                      max_new_tokens=n) for n in (LM_NEW, 8, 12, LM_NEW)]
+    for kw in ({}, dict(kv_bits=1)):
+        got = hybrid_engine(cfg, frozen, seed=seed, **kw) \
+            .generate_static(static)
+        want = hybrid_engine(cfg, frozen, kernel_path="ref", seed=seed,
+                             **kw).generate_static(static)
+        for i, (a, b) in enumerate(zip(got, want, strict=True)):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"hybrid generate_static {kw} request "
+                                     f"{i}: kernel tokens {a.tolist()} != "
+                                     f"plain {b.tolist()}")
+    print(f"hybrid engine check: {HYBRID_ARCH} full width (d {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV head of "
+          f"{cfg.head_dim}, window {cfg.local_window}), depth "
+          f"{HYBRID_CHECK_DEPTH} (cut from {base_cfg.n_layers}: {n_rec} rec + "
+          f"{n_attn} attention layers), {len(reqs)} requests, prompts "
+          f"{sorted(len(p) for p in prompts)}, budgets {budgets}; "
+          f"generate_static on 4 prompts of 64 (float and packed ring) equals "
+          f"the plain path's; whole prompt against chunked (a figure, not "
+          f"held), leading tokens in common: kv_bits=0 {agree[0]}, kv_bits=1 "
+          f"{agree[1]}")
+    rep["leading_tokens_whole_vs_chunked"] = agree
+    del frozen
+    torch.cuda.empty_cache()
+    return (counted["chunked, kv_bits=1"],
+            counted["default (kv_bits=0, whole prompt)"], rep)
+
+
+def hybrid_timed_run(base_cfg, seed, dev, card):
+    """All 26 layers, drawn and frozen one layer at a time, on phase 6's
+    traffic, through the chunked kv_bits=1 engine and the default engine:
+    decode tokens/s, TTFT, ITL p50/p99, resident weight, ring and state
+    bytes (packed ring against a bf16 one), peak device memory, and one
+    profiled decode step (4 slots at position 2,100, rings full) with its
+    launches of the four kernels asserted, beside the device time of the
+    float32 gate products of the 18 rec layers (two (4, 2560) x (2560,
+    2560) matmuls each)."""
+    from repro_torch.models.api import get_model
+    from repro_torch.models import ssm_lm as L
+    from repro_torch.serving.engine import Request
+    cfg = base_cfg
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    frozen = get_model(cfg).init_frozen(gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_attn, n_rec = hybrid_layers(cfg)
+    prompts = lm_traffic(seed, cfg.vocab)
+    w_wnd, hkv, hd = cfg.local_window, cfg.n_kv_heads, cfg.head_dim
+    out = {"depth": cfg.n_layers, "init_frozen_s": init_s}
+    tail = L.rg_layout(cfg)[1]
+    gates = [L._pick(frozen["groups"]["rec"], gi, j)["mix"]
+             for gi in range(n_attn) for j in range(L._n_rec(cfg))]
+    gates += [L._pick(frozen["tail"], j)["mix"] for j in range(tail)]
+    xf = torch.randn(LM_SLOTS, 1, cfg.lru_width, generator=gen, device=dev)
+
+    def gate_products():
+        for mix in gates:
+            torch.matmul(xf, mix["w_input_gate"])
+            torch.matmul(xf, mix["w_rec_gate"])
+    # few calls: 36 matmuls a call, and CUDA's launch queue must not fill
+    # behind the spin
+    gates_ms = device_ms(gate_products, iters=3)
+    gate_bytes = sum(m["w_input_gate"].numel() + m["w_rec_gate"].numel()
+                     for m in gates) * 4
+    for name, kw in (("chunked, kv_bits=1", dict(kv_bits=1,
+                                                prefill_chunk=LM_CHUNK)),
+                     ("default (kv_bits=0, whole prompt)", {})):
+        eng = hybrid_engine(cfg, frozen, seed=seed, **kw)
+        eng.generate([Request(prompts[0][:40], max_new_tokens=4)])  # warm-up
+        sched = eng.scheduler()
+        before = dict(sched.stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comps = eng.serve([Request(p, max_new_tokens=LM_NEW) for p in prompts])
+        wall = time.perf_counter() - t0
+        st = {k: sched.stats[k] - before[k] for k in ("decode_s", "prefill_s",
+                                                     "decode_steps", "bursts")}
+        decode_tokens = sum(len(c.tokens) - 1 for c in comps)
+        itl = np.concatenate([c.itl for c in comps])
+        w = eng.resident_weight_bytes()
+        c = eng.resident_cache_bytes()
+        cache = sched._cache
+        ring = sum(cache[k].numel() * cache[k].element_size()
+                   for k in ("attn_k", "attn_v"))
+        state = sum(t.numel() * t.element_size() for k, t in cache.items()
+                    if k not in ("attn_k", "attn_v"))
+        bf16_ring = 2 * n_attn * LM_SLOTS * w_wnd * hkv * hd * 2
+        pos = torch.full((LM_SLOTS,), 2100, dtype=torch.int32, device=dev)
+        reset_all_launches()
+        sched.model.decode(sched.params, sched._state["cur"], cache, pos)
+        torch.cuda.synchronize()
+        per_step = {kn: n for kn, n in all_launches().items() if n}
+        expect = hybrid_per_call(eng.cfg)
+        if eng.cfg.kv_bits == 1:
+            expect["decode_attention_packed"] = n_attn
+        if per_step != expect:
+            raise AssertionError(f"hybrid 26-layer {name}: decode step "
+                                 f"launches {per_step} != {expect}")
+        step = trace(lambda: sched.model.decode(sched.params,
+                                                sched._state["cur"], cache,
+                                                pos))
+        share = step["busy_ms"] / step["wall_ms"] if step["wall_ms"] else 0.0
+        rep = {"wall_s": wall, "decode_s": st["decode_s"],
+               "prefill_s": st["prefill_s"],
+               "decode_steps": st["decode_steps"], "bursts": st["bursts"],
+               "decode_tokens": decode_tokens,
+               "decode_tok_per_s": decode_tokens / st["decode_s"],
+               "prefill_tok_per_s": sum(map(len, prompts)) / st["prefill_s"],
+               "ttft_ms_p50": percentile([x.ttft for x in comps], 50) * 1e3,
+               "ttft_ms_p99": percentile([x.ttft for x in comps], 99) * 1e3,
+               "ttft_wall_ms_p50": percentile([x.ttft_wall for x in comps],
+                                              50) * 1e3,
+               "itl_ms_p50": percentile(itl, 50) * 1e3,
+               "itl_ms_p99": percentile(itl, 99) * 1e3,
+               "binary_bytes": w["binary"], "other_bytes": w["other"],
+               "ring_bytes": ring, "bf16_ring_bytes": bf16_ring,
+               "state_bytes": state, "cache_split": c,
+               "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+               "decode_step_launches": per_step, "decode_step_trace": step,
+               "float_gates_ms": gates_ms, "float_gates_bytes": gate_bytes}
+        out[name] = rep
+        print(f"hybrid timed run on {card}, {name}: {HYBRID_ARCH} full width "
+              f"and depth ({cfg.n_layers} layers: {n_rec} rec + {n_attn} "
+              f"attention, not cut; drawn and frozen layer by layer in "
+              f"{init_s:.1f} s), {LM_REQUESTS} requests, {LM_SLOTS} slots; "
+              f"peak device memory {rep['peak_device_bytes'] / 1e9:.2f} GB")
+        print(f"  wall {wall:.4f} s; decode {decode_tokens} tokens in "
+              f"{st['decode_s']:.4f} s over {st['decode_steps']} steps / "
+              f"{st['bursts']} bursts = {rep['decode_tok_per_s']:.2f} tok/s; "
+              f"prefill {rep['prefill_tok_per_s']:.1f} tok/s")
+        print(f"  TTFT (own admission) p50 {rep['ttft_ms_p50']:.3f} ms, p99 "
+              f"{rep['ttft_ms_p99']:.3f} ms; TTFT wall p50 "
+              f"{rep['ttft_wall_ms_p50']:.3f} ms; ITL p50 "
+              f"{rep['itl_ms_p50']:.3f} ms, p99 {rep['itl_ms_p99']:.3f} ms")
+        print(f"  resident weights: binary {w['binary'] / 1e9:.4f} GB, other "
+              f"{w['other'] / 1e9:.4f} GB (embed bf16 = the tied head, "
+              f"float32 gates {gate_bytes / 1e9:.3f} GB, conv taps, norms); "
+              f"ring {ring / 1e6:.3f} MB ({str(cache['attn_k'].dtype)[6:]}"
+              f"; a bf16 ring {bf16_ring / 1e6:.3f} MB), rec state "
+              f"{state / 1e6:.3f} MB for {LM_SLOTS} slots")
+        print(f"trace hybrid decode step ({name}, depth {cfg.n_layers}, "
+              f"{LM_SLOTS} slots at position 2100) on {card}: wall "
+              f"{step['wall_ms']:.4f} ms (profiled), device busy "
+              f"{step['busy_ms']:.4f} ms ({share:.3f} of wall), "
+              f"{step['launches']} kernel launches ({sum(per_step.values())} "
+              f"of kernels 1, 2, 5, 6: {per_step}); the float32 gate "
+              f"products {gates_ms:.4f} ms device ({gate_bytes / 1e9:.3f} GB "
+              f"read); top kernels:")
+        for kname, cnt, ms in step["top"]:
+            print(f"    {ms:9.4f} ms  x{cnt:<3d} {kname}")
+        del eng, sched, cache
+        torch.cuda.empty_cache()
+    del frozen, gates
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_phase(seed, dev, card, dev_gen, popc_per_s):
+    """Phase 10: recurrentgemma-2b at full width and depth 5 through the
+    kernels and the plain versions (four engines), kernel 6 at the ring
+    shape timed, the 26-layer timed run. Returns (the main path's and the
+    default engine's launches summed, report)."""
+    from repro_torch.configs.base import get_config
+    t0 = time.perf_counter()
+    cfg = get_config(HYBRID_ARCH)
+    main_launches, default_launches, rep = hybrid_engine_check(cfg, seed, dev)
+    rows = hybrid_ring_decode_times(cfg, dev_gen, dev, popc_per_s)
+    print_attention_rows(f"hybrid ring decode times on {card} (ms, as phase "
+                         f"7; not in the kernels line):", rows, 32)
+    timed = hybrid_timed_run(cfg, seed, dev, card)
+    print(f"phase 10 (hybrid): {time.perf_counter() - t0:.1f} s")
+    both = {kn: main_launches[kn] + default_launches[kn]
+            for kn in main_launches}
+    return both, {"check": rep, "ring_decode": rows, "timed": timed}
+
+
 def attention_times(card, popc_per_s) -> int:
     """The attention kernels' times alone (`--attention-times`): the lm
     kernel times of kernels 5-9 at the main path's shapes, then the
@@ -2969,6 +3489,8 @@ def main() -> int:
     args = ap.parse_args()
     if args.port_src is not None:
         sys.path.insert(0, str(args.port_src.resolve()))
+    else:
+        print(f"port: {find_port()}")
 
     # ---------------------------------------------------------------- device
     if not torch.cuda.is_available():
@@ -3026,6 +3548,13 @@ def main() -> int:
     for m, where in ((LM_CHUNK, "lm.chunk"), (LM_SLOTS, "lm.decode")):
         checks += [(kn, lhs, m, k, n, where) for kn, lhs, k, n, _ in LM_GEMMS]
         checks.append(("binary_gemm_fused", "bf16", m, 300, 77, "ragged"))
+    # the hybrid's GEMMs at decode and chunk rows and a 200-row prompt
+    from repro_torch.configs.base import get_config
+    hyb_cfg = get_config(HYBRID_ARCH)
+    for m, where in ((LM_SLOTS, "rg.decode"), (LM_CHUNK, "rg.chunk"),
+                     (200, "rg.prompt")):
+        checks += [(kn, lhs, m, k, n, where)
+                   for kn, lhs, k, n, _ in hybrid_gemms(hyb_cfg)]
     checks += [(*edge, "edge") for edge in REGIME_EDGES]
     checks += [("binary_gemm_packed", "packed", m, k, n, "edge")
                for m, k, n in PACKED_EDGES]
@@ -3054,11 +3583,11 @@ def main() -> int:
     for key in [key for key in operands if key not in main_keys]:
         del operands[key]                  # kept: the main paths' operands
     packed_split_checks(dev_gen, sms)
-    from repro_torch.configs.base import get_config
     lm_cfg = get_config(LM_ARCH)
     err.update(lm_kernel_checks(lm_cfg, dev_gen, dev))
     err["pack_bits"] = max(err["pack_bits"],
-                           pack_rows_checks(lm_cfg, dev_gen, dev))
+                           pack_rows_checks(pack_rows_cases(lm_cfg), dev_gen,
+                                            dev))
     err.update(lm_paged_kernel_checks(lm_cfg, dev_gen, args.seed, dev))
     for kn, e in lm_long_prefill_checks(lm_cfg, dev_gen, args.seed, dev,
                                         sms).items():
@@ -3066,6 +3595,11 @@ def main() -> int:
     for kn, e in lm_long_decode_checks(lm_cfg, dev_gen, args.seed, dev,
                                        sms).items():
         err[kn] = max(err[kn], e)
+    err["decode_attention_packed"] = max(
+        err["decode_attention_packed"],
+        hybrid_kernel_checks(hyb_cfg, dev_gen, dev, sms))
+    err["pack_bits"] = max(err["pack_bits"], pack_rows_checks(
+        hybrid_pack_rows_cases(hyb_cfg), dev_gen, dev))
 
     # ------------------------------------------------------------------ mlp
     cfg = BNN_MNIST
@@ -3327,6 +3861,12 @@ def main() -> int:
     for kn in REPLACES:
         path_launches[kn] += ssm_launches[kn]
 
+    # ---------------------------------------------------------------- hybrid
+    hybrid_launches, report["hybrid"] = hybrid_phase(
+        args.seed, dev, card, dev_gen, popc_per_s)
+    for kn in REPLACES:
+        path_launches[kn] += hybrid_launches[kn]
+
     kernels = []
     for kn in REPLACES:
         t = totals[kn]
@@ -3348,7 +3888,8 @@ def main() -> int:
     report["launches"] = {"mlp": mlp_launches, "cnn": cnn_launches,
                           "lm": lm_launches, "lm_chunks": lm_chunks,
                           "lm_paged": paged_launches,
-                          "lm_default": default_launches, "ssm": ssm_launches}
+                          "lm_default": default_launches, "ssm": ssm_launches,
+                          "hybrid": hybrid_launches}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))
@@ -3364,8 +3905,9 @@ def main() -> int:
           "chunk; the paged kernels' library_ms leaves out the gather "
           "(printed beside it); launches count the mlp, cnn, depth-2 "
           "contiguous and paged LM runs, the depth-2 default engine's run, "
-          f"the auto route's {TRAIN_STEPS} train steps and the depth-2 "
-          "falcon-mamba runs (chunked and whole-prompt)")
+          f"the auto route's {TRAIN_STEPS} train steps, the depth-2 "
+          "falcon-mamba runs (chunked and whole-prompt) and the depth-5 "
+          "recurrentgemma runs (chunked kv_bits=1 and the default engine)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

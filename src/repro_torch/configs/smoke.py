@@ -1,5 +1,6 @@
 """Reduced same-family configs for CPU tests (a copy of
-`repro.configs.smoke` for the families the port serves: dense and ssm)."""
+`repro.configs.smoke` for the families the port serves: dense, ssm and
+hybrid)."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,6 +17,9 @@ def smoke_config(name: str) -> ModelConfig:
     if cfg.family == "ssm":
         over.update(n_layers=3, ssm_state=4, dt_rank=8, expand=2,
                     n_heads=0, n_kv_heads=0, head_dim=0, d_ff=0)
+    elif cfg.family == "hybrid":
+        over.update(n_layers=8, n_heads=4, n_kv_heads=1, lru_width=64,
+                    local_window=8)
     elif cfg.family == "dense":
         over.update(n_layers=2, n_heads=4, n_kv_heads=2)
     else:

@@ -23,9 +23,11 @@ across as they are: a frozen weight's words keep their leading L axis
 `cache_from_numpy` / `cache_to_numpy`, contiguous or paged: packed K/V
 words (or page pools) uint32 <-> int32, float K/V (kv_bits=0) in their
 dtype, the page table as int32, V scales as float32; so does the Mamba
-stack's recurrent state {"conv", "h"}. bfloat16 leaves (float K/V, the
-conv history) come back from `cache_to_numpy` as float32, which holds them
-exactly.
+stack's recurrent state {"conv", "h"}, and the hybrid's state (its rec
+layers' conv histories and h, stacked (g, n_rec, ...) and (tail, ...), and
+its attention layers' rings "attn_k" / "attn_v", packed words or float
+rows). bfloat16 leaves (float K/V, the conv history) come back from
+`cache_to_numpy` as float32, which holds them exactly.
 This module imports no jax: turning JAX arrays into numpy is the caller's
 step.
 """
@@ -139,8 +141,8 @@ def to_numpy_tree(tree):
 
 
 # cache leaves holding K/V: packed sign words (uint32 in the JAX package)
-# at kv_bits=1, float rows at kv_bits=0
-_CACHE_KV = ("k", "v")
+# at kv_bits=1, float rows at kv_bits=0 (the hybrid's rings: attn_k/v)
+_CACHE_KV = ("k", "v", "attn_k", "attn_v")
 
 
 def cache_from_numpy(cache: dict, device=None) -> dict:
@@ -151,7 +153,7 @@ def cache_from_numpy(cache: dict, device=None) -> dict:
     (`models.transformer.new_pool`)."""
     out = {name: tensor(a, device) for name, a in cache.items()}
     if "page_table" in cache:
-        for name in _CACHE_KV:
+        for name in ("k", "v"):
             kv = out[name]
             pool = new_pool(*kv.shape, device=kv.device, dtype=kv.dtype)
             pool.copy_(kv)

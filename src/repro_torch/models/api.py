@@ -1,5 +1,6 @@
 """Family-dispatching model API used by the serving engine (port of
-`repro.models.api` for the dense family and the Mamba stack, `ssm`).
+`repro.models.api` for the dense family, the Mamba stack, `ssm`, and the
+recurrentgemma hybrid, `hybrid`).
 
     model = get_model(cfg)
     params = model.init(gen)                 # fp32 masters
@@ -17,8 +18,10 @@
 plain versions for every call of the model (see `models.transformer`).
 
 The `ssm` family's "cache" is its recurrent state ({"conv", "h"},
-`models.ssm_lm`), O(1) per slot: `init_cache` and `prefill` take and ignore
-`max_len` and the paging arguments, as the JAX package's do.
+`models.ssm_lm`), O(1) per slot, and the `hybrid` family's its recurrent
+state and a ring of `local_window` K/V rows per attention layer: for both,
+`init_cache` and `prefill` take and ignore `max_len` and the paging
+arguments, as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from repro_torch.models import transformer as T
 
 # families whose cache is a KV cache (paging, the prefix cache and the V
 # scale apply to them only); the rest carry O(1) recurrent state per slot
+# (the hybrid also a fixed ring of K/V rows, never paged)
 ATTENTION_FAMILIES = ("dense", "moe", "audio", "vlm")
 
 
@@ -59,7 +63,8 @@ class Model:
         """Freeze fp32 masters to 1-bit packed weights (inference only),
         and cast the LM head to the activation dtype once: `_head` casts
         it on every call otherwise (a 2 GB read per step at full width),
-        and the product is the same."""
+        and the product is the same. A tied head is the embedding: it is
+        cast once too (a cast commutes with the lookup's gather)."""
         self._check_freezable()
         return self._cast_head(freeze_params(params))
 
@@ -69,8 +74,8 @@ class Model:
         gives (same shapes, same distribution, other draws) for a model
         whose masters do not fit on the device."""
         self._check_freezable()
-        init = S.init_mamba_params if self.cfg.family == "ssm" \
-            else T.init_transformer_params
+        init = {"ssm": S.init_mamba_params, "hybrid": S.init_rg_params} \
+            .get(self.cfg.family, T.init_transformer_params)
         return self._cast_head(init(gen, self.cfg, device=device,
                                     freeze_layer=freeze_params))
 
@@ -83,8 +88,9 @@ class Model:
                                       "(ROADMAP Queue A)")
 
     def _cast_head(self, frozen):
-        if "lm_head" in frozen:
-            frozen["lm_head"] = frozen["lm_head"].to(self.cfg.activation_dtype)
+        head = "embed" if self.cfg.tie_embeddings else "lm_head"
+        if head in frozen:
+            frozen[head] = frozen[head].to(self.cfg.activation_dtype)
         return frozen
 
 
@@ -108,6 +114,23 @@ def get_model(cfg: ModelConfig, *, path: str = "auto") -> Model:
             prefill_chunk=lambda p, tokens, cache, slot, pos, n_valid:
                 S.mamba_prefill_chunk(p, cfg, tokens, cache, slot, pos,
                                       n_valid, path=path),
+        )
+    if cfg.family == "hybrid":
+        return Model(
+            cfg=cfg,
+            init=lambda gen, device=None: S.init_rg_params(
+                gen, cfg, device=device),
+            logits=lambda p, tokens: S.rg_logits(p, cfg, tokens, path=path),
+            prefill=lambda p, tokens, max_len=None, cache=None, slot=0:
+                S.rg_prefill(p, cfg, tokens, cache=cache, slot=slot,
+                             path=path),
+            decode=lambda p, token, cache, pos: S.rg_decode(
+                p, cfg, token, cache, pos, path=path),
+            init_cache=lambda batch, max_len, device=None, **kw:
+                S.rg_init_state(cfg, batch, device=device),
+            prefill_chunk=lambda p, tokens, cache, slot, pos, n_valid:
+                S.rg_prefill_chunk(p, cfg, tokens, cache, slot, pos,
+                                   n_valid, path=path),
         )
     if cfg.family != "dense":
         raise NotImplementedError(f"{cfg.family} family is not ported yet "

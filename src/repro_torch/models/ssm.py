@@ -13,8 +13,19 @@ one launch).
 
 in_proj, x_proj and out_proj route through `core.layers.qmatmul` (the
 paper's technique, 1-bit `PackedWeight`s once frozen); dt_w, A_log, D and
-the conv taps stay float, as in the JAX package. The RG-LRU block of the
-recurrentgemma hybrid is not ported yet (ROADMAP Queue A).
+the conv taps stay float, as in the JAX package.
+
+The RG-LRU block of the recurrentgemma hybrid (port of the RG-LRU part of
+`repro.models.ssm`) is a diagonal linear recurrence h_t = a_t h_{t-1} + b_t
+over `lru_width` channels. Its w_x, w_gate and w_out route through
+`qmatmul` (kernel 2 once frozen); its two gate products stay float32
+matmuls (`w_input_gate`, `w_rec_gate` are not binary weights, as in the JAX
+package; TF32 stays off, PyTorch's default) and its scan is plain PyTorch:
+the JAX package computes both with jnp, outside any Pallas kernel.
+`_seg_scan` runs JAX's `lax.associative_scan` recursion (pairwise combine,
+recurse on the odd elements, fix up the even ones) op for op, so the
+float32 operations and their order are the JAX package's, not a
+sequential loop's.
 """
 from __future__ import annotations
 
@@ -193,3 +204,161 @@ def mamba_block_step(bp: dict, x: torch.Tensor, conv_state: torch.Tensor,
     dt, bmat, cmat, a_mat = _ssm_inputs(bp, xi, cfg, mode, path)
     y, h = scan(dt, xi.contiguous(), bmat, cmat, a_mat, h, path)
     return _output(bp, x, y, xi, z, mode, path), conv_state, h
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU recurrent block (recurrentgemma-2b, Griffin)
+# ---------------------------------------------------------------------------
+RG_C = 8.0
+
+
+def rglru_block_shapes(cfg: ModelConfig) -> dict:
+    """Leaf shapes of one RG-LRU sublayer. Init (the JAX package's
+    `_init_from_shapes`): matrices, the conv taps included, N(0, 0.02^2);
+    vectors (norm scale, conv bias, gate biases, lam) zeros."""
+    d, w = cfg.d_model, cfg.lru_width or cfg.d_model
+    return {
+        "ln": {"scale": (d,)},
+        "w_x": (d, w), "w_gate": (d, w),
+        "conv_w": (cfg.d_conv, w), "conv_b": (w,),
+        "w_input_gate": (w, w), "b_input_gate": (w,),
+        "w_rec_gate": (w, w), "b_rec_gate": (w,),
+        "lam": (w,),
+        "w_out": (w, d),
+    }
+
+
+def _combine(x, y):
+    """The scan's operator: (a1, b1) then (a2, b2) -> (a1 a2, a2 b1 + b2)."""
+    a1, b1 = x
+    a2, b2 = y
+    return a1 * a2, a2 * b1 + b2
+
+
+def _assoc_scan(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan of `_combine` along dim 1 in `jax.lax.
+    associative_scan`'s order: combine adjacent pairs, scan those (the odd
+    outputs), combine each with the next even input (the even outputs),
+    interleave."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    oa, ob = _assoc_scan(*_combine((a[:, 0:-1:2], b[:, 0:-1:2]),
+                                   (a[:, 1::2], b[:, 1::2])))
+    pa, pb = (oa[:, :-1], ob[:, :-1]) if n % 2 == 0 else (oa, ob)
+    ea, eb = _combine((pa, pb), (a[:, 2::2], b[:, 2::2]))
+    out_a, out_b = torch.empty_like(a), torch.empty_like(b)
+    out_a[:, 0::2] = torch.cat([a[:, :1], ea], dim=1)
+    out_b[:, 0::2] = torch.cat([b[:, :1], eb], dim=1)
+    out_a[:, 1::2], out_b[:, 1::2] = oa, ob
+    return out_a, out_b
+
+
+def _seg_scan(a: torch.Tensor, b: torch.Tensor,
+              h0: torch.Tensor) -> torch.Tensor:
+    """Cumulative h_t = a_t h_{t-1} + b_t within one chunk. a, b: (B, Q,
+    ...); h0: (B, ...). Returns h: (B, Q, ...)."""
+    a_cum, b_cum = _assoc_scan(a, b)
+    return b_cum + a_cum * h0[:, None]
+
+
+def chunked_diag_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
+                      chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The diagonal recurrence over time chunks of min(chunk, L) steps, the
+    state carried across chunks (the JAX package's `chunked_diag_scan` with
+    the identity output, the only one the hybrid uses). The last chunk is
+    padded with a = 1, b = 0, which pass the state through exactly.
+    a, b: (B, L, ...); h0: (B, ...). Returns (h (B, L, ...), h_final)."""
+    length = a.shape[1]
+    q = min(chunk, length)
+    pad = (-length) % q
+    if pad:
+        tail = (a.shape[0], pad) + tuple(a.shape[2:])
+        a = torch.cat([a, torch.ones(tail, dtype=a.dtype, device=a.device)], 1)
+        b = torch.cat([b, torch.zeros(tail, dtype=b.dtype, device=b.device)],
+                      1)
+    h, ys = h0, []
+    for lo in range(0, length + pad, q):
+        hc = _seg_scan(a[:, lo:lo + q], b[:, lo:lo + q], h)
+        ys.append(hc)
+        h = hc[:, -1]
+    return torch.cat(ys, dim=1)[:, :length], h
+
+
+def _rglru_coeffs(bp: dict, xi: torch.Tensor):
+    """xi: (B, L, W) conv output -> the recurrence's (a, b), both (B, L, W)
+    float32. The gate products are float32 matmuls."""
+    xf = xi.to(torch.float32)
+    i_gate = torch.sigmoid(
+        torch.matmul(xf, bp["w_input_gate"].to(torch.float32))
+        + bp["b_input_gate"])
+    r_gate = torch.sigmoid(
+        torch.matmul(xf, bp["w_rec_gate"].to(torch.float32))
+        + bp["b_rec_gate"])
+    log_a = -RG_C * F.softplus(bp["lam"]) * r_gate
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-6)) \
+        * (i_gate * xf)
+    return a, b
+
+
+def _rglru_in(bp: dict, x: torch.Tensor, mode: QuantMode, path: str):
+    """The normed input's two projections: (x-branch, gelu gate)."""
+    xn = rms_norm(x, bp["ln"]["scale"])
+    xi = qmatmul(xn, bp["w_x"], mode, path=path)
+    gate = F.gelu(qmatmul(xn, bp["w_gate"], mode, path=path),
+                  approximate="tanh")
+    return xi, gate
+
+
+def rglru_block_chunk(bp: dict, x: torch.Tensor, conv_state: torch.Tensor,
+                      h0: torch.Tensor, n_valid: int, cfg: ModelConfig,
+                      mode: QuantMode, *, chunk: int = 256,
+                      path: str = "auto"
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """RG-LRU sublayer over one prefill chunk from explicit state. x: (B, C,
+    D), right-padded past n_valid (a host int); conv_state: (B, K-1, W);
+    h0: (B, W) float32. Pads are masked out of the recurrence (a = 1, b = 0)
+    and out of the conv history, so chained chunks give the whole prompt's
+    recurrence. Returns (y (B, C, D), conv_state', h')."""
+    c = x.shape[1]
+    xi_pre, gate = _rglru_in(bp, x, mode, path)
+    xi, _ = causal_conv1d(xi_pre, bp["conv_w"], bp["conv_b"], conv_state)
+    new_conv = _conv_state_at(conv_state, xi_pre, n_valid, cfg.d_conv)
+    a, b = _rglru_coeffs(bp, xi)
+    if n_valid < c:
+        msk = (torch.arange(c, device=x.device) < n_valid)[None, :, None]
+        a = torch.where(msk, a, 1.0)
+        b = b * msk
+    y, h_fin = chunked_diag_scan(a, b, h0, chunk)
+    y = y.to(x.dtype) * gate
+    return x + qmatmul(y, bp["w_out"], mode, path=path), new_conv, h_fin
+
+
+def rglru_block(bp: dict, x: torch.Tensor, cfg: ModelConfig,
+                mode: QuantMode, *, chunk: int = 256, path: str = "auto"
+                ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """RG-LRU sublayer over whole sequences x (B, L, D) from zero state (the
+    chunk block with every row real: its masks are then no-ops). Returns
+    (y, (conv_state, h_final))."""
+    w = cfg.lru_width or cfg.d_model
+    conv0 = torch.zeros((x.shape[0], cfg.d_conv - 1, w), dtype=x.dtype,
+                        device=x.device)
+    h0 = torch.zeros((x.shape[0], w), dtype=torch.float32, device=x.device)
+    y, conv, h = rglru_block_chunk(bp, x, conv0, h0, x.shape[1], cfg, mode,
+                                   chunk=chunk, path=path)
+    return y, (conv, h)
+
+
+def rglru_block_step(bp: dict, x: torch.Tensor, conv_state: torch.Tensor,
+                     h: torch.Tensor, cfg: ModelConfig, mode: QuantMode, *,
+                     path: str = "auto"
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-token step. x: (B, 1, D); conv_state: (B, K-1, W); h: (B, W)
+    float32. Returns (y (B, 1, D), new conv_state, new h)."""
+    xi, gate = _rglru_in(bp, x, mode, path)
+    xi, conv_state = causal_conv1d(xi, bp["conv_w"], bp["conv_b"], conv_state)
+    a, b = _rglru_coeffs(bp, xi)
+    h = a[:, 0] * h + b[:, 0]
+    y = h[:, None].to(x.dtype) * gate
+    return x + qmatmul(y, bp["w_out"], mode, path=path), conv_state, h

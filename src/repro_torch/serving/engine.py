@@ -30,7 +30,11 @@ requests (`serving.scheduler`).
 falcon-mamba-7b (`family="ssm"`) serves the same way from O(1) recurrent
 state per slot, its selective scan through kernel 10; `kv_bits`,
 `page_size`, `pool_pages` and `prefix_cache` have no effect there, as in
-the JAX package.
+the JAX package. recurrentgemma-2b (`family="hybrid"`) serves from its
+rec layers' state and a ring of `local_window` K/V rows per attention
+layer (float, or packed at `kv_bits=1`, where decode attends through
+kernel 6); `page_size`, `pool_pages` and `prefix_cache` have no effect
+there, and its cache does not grow with `max_len`.
 
 Not ported yet, and raising NotImplementedError (ROADMAP Queue A): the
 mesh, the bounded queue and fault plans.
@@ -167,12 +171,12 @@ class ServingEngine:
 
     def generate_static(self, requests: list[Request]) -> list[np.ndarray]:
         """The static batch loop: same-length prompts prefilled together in
-        one batch (`Model.prefill`, a new cache of max_len), then every
-        request decoded for the batch's largest budget; each gets its own
-        budget back. Greedy rows take the argmax; if any request samples,
-        rows draw from the engine's generator (`serving.sampling`, seeded
-        from `seed`). Tokens stay on the device until one transfer at the
-        end."""
+        one batch (`Model.prefill`, a new cache of max_len, or a new
+        recurrent state), then every request decoded for the batch's
+        largest budget; each gets its own budget back. Greedy rows take
+        the argmax; if any request samples, rows draw from the engine's
+        generator (`serving.sampling`, seeded from `seed`). Tokens stay on
+        the device until one transfer at the end."""
         if not requests:
             raise ValueError("empty batch")
         lens = {len(r.prompt) for r in requests}
@@ -180,7 +184,9 @@ class ServingEngine:
             raise ValueError("the static path batches same-length prompts")
         s = lens.pop()
         max_new = max(r.max_new_tokens for r in requests)
-        if s + max_new > self.max_len:
+        # a KV cache holds max_len positions; a recurrent state has no cap
+        if self.cfg.family in ATTENTION_FAMILIES and \
+                s + max_new > self.max_len:
             raise ValueError(f"prompt ({s}) + max_new_tokens ({max_new}) "
                              f"exceeds max_len={self.max_len}")
         dev = self.params["embed"].device

@@ -44,8 +44,11 @@ taken at that page boundary (hence `page_size % prefill_chunk == 0`), and
 `Completion.cached_tokens` counts the pinned tokens (`ttft` charges only
 the suffix). Retirement offers the request's full prompt pages to the tree.
 Paging changes addressing only: tokens equal the contiguous cache's. The
-Mamba stack (`ssm`) keeps O(1) recurrent state per slot: `page_size`,
-`pool_pages` and `prefix_cache` are ignored for it, as in the JAX package.
+Mamba stack (`ssm`) keeps O(1) recurrent state per slot, and the hybrid
+(`hybrid`) that and a ring of `local_window` K/V rows per attention layer:
+`page_size`, `pool_pages` and `prefix_cache` are ignored for them, as in
+the JAX package. A request is still capped at `max_len` positions (its
+token buffer), as there.
 
 Sampling (temperature > 0) draws Gumbel noise from one generator seeded
 from the engine (`serving.sampling`): greedy outputs are the JAX package's,

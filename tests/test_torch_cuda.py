@@ -707,6 +707,58 @@ def test_cuda_decode_attention_long_contexts_match_plain(dtype):
         assert (got[kv == 0] == 0).all()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_attention_at_the_hybrid_ring_shape(dtype):
+    """Kernel 6 at recurrentgemma-2b's ring: B 4, T 2048, one KV head, G 10
+    (a decode step's 10 query rows take the wide body), hd 256, cache
+    lengths 0, 1, 17, 2,047 and 2,048: dots equal the plain version's,
+    outputs within TOL with equal signs, cache_len 0 rows give 0."""
+    from repro_torch.kernels import decode_attention as da
+    _need_card()
+    for lens in ((2048, 2047, 17, 1), (0, 2048, 1, 17)):
+        q, k, v, vs = _attention_case(sum(lens), 4, 2048, 1, 10, 256)
+        kv = torch.tensor(lens, dtype=torch.int32)
+        args = [a.cuda() for a in (q.to(dtype), k, v, vs, kv)]
+        got, dots = da.decode_attention_packed(*args, return_dots=True)
+        want, wdots = da.decode_attention_packed_plain(*args,
+                                                       return_dots=True)
+        torch.cuda.synchronize()
+        assert torch.equal(dots, wdots)
+        tol = TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        assert torch.equal(got >= 0, want >= 0)
+        assert (got[args[4] == 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits,chunk", [(1, 4), (1, None), (0, 4)])
+def test_cuda_hybrid_engine_matches_plain(kv_bits, chunk):
+    """The smoke recurrentgemma-2b (window 8) served on the card through the
+    kernels and through their plain versions: greedy tokens equal, on
+    prompts longer than the window; at kv_bits=1 decode runs kernel 6."""
+    from repro_torch.configs.smoke import smoke_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.api import get_model
+    from repro_torch.serving.engine import Request, ServingEngine
+    _need_card()
+    cfg = smoke_config("recurrentgemma-2b")
+    params = get_model(cfg).init(torch.Generator().manual_seed(0),
+                                 device="cuda")
+    rng = np.random.default_rng(1)
+    reqs = [Request(rng.integers(0, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=b) for n, b in ((19, 6), (5, 9), (11, 4))]
+    kw = dict(freeze=True, slots=2, max_len=32, kv_bits=kv_bits,
+              prefill_chunk=chunk)
+    da.reset_launches()
+    got = ServingEngine(cfg, params, **kw).generate(reqs)
+    assert (da.launches["decode_attention_packed"] > 0) == (kv_bits == 1)
+    want = ServingEngine(cfg, params, kernel_path="ref", **kw).generate(reqs)
+    for a, b in zip(got, want, strict=True):
+        np.testing.assert_array_equal(a, b)
+
+
 # kernel 10, the selective scan: (B, T, D, N, with h0). falcon-mamba-7b's
 # decode step and prefill chunk (d_inner 8192, N 16), and ragged shapes: D
 # off the 32-channel block, T off the 64-step tile, N of 2 and 4

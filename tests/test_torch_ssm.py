@@ -223,7 +223,7 @@ def test_config_fields_equal_jax():
         (64, 4096, 2, 16, 256, 4, 65024)
     assert not full.tie_embeddings and full.quant == "bbp_det"
     with pytest.raises(KeyError, match="ROADMAP Queue A"):
-        get_config("recurrentgemma-2b")
+        get_config("dbrx-132b")
 
 
 def test_cache_batch_axes_on_the_ssm_state():
@@ -413,7 +413,7 @@ def test_ssm_path_runs_the_plain_scan_on_cpu_and_unported_families_raise(
     for a, b in zip(auto, ref, strict=True):
         np.testing.assert_array_equal(a, b)
     assert ss.launches["selective_scan"] == 0
-    for family in ("moe", "hybrid", "audio", "vlm"):
+    for family in ("moe", "audio", "vlm"):
         with pytest.raises(NotImplementedError):
             get_model(cfg.scaled(family=family))
     frozen = ServingEngine(cfg, pp, freeze=True, **ENGINE).params

@@ -171,7 +171,7 @@ def test_inactive_rows_and_pad_rows_write_nothing(models):
 
 def test_config_fields_equal_jax():
     from repro.configs.base import get_config as jax_get_config
-    assert list_archs() == ["falcon-mamba-7b", ARCH]
+    assert list_archs() == ["falcon-mamba-7b", ARCH, "recurrentgemma-2b"]
     for port_cfg, jax_cfg in ((get_config(ARCH), jax_get_config(ARCH)),
                               (smoke_config(ARCH), jax_smoke(ARCH))):
         assert dataclasses.asdict(port_cfg) == dataclasses.asdict(jax_cfg)
