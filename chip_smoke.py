@@ -672,6 +672,32 @@ def pack_check_shapes(cfg):
             (LM_SLOTS, cfg.d_ff, "check"), (LM_CHUNK, cfg.d_ff, "check")]
 
 
+def pack_checks(shapes, dev_gen, dev) -> int:
+    """Kernel 5's `pack_bits_kernel` against its plain version at each
+    (M, K, where), bf16 and float32, with -0.0 and NaN among the values:
+    words equal bit for bit, one launch a call. Returns the largest error."""
+    _, pk, _, _, _ = lm_modules()
+    err = 0
+    for m, k, where in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(m, k, generator=dev_gen, device=dev).to(dtype)
+            x.view(-1)[::13] = -0.0
+            x.view(-1)[5::17] = float("nan")
+            before = pk.launches["pack_bits"]
+            got = pk.pack_bits_kernel(x)
+            torch.cuda.synchronize()
+            if pk.launches["pack_bits"] - before != 1:
+                raise AssertionError(f"pack_bits ({m},{k}): not one launch")
+            d = max_abs_diff(got, pk.pack_bits_plain(x), words=True)
+            err = max(err, d)
+            print(f"check pack_bits {str(dtype)[6:]:8s} M={m:5d} K={k:5d} "
+                  f"{where:12s} max_abs_err={d}")
+            if d:
+                raise AssertionError(f"pack_bits ({m},{k}) differs from its "
+                                     f"plain version by {d}")
+    return err
+
+
 def attention_case(gen, b, s, t, hkv, g, hd, dtype, dev):
     """Integer-valued queries (rope'd popcount dots are such values), packed
     sign K/V and V scales, on the card."""
@@ -745,26 +771,12 @@ def lm_kernel_checks(cfg, dev_gen, dev):
     """Kernels 5, 6, 8 against their plain versions on the card at the LM's
     main-path shapes and at ragged ones. Words and integer dots: tolerance
     0. Attention outputs: ATTN_TOL, signs equal."""
-    _, pk, da, pa, _ = lm_modules()
-    err = {"pack_bits": 0, "decode_attention_packed": 0.0,
-           "prefill_attention_packed": 0.0}
+    _, _, da, pa, _ = lm_modules()
+    err = {"pack_bits": pack_checks(pack_check_shapes(cfg) + [
+               (3, 31, "ragged"), (5, 33, "ragged"), (7, 1000, "ragged")],
+               dev_gen, dev),
+           "decode_attention_packed": 0.0, "prefill_attention_packed": 0.0}
     hkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
-    for m, k, where in pack_check_shapes(cfg) + [(3, 31, "ragged"),
-                                                 (5, 33, "ragged"),
-                                                 (7, 1000, "ragged")]:
-        for dtype in (torch.bfloat16, torch.float32):
-            x = torch.randn(m, k, generator=dev_gen, device=dev).to(dtype)
-            x.view(-1)[::13] = -0.0
-            x.view(-1)[5::17] = float("nan")
-            got = pk.pack_bits_kernel(x)
-            torch.cuda.synchronize()
-            d = max_abs_diff(got, pk.pack_bits_plain(x), words=True)
-            err["pack_bits"] = max(err["pack_bits"], d)
-            print(f"check pack_bits {str(dtype)[6:]:8s} M={m:5d} K={k:5d} "
-                  f"{where:12s} max_abs_err={d}")
-            if d:
-                raise AssertionError(f"pack_bits ({m},{k}) differs from its "
-                                     f"plain version by {d}")
     decode_cases = [(LM_SLOTS, LM_MAX_LEN, hkv, g, hd, 0, "main"),
                     (3, 37, 2, 1, 33, 0, "ragged"), (2, 70, 1, 8, 64, 9, "ragged"),
                     (5, 33, 3, 2, 128, 0, "ragged")]
@@ -1647,13 +1659,63 @@ def percentile(xs, q):
     return float(np.percentile(np.asarray(xs), q)) if len(xs) else float("nan")
 
 
+def serve_report(eng, prompts, budget):
+    """Warm `eng` up on a short request, then serve `prompts` (`budget` new
+    tokens each) and report wall and decode/prefill seconds, steps, bursts,
+    decode and prefill tokens/s, TTFT (own admission) p50/p99, TTFT wall
+    p50 and ITL p50/p99. Returns (report, completions, scheduler)."""
+    from repro_torch.serving.engine import Request
+    eng.generate([Request(prompts[0][:40], max_new_tokens=4)])     # warm-up
+    sched = eng.scheduler()
+    before = dict(sched.stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    comps = eng.serve([Request(p, max_new_tokens=budget) for p in prompts])
+    wall = time.perf_counter() - t0
+    st = {k: sched.stats[k] - before[k] for k in ("decode_s", "prefill_s",
+                                                 "decode_steps", "bursts")}
+    decode_tokens = sum(len(c.tokens) - 1 for c in comps)
+    itl = np.concatenate([c.itl for c in comps])
+    rep = {
+        "wall_s": wall, **st, "decode_tokens": decode_tokens,
+        "decode_tok_per_s": decode_tokens / st["decode_s"],
+        "prefill_tok_per_s": sum(map(len, prompts)) / st["prefill_s"],
+        "ttft_ms_p50": percentile([c.ttft for c in comps], 50) * 1e3,
+        "ttft_ms_p99": percentile([c.ttft for c in comps], 99) * 1e3,
+        "ttft_wall_ms_p50": percentile([c.ttft_wall for c in comps], 50) * 1e3,
+        "itl_ms_p50": percentile(itl, 50) * 1e3,
+        "itl_ms_p99": percentile(itl, 99) * 1e3}
+    return rep, comps, sched
+
+
+def print_serve_report(rep, prefill_note=""):
+    print(f"  wall {rep['wall_s']:.4f} s; decode {rep['decode_tokens']} tokens"
+          f" in {rep['decode_s']:.4f} s over {rep['decode_steps']} steps / "
+          f"{rep['bursts']} bursts = {rep['decode_tok_per_s']:.2f} tok/s; "
+          f"prefill {rep['prefill_tok_per_s']:.1f} tok/s{prefill_note}")
+    print(f"  TTFT (own admission) p50 {rep['ttft_ms_p50']:.3f} ms, p99 "
+          f"{rep['ttft_ms_p99']:.3f} ms; TTFT wall p50 "
+          f"{rep['ttft_wall_ms_p50']:.3f} ms; ITL p50 {rep['itl_ms_p50']:.3f} "
+          f"ms, p99 {rep['itl_ms_p99']:.3f} ms")
+
+
+def print_trace(head, step, note=""):
+    """One `trace` result: wall, device busy and its share of wall,
+    launches (`note` after them), the top kernels."""
+    share = step["busy_ms"] / step["wall_ms"] if step["wall_ms"] else 0.0
+    print(f"{head}: wall {step['wall_ms']:.4f} ms (profiled), device busy "
+          f"{step['busy_ms']:.4f} ms ({share:.3f} of wall), "
+          f"{step['launches']} kernel launches{note}; top kernels:")
+    for kname, cnt, ms in step["top"]:
+        print(f"    {ms:9.4f} ms  x{cnt:<3d} {kname}")
+
+
 def lm_timed_run(base_cfg, seed, dev, card):
     """Full width and depth: the same engine and traffic, timed, the
     weights drawn and frozen one layer at a time (`Model.init_frozen`).
     Returns the report and the frozen engine (for the profiled decode
     step)."""
     from repro_torch.models.api import get_model
-    from repro_torch.serving.engine import Request
     cfg = base_cfg.scaled(kv_bits=1)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1666,54 +1728,24 @@ def lm_timed_run(base_cfg, seed, dev, card):
                         + cfg.n_heads * hd * d + 3 * d * cfg.d_ff)
     eng = lm_engine(cfg, frozen, freeze=True, seed=seed)
     del frozen
-    prompts = lm_traffic(seed, cfg.vocab)
-    eng.generate([Request(prompts[0][:40], max_new_tokens=4)])     # warm-up
-    reqs = [Request(p, max_new_tokens=LM_NEW) for p in prompts]
-    sched = eng.scheduler()
-    before = dict(sched.stats)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    comps = eng.serve(reqs)
-    wall = time.perf_counter() - t0
-    st = {k: sched.stats[k] - before[k] for k in ("decode_s", "prefill_s",
-                                                 "decode_steps", "bursts",
-                                                 "tokens_out")}
-    decode_tokens = sum(len(c.tokens) - 1 for c in comps)
-    itl = np.concatenate([c.itl for c in comps])
+    rep, _, _ = serve_report(eng, lm_traffic(seed, cfg.vocab), LM_NEW)
     w = eng.resident_weight_bytes()
     c = eng.resident_cache_bytes()
     bf16_cache = 2 * cfg.n_layers * LM_SLOTS * LM_MAX_LEN * cfg.n_kv_heads * \
         cfg.head_dim * 2
-    rep = {
+    rep.update({
         "depth": cfg.n_layers, "init_frozen_s": init_s,
         "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
-        "wall_s": wall, "decode_s": st["decode_s"], "prefill_s": st["prefill_s"],
-        "decode_steps": st["decode_steps"], "bursts": st["bursts"],
-        "decode_tokens": decode_tokens,
-        "decode_tok_per_s": decode_tokens / st["decode_s"],
-        "prefill_tok_per_s": sum(map(len, prompts)) / st["prefill_s"],
-        "ttft_ms_p50": percentile([c.ttft for c in comps], 50) * 1e3,
-        "ttft_ms_p99": percentile([c.ttft for c in comps], 99) * 1e3,
-        "ttft_wall_ms_p50": percentile([c.ttft_wall for c in comps], 50) * 1e3,
-        "itl_ms_p50": percentile(itl, 50) * 1e3,
-        "itl_ms_p99": percentile(itl, 99) * 1e3,
         "binary_bytes_per_layer": w["binary"] // cfg.n_layers,
         "master_bytes_per_layer": master_layer,
         "cache_packed_bytes": c["packed"], "cache_float_bytes": c["float"],
-        "cache_bf16_bytes": bf16_cache}
+        "cache_bf16_bytes": bf16_cache})
     print(f"lm timed run on {card}: {LM_ARCH} full width and depth "
           f"({cfg.n_layers} layers, not cut; drawn and frozen layer by layer "
           f"in {init_s:.1f} s), {LM_REQUESTS} requests, {LM_SLOTS} slots, "
           f"chunk {LM_CHUNK}, max_len {LM_MAX_LEN}; peak device memory "
           f"{rep['peak_device_bytes'] / 1e9:.2f} GB")
-    print(f"  wall {wall:.4f} s; decode {decode_tokens} tokens in "
-          f"{st['decode_s']:.4f} s over {st['decode_steps']} steps / "
-          f"{st['bursts']} bursts = {rep['decode_tok_per_s']:.2f} tok/s; "
-          f"prefill {rep['prefill_tok_per_s']:.1f} tok/s")
-    print(f"  TTFT (own admission) p50 {rep['ttft_ms_p50']:.3f} ms, p99 "
-          f"{rep['ttft_ms_p99']:.3f} ms; TTFT wall p50 "
-          f"{rep['ttft_wall_ms_p50']:.3f} ms; ITL p50 {rep['itl_ms_p50']:.3f} "
-          f"ms, p99 {rep['itl_ms_p99']:.3f} ms")
+    print_serve_report(rep)
     print(f"  resident weights per layer: {rep['binary_bytes_per_layer'] / 1e6:.1f}"
           f" MB packed vs {master_layer / 1e9:.3f} GB fp32 "
           f"({master_layer / rep['binary_bytes_per_layer']:.1f}x); cache "
@@ -1728,67 +1760,33 @@ def lm_default_timed_run(cfg, frozen, seed, dev, card, packed_bytes):
     cache in bf16) on the LM's traffic: decode tokens/s, TTFT, ITL,
     resident cache bytes beside the packed cache's `packed_bytes`, peak
     device memory and one profiled decode step at position 300."""
-    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.engine import ServingEngine
     cfg = cfg.scaled(kv_bits=0)
     torch.cuda.reset_peak_memory_stats(dev)
     eng = ServingEngine(cfg, frozen, slots=LM_SLOTS, max_len=LM_MAX_LEN,
                         seed=seed)
-    prompts = lm_traffic(seed, cfg.vocab)
-    eng.generate([Request(prompts[0][:40], max_new_tokens=4)])     # warm-up
-    sched = eng.scheduler()
-    before = dict(sched.stats)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    comps = eng.serve([Request(p, max_new_tokens=LM_NEW) for p in prompts])
-    wall = time.perf_counter() - t0
-    st = {k: sched.stats[k] - before[k] for k in ("decode_s", "prefill_s",
-                                                 "decode_steps", "bursts")}
-    decode_tokens = sum(len(c.tokens) - 1 for c in comps)
-    itl = np.concatenate([c.itl for c in comps])
+    rep, _, sched = serve_report(eng, lm_traffic(seed, cfg.vocab), LM_NEW)
     c = eng.resident_cache_bytes()
     pos = torch.full((LM_SLOTS,), 300, dtype=torch.int32, device=dev)
     step = trace(lambda: sched.model.decode(sched.params, sched._state["cur"],
                                             sched._cache, pos))
-    rep = {
-        "depth": cfg.n_layers, "wall_s": wall, "decode_s": st["decode_s"],
-        "prefill_s": st["prefill_s"], "decode_steps": st["decode_steps"],
-        "bursts": st["bursts"], "decode_tokens": decode_tokens,
-        "decode_tok_per_s": decode_tokens / st["decode_s"],
-        "prefill_tok_per_s": sum(map(len, prompts)) / st["prefill_s"],
-        "ttft_ms_p50": percentile([x.ttft for x in comps], 50) * 1e3,
-        "ttft_ms_p99": percentile([x.ttft for x in comps], 99) * 1e3,
-        "ttft_wall_ms_p50": percentile([x.ttft_wall for x in comps], 50) * 1e3,
-        "itl_ms_p50": percentile(itl, 50) * 1e3,
-        "itl_ms_p99": percentile(itl, 99) * 1e3,
+    rep.update({
+        "depth": cfg.n_layers,
         "cache_float_bytes": c["float"], "cache_packed_bytes": c["packed"],
         "packed_cache_bytes": packed_bytes,
         "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
         "prefill_shapes": sched.prefill_shape_count,
-        "decode_step_trace": step}
-    share = step["busy_ms"] / step["wall_ms"] if step["wall_ms"] else 0.0
+        "decode_step_trace": step})
     print(f"lm default engine (kv_bits=0, whole prompt) timed run on {card}: "
           f"{LM_ARCH} 40 layers, {LM_REQUESTS} requests, {LM_SLOTS} slots, "
           f"max_len {LM_MAX_LEN}; peak device memory "
           f"{rep['peak_device_bytes'] / 1e9:.2f} GB")
-    print(f"  wall {wall:.4f} s; decode {decode_tokens} tokens in "
-          f"{st['decode_s']:.4f} s over {st['decode_steps']} steps / "
-          f"{st['bursts']} bursts = {rep['decode_tok_per_s']:.2f} tok/s; "
-          f"prefill {rep['prefill_tok_per_s']:.1f} tok/s "
-          f"({rep['prefill_shapes']} prompt shapes)")
-    print(f"  TTFT (own admission) p50 {rep['ttft_ms_p50']:.3f} ms, p99 "
-          f"{rep['ttft_ms_p99']:.3f} ms; TTFT wall p50 "
-          f"{rep['ttft_wall_ms_p50']:.3f} ms; ITL p50 {rep['itl_ms_p50']:.3f} "
-          f"ms, p99 {rep['itl_ms_p99']:.3f} ms")
+    print_serve_report(rep, f" ({rep['prefill_shapes']} prompt shapes)")
     print(f"  cache {c['float'] / 1e6:.2f} MB float K/V (bf16) vs "
           f"{packed_bytes / 1e6:.2f} MB packed (kv_bits=1; "
           f"{c['float'] / packed_bytes:.1f}x)")
-    print(f"trace lm default-engine decode step (depth {cfg.n_layers}, "
-          f"{LM_SLOTS} slots at position 300) on {card}: wall "
-          f"{step['wall_ms']:.4f} ms (profiled), device busy "
-          f"{step['busy_ms']:.4f} ms ({share:.3f} of wall), "
-          f"{step['launches']} kernel launches; top kernels:")
-    for kname, cnt, ms in step["top"]:
-        print(f"    {ms:9.4f} ms  x{cnt:<3d} {kname}")
+    print_trace(f"trace lm default-engine decode step (depth {cfg.n_layers}, "
+                f"{LM_SLOTS} slots at position 300) on {card}", step)
     del eng, sched
     torch.cuda.empty_cache()
     return rep
@@ -2753,7 +2751,6 @@ def ssm_timed_run(base_cfg, seed, dev, card):
     (binary vs other; the binary layers against their fp32 masters), state
     bytes, peak device memory, and one profiled decode step."""
     from repro_torch.models.api import get_model
-    from repro_torch.serving.engine import Request
     cfg = base_cfg
     gen = torch.Generator(device=dev).manual_seed(seed + 4)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2763,40 +2760,19 @@ def ssm_timed_run(base_cfg, seed, dev, card):
     init_s = time.perf_counter() - t0
     eng = ssm_engine(cfg, frozen, freeze=True, seed=seed)
     del frozen
-    prompts = lm_traffic(seed, cfg.vocab)
-    eng.generate([Request(prompts[0][:40], max_new_tokens=4)])     # warm-up
-    sched = eng.scheduler()
-    before = dict(sched.stats)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    comps = eng.serve([Request(p, max_new_tokens=LM_NEW) for p in prompts])
-    wall = time.perf_counter() - t0
-    st = {k: sched.stats[k] - before[k] for k in ("decode_s", "prefill_s",
-                                                 "decode_steps", "bursts")}
-    decode_tokens = sum(len(c.tokens) - 1 for c in comps)
-    itl = np.concatenate([c.itl for c in comps])
+    rep, _, sched = serve_report(eng, lm_traffic(seed, cfg.vocab), LM_NEW)
     w = eng.resident_weight_bytes()
     c = eng.resident_cache_bytes()
     d, n, r = cfg.d_model, cfg.ssm_state, cfg.dt_rank
     di = cfg.expand * d
     master_binary = 4 * cfg.n_layers * (d * 2 * di + di * (r + 2 * n)
                                         + di * d)
-    rep = {
+    rep.update({
         "depth": cfg.n_layers, "init_frozen_s": init_s,
         "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
-        "wall_s": wall, "decode_s": st["decode_s"],
-        "prefill_s": st["prefill_s"], "decode_steps": st["decode_steps"],
-        "bursts": st["bursts"], "decode_tokens": decode_tokens,
-        "decode_tok_per_s": decode_tokens / st["decode_s"],
-        "prefill_tok_per_s": sum(map(len, prompts)) / st["prefill_s"],
-        "ttft_ms_p50": percentile([c.ttft for c in comps], 50) * 1e3,
-        "ttft_ms_p99": percentile([c.ttft for c in comps], 99) * 1e3,
-        "ttft_wall_ms_p50": percentile([c.ttft_wall for c in comps], 50) * 1e3,
-        "itl_ms_p50": percentile(itl, 50) * 1e3,
-        "itl_ms_p99": percentile(itl, 99) * 1e3,
         "binary_bytes": w["binary"], "other_bytes": w["other"],
         "binary_master_bytes": master_binary,
-        "state_bytes": c["total"]}
+        "state_bytes": c["total"]})
     if master_binary != 32 * w["binary"]:
         raise AssertionError(f"binary layers {w['binary']} B are not 1/32 of "
                              f"their fp32 masters {master_binary} B")
@@ -2805,14 +2781,7 @@ def ssm_timed_run(base_cfg, seed, dev, card):
           f"in {init_s:.1f} s), {LM_REQUESTS} requests, {LM_SLOTS} slots, "
           f"chunk {LM_CHUNK}, max_len {LM_MAX_LEN}; peak device memory "
           f"{rep['peak_device_bytes'] / 1e9:.3f} GB")
-    print(f"  wall {wall:.4f} s; decode {decode_tokens} tokens in "
-          f"{st['decode_s']:.4f} s over {st['decode_steps']} steps / "
-          f"{st['bursts']} bursts = {rep['decode_tok_per_s']:.2f} tok/s; "
-          f"prefill {rep['prefill_tok_per_s']:.1f} tok/s")
-    print(f"  TTFT (own admission) p50 {rep['ttft_ms_p50']:.3f} ms, p99 "
-          f"{rep['ttft_ms_p99']:.3f} ms; TTFT wall p50 "
-          f"{rep['ttft_wall_ms_p50']:.3f} ms; ITL p50 {rep['itl_ms_p50']:.3f} "
-          f"ms, p99 {rep['itl_ms_p99']:.3f} ms")
+    print_serve_report(rep)
     print(f"  resident weights: binary {w['binary'] / 1e9:.4f} GB (in_proj, "
           f"x_proj, out_proj; fp32 masters {master_binary / 1e9:.3f} GB, "
           f"32x), other {w['other'] / 1e9:.4f} GB (embed fp32, head bf16, "
@@ -2821,13 +2790,8 @@ def ssm_timed_run(base_cfg, seed, dev, card):
     pos = torch.full((LM_SLOTS,), 300, dtype=torch.int32, device=dev)
     step = trace(lambda: sched.model.decode(sched.params, sched._state["cur"],
                                             sched._cache, pos))
-    share = step["busy_ms"] / step["wall_ms"] if step["wall_ms"] else 0.0
-    print(f"trace ssm decode step (depth {cfg.n_layers}, {LM_SLOTS} slots) on "
-          f"{card}: wall {step['wall_ms']:.4f} ms (profiled), device busy "
-          f"{step['busy_ms']:.4f} ms ({share:.3f} of wall), "
-          f"{step['launches']} kernel launches; top kernels:")
-    for kname, cnt, ms in step["top"]:
-        print(f"    {ms:9.4f} ms  x{cnt:<3d} {kname}")
+    print_trace(f"trace ssm decode step (depth {cfg.n_layers}, {LM_SLOTS} "
+                f"slots) on {card}", step)
     rep["decode_step_trace"] = step
     del eng, sched
     torch.cuda.empty_cache()
@@ -2928,6 +2892,16 @@ def hybrid_gemms(cfg):
             ("binary_gemm_packed", "packed", d, f, "rg.gate"),
             ("binary_gemm_packed_rhs", "bf16", d, w, "rg.w_x"),
             ("binary_gemm_packed_rhs", "bf16", f, d, "rg.down")]
+
+
+def hybrid_pack_check_shapes(cfg):
+    """(M, K) of the hybrid's shared sign-packs (an attention layer's Q/K/V
+    input, either layer's gate/up input): the normed residual, K = d_model,
+    at a decode step, a chunk, a 200-token prompt and the whole prompt of
+    HYBRID_WRAP that passes the ring."""
+    d = cfg.d_model
+    return [(LM_SLOTS, d, "rg.decode"), (LM_CHUNK, d, "rg.chunk"),
+            (200, d, "rg.prompt"), (HYBRID_WRAP[0], d, "rg.wrap")]
 
 
 def hybrid_pack_rows_cases(cfg):
@@ -3229,13 +3203,14 @@ def hybrid_timed_run(base_cfg, seed, dev, card):
     traffic, through the chunked kv_bits=1 engine and the default engine:
     decode tokens/s, TTFT, ITL p50/p99, resident weight, ring and state
     bytes (packed ring against a bf16 one), peak device memory, and one
-    profiled decode step (4 slots at position 2,100, rings full) with its
+    profiled decode step (4 slots, cache_len 2,048: pos set to 2,100 on the
+    state that phase 6's traffic left, so kernel 6 reads whole rings of
+    which most rows are zero or stale) with its
     launches of the four kernels asserted, beside the device time of the
     float32 gate products of the 18 rec layers (two (4, 2560) x (2560,
     2560) matmuls each)."""
     from repro_torch.models.api import get_model
     from repro_torch.models import ssm_lm as L
-    from repro_torch.serving.engine import Request
     cfg = base_cfg
     gen = torch.Generator(device=dev).manual_seed(seed + 6)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3266,17 +3241,7 @@ def hybrid_timed_run(base_cfg, seed, dev, card):
                                                 prefill_chunk=LM_CHUNK)),
                      ("default (kv_bits=0, whole prompt)", {})):
         eng = hybrid_engine(cfg, frozen, seed=seed, **kw)
-        eng.generate([Request(prompts[0][:40], max_new_tokens=4)])  # warm-up
-        sched = eng.scheduler()
-        before = dict(sched.stats)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        comps = eng.serve([Request(p, max_new_tokens=LM_NEW) for p in prompts])
-        wall = time.perf_counter() - t0
-        st = {k: sched.stats[k] - before[k] for k in ("decode_s", "prefill_s",
-                                                     "decode_steps", "bursts")}
-        decode_tokens = sum(len(c.tokens) - 1 for c in comps)
-        itl = np.concatenate([c.itl for c in comps])
+        rep, _, sched = serve_report(eng, prompts, LM_NEW)
         w = eng.resident_weight_bytes()
         c = eng.resident_cache_bytes()
         cache = sched._cache
@@ -3299,55 +3264,33 @@ def hybrid_timed_run(base_cfg, seed, dev, card):
         step = trace(lambda: sched.model.decode(sched.params,
                                                 sched._state["cur"], cache,
                                                 pos))
-        share = step["busy_ms"] / step["wall_ms"] if step["wall_ms"] else 0.0
-        rep = {"wall_s": wall, "decode_s": st["decode_s"],
-               "prefill_s": st["prefill_s"],
-               "decode_steps": st["decode_steps"], "bursts": st["bursts"],
-               "decode_tokens": decode_tokens,
-               "decode_tok_per_s": decode_tokens / st["decode_s"],
-               "prefill_tok_per_s": sum(map(len, prompts)) / st["prefill_s"],
-               "ttft_ms_p50": percentile([x.ttft for x in comps], 50) * 1e3,
-               "ttft_ms_p99": percentile([x.ttft for x in comps], 99) * 1e3,
-               "ttft_wall_ms_p50": percentile([x.ttft_wall for x in comps],
-                                              50) * 1e3,
-               "itl_ms_p50": percentile(itl, 50) * 1e3,
-               "itl_ms_p99": percentile(itl, 99) * 1e3,
+        rep.update({
                "binary_bytes": w["binary"], "other_bytes": w["other"],
                "ring_bytes": ring, "bf16_ring_bytes": bf16_ring,
                "state_bytes": state, "cache_split": c,
                "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
                "decode_step_launches": per_step, "decode_step_trace": step,
-               "float_gates_ms": gates_ms, "float_gates_bytes": gate_bytes}
+               "float_gates_ms": gates_ms, "float_gates_bytes": gate_bytes})
         out[name] = rep
         print(f"hybrid timed run on {card}, {name}: {HYBRID_ARCH} full width "
               f"and depth ({cfg.n_layers} layers: {n_rec} rec + {n_attn} "
               f"attention, not cut; drawn and frozen layer by layer in "
               f"{init_s:.1f} s), {LM_REQUESTS} requests, {LM_SLOTS} slots; "
               f"peak device memory {rep['peak_device_bytes'] / 1e9:.2f} GB")
-        print(f"  wall {wall:.4f} s; decode {decode_tokens} tokens in "
-              f"{st['decode_s']:.4f} s over {st['decode_steps']} steps / "
-              f"{st['bursts']} bursts = {rep['decode_tok_per_s']:.2f} tok/s; "
-              f"prefill {rep['prefill_tok_per_s']:.1f} tok/s")
-        print(f"  TTFT (own admission) p50 {rep['ttft_ms_p50']:.3f} ms, p99 "
-              f"{rep['ttft_ms_p99']:.3f} ms; TTFT wall p50 "
-              f"{rep['ttft_wall_ms_p50']:.3f} ms; ITL p50 "
-              f"{rep['itl_ms_p50']:.3f} ms, p99 {rep['itl_ms_p99']:.3f} ms")
+        print_serve_report(rep)
         print(f"  resident weights: binary {w['binary'] / 1e9:.4f} GB, other "
               f"{w['other'] / 1e9:.4f} GB (embed bf16 = the tied head, "
               f"float32 gates {gate_bytes / 1e9:.3f} GB, conv taps, norms); "
               f"ring {ring / 1e6:.3f} MB ({str(cache['attn_k'].dtype)[6:]}"
               f"; a bf16 ring {bf16_ring / 1e6:.3f} MB), rec state "
               f"{state / 1e6:.3f} MB for {LM_SLOTS} slots")
-        print(f"trace hybrid decode step ({name}, depth {cfg.n_layers}, "
-              f"{LM_SLOTS} slots at position 2100) on {card}: wall "
-              f"{step['wall_ms']:.4f} ms (profiled), device busy "
-              f"{step['busy_ms']:.4f} ms ({share:.3f} of wall), "
-              f"{step['launches']} kernel launches ({sum(per_step.values())} "
-              f"of kernels 1, 2, 5, 6: {per_step}); the float32 gate "
-              f"products {gates_ms:.4f} ms device ({gate_bytes / 1e9:.3f} GB "
-              f"read); top kernels:")
-        for kname, cnt, ms in step["top"]:
-            print(f"    {ms:9.4f} ms  x{cnt:<3d} {kname}")
+        print_trace(f"trace hybrid decode step ({name}, depth "
+                    f"{cfg.n_layers}, {LM_SLOTS} slots, cache_len {w_wnd}: "
+                    f"pos set to 2100 on the state phase 6's traffic left) "
+                    f"on {card}", step,
+                    f" ({sum(per_step.values())} of kernels 1, 2, 5, 6: "
+                    f"{per_step}); the float32 gate products {gates_ms:.4f} "
+                    f"ms device ({gate_bytes / 1e9:.3f} GB read)")
         del eng, sched, cache
         torch.cuda.empty_cache()
     del frozen, gates
@@ -3598,8 +3541,10 @@ def main() -> int:
     err["decode_attention_packed"] = max(
         err["decode_attention_packed"],
         hybrid_kernel_checks(hyb_cfg, dev_gen, dev, sms))
-    err["pack_bits"] = max(err["pack_bits"], pack_rows_checks(
-        hybrid_pack_rows_cases(hyb_cfg), dev_gen, dev))
+    err["pack_bits"] = max(
+        err["pack_bits"],
+        pack_checks(hybrid_pack_check_shapes(hyb_cfg), dev_gen, dev),
+        pack_rows_checks(hybrid_pack_rows_cases(hyb_cfg), dev_gen, dev))
 
     # ------------------------------------------------------------------ mlp
     cfg = BNN_MNIST
@@ -3772,12 +3717,7 @@ def main() -> int:
         "cnn": trace(lambda: pn.cnn_forward(frozen, bn, xc,
                                             bn_kind=cfg_c.bn_kind))}
     for key, t in traces.items():
-        share = t["busy_ms"] / t["wall_ms"] if t["wall_ms"] else 0.0
-        print(f"trace {key} frozen on {card}: wall {t['wall_ms']:.4f} ms "
-              f"(profiled), device busy {t['busy_ms']:.4f} ms ({share:.3f} "
-              f"of wall), {t['launches']} kernel launches; top kernels:")
-        for kname, cnt, ms in t["top"]:
-            print(f"    {ms:9.4f} ms  x{cnt:<3d} {kname}")
+        print_trace(f"trace {key} frozen on {card}", t)
     report["traces"] = traces
 
     # ------------------------------------------- lm: kernel times, timed run
@@ -3828,13 +3768,8 @@ def main() -> int:
     pos = torch.full((LM_SLOTS,), 300, dtype=torch.int32, device=dev)
     step = trace(lambda: sched.model.decode(sched.params, sched._state["cur"],
                                             sched._cache, pos))
-    share = step["busy_ms"] / step["wall_ms"] if step["wall_ms"] else 0.0
-    print(f"trace lm decode step (depth {lm_cfg.n_layers}, {LM_SLOTS} slots at "
-          f"position 300) on {card}: wall {step['wall_ms']:.4f} ms (profiled),"
-          f" device busy {step['busy_ms']:.4f} ms ({share:.3f} of wall), "
-          f"{step['launches']} kernel launches; top kernels:")
-    for kname, cnt, ms in step["top"]:
-        print(f"    {ms:9.4f} ms  x{cnt:<3d} {kname}")
+    print_trace(f"trace lm decode step (depth {lm_cfg.n_layers}, {LM_SLOTS} "
+                f"slots at position 300) on {card}", step)
     timed["decode_step_trace"] = step
     report["lm_timed"] = timed
     report["lm_paged_timed"] = lm_paged_timed_run(

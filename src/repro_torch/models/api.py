@@ -61,7 +61,7 @@ class Model:
 
     def freeze(self, params):
         """Freeze fp32 masters to 1-bit packed weights (inference only),
-        and cast the LM head to the activation dtype once: `_head` casts
+        and cast the LM head to the activation dtype once: `head` casts
         it on every call otherwise (a 2 GB read per step at full width),
         and the product is the same. A tied head is the embedding: it is
         cast once too (a cast commutes with the lookup's gather)."""

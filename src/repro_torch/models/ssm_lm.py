@@ -58,8 +58,8 @@ from repro_torch.models.ssm import (
     rglru_block_chunk, rglru_block_shapes, rglru_block_step,
 )
 from repro_torch.models.transformer import (
-    _embed, _head, _pack_into, _qkv, _stack_layers, ffn_sublayer,
-    layer_params, self_attn,
+    embed, ffn_sublayer, head, layer_params, pack_into, qkv, self_attn,
+    stack_layers,
 )
 
 
@@ -93,7 +93,7 @@ def init_mamba_params(gen: torch.Generator, cfg: ModelConfig, *,
     if freeze_layer is None:
         params["blocks"] = init_mamba_blocks(gen, cfg, cfg.n_layers, dev)
     else:
-        params["blocks"] = _stack_layers(
+        params["blocks"] = stack_layers(
             [freeze_layer(init_mamba_blocks(gen, cfg, 1, dev))
              for _ in range(cfg.n_layers)])
     return params
@@ -128,14 +128,14 @@ def mamba_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
            else torch.full((b,), int(pos), dtype=torch.int32,
                            device=token.device))
     live = (pos >= 0)[:, None, None]
-    h = _embed(params, cfg, token[:, None])
+    h = embed(params, cfg, token[:, None])
     for layer in range(cfg.n_layers):
         cs, hs = cache["conv"][layer], cache["h"][layer]
         h, cs_new, hs_new = mamba_block_step(layer_params(params, layer), h,
                                              cs, hs, cfg, mode, path=path)
         cs.copy_(torch.where(live, cs_new, cs))
         hs.copy_(torch.where(live, hs_new, hs))
-    return _head(params, cfg, h)[:, 0], cache
+    return head(params, cfg, h)[:, 0], cache
 
 
 def mamba_prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -156,7 +156,7 @@ def mamba_prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     if pos == 0:
         cache["conv"][:, slot].zero_()
         cache["h"][:, slot].zero_()
-    h = _embed(params, cfg, tokens)
+    h = embed(params, cfg, tokens)
     for layer in range(cfg.n_layers):
         cs = cache["conv"][layer, slot:slot + 1]
         hs = cache["h"][layer, slot:slot + 1]
@@ -165,7 +165,7 @@ def mamba_prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                                               path=path)
         cs.copy_(cs_new)
         hs.copy_(hs_new)
-    return _head(params, cfg, h[:, n_valid - 1:n_valid])[:, 0], cache
+    return head(params, cfg, h[:, n_valid - 1:n_valid])[:, 0], cache
 
 
 def _whole_sequence(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -178,7 +178,7 @@ def _whole_sequence(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     di = cfg.expand * cfg.d_model
     conv0 = torch.zeros((b, cfg.d_conv - 1, di), dtype=cfg.activation_dtype,
                         device=tokens.device)
-    h = _embed(params, cfg, tokens)
+    h = embed(params, cfg, tokens)
     for layer in range(cfg.n_layers):
         h, cs, hs = mamba_block_chunk(layer_params(params, layer), h, conv0,
                                       None, tokens.shape[1], cfg, mode,
@@ -207,7 +207,7 @@ def mamba_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     for layer, (cs, hs) in enumerate(states):
         cache["conv"][layer, slot:slot + b] = cs
         cache["h"][layer, slot:slot + b] = hs
-    return _head(params, cfg, h[:, -1:])[:, 0], cache
+    return head(params, cfg, h[:, -1:])[:, 0], cache
 
 
 def mamba_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -215,7 +215,7 @@ def mamba_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     """Inference forward: tokens (B, S) -> (logits (B, S, V), {}). (The
     training forward comes with the LM trainer, ROADMAP Queue A.)"""
     _check_served(cfg)
-    return _head(params, cfg, _whole_sequence(params, cfg, tokens, path)), {}
+    return head(params, cfg, _whole_sequence(params, cfg, tokens, path)), {}
 
 
 # ===========================================================================
@@ -316,11 +316,11 @@ def init_rg_params(gen: torch.Generator, cfg: ModelConfig, *, device=None,
         return params
 
     def layers(shapes, n):
-        return _stack_layers([freeze_layer(init(shapes, (1,)))
+        return stack_layers([freeze_layer(init(shapes, (1,)))
                               for _ in range(n)])
 
     params["groups"] = {
-        "rec": _stack_layers([_unsqueeze(layers(rec, n_rec))
+        "rec": stack_layers([_unsqueeze(layers(rec, n_rec))
                               for _ in range(g)]),
         "attn": layers(attn, g)}
     if tail:
@@ -392,7 +392,7 @@ def _rg_whole(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         if cfg.kv_bits == 1:
             rows = ((torch.arange(b, device=tokens.device)[:, None] + slot)
                     * wnd + ring[None]).reshape(-1)
-    h = _embed(params, cfg, tokens)
+    h = embed(params, cfg, tokens)
     for gi in range(g):
         for j in range(_n_rec(cfg)):
             h, (cs, hs) = _rg_rec(_pick(params["groups"]["rec"], gi, j), h,
@@ -409,9 +409,9 @@ def _rg_whole(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 cache["attn_v_scale"][gi, sl] = v_cache_scale(v)
             k, v = k[:, s - w_eff:], v[:, s - w_eff:]
             if cfg.kv_bits == 1:
-                _pack_into(path, (k.flatten(0, 1).contiguous(),
+                pack_into(path, (k.flatten(0, 1).contiguous(),
                                   v.flatten(0, 1).contiguous()),
-                           (kc, vc), rows)
+                          (kc, vc), rows)
             else:
                 kc[sl, ring] = k.to(kc.dtype)
                 vc[sl, ring] = v.to(vc.dtype)
@@ -440,7 +440,7 @@ def rg_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         raise ValueError(f"slots [{slot}, {slot + b}) outside the state's "
                          f"{cache['attn_k'].shape[1]}")
     h = _rg_whole(params, cfg, tokens, path, cache, slot)
-    return _head(params, cfg, h[:, -1:])[:, 0], cache
+    return head(params, cfg, h[:, -1:])[:, 0], cache
 
 
 def rg_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -448,7 +448,7 @@ def rg_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     """Inference forward: tokens (B, S) -> (logits (B, S, V), {}). (The
     training forward comes with the LM trainer, ROADMAP Queue A.)"""
     _check_hybrid(cfg)
-    return _head(params, cfg, _rg_whole(params, cfg, tokens, path)), {}
+    return head(params, cfg, _rg_whole(params, cfg, tokens, path)), {}
 
 
 def _rg_rec_step(lp, h, cs, hs, live, cfg, mode, path):
@@ -474,11 +474,11 @@ def _rg_attn_step(lp, h, kc, vc, vsc, cfg, mode, pos, live, rows, cache_len,
     b = h.shape[0]
     ap = lp["mix"]["attn"]
     xn = rms_norm(h, lp["mix"]["ln1"]["scale"])
-    q, k, v = _qkv(ap, xn, cfg, mode, path)
+    q, k, v = qkv(ap, xn, cfg, mode, path)
     q = rope(q, pos[:, None], cfg.rope_theta)
     k = rope(k, pos[:, None], cfg.rope_theta)
     if cfg.kv_bits == 1:
-        _pack_into(path, (k[:, 0], v[:, 0]), (kc, vc), rows)
+        pack_into(path, (k[:, 0], v[:, 0]), (kc, vc), rows)
         attend = decode_attention_packed if path == "auto" \
             else decode_attention_packed_plain
         out = attend(q, kc, vc, vsc, cache_len)
@@ -517,7 +517,7 @@ def rg_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
     cache_len = torch.where(live, torch.clamp_max(pos + 1, wnd), 0) \
         .to(torch.int32)
     vs = cache.get("attn_v_scale")
-    h = _embed(params, cfg, token[:, None])
+    h = embed(params, cfg, token[:, None])
     for gi in range(g):
         for j in range(_n_rec(cfg)):
             h = _rg_rec_step(_pick(params["groups"]["rec"], gi, j), h,
@@ -531,7 +531,7 @@ def rg_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
     for j in range(tail):
         h = _rg_rec_step(_pick(params["tail"], j), h, cache["tail_conv"][j],
                          cache["tail_h"][j], live, cfg, mode, path)
-    return _head(params, cfg, h)[:, 0], cache
+    return head(params, cfg, h)[:, 0], cache
 
 
 def _rg_attn_chunk(lp, h, kc, vc, vsc, cfg, mode, positions, pos, n_valid,
@@ -551,7 +551,7 @@ def _rg_attn_chunk(lp, h, kc, vc, vsc, cfg, mode, positions, pos, n_valid,
     wnd = kc.shape[1]
     ap = lp["mix"]["attn"]
     xn = rms_norm(h, lp["mix"]["ln1"]["scale"])
-    q, k, v = _qkv(ap, xn, cfg, mode, path)
+    q, k, v = qkv(ap, xn, cfg, mode, path)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     if cfg.kv_bits == 1:
@@ -559,8 +559,8 @@ def _rg_attn_chunk(lp, h, kc, vc, vsc, cfg, mode, positions, pos, n_valid,
                          device=kc.device)
         vb = torch.empty_like(kb)
         kb[:, :wnd], vb[:, :wnd] = kc, vc
-        _pack_into(path, (k[0], v[0]), (kb, vb),
-                   torch.arange(wnd, wnd + c, device=h.device))
+        pack_into(path, (k[0], v[0]), (kb, vb),
+                  torch.arange(wnd, wnd + c, device=h.device))
         absm = v[0].to(torch.float32).abs().mean(dim=-1)       # (C, Hkv)
         msk = (torch.arange(c, device=h.device) < n_valid)[:, None]
         vsc.copy_((vsc * float(pos) + (absm * msk).sum(dim=0)[None])
@@ -635,7 +635,7 @@ def rg_prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         hs.copy_(hs_new)
         return ffn_sublayer(lp, h, cfg, mode, path=path)
 
-    h = _embed(params, cfg, tokens)
+    h = embed(params, cfg, tokens)
     for gi in range(g):
         for j in range(_n_rec(cfg)):
             h = rec(_pick(params["groups"]["rec"], gi, j), h,
@@ -649,4 +649,4 @@ def rg_prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     for j in range(tail):
         h = rec(_pick(params["tail"], j), h, cache["tail_conv"][j, sl],
                 cache["tail_h"][j, sl])
-    return _head(params, cfg, h[:, n_valid - 1:n_valid])[:, 0], cache
+    return head(params, cfg, h[:, n_valid - 1:n_valid])[:, 0], cache

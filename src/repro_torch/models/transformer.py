@@ -118,17 +118,17 @@ def init_transformer_params(gen: torch.Generator, cfg: ModelConfig, *,
     if freeze_layer is None:
         params["blocks"] = init(_block_shapes(cfg), cfg.n_layers)
     else:
-        params["blocks"] = _stack_layers(
+        params["blocks"] = stack_layers(
             [freeze_layer(init(_block_shapes(cfg), 1))
              for _ in range(cfg.n_layers)])
     return params
 
 
-def _stack_layers(layers: list):
+def stack_layers(layers: list):
     """Concatenate per-layer block trees (leading axis 1) along that axis."""
     first = layers[0]
     if isinstance(first, dict):
-        return {k: _stack_layers([lay[k] for lay in layers]) for k in first}
+        return {k: stack_layers([lay[k] for lay in layers]) for k in first}
     if isinstance(first, PackedWeight):
         def cat(field):
             if getattr(first, field) is None:
@@ -156,8 +156,8 @@ def layer_params(params: dict, layer: int) -> dict:
 # ---------------------------------------------------------------------------
 # Sublayers
 # ---------------------------------------------------------------------------
-def _qkv(p: dict, xn: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
-         path: str):
+def qkv(p: dict, xn: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
+        path: str):
     """Q, K, V of the normed residual; frozen weights read one shared
     sign-pack of it."""
     b, s, _ = xn.shape
@@ -186,7 +186,7 @@ def self_attn(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
     K/V. With `return_kv` also returns (k, v), each (B, S, Hkv, hd), for
     the cache."""
     xn = rms_norm(x, p["ln1"]["scale"])
-    q, k, v = _qkv(p["attn"], xn, cfg, mode, path)
+    q, k, v = qkv(p["attn"], xn, cfg, mode, path)
     positions = torch.arange(x.shape[1], device=x.device) + pos_offset
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
@@ -207,7 +207,7 @@ def _self_block(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
     return ffn_sublayer(p, y, cfg, mode, path=path), kv
 
 
-def _pack_into(path: str, srcs, pools, rows: torch.Tensor) -> None:
+def pack_into(path: str, srcs, pools, rows: torch.Tensor) -> None:
     """Sign-pack the new K and V rows into their cache rows, in place: one
     launch of kernel 5's `pack_rows_into` ('auto'), or its plain version
     ('ref'). rows: one int64 row of the pools' (rows, Hkv, hdw) view per
@@ -220,11 +220,11 @@ def _pack_into(path: str, srcs, pools, rows: torch.Tensor) -> None:
         raise ValueError(path)
 
 
-def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
+def embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
     return params["embed"][tokens.long()].to(cfg.activation_dtype)
 
 
-def _head(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+def head(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     """Final norm and the LM head, a plain matmul in the activation dtype
     (`freeze` casts the head once, so this cast is then a no-op)."""
     h = rms_norm(h, params["final_norm"]["scale"])
@@ -341,7 +341,7 @@ def _decode_self_block(bp, h, kc, vc, vs, cfg, mode, pos, rows, path,
     nothing a table names."""
     b = h.shape[0]
     xn = rms_norm(h, bp["ln1"]["scale"])
-    q, k_new, v_new = _qkv(bp["attn"], xn, cfg, mode, path)
+    q, k_new, v_new = qkv(bp["attn"], xn, cfg, mode, path)
     positions = pos[:, None]                                   # (B, 1)
     q = rope(q, positions, cfg.rope_theta)
     k_new = rope(k_new, positions, cfg.rope_theta)
@@ -349,12 +349,12 @@ def _decode_self_block(bp, h, kc, vc, vs, cfg, mode, pos, rows, path,
     window = cfg.local_window
     if cfg.kv_bits == 1:
         if pt is None:
-            _pack_into(path, new, (kc, vc), rows)
+            pack_into(path, new, (kc, vc), rows)
             attend = decode_attention_packed if path == "auto" \
                 else decode_attention_packed_plain
             out = attend(q, kc, vc, vs, pos + 1, window=window)
         else:
-            _pack_into(path, new, (_with_sink(kc), _with_sink(vc)), rows)
+            pack_into(path, new, (_with_sink(kc), _with_sink(vc)), rows)
             attend = decode_attention_packed_paged if path == "auto" \
                 else decode_attention_packed_paged_plain
             out = attend(q, kc, vc, vs, pt, pos + 1, window=window)
@@ -414,13 +414,13 @@ def transformer_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
     rows = _decode_rows(cache, pos, act)
     pt = cache.get("page_table")
     vs = cache.get("v_scale")
-    h = _embed(params, cfg, token[:, None])
+    h = embed(params, cfg, token[:, None])
     for layer in range(cfg.n_layers):
         h = _decode_self_block(layer_params(params, layer), h,
                                cache["k"][layer], cache["v"][layer],
                                None if vs is None else vs[layer], cfg, mode,
                                pos, rows, path, pt)
-    return _head(params, cfg, h)[:, 0], cache
+    return head(params, cfg, h)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -439,7 +439,7 @@ def _chunk_self_block(bp, h, kc, vc, vs, cfg, mode, positions, pos, n_valid,
     kv_len = pos + n_valid
     window = cfg.local_window
     xn = rms_norm(h, bp["ln1"]["scale"])
-    q, k_new, v_new = _qkv(bp["attn"], xn, cfg, mode, path)
+    q, k_new, v_new = qkv(bp["attn"], xn, cfg, mode, path)
     q = rope(q, positions, cfg.rope_theta)
     k_new = rope(k_new, positions, cfg.rope_theta)
     pools = (kc, vc) if pt_row is None else (_with_sink(kc), _with_sink(vc))
@@ -454,7 +454,7 @@ def _chunk_self_block(bp, h, kc, vc, vs, cfg, mode, positions, pos, n_valid,
         out = out.reshape(1, c, cfg.n_heads * cfg.head_dim)
         h = h + qmatmul(out, bp["attn"]["wo"], mode, path=path)
         return ffn_sublayer(bp, h, cfg, mode, path=path)
-    _pack_into(path, (k_new[0], v_new[0]), pools, rows)
+    pack_into(path, (k_new[0], v_new[0]), pools, rows)
     # running mean |v| over (positions so far, head_dim): equals the
     # whole-prompt v_cache_scale once the last chunk lands; the same in
     # either layout, which keeps paged prefill equal to contiguous
@@ -519,7 +519,7 @@ def transformer_prefill_chunk(params: dict, cfg: ModelConfig,
         else None
     rows = _chunk_rows(cache, pt_row, positions, n_valid)
     vs = cache.get("v_scale")
-    h = _embed(params, cfg, tokens)
+    h = embed(params, cfg, tokens)
     for layer in range(cfg.n_layers):
         if pt_row is None:
             kc = cache["k"][layer, slot:slot + 1]
@@ -530,7 +530,7 @@ def transformer_prefill_chunk(params: dict, cfg: ModelConfig,
             layer_params(params, layer), h, kc, vc,
             None if vs is None else vs[layer, slot:slot + 1], cfg, mode,
             positions, pos, n_valid, rows, path, pt_row)
-    return _head(params, cfg, h[:, n_valid - 1:n_valid])[:, 0], cache
+    return head(params, cfg, h[:, n_valid - 1:n_valid])[:, 0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -565,19 +565,19 @@ def transformer_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         dev = tokens.device
         rows = ((torch.arange(b, device=dev)[:, None] + slot) * t_max
                 + torch.arange(s, device=dev)[None]).reshape(-1)
-    h = _embed(params, cfg, tokens)
+    h = embed(params, cfg, tokens)
     for layer in range(cfg.n_layers):
         h, (k, v) = _self_block(layer_params(params, layer), h, cfg, mode,
                                 path=path, return_kv=True)
         kc, vc = cache["k"][layer], cache["v"][layer]
         if cfg.kv_bits == 1:
-            _pack_into(path, (k.flatten(0, 1), v.flatten(0, 1)), (kc, vc),
-                       rows)
+            pack_into(path, (k.flatten(0, 1), v.flatten(0, 1)), (kc, vc),
+                      rows)
             cache["v_scale"][layer, slot:slot + b] = v_cache_scale(v)
         else:
             kc[slot:slot + b, :s] = k.to(kc.dtype)
             vc[slot:slot + b, :s] = v.to(vc.dtype)
-    return _head(params, cfg, h[:, -1:])[:, 0], cache
+    return head(params, cfg, h[:, -1:])[:, 0], cache
 
 
 def transformer_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -588,9 +588,9 @@ def transformer_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     A.)"""
     _check_served(cfg)
     mode = QuantMode(cfg.quant)
-    h = _embed(params, cfg, tokens)
+    h = embed(params, cfg, tokens)
     for layer in range(cfg.n_layers):
         h, _ = _self_block(layer_params(params, layer), h, cfg, mode,
                            path=path)
-    return _head(params, cfg, h), \
+    return head(params, cfg, h), \
         {"lb_loss": torch.zeros((), dtype=torch.float32, device=h.device)}

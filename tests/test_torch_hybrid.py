@@ -612,7 +612,7 @@ def test_frozen_tied_logits_equal_the_uncast_head():
     """`freeze` casts the tied embedding (the head) to the activation dtype
     once: in bf16, the logits, prefill and decode equal those of the same
     frozen params with the float32 embedding, bit for bit (a cast commutes
-    with the lookup's gather, and `_head` casts the head to that dtype)."""
+    with the lookup's gather, and `head` casts the head to that dtype)."""
     _, _, pp, _ = _params()
     cfg = smoke_config(ARCH).scaled(dtype="bfloat16", kv_bits=1)
     model = get_model(cfg)

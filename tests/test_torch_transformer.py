@@ -110,9 +110,9 @@ def test_running_v_scale_equals_whole_prompt(models):
     from repro_torch.kernels.decode_attention import v_cache_scale
     from repro_torch.models.common import rms_norm
     bp = T.layer_params(pp, 0)
-    h = T._embed(pp, cfg, torch.from_numpy(prompt)[None])
-    _, _, v = T._qkv(bp["attn"], rms_norm(h, bp["ln1"]["scale"]), cfg,
-                     QuantMode(cfg.quant), "auto")
+    h = T.embed(pp, cfg, torch.from_numpy(prompt)[None])
+    _, _, v = T.qkv(bp["attn"], rms_norm(h, bp["ln1"]["scale"]), cfg,
+                    QuantMode(cfg.quant), "auto")
     np.testing.assert_allclose(cache["v_scale"][0].numpy(),
                                v_cache_scale(v).numpy(), rtol=1e-6)
 
