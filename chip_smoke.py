@@ -44,7 +44,17 @@ Phases, each of which raises on failure (nothing is caught):
                5's `pack_rows_into` of hd-256 K|V rows into the ring's
                (B*W, 1, 8) view (wrapped slots, -1 drops, a chunk after
                the ring, whole prompts of 200 and of 3,000 wrapped), and
-               kernels 1 and 2 at its GEMM shapes at 4, 32 and 200 rows
+               kernels 1 and 2 at its GEMM shapes at 4, 32 and 200 rows;
+               at the shapes of phase 11's families: kernels 1-3 at their
+               GEMMs at 4, 32 and 200 rows (qwen2's d_ff 29,568, deepseek's
+               22,016, musicgen's bf16 FFN), kernel 3 at nemotron's
+               up-projection (K 6,144, N 24,576; bf16 and float32 lhs)
+               with the sq_relu fold's constant threshold (all-ones words)
+               and with random ones, its dots of both signs, and kernel 1
+               on its words (K 24,576); kernels 6-9 at each family's head
+               layout (Hkv 8 G 8 hd 128, Hkv 8 G 6, Hkv 32 G 1 hd 64;
+               lengths 1, 17, 512, 300; paged equal to contiguous and to
+               the plain versions); kernel 5 at their packs and K|V rows
   4. mlp     - bnn-mnist (784-1024x3-10) frozen, batches of 200 through the
                kernels; hidden words and scores equal the plain path's, the
                fp32-master path's, and the CPU's on a small batch
@@ -161,9 +171,31 @@ Phases, each of which raises on failure (nothing is caught):
                ring and state bytes, peak memory, one profiled decode
                step (214 launches of the four kernels at kv_bits=1) and
                the float32 gate products' device time
+  11. dense families - deepseek-67b, qwen2-72b (QKV bias), nemotron-4-15b
+               (LayerNorm; its frozen sq_relu FFN runs bit-resident: kernel
+               3 emits the hidden words, kernel 1 reads them) and
+               musicgen-large (sinusoidal positions, GELU, 32 heads of 64),
+               each at full width, depth cut to 2, frozen, norm scales and
+               biases and the QKV bias drawn N(0, 0.02^2), through three
+               engines: chunked at kv_bits=1 on phase 6's traffic (the main
+               path), the default engine (whole prompt, float cache), and
+               paged at kv_bits=1 with the prefix cache on phase 6b's
+               shared-prefix traffic; tokens through the kernels equal the
+               plain versions', launches of kernels 1, 2, 3, 5 and 6-9
+               held to the counts of the layers (`family_per_call`) per
+               forward call; generate_static against the plain versions;
+               kernel 3 at nemotron's up-projection timed beside
+               torch._int_mm and its bound, and its small-M kernel against
+               its tiles at 1-32 rows on four shapes (words equal; the
+               ground of gemm_plan's FUSED_SMALL_M_ROWS); then each family
+               at all its
+               layers (drawn and frozen one at a time), chunked kv_bits=1
+               and the default engine: decode tokens/s, TTFT, ITL, weight
+               and cache bytes, peak memory, one profiled decode step with
+               its kernel launches asserted
 Launch counts are set to 0 just before each main path (mlp, cnn, lm, paged
 lm, default lm, train, ssm chunked and whole-prompt, hybrid chunked and
-default) runs and read just after. The line before the last is
+default, each family's three engines) runs and read just after. The line before the last is
 {"kernels": [...]} (ten kernels); the last line is {"ok": true, "device":
 {...}}. Weights, BN statistics and
 inputs are random from the seed; image inputs are multiples of 1/128 in
@@ -291,6 +323,14 @@ SSM_ARCH, SSM_CHECK_DEPTH, SSM_LONG = "falcon-mamba-7b", 2, 4096
 # whole-prompt and chunked prefill and in decode
 HYBRID_ARCH, HYBRID_CHECK_DEPTH = "recurrentgemma-2b", 5
 HYBRID_WRAP, HYBRID_MAX_LEN = (2100, 24), 2176
+# the other dense-stack families, each at full width on phase 6's engine
+# and traffic: depth cut to FAMILY_CHECK_DEPTH where tokens are held to the
+# plain path, every layer in the timed runs (drawn and frozen one layer at
+# a time); their GEMMs checked at FAMILY_ROWS rows (a decode step, a chunk,
+# a 200-token prompt)
+FAMILY_ARCHS = ("deepseek-67b", "qwen2-72b", "nemotron-4-15b",
+                "musicgen-large")
+FAMILY_CHECK_DEPTH, FAMILY_ROWS = 2, (LM_SLOTS, LM_CHUNK, 200)
 
 
 def smi(query: str) -> str:
@@ -514,9 +554,9 @@ LM_GEMMS = [("binary_gemm_packed", "packed", 5120, 5120, "phi3.q"),
             ("binary_gemm_packed_rhs", "bf16", 8192, 288, "mamba.x"),
             ("binary_gemm_packed_rhs", "bf16", 8192, 4096, "mamba.out")]
 # kernels 2 and 3 at the edges of the dispatch rule (kernel, lhs, M, K, N):
-# small-M rows 1..32 and tensor-core tiles from 33, K not a multiple of 32,
-# KW % 4 != 0 (tiles at small M), a full 8-block cluster (K 8190, N 200),
-# kernel 3 at M <= 32, 256-channel tiles at an odd N
+# small-M rows 1..32 (kernel 3's 1..16) and tensor-core tiles from 33,
+# K not a multiple of 32, KW % 4 != 0 (tiles at small M), a full 8-block
+# cluster (K 8190, N 200), 256-channel tiles at an odd N
 REGIME_EDGES = [(kn, lhs, m, k, n)
                 for m in (1, 16, 33, 64, 100)
                 for k, n in ((1000, 288), (3961, 130), (300, 77))
@@ -536,14 +576,15 @@ PACKED_EDGES = [(m, 5120, n) for m in (1, 8, 9, 16, 33)
                                                (300, 77))]
 
 
-def lm_gemm_times(dev_gen, popc_per_s, sms, kernels=GEMMS):
-    """Kernels 1 and 2 (those of `kernels`) at the LM's shapes (LM_GEMMS) at
-    decode and chunk rows: device, wrapper, plain, library and bound times
-    (`shape_times`, `bound`), the library's dots held to the kernel's
-    first."""
+def lm_gemm_times(dev_gen, popc_per_s, sms, kernels=GEMMS, gemms=LM_GEMMS,
+                  row_counts=((LM_SLOTS, "decode"), (LM_CHUNK, "chunk"))):
+    """The kernels of `kernels` at the LM's shapes (`gemms`, LM_GEMMS: kernels
+    1 and 2) at `row_counts` rows (decode and chunk): device, wrapper,
+    plain, library and bound times (`shape_times`, `bound`), the library's
+    dots held to the kernel's first."""
     rows = []
-    for m, rows_of in ((LM_SLOTS, "decode"), (LM_CHUNK, "chunk")):
-        for kn, lhs, k, n, what in LM_GEMMS:
+    for m, rows_of in row_counts:
+        for kn, lhs, k, n, what in gemms:
             if kn not in kernels:
                 continue
             op = Operands(dev_gen, m, k, n)
@@ -3317,6 +3358,494 @@ def hybrid_phase(seed, dev, card, dev_gen, popc_per_s):
     return both, {"check": rep, "ring_decode": rows, "timed": timed}
 
 
+# ---------------------------------------------------------------------------
+# The other dense-stack families: deepseek-67b, qwen2-72b (QKV bias),
+# nemotron-4-15b (LayerNorm; the sq_relu FFN bit-resident through kernel 3)
+# and musicgen-large (sinusoidal positions, GELU, MHA at hd 64)
+# ---------------------------------------------------------------------------
+def family_gemms(cfg):
+    """One layer's popcount GEMMs (kernel, lhs, K, N, what): q, k and v
+    after the shared pack (packed lhs), wo (bf16); the FFN: GLU gate and up
+    after their shared pack (packed) and w_down (bf16); sq_relu's w_up
+    through kernel 3 on the bf16 normed residual and w_down on its words
+    (packed); gelu's w_up and w_down (bf16)."""
+    d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff
+    rows = [("binary_gemm_packed", "packed", d, cfg.n_heads * hd, "q"),
+            ("binary_gemm_packed", "packed", d, cfg.n_kv_heads * hd, "kv"),
+            ("binary_gemm_packed_rhs", "bf16", cfg.n_heads * hd, d, "wo")]
+    if cfg.mlp in ("swiglu", "geglu"):
+        rows += [("binary_gemm_packed", "packed", d, f, "gate"),
+                 ("binary_gemm_packed_rhs", "bf16", f, d, "down")]
+    elif cfg.mlp == "sq_relu":
+        rows += [("binary_gemm_fused", "bf16", d, f, "up"),
+                 ("binary_gemm_packed", "packed", f, d, "down")]
+    else:
+        rows += [("binary_gemm_packed_rhs", "bf16", d, f, "up"),
+                 ("binary_gemm_packed_rhs", "bf16", f, d, "down")]
+    short = cfg.name.split("-")[0]
+    return [(kn, lhs, k, n, f"{short}.{what}") for kn, lhs, k, n, what in rows]
+
+
+def family_gemm_checks(cfgs):
+    """(kernel, lhs, M, K, N, where) of every family's GEMMs at FAMILY_ROWS
+    rows, each distinct shape once, for phase 3's check loop."""
+    seen, checks = set(), []
+    for cfg in cfgs:
+        for kn, lhs, k, n, what in family_gemms(cfg):
+            for m in FAMILY_ROWS:
+                if (kn, lhs, m, k, n) not in seen:
+                    seen.add((kn, lhs, m, k, n))
+                    checks.append((kn, lhs, m, k, n, what))
+    return checks
+
+
+def fused_lm_checks(cfg, dev_gen, dev):
+    """Kernel 3 at nemotron-4-15b's up-projection (K d_model, N d_ff) at
+    FAMILY_ROWS rows, bf16 and float32 lhs: with the act:sq_relu fold
+    (ALWAYS_THRESH, no flip: every word all ones) and with thresholds
+    within sqrt(K) of 0 and flips, against its plain version, bit for bit;
+    the dots of each case take both signs. Then kernel 1 on those words as
+    w_down's lhs (K d_ff, N d_model) against its plain version. One launch
+    a call. Returns the largest error of kernels 3 and 1 (0)."""
+    from repro_torch.core.packed import ALWAYS_THRESH
+    bg, _, _, _, _ = lm_modules()
+    k, n = cfg.d_model, cfg.d_ff
+    always = torch.full((n,), ALWAYS_THRESH, dtype=torch.int32, device=dev)
+    zero = torch.zeros(n, dtype=torch.int32, device=dev)
+    down = Operands(dev_gen, 1, n, k).b                  # (d_model, d_ff/32)
+    for m in FAMILY_ROWS:
+        op = Operands(dev_gen, m, k, n)
+        dots = op.call("binary_gemm_packed", "packed")
+        if not ((dots > 0).any() and (dots < 0).any()):
+            raise AssertionError(f"kernel 3 at ({m},{k},{n}): the dots do "
+                                 f"not take both signs")
+        for lhs in ("bf16", "float"):
+            a = op.x_bf16 if lhs == "bf16" else op.x
+            for fold, th, fl in (("act:sq_relu", always, zero),
+                                 ("random", op.thresh, op.flip)):
+                before = bg.launches["binary_gemm_fused"]
+                words = bg.binary_gemm_fused(a, op.b, th, fl, k)
+                torch.cuda.synchronize()
+                if bg.launches["binary_gemm_fused"] - before != 1:
+                    raise AssertionError("kernel 3: not one launch")
+                want = bg.binary_gemm_fused_plain(a, op.b, th, fl, k)
+                d = max_abs_diff(words, want, words=True)
+                if d or (fold != "random" and not (words == -1).all()):
+                    raise AssertionError(f"kernel 3 {lhs} ({m},{k},{n}) "
+                                         f"{fold}: words differ")
+                before = bg.launches["binary_gemm_packed"]
+                out = bg.binary_gemm_packed(words, down, n)
+                torch.cuda.synchronize()
+                if bg.launches["binary_gemm_packed"] - before != 1:
+                    raise AssertionError("kernel 1: not one launch")
+                d1 = max_abs_diff(out, bg.binary_gemm_packed_plain(
+                    words, down, n), words=False)
+                if d1:
+                    raise AssertionError(f"kernel 1 on kernel 3's words "
+                                         f"({m},{n},{k}) differs by {d1}")
+                print(f"check binary_gemm_fused {lhs:6s} M={m:4d} K={k} "
+                      f"N={n} {fold:11s} dots in [{int(dots.min())}, "
+                      f"{int(dots.max())}]: words equal the plain version's"
+                      f"; binary_gemm_packed on them (K {n} -> N {k}) "
+                      f"equal, max_abs_err=0")
+        del op
+    return 0
+
+
+def family_attention_checks(cfgs, dev_gen, seed, dev, sms):
+    """Kernels 6 and 8 and their paged twins 7 and 9 at each family's head
+    layout, bf16 and float32 q: a 4-slot decode step over 512 positions
+    (lengths 1, 17, 512, 300) and one slot's chunks reaching lengths 1 (one
+    row), 17 (17 rows) and 512 (32 rows at q_pos 480). Dots equal the plain
+    version's, outputs within ATTN_TOL with equal signs; the paged kernels
+    equal, bit for bit, their plain versions and the contiguous kernels on
+    the gathered pages. Returns the largest error of each kernel."""
+    from repro_torch.kernels import ref
+    _, _, da, pa, _ = lm_modules()
+    rng = np.random.default_rng(seed + 21)
+    err = {kn: 0.0 for kn in ("decode_attention_packed",
+                              "prefill_attention_packed", *PAGED_KERNELS)}
+    lens = (1, 17, LM_MAX_LEN, 300)
+    npg = LM_MAX_LEN // LM_PAGE
+    for hkv, g, hd in sorted({(c.n_kv_heads, c.n_heads // c.n_kv_heads,
+                               c.head_dim) for c in cfgs}):
+        plan = pa.attention_plan(LM_SLOTS, 1, LM_MAX_LEN, hkv, g, hd, sms)
+        body = "narrow" if plan.bq * g <= pa._NARROW_ROWS else "wide"
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, vs, pt = paged_case(dev_gen, rng, LM_SLOTS, 1, LM_PAGE,
+                                         npg, LM_POOL, hkv, g, hd, lens,
+                                         dtype, dev)
+            kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+            kg, vg = ref.gather_pages(k, pt), ref.gather_pages(v, pt)
+            got, dots = da.decode_attention_packed(q, kg, vg, vs, kv,
+                                                   return_dots=True)
+            want, wdots = da.decode_attention_packed_plain(
+                q, kg, vg, vs, kv, return_dots=True)
+            paged, pdots = da.decode_attention_packed_paged(
+                q, k, v, vs, pt, kv, return_dots=True)
+            plain_paged = da.decode_attention_packed_paged_plain(
+                q, k, v, vs, pt, kv, return_dots=True)
+            torch.cuda.synchronize()
+            what = f"decode Hkv {hkv} G {g} hd {hd} {dtype}"
+            if not (torch.equal(dots, wdots) and torch.equal(pdots, dots)
+                    and torch.equal(plain_paged[1], dots)):
+                raise AssertionError(f"{what}: dots differ")
+            if not (torch.equal(paged, got)
+                    and torch.equal(plain_paged[0], paged)):
+                raise AssertionError(f"{what}: paged differs from the "
+                                     f"contiguous kernel or its plain version")
+            e = check_close(what, got, want, dtype)
+            for kn in ("decode_attention_packed",
+                       "decode_attention_packed_paged"):
+                err[kn] = max(err[kn], e)
+            print(f"check decode_attention_packed(_paged) {str(dtype)[6:]:8s}"
+                  f" B={LM_SLOTS} T={LM_MAX_LEN} Hkv={hkv} G={g} hd={hd} lens "
+                  f"{list(lens)} ({body} body, bq {plan.bq}, split "
+                  f"{plan.split}): dots equal, paged = contiguous = plain, "
+                  f"max_abs_err={e:.3g}")
+            for s, qp in ((1, 0), (17, 0), (LM_CHUNK, LM_MAX_LEN - LM_CHUNK)):
+                q, k, v, vs, pt = paged_case(dev_gen, rng, 1, s, LM_PAGE, npg,
+                                             LM_POOL, hkv, g, hd,
+                                             (qp + s,), dtype, dev)
+                kg, vg = ref.gather_pages(k, pt), ref.gather_pages(v, pt)
+                got, dots = pa.prefill_attention_packed(
+                    q, kg, vg, vs, qp + s, qp, return_dots=True)
+                want, wdots = pa.prefill_attention_packed_plain(
+                    q, kg, vg, vs, qp + s, qp, return_dots=True)
+                paged, pdots = pa.prefill_attention_packed_paged(
+                    q, k, v, vs, pt, qp + s, qp, return_dots=True)
+                plain_paged = pa.prefill_attention_packed_paged_plain(
+                    q, k, v, vs, pt, qp + s, qp, return_dots=True)
+                torch.cuda.synchronize()
+                what = f"prefill S {s} length {qp + s} Hkv {hkv} G {g}"
+                if not (torch.equal(dots, wdots) and torch.equal(pdots, dots)
+                        and torch.equal(plain_paged[1], dots)):
+                    raise AssertionError(f"{what}: dots differ")
+                if not (torch.equal(paged, got)
+                        and torch.equal(plain_paged[0], paged)):
+                    raise AssertionError(f"{what}: paged differs")
+                e = check_close(what, got, want, dtype)
+                for kn in ("prefill_attention_packed",
+                           "prefill_attention_packed_paged"):
+                    err[kn] = max(err[kn], e)
+                p = pa.attention_plan(1, s, qp + s, hkv, g, hd, sms)
+                print(f"check prefill_attention_packed(_paged) "
+                      f"{str(dtype)[6:]:8s} S={s:2d} q_pos={qp:3d} length "
+                      f"{qp + s:3d} Hkv={hkv} G={g} hd={hd} (bq {p.bq}, "
+                      f"{p.bq * g} rows a block, split {p.split}): dots "
+                      f"equal, paged = contiguous = plain, max_abs_err={e:.3g}")
+    return err
+
+
+def family_kernel_checks(cfgs, dev_gen, seed, dev, sms):
+    """Phase 3 at the families' shapes, beyond the GEMM check loop: kernel
+    3 and kernel 1 on its words (`fused_lm_checks`), the attention kernels
+    (`family_attention_checks`), kernel 5's shared packs (K d_model at
+    FAMILY_ROWS rows) and its `pack_rows_into` at each family's K|V rows
+    (the main-path cases of `pack_rows_cases`). Returns the largest error
+    of each kernel."""
+    nemotron = next(c for c in cfgs if c.mlp == "sq_relu")
+    e3 = fused_lm_checks(nemotron, dev_gen, dev)
+    err = {"binary_gemm_fused": e3, "binary_gemm_packed": e3}
+    err.update(family_attention_checks(cfgs, dev_gen, seed, dev, sms))
+    packs = sorted({(m, c.d_model, c.name.split("-")[0]) for c in cfgs
+                    for m in FAMILY_ROWS})
+    rows_cases = []
+    for hkv, hd in sorted({(c.n_kv_heads, c.head_dim) for c in cfgs}):
+        c = next(c for c in cfgs if (c.n_kv_heads, c.head_dim) == (hkv, hd))
+        rows_cases += [(f"{where} (Hkv {hkv}, hd {hd})", *rest)
+                       for where, *rest in pack_rows_cases(c)[:5]]
+    err["pack_bits"] = max(pack_checks(packs, dev_gen, dev),
+                           pack_rows_checks(rows_cases, dev_gen, dev))
+    return err
+
+
+def family_per_call(cfg) -> dict:
+    """Launches of kernels 1, 2, 3 and 5 per layer and forward call (a
+    prefill chunk, a whole prompt or a decode step), counted from the
+    layer: kernel 1 for q, k, v (shared pack) and the GLU's gate and up
+    (shared pack) or sq_relu's w_down (on kernel 3's words); kernel 2 for
+    wo and the GLU's w_down or gelu's w_up and w_down; kernel 3 for
+    sq_relu's w_up; kernel 5 for the Q/K/V pack, the GLU's pack and, at
+    kv_bits=1, the K|V rows into the cache."""
+    glu, fused = cfg.mlp in ("swiglu", "geglu"), cfg.mlp == "sq_relu"
+    return {"binary_gemm_packed": 3 + (2 if glu else int(fused)),
+            "binary_gemm_packed_rhs": 1 + (1 if glu else 0 if fused else 2),
+            "binary_gemm_fused": int(fused),
+            "pack_bits": 1 + int(glu) + int(cfg.kv_bits == 1)}
+
+
+def family_expected(cfg, layers, calls, chunks, steps, paged) -> dict:
+    """Every launch counter of an engine run: `family_per_call` x layers x
+    forward calls, and at kv_bits=1 one attention launch per layer and
+    decode step (kernel 6, or 7 paged) and per layer and chunk (8, or 9)."""
+    want = {kn: 0 for kn in REPLACES}
+    want.update({kn: n * layers * calls
+                 for kn, n in family_per_call(cfg).items()})
+    if cfg.kv_bits == 1:
+        tail = "_paged" if paged else ""
+        want[f"decode_attention_packed{tail}"] = layers * steps
+        want[f"prefill_attention_packed{tail}"] = layers * chunks
+    return want
+
+
+def randomize_norms_and_biases(params, gen):
+    """Every norm scale and bias and the QKV bias of a params tree drawn
+    N(0, 0.02^2) from `gen`, in place of the init's zeros (with which a
+    path that dropped them would pass unseen)."""
+    from repro_torch.core.packed import map_tree
+
+    def leaf(name, p):
+        if name in ("scale", "bias", "bq", "bk", "bv"):
+            return (0.02 * torch.randn(p.shape, generator=gen,
+                                       device=gen.device)).to(p)
+        return p
+    return map_tree(leaf, params)
+
+
+def family_engine_check(base_cfg, seed, dev):
+    """One family at full width, depth FAMILY_CHECK_DEPTH, frozen, norms
+    and biases drawn non-zero, through three engines, each through the
+    kernels (launches counted and held to `family_expected`) and through
+    the plain versions (tokens equal): chunked at kv_bits=1 on phase 6's
+    traffic (the main path), the default engine (whole prompt, float
+    cache) on the same, and paged kv_bits=1 with the prefix cache on the
+    shared-prefix traffic (prefix hits >= 1); then generate_static on 4
+    prompts of 64. Returns the three runs' launches summed, and a report."""
+    from repro_torch.models.api import get_model
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = base_cfg.scaled(n_layers=FAMILY_CHECK_DEPTH)
+    gen = torch.Generator(device=dev).manual_seed(seed + 30)
+    frozen = randomize_norms_and_biases(
+        get_model(cfg).init_frozen(gen, device=dev), gen)
+    w_up = frozen["blocks"]["ffn"]["w_up"]
+    if (w_up.fold == "act:sq_relu") != (cfg.mlp == "sq_relu"):
+        raise AssertionError(f"{cfg.name}: w_up fold {w_up.fold!r}")
+    prompts = lm_traffic(seed, cfg.vocab)
+    shared = shared_prefix_traffic(seed, cfg.vocab)
+    base = dict(slots=LM_SLOTS, max_len=LM_MAX_LEN, seed=seed)
+    variants = {
+        "chunked, kv_bits=1": (prompts, dict(kv_bits=1,
+                                             prefill_chunk=LM_CHUNK)),
+        "default (kv_bits=0, whole prompt)": (prompts, {}),
+        "paged + prefix, kv_bits=1": (shared, dict(
+            kv_bits=1, prefill_chunk=LM_CHUNK, page_size=LM_PAGE,
+            prefix_cache=True))}
+    total = {kn: 0 for kn in REPLACES}
+    rep = {}
+    for name, (traffic, kw) in variants.items():
+        reqs = [Request(p, max_new_tokens=LM_NEW) for p in traffic]
+        eng = ServingEngine(cfg, frozen, **base, **kw)
+        sched = eng.scheduler()
+        reset_all_launches()
+        comps = eng.serve(reqs)
+        torch.cuda.synchronize()
+        counts = all_launches()
+        steps = sched.stats["decode_steps"]
+        want = ServingEngine(cfg, frozen, kernel_path="ref", **base,
+                             **kw).generate(reqs)
+        for i, (c, b) in enumerate(zip(comps, want, strict=True)):
+            if not np.array_equal(c.tokens, b):
+                raise AssertionError(
+                    f"{cfg.name}, {name}, request {i}: kernel tokens "
+                    f"{c.tokens.tolist()} != plain {b.tolist()}")
+        if any(len(c.tokens) != LM_NEW for c in comps):
+            raise AssertionError(f"{cfg.name}, {name}: a request did not get "
+                                 f"its budget")
+        chunked = kw.get("prefill_chunk") is not None
+        chunks = sum(-(-(len(p) - c.cached_tokens) // LM_CHUNK)
+                     for p, c in zip(traffic, comps)) if chunked else 0
+        calls = (chunks if chunked else len(traffic)) + steps
+        expect = family_expected(eng.cfg, FAMILY_CHECK_DEPTH, calls, chunks,
+                                 steps, "page_size" in kw)
+        if counts != expect:
+            raise AssertionError(f"{cfg.name}, {name}: launches {counts} != "
+                                 f"{expect} ({calls} forward calls, {steps} "
+                                 f"decode steps)")
+        if kw.get("prefix_cache") and sched.stats["prefix_hits"] < 1:
+            raise AssertionError(f"{cfg.name}: no prefix hit")
+        for kn in REPLACES:
+            total[kn] += counts[kn]
+        rep[name] = {"launches": counts, "forward_calls": calls,
+                     "decode_steps": steps,
+                     "prefix_hits": sched.stats.get("prefix_hits", 0)}
+        print(f"{cfg.name} engine check, {name}: tokens equal the plain "
+              f"path's; {calls} forward calls ({chunks or len(traffic)} "
+              f"{'chunks' if chunked else 'prompts'}, {steps} decode steps)"
+              f", per layer and call {family_per_call(eng.cfg)}; launches "
+              f"{ {kn: n for kn, n in counts.items() if n} }")
+        del eng, sched
+    rng = np.random.default_rng(seed + 13)
+    static = [Request(rng.integers(0, cfg.vocab, 64).astype(np.int32),
+                      max_new_tokens=n) for n in (LM_NEW, 8, 12, LM_NEW)]
+    got = ServingEngine(cfg, frozen, **base).generate_static(static)
+    want = ServingEngine(cfg, frozen, kernel_path="ref",
+                         **base).generate_static(static)
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{cfg.name} generate_static request {i}: "
+                                 f"kernel tokens {a.tolist()} != plain "
+                                 f"{b.tolist()}")
+    print(f"{cfg.name} engine check: full width (d {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, {cfg.mlp}, {cfg.norm}, "
+          f"{cfg.pos}{', QKV bias' if cfg.qkv_bias else ''}), depth "
+          f"{FAMILY_CHECK_DEPTH} (cut from {base_cfg.n_layers}); "
+          f"generate_static on 4 prompts of 64 equals the plain path's")
+    del frozen
+    torch.cuda.empty_cache()
+    return total, rep
+
+
+def family_timed_run(cfg, seed, dev, card):
+    """The family at full width and all its layers, drawn and
+    frozen one layer at a time, norms and biases non-zero, on phase 6's
+    traffic through the chunked kv_bits=1 engine and the default engine:
+    decode tokens/s, TTFT, ITL, weight bytes (binary, other), cache bytes
+    (packed against bf16), peak device memory, and one profiled decode
+    step at position 300 with its launches of kernels 1-3, 5 and 6 held to
+    `family_expected`."""
+    from repro_torch.models.api import get_model
+    from repro_torch.serving.engine import ServingEngine
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    frozen = randomize_norms_and_biases(
+        get_model(cfg).init_frozen(gen, device=dev), gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = lm_traffic(seed, cfg.vocab)
+    bf16_cache = 2 * cfg.n_layers * LM_SLOTS * LM_MAX_LEN * \
+        cfg.n_kv_heads * cfg.head_dim * 2
+    out = {"depth": cfg.n_layers, "init_frozen_s": init_s}
+    for name, kw in (("chunked, kv_bits=1", dict(kv_bits=1,
+                                                prefill_chunk=LM_CHUNK)),
+                     ("default (kv_bits=0, whole prompt)", {})):
+        eng = ServingEngine(cfg, frozen, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                            seed=seed, **kw)
+        rep, _, sched = serve_report(eng, prompts, LM_NEW)
+        w = eng.resident_weight_bytes()
+        c = eng.resident_cache_bytes()
+        pos = torch.full((LM_SLOTS,), 300, dtype=torch.int32, device=dev)
+
+        def step_call():
+            sched.model.decode(sched.params, sched._state["cur"],
+                               sched._cache, pos)
+        reset_all_launches()
+        step_call()
+        torch.cuda.synchronize()
+        per_step = all_launches()
+        expect = family_expected(eng.cfg, cfg.n_layers, 1, 0, 1, False)
+        if per_step != expect:
+            raise AssertionError(f"{cfg.name} timed {name}: decode step "
+                                 f"launches {per_step} != {expect}")
+        step = trace(step_call)
+        rep.update({"binary_bytes": w["binary"], "other_bytes": w["other"],
+                    "cache_packed_bytes": c["packed"],
+                    "cache_float_bytes": c["float"],
+                    "cache_bf16_bytes": bf16_cache,
+                    "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+                    "decode_step_launches": {kn: n for kn, n in
+                                             per_step.items() if n},
+                    "decode_step_trace": step})
+        out[name] = rep
+        print(f"{cfg.name} timed run on {card}, {name}: full width and "
+              f"depth ({cfg.n_layers} layers, drawn and frozen layer by "
+              f"layer in {init_s:.1f} s), {LM_REQUESTS} "
+              f"requests, {LM_SLOTS} slots, max_len {LM_MAX_LEN}; peak device "
+              f"memory {rep['peak_device_bytes'] / 1e9:.2f} GB")
+        print_serve_report(rep)
+        print(f"  resident weights: binary {w['binary'] / 1e9:.4f} GB, other "
+              f"{w['other'] / 1e9:.4f} GB (embedding, bf16 head, norms, "
+              f"biases); cache {c['packed'] / 1e6:.2f} MB packed + "
+              f"{c['float'] / 1e6:.2f} MB float (a bf16 cache "
+              f"{bf16_cache / 1e6:.2f} MB)")
+        print_trace(f"trace {cfg.name} decode step ({name}, depth "
+                    f"{cfg.n_layers}, {LM_SLOTS} slots at position 300) on "
+                    f"{card}", step,
+                    f" ({sum(per_step.values())} of the kernels: "
+                    f"{ {kn: n for kn, n in per_step.items() if n} })")
+        del eng, sched
+        torch.cuda.empty_cache()
+    del frozen
+    torch.cuda.empty_cache()
+    return out
+
+
+# kernel 3's shapes for the sweep of its small-M rows (K, N): nemotron's
+# up-projection, a split-K cluster, two square layers
+FUSED_SWEEP = [(6144, 24576), (8192, 288), (1024, 1024), (4096, 4096)]
+
+
+def fused_plan_sweep(dev_gen, sms):
+    """Kernel 3 at FUSED_SWEEP shapes and 1 to 32 rows, bf16 lhs: the words
+    of its small-M kernel and of its tensor-core tiles (each plan forced)
+    equal the plain version's, and their device times, the ground of
+    `gemm_plan`'s FUSED_SMALL_M_ROWS. Not in the kernels line."""
+    from unittest import mock
+    bg = lm_modules()[0]
+    kn, rows = "binary_gemm_fused", []
+    for k, n in FUSED_SWEEP:
+        for m in (1, 4, 8, 16, 24, 32):
+            op = Operands(dev_gen, m, k, n)
+            want = op.call(kn, "bf16", plain=True)
+            ms = {}
+            for name, limit in (("small", 32), ("tiles", 0)):
+                with mock.patch.object(bg, "FUSED_SMALL_M_ROWS", limit):
+                    plan = bg.gemm_plan(kn, m, n, k, sms)
+                with mock.patch.object(bg, "gemm_plan",
+                                       lambda *_, p=plan: p):
+                    check_equal(f"kernel 3 {name} ({m},{k},{n})",
+                                op.call(kn, "bf16"), want)
+                    ms[name] = device_ms(lambda: op.call(kn, "bf16"),
+                                         wrapper=kn)
+            rows.append({"M": m, "K": k, "N": n, **ms})
+            del op
+    return rows
+
+
+def family_phase(seed, dev, card, dev_gen, popc_per_s, sms):
+    """Phase 11: each family at full width and depth FAMILY_CHECK_DEPTH
+    through three engines against the plain versions, kernel 3 timed at
+    nemotron's up-projection and its small-M rows swept, then each family's
+    timed run at all its layers. Returns (the depth-2 runs' launches summed, report)."""
+    from repro_torch.configs.base import get_config
+    t0 = time.perf_counter()
+    launches = {kn: 0 for kn in REPLACES}
+    rep = {"check": {}, "timed": {}}
+    for arch in FAMILY_ARCHS:
+        counts, rep["check"][arch] = family_engine_check(get_config(arch),
+                                                         seed, dev)
+        for kn in REPLACES:
+            launches[kn] += counts[kn]
+    print(f"phase 11 checks: {time.perf_counter() - t0:.1f} s")
+    rows = lm_gemm_times(
+        dev_gen, popc_per_s, sms,
+        gemms=[g for g in family_gemms(get_config("nemotron-4-15b"))
+               if g[0] == "binary_gemm_fused"],
+        row_counts=[(m, f"M{m}") for m in FAMILY_ROWS])
+    print_gemm_rows(f"nemotron up-projection (kernel 3) times on {card} (ms "
+                    f"per launch, as phase 7; not in the kernels line):", rows)
+    rep["fused_lm"] = rows
+    sweep = fused_plan_sweep(dev_gen, sms)
+    from repro_torch.kernels.binary_gemm import FUSED_SMALL_M_ROWS
+    print(f"kernel 3 plan sweep on {card} (bf16 lhs, words equal the plain "
+          f"version's; device ms small-M kernel / tensor-core tiles; the rule "
+          f"takes small-M at M <= {FUSED_SMALL_M_ROWS}):")
+    for k, n in FUSED_SWEEP:
+        print(f"  K={k:5d} N={n:5d}  " + "  ".join(
+            f"M={r['M']} {r['small']:.4f}/{r['tiles']:.4f}" for r in sweep
+            if (r["K"], r["N"]) == (k, n)))
+    rep["fused_plan_sweep"] = sweep
+    for arch in FAMILY_ARCHS:
+        t1 = time.perf_counter()
+        rep["timed"][arch] = family_timed_run(get_config(arch), seed, dev,
+                                              card)
+        print(f"{arch} timed: {time.perf_counter() - t1:.1f} s")
+    print(f"phase 11 (dense families): {time.perf_counter() - t0:.1f} s")
+    return launches, rep
+
+
 def attention_times(card, popc_per_s) -> int:
     """The attention kernels' times alone (`--attention-times`): the lm
     kernel times of kernels 5-9 at the main path's shapes, then the
@@ -3472,6 +4001,15 @@ def main() -> int:
             if "registers" in line or "Compiling entry" in line \
                     or "spill" in line:
                 print(f"    {line.strip()}")
+    start = time.perf_counter()
+    clock = [start]
+
+    def lap(what):
+        """Print the seconds since the last lap (or the build's end)."""
+        now = time.perf_counter()
+        print(f"{what}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
     if args.attention_times:
         return attention_times(card, popc_per_s)
     if args.gemm_scan_times:
@@ -3498,6 +4036,9 @@ def main() -> int:
                      (200, "rg.prompt")):
         checks += [(kn, lhs, m, k, n, where)
                    for kn, lhs, k, n, _ in hybrid_gemms(hyb_cfg)]
+    # the other dense-stack families' GEMMs at decode, chunk and prompt rows
+    fam_cfgs = [get_config(arch) for arch in FAMILY_ARCHS]
+    checks += family_gemm_checks(fam_cfgs)
     checks += [(*edge, "edge") for edge in REGIME_EDGES]
     checks += [("binary_gemm_packed", "packed", m, k, n, "edge")
                for m, k, n in PACKED_EDGES]
@@ -3545,6 +4086,10 @@ def main() -> int:
         err["pack_bits"],
         pack_checks(hybrid_pack_check_shapes(hyb_cfg), dev_gen, dev),
         pack_rows_checks(hybrid_pack_rows_cases(hyb_cfg), dev_gen, dev))
+    for kn, e in family_kernel_checks(fam_cfgs, dev_gen, args.seed, dev,
+                                      sms).items():
+        err[kn] = max(err[kn], e)
+    lap("phase 3 (kernels)")
 
     # ------------------------------------------------------------------ mlp
     cfg = BNN_MNIST
@@ -3637,6 +4182,8 @@ def main() -> int:
           f"plain path; share of +1 bits in fc1/fc2: "
           + ", ".join(f"{float((b > 0).float().mean()):.3f}" for b in bits))
 
+    lap("phases 4-5 (mlp, cnn)")
+
     # ------------------------------------------------ lm: tokens vs plain
     lm_launches, lm_chunks = lm_engine_check(lm_cfg, args.seed, dev)
     paged_launches = lm_paged_engine_check(lm_cfg, args.seed, dev)
@@ -3645,6 +4192,7 @@ def main() -> int:
     path_launches = {kn: mlp_launches.get(kn, 0) + cnn_launches.get(kn, 0)
                      + lm_launches[kn] + paged_launches[kn]
                      + default_launches[kn] for kn in REPLACES}
+    lap("phase 6 (lm, paged, default engine)")
 
     # ---------------------------------------------------------------- times
     print(f"times on {card} (ms; kernel and library: device time, CUDA "
@@ -3781,6 +4329,7 @@ def main() -> int:
     report["float_attention"] = float_attention_times(lm_cfg, dev_gen, dev,
                                                       card)
     torch.cuda.empty_cache()
+    lap("phase 7 (times)")
 
     # ----------------------------------------------------------------- train
     err[MXU], train_launches, mxu_rows, report["train"] = train_phase(
@@ -3801,6 +4350,12 @@ def main() -> int:
         args.seed, dev, card, dev_gen, popc_per_s)
     for kn in REPLACES:
         path_launches[kn] += hybrid_launches[kn]
+
+    # ------------------------------------------------------ dense families
+    family_launches, report["families"] = family_phase(
+        args.seed, dev, card, dev_gen, popc_per_s, sms)
+    for kn in REPLACES:
+        path_launches[kn] += family_launches[kn]
 
     kernels = []
     for kn in REPLACES:
@@ -3824,7 +4379,8 @@ def main() -> int:
                           "lm": lm_launches, "lm_chunks": lm_chunks,
                           "lm_paged": paged_launches,
                           "lm_default": default_launches, "ssm": ssm_launches,
-                          "hybrid": hybrid_launches}
+                          "hybrid": hybrid_launches,
+                          "families": family_launches}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))
@@ -3841,8 +4397,12 @@ def main() -> int:
           "(printed beside it); launches count the mlp, cnn, depth-2 "
           "contiguous and paged LM runs, the depth-2 default engine's run, "
           f"the auto route's {TRAIN_STEPS} train steps, the depth-2 "
-          "falcon-mamba runs (chunked and whole-prompt) and the depth-5 "
-          "recurrentgemma runs (chunked kv_bits=1 and the default engine)")
+          "falcon-mamba runs (chunked and whole-prompt), the depth-5 "
+          "recurrentgemma runs (chunked kv_bits=1 and the default engine) "
+          "and the depth-2 runs of deepseek-67b, qwen2-72b, nemotron-4-15b "
+          "and musicgen-large (chunked kv_bits=1, the default engine, "
+          "paged kv_bits=1 with the prefix cache)")
+    print(f"chip_smoke: {time.perf_counter() - start:.1f} s after the build")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

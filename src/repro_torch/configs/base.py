@@ -18,6 +18,10 @@ import torch
 # modules whose import registers an arch the port serves; the rest of the
 # JAX package's archs wait in ROADMAP Queue A
 _ARCH_MODULES = ("repro_torch.configs.phi3_medium_14b",
+                 "repro_torch.configs.deepseek_67b",
+                 "repro_torch.configs.qwen2_72b",
+                 "repro_torch.configs.nemotron_4_15b",
+                 "repro_torch.configs.musicgen_large",
                  "repro_torch.configs.falcon_mamba_7b",
                  "repro_torch.configs.recurrentgemma_2b")
 

@@ -1,6 +1,6 @@
 """Reduced same-family configs for CPU tests (a copy of
-`repro.configs.smoke` for the families the port serves: dense, ssm and
-hybrid)."""
+`repro.configs.smoke` for the families the port serves: dense, audio,
+ssm and hybrid)."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,6 +20,8 @@ def smoke_config(name: str) -> ModelConfig:
     elif cfg.family == "hybrid":
         over.update(n_layers=8, n_heads=4, n_kv_heads=1, lru_width=64,
                     local_window=8)
+    elif cfg.family == "audio":
+        over.update(n_layers=2, n_heads=4, n_kv_heads=4, vocab=128)
     elif cfg.family == "dense":
         over.update(n_layers=2, n_heads=4, n_kv_heads=2)
     else:

@@ -276,6 +276,32 @@ def freeze_params(params, keys: frozenset[str] | set[str] = BINARY_WEIGHT_KEYS):
     return map_tree(leaf, params)
 
 
+def attach_ffn_act_thresholds(params, act: str = "sq_relu"):
+    """Attach the freeze-time activation fold to every non-GLU FFN
+    up-projection of a frozen tree (dicts holding PackedWeight w_up and
+    w_down and no w_gate), so `models.common.ffn` serves the block
+    bit-resident: the up-projection's fused epilogue emits the exact bits
+    of binarize(act(dot)) and the down-projection reads them as packed
+    words. The thresholds live on w_up's device."""
+    def walk(node):
+        if isinstance(node, dict):
+            out = {k: walk(v) for k, v in node.items()}
+            wu = out.get("w_up")
+            if (isinstance(wu, PackedWeight) and "w_gate" not in out
+                    and isinstance(out.get("w_down"), PackedWeight)):
+                t, f = fold_act_sign_threshold(tuple(wu.packed.shape[:-1]),
+                                               act, device=wu.packed.device)
+                out["w_up"] = wu.with_threshold(t, f, f"act:{act}")
+            return out
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(walk(v) for v in node))
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(params)
+
+
 def unfreeze_params(params, dtype=None):
     """Inverse of freeze_params (up to sign): PackedWeight -> +-1 floats."""
     return map_tree(lambda _, p: p.unpack(dtype)

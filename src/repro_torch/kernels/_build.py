@@ -38,7 +38,7 @@ SIGNATURES = {
         "binary_gemm_packed_rhs": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _I, _P],
         "binary_gemm_fused": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _P],
+                              _I, _I, _P],
         "binary_gemm_mxu": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P],
     },

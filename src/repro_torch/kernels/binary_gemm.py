@@ -27,12 +27,13 @@ SM count:
     K slice once and streams its channels' weight words past them into the
     single-bit tensor cores (AND-popcounts, no unpacking);
   * small M, float lhs (`binary_gemm_packed_rhs` and `binary_gemm_mxu` at
-    M <= 32, the LM's wo, w_down and projections): a block packs the M
-    real rows of its K slice once and streams its channels' weight words
-    past them (popcounts);
-  * otherwise (the convs, the output layers, every `binary_gemm_fused`
-    call): int8 tensor-core tiles of 64 rows and 128 or 256 channels, the
-    packed words expanded to +-1 bytes in shared memory.
+    M <= 32, the LM's wo, w_down and projections; `binary_gemm_fused` at M
+    <= FUSED_SMALL_M_ROWS, nemotron's up-projection, with a packed lhs
+    too): a block packs the M real rows of its K slice once and streams
+    its channels' weight words past them (popcounts);
+  * otherwise (the convs, the output layers, `binary_gemm_fused` past its
+    small-M rows): int8 tensor-core tiles of 64 rows and 128 or 256
+    channels, the packed words expanded to +-1 bytes in shared memory.
 
 Where any would launch too few blocks for the card, K is split over a
 thread-block cluster and the partial dots are summed through distributed
@@ -69,6 +70,11 @@ _LHS_KIND = {torch.float32: 1, torch.bfloat16: 2}
 # per block of a split (in 4-word groups, in tensor-core stages); the packed
 # small-M kernel's channels per warp and K words per warp step
 SMALL_M_ROWS = 32
+# rows up to which kernel 3 runs the small-M kernel (its fused epilogue):
+# on an H100 it beat the tiles at every M <= 16 of nemotron's up-projection
+# (K 6,144, N 24,576: 0.0162 against 0.0962 ms at M = 4) and of K|N 4,096
+# and 8,192|288; past 16 the tiles win at K|N 1,024, past 24 at nemotron's
+FUSED_SMALL_M_ROWS = 16
 _SMEM_BYTES = 227 * 1024
 _TC_BM, _TC_BN, _TC_WIDE_BN, _TC_BK = 64, 128, 256, 128
 _CLUSTER_MAX = 8
@@ -129,7 +135,9 @@ def gemm_plan(kernel: str, m: int, n: int, k: int, sms: int,
     tensor-core tiles as kernel 2's dots do (below).
 
     `binary_gemm_packed_rhs`, and `binary_gemm_mxu` against its signed w
-    (the same kernels with a float32 store), at M <= SMALL_M_ROWS run the
+    (the same kernels with a float32 store), at M <= SMALL_M_ROWS, and
+    `binary_gemm_fused` (the same kernel with the threshold epilogue) at M
+    <= FUSED_SMALL_M_ROWS, run the
     small-M kernel where the weight rows are 16-byte aligned words (KW % 4
     == 0, `aligned`) and the packed lhs slice fits in shared memory,
     with 32 channels per block, or 64 where N / 32 is at least 3 blocks per
@@ -153,7 +161,8 @@ def gemm_plan(kernel: str, m: int, n: int, k: int, sms: int,
             ks = -(-kw // (4 * split)) * 4
             if 4 * m * (_packed_lhs_stride(ks) + block_n) <= _SMEM_BYTES:
                 return GemmPlan(True, split, block_n, blocks * split)
-    elif dots and m <= SMALL_M_ROWS and kw % 4 == 0 and aligned:
+    elif (m <= (SMALL_M_ROWS if dots else FUSED_SMALL_M_ROWS)
+          and kw % 4 == 0 and aligned):
         block_n = 64 if -(-n // 32) >= 3 * sms else 32
         blocks = -(-n // block_n)
         split = _split(blocks, kw // 4, _MIN_SMALL_M_UNITS, sms)
@@ -323,7 +332,8 @@ def binary_gemm_fused(a: torch.Tensor, b: torch.Tensor, thresh: torch.Tensor,
         _launch("binary_gemm_fused", a, a.data_ptr(),
                 0 if packed_lhs else _LHS_KIND[a.dtype], _vec(a, k),
                 b.data_ptr(), thresh.data_ptr(), flip.data_ptr(),
-                out.data_ptr(), m, n, kw, k, plan.split)
+                out.data_ptr(), m, n, kw, k, int(plan.small_m), plan.split,
+                plan.block_n)
     return out
 
 

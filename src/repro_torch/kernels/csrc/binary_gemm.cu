@@ -40,11 +40,12 @@
 // over a cluster and the partial counts are summed through distributed
 // shared memory, as below.
 //
-// Small M (binary_gemm_packed_rhs and binary_gemm_mxu at M <= 32: the LM's
-// decode and chunk rows). The weights bound it: (N, KW) words read once
-// against M rows of activations, so at M = 4 a 64-row popcount tile wastes
-// its rows, and a lhs packed by a warp ballot per word waits on one load
-// after another.
+// Small M (binary_gemm_packed_rhs and binary_gemm_mxu at M <= 32, and
+// binary_gemm_fused at the few rows `gemm_plan` gives it: the LM's decode
+// and chunk rows, nemotron's up-projection). The weights bound it: (N, KW)
+// words read once against M rows of activations, so at M = 4 a 64-row
+// popcount tile wastes its rows, and a lhs packed by a warp ballot per
+// word waits on one load after another.
 // Here a block owns a slice of K and 32 or 64 channels. It sign-packs the
 // M real rows of its K slice into shared memory once, a word per thread
 // from 16-byte loads all in flight together, then each warp streams weight
@@ -57,11 +58,13 @@
 // shared memory (distributed shared memory) and writes it. The sums are
 // exact integers; no workspace, no atomics, one launch. Every block still
 // packs the lhs of its own K slice, so N / channels-per-block blocks read
-// the same rows (from L2).
+// the same rows (from L2). A packed lhs (the fused kernel's chain steps) is
+// copied in as it is. The fused epilogue takes the summed dots a warp per
+// 32 channels of a row: bit = (dot >= t) != flip, one ballot per word.
 //
 // Tensor-core tiles (binary_gemm_packed, binary_gemm_packed_rhs and
 // binary_gemm_mxu at M > 32: the CNN's convs, the MLP and CNN output
-// layers; binary_gemm_fused at every M). With a float lhs the float
+// layers; binary_gemm_fused past the small-M rows). With a float lhs the float
 // operand is 32x wider than its bits and bytes bound the convs;
 // popcounts would bound them at ~0.5 ms on the integer pipe, the int8
 // tensor cores do the same +-1 dots in ~0.06 ms. Each block of 8 warps
@@ -144,13 +147,16 @@ __device__ __forceinline__ int reduce_rows(int (&acc)[kRows], int lane) {
 }
 
 // One cluster of `split` blocks per `block_n` channels; block rank r owns
-// words [r ks, r ks + ks) of K. kRows >= m rows are computed, m stored.
+// words [r ks, r ks + ks) of K. kRows >= m rows are computed, m stored:
+// dots (m, n) as TO, or, kFused, (m, ceil(n / 32)) words of the threshold
+// bits. TA uint32_t: a packed lhs (m, kw), else float rows (m, k).
 // Shared memory: sa (m, ks) packed lhs words, part (m, block_n) popcounts.
-template <typename TA, int kRows, bool kVec, typename TO>
+template <typename TA, int kRows, bool kVec, bool kFused, typename TO>
 __global__ void __launch_bounds__(kThreads)
 small_m_kernel(const TA* __restrict__ a, const uint32_t* __restrict__ b,
-               TO* __restrict__ out, int m, int n, int kw, int k, int ks,
-               int block_n) {
+               const int32_t* __restrict__ thresh,
+               const int32_t* __restrict__ flip, TO* __restrict__ out, int m,
+               int n, int kw, int k, int ks, int block_n) {
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* sa = smem;
   int32_t* part = reinterpret_cast<int32_t*>(smem + m * ks);
@@ -169,10 +175,14 @@ small_m_kernel(const TA* __restrict__ a, const uint32_t* __restrict__ b,
 #pragma unroll 2
   for (int e = tid; e < m * ks; e += kThreads) {
     const int r = e / ks, c = e % ks;
-    sa[e] = c < nwords ? bnn::pack_own_word<TA, kVec>(
-                             a + static_cast<long long>(r) * k,
-                             32LL * (w0 + c), k)
-                       : 0u;
+    if constexpr (std::is_same_v<TA, uint32_t>)
+      sa[e] = c < nwords ? __ldg(a + static_cast<long long>(r) * kw + w0 + c)
+                         : 0u;
+    else
+      sa[e] = c < nwords ? bnn::pack_own_word<TA, kVec>(
+                               a + static_cast<long long>(r) * k,
+                               32LL * (w0 + c), k)
+                         : 0u;
   }
   __syncthreads();
 
@@ -211,16 +221,30 @@ small_m_kernel(const TA* __restrict__ a, const uint32_t* __restrict__ b,
   cluster.sync();
 
   // block `rank` sums outputs rank, rank + split, ... (in 256-wide runs)
-  // over the cluster's blocks, in rank order
+  // over the cluster's blocks, in rank order. block_n is a multiple of 32,
+  // so a warp's 32 outputs are 32 channels of one row, word-aligned: the
+  // fused epilogue ballots them into that row's word (channels >= n emit 1)
+  const int nw = (n + 31) / 32;
   for (int e = rank * kThreads + tid; e < m * block_n; e += split * kThreads) {
     const int row = e / block_n, c = e % block_n;
-    if (n0 + c >= n) continue;
+    const int ch = n0 + c;
+    if (!kFused && ch >= n) continue;
     int popc = 0;
 #pragma unroll
     for (int q = 0; q < kMaxSplit; ++q)
-      if (q < split) popc += cluster.map_shared_rank(part, q)[e];
-    out[static_cast<long long>(row) * n + n0 + c] =
-        static_cast<TO>(k - 2 * popc);
+      if (q < split && ch < n) popc += cluster.map_shared_rank(part, q)[e];
+    if constexpr (kFused) {
+      const bool bit = ch < n ? (k - 2 * popc >= __ldg(thresh + ch)) !=
+                                    (__ldg(flip + ch) != 0)
+                              : true;
+      const uint32_t word = __ballot_sync(0xffffffffu, bit);
+      if (lane == 0 && ch / 32 < nw)
+        out[static_cast<long long>(row) * nw + ch / 32] =
+            static_cast<TO>(word);
+    } else {
+      out[static_cast<long long>(row) * n + ch] =
+          static_cast<TO>(k - 2 * popc);
+    }
   }
   cluster.sync();              // keep this block's part alive for the others
 }
@@ -688,43 +712,50 @@ sign_pack_cols_kernel(const float* __restrict__ w, uint32_t* __restrict__ wp,
 // ---------------------------------------------------------------------------
 // Launches
 // ---------------------------------------------------------------------------
-template <typename TA, int kRows, typename TO>
-int launch_small_m(const void* a, bool vec, const void* b, void* out, int m,
-                   int n, int kw, int k, int split, int block_n, void* stream) {
+template <typename TA, int kRows, bool kFused, typename TO>
+int launch_small_m(const void* a, bool vec, const void* b, const void* thresh,
+                   const void* flip, void* out, int m, int n, int kw, int k,
+                   int split, int block_n, void* stream) {
   const int ks = (kw + 4 * split - 1) / (4 * split) * 4;
   const int smem = (m * ks + m * block_n) * 4;
   const long long blocks =
       static_cast<long long>((n + block_n - 1) / block_n) * split;
   const auto at = static_cast<const TA*>(a);
   const auto bt = static_cast<const uint32_t*>(b);
+  const auto tt = static_cast<const int32_t*>(thresh);
+  const auto ft = static_cast<const int32_t*>(flip);
   const auto ot = static_cast<TO*>(out);
   // a 16-byte load holds 4 float32 or 8 bf16 values: k must be a multiple
-  if (vec && k % (16 / static_cast<int>(sizeof(TA))) == 0)
-    return bnn::launch_cluster(small_m_kernel<TA, kRows, true, TO>, blocks,
-                               kThreads, split, smem, stream, at, bt, ot, m, n,
-                               kw, k, ks, block_n);
-  return bnn::launch_cluster(small_m_kernel<TA, kRows, false, TO>, blocks,
-                             kThreads, split, smem, stream, at, bt, ot, m, n,
-                             kw, k, ks, block_n);
+  if constexpr (!std::is_same_v<TA, uint32_t>) {
+    if (vec && k % (16 / static_cast<int>(sizeof(TA))) == 0)
+      return bnn::launch_cluster(small_m_kernel<TA, kRows, true, kFused, TO>,
+                                 blocks, kThreads, split, smem, stream, at,
+                                 bt, tt, ft, ot, m, n, kw, k, ks, block_n);
+  }
+  return bnn::launch_cluster(small_m_kernel<TA, kRows, false, kFused, TO>,
+                             blocks, kThreads, split, smem, stream, at, bt,
+                             tt, ft, ot, m, n, kw, k, ks, block_n);
 }
 
-template <typename TA, typename TO>
-int small_m_rows(const void* a, bool vec, const void* b, void* out, int m,
-                 int n, int kw, int k, int split, int block_n, void* stream) {
+template <typename TA, bool kFused, typename TO>
+int small_m_rows(const void* a, bool vec, const void* b, const void* thresh,
+                 const void* flip, void* out, int m, int n, int kw, int k,
+                 int split, int block_n, void* stream) {
   if (m > kSmallMaxRows || kw % 4 != 0 || (block_n != 32 && block_n != 64) ||
       reinterpret_cast<uintptr_t>(b) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (m <= 4)
-    return launch_small_m<TA, 4, TO>(a, vec, b, out, m, n, kw, k, split,
-                                     block_n, stream);
+    return launch_small_m<TA, 4, kFused, TO>(a, vec, b, thresh, flip, out, m,
+                                             n, kw, k, split, block_n, stream);
   if (m <= 8)
-    return launch_small_m<TA, 8, TO>(a, vec, b, out, m, n, kw, k, split,
-                                     block_n, stream);
+    return launch_small_m<TA, 8, kFused, TO>(a, vec, b, thresh, flip, out, m,
+                                             n, kw, k, split, block_n, stream);
   if (m <= 16)
-    return launch_small_m<TA, 16, TO>(a, vec, b, out, m, n, kw, k, split,
-                                      block_n, stream);
-  return launch_small_m<TA, 32, TO>(a, vec, b, out, m, n, kw, k, split,
-                                    block_n, stream);
+    return launch_small_m<TA, 16, kFused, TO>(a, vec, b, thresh, flip, out,
+                                              m, n, kw, k, split, block_n,
+                                              stream);
+  return launch_small_m<TA, 32, kFused, TO>(a, vec, b, thresh, flip, out, m,
+                                            n, kw, k, split, block_n, stream);
 }
 
 template <int kRows>
@@ -825,11 +856,12 @@ int float_lhs(const void* a, int lhs_kind, bool vec, const void* b, void* out,
               int block_n, void* stream) {
   if (small_m) {
     switch (lhs_kind) {
-      case 1: return small_m_rows<float, TO>(a, vec, b, out, m, n, kw, k,
-                                             split, block_n, stream);
-      case 2: return small_m_rows<__nv_bfloat16, TO>(a, vec, b, out, m, n, kw,
-                                                     k, split, block_n,
-                                                     stream);
+      case 1: return small_m_rows<float, false, TO>(
+                  a, vec, b, nullptr, nullptr, out, m, n, kw, k, split,
+                  block_n, stream);
+      case 2: return small_m_rows<__nv_bfloat16, false, TO>(
+                  a, vec, b, nullptr, nullptr, out, m, n, kw, k, split,
+                  block_n, stream);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -875,11 +907,29 @@ int binary_gemm_packed_rhs(const void* a, int lhs_kind, int vec,
 
 // a (m, kw) int32 words (lhs_kind 0) or (m, k) float32 / bfloat16 (lhs_kind
 // 1 / 2), b (n, kw) int32 words, thresh/flip (n,) int32 -> out
-// (m, ceil(n/32)) words; tensor-core tiles, vec and split as above.
+// (m, ceil(n/32)) words. small_m 1: the small-M kernel with block_n
+// channels per block (32 or 64; m <= 32, kw % 4 == 0, b 16-byte aligned);
+// small_m 0: tensor-core tiles of 128 channels. vec and split as above.
 int binary_gemm_fused(const void* a, int lhs_kind, int vec, const void* b,
                       const void* thresh, const void* flip, void* out, int m,
-                      int n, int kw, int k, int split, void* stream) {
+                      int n, int kw, int k, int small_m, int split,
+                      int block_n, void* stream) {
   if (m <= 0 || n <= 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (small_m) {
+    switch (lhs_kind) {
+      case 0: return small_m_rows<uint32_t, true, int32_t>(
+                  a, false, b, thresh, flip, out, m, n, kw, k, split,
+                  block_n, stream);
+      case 1: return small_m_rows<float, true, int32_t>(
+                  a, vec != 0, b, thresh, flip, out, m, n, kw, k, split,
+                  block_n, stream);
+      case 2: return small_m_rows<__nv_bfloat16, true, int32_t>(
+                  a, vec != 0, b, thresh, flip, out, m, n, kw, k, split,
+                  block_n, stream);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (block_n != kTcBN) return static_cast<int>(cudaErrorInvalidValue);
   return tc_lhs<true>(lhs_kind, vec != 0, a, b, thresh, flip, out, m, n, kw,
                       k, split, kTcBN, stream);
 }

@@ -1,6 +1,6 @@
 """Family-dispatching model API used by the serving engine (port of
-`repro.models.api` for the dense family, the Mamba stack, `ssm`, and the
-recurrentgemma hybrid, `hybrid`).
+`repro.models.api` for the dense and audio families, the Mamba stack,
+`ssm`, and the recurrentgemma hybrid, `hybrid`).
 
     model = get_model(cfg)
     params = model.init(gen)                 # fp32 masters
@@ -31,7 +31,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.packed import freeze_params
+from repro_torch.core.packed import attach_ffn_act_thresholds, freeze_params
 from repro_torch.models import ssm_lm as S
 from repro_torch.models import transformer as T
 
@@ -64,9 +64,11 @@ class Model:
         and cast the LM head to the activation dtype once: `head` casts
         it on every call otherwise (a 2 GB read per step at full width),
         and the product is the same. A tied head is the embedding: it is
-        cast once too (a cast commutes with the lookup's gather)."""
+        cast once too (a cast commutes with the lookup's gather). A
+        sq_relu FFN also gets its activation fold, so it serves
+        bit-resident (`models.common.ffn`), as the JAX package's does."""
         self._check_freezable()
-        return self._cast_head(freeze_params(params))
+        return self._cast_head(self._freeze_tree(params))
 
     def init_frozen(self, gen: torch.Generator, device=None):
         """Frozen params drawn and frozen one layer at a time, so that only
@@ -77,15 +79,18 @@ class Model:
         init = {"ssm": S.init_mamba_params, "hybrid": S.init_rg_params} \
             .get(self.cfg.family, T.init_transformer_params)
         return self._cast_head(init(gen, self.cfg, device=device,
-                                    freeze_layer=freeze_params))
+                                    freeze_layer=self._freeze_tree))
+
+    def _freeze_tree(self, params):
+        frozen = freeze_params(params)
+        if self.cfg.mlp == "sq_relu":
+            frozen = attach_ffn_act_thresholds(frozen, "sq_relu")
+        return frozen
 
     def _check_freezable(self) -> None:
         if self.cfg.quant == "none":
             raise ValueError(f"{self.cfg.name}: quant='none' has no binary "
                              "weights to freeze")
-        if self.cfg.mlp == "sq_relu":
-            raise NotImplementedError("the sq_relu fold is not ported yet "
-                                      "(ROADMAP Queue A)")
 
     def _cast_head(self, frozen):
         head = "embed" if self.cfg.tie_embeddings else "lm_head"
@@ -132,7 +137,7 @@ def get_model(cfg: ModelConfig, *, path: str = "auto") -> Model:
                 S.rg_prefill_chunk(p, cfg, tokens, cache, slot, pos,
                                    n_valid, path=path),
         )
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "audio"):
         raise NotImplementedError(f"{cfg.family} family is not ported yet "
                                   "(ROADMAP Queue A)")
     return Model(

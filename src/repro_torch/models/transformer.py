@@ -1,6 +1,9 @@
-"""Decoder-only transformer, dense family: inference forward, whole-prompt
-and chunked prefill, and decode from a float or bit-resident KV cache (port
-of the dense serving path of `repro.models.transformer`).
+"""Decoder-only transformer, dense and audio families: inference forward,
+whole-prompt and chunked prefill, and decode from a float or bit-resident
+KV cache (port of the dense serving path of `repro.models.transformer`).
+RMSNorm or LayerNorm (`cfg.norm`), RoPE or sinusoidal positions added to
+the embedding (`cfg.pos`), an optional QKV bias (`cfg.qkv_bias`) and any
+of the FFN kinds of `models.common.ffn`.
 
 Params are the JAX package's tree: dicts of tensors, the blocks' leaves
 stacked along a leading L axis (frozen weights are `PackedWeight`s whose
@@ -36,8 +39,7 @@ device decides: a CPU tensor runs the plain version) or the plain PyTorch
 version on any device. The float attention is plain PyTorch on both. It is
 the caller's explicit choice; nothing falls back on its own.
 
-Not ported yet (ROADMAP Queue A): the VLM, MoE and audio families,
-training.
+Not ported yet (ROADMAP Queue A): the VLM and MoE families, training.
 """
 from __future__ import annotations
 
@@ -61,35 +63,42 @@ from repro_torch.models.attention import (
     decode_attention_paged, flash_attention, prefill_attention_packed,
     prefill_attention_packed_paged, v_cache_scale,
 )
-from repro_torch.models.common import ffn, ffn_param_shapes, rms_norm, rope
+from repro_torch.models.common import (
+    ffn, ffn_param_shapes, layer_norm, rms_norm, rope, sinusoidal_pos,
+)
 
 
 def _check_served(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "audio"):
         raise NotImplementedError(f"{cfg.family} family is not ported yet "
                                   "(ROADMAP Queue A)")
-    if cfg.norm != "rmsnorm" or cfg.pos != "rope" or cfg.qkv_bias:
-        raise NotImplementedError("the port serves rmsnorm + rope without "
-                                  "qkv bias (ROADMAP Queue A)")
 
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
+def _norm_shapes(cfg: ModelConfig) -> dict:
+    if cfg.norm == "layernorm":
+        return {"scale": (cfg.d_model,), "bias": (cfg.d_model,)}
+    return {"scale": (cfg.d_model,)}
+
+
 def _block_shapes(cfg: ModelConfig) -> dict:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {"ln1": {"scale": (d,)}, "ln2": {"scale": (d,)},
-            "attn": {"wq": (d, h * hd), "wk": (d, kv * hd),
-                     "wv": (d, kv * hd), "wo": (h * hd, d)},
+    attn = {"wq": (d, h * hd), "wk": (d, kv * hd), "wv": (d, kv * hd),
+            "wo": (h * hd, d)}
+    if cfg.qkv_bias:
+        attn.update({"bq": (h * hd,), "bk": (kv * hd,), "bv": (kv * hd,)})
+    return {"ln1": _norm_shapes(cfg), "ln2": _norm_shapes(cfg), "attn": attn,
             "ffn": ffn_param_shapes(d, cfg.d_ff, cfg.mlp)}
 
 
 def init_transformer_params(gen: torch.Generator, cfg: ModelConfig, *,
                             device=None, freeze_layer=None) -> dict:
     """fp32 masters with the JAX package's shapes and scales: weight
-    matrices N(0, 0.02^2), norm scales 0. Draws come from `gen`, on its
-    device (a CPU generator gives the same weights on every device; a CUDA
-    one draws a full-width model on the card in seconds).
+    matrices N(0, 0.02^2), norm scales and biases 0. Draws come from `gen`,
+    on its device (a CPU generator gives the same weights on every device;
+    a CUDA one draws a full-width model on the card in seconds).
 
     `freeze_layer`, when given, maps one layer's blocks (leaves with a
     leading axis of 1) to their frozen tree, and each layer is drawn and
@@ -112,7 +121,8 @@ def init_transformer_params(gen: torch.Generator, cfg: ModelConfig, *,
             torch.zeros(full, dtype=torch.float32, device=dev)
 
     params = {"embed": normal((cfg.vocab, cfg.d_model)),
-              "final_norm": {"scale": torch.zeros(cfg.d_model, device=dev)}}
+              "final_norm": {k: torch.zeros(v, device=dev)
+                             for k, v in _norm_shapes(cfg).items()}}
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((cfg.d_model, cfg.vocab))
     if freeze_layer is None:
@@ -154,17 +164,33 @@ def layer_params(params: dict, layer: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Norm dispatch
+# ---------------------------------------------------------------------------
+def norm(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The config's norm: LayerNorm with gain 1 + scale and its bias, or
+    RMSNorm."""
+    if cfg.norm == "layernorm":
+        return layer_norm(x, 1.0 + p["scale"], p["bias"])
+    return rms_norm(x, p["scale"])
+
+
+# ---------------------------------------------------------------------------
 # Sublayers
 # ---------------------------------------------------------------------------
 def qkv(p: dict, xn: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
         path: str):
     """Q, K, V of the normed residual; frozen weights read one shared
-    sign-pack of it."""
+    sign-pack of it. The QKV bias (cfg.qkv_bias) is added in the
+    activation dtype, before any rope."""
     b, s, _ = xn.shape
     xs = shared_pack(xn, (p["wq"], p["wk"], p["wv"]), mode, path=path)
     q = qmatmul(xs, p["wq"], mode, path=path)
     k = qmatmul(xs, p["wk"], mode, path=path)
     v = qmatmul(xs, p["wv"], mode, path=path)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
     return (q.reshape(b, s, cfg.n_heads, cfg.head_dim),
             k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim),
             v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim))
@@ -174,7 +200,7 @@ def ffn_sublayer(p: dict, x: torch.Tensor, cfg: ModelConfig,
                  mode: QuantMode, *, path: str = "auto") -> torch.Tensor:
     if cfg.n_experts:
         raise NotImplementedError("MoE is not ported yet (ROADMAP Queue A)")
-    xn = rms_norm(x, p["ln2"]["scale"])
+    xn = norm(p["ln2"], x, cfg)
     return x + ffn(p["ffn"], xn, cfg.mlp, mode, path=path)
 
 
@@ -185,11 +211,12 @@ def self_attn(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
     at positions pos_offset..), float flash attention over the rope'd
     K/V. With `return_kv` also returns (k, v), each (B, S, Hkv, hd), for
     the cache."""
-    xn = rms_norm(x, p["ln1"]["scale"])
+    xn = norm(p["ln1"], x, cfg)
     q, k, v = qkv(p["attn"], xn, cfg, mode, path)
-    positions = torch.arange(x.shape[1], device=x.device) + pos_offset
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if cfg.pos == "rope":
+        positions = torch.arange(x.shape[1], device=x.device) + pos_offset
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     out = flash_attention(q, k, v, True, cfg.local_window, cfg.attn_chunk,
                           pos_offset)
     out = out.reshape(x.shape[0], x.shape[1], cfg.n_heads * cfg.head_dim)
@@ -220,14 +247,24 @@ def pack_into(path: str, srcs, pools, rows: torch.Tensor) -> None:
         raise ValueError(path)
 
 
-def embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
-    return params["embed"][tokens.long()].to(cfg.activation_dtype)
+def embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+          positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Token embeddings (B, S, D) in the activation dtype; with sinusoidal
+    positions (cfg.pos) plus the embedding of `positions`, which broadcast
+    against tokens (default 0..S-1)."""
+    h = params["embed"][tokens.long()].to(cfg.activation_dtype)
+    if cfg.pos == "sinusoidal":
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device)
+        pe = sinusoidal_pos(positions.reshape(-1), cfg.d_model)
+        h = h + pe.reshape(tuple(positions.shape) + (-1,)).to(h.dtype)
+    return h
 
 
 def head(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     """Final norm and the LM head, a plain matmul in the activation dtype
     (`freeze` casts the head once, so this cast is then a no-op)."""
-    h = rms_norm(h, params["final_norm"]["scale"])
+    h = norm(params["final_norm"], h, cfg)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return torch.matmul(h, w.to(h.dtype))
 
@@ -340,11 +377,12 @@ def _decode_self_block(bp, h, kc, vc, vs, cfg, mode, pos, rows, path,
     Rows with pos < 0 (freed or mid-admission slots) compute but write
     nothing a table names."""
     b = h.shape[0]
-    xn = rms_norm(h, bp["ln1"]["scale"])
+    xn = norm(bp["ln1"], h, cfg)
     q, k_new, v_new = qkv(bp["attn"], xn, cfg, mode, path)
-    positions = pos[:, None]                                   # (B, 1)
-    q = rope(q, positions, cfg.rope_theta)
-    k_new = rope(k_new, positions, cfg.rope_theta)
+    if cfg.pos == "rope":
+        positions = pos[:, None]                               # (B, 1)
+        q = rope(q, positions, cfg.rope_theta)
+        k_new = rope(k_new, positions, cfg.rope_theta)
     new = (k_new[:, 0], v_new[:, 0])
     window = cfg.local_window
     if cfg.kv_bits == 1:
@@ -414,7 +452,7 @@ def transformer_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
     rows = _decode_rows(cache, pos, act)
     pt = cache.get("page_table")
     vs = cache.get("v_scale")
-    h = embed(params, cfg, token[:, None])
+    h = embed(params, cfg, token[:, None], pos[:, None])
     for layer in range(cfg.n_layers):
         h = _decode_self_block(layer_params(params, layer), h,
                                cache["k"][layer], cache["v"][layer],
@@ -438,10 +476,11 @@ def _chunk_self_block(bp, h, kc, vc, vs, cfg, mode, positions, pos, n_valid,
     c = h.shape[1]
     kv_len = pos + n_valid
     window = cfg.local_window
-    xn = rms_norm(h, bp["ln1"]["scale"])
+    xn = norm(bp["ln1"], h, cfg)
     q, k_new, v_new = qkv(bp["attn"], xn, cfg, mode, path)
-    q = rope(q, positions, cfg.rope_theta)
-    k_new = rope(k_new, positions, cfg.rope_theta)
+    if cfg.pos == "rope":
+        q = rope(q, positions, cfg.rope_theta)
+        k_new = rope(k_new, positions, cfg.rope_theta)
     pools = (kc, vc) if pt_row is None else (_with_sink(kc), _with_sink(vc))
     if cfg.kv_bits == 0:
         for pool, x in zip(pools, (k_new[0], v_new[0])):
@@ -519,7 +558,7 @@ def transformer_prefill_chunk(params: dict, cfg: ModelConfig,
         else None
     rows = _chunk_rows(cache, pt_row, positions, n_valid)
     vs = cache.get("v_scale")
-    h = embed(params, cfg, tokens)
+    h = embed(params, cfg, tokens, positions)
     for layer in range(cfg.n_layers):
         if pt_row is None:
             kc = cache["k"][layer, slot:slot + 1]

@@ -172,7 +172,9 @@ PACKED_BLOCK_N = {1280: 32, 5120: 32, 17920: 128}
     ("binary_gemm_packed_rhs", 6400, 4608, 512, False, 1),    # conv 6
     ("binary_gemm_fused", 200, 1024, 1024, False, 4),      # mlp layer 2
     ("binary_gemm_fused", 100, 8192, 1024, False, 8),      # cnn fc1
-    ("binary_gemm_fused", 4, 8192, 288, False, 8),         # kernel 3: tiles
+    ("binary_gemm_fused", 4, 8192, 288, True, 8),          # kernel 3: small M
+    ("binary_gemm_fused", 4, 6144, 24576, True, 1),        # nemotron w_up
+    ("binary_gemm_fused", 32, 6144, 24576, False, 2),      # past 16 rows
     ("binary_gemm_fused", 4000, 1024, 1024, False, 1),
     # kernel 4 (its signed w as the packed rhs): the five bnn-cifar10 train
     # convs at batch 100, small M, tiles at small M (KW % 4 != 0), a split

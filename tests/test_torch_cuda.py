@@ -228,16 +228,19 @@ FUSED_MAIN_SHAPES = [(200, 784, 1024), (200, 1024, 1024), (100, 8192, 1024),
 @pytest.mark.parametrize("lhs", ["packed", "float32", "bfloat16"])
 def test_cuda_binary_gemm_fused_main_and_small_shapes_match_plain(lhs):
     """Kernel 3 on tensor-core tiles split over a cluster at its main-path
-    shapes, and at M <= 32, where it stays on the tiles."""
+    shapes, and at M <= 32: the small-M kernel with the fused epilogue at
+    M <= FUSED_SMALL_M_ROWS where KW % 4 == 0 (a cluster of 8 at K 8192, N
+    288; N off a word), the tiles otherwise (KW % 4 != 0, 32 rows)."""
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(4)
     dtype = torch.bfloat16 if lhs == "bfloat16" else torch.float32
     for m, k, n in FUSED_MAIN_SHAPES + [(1, 300, 77), (4, 8192, 288),
-                                        (32, 1000, 33)]:
+                                        (16, 1000, 77), (32, 1000, 33)]:
         x, b, thresh, flip = _card_operands(g, m, k, n, dtype)
         a = pack_bits(x) if lhs == "packed" else x
         plan = bg.gemm_plan("binary_gemm_fused", m, n, k, _sms())
-        assert not plan.small_m
+        assert plan.small_m == (m <= bg.FUSED_SMALL_M_ROWS
+                                and packed_width(k) % 4 == 0)
         got = _one_launch("binary_gemm_fused",
                           lambda: bg.binary_gemm_fused(a, b, thresh, flip, k))
         assert torch.equal(got, bg.binary_gemm_fused_plain(a, b, thresh, flip,
@@ -754,6 +757,114 @@ def test_cuda_hybrid_engine_matches_plain(kv_bits, chunk):
     da.reset_launches()
     got = ServingEngine(cfg, params, **kw).generate(reqs)
     assert (da.launches["decode_attention_packed"] > 0) == (kv_bits == 1)
+    want = ServingEngine(cfg, params, kernel_path="ref", **kw).generate(reqs)
+    for a, b in zip(got, want, strict=True):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 32, 200])
+def test_cuda_fused_gemm_at_nemotron_w_up(m):
+    """Kernel 3 at nemotron-4-15b's up-projection (K 6,144, N 24,576), a
+    bf16 lhs, with the act:sq_relu fold (ALWAYS_THRESH, no flip): every word
+    all ones, as the plain version gives, though the dots take both signs;
+    with random thresholds near 0, the plain version's words. Then kernel 1
+    on those words as the lhs of w_down (K 24,576, N 6,144)."""
+    from repro_torch.core.packed import ALWAYS_THRESH
+    _need_card()
+    k, n = 6144, 24576
+    g = torch.Generator(device="cuda").manual_seed(m)
+    x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+    b = pack_bits(torch.randn(n, k, generator=g, device="cuda"))
+    always = torch.full((n,), ALWAYS_THRESH, dtype=torch.int32, device="cuda")
+    zero = torch.zeros(n, dtype=torch.int32, device="cuda")
+    dots = bg.binary_gemm_packed_rhs(x, b, k)
+    assert (dots > 0).any() and (dots < 0).any()
+    got = bg.binary_gemm_fused(x, b, always, zero, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bg.binary_gemm_fused_plain(x, b, always, zero, k))
+    assert (got == -1).all()
+    thresh = torch.randint(-40, 41, (n,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    flip = torch.randint(0, 2, (n,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    words = bg.binary_gemm_fused(x, b, thresh, flip, k)
+    assert torch.equal(words, bg.binary_gemm_fused_plain(x, b, thresh, flip,
+                                                         k))
+    w_down = pack_bits(torch.randn(k, n, generator=g, device="cuda"))
+    for lhs in (got, words):
+        torch.testing.assert_close(
+            bg.binary_gemm_packed(lhs, w_down, n),
+            bg.binary_gemm_packed_plain(lhs, w_down, n), rtol=0, atol=0)
+
+
+# (Hkv, G, hd): musicgen-large's MHA (32 heads of 64: two words a row) and
+# deepseek-67b's / qwen2-72b's GQA (64 heads over 8: a decode step's 8 rows
+# are the narrow body's edge, a 32-row chunk's 256 rows the wide one)
+FAMILY_ATTENTION = [(32, 1, 64), (8, 8, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv,g,hd", FAMILY_ATTENTION)
+def test_cuda_attention_at_the_family_shapes(hkv, g, hd, dtype):
+    """Kernels 6 and 8 at the new families' head layouts: a 4-slot decode
+    step over 512 positions (lengths 1, 17, 512, 300) and a 32-row chunk
+    at q_pos 96: dots equal the plain versions', outputs within TOL with
+    equal signs."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import prefill_attention as pa
+    _need_card()
+    q, k, v, vs = _attention_case(hkv + g, 4, 512, hkv, g, hd)
+    lens = torch.tensor([1, 17, 512, 300], dtype=torch.int32)
+    args = [a.cuda() for a in (q.to(dtype), k, v, vs, lens)]
+    got, dots = da.decode_attention_packed(*args, return_dots=True)
+    want, wdots = da.decode_attention_packed_plain(*args, return_dots=True)
+    pairs = [(got, want, dots, wdots)]
+    q, k, v, vs = _attention_case(hd, 1, 512, hkv, g, hd, s=32)
+    args = [a.cuda() for a in (q.to(dtype), k, v, vs)]
+    got, dots = pa.prefill_attention_packed(*args, 128, 96, return_dots=True)
+    want, wdots = pa.prefill_attention_packed_plain(*args, 128, 96,
+                                                    return_dots=True)
+    pairs.append((got, want, dots, wdots))
+    torch.cuda.synchronize()
+    for got, want, dots, wdots in pairs:
+        assert torch.equal(dots, wdots)
+        tol = TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        assert torch.equal(got >= 0, want >= 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-72b", "nemotron-4-15b",
+                                  "musicgen-large"])
+@pytest.mark.parametrize("kv_bits,chunk", [(1, 4), (0, None)])
+def test_cuda_family_engine_matches_plain(arch, kv_bits, chunk):
+    """The smoke qwen2-72b (QKV bias), nemotron-4-15b (LayerNorm, the
+    sq_relu FFN through kernel 3) and musicgen-large (sinusoidal positions,
+    GELU) served on the card through the kernels and through their plain
+    versions, biases and norm parameters drawn non-zero: greedy tokens
+    equal; nemotron launches kernel 3."""
+    from repro_torch.configs.smoke import smoke_config
+    from repro_torch.core.packed import map_tree
+    from repro_torch.models.api import get_model
+    from repro_torch.serving.engine import Request, ServingEngine
+    _need_card()
+    cfg = smoke_config(arch)
+    gen = torch.Generator().manual_seed(0)
+    params = map_tree(lambda _, p: p if p.ndim >= 2 else
+                      0.02 * torch.randn(p.shape, generator=gen),
+                      get_model(cfg).init(gen, device="cpu"))
+    params = map_tree(lambda _, p: p.cuda(), params)
+    rng = np.random.default_rng(1)
+    reqs = [Request(rng.integers(0, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=b) for n, b in ((19, 6), (5, 9), (11, 4))]
+    kw = dict(freeze=True, slots=2, max_len=32, kv_bits=kv_bits,
+              prefill_chunk=chunk)
+    bg.reset_launches()
+    got = ServingEngine(cfg, params, **kw).generate(reqs)
+    assert (bg.launches["binary_gemm_fused"] > 0) == (cfg.mlp == "sq_relu")
     want = ServingEngine(cfg, params, kernel_path="ref", **kw).generate(reqs)
     for a, b in zip(got, want, strict=True):
         np.testing.assert_array_equal(a, b)

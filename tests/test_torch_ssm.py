@@ -399,11 +399,11 @@ def test_engine_options_behave_as_jax_for_ssm(models, jax_engine):
 def test_ssm_path_runs_the_plain_scan_on_cpu_and_unported_families_raise(
         models):
     """On the CPU, path 'auto' (kernel 10's wrapper) and 'ref' give the same
-    tokens and launch nothing; the other families still raise, and the
-    transformer's serving check stays dense-only. Whole-prompt prefill
-    serves: `Model.prefill` gives the logits of the last chunk of a chunked
-    admission of the same prompt, and the whole-prompt engine the chunked
-    engine's tokens."""
+    tokens and launch nothing; the moe and vlm families still raise, and
+    the transformer's serving check refuses the ssm family. Whole-prompt
+    prefill serves: `Model.prefill` gives the logits of the last chunk of a
+    chunked admission of the same prompt, and the whole-prompt engine the
+    chunked engine's tokens."""
     _, cfg, _, _, pp, _ = models
     reqs = [Request(p, max_new_tokens=b) for p, b in _traffic(2)[:2]]
     ss.reset_launches()
@@ -413,7 +413,7 @@ def test_ssm_path_runs_the_plain_scan_on_cpu_and_unported_families_raise(
     for a, b in zip(auto, ref, strict=True):
         np.testing.assert_array_equal(a, b)
     assert ss.launches["selective_scan"] == 0
-    for family in ("moe", "audio", "vlm"):
+    for family in ("moe", "vlm"):
         with pytest.raises(NotImplementedError):
             get_model(cfg.scaled(family=family))
     frozen = ServingEngine(cfg, pp, freeze=True, **ENGINE).params
