@@ -54,7 +54,17 @@ Phases, each of which raises on failure (nothing is caught):
                on its words (K 24,576); kernels 6-9 at each family's head
                layout (Hkv 8 G 8 hd 128, Hkv 8 G 6, Hkv 32 G 1 hd 64;
                lengths 1, 17, 512, 300; paged equal to contiguous and to
-               the plain versions); kernel 5 at their packs and K|V rows
+               the plain versions); kernel 5 at their packs and K|V rows;
+               at the MoE configs' shapes (dbrx-132b, llama4-scout): kernel
+               1's batched entry ((E, C, KW) x (E, N, KW), every expert in
+               one launch) at both configs' gate|up and down at C 1, 2,
+               10, 15 and 62 and ragged cases (E 3, K off a word, KW % 4
+               != 0, C 9 and 33), each call's last capacity row all zero
+               (an empty slot's all-ones words); kernel 5 at the (E C, D |
+               F) packs; kernels 6-9 at G 6 and G 5, hd 128; a decode row
+               of cache_len 0 weighs every position of its row alike (the
+               JAX oracle's all-masked softmax), bit for bit with the
+               plain version
   4. mlp     - bnn-mnist (784-1024x3-10) frozen, batches of 200 through the
                kernels; hidden words and scores equal the plain path's, the
                fp32-master path's, and the CPU's on a small batch
@@ -193,9 +203,24 @@ Phases, each of which raises on failure (nothing is caught):
                and the default engine: decode tokens/s, TTFT, ITL, weight
                and cache bytes, peak memory, one profiled decode step with
                its kernel launches asserted
+  12. moe   - dbrx-132b (16 experts, top-4) and llama4-scout-17b-a16e (16
+               experts, top-1), frozen experts, router and norms drawn
+               N(0, 0.02^2), at full width, depth cut to 2, through phase
+               11's three engines against the plain versions (tokens
+               equal; per layer and call kernel 5 x3 (+1 at kv_bits=1:
+               the qkv pack, the dispatch buffer's for gate and up, the
+               hidden's), kernel 1 x6 (q, k, v and one batched launch for
+               each of gate, up and down), kernel 2 x1, attention x1), the
+               share of dropped routes printed per engine (not held: the
+               reference's semantics), generate_static against the plain
+               versions; the batched kernel 1 timed at the experts' shapes
+               and capacity rows beside its bound, plain version and
+               torch._int_mm / torch.bmm; each config at all its layers,
+               chunked kv_bits=1 and the default engine, as phase 11
 Launch counts are set to 0 just before each main path (mlp, cnn, lm, paged
 lm, default lm, train, ssm chunked and whole-prompt, hybrid chunked and
-default, each family's three engines) runs and read just after. The line before the last is
+default, each family's and each MoE config's three engines) runs and read
+just after. The line before the last is
 {"kernels": [...]} (ten kernels); the last line is {"ok": true, "device":
 {...}}. Weights, BN statistics and
 inputs are random from the seed; image inputs are multiples of 1/128 in
@@ -221,6 +246,7 @@ decode, chunk and 4,096-step prefill shapes.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import os
@@ -331,6 +357,13 @@ HYBRID_WRAP, HYBRID_MAX_LEN = (2100, 24), 2176
 FAMILY_ARCHS = ("deepseek-67b", "qwen2-72b", "nemotron-4-15b",
                 "musicgen-large")
 FAMILY_CHECK_DEPTH, FAMILY_ROWS = 2, (LM_SLOTS, LM_CHUNK, 200)
+# the MoE family, each at full width on phase 6's engine and traffic (the
+# dense families' helpers, depth FAMILY_CHECK_DEPTH where tokens are held to
+# the plain path); the batched kernel 1 checked at the experts' capacity
+# rows MOE_CAPS: a 4-slot decode step (1), llama4's and dbrx's 32-token
+# chunk (2, 10), and their 200-token prompts (15, 62); timed at MOE_TIMED
+MOE_ARCHS = ("dbrx-132b", "llama4-scout-17b-a16e")
+MOE_CAPS = (1, 2, 10, 15, 62)
 
 
 def smi(query: str) -> str:
@@ -875,10 +908,13 @@ def lm_kernel_checks(cfg, dev_gen, dev):
     check_equal("prefill S=1 vs decode",
                 pa.prefill_attention_packed(q, k, v, vs, lens, lens - 1),
                 da.decode_attention_packed(q, k, v, vs, lens))
-    zero = da.decode_attention_packed(q, k, v, vs, 0)
-    if not (zero == 0).all():
-        raise AssertionError("cache_len 0 must give 0")
-    print("check prefill S=1 equals decode; cache_len 0 gives 0")
+    flat = da.decode_attention_packed(q, k, v, vs, 0)
+    plain = da.decode_attention_packed_plain(q, k, v, vs, 0)
+    if not torch.equal(flat, plain) or not (flat != 0).any():
+        raise AssertionError("cache_len 0 must weigh the whole row alike, "
+                             "as the plain version")
+    print("check prefill S=1 equals decode; cache_len 0 weighs every "
+          "position alike, equal to the plain version bit for bit")
     return err
 
 
@@ -1279,8 +1315,11 @@ def lm_long_decode_checks(cfg, dev_gen, seed, dev, sms):
                 if not torch.equal(other, got):
                     raise AssertionError(f"{what}: {name} differs from "
                                          "contiguous with dots")
-            if not (got[kv == 0] == 0).all():
-                raise AssertionError(f"{what}: a cache_len 0 row is not 0")
+            flat = kv == 0
+            if not (torch.equal(got[flat], want[flat])
+                    and (got[flat] != 0).any() | ~flat.any()):
+                raise AssertionError(f"{what}: a cache_len 0 row differs from "
+                                     "the plain version's whole-row mean")
             e = check_close(what, got, want, dtype)
             for kn in err:
                 err[kn] = max(err[kn], e)
@@ -2998,8 +3037,11 @@ def hybrid_kernel_checks(cfg, dev_gen, dev, sms):
                 raise AssertionError(f"{what}: dots differ")
             if not torch.equal(served, got):
                 raise AssertionError(f"{what}: the call without dots differs")
-            if not (got[kv == 0] == 0).all():
-                raise AssertionError(f"{what}: a cache_len 0 row is not 0")
+            flat = kv == 0
+            if not (torch.equal(got[flat], want[flat])
+                    and (got[flat] != 0).any() | ~flat.any()):
+                raise AssertionError(f"{what}: a cache_len 0 row differs from "
+                                     "the plain version's whole-row mean")
             e = check_close(what, got, want, dtype)
             err = max(err, e)
             print(f"check decode_attention_packed {str(dtype)[6:]:8s} hybrid "
@@ -3567,12 +3609,19 @@ def family_per_call(cfg) -> dict:
     (shared pack) or sq_relu's w_down (on kernel 3's words); kernel 2 for
     wo and the GLU's w_down or gelu's w_up and w_down; kernel 3 for
     sq_relu's w_up; kernel 5 for the Q/K/V pack, the GLU's pack and, at
-    kv_bits=1, the K|V rows into the cache."""
+    kv_bits=1, the K|V rows into the cache. The MoE FFN: kernel 5 packs
+    the dispatch buffer once for gate and up and the hidden once, and each
+    of gate, up and down is one batched launch of kernel 1 over the
+    experts."""
+    kv1 = int(cfg.kv_bits == 1)
+    if cfg.n_experts:
+        return {"binary_gemm_packed": 6, "binary_gemm_packed_rhs": 1,
+                "binary_gemm_fused": 0, "pack_bits": 3 + kv1}
     glu, fused = cfg.mlp in ("swiglu", "geglu"), cfg.mlp == "sq_relu"
     return {"binary_gemm_packed": 3 + (2 if glu else int(fused)),
             "binary_gemm_packed_rhs": 1 + (1 if glu else 0 if fused else 2),
             "binary_gemm_fused": int(fused),
-            "pack_bits": 1 + int(glu) + int(cfg.kv_bits == 1)}
+            "pack_bits": 1 + int(glu) + kv1}
 
 
 def family_expected(cfg, layers, calls, chunks, steps, paged) -> dict:
@@ -3603,6 +3652,30 @@ def randomize_norms_and_biases(params, gen):
     return map_tree(leaf, params)
 
 
+@contextlib.contextmanager
+def moe_drops(out):
+    """Within the block, each MoE FFN call appends (its share of dropped
+    routes, its routes) to `out`: a wrapper of `models.transformer`'s
+    `moe_ffn` (it reads each call's drop_frac, a host sync: check runs
+    only). A dense stack's calls never reach it."""
+    from unittest import mock
+    from repro_torch.models import transformer as T
+    real = T.moe_ffn
+
+    def wrapped(params, x, kind, mode, *, top_k, **kw):
+        y, aux = real(params, x, kind, mode, top_k=top_k, **kw)
+        out.append((float(aux["drop_frac"]), x.shape[0] * x.shape[1] * top_k))
+        return y, aux
+    with mock.patch.object(T, "moe_ffn", wrapped):
+        yield
+
+
+def drop_share(drops) -> float:
+    """Dropped routes over all routes of the calls `moe_drops` recorded."""
+    total = sum(n for _, n in drops)
+    return sum(f * n for f, n in drops) / total if total else 0.0
+
+
 def family_engine_check(base_cfg, seed, dev):
     """One family at full width, depth FAMILY_CHECK_DEPTH, frozen, norms
     and biases drawn non-zero, through three engines, each through the
@@ -3611,14 +3684,17 @@ def family_engine_check(base_cfg, seed, dev):
     traffic (the main path), the default engine (whole prompt, float
     cache) on the same, and paged kv_bits=1 with the prefix cache on the
     shared-prefix traffic (prefix hits >= 1); then generate_static on 4
-    prompts of 64. Returns the three runs' launches summed, and a report."""
+    prompts of 64. A MoE prints each kernel run's share of dropped routes
+    (`moe_drops`; nothing holds it: it is the reference's semantics).
+    Returns the three runs' launches summed, and a report."""
     from repro_torch.models.api import get_model
     from repro_torch.serving.engine import Request, ServingEngine
     cfg = base_cfg.scaled(n_layers=FAMILY_CHECK_DEPTH)
     gen = torch.Generator(device=dev).manual_seed(seed + 30)
     frozen = randomize_norms_and_biases(
         get_model(cfg).init_frozen(gen, device=dev), gen)
-    w_up = frozen["blocks"]["ffn"]["w_up"]
+    ffn = frozen["blocks"]["ffn"]
+    w_up = ffn["experts"]["w_up"] if cfg.n_experts else ffn["w_up"]
     if (w_up.fold == "act:sq_relu") != (cfg.mlp == "sq_relu"):
         raise AssertionError(f"{cfg.name}: w_up fold {w_up.fold!r}")
     prompts = lm_traffic(seed, cfg.vocab)
@@ -3637,8 +3713,10 @@ def family_engine_check(base_cfg, seed, dev):
         reqs = [Request(p, max_new_tokens=LM_NEW) for p in traffic]
         eng = ServingEngine(cfg, frozen, **base, **kw)
         sched = eng.scheduler()
+        drops = []
         reset_all_launches()
-        comps = eng.serve(reqs)
+        with moe_drops(drops):
+            comps = eng.serve(reqs)
         torch.cuda.synchronize()
         counts = all_launches()
         steps = sched.stats["decode_steps"]
@@ -3669,11 +3747,16 @@ def family_engine_check(base_cfg, seed, dev):
         rep[name] = {"launches": counts, "forward_calls": calls,
                      "decode_steps": steps,
                      "prefix_hits": sched.stats.get("prefix_hits", 0)}
+        drop_note = ""
+        if cfg.n_experts:
+            rep[name]["drop_frac"] = drop_share(drops)
+            drop_note = (f"; routes dropped {rep[name]['drop_frac']:.4f} of "
+                         f"{sum(n for _, n in drops)}")
         print(f"{cfg.name} engine check, {name}: tokens equal the plain "
               f"path's; {calls} forward calls ({chunks or len(traffic)} "
               f"{'chunks' if chunked else 'prompts'}, {steps} decode steps)"
               f", per layer and call {family_per_call(eng.cfg)}; launches "
-              f"{ {kn: n for kn, n in counts.items() if n} }")
+              f"{ {kn: n for kn, n in counts.items() if n} }{drop_note}")
         del eng, sched
     rng = np.random.default_rng(seed + 13)
     static = [Request(rng.integers(0, cfg.vocab, 64).astype(np.int32),
@@ -3686,9 +3769,11 @@ def family_engine_check(base_cfg, seed, dev):
             raise AssertionError(f"{cfg.name} generate_static request {i}: "
                                  f"kernel tokens {a.tolist()} != plain "
                                  f"{b.tolist()}")
+    experts = (f", {cfg.n_experts} experts top-{cfg.top_k} at capacity "
+               f"factor {cfg.capacity_factor}" if cfg.n_experts else "")
     print(f"{cfg.name} engine check: full width (d {cfg.d_model}, "
           f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of "
-          f"{cfg.head_dim}, d_ff {cfg.d_ff}, {cfg.mlp}, {cfg.norm}, "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}{experts}, {cfg.mlp}, {cfg.norm}, "
           f"{cfg.pos}{', QKV bias' if cfg.qkv_bias else ''}), depth "
           f"{FAMILY_CHECK_DEPTH} (cut from {base_cfg.n_layers}); "
           f"generate_static on 4 prompts of 64 equals the plain path's")
@@ -3757,7 +3842,8 @@ def family_timed_run(cfg, seed, dev, card):
         print_serve_report(rep)
         print(f"  resident weights: binary {w['binary'] / 1e9:.4f} GB, other "
               f"{w['other'] / 1e9:.4f} GB (embedding, bf16 head, norms, "
-              f"biases); cache {c['packed'] / 1e6:.2f} MB packed + "
+              f"biases{', routers' if cfg.n_experts else ''}); cache "
+              f"{c['packed'] / 1e6:.2f} MB packed + "
               f"{c['float'] / 1e6:.2f} MB float (a bf16 cache "
               f"{bf16_cache / 1e6:.2f} MB)")
         print_trace(f"trace {cfg.name} decode step ({name}, depth "
@@ -3843,6 +3929,180 @@ def family_phase(seed, dev, card, dev_gen, popc_per_s, sms):
                                               card)
         print(f"{arch} timed: {time.perf_counter() - t1:.1f} s")
     print(f"phase 11 (dense families): {time.perf_counter() - t0:.1f} s")
+    return launches, rep
+
+
+# ---------------------------------------------------------------------------
+# The MoE family: dbrx-132b (16 experts, top-4) and llama4-scout-17b-a16e
+# (16 experts, top-1), frozen experts through the batched kernel 1
+# ---------------------------------------------------------------------------
+def moe_caps(cfg) -> dict:
+    """The experts' capacity rows C = max(1, T k cf // E) of the main
+    paths' calls: a 4-slot decode step, a 32-token chunk, a 200-token
+    prompt (batch-global: every row of the call counts)."""
+    return {where: int(max(1, (t * cfg.top_k * cfg.capacity_factor)
+                           // cfg.n_experts))
+            for where, t in (("decode", LM_SLOTS), ("chunk", LM_CHUNK),
+                             ("prompt", 200))}
+
+
+def expert_operands(gen, e, c, k, n):
+    """Packed (E, C, KW) capacity rows, the last of each expert all zero
+    (an empty slot: all-ones words), and packed (E, N, KW) weights."""
+    from repro_torch.core.bitpack import pack_bits
+    x = torch.randn(e, c, k, generator=gen, device=gen.device)
+    x[:, -1] = 0.0
+    return pack_bits(x), pack_bits(torch.randn(e, n, k, generator=gen,
+                                               device=gen.device))
+
+
+def expert_shapes(cfgs):
+    """(E, K, N, what) of each MoE config's expert projections: gate and
+    up (d_model -> d_ff) share a shape, and down (d_ff -> d_model)."""
+    out = []
+    for cfg in cfgs:
+        short = cfg.name.split("-")[0]
+        out += [(cfg.n_experts, cfg.d_model, cfg.d_ff, f"{short}.gate|up"),
+                (cfg.n_experts, cfg.d_ff, cfg.d_model, f"{short}.down")]
+    return out
+
+
+def moe_kernel_checks(cfgs, dev_gen, seed, dev, sms):
+    """Phase 3 at the MoE configs' shapes: the batched kernel 1 against
+    its plain version, tolerance 0, one launch a call, at each config's
+    expert projections and MOE_CAPS capacity rows, and at ragged cases (E
+    3: K off a word at C 9, the small-M kernel; K off a word with KW % 4
+    != 0, which takes the tiles, at C 9 and at C 33 past the small-M edge);
+    every call's last capacity row all zero. Then kernel 5 at the (E C,
+    D | F) packs of the dispatch buffer and the hidden, and the attention
+    kernels 6-9 at the configs' head layouts (`family_attention_checks`).
+    Returns the largest error of each kernel."""
+    bg = lm_modules()[0]
+    cases = [(e, c, k, n, what) for e, k, n, what in expert_shapes(cfgs)
+             for c in MOE_CAPS]
+    cases += [(3, c, k, 77, "ragged") for c, k in ((9, 1000), (9, 1050),
+                                                   (33, 1050))]
+    for e, c, k, n, what in cases:
+        a, b = expert_operands(dev_gen, e, c, k, n)
+        before = bg.launches["binary_gemm_packed"]
+        got = bg.binary_gemm_packed(a, b, k)
+        torch.cuda.synchronize()
+        if bg.launches["binary_gemm_packed"] - before != 1:
+            raise AssertionError(f"batched kernel 1 ({e},{c},{k},{n}): not "
+                                 f"one launch")
+        d = max_abs_diff(got, bg.binary_gemm_packed_plain(a, b, k),
+                         words=False)
+        p = bg.gemm_plan("binary_gemm_packed", c, n, k, sms, batch=e)
+        print(f"check binary_gemm_packed batched E={e:2d} C={c:3d} K={k:5d} "
+              f"N={n:5d} {what:14s} "
+              f"{'small-M b1' if p.small_m else 'TC tiles'} split {p.split} "
+              f"blocks {p.blocks}  max_abs_err={d}")
+        if d:
+            raise AssertionError(f"batched kernel 1 ({e},{c},{k},{n}) "
+                                 f"differs from its plain version by {d}")
+        del a, b, got
+    packs = sorted({(cfg.n_experts * c, dim, f"{cfg.name.split('-')[0]} "
+                     f"E*C{c}") for cfg in cfgs
+                    for c in moe_caps(cfg).values()
+                    for dim in (cfg.d_model, cfg.d_ff)})
+    err = {"binary_gemm_packed": 0, "pack_bits": pack_checks(packs, dev_gen,
+                                                             dev)}
+    err.update(family_attention_checks(cfgs, dev_gen, seed, dev, sms))
+    return err
+
+
+def moe_gemm_times(cfgs, dev_gen, popc_per_s, sms):
+    """The batched kernel 1 at each config's expert projections and its
+    main paths' capacity rows (`moe_caps`): device ms beside its plain
+    version, the bound (E times one GEMM's: `bound`) and a library call:
+    torch._int_mm on +-1 int8, one call per expert, where its shape rules
+    allow (C > 16), else one float32 torch.bmm of +-1 operands (exact: the
+    dots are integers below 2^24, TF32 off). Not in the kernels line."""
+    from repro_torch.core.bitpack import unpack_bits
+    bg = lm_modules()[0]
+    rows = []
+    for cfg in cfgs:
+        caps = moe_caps(cfg)
+        for e, k, n, what in expert_shapes([cfg]):
+            for where, c in caps.items():
+                a, b = expert_operands(dev_gen, e, c, k, n)
+                xs, ws = unpack_bits(a, k), unpack_bits(b, k)   # +-1 float
+                if c > 16 and k % 8 == 0 and n % 8 == 0:
+                    xi = xs.to(torch.int8)
+                    wi = [ws[i].to(torch.int8).t() for i in range(e)]
+                    lib_name = f"torch._int_mm x{e}"
+
+                    def lib(xi=xi, wi=wi):
+                        return [torch._int_mm(xi[i], wi[i])
+                                for i in range(len(wi))]
+                else:
+                    wt = ws.transpose(1, 2).contiguous()
+                    lib_name = "torch.bmm fp32"
+
+                    def lib(xs=xs, wt=wt):
+                        return torch.bmm(xs, wt)
+                want = bg.binary_gemm_packed(a, b, k)
+                got = lib()
+                got = torch.stack(got) if isinstance(got, list) else got
+                check_equal(f"{lib_name} vs batched kernel 1 {what} "
+                            f"{where}", got.to(torch.int32), want)
+                one = bound("binary_gemm_packed", "packed", c, k, n,
+                            popc_per_s)
+                row = {"kernel": "binary_gemm_packed", "E": e, "C": c,
+                       "K": k, "N": n, "where": f"{what} {where}",
+                       "library": lib_name,
+                       **shape_times(lambda: bg.binary_gemm_packed(a, b, k),
+                                     "binary_gemm_packed",
+                                     lambda: bg.binary_gemm_packed_plain(
+                                         a, b, k), lib),
+                       **{key: e * one[key] for key in
+                          ("bytes", "popc", "bytes_ms", "popc_ms",
+                           "int8_tc_ms", "ops_ms", "bound_ms")}}
+                p = bg.gemm_plan("binary_gemm_packed", c, n, k, sms, batch=e)
+                row["plan"] = (f"{'small-M b1' if p.small_m else 'TC tiles'}"
+                               f" split {p.split} blocks {p.blocks}")
+                rows.append(row)
+                del a, b, xs, ws, got, want
+    return rows
+
+
+def moe_phase(seed, dev, card, dev_gen, popc_per_s, sms):
+    """Phase 12: each MoE config at full width and depth FAMILY_CHECK_DEPTH
+    through three engines against the plain versions, launches held per
+    layer and call (`family_engine_check`, `family_per_call`), the share
+    of dropped routes printed per engine; the batched kernel 1 timed at the
+    experts' shapes; then each config's timed run at all its layers
+    (`family_timed_run`). Returns (the depth-2 runs' launches summed,
+    report)."""
+    from repro_torch.configs.base import get_config
+    t0 = time.perf_counter()
+    launches = {kn: 0 for kn in REPLACES}
+    rep = {"check": {}, "timed": {}}
+    for arch in MOE_ARCHS:
+        counts, rep["check"][arch] = family_engine_check(get_config(arch),
+                                                         seed, dev)
+        for kn in REPLACES:
+            launches[kn] += counts[kn]
+    print(f"phase 12 checks: {time.perf_counter() - t0:.1f} s")
+    cfgs = [get_config(arch) for arch in MOE_ARCHS]
+    rows = moe_gemm_times(cfgs, dev_gen, popc_per_s, sms)
+    print(f"moe expert gemm times on {card} (batched kernel 1, every expert "
+          f"in one launch; ms, as phase 7; bound = E x one expert's; not in "
+          f"the kernels line):")
+    for r in rows:
+        print(f"  {r['where']:26s} E={r['E']} C={r['C']:3d} K={r['K']:5d} "
+              f"N={r['N']:5d} kernel {r['ms']:.4f} (wrapper "
+              f"{r['wrapper_ms']:.4f})  plain {r['plain_ms']:.3f}  "
+              f"{r['library']} {r['library_ms']:.4f} (wall "
+              f"{r['library_wall_ms']:.4f})  bound {r['bound_ms']:.4f} "
+              f"({bound_by(r)})  {r['plan']}")
+    rep["expert_gemms"] = rows
+    for arch in MOE_ARCHS:
+        t1 = time.perf_counter()
+        rep["timed"][arch] = family_timed_run(get_config(arch), seed, dev,
+                                              card)
+        print(f"{arch} timed: {time.perf_counter() - t1:.1f} s")
+    print(f"phase 12 (moe): {time.perf_counter() - t0:.1f} s")
     return launches, rep
 
 
@@ -4039,6 +4299,10 @@ def main() -> int:
     # the other dense-stack families' GEMMs at decode, chunk and prompt rows
     fam_cfgs = [get_config(arch) for arch in FAMILY_ARCHS]
     checks += family_gemm_checks(fam_cfgs)
+    # the MoE configs' attention GEMMs (their FFN GEMMs are batched, below)
+    moe_cfgs = [get_config(arch) for arch in MOE_ARCHS]
+    checks += [ch for ch in family_gemm_checks(moe_cfgs)
+               if not ch[5].endswith((".gate", ".down"))]
     checks += [(*edge, "edge") for edge in REGIME_EDGES]
     checks += [("binary_gemm_packed", "packed", m, k, n, "edge")
                for m, k, n in PACKED_EDGES]
@@ -4088,6 +4352,9 @@ def main() -> int:
         pack_rows_checks(hybrid_pack_rows_cases(hyb_cfg), dev_gen, dev))
     for kn, e in family_kernel_checks(fam_cfgs, dev_gen, args.seed, dev,
                                       sms).items():
+        err[kn] = max(err[kn], e)
+    for kn, e in moe_kernel_checks(moe_cfgs, dev_gen, args.seed, dev,
+                                   sms).items():
         err[kn] = max(err[kn], e)
     lap("phase 3 (kernels)")
 
@@ -4357,6 +4624,12 @@ def main() -> int:
     for kn in REPLACES:
         path_launches[kn] += family_launches[kn]
 
+    # ------------------------------------------------------------------ moe
+    moe_launches, report["moe"] = moe_phase(args.seed, dev, card, dev_gen,
+                                            popc_per_s, sms)
+    for kn in REPLACES:
+        path_launches[kn] += moe_launches[kn]
+
     kernels = []
     for kn in REPLACES:
         t = totals[kn]
@@ -4380,7 +4653,7 @@ def main() -> int:
                           "lm_paged": paged_launches,
                           "lm_default": default_launches, "ssm": ssm_launches,
                           "hybrid": hybrid_launches,
-                          "families": family_launches}
+                          "families": family_launches, "moe": moe_launches}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))
@@ -4399,9 +4672,10 @@ def main() -> int:
           f"the auto route's {TRAIN_STEPS} train steps, the depth-2 "
           "falcon-mamba runs (chunked and whole-prompt), the depth-5 "
           "recurrentgemma runs (chunked kv_bits=1 and the default engine) "
-          "and the depth-2 runs of deepseek-67b, qwen2-72b, nemotron-4-15b "
-          "and musicgen-large (chunked kv_bits=1, the default engine, "
-          "paged kv_bits=1 with the prefix cache)")
+          "and the depth-2 runs of deepseek-67b, qwen2-72b, nemotron-4-15b, "
+          "musicgen-large, dbrx-132b and llama4-scout-17b-a16e (chunked "
+          "kv_bits=1, the default engine, paged kv_bits=1 with the prefix "
+          "cache)")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s after the build")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -22,6 +22,8 @@ _ARCH_MODULES = ("repro_torch.configs.phi3_medium_14b",
                  "repro_torch.configs.qwen2_72b",
                  "repro_torch.configs.nemotron_4_15b",
                  "repro_torch.configs.musicgen_large",
+                 "repro_torch.configs.dbrx_132b",
+                 "repro_torch.configs.llama4_scout_17b_a16e",
                  "repro_torch.configs.falcon_mamba_7b",
                  "repro_torch.configs.recurrentgemma_2b")
 

@@ -1,6 +1,6 @@
 """Reduced same-family configs for CPU tests (a copy of
-`repro.configs.smoke` for the families the port serves: dense, audio,
-ssm and hybrid)."""
+`repro.configs.smoke` for the families the port serves: dense, moe,
+audio, ssm and hybrid)."""
 from __future__ import annotations
 
 import dataclasses
@@ -22,6 +22,9 @@ def smoke_config(name: str) -> ModelConfig:
                     local_window=8)
     elif cfg.family == "audio":
         over.update(n_layers=2, n_heads=4, n_kv_heads=4, vocab=128)
+    elif cfg.family == "moe":
+        over.update(n_layers=2, n_heads=4, n_kv_heads=2, n_experts=4,
+                    top_k=min(cfg.top_k, 2), capacity_factor=8.0)
     elif cfg.family == "dense":
         over.update(n_layers=2, n_heads=4, n_kv_heads=2)
     else:

@@ -34,7 +34,8 @@ _L = ctypes.c_longlong
 # so ctypes never cuts a 64-bit address to an int
 SIGNATURES = {
     "binary_gemm": {
-        "binary_gemm_packed": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "binary_gemm_packed": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _P],
         "binary_gemm_packed_rhs": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _I, _P],
         "binary_gemm_fused": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,

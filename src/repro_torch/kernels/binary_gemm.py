@@ -2,7 +2,9 @@
 and the dispatch the ops call (port of `repro.kernels.binary_gemm`).
 
   * `binary_gemm_packed` — packed (M, KW) lhs x packed (N, KW) rhs -> (M, N)
-    int32 dots. Replaces the TPU kernel `binary_gemm_vpu`.
+    int32 dots, or batched over a leading expert axis, (E, M, KW) x (E, N,
+    KW) -> (E, M, N) in one launch (the MoE FFN's experts). Replaces the
+    TPU kernel `binary_gemm_vpu`.
   * `binary_gemm_packed_rhs` — float32 or bf16 (M, K) lhs, signed inside
     the kernel, x packed rhs -> (M, N) int32. Replaces
     `binary_gemm_vpu_packed`.
@@ -35,9 +37,11 @@ SM count:
     small-M rows): int8 tensor-core tiles of 64 rows and 128 or 256
     channels, the packed words expanded to +-1 bytes in shared memory.
 
-Where any would launch too few blocks for the card, K is split over a
-thread-block cluster and the partial dots are summed through distributed
-shared memory, inside the same launch: every call is one launch. There is
+A batched call's grid holds E times a GEMM's blocks (the y axis is the
+expert): the plan counts them all. Where any would launch too few blocks
+for the card, K is split over a thread-block cluster and the partial dots
+are summed through distributed shared memory, inside the same launch:
+every call is one launch. There is
 no tuning cache and no fallback: a launch that fails raises.
 
 A wrapper launches its kernel on CUDA tensors, or raises; it runs the plain
@@ -120,7 +124,7 @@ def _packed_lhs_stride(ks: int) -> int:
 
 
 def gemm_plan(kernel: str, m: int, n: int, k: int, sms: int,
-              aligned: bool = True) -> GemmPlan:
+              aligned: bool = True, batch: int = 1) -> GemmPlan:
     """The fixed rule that picks each binary GEMM's kernel and its split.
 
     `binary_gemm_packed` at M <= SMALL_M_ROWS runs the packed small-M
@@ -132,7 +136,9 @@ def gemm_plan(kernel: str, m: int, n: int, k: int, sms: int,
     block keeps at least one 16-word group: a split adds a reduction
     through distributed shared memory, and on phi3's K|V 80 blocks beat
     160, `chip_smoke.py --gemm-scan-times`). Everything else runs the
-    tensor-core tiles as kernel 2's dots do (below).
+    tensor-core tiles as kernel 2's dots do (below). A batched call
+    (`batch` experts, kernel 1 only) counts the blocks of all its GEMMs:
+    `blocks` is the whole grid.
 
     `binary_gemm_packed_rhs`, and `binary_gemm_mxu` against its signed w
     (the same kernels with a float32 store), at M <= SMALL_M_ROWS, and
@@ -148,13 +154,16 @@ def gemm_plan(kernel: str, m: int, n: int, k: int, sms: int,
     are fewer than 1.5 per SM."""
     if kernel not in PLANNED:
         raise ValueError(f"no plan for {kernel}")
+    if batch != 1 and kernel != "binary_gemm_packed":
+        raise ValueError(f"{kernel} has no batched entry")
     dots = kernel != "binary_gemm_fused"
     kw = packed_width(k)
     if kernel == "binary_gemm_packed":
         if m <= SMALL_M_ROWS and kw % 4 == 0 and aligned:
             block_n = next((bn for bn in (256, 128, 64)
-                            if -(-n // bn) >= sms), _PK_WARP_N)
-            blocks, split, groups = -(-n // block_n), 1, -(-kw // _PK_GROUP)
+                            if batch * -(-n // bn) >= sms), _PK_WARP_N)
+            blocks = batch * -(-n // block_n)
+            split, groups = 1, -(-kw // _PK_GROUP)
             while (split < _CLUSTER_MAX and 2 * blocks * split < sms
                    and groups >= 2 * split):
                 split *= 2
@@ -169,7 +178,7 @@ def gemm_plan(kernel: str, m: int, n: int, k: int, sms: int,
         ks = -(-kw // (4 * split)) * 4
         if 4 * m * (ks + block_n) <= _SMEM_BYTES:
             return GemmPlan(True, split, block_n, blocks * split)
-    m_tiles = -(-m // _TC_BM)
+    m_tiles = batch * -(-m // _TC_BM)
     wide = m_tiles * -(-n // _TC_WIDE_BN)
     if dots and n > _TC_BN and 2 * wide >= 3 * sms:
         return GemmPlan(False, 1, _TC_WIDE_BN, wide)
@@ -179,10 +188,12 @@ def gemm_plan(kernel: str, m: int, n: int, k: int, sms: int,
 
 
 def _plan(kernel: str, a: torch.Tensor, b: torch.Tensor, k: int) -> GemmPlan:
+    """The plan of a call: a (M, ·) or (E, M, ·), b (N, KW) or (E, N, KW)."""
     aligned = b.data_ptr() % 16 == 0 and (
         kernel != "binary_gemm_packed" or a.data_ptr() % 16 == 0)
-    return gemm_plan(kernel, a.shape[0], b.shape[0], k, sm_count(a.device),
-                     aligned)
+    batch = a.shape[0] if a.ndim == 3 else 1
+    return gemm_plan(kernel, a.shape[-2], b.shape[-2], k, sm_count(a.device),
+                     aligned, batch)
 
 
 def _vec(a: torch.Tensor, k: int) -> int:
@@ -201,6 +212,14 @@ def _row_chunks(m: int, n: int, kw: int):
 # ---------------------------------------------------------------------------
 def binary_gemm_packed_plain(a: torch.Tensor, b: torch.Tensor,
                              k: int) -> torch.Tensor:
+    """(M, KW) x (N, KW) -> (M, N), or batched (E, M, KW) x (E, N, KW) ->
+    (E, M, N), expert by expert, each in row chunks."""
+    if a.ndim == 3:
+        out = torch.empty((a.shape[0], a.shape[1], b.shape[1]),
+                          dtype=torch.int32, device=a.device)
+        for e in range(a.shape[0]):
+            out[e] = binary_gemm_packed_plain(a[e], b[e], k)
+        return out
     starts, step = _row_chunks(a.shape[0], b.shape[0], b.shape[1])
     out = torch.empty((a.shape[0], b.shape[0]), dtype=torch.int32,
                       device=a.device)
@@ -279,17 +298,27 @@ def _launch(name: str, a: torch.Tensor, *args) -> None:
 def binary_gemm_packed(a: torch.Tensor, b: torch.Tensor,
                        k: int) -> torch.Tensor:
     """a: (M, KW) int32 words, b: (N, KW) int32 words -> (M, N) int32
-    sign-dot over the original K (pad bits cancel in the xor)."""
-    _check_operands(a, b, k, True)
+    sign-dot over the original K (pad bits cancel in the xor). Batched: a
+    (E, M, KW), b (E, N, KW) -> (E, M, N), expert e's rows against expert
+    e's weights, every expert in one launch."""
+    if a.ndim == 3 or b.ndim == 3:
+        if a.ndim != 3 or b.ndim != 3 or a.shape[0] != b.shape[0]:
+            raise ValueError(f"a batched call takes (E, M, KW) and (E, N, KW)"
+                             f" words, got {tuple(a.shape)} and "
+                             f"{tuple(b.shape)}")
+        _check_operands(a.flatten(0, 1), b.flatten(0, 1), k, True, a, b)
+    else:
+        _check_operands(a, b, k, True)
     if a.device.type == "cpu":
         return binary_gemm_packed_plain(a, b, k)
-    m, (n, kw) = a.shape[0], b.shape
-    out = torch.empty((m, n), dtype=torch.int32, device=a.device)
-    if m and n:
+    batch = a.shape[0] if a.ndim == 3 else 1
+    m, (n, kw) = a.shape[-2], b.shape[-2:]
+    out = torch.empty(a.shape[:-1] + (n,), dtype=torch.int32, device=a.device)
+    if batch and m and n:
         plan = _plan("binary_gemm_packed", a, b, k)
         _launch("binary_gemm_packed", a, a.data_ptr(), b.data_ptr(),
-                out.data_ptr(), m, n, kw, k, int(plan.small_m), plan.split,
-                plan.block_n)
+                out.data_ptr(), batch, m, n, kw, k, int(plan.small_m),
+                plan.split, plan.block_n)
     return out
 
 

@@ -35,8 +35,14 @@
 // terms lie in (2^-33, 1], so the sums are exact (or one double rounding
 // from it) in any order, and the kernels get the plain version's bits
 // though they sum in another order; where +-e_t cancel exactly the output
-// is exactly 0. A row with no valid position (cache_len 0: the scheduler's
-// inactive rows) outputs 0, never NaN.
+// is exactly 0. A decode row of cache_len 0 (the scheduler's inactive rows)
+// weighs every position of its row alike, as the JAX oracle's softmax over
+// all-masked scores does (e_t = exp(NEG_INF - NEG_INF) = 1 for all t < T):
+// out_d = v_scale * (sum_t sign(v_t,d) / T), over the whole row (paged:
+// through the table, sentinels clipped to page P-1). A MoE's inactive rows
+// take expert capacity, so their values reach the active rows. Any other
+// row with no valid position (a chunk's pad rows under a window) outputs
+// 0, never NaN.
 //
 // What bounds it on the card. Per (query row, position) the work is hd/32
 // xor+popc words for the score and hd adds for V. A decode step reads
@@ -243,7 +249,11 @@ attention_kernel(const T* __restrict__ q,           // (B, S, Hq, hd)
   const int b = blk / (geo.n_qb * geo.hkv);
   const int i0 = qb * geo.bq, i1 = min(geo.s, i0 + geo.bq);
   const int hq = geo.hkv * g;
-  const int len = kv_len ? kv_len[b] : kv_len0;
+  const int len0 = kv_len ? kv_len[b] : kv_len0;
+  // a decode row of length 0 reads its whole row, every position weighing 1
+  const bool flat = geo.decode && len0 == 0;
+  const int len = flat ? geo.t : len0;
+  const int window = flat ? 0 : geo.window;
   const int qp = geo.decode ? len - 1 : (q_pos ? q_pos[b] : q_pos0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long long kv_row = static_cast<long long>(geo.hkv) * hdw;
@@ -315,7 +325,7 @@ attention_kernel(const T* __restrict__ q,           // (B, S, Hq, hd)
   };
 
   const Span mine = rank_span(
-      block_span(len, qp, i0, i1, geo.t, geo.causal, geo.window), split, rank);
+      block_span(len, qp, i0, i1, geo.t, geo.causal, window), split, rank);
   // the share held whole: K and V words of position lo + j at j * hdw
   const bool held = !dots && mine.hi - mine.lo <= geo.hold;
   uint32_t* kh = kvw;
@@ -339,7 +349,7 @@ attention_kernel(const T* __restrict__ q,           // (B, S, Hq, hd)
       if (dots)
         dots[(((static_cast<long long>(b) * geo.hkv + h) * geo.s + i) * g +
               r % g) * geo.t + t] = d;
-      if (is_valid(t, len, qp + i, geo.causal, geo.window)) mx = max(mx, d);
+      if (is_valid(t, len, qp + i, geo.causal, window)) mx = max(mx, d);
     }
   };
   if (held) {
@@ -382,9 +392,11 @@ attention_kernel(const T* __restrict__ q,           // (B, S, Hq, hd)
     for (int j = warp * pp + sub; j < n4; j += kWarps * pp) {
       const int t = p + j;
       float e = 0.f;
-      if (live && j < n && is_valid(t, len, qp + i, geo.causal, geo.window)) {
-        const float sc = __fmul_rn(static_cast<float>(dot_at(kw + j * hdw)),
-                                   geo.scale);
+      if (live && j < n && is_valid(t, len, qp + i, geo.causal, window)) {
+        const float sc =
+            flat ? m
+                 : __fmul_rn(static_cast<float>(dot_at(kw + j * hdw)),
+                             geo.scale);
         e = expf(__fsub_rn(sc, m));
       }
       et[j * kES + r] = e;

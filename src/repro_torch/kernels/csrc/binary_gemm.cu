@@ -40,6 +40,13 @@
 // over a cluster and the partial counts are summed through distributed
 // shared memory, as below.
 //
+// Batched (binary_gemm_packed over E experts: the MoE FFN's gate, up and
+// down, a (E, C, KW) lhs of capacity rows against (E, N, KW) expert
+// weights). One launch for all experts: the grid's y axis is the expert,
+// and each block offsets a, b and out by its expert's matrices; the kernel
+// and split are the ones `gemm_plan` picks for the E x blocks of the grid
+// (small M at C <= 32, the tensor-core tiles above).
+//
 // Small M (binary_gemm_packed_rhs and binary_gemm_mxu at M <= 32, and
 // binary_gemm_fused at the few rows `gemm_plan` gives it: the LM's decode
 // and chunk rows, nemotron's up-projection). The weights bound it: (N, KW)
@@ -319,6 +326,11 @@ small_m_packed_kernel(const uint32_t* __restrict__ a,
   const int nwords = max(0, min(ks, kw - w0));   // a multiple of 4
   const int groups = (nwords + kPkGroup - 1) / kPkGroup;
 
+  // the batch's matrices (blockIdx.y: a batched call's expert)
+  const long long eb = blockIdx.y;
+  a += eb * m * kw;
+  b += eb * n * kw;
+  out += eb * m * n;
   const int c_loc = (warp / kp) * kPkWarpN;     // the warp's first channel
   const int kpart = warp % kp;
   const uint32_t* bp[kPkTiles][2];
@@ -537,6 +549,11 @@ tc_gemm_kernel(const TA* __restrict__ a, const uint32_t* __restrict__ b,
   const int t = lane & 3;                  // thread in group: k word
   const int wm = warp >> 2;                // warp's 32-row slab
   const int wn = warp & 3;                 // warp's 32-channel slab
+  // the batch's matrices (blockIdx.y: a batched call's expert)
+  const long long eb = blockIdx.y;
+  a += eb * m * (kPackedLhs ? kw : k);
+  b += eb * n * kw;
+  out += eb * m * (kFused ? (n + 31) / 32 : n);
   const int tile = static_cast<int>(blockIdx.x / split);
   const int m0 = (tile / n_tiles) * kTcBM;
   const int n0 = (tile % n_tiles) * kBN;
@@ -759,15 +776,15 @@ int small_m_rows(const void* a, bool vec, const void* b, const void* thresh,
 }
 
 template <int kRows>
-int launch_small_m_packed(const void* a, const void* b, void* out, int m,
-                          int n, int kw, int k, int split, int block_n,
+int launch_small_m_packed(const void* a, const void* b, void* out, int batch,
+                          int m, int n, int kw, int k, int split, int block_n,
                           void* stream) {
   const int ks = (kw + 4 * split - 1) / (4 * split) * 4;
   const int smem = (m * packed_lhs_stride(ks) + m * block_n) * 4;
   const long long blocks =
       static_cast<long long>((n + block_n - 1) / block_n) * split;
-  return bnn::launch_cluster(small_m_packed_kernel<kRows>, blocks, kThreads,
-                             split, smem, stream,
+  return bnn::launch_cluster_batched(small_m_packed_kernel<kRows>, blocks,
+                                     batch, kThreads, split, smem, stream,
                              static_cast<const uint32_t*>(a),
                              static_cast<const uint32_t*>(b),
                              static_cast<int32_t*>(out), m, n, kw, k, ks,
@@ -775,42 +792,43 @@ int launch_small_m_packed(const void* a, const void* b, void* out, int m,
 }
 
 // the small-M packed kernel at m <= 32 (1 to 4 n8 tiles of lhs rows)
-int small_m_packed(const void* a, const void* b, void* out, int m, int n,
-                   int kw, int k, int split, int block_n, void* stream) {
+int small_m_packed(const void* a, const void* b, void* out, int batch, int m,
+                   int n, int kw, int k, int split, int block_n,
+                   void* stream) {
   if (m > kSmallMaxRows || kw % 4 != 0 || block_n % kPkWarpN != 0 ||
       kWarps * kPkWarpN % block_n != 0 ||
       reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(b) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   switch ((m + 7) / 8) {
-    case 1: return launch_small_m_packed<8>(a, b, out, m, n, kw, k, split,
-                                            block_n, stream);
-    case 2: return launch_small_m_packed<16>(a, b, out, m, n, kw, k, split,
-                                             block_n, stream);
-    case 3: return launch_small_m_packed<24>(a, b, out, m, n, kw, k, split,
-                                             block_n, stream);
-    default: return launch_small_m_packed<32>(a, b, out, m, n, kw, k, split,
-                                              block_n, stream);
+    case 1: return launch_small_m_packed<8>(a, b, out, batch, m, n, kw, k,
+                                            split, block_n, stream);
+    case 2: return launch_small_m_packed<16>(a, b, out, batch, m, n, kw, k,
+                                             split, block_n, stream);
+    case 3: return launch_small_m_packed<24>(a, b, out, batch, m, n, kw, k,
+                                             split, block_n, stream);
+    default: return launch_small_m_packed<32>(a, b, out, batch, m, n, kw, k,
+                                              split, block_n, stream);
   }
 }
 
 template <typename TA, bool kVec, bool kFused, typename TO>
 int launch_tc(const void* a, const void* b, const void* thresh,
               const void* flip, void* out, int m, int n, int kw, int k,
-              int split, int block_n, void* stream) {
+              int split, int block_n, void* stream, int batch = 1) {
   const int n_tiles = (n + block_n - 1) / block_n;
   const long long blocks =
       static_cast<long long>((m + kTcBM - 1) / kTcBM) * n_tiles * split;
   const int stages = (kw + kTcSW - 1) / kTcSW;
   const int split_stages = (stages + split - 1) / split;
   const auto args = [&](auto kernel) {
-    return bnn::launch_cluster(kernel, blocks, kThreads, split, 0, stream,
-                               static_cast<const TA*>(a),
-                               static_cast<const uint32_t*>(b),
-                               static_cast<const int32_t*>(thresh),
-                               static_cast<const int32_t*>(flip),
-                               static_cast<TO*>(out), m, n, kw, k, n_tiles,
-                               split_stages);
+    return bnn::launch_cluster_batched(kernel, blocks, batch, kThreads, split,
+                                       0, stream, static_cast<const TA*>(a),
+                                       static_cast<const uint32_t*>(b),
+                                       static_cast<const int32_t*>(thresh),
+                                       static_cast<const int32_t*>(flip),
+                                       static_cast<TO*>(out), m, n, kw, k,
+                                       n_tiles, split_stages);
   };
   if (block_n == kTcBN)
     return args(tc_gemm_kernel<TA, kVec, kFused, kTcBN, TO>);
@@ -875,19 +893,23 @@ int float_lhs(const void* a, int lhs_kind, bool vec, const void* b, void* out,
 
 extern "C" {
 
-// a (m, kw) int32 words, b (n, kw) int32 words -> out (m, n) int32 dots.
-// small_m 1: the small-M kernel with block_n channels per block (32, 64,
-// 128 or 256; m <= 32, kw % 4 == 0, a and b 16-byte aligned); small_m 0:
-// tensor-core tiles of block_n channels (128, or 256 with split 1). split:
-// blocks per cluster along K, 1, 2, 4 or 8.
-int binary_gemm_packed(const void* a, const void* b, void* out, int m, int n,
-                       int kw, int k, int small_m, int split, int block_n,
-                       void* stream) {
-  if (m <= 0 || n <= 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
+// a (batch, m, kw) int32 words, b (batch, n, kw) int32 words -> out
+// (batch, m, n) int32 dots: matrix e of a against matrix e of b, every e in
+// one launch (batch 1: one GEMM). small_m 1: the small-M kernel with
+// block_n channels per block (32, 64, 128 or 256; m <= 32, kw % 4 == 0, a
+// and b 16-byte aligned); small_m 0: tensor-core tiles of block_n channels
+// (128, or 256 with split 1). split: blocks per cluster along K, 1, 2, 4
+// or 8.
+int binary_gemm_packed(const void* a, const void* b, void* out, int batch,
+                       int m, int n, int kw, int k, int small_m, int split,
+                       int block_n, void* stream) {
+  if (batch <= 0 || m <= 0 || n <= 0 || k < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (small_m)
-    return small_m_packed(a, b, out, m, n, kw, k, split, block_n, stream);
-  return tc_lhs<false>(0, false, a, b, nullptr, nullptr, out, m, n, kw, k,
-                       split, block_n, stream);
+    return small_m_packed(a, b, out, batch, m, n, kw, k, split, block_n,
+                          stream);
+  return launch_tc<uint32_t, false, false, int32_t>(
+      a, b, nullptr, nullptr, out, m, n, kw, k, split, block_n, stream, batch);
 }
 
 // a (m, k) float32 (lhs_kind 1) or bfloat16 (lhs_kind 2), b (n, kw) int32

@@ -85,14 +85,17 @@ constexpr int kMaxSplit = 8;       // portable cluster size, a power of 2
 constexpr int kSmemDefault = 48 * 1024;
 constexpr int kSmemMax = 227 * 1024;
 
-// One launch of `blocks` blocks of `threads` in clusters of `split` along x
-// (split 1, 2, 4 or 8), with `smem` bytes of dynamic shared memory; returns
+// One launch of `blocks` x `batch` blocks of `threads` in clusters of
+// `split` along x (split 1, 2, 4 or 8), with `smem` bytes of dynamic shared
+// memory; blockIdx.y is the batch index (a batched GEMM's expert); returns
 // the launch's CUDA error code
 template <typename... Params, typename... Args>
-int launch_cluster(void (*kernel)(Params...), long long blocks, int threads,
-                   int split, int smem, void* stream, Args... args) {
-  if (blocks <= 0 || blocks > 0x7fffffffLL || split < 1 ||
-      split > kMaxSplit || (split & (split - 1)) != 0 || smem > kSmemMax)
+int launch_cluster_batched(void (*kernel)(Params...), long long blocks,
+                           int batch, int threads, int split, int smem,
+                           void* stream, Args... args) {
+  if (blocks <= 0 || blocks > 0x7fffffffLL || batch < 1 || batch > 65535 ||
+      split < 1 || split > kMaxSplit || (split & (split - 1)) != 0 ||
+      smem > kSmemMax)
     return static_cast<int>(cudaErrorInvalidValue);
   if (smem > kSmemDefault) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -100,7 +103,8 @@ int launch_cluster(void (*kernel)(Params...), long long blocks, int threads,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks),
+                     static_cast<unsigned>(batch));
   cfg.blockDim = dim3(static_cast<unsigned>(threads));
   cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = static_cast<cudaStream_t>(stream);
@@ -114,6 +118,14 @@ int launch_cluster(void (*kernel)(Params...), long long blocks, int threads,
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of `blocks` blocks (a batch of 1), as above
+template <typename... Params, typename... Args>
+int launch_cluster(void (*kernel)(Params...), long long blocks, int threads,
+                   int split, int smem, void* stream, Args... args) {
+  return launch_cluster_batched(kernel, blocks, 1, threads, split, smem,
+                                stream, args...);
 }
 
 }  // namespace bnn

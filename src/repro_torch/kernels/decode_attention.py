@@ -71,7 +71,9 @@ def decode_attention_packed(q: torch.Tensor, k_packed: torch.Tensor,
     v_scale: (B, Hkv) float32; cache_len: int or (B,) valid positions (the
     new token already written at cache_len-1). Masks positions >= cache_len
     and, when window > 0, positions < cache_len - window; a row with
-    cache_len 0 outputs 0. Returns (B, 1, Hq, hd) in q.dtype, and with
+    cache_len 0 weighs all T positions alike, as the JAX oracle does
+    (`ref.packed_masked_attention_ref`). Returns (B, 1, Hq, hd) in q.dtype,
+    and with
     `return_dots` also the kernel's (B, Hkv, G, T) int32 score dots."""
     check_operands(q, k_packed, v_packed, v_scale)
     if q.shape[1] != 1:

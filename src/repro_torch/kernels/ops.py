@@ -120,6 +120,29 @@ def packed_matmul(x: torch.Tensor | PackedActivation, w: PackedWeight, *,
     return out.reshape(lead + (w.packed.shape[0],))
 
 
+def packed_matmul_experts(x: torch.Tensor | PackedActivation,
+                          w: PackedWeight, *, path: str = "auto"
+                          ) -> torch.Tensor:
+    """sign(x_e) @ frozen-sign(w_e) for every expert e: x (E, C, K) float,
+    or a PackedActivation of its (E, C, KW) words; w a PackedWeight whose
+    wire matrices are (E, N, KW). Returns (E, C, N) int32 from one batched
+    launch of kernel 1 ('auto'), or its plain version ('ref'). A float x is
+    sign-packed first (`PackedActivation.pack`: kernel 5 on 'auto')."""
+    if w.packed.ndim != 3:
+        raise ValueError(f"expert GEMMs take (E, N, KW) wire matrices, got "
+                         f"{w}")
+    if not isinstance(x, PackedActivation):
+        x = PackedActivation.pack(x, path=path)
+    if x.k != w.k:
+        raise ValueError(f"K mismatch: {x.k} vs {w.k}")
+    a = x.packed.contiguous()
+    if path == "auto":
+        return binary_gemm_packed(a, w.packed, w.k)
+    if path == "ref":
+        return binary_gemm_packed_plain(a, w.packed, w.k)
+    raise ValueError(path)
+
+
 def packed_matmul_fused(x: torch.Tensor | PackedActivation, w: PackedWeight,
                         *, thresh: torch.Tensor | None = None,
                         flip: torch.Tensor | None = None,

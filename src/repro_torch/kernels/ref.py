@@ -88,7 +88,9 @@ def packed_attention_dots(q: torch.Tensor, k_packed: torch.Tensor
 
 def packed_masked_attention_ref(q: torch.Tensor, k_packed: torch.Tensor,
                                 v_packed: torch.Tensor, v_scale: torch.Tensor,
-                                valid: torch.Tensor) -> torch.Tensor:
+                                valid: torch.Tensor,
+                                flat: torch.Tensor | None = None
+                                ) -> torch.Tensor:
     """Quantized multi-query attention core with an explicit (B, S, T)
     validity mask: pack -> popcount dot -> 1/sqrt(hd) -> NEG_INF mask ->
     max/exp/sum softmax -> +-1 V accumulated under v_scale.
@@ -103,9 +105,12 @@ def packed_masked_attention_ref(q: torch.Tensor, k_packed: torch.Tensor,
         the next projection). The JAX oracle sums in float32, and there
         keeps a residue whose sign depends on XLA's fusion order (ROADMAP
         Queue C);
-      * a row with no valid position outputs 0 (the JAX oracle averages
-        every V row there; the scheduler's inactive rows are such rows and
-        their outputs are discarded).
+      * a row with no valid position outputs 0, except the rows of batch
+        rows that `flat` (B,) marks: every position of those weighs 1, as
+        in the JAX oracle's softmax over all-masked scores (exp(NEG_INF -
+        NEG_INF) = 1), so out = v_scale * (sum_t sign(v_t) / T). Decode
+        marks its rows of cache_len 0, the scheduler's inactive rows: a
+        MoE's inactive rows take expert capacity, so their values count.
     q: (B, S, Hq, hd) float; k_packed/v_packed: (B, T, Hkv, hdw) int32;
     v_scale: (B, Hkv) float. Returns (B, S, Hq, hd) in q.dtype."""
     b, t, hkv, _ = k_packed.shape
@@ -116,6 +121,10 @@ def packed_masked_attention_ref(q: torch.Tensor, k_packed: torch.Tensor,
                                                dtype=torch.float32)
     vmask = valid[:, None, :, None, :]
     sc = torch.where(vmask, sc, torch.full_like(sc, NEG_INF))
+    if flat is not None:
+        every = flat.reshape(b, 1, 1, 1, 1)
+        sc = torch.where(every, torch.zeros_like(sc), sc)
+        vmask = vmask | every
     m = sc.amax(dim=-1, keepdim=True)
     e = torch.where(vmask, torch.exp(sc - m), torch.zeros_like(sc))
     # both sums in float64, where they are exact (see the docstring), then
@@ -149,17 +158,21 @@ def chunk_valid_mask(b: int, s: int, t: int, kv_len, q_pos, window: int,
 def prefill_attention_packed_ref(q: torch.Tensor, k_packed: torch.Tensor,
                                  v_packed: torch.Tensor, v_scale: torch.Tensor,
                                  kv_len, q_pos, *, window: int = 0,
-                                 causal: bool = True) -> torch.Tensor:
+                                 causal: bool = True,
+                                 flat: torch.Tensor | None = None
+                                 ) -> torch.Tensor:
     """Oracle for kernels.prefill_attention.prefill_attention_packed: S
     float queries at global positions q_pos..q_pos+S-1 against the packed
     cache (their own rows already written), causal triangle and optional
     window fused into the mask. q: (B, S, Hq, hd); k/v: (B, T, Hkv, hdw)
     int32; v_scale: (B, Hkv); kv_len, q_pos: int or (B,). With S == 1 and
-    q_pos == kv_len - 1 this is decode_attention_packed_ref."""
+    q_pos == kv_len - 1 (and `flat` the rows of kv_len 0) this is
+    decode_attention_packed_ref."""
     b, t = k_packed.shape[0], k_packed.shape[1]
     valid = chunk_valid_mask(b, q.shape[1], t, kv_len, q_pos, window, causal,
                              device=q.device)
-    return packed_masked_attention_ref(q, k_packed, v_packed, v_scale, valid)
+    return packed_masked_attention_ref(q, k_packed, v_packed, v_scale, valid,
+                                       flat)
 
 
 def decode_attention_packed_ref(q: torch.Tensor, k_packed: torch.Tensor,
@@ -171,12 +184,14 @@ def decode_attention_packed_ref(q: torch.Tensor, k_packed: torch.Tensor,
         out     = v_scale * softmax(score)_t . sign(v_t)
 
     over positions t < cache_len (and t >= cache_len - window when
-    window > 0). q: (B, 1, Hq, hd) float; k/v: (B, T, Hkv, hdw) int32;
-    v_scale: (B, Hkv); cache_len: int or (B,)."""
+    window > 0); a row of cache_len 0 over all T positions, each weighing
+    1 (the JAX oracle's all-masked softmax). q: (B, 1, Hq, hd) float; k/v:
+    (B, T, Hkv, hdw) int32; v_scale: (B, Hkv); cache_len: int or (B,)."""
     b = k_packed.shape[0]
     lens = _per_row(cache_len, b, q.device)
     return prefill_attention_packed_ref(q, k_packed, v_packed, v_scale, lens,
-                                        lens - 1, window=window, causal=True)
+                                        lens - 1, window=window, causal=True,
+                                        flat=lens == 0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Family-dispatching model API used by the serving engine (port of
-`repro.models.api` for the dense and audio families, the Mamba stack,
+`repro.models.api` for the dense, moe and audio families, the Mamba stack,
 `ssm`, and the recurrentgemma hybrid, `hybrid`).
 
     model = get_model(cfg)
@@ -66,7 +66,9 @@ class Model:
         and the product is the same. A tied head is the embedding: it is
         cast once too (a cast commutes with the lookup's gather). A
         sq_relu FFN also gets its activation fold, so it serves
-        bit-resident (`models.common.ffn`), as the JAX package's does."""
+        bit-resident (`models.common.ffn`), as the JAX package's does; an
+        sq_relu MoE's experts get it too, and `moe_ffn` ignores it, as
+        there. A MoE's router stays float32."""
         self._check_freezable()
         return self._cast_head(self._freeze_tree(params))
 
@@ -137,7 +139,7 @@ def get_model(cfg: ModelConfig, *, path: str = "auto") -> Model:
                 S.rg_prefill_chunk(p, cfg, tokens, cache, slot, pos,
                                    n_valid, path=path),
         )
-    if cfg.family not in ("dense", "audio"):
+    if cfg.family not in ("dense", "moe", "audio"):
         raise NotImplementedError(f"{cfg.family} family is not ported yet "
                                   "(ROADMAP Queue A)")
     return Model(

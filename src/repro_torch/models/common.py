@@ -1,5 +1,5 @@
-"""Shared model components: RMSNorm, LayerNorm, RoPE, sinusoidal positions
-and the dense FFNs (port of the dense part of `repro.models.common`).
+"""Shared model components: RMSNorm, LayerNorm, RoPE, sinusoidal positions,
+the dense FFNs and the MoE sublayer (port of `repro.models.common`).
 
 Projections route through `core.layers.qmatmul`, so the paper's
 quantization is a config switch. `path` ('auto' | 'ref') picks the kernels
@@ -13,7 +13,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.layers import (
-    QuantMode, packed_qmatmul, packed_qmatmul_fused, qmatmul, shared_pack,
+    QuantMode, packed_qmatmul, packed_qmatmul_fused, qmatmul, quant_acts,
+    quant_weights, shared_pack,
 )
 from repro_torch.core.packed import PackedWeight
 
@@ -105,6 +106,119 @@ def ffn_param_shapes(d_model: int, d_ff: int, kind: str) -> dict:
     return {"w_up": (d_model, d_ff), "w_down": (d_ff, d_model)}
 
 
-def moe_ffn(*args, **kwargs):
-    raise NotImplementedError("the MoE FFN is not ported yet (ROADMAP "
-                              "Queue A, models/common.py)")
+# ---------------------------------------------------------------------------
+# MoE sublayer (capacity-based scatter dispatch, "dropping")
+# ---------------------------------------------------------------------------
+def top_k_lower_index(probs: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries of each row, equal values
+    in ascending index order, as `jax.lax.top_k` gives them (`torch.topk`
+    promises no order among ties): the first k of a stable descending
+    sort."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_route(router_w: torch.Tensor, xt: torch.Tensor, top_k: int,
+              capacity_factor: float) -> dict:
+    """The dispatch of T rows xt (T, D) over E experts, as the JAX package
+    computes it: router logits in float32, softmax, top-k (ties to the
+    lower expert), gates renormalised over the k; capacity C = max(1,
+    floor(T k cf / E)) shared by all T rows of the call; each route's
+    position in its expert's buffer counted over the routes flattened
+    token-major, k-minor; routes at position >= C are dropped. Returns
+    probs (T, E), gate_vals / gate_idx (T, k), expert, pos, keep (T k,)
+    and cap."""
+    t = xt.shape[0]
+    e = router_w.shape[-1]
+    cap = int(max(1, (t * top_k * capacity_factor) // e))
+    logits = torch.matmul(xt.to(torch.float32), router_w.to(torch.float32))
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = top_k_lower_index(probs, top_k)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    expert = gate_idx.reshape(t * top_k)
+    onehot = F.one_hot(expert, e).to(torch.int32)            # (T k, E)
+    pos = (onehot.cumsum(dim=0) * onehot - 1).amax(dim=-1)   # (T k,)
+    return {"probs": probs, "gate_vals": gate_vals, "gate_idx": gate_idx,
+            "expert": expert, "pos": pos, "keep": pos < cap, "cap": cap}
+
+
+def moe_ffn(params: dict, x: torch.Tensor, kind: str, mode: QuantMode, *,
+            top_k: int, capacity_factor: float = 1.25,
+            path: str = "auto") -> tuple[torch.Tensor, dict]:
+    """params: {router (D, E), experts: {w_* with a leading E axis}}; x:
+    (B, S, D). Returns (out (B, S, D), aux {lb_loss, drop_frac}).
+
+    Every row of the call competes for the batch-global capacity
+    (`moe_route`): a decode step's inactive rows and a padded chunk's pad
+    rows count, as in the JAX package. Kept routes are scattered into an
+    (E, C, D) buffer (dropped routes add 0 at slot 0), each expert's FFN
+    runs on its C rows (the GLU kinds, or relu(.)^2 for every other kind,
+    as there), and each row sums its kept routes' outputs weighted by their
+    gates in x's dtype. Frozen binary experts: the buffer is sign-packed
+    once for gate and up (kernel 5), each projection is one batched launch
+    of kernel 1 over the experts, and the hidden is packed again for the
+    down-projection (`_batched_qmm`)."""
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    r = moe_route(params["router"], xt, top_k, capacity_factor)
+    e, cap, keep = params["router"].shape[-1], r["cap"], r["keep"]
+    expert, pos_c = r["expert"], torch.where(keep, r["pos"], 0)
+
+    src = xt.repeat_interleave(top_k, dim=0)                 # (T k, D)
+    src = torch.where(keep[:, None], src, torch.zeros_like(src))
+    buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
+    buf.index_put_((expert, pos_c), src, accumulate=True)
+
+    ex = params["experts"]
+    if kind in ("swiglu", "geglu"):
+        bs = shared_pack(buf, (ex["w_gate"], ex["w_up"]), mode, path=path)
+        g = _batched_qmm(bs, ex["w_gate"], mode, path)
+        u = _batched_qmm(bs, ex["w_up"], mode, path)
+        act = F.silu(g) if kind == "swiglu" else F.gelu(g, approximate="tanh")
+        h = act * u
+    else:
+        h = torch.relu(_batched_qmm(buf, ex["w_up"], mode, path)).square()
+    out_buf = _batched_qmm(h, ex["w_down"], mode, path)      # (E, C, D)
+
+    gathered = out_buf[expert, pos_c]                        # (T k, D)
+    gathered = torch.where(keep[:, None], gathered, torch.zeros_like(gathered))
+    combined = (gathered.reshape(t, top_k, d)
+                * r["gate_vals"][..., None].to(x.dtype)).sum(dim=1)
+
+    # Switch-style load-balance loss and the share of routes dropped
+    frac_tokens = F.one_hot(r["gate_idx"][:, 0], e).to(torch.float32) \
+        .mean(dim=0)
+    frac_probs = r["probs"].mean(dim=0)
+    aux = {"lb_loss": e * (frac_tokens * frac_probs).sum(),
+           "drop_frac": 1.0 - keep.to(torch.float32).mean()}
+    return combined.reshape(b, s, d), aux
+
+
+def _batched_qmm(x, w, mode: QuantMode, path: str) -> torch.Tensor:
+    """Per-expert quantized matmul: x (E, C, Din) (or, for frozen binary
+    experts, a PackedActivation of it), w (E, Din, Dout) masters or a
+    PackedWeight of (E, Dout, KW) words -> (E, C, Dout) in x's dtype.
+
+    Frozen BBP / BBP_DET: the popcount dots of sign(x) against the packed
+    words (`ops.packed_matmul_experts`), cast to the activation dtype as
+    the JAX package casts them (bf16 rounds dots above 256). Frozen BC: the
+    unpacked +-1 weights in a float batched matmul. Masters: the mode's
+    quantized activations and weights in a batched matmul."""
+    if isinstance(w, PackedWeight):
+        if mode in (QuantMode.BBP, QuantMode.BBP_DET):
+            from repro_torch.kernels.ops import packed_matmul_experts
+            return packed_matmul_experts(x, w, path=path).to(x.dtype)
+        if mode == QuantMode.BC:
+            return torch.matmul(x, w.unpack(x.dtype))
+        raise ValueError("packed experts require a binary quant mode")
+    xq = quant_acts(x, mode)
+    wq = quant_weights(w.to(xq.dtype), mode)
+    return torch.matmul(xq, wq)
+
+
+def moe_param_shapes(d_model: int, d_ff: int, n_experts: int,
+                     kind: str) -> dict:
+    ex = {k: (n_experts,) + v
+          for k, v in ffn_param_shapes(d_model, d_ff, kind).items()}
+    return {"router": (d_model, n_experts), "experts": ex}

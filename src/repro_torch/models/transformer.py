@@ -1,9 +1,12 @@
-"""Decoder-only transformer, dense and audio families: inference forward,
+"""Decoder-only transformer, dense, moe and audio families: inference forward,
 whole-prompt and chunked prefill, and decode from a float or bit-resident
 KV cache (port of the dense serving path of `repro.models.transformer`).
 RMSNorm or LayerNorm (`cfg.norm`), RoPE or sinusoidal positions added to
 the embedding (`cfg.pos`), an optional QKV bias (`cfg.qkv_bias`) and any
-of the FFN kinds of `models.common.ffn`.
+of the FFN kinds of `models.common.ffn`; with `cfg.n_experts` the FFN is
+the MoE sublayer `models.common.moe_ffn`, whose expert capacity every row
+of a call shares (a decode step's inactive rows and a chunk's pad rows
+too, as in the JAX package).
 
 Params are the JAX package's tree: dicts of tensors, the blocks' leaves
 stacked along a leading L axis (frozen weights are `PackedWeight`s whose
@@ -39,7 +42,7 @@ device decides: a CPU tensor runs the plain version) or the plain PyTorch
 version on any device. The float attention is plain PyTorch on both. It is
 the caller's explicit choice; nothing falls back on its own.
 
-Not ported yet (ROADMAP Queue A): the VLM and MoE families, training.
+Not ported yet (ROADMAP Queue A): the VLM family, training.
 """
 from __future__ import annotations
 
@@ -64,12 +67,13 @@ from repro_torch.models.attention import (
     prefill_attention_packed_paged, v_cache_scale,
 )
 from repro_torch.models.common import (
-    ffn, ffn_param_shapes, layer_norm, rms_norm, rope, sinusoidal_pos,
+    ffn, ffn_param_shapes, layer_norm, moe_ffn, moe_param_shapes, rms_norm,
+    rope, sinusoidal_pos,
 )
 
 
 def _check_served(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "audio"):
+    if cfg.family not in ("dense", "moe", "audio"):
         raise NotImplementedError(f"{cfg.family} family is not ported yet "
                                   "(ROADMAP Queue A)")
 
@@ -89,8 +93,10 @@ def _block_shapes(cfg: ModelConfig) -> dict:
             "wo": (h * hd, d)}
     if cfg.qkv_bias:
         attn.update({"bq": (h * hd,), "bk": (kv * hd,), "bv": (kv * hd,)})
+    ffn_shapes = (moe_param_shapes(d, cfg.d_ff, cfg.n_experts, cfg.mlp)
+                  if cfg.n_experts else ffn_param_shapes(d, cfg.d_ff, cfg.mlp))
     return {"ln1": _norm_shapes(cfg), "ln2": _norm_shapes(cfg), "attn": attn,
-            "ffn": ffn_param_shapes(d, cfg.d_ff, cfg.mlp)}
+            "ffn": ffn_shapes}
 
 
 def init_transformer_params(gen: torch.Generator, cfg: ModelConfig, *,
@@ -103,7 +109,8 @@ def init_transformer_params(gen: torch.Generator, cfg: ModelConfig, *,
     `freeze_layer`, when given, maps one layer's blocks (leaves with a
     leading axis of 1) to their frozen tree, and each layer is drawn and
     frozen before the next is drawn: only one layer's fp32 masters are
-    ever resident (all 40 of phi3-medium-14b's are 54.5 GB). The weights
+    ever resident (all 40 of phi3-medium-14b's are 54.5 GB; one of
+    dbrx-132b's, with its 16 experts, 12.7 GB). The weights
     follow the same distribution as freezing the whole tree, not the same
     draws."""
     _check_served(cfg)
@@ -197,11 +204,18 @@ def qkv(p: dict, xn: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
 
 
 def ffn_sublayer(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                 mode: QuantMode, *, path: str = "auto") -> torch.Tensor:
-    if cfg.n_experts:
-        raise NotImplementedError("MoE is not ported yet (ROADMAP Queue A)")
+                 mode: QuantMode, *, path: str = "auto",
+                 aux: dict | None = None) -> torch.Tensor:
+    """x + FFN(norm(x)): the dense FFN, or the MoE sublayer, whose lb_loss
+    is added to aux["lb_loss"] when `aux` is given (serving drops it)."""
     xn = norm(p["ln2"], x, cfg)
-    return x + ffn(p["ffn"], xn, cfg.mlp, mode, path=path)
+    if not cfg.n_experts:
+        return x + ffn(p["ffn"], xn, cfg.mlp, mode, path=path)
+    out, moe_aux = moe_ffn(p["ffn"], xn, cfg.mlp, mode, top_k=cfg.top_k,
+                           capacity_factor=cfg.capacity_factor, path=path)
+    if aux is not None:
+        aux["lb_loss"] = aux["lb_loss"] + moe_aux["lb_loss"]
+    return x + out
 
 
 def self_attn(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
@@ -226,12 +240,12 @@ def self_attn(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
 
 def _self_block(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
                 *, path: str = "auto", pos_offset: int = 0,
-                return_kv: bool = False):
+                return_kv: bool = False, aux: dict | None = None):
     """self_attn then the FFN sublayer; returns (y, (k, v) or None)."""
     res = self_attn(p, x, cfg, mode, path=path, pos_offset=pos_offset,
                     return_kv=return_kv)
     y, kv = res if return_kv else (res, None)
-    return ffn_sublayer(p, y, cfg, mode, path=path), kv
+    return ffn_sublayer(p, y, cfg, mode, path=path, aux=aux), kv
 
 
 def pack_into(path: str, srcs, pools, rows: torch.Tensor) -> None:
@@ -622,14 +636,15 @@ def transformer_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def transformer_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                        *, path: str = "auto") -> tuple[torch.Tensor, dict]:
     """Inference forward: tokens (B, S) -> (logits (B, S, V), {"lb_loss":
-    0}), causal float flash attention in every layer, no cache. (The
+    the MoE load-balance loss summed over the layers, 0 for a dense
+    stack}), causal float flash attention in every layer, no cache. (The
     training forward and its loss come with the LM trainer, ROADMAP Queue
     A.)"""
     _check_served(cfg)
     mode = QuantMode(cfg.quant)
     h = embed(params, cfg, tokens)
+    aux = {"lb_loss": torch.zeros((), dtype=torch.float32, device=h.device)}
     for layer in range(cfg.n_layers):
         h, _ = _self_block(layer_params(params, layer), h, cfg, mode,
-                           path=path)
-    return head(params, cfg, h), \
-        {"lb_loss": torch.zeros((), dtype=torch.float32, device=h.device)}
+                           path=path, aux=aux)
+    return head(params, cfg, h), aux

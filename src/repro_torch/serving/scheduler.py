@@ -21,8 +21,11 @@ temperature and eos). Slot state and output tokens live on the device; the
 host reads one flag per step -- whether the burst should stop (a slot
 finished, or none is active) -- and reads it one step late, after the next
 step is already queued, so the device never waits on the host between
-steps. That extra step is harmless: a finished row is inactive and writes
-nothing, and an active row only gets its next token early. A freed slot is
+steps. That extra step is harmless where each row's compute is its own: a
+finished row is inactive and writes nothing, and an active row only gets
+its next token early. The MoE family is the exception (below): there the
+host reads each step's flag before it queues the next, so every step runs
+on the slot batch the JAX package's burst would give it. A freed slot is
 recycled to the next queued request at the next poll. Completions carry
 `ttft` (the request's own admission compute, device-synced), `ttft_wall`,
 `latency` and burst-granularity inter-token intervals `itl`, as in the JAX
@@ -49,6 +52,17 @@ Mamba stack (`ssm`) keeps O(1) recurrent state per slot, and the hybrid
 `page_size`, `pool_pages` and `prefix_cache` are ignored for them, as in
 the JAX package. A request is still capped at `max_len` positions (its
 token buffer), as there.
+
+Greedy outputs do not depend on the batch's composition for any family
+whose rows compute independently. The MoE family under expert-capacity
+pressure is the exception, as in the JAX package: capacity-based dispatch
+drops routes by a batch-global count (`models.common.moe_ffn`), so slot
+neighbours can evict each other's expert assignments, the inactive rows of
+a decode step (which run on their last token at pos -1) take capacity as
+the active ones do, and a padded final chunk adds its pad rows to the same
+count. The port feeds the router the rows the JAX scheduler feeds it: the
+whole slot batch at every decode step, a chunk with its pad rows, a
+whole prompt at batch 1 with exactly its rows.
 
 Sampling (temperature > 0) draws Gumbel noise from one generator seeded
 from the engine (`serving.sampling`): greedy outputs are the JAX package's,
@@ -189,6 +203,9 @@ class Scheduler:
         self.max_out = max_len
         self.prefill_chunk = prefill_chunk
         self.interleave_steps = interleave_steps
+        # MoE rows share expert capacity: a step queued ahead of the host's
+        # read of the stop flag would run on another batch than JAX's burst
+        self._flag_lag = not cfg.n_experts
         self.device = params["embed"].device     # the model's device
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._next_rid = 0
@@ -536,12 +553,15 @@ class Scheduler:
         """Decode until some slot completes (with `drain`: until every slot
         has), or for at most `max_steps` steps (> 0 while an admission is
         mid-flight). The stop flag of step i is read after step i+1 is
-        queued: one host sync per step, never one per token per slot."""
+        queued (the MoE family: before it): one host sync per step, never
+        one per token per slot."""
         t0 = time.time()
         steps, prev = 0, None
         while not (max_steps and steps >= max_steps):
             stop = self._step(drain)
             steps += 1
+            if not self._flag_lag:
+                prev = stop
             if prev is not None:
                 self.stats["host_syncs"] += 1
                 if bool(prev):

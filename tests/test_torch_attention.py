@@ -17,6 +17,7 @@ import torch
 from repro.core.bitpack import pack_bits as jax_pack_bits, packed_dot
 from repro.kernels import ref as jref
 from repro_torch.convert import tensor
+from repro_torch.core.bitpack import unpack_bits
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (
     decode_attention_packed, v_cache_scale,
@@ -266,16 +267,28 @@ def test_scalar_lengths_equal_row_lengths():
 
 
 def test_zero_length_row_outputs_zero():
-    """cache_len 0 (the scheduler's inactive rows): the row attends to
-    nothing and outputs exactly 0, never NaN; other rows are unaffected."""
+    """cache_len 0 (the scheduler's inactive rows): no position is valid,
+    and the row weighs every position of its T alike, as the JAX oracle's
+    softmax over all-masked scores does: out = v_scale * mean_t sign(v_t),
+    equal to the oracle's bits (the sums are exact integers), never NaN,
+    never 0 unless the V signs cancel; other rows are unaffected. (A MoE's
+    inactive rows take expert capacity, so these values count.)"""
     rng = np.random.default_rng(9)
     k, v, vs = _cache(rng, 3, 20, 2, 16)
     q = _query(rng, (3, 1, 4, 16))
     args = _port(q, k, v, vs)
-    out = decode_attention_packed(*args, torch.tensor([0, 5, 0],
-                                                      dtype=torch.int32))
+    lens = np.array([0, 5, 0], np.int32)
+    out = decode_attention_packed(*args, torch.from_numpy(lens))
     assert torch.isfinite(out).all()
-    assert (out[[0, 2]] == 0).all()
+    want = np.asarray(jref.decode_attention_packed_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(vs),
+        jnp.asarray(lens)))
+    np.testing.assert_array_equal(out[[0, 2]].numpy(), want[[0, 2]])
+    mean = unpack_bits(args[2], 16).mean(dim=1)       # (B, Hkv, hd) signs
+    head = (torch.from_numpy(vs)[:, :, None] * mean)[0]   # (Hkv, hd)
+    torch.testing.assert_close(out[0, 0].reshape(2, 2, 16),
+                               head[:, None].expand(2, 2, 16))
+    assert (out[[0, 2]] != 0).any()
     alone = decode_attention_packed(*(a[1:2] for a in args), 5)
     np.testing.assert_array_equal(out[1:2].numpy(), alone.numpy())
 

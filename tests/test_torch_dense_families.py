@@ -49,16 +49,16 @@ def test_config_fields_equal_jax(arch):
 
 
 def test_registry_and_unported_families():
-    """The four dense-stack families are registered; dbrx-132b and the moe
-    and vlm families still raise."""
-    assert set(ARCHS) | {"musicgen-large"} <= set(list_archs())
-    for arch in ("dbrx-132b", "llama-3.2-vision-11b"):
-        with pytest.raises(KeyError, match="ROADMAP Queue A"):
-            get_config(arch)
+    """The four dense-stack families and the two moe archs are registered
+    and the moe family serves; the vlm arch and family still raise."""
+    assert set(ARCHS) | {"musicgen-large", "dbrx-132b",
+                         "llama4-scout-17b-a16e"} <= set(list_archs())
+    with pytest.raises(KeyError, match="ROADMAP Queue A"):
+        get_config("llama-3.2-vision-11b")
     cfg = smoke_config("qwen2-72b")
-    for family in ("moe", "vlm"):
-        with pytest.raises(NotImplementedError):
-            get_model(cfg.scaled(family=family))
+    with pytest.raises(NotImplementedError):
+        get_model(cfg.scaled(family="vlm"))
+    assert get_model(smoke_config("dbrx-132b")).cfg.family == "moe"
 
 
 def test_deepseek_smoke_is_phi3_smoke():

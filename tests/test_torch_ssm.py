@@ -210,8 +210,8 @@ def test_inactive_rows_keep_state_and_first_chunk_resets_it(models):
 
 def test_config_fields_equal_jax():
     """falcon-mamba-7b, full and smoke, field by field; the port's
-    registry serves it beside phi3-medium-14b, and the smoke configs of
-    families it does not serve raise."""
+    registry serves it beside phi3-medium-14b and the moe archs, and the
+    configs of families it does not serve raise."""
     for port_cfg, jax_cfg in ((get_config(ARCH), jax_get_config(ARCH)),
                               (smoke_config(ARCH), jax_smoke(ARCH))):
         assert dataclasses.asdict(port_cfg) == dataclasses.asdict(jax_cfg)
@@ -223,7 +223,8 @@ def test_config_fields_equal_jax():
         (64, 4096, 2, 16, 256, 4, 65024)
     assert not full.tie_embeddings and full.quant == "bbp_det"
     with pytest.raises(KeyError, match="ROADMAP Queue A"):
-        get_config("dbrx-132b")
+        get_config("llama-3.2-vision-11b")
+    assert get_config("dbrx-132b").family == "moe"
 
 
 def test_cache_batch_axes_on_the_ssm_state():
@@ -399,7 +400,8 @@ def test_engine_options_behave_as_jax_for_ssm(models, jax_engine):
 def test_ssm_path_runs_the_plain_scan_on_cpu_and_unported_families_raise(
         models):
     """On the CPU, path 'auto' (kernel 10's wrapper) and 'ref' give the same
-    tokens and launch nothing; the moe and vlm families still raise, and
+    tokens and launch nothing; the vlm family still raises (the moe family
+    serves), and
     the transformer's serving check refuses the ssm family. Whole-prompt
     prefill serves: `Model.prefill` gives the logits of the last chunk of a
     chunked admission of the same prompt, and the whole-prompt engine the
@@ -413,9 +415,10 @@ def test_ssm_path_runs_the_plain_scan_on_cpu_and_unported_families_raise(
     for a, b in zip(auto, ref, strict=True):
         np.testing.assert_array_equal(a, b)
     assert ss.launches["selective_scan"] == 0
-    for family in ("moe", "vlm"):
-        with pytest.raises(NotImplementedError):
-            get_model(cfg.scaled(family=family))
+    with pytest.raises(NotImplementedError):
+        get_model(cfg.scaled(family="vlm"))
+    assert get_model(smoke_config("llama4-scout-17b-a16e")).cfg.family == \
+        "moe"
     frozen = ServingEngine(cfg, pp, freeze=True, **ENGINE).params
     prompt = torch.tensor([[5, 1, 7]])
     whole, _ = get_model(cfg).prefill(frozen, prompt)
