@@ -217,10 +217,33 @@ Phases, each of which raises on failure (nothing is caught):
                and capacity rows beside its bound, plain version and
                torch._int_mm / torch.bmm; each config at all its layers,
                chunked kv_bits=1 and the default engine, as phase 11
+  13. vlm   - llama-3.2-vision-11b (40 layers in 8 groups of a gated
+               cross-attention block and four self blocks; 1,600 image
+               tokens of 1,280), frozen, norms N(0, 0.02^2) and the cross
+               gates N(0, 1), at full width, depth cut to 10 (two groups,
+               so a group-index fault shows), each request with its own
+               image embeddings N(0, 1) from the seed, through three
+               engines against the plain versions: chunked kv_bits=1 and
+               the default engine on phase 6's traffic, paged kv_bits=1
+               with the prefix cache on phase 6b's (no prefix hit: the
+               family shares no page); tokens equal, launches held per
+               block and call (`vlm_expected`: the image K/V once per
+               admission and group; the cross-attention through kernel 8
+               non-causal per chunk and kernel 6 per decode step);
+               generate_static refuses the family; kernel 1 at the image
+               K/V (M 1,600, K 1,280, N 1,024), kernel 5 on the image and
+               kernels 6 and 8 over the image rows timed beside their
+               bounds, torch._int_mm and SDPA; all 40 layers, chunked
+               kv_bits=1 and the default engine, as phase 11. Phase 3
+               holds kernel 8 with causal=False at every T split (held
+               and streamed shares) and a one-row non-causal chunk to
+               kernel 6 bit for bit, kernel 6 over 1,600 full rows, kernel
+               1 at the image K/V, kernel 5 on the image and its K|V rows
+               into a slot, kernels 6-9 at G 4
 Launch counts are set to 0 just before each main path (mlp, cnn, lm, paged
 lm, default lm, train, ssm chunked and whole-prompt, hybrid chunked and
-default, each family's and each MoE config's three engines) runs and read
-just after. The line before the last is
+default, each family's, each MoE config's and the vlm's three engines)
+runs and read just after. The line before the last is
 {"kernels": [...]} (ten kernels); the last line is {"ok": true, "device":
 {...}}. Weights, BN statistics and
 inputs are random from the seed; image inputs are multiples of 1/128 in
@@ -364,6 +387,13 @@ FAMILY_CHECK_DEPTH, FAMILY_ROWS = 2, (LM_SLOTS, LM_CHUNK, 200)
 # chunk (2, 10), and their 200-token prompts (15, 62); timed at MOE_TIMED
 MOE_ARCHS = ("dbrx-132b", "llama4-scout-17b-a16e")
 MOE_CAPS = (1, 2, 10, 15, 62)
+# the vlm family: llama-3.2-vision-11b at full width (d 4,096, 32 heads over
+# 8 KV heads of 128, 1,600 image tokens of d_vision 1,280) on phase 6's
+# engine and traffic, each request with its own image embeddings N(0, 1)
+# from the seed; depth cut to VLM_CHECK_DEPTH (two groups of a cross block
+# and four self blocks, so that a group-index fault shows) where tokens are
+# held to the plain path, all 40 layers in the timed run
+VLM_ARCH, VLM_CHECK_DEPTH = "llama-3.2-vision-11b", 10
 
 
 def smi(query: str) -> str:
@@ -702,6 +732,28 @@ def to_device(tree, dev):
     from repro_torch.core.packed import PackedWeight, map_tree
     return map_tree(lambda _, p: p.to(dev)
                     if isinstance(p, (torch.Tensor, PackedWeight)) else p, tree)
+
+
+def check_gemm(op: Operands, kn, lhs, where, sms) -> int:
+    """Kernel `kn` on `op` with a `lhs` lhs against its plain version:
+    equal (tolerance 0; kernel 3's words as words), one launch. Returns
+    the error (0)."""
+    from repro_torch.kernels import binary_gemm as bg
+    m, k, n = op.m, op.k, op.n
+    before = bg.launches[kn]
+    got = op.call(kn, lhs)
+    torch.cuda.synchronize()
+    if bg.launches[kn] - before != 1:
+        raise AssertionError(f"{kn} ({m},{k},{n}): not one launch")
+    want = op.call(kn, lhs, plain=True)
+    torch.cuda.synchronize()
+    d = max_abs_diff(got, want, words=kn == "binary_gemm_fused")
+    print(f"check {kn:24s} {lhs:6s} M={m:6d} K={k:5d} N={n:5d} "
+          f"{where:9s} {plan_text(kn, m, k, n, sms):28s} max_abs_err={d}")
+    if d:
+        raise AssertionError(f"{kn} {lhs} ({m},{k},{n}) differs from its "
+                             f"plain version by {d}")
+    return d
 
 
 def check_equal(what, got, want):
@@ -1739,18 +1791,22 @@ def percentile(xs, q):
     return float(np.percentile(np.asarray(xs), q)) if len(xs) else float("nan")
 
 
-def serve_report(eng, prompts, budget):
+def serve_report(eng, prompts, budget, images=None):
     """Warm `eng` up on a short request, then serve `prompts` (`budget` new
-    tokens each) and report wall and decode/prefill seconds, steps, bursts,
-    decode and prefill tokens/s, TTFT (own admission) p50/p99, TTFT wall
-    p50 and ITL p50/p99. Returns (report, completions, scheduler)."""
+    tokens each; with `images`, the vlm family's, each its own) and report
+    wall and decode/prefill seconds, steps, bursts, decode and prefill
+    tokens/s, TTFT (own admission) p50/p99, TTFT wall p50 and ITL p50/p99.
+    Returns (report, completions, scheduler)."""
     from repro_torch.serving.engine import Request
-    eng.generate([Request(prompts[0][:40], max_new_tokens=4)])     # warm-up
+    imgs = images if images is not None else [None] * len(prompts)
+    eng.generate([Request(prompts[0][:40], max_new_tokens=4,
+                          img_emb=imgs[0])])                       # warm-up
     sched = eng.scheduler()
     before = dict(sched.stats)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    comps = eng.serve([Request(p, max_new_tokens=budget) for p in prompts])
+    comps = eng.serve([Request(p, max_new_tokens=budget, img_emb=img)
+                       for p, img in zip(prompts, imgs)])
     wall = time.perf_counter() - t0
     st = {k: sched.stats[k] - before[k] for k in ("decode_s", "prefill_s",
                                                  "decode_steps", "bursts")}
@@ -3306,9 +3362,9 @@ def hybrid_timed_run(base_cfg, seed, dev, card):
     w_wnd, hkv, hd = cfg.local_window, cfg.n_kv_heads, cfg.head_dim
     out = {"depth": cfg.n_layers, "init_frozen_s": init_s}
     tail = L.rg_layout(cfg)[1]
-    gates = [L._pick(frozen["groups"]["rec"], gi, j)["mix"]
+    gates = [L.pick(frozen["groups"]["rec"], gi, j)["mix"]
              for gi in range(n_attn) for j in range(L._n_rec(cfg))]
-    gates += [L._pick(frozen["tail"], j)["mix"] for j in range(tail)]
+    gates += [L.pick(frozen["tail"], j)["mix"] for j in range(tail)]
     xf = torch.randn(LM_SLOTS, 1, cfg.lru_width, generator=gen, device=dev)
 
     def gate_products():
@@ -4106,6 +4162,441 @@ def moe_phase(seed, dev, card, dev_gen, popc_per_s, sms):
     return launches, rep
 
 
+# ---------------------------------------------------------------------------
+# The vlm family: llama-3.2-vision-11b (a gated cross-attention block, then
+# four self-attention blocks, eight times over; image K/V per slot)
+# ---------------------------------------------------------------------------
+def vlm_images(seed, cfg, n):
+    """n image embeddings (n_img_tokens, d_vision), N(0, 1), float32 on the
+    host, as requests bring them."""
+    rng = np.random.default_rng(seed + 17)
+    return [rng.standard_normal((cfg.n_img_tokens, cfg.d_vision),
+                               dtype=np.float32) for _ in range(n)]
+
+
+def vlm_gemm_checks(cfg):
+    """(kernel, lhs, M, K, N, where) of the vlm family's GEMMs for phase 3's
+    check loop: a self block's (`family_gemm_checks`) at FAMILY_ROWS rows,
+    the cross block's float-lhs q and wo (kernel 2, K and N d_model: the
+    self wo's shape) and the image K and V: kernel 1 on the image's words,
+    M n_img_tokens, K d_vision (1,280: 40 words, not a multiple of 64),
+    N Hkv * hd, and past the small-M edge at 33 rows."""
+    img = ("binary_gemm_packed", "packed", cfg.d_vision,
+           cfg.n_kv_heads * cfg.head_dim)
+    return family_gemm_checks([cfg]) + [
+        (img[0], img[1], m, img[2], img[3], "llama.img_kv")
+        for m in (33, cfg.n_img_tokens)]
+
+
+def vlm_cross_attention_checks(cfg, dev_gen, dev, sms):
+    """The cross-attention's kernels against their plain versions at full
+    width, bf16 and float32 q: kernel 6 on 4 slots' decode step over the
+    image rows (T n_img_tokens, every row at full length, G 4, hd 128);
+    kernel 8 non-causal (`causal=False`) on a 32-row chunk over the same
+    rows, at q_pos 0 and 480 (equal: no causal mask), at each T split of 1,
+    2, 4 and 8 (`attention_plan` forced: shares held whole and streamed),
+    and a one-row non-causal chunk against kernel 6 bit for bit. Dots
+    equal, outputs within ATTN_TOL with equal signs, one launch a call.
+    Returns the largest error of kernels 6 and 8."""
+    from unittest import mock
+    _, _, da, pa, _ = lm_modules()
+    hkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    t = cfg.n_img_tokens
+    err = {"decode_attention_packed": 0.0, "prefill_attention_packed": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, vs = attention_case(dev_gen, LM_SLOTS, 1, t, hkv, g, hd,
+                                     dtype, dev)
+        before = da.launches["decode_attention_packed"]
+        got, dots = da.decode_attention_packed(q, k, v, vs, t,
+                                               return_dots=True)
+        torch.cuda.synchronize()
+        if da.launches["decode_attention_packed"] - before != 1:
+            raise AssertionError("cross decode: not one launch")
+        want, wdots = da.decode_attention_packed_plain(q, k, v, vs, t,
+                                                       return_dots=True)
+        what = f"cross decode B {LM_SLOTS} T {t} {dtype}"
+        if not torch.equal(dots, wdots):
+            raise AssertionError(f"{what}: dots differ")
+        e = check_close(what, got, want, dtype)
+        err["decode_attention_packed"] = max(err["decode_attention_packed"], e)
+        one = pa.prefill_attention_packed(q, k, v, vs, t, 0, causal=False)
+        check_equal(f"{what}: one-row non-causal prefill vs decode", one, got)
+        plan = pa.attention_plan(LM_SLOTS, 1, t, hkv, g, hd, sms)
+        print(f"check decode_attention_packed {str(dtype)[6:]:8s} cross "
+              f"B={LM_SLOTS} T={t} Hkv={hkv} G={g} hd={hd} all rows full "
+              f"(split {plan.split}, {plan.blocks} blocks): dots equal, "
+              f"max_abs_err={e:.3g}; a one-row non-causal prefill equals it "
+              f"bit for bit")
+        q, k, v, vs = attention_case(dev_gen, 1, LM_CHUNK, t, hkv, g, hd,
+                                     dtype, dev)
+        want, wdots = pa.prefill_attention_packed_plain(
+            q, k, v, vs, t, 0, causal=False, return_dots=True)
+        plan = pa.attention_plan(1, LM_CHUNK, t, hkv, g, hd, sms)
+        for split in (plan.split, 1, 2, 4, 8):
+            forced = pa.AttentionPlan(plan.bq, split,
+                                      plan.blocks // plan.split * split)
+            with mock.patch.object(pa, "attention_plan",
+                                   lambda *a, forced=forced: forced):
+                for qp in (0, LM_MAX_LEN - LM_CHUNK):
+                    before = pa.launches["prefill_attention_packed"]
+                    got, dots = pa.prefill_attention_packed(
+                        q, k, v, vs, t, qp, causal=False, return_dots=True)
+                    served = pa.prefill_attention_packed(q, k, v, vs, t, qp,
+                                                         causal=False)
+                    torch.cuda.synchronize()
+                    if pa.launches["prefill_attention_packed"] - before != 2:
+                        raise AssertionError("cross prefill: not one launch "
+                                             "a call")
+                    what = (f"cross prefill C {LM_CHUNK} T {t} q_pos {qp} "
+                            f"split {split} {dtype}")
+                    if not torch.equal(dots, wdots):
+                        raise AssertionError(f"{what}: dots differ")
+                    e = check_close(what, served, want, dtype)
+                    check_equal(f"{what}: with dots vs served", got, served)
+                    err["prefill_attention_packed"] = max(
+                        err["prefill_attention_packed"], e)
+            # a share of <= 32 KB of K and V words is held whole (served
+            # calls; a call with dots streams), longer ones stream
+            share, hold = -(-t // split), 32 * 1024 // (hd // 4) // 64 * 64
+            print(f"check prefill_attention_packed {str(dtype)[6:]:8s} cross "
+                  f"causal=False C={LM_CHUNK} T={t} Hkv={hkv} G={g} hd={hd} "
+                  f"q_pos 0 and {LM_MAX_LEN - LM_CHUNK} split {split}"
+                  f"{' (the plan)' if split == plan.split else ''}, "
+                  f"{share} positions a block "
+                  f"({'held' if share <= hold else 'streamed'}): dots equal, "
+                  f"with and without dots equal, max_abs_err={e:.3g}")
+    return err
+
+
+def vlm_kernel_checks(cfg, dev_gen, seed, dev, sms):
+    """Phase 3 at llama-3.2-vision-11b's shapes beyond the GEMM loop: the
+    cross-attention (`vlm_cross_attention_checks`), kernels 6-9 at its self
+    blocks' head layout (`family_attention_checks`: Hkv 8, G 4, hd 128),
+    kernel 5's packs (the image, 1,600 rows of 1,280: whole 16-byte loads;
+    the normed residual at FAMILY_ROWS) and its `pack_rows_into` of a
+    request's 1,600 image K|V rows (Hkv 8, hd 128) into slot 2's image rows
+    of a 4-slot cache, beside the self blocks' K|V rows. Returns the
+    largest error of each kernel."""
+    err = vlm_cross_attention_checks(cfg, dev_gen, dev, sms)
+    for kn, e in family_attention_checks([cfg], dev_gen, seed, dev,
+                                         sms).items():
+        err[kn] = max(err.get(kn, 0.0), e)
+    n, hkv, hd = cfg.n_img_tokens, cfg.n_kv_heads, cfg.head_dim
+    packs = [(n, cfg.d_vision, "llama image")] + [
+        (m, cfg.d_model, "llama") for m in FAMILY_ROWS]
+    rows = [(f"image K|V of slot 2 (Hkv {hkv}, hd {hd})", n, hkv, hd,
+             ("contiguous", LM_SLOTS, n), [2 * n + i for i in range(n)])]
+    rows += [(f"{where} (Hkv {hkv}, hd {hd})", *rest)
+             for where, *rest in pack_rows_cases(cfg)[:5]]
+    err["pack_bits"] = max(pack_checks(packs, dev_gen, dev),
+                           pack_rows_checks(rows, dev_gen, dev))
+    return err
+
+
+def vlm_expected(cfg, layers, calls, chunks, steps, admissions,
+                 paged) -> dict:
+    """Every launch counter of a vlm engine run at depth `layers` (g groups
+    of a cross block and xattn_group - 1 self blocks). A self block per
+    forward call: `family_per_call`, and at kv_bits=1 its attention (6 or 7
+    a decode step, 8 or 9 a chunk). A cross block per forward call: kernel
+    2 x3 (the float-lhs q, wo, and the FFN's w_down), kernel 1 x2 (gate,
+    up), kernel 5 x1 (their shared pack), and at kv_bits=1 kernel 6 a decode
+    step or kernel 8 (non-causal) a chunk, contiguous in either layout (the
+    image rows stay per slot). Per admission (a request's first chunk or
+    whole prompt) and group: kernel 5 packs the image once for K and V,
+    kernel 1 x2 (wk, wv), and at kv_bits=1 kernel 5 packs the image K|V
+    rows into the slot's image rows."""
+    from repro_torch.models import transformer as T
+    g, p_self = T.vlm_layout(cfg.scaled(n_layers=layers))
+    kv1 = int(cfg.kv_bits == 1)
+    want = {kn: 0 for kn in REPLACES}
+    for kn, n in family_per_call(cfg).items():
+        want[kn] = n * g * p_self * calls
+    want["binary_gemm_packed_rhs"] += 3 * g * calls
+    want["binary_gemm_packed"] += 2 * g * calls + 2 * g * admissions
+    want["pack_bits"] += g * calls + (1 + kv1) * g * admissions
+    if kv1:
+        tail = "_paged" if paged else ""
+        want[f"decode_attention_packed{tail}"] += g * p_self * steps
+        want[f"prefill_attention_packed{tail}"] += g * p_self * chunks
+        want["decode_attention_packed"] += g * steps
+        want["prefill_attention_packed"] += g * chunks
+    return want
+
+
+def vlm_params(cfg, seed, dev):
+    """Frozen params drawn and frozen one block at a time, the norm scales
+    N(0, 0.02^2) and the cross blocks' gates N(0, 1) (both 0 at init: the
+    gate would hide the whole cross path)."""
+    from repro_torch.core.packed import map_tree
+    from repro_torch.models.api import get_model
+    gen = torch.Generator(device=dev).manual_seed(seed + 40)
+    frozen = randomize_norms_and_biases(
+        get_model(cfg).init_frozen(gen, device=dev), gen)
+
+    def gate(name, p):
+        return torch.randn(p.shape, generator=gen, device=dev) \
+            if name == "gate" else p
+    return map_tree(gate, frozen)
+
+
+def vlm_engine_check(base_cfg, seed, dev):
+    """llama-3.2-vision-11b at full width, depth VLM_CHECK_DEPTH (two groups),
+    frozen, norms and gates drawn non-zero, through three engines, each
+    through the kernels (launches held to `vlm_expected`) and through the
+    plain versions (tokens equal), every request with its own image:
+    chunked at kv_bits=1 on phase 6's traffic (the main path), the default
+    engine (whole prompt, bf16 cache) on the same, and paged kv_bits=1 with
+    the prefix cache on phase 6b's shared-prefix traffic, where the vlm
+    family takes no prefix hit. generate_static refuses the family. Returns
+    the three kernel runs' launches summed, and a report."""
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = base_cfg.scaled(n_layers=VLM_CHECK_DEPTH)
+    frozen = vlm_params(cfg, seed, dev)
+    prompts = lm_traffic(seed, cfg.vocab)
+    shared = shared_prefix_traffic(seed, cfg.vocab)
+    images = vlm_images(seed, cfg, max(len(prompts), len(shared)))
+    base = dict(slots=LM_SLOTS, max_len=LM_MAX_LEN, seed=seed)
+    variants = {
+        "chunked, kv_bits=1": (prompts, dict(kv_bits=1,
+                                             prefill_chunk=LM_CHUNK)),
+        "default (kv_bits=0, whole prompt)": (prompts, {}),
+        "paged + prefix, kv_bits=1": (shared, dict(
+            kv_bits=1, prefill_chunk=LM_CHUNK, page_size=LM_PAGE,
+            prefix_cache=True))}
+    total = {kn: 0 for kn in REPLACES}
+    rep = {}
+    for name, (traffic, kw) in variants.items():
+        reqs = [Request(p, max_new_tokens=LM_NEW, img_emb=img)
+                for p, img in zip(traffic, images)]
+        eng = ServingEngine(cfg, frozen, **base, **kw)
+        sched = eng.scheduler()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        comps = eng.serve(reqs)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        counts = all_launches()
+        steps = sched.stats["decode_steps"]
+        t0 = time.perf_counter()
+        want = ServingEngine(cfg, frozen, kernel_path="ref", **base,
+                             **kw).generate(reqs)
+        plain_s = time.perf_counter() - t0
+        for i, (c, b) in enumerate(zip(comps, want, strict=True)):
+            if not np.array_equal(c.tokens, b):
+                raise AssertionError(
+                    f"{cfg.name}, {name}, request {i}: kernel tokens "
+                    f"{c.tokens.tolist()} != plain {b.tolist()}")
+        if any(len(c.tokens) != LM_NEW for c in comps):
+            raise AssertionError(f"{cfg.name}, {name}: a request did not get "
+                                 f"its budget")
+        hits = sched.stats["prefix_hits"]
+        if hits or any(c.cached_tokens for c in comps):
+            raise AssertionError(f"{cfg.name}, {name}: {hits} prefix hits; "
+                                 f"the vlm family shares no page")
+        chunked = kw.get("prefill_chunk") is not None
+        chunks = sum(-(-len(p) // LM_CHUNK) for p in traffic) if chunked \
+            else 0
+        calls = (chunks if chunked else len(traffic)) + steps
+        expect = vlm_expected(eng.cfg, VLM_CHECK_DEPTH, calls, chunks, steps,
+                              len(traffic), "page_size" in kw)
+        if counts != expect:
+            raise AssertionError(f"{cfg.name}, {name}: launches {counts} != "
+                                 f"{expect} ({calls} forward calls, {steps} "
+                                 f"decode steps)")
+        for kn in REPLACES:
+            total[kn] += counts[kn]
+        rep[name] = {"launches": counts, "forward_calls": calls,
+                     "decode_steps": steps, "prefix_hits": hits,
+                     "kernel_s": kernel_s, "plain_s": plain_s}
+        print(f"{cfg.name} engine check, {name}: tokens equal the plain "
+              f"path's; {calls} forward calls ({chunks or len(traffic)} "
+              f"{'chunks' if chunked else 'prompts'}, {steps} decode steps), "
+              f"{len(traffic)} images, prefix hits {hits}; launches "
+              f"{ {kn: n for kn, n in counts.items() if n} } (as counted "
+              f"from the blocks); {kernel_s:.1f} s through the kernels, "
+              f"{plain_s:.1f} s plain")
+        del eng, sched
+    try:
+        ServingEngine(cfg, frozen, **base).generate_static(
+            [Request(prompts[0], max_new_tokens=2, img_emb=images[0])])
+    except ValueError as e:
+        print(f"{cfg.name}: generate_static refuses the family ({e})")
+    else:
+        raise AssertionError("generate_static served the vlm family")
+    print(f"{cfg.name} engine check: full width (d {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, {cfg.n_img_tokens} image tokens "
+          f"of {cfg.d_vision}, a cross block every {cfg.xattn_group} "
+          f"layers), depth {VLM_CHECK_DEPTH} (cut from {base_cfg.n_layers}: "
+          f"two groups)")
+    del frozen
+    torch.cuda.empty_cache()
+    return total, rep
+
+
+def vlm_times(cfg, dev_gen, dev, popc_per_s, sms):
+    """The vlm family's new kernel shapes, timed (`shape_times`) beside
+    the bound and a library call, not in the kernels line: kernel 1 on the
+    image's words (M 1,600, K 1,280, N 1,024; `torch._int_mm` on +-1 int8),
+    kernel 5 packing the image (1,600 x 1,280 bf16; no single call), kernel
+    6 on 4 slots' decode step over the image rows and kernel 8 non-causal
+    on a 32-row chunk over them (SDPA over sign(q) and the unpacked +-1
+    K/V, no mask)."""
+    _, pk, da, pa, _ = lm_modules()
+    n, hkv, hd = cfg.n_img_tokens, cfg.n_kv_heads, cfg.head_dim
+    g = cfg.n_heads // hkv
+    gemm = lm_gemm_times(dev_gen, popc_per_s, sms,
+                         kernels=("binary_gemm_packed",),
+                         gemms=[("binary_gemm_packed", "packed", cfg.d_vision,
+                                 hkv * hd, "llama.img_kv")],
+                         row_counts=[(n, "image")])
+    x = torch.randn(n, cfg.d_vision, generator=dev_gen,
+                    device=dev).to(torch.bfloat16)
+    nbytes = n * cfg.d_vision * 2 + n * (cfg.d_vision // 32) * 4
+    pack = [{"kernel": "pack_bits", "where": f"image {n} x {cfg.d_vision}",
+             "library": None,
+             **shape_times(lambda: pk.pack_bits_kernel(x), "pack_bits",
+                           lambda: pk.pack_bits_plain(x)),
+             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": 0.0,
+             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}]
+    rows = []
+    q, k, v, vs = attention_case(dev_gen, LM_SLOTS, 1, n, hkv, g, hd,
+                                 torch.bfloat16, dev)
+    valid = torch.ones((LM_SLOTS, 1, n), dtype=torch.bool, device=dev)
+    lib = sdpa_call(q, k, v, vs, valid)
+    check_close_loose("SDPA vs kernel 6 on the image rows", lib(),
+                      da.decode_attention_packed(q, k, v, vs, n))
+    rows.append({"kernel": "decode_attention_packed",
+                 "where": f"cross B={LM_SLOTS} T={n} G={g}",
+                 "library": "F.scaled_dot_product_attention",
+                 **shape_times(lambda: da.decode_attention_packed(
+                     q, k, v, vs, n), "decode_attention_packed",
+                     lambda: da.decode_attention_packed_plain(q, k, v, vs, n),
+                     lib),
+                 **attention_bound(valid, 1, cfg.n_heads, hkv, hd, 2,
+                                   popc_per_s)})
+    q, k, v, vs = attention_case(dev_gen, 1, LM_CHUNK, n, hkv, g, hd,
+                                 torch.bfloat16, dev)
+    valid = torch.ones((1, LM_CHUNK, n), dtype=torch.bool, device=dev)
+    lib = sdpa_call(q, k, v, vs, valid)
+    check_close_loose("SDPA vs kernel 8 non-causal on the image rows", lib(),
+                      pa.prefill_attention_packed(q, k, v, vs, n, 0,
+                                                  causal=False))
+    rows.append({"kernel": "prefill_attention_packed",
+                 "where": f"cross causal=False C={LM_CHUNK} T={n}",
+                 "library": "F.scaled_dot_product_attention",
+                 **shape_times(lambda: pa.prefill_attention_packed(
+                     q, k, v, vs, n, 0, causal=False),
+                     "prefill_attention_packed",
+                     lambda: pa.prefill_attention_packed_plain(
+                         q, k, v, vs, n, 0, causal=False), lib),
+                 **attention_bound(valid, LM_CHUNK, cfg.n_heads, hkv, hd, 2,
+                                   popc_per_s)})
+    return gemm, pack + rows
+
+
+def vlm_timed_run(cfg, seed, dev, card):
+    """llama-3.2-vision-11b at full width and all its layers, drawn and
+    frozen one block at a time, norms and gates non-zero, on phase 6's
+    traffic with an image per request through the chunked kv_bits=1 engine
+    and the default engine: decode tokens/s, TTFT, ITL, weight bytes
+    (binary, other), cache bytes (the image rows among them, packed
+    against bf16), peak device memory, and one profiled decode step at
+    position 300 with its launches held to `vlm_expected`."""
+    from repro_torch.serving.engine import ServingEngine
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    frozen = vlm_params(cfg, seed + 1, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = lm_traffic(seed, cfg.vocab)
+    images = vlm_images(seed, cfg, len(prompts))
+    g = cfg.n_layers // cfg.xattn_group
+    image_bf16 = 2 * g * cfg.n_img_tokens * cfg.n_kv_heads * cfg.head_dim * 2
+    image_packed = 2 * g * cfg.n_img_tokens * cfg.n_kv_heads \
+        * (cfg.head_dim // 32) * 4
+    out = {"depth": cfg.n_layers, "init_frozen_s": init_s,
+           "image_cache_bf16_bytes_per_slot": image_bf16,
+           "image_cache_packed_bytes_per_slot": image_packed}
+    for name, kw in (("chunked, kv_bits=1", dict(kv_bits=1,
+                                                prefill_chunk=LM_CHUNK)),
+                     ("default (kv_bits=0, whole prompt)", {})):
+        eng = ServingEngine(cfg, frozen, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                            seed=seed, **kw)
+        rep, _, sched = serve_report(eng, prompts, LM_NEW, images)
+        w = eng.resident_weight_bytes()
+        c = eng.resident_cache_bytes()
+        pos = torch.full((LM_SLOTS,), 300, dtype=torch.int32, device=dev)
+
+        def step_call():
+            sched.model.decode(sched.params, sched._state["cur"],
+                               sched._cache, pos)
+        reset_all_launches()
+        step_call()
+        torch.cuda.synchronize()
+        per_step = all_launches()
+        expect = vlm_expected(eng.cfg, cfg.n_layers, 1, 0, 1, 0, False)
+        if per_step != expect:
+            raise AssertionError(f"{cfg.name} timed {name}: decode step "
+                                 f"launches {per_step} != {expect}")
+        step = trace(step_call)
+        rep.update({"binary_bytes": w["binary"], "other_bytes": w["other"],
+                    "cache_packed_bytes": c["packed"],
+                    "cache_float_bytes": c["float"],
+                    "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+                    "decode_step_launches": {kn: n for kn, n in
+                                             per_step.items() if n},
+                    "decode_step_trace": step})
+        out[name] = rep
+        print(f"{cfg.name} timed run on {card}, {name}: full width and "
+              f"depth ({cfg.n_layers} layers, drawn and frozen block by "
+              f"block in {init_s:.1f} s), {LM_REQUESTS} requests with an "
+              f"image each, {LM_SLOTS} slots, max_len {LM_MAX_LEN}; peak "
+              f"device memory {rep['peak_device_bytes'] / 1e9:.2f} GB")
+        print_serve_report(rep)
+        print(f"  resident weights: binary {w['binary'] / 1e9:.4f} GB, other "
+              f"{w['other'] / 1e9:.4f} GB (fp32 embedding, bf16 head, norms, "
+              f"gates); cache {c['packed'] / 1e6:.2f} MB packed + "
+              f"{c['float'] / 1e6:.2f} MB float, of it the image rows "
+              f"{image_packed / 1e6:.2f} MB packed or "
+              f"{image_bf16 / 1e6:.2f} MB bf16 a slot")
+        print_trace(f"trace {cfg.name} decode step ({name}, depth "
+                    f"{cfg.n_layers}, {LM_SLOTS} slots at position 300) on "
+                    f"{card}", step,
+                    f" ({sum(per_step.values())} of the kernels: "
+                    f"{ {kn: n for kn, n in per_step.items() if n} })")
+        del eng, sched
+        torch.cuda.empty_cache()
+    del frozen
+    torch.cuda.empty_cache()
+    return out
+
+
+def vlm_phase(seed, dev, card, dev_gen, popc_per_s, sms):
+    """Phase 13: llama-3.2-vision-11b at full width and depth
+    VLM_CHECK_DEPTH through three engines against the plain versions
+    (`vlm_engine_check`), its new kernel shapes timed (`vlm_times`), then
+    the 40-layer timed run. Returns (the depth-10 runs' launches summed,
+    report)."""
+    from repro_torch.configs.base import get_config
+    t0 = time.perf_counter()
+    cfg = get_config(VLM_ARCH)
+    launches, check = vlm_engine_check(cfg, seed, dev)
+    print(f"phase 13 checks: {time.perf_counter() - t0:.1f} s")
+    gemm, rows = vlm_times(cfg, dev_gen, dev, popc_per_s, sms)
+    print_gemm_rows(f"vlm image K/V gemm times on {card} (ms per launch, as "
+                    f"phase 7; not in the kernels line):", gemm)
+    print_attention_rows(f"vlm kernel times on {card} (ms, as phase 7; not "
+                         f"in the kernels line):", rows, 40)
+    t1 = time.perf_counter()
+    timed = vlm_timed_run(cfg, seed, dev, card)
+    print(f"{VLM_ARCH} timed: {time.perf_counter() - t1:.1f} s")
+    print(f"phase 13 (vlm): {time.perf_counter() - t0:.1f} s")
+    return launches, {"check": check, "image_gemm": gemm, "shapes": rows,
+                      "timed": timed}
+
+
 def attention_times(card, popc_per_s) -> int:
     """The attention kernels' times alone (`--attention-times`): the lm
     kernel times of kernels 5-9 at the main path's shapes, then the
@@ -4303,6 +4794,9 @@ def main() -> int:
     moe_cfgs = [get_config(arch) for arch in MOE_ARCHS]
     checks += [ch for ch in family_gemm_checks(moe_cfgs)
                if not ch[5].endswith((".gate", ".down"))]
+    # the vlm family's: its self blocks', the cross q / wo, the image K/V
+    vlm_cfg = get_config(VLM_ARCH)
+    checks += vlm_gemm_checks(vlm_cfg)
     checks += [(*edge, "edge") for edge in REGIME_EDGES]
     checks += [("binary_gemm_packed", "packed", m, k, n, "edge")
                for m, k, n in PACKED_EDGES]
@@ -4312,21 +4806,8 @@ def main() -> int:
     for kn, lhs, m, k, n, where in checks:
         if (m, k, n) not in operands:
             operands[(m, k, n)] = Operands(dev_gen, m, k, n)
-        op = operands[(m, k, n)]
-        before = bg.launches[kn]
-        got = op.call(kn, lhs)
-        torch.cuda.synchronize()
-        if bg.launches[kn] - before != 1:
-            raise AssertionError(f"{kn} ({m},{k},{n}): not one launch")
-        want = op.call(kn, lhs, plain=True)
-        torch.cuda.synchronize()
-        d = max_abs_diff(got, want, words=kn == "binary_gemm_fused")
-        err[kn] = max(err[kn], d)
-        print(f"check {kn:24s} {lhs:6s} M={m:6d} K={k:5d} N={n:5d} "
-              f"{where:9s} {plan_text(kn, m, k, n, sms):28s} max_abs_err={d}")
-        if d:
-            raise AssertionError(f"{kn} {lhs} ({m},{k},{n}) differs from "
-                                 f"its plain version by {d}")
+        err[kn] = max(err[kn], check_gemm(operands[(m, k, n)], kn, lhs,
+                                          where, sms))
     main_keys = {(m, k, n) for _, _, m, k, n, _ in shapes}
     for key in [key for key in operands if key not in main_keys]:
         del operands[key]                  # kept: the main paths' operands
@@ -4354,6 +4835,9 @@ def main() -> int:
                                       sms).items():
         err[kn] = max(err[kn], e)
     for kn, e in moe_kernel_checks(moe_cfgs, dev_gen, args.seed, dev,
+                                   sms).items():
+        err[kn] = max(err[kn], e)
+    for kn, e in vlm_kernel_checks(vlm_cfg, dev_gen, args.seed, dev,
                                    sms).items():
         err[kn] = max(err[kn], e)
     lap("phase 3 (kernels)")
@@ -4630,6 +5114,12 @@ def main() -> int:
     for kn in REPLACES:
         path_launches[kn] += moe_launches[kn]
 
+    # ------------------------------------------------------------------ vlm
+    vlm_launches, report["vlm"] = vlm_phase(args.seed, dev, card, dev_gen,
+                                            popc_per_s, sms)
+    for kn in REPLACES:
+        path_launches[kn] += vlm_launches[kn]
+
     kernels = []
     for kn in REPLACES:
         t = totals[kn]
@@ -4653,7 +5143,8 @@ def main() -> int:
                           "lm_paged": paged_launches,
                           "lm_default": default_launches, "ssm": ssm_launches,
                           "hybrid": hybrid_launches,
-                          "families": family_launches, "moe": moe_launches}
+                          "families": family_launches, "moe": moe_launches,
+                          "vlm": vlm_launches}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))
@@ -4672,10 +5163,10 @@ def main() -> int:
           f"the auto route's {TRAIN_STEPS} train steps, the depth-2 "
           "falcon-mamba runs (chunked and whole-prompt), the depth-5 "
           "recurrentgemma runs (chunked kv_bits=1 and the default engine) "
-          "and the depth-2 runs of deepseek-67b, qwen2-72b, nemotron-4-15b, "
-          "musicgen-large, dbrx-132b and llama4-scout-17b-a16e (chunked "
-          "kv_bits=1, the default engine, paged kv_bits=1 with the prefix "
-          "cache)")
+          "the depth-2 runs of deepseek-67b, qwen2-72b, nemotron-4-15b, "
+          "musicgen-large, dbrx-132b and llama4-scout-17b-a16e and the "
+          "depth-10 runs of llama-3.2-vision-11b (chunked kv_bits=1, the "
+          "default engine, paged kv_bits=1 with the prefix cache)")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s after the build")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,8 +3,8 @@ the arch registry).
 
 The fields, their defaults and their meaning are the JAX package's, so a
 config compares field by field across the two packages; only
-`activation_dtype` differs in kind (a torch dtype). The registry holds only
-what the port can serve: other archs raise KeyError.
+`activation_dtype` differs in kind (a torch dtype). The registry holds
+every arch of the JAX package's.
 """
 from __future__ import annotations
 
@@ -15,8 +15,7 @@ from typing import Any
 
 import torch
 
-# modules whose import registers an arch the port serves; the rest of the
-# JAX package's archs wait in ROADMAP Queue A
+# modules whose import registers an arch the port serves
 _ARCH_MODULES = ("repro_torch.configs.phi3_medium_14b",
                  "repro_torch.configs.deepseek_67b",
                  "repro_torch.configs.qwen2_72b",
@@ -25,7 +24,8 @@ _ARCH_MODULES = ("repro_torch.configs.phi3_medium_14b",
                  "repro_torch.configs.dbrx_132b",
                  "repro_torch.configs.llama4_scout_17b_a16e",
                  "repro_torch.configs.falcon_mamba_7b",
-                 "repro_torch.configs.recurrentgemma_2b")
+                 "repro_torch.configs.recurrentgemma_2b",
+                 "repro_torch.configs.llama_3_2_vision_11b")
 
 
 @dataclass(frozen=True)
@@ -99,8 +99,8 @@ def _load() -> None:
 def get_config(name: str) -> ModelConfig:
     _load()
     if name not in _REGISTRY:
-        raise KeyError(f"arch {name!r} is not ported yet (ROADMAP Queue A); "
-                       f"the port serves {sorted(_REGISTRY)}")
+        raise KeyError(f"unknown arch {name!r}; the port serves "
+                       f"{sorted(_REGISTRY)}")
     return _REGISTRY[name]()
 
 

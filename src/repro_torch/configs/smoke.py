@@ -1,6 +1,5 @@
 """Reduced same-family configs for CPU tests (a copy of
-`repro.configs.smoke` for the families the port serves: dense, moe,
-audio, ssm and hybrid)."""
+`repro.configs.smoke`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,14 +19,14 @@ def smoke_config(name: str) -> ModelConfig:
     elif cfg.family == "hybrid":
         over.update(n_layers=8, n_heads=4, n_kv_heads=1, lru_width=64,
                     local_window=8)
+    elif cfg.family == "vlm":
+        over.update(n_layers=10, xattn_group=5, n_heads=4, n_kv_heads=2,
+                    n_img_tokens=8, d_vision=32)
     elif cfg.family == "audio":
         over.update(n_layers=2, n_heads=4, n_kv_heads=4, vocab=128)
     elif cfg.family == "moe":
         over.update(n_layers=2, n_heads=4, n_kv_heads=2, n_experts=4,
                     top_k=min(cfg.top_k, 2), capacity_factor=8.0)
-    elif cfg.family == "dense":
-        over.update(n_layers=2, n_heads=4, n_kv_heads=2)
     else:
-        raise KeyError(f"{cfg.family} family is not ported yet "
-                       "(ROADMAP Queue A)")
+        over.update(n_layers=2, n_heads=4, n_kv_heads=2)
     return dataclasses.replace(cfg, **over)

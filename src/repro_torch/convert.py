@@ -141,15 +141,16 @@ def to_numpy_tree(tree):
 
 
 # cache leaves holding K/V: packed sign words (uint32 in the JAX package)
-# at kv_bits=1, float rows at kv_bits=0 (the hybrid's rings: attn_k/v)
-_CACHE_KV = ("k", "v", "attn_k", "attn_v")
+# at kv_bits=1, float rows at kv_bits=0 (the hybrid's rings: attn_k/v; the
+# vlm family's image rows: xk/xv)
+_CACHE_KV = ("k", "v", "attn_k", "attn_v", "xk", "xv")
 
 
 def cache_from_numpy(cache: dict, device=None) -> dict:
     """A JAX cache (as numpy) -> the port's: uint32 K/V words become int32
     tensors with the same bits, float leaves (float K/V included) keep
-    their dtype. A paged cache's (L, P, ps, Hkv, w) pools land in the
-    port's pools, whose storage has each layer's sink page behind them
+    their dtype. A paged cache's (L, P, ps, Hkv, w) pools (the vlm
+    family's (g, xattn_group - 1, P, ...)) land in the port's pools, whose storage has each layer's sink page behind them
     (`models.transformer.new_pool`)."""
     out = {name: tensor(a, device) for name, a in cache.items()}
     if "page_table" in cache:

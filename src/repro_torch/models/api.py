@@ -1,6 +1,6 @@
 """Family-dispatching model API used by the serving engine (port of
-`repro.models.api` for the dense, moe and audio families, the Mamba stack,
-`ssm`, and the recurrentgemma hybrid, `hybrid`).
+`repro.models.api`: the transformer families dense, moe, audio and vlm,
+the Mamba stack, `ssm`, and the recurrentgemma hybrid, `hybrid`).
 
     model = get_model(cfg)
     params = model.init(gen)                 # fp32 masters
@@ -13,6 +13,10 @@
     logits, cache = model.prefill(params, tokens, cache=c, slot=s)  # in place
     logits, cache = model.prefill_chunk(params, tokens, cache, slot, pos, n)
     logits, cache = model.decode(params, token, cache, pos)
+
+The vlm family's `logits` and `prefill` also take `img_emb=` (B,
+n_img_tokens, d_vision), and its `prefill_chunk` takes one with a
+request's first chunk (`models.transformer`).
 
 `path` ('auto' | 'ref'), passed to get_model, picks the kernels or their
 plain versions for every call of the model (see `models.transformer`).
@@ -139,25 +143,26 @@ def get_model(cfg: ModelConfig, *, path: str = "auto") -> Model:
                 S.rg_prefill_chunk(p, cfg, tokens, cache, slot, pos,
                                    n_valid, path=path),
         )
-    if cfg.family not in ("dense", "moe", "audio"):
-        raise NotImplementedError(f"{cfg.family} family is not ported yet "
-                                  "(ROADMAP Queue A)")
+    if cfg.family not in ("dense", "moe", "audio", "vlm"):
+        raise ValueError(f"unknown family {cfg.family!r}")
     return Model(
         cfg=cfg,
         init=lambda gen, device=None: T.init_transformer_params(
             gen, cfg, device=device),
-        logits=lambda p, tokens: T.transformer_logits(p, cfg, tokens,
-                                                      path=path),
-        prefill=lambda p, tokens, max_len=None, cache=None, slot=0:
-            T.transformer_prefill(p, cfg, tokens, max_len=max_len,
-                                  cache=cache, slot=slot, path=path),
+        logits=lambda p, tokens, img_emb=None: T.transformer_logits(
+            p, cfg, tokens, img_emb=img_emb, path=path),
+        prefill=lambda p, tokens, max_len=None, cache=None, slot=0,
+        img_emb=None: T.transformer_prefill(
+            p, cfg, tokens, img_emb=img_emb, max_len=max_len, cache=cache,
+            slot=slot, path=path),
         decode=lambda p, token, cache, pos: T.transformer_decode(
             p, cfg, token, cache, pos, path=path),
         init_cache=lambda batch, max_len, device=None, **kw: T.init_cache(
             cfg, batch, max_len, device=device, **kw),
-        prefill_chunk=lambda p, tokens, cache, slot, pos, n_valid:
-            T.transformer_prefill_chunk(p, cfg, tokens, cache, slot, pos,
-                                        n_valid, path=path),
+        prefill_chunk=lambda p, tokens, cache, slot, pos, n_valid,
+        img_emb=None: T.transformer_prefill_chunk(
+            p, cfg, tokens, cache, slot, pos, n_valid, img_emb=img_emb,
+            path=path),
     )
 
 

@@ -44,7 +44,6 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bitpack import packed_width
 from repro_torch.core.layers import QuantMode, qmatmul
-from repro_torch.core.packed import PackedWeight, map_tree
 from repro_torch.kernels.decode_attention import (
     decode_attention_packed, decode_attention_packed_plain,
 )
@@ -58,7 +57,7 @@ from repro_torch.models.ssm import (
     rglru_block_chunk, rglru_block_shapes, rglru_block_step,
 )
 from repro_torch.models.transformer import (
-    embed, ffn_sublayer, head, layer_params, pack_into, qkv, self_attn,
+    embed, ffn_sublayer, head, layer_params, pack_into, pick, qkv, self_attn,
     stack_layers,
 )
 
@@ -259,23 +258,6 @@ def _rg_layer_shapes(cfg: ModelConfig, kind: str) -> dict:
     return s
 
 
-def _pick(tree, *idx):
-    """Views of the layer at leading index `idx` of stacked leaves."""
-    def pick(_, p):
-        if isinstance(p, PackedWeight):
-            return PackedWeight(
-                p.packed[idx], p.k, p.kind, p.conv_shape, p.orig_dtype,
-                thresh=None if p.thresh is None else p.thresh[idx],
-                flip=None if p.flip is None else p.flip[idx], fold=p.fold)
-        return p[idx]
-    return map_tree(pick, tree)
-
-
-def _unsqueeze(tree):
-    """A new leading axis of 1 on every leaf (a PackedWeight's words)."""
-    return _pick(tree, None)
-
-
 def init_rg_params(gen: torch.Generator, cfg: ModelConfig, *, device=None,
                    freeze_layer=None) -> dict:
     """fp32 masters with the JAX package's shapes and init rules (matrices
@@ -320,7 +302,7 @@ def init_rg_params(gen: torch.Generator, cfg: ModelConfig, *, device=None,
                               for _ in range(n)])
 
     params["groups"] = {
-        "rec": stack_layers([_unsqueeze(layers(rec, n_rec))
+        "rec": stack_layers([pick(layers(rec, n_rec), None)
                               for _ in range(g)]),
         "attn": layers(attn, g)}
     if tail:
@@ -395,12 +377,12 @@ def _rg_whole(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     h = embed(params, cfg, tokens)
     for gi in range(g):
         for j in range(_n_rec(cfg)):
-            h, (cs, hs) = _rg_rec(_pick(params["groups"]["rec"], gi, j), h,
+            h, (cs, hs) = _rg_rec(pick(params["groups"]["rec"], gi, j), h,
                                   cfg, mode, path)
             if cache is not None:
                 cache["rec_conv"][gi, j, sl] = cs
                 cache["rec_h"][gi, j, sl] = hs
-        lp = _pick(params["groups"]["attn"], gi)
+        lp = pick(params["groups"]["attn"], gi)
         h, (k, v) = self_attn(lp["mix"], h, cfg, mode, path=path,
                               return_kv=True)
         if cache is not None:
@@ -417,7 +399,7 @@ def _rg_whole(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 vc[sl, ring] = v.to(vc.dtype)
         h = ffn_sublayer(lp, h, cfg, mode, path=path)
     for j in range(tail):
-        h, (cs, hs) = _rg_rec(_pick(params["tail"], j), h, cfg, mode, path)
+        h, (cs, hs) = _rg_rec(pick(params["tail"], j), h, cfg, mode, path)
         if cache is not None:
             cache["tail_conv"][j, sl] = cs
             cache["tail_h"][j, sl] = hs
@@ -520,16 +502,16 @@ def rg_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
     h = embed(params, cfg, token[:, None])
     for gi in range(g):
         for j in range(_n_rec(cfg)):
-            h = _rg_rec_step(_pick(params["groups"]["rec"], gi, j), h,
+            h = _rg_rec_step(pick(params["groups"]["rec"], gi, j), h,
                              cache["rec_conv"][gi, j], cache["rec_h"][gi, j],
                              live, cfg, mode, path)
-        lp = _pick(params["groups"]["attn"], gi)
+        lp = pick(params["groups"]["attn"], gi)
         h = _rg_attn_step(lp, h, cache["attn_k"][gi], cache["attn_v"][gi],
                           None if vs is None else vs[gi], cfg, mode, pos,
                           live, rows, cache_len, path)
         h = ffn_sublayer(lp, h, cfg, mode, path=path)
     for j in range(tail):
-        h = _rg_rec_step(_pick(params["tail"], j), h, cache["tail_conv"][j],
+        h = _rg_rec_step(pick(params["tail"], j), h, cache["tail_conv"][j],
                          cache["tail_h"][j], live, cfg, mode, path)
     return head(params, cfg, h)[:, 0], cache
 
@@ -638,15 +620,15 @@ def rg_prefill_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     h = embed(params, cfg, tokens)
     for gi in range(g):
         for j in range(_n_rec(cfg)):
-            h = rec(_pick(params["groups"]["rec"], gi, j), h,
+            h = rec(pick(params["groups"]["rec"], gi, j), h,
                     cache["rec_conv"][gi, j, sl], cache["rec_h"][gi, j, sl])
-        lp = _pick(params["groups"]["attn"], gi)
+        lp = pick(params["groups"]["attn"], gi)
         h = _rg_attn_chunk(lp, h, cache["attn_k"][gi, sl],
                            cache["attn_v"][gi, sl],
                            None if vs is None else vs[gi, sl], cfg, mode,
                            positions, pos, n_valid, valid, ring_idx, path)
         h = ffn_sublayer(lp, h, cfg, mode, path=path)
     for j in range(tail):
-        h = rec(_pick(params["tail"], j), h, cache["tail_conv"][j, sl],
+        h = rec(pick(params["tail"], j), h, cache["tail_conv"][j, sl],
                 cache["tail_h"][j, sl])
     return head(params, cfg, h[:, n_valid - 1:n_valid])[:, 0], cache

@@ -1,6 +1,7 @@
-"""Decoder-only transformer, dense, moe and audio families: inference forward,
-whole-prompt and chunked prefill, and decode from a float or bit-resident
-KV cache (port of the dense serving path of `repro.models.transformer`).
+"""Decoder-only transformer, dense, moe, audio and vlm families: inference
+forward, whole-prompt and chunked prefill, and decode from a float or
+bit-resident KV cache (port of the serving path of
+`repro.models.transformer`).
 RMSNorm or LayerNorm (`cfg.norm`), RoPE or sinusoidal positions added to
 the embedding (`cfg.pos`), an optional QKV bias (`cfg.qkv_bias`) and any
 of the FFN kinds of `models.common.ffn`; with `cfg.n_experts` the FFN is
@@ -11,7 +12,20 @@ too, as in the JAX package).
 Params are the JAX package's tree: dicts of tensors, the blocks' leaves
 stacked along a leading L axis (frozen weights are `PackedWeight`s whose
 words carry that axis too), so trees carry across with `convert`. The loop
-over layers is a Python loop over views of the stacked leaves.
+over layers is a Python loop over views of the stacked leaves (`pick`).
+
+The vlm family (llama-3.2-vision) stacks its layers in g = L / xattn_group
+groups: {"groups": {"cross": leaves (g, ...), "self": (g, xattn_group - 1,
+...)}}. A group runs its gated cross-attention block (`cross_attn`: float
+queries of the residual against K/V of the request's image tokens, x +
+tanh(gate) * out, then the block's FFN), then its self-attention blocks.
+The vision frontend is a stub: callers pass precomputed patch embeddings
+`img_emb` (B, n_img_tokens, d_vision), sign-packed once for K and V. The
+cache keeps each group's image K/V per slot, "xk" / "xv" (g, B, n_img,
+Hkv, w), written at admission (whole prompt, or a request's first chunk)
+and read by every later chunk and decode step over all n_img rows: kernel
+8 non-causal for a chunk, kernel 6 for a decode step at kv_bits=1, with a
+V scale "xv_scale" (g, B, Hkv); they stay per slot in the paged layout.
 
 The cache is float (`kv_bits=0`, the JAX default): K/V (L, B, T, Hkv, hd)
 in the activation dtype; or bit-resident (`kv_bits=1`): K/V sign bitplanes
@@ -24,8 +38,8 @@ launch of kernel 5's `pack_rows_into` (K and V together, at the rows
 `_decode_rows` / `_chunk_rows` / the prompt's give).
 
 The paged layout (`init_cache(page_size=, pool_pages=)`) keeps K/V in
-(L, P, ps, Hkv, ·) pools shared by every slot and a (B, NP) int32 page
-table per slot (entries equal to P: unallocated); V scales stay per slot.
+(L, P, ps, Hkv, ·) pools shared by every slot (vlm: (g, xattn_group - 1,
+P, ...)) and a (B, NP) int32 page table per slot (entries equal to P: unallocated); V scales stay per slot.
 Paging is addressing only: the same writes and the same attention, through
 the page table (kernels 7 and 9 on a bit-resident pool; the float
 attention on the gathered pages). It fills through chunked prefill only,
@@ -42,7 +56,7 @@ device decides: a CPU tensor runs the plain version) or the plain PyTorch
 version on any device. The float attention is plain PyTorch on both. It is
 the caller's explicit choice; nothing falls back on its own.
 
-Not ported yet (ROADMAP Queue A): the VLM family, training.
+Not ported yet (ROADMAP Queue A): training.
 """
 from __future__ import annotations
 
@@ -73,9 +87,14 @@ from repro_torch.models.common import (
 
 
 def _check_served(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "audio"):
-        raise NotImplementedError(f"{cfg.family} family is not ported yet "
-                                  "(ROADMAP Queue A)")
+    if cfg.family not in ("dense", "moe", "audio", "vlm"):
+        raise NotImplementedError(f"the transformer does not serve the "
+                                  f"{cfg.family} family (models.ssm_lm does)")
+
+
+def vlm_layout(cfg: ModelConfig) -> tuple[int, int]:
+    """(groups, self-attention blocks per group) of the vlm family."""
+    return cfg.n_layers // cfg.xattn_group, cfg.xattn_group - 1
 
 
 # ---------------------------------------------------------------------------
@@ -87,11 +106,17 @@ def _norm_shapes(cfg: ModelConfig) -> dict:
     return {"scale": (cfg.d_model,)}
 
 
-def _block_shapes(cfg: ModelConfig) -> dict:
+def _block_shapes(cfg: ModelConfig, kind: str = "self") -> dict:
+    """One block's leaf shapes: a self-attention block, or the vlm
+    family's cross-attention block (K/V projections from d_vision, a
+    scalar gate, no QKV bias)."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     attn = {"wq": (d, h * hd), "wk": (d, kv * hd), "wv": (d, kv * hd),
             "wo": (h * hd, d)}
-    if cfg.qkv_bias:
+    if kind == "cross":
+        dv = cfg.d_vision or d
+        attn.update({"wk": (dv, kv * hd), "wv": (dv, kv * hd), "gate": (1,)})
+    elif cfg.qkv_bias:
         attn.update({"bq": (h * hd,), "bk": (kv * hd,), "bv": (kv * hd,)})
     ffn_shapes = (moe_param_shapes(d, cfg.d_ff, cfg.n_experts, cfg.mlp)
                   if cfg.n_experts else ffn_param_shapes(d, cfg.d_ff, cfg.mlp))
@@ -102,7 +127,8 @@ def _block_shapes(cfg: ModelConfig) -> dict:
 def init_transformer_params(gen: torch.Generator, cfg: ModelConfig, *,
                             device=None, freeze_layer=None) -> dict:
     """fp32 masters with the JAX package's shapes and scales: weight
-    matrices N(0, 0.02^2), norm scales and biases 0. Draws come from `gen`,
+    matrices N(0, 0.02^2), norm scales, biases and the vlm gates 0. Draws
+    come from `gen`,
     on its device (a CPU generator gives the same weights on every device;
     a CUDA one draws a full-width model on the card in seconds).
 
@@ -110,7 +136,8 @@ def init_transformer_params(gen: torch.Generator, cfg: ModelConfig, *,
     leading axis of 1) to their frozen tree, and each layer is drawn and
     frozen before the next is drawn: only one layer's fp32 masters are
     ever resident (all 40 of phi3-medium-14b's are 54.5 GB; one of
-    dbrx-132b's, with its 16 experts, 12.7 GB). The weights
+    dbrx-132b's, with its 16 experts, 12.7 GB); the vlm family draws and
+    freezes each group's cross block and each self block alike. The weights
     follow the same distribution as freezing the whole tree, not the same
     draws."""
     _check_served(cfg)
@@ -120,24 +147,38 @@ def init_transformer_params(gen: torch.Generator, cfg: ModelConfig, *,
         return (torch.randn(shape, generator=gen, device=gen.device)
                 * 0.02).to(dev)
 
-    def init(shapes, n_layers):
+    def init(shapes, prefix):
         if isinstance(shapes, dict):
-            return {k: init(v, n_layers) for k, v in shapes.items()}
-        full = (n_layers,) + shapes
+            return {k: init(v, prefix) for k, v in shapes.items()}
+        full = prefix + shapes
         return normal(full) if len(shapes) >= 2 else \
             torch.zeros(full, dtype=torch.float32, device=dev)
+
+    def layers(shapes, n):
+        return stack_layers([freeze_layer(init(shapes, (1,)))
+                             for _ in range(n)])
 
     params = {"embed": normal((cfg.vocab, cfg.d_model)),
               "final_norm": {k: torch.zeros(v, device=dev)
                              for k, v in _norm_shapes(cfg).items()}}
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((cfg.d_model, cfg.vocab))
-    if freeze_layer is None:
-        params["blocks"] = init(_block_shapes(cfg), cfg.n_layers)
+    blocks = _block_shapes(cfg)
+    if cfg.family == "vlm":
+        g, p_self = vlm_layout(cfg)
+        cross = _block_shapes(cfg, "cross")
+        if freeze_layer is None:
+            params["groups"] = {"cross": init(cross, (g,)),
+                                "self": init(blocks, (g, p_self))}
+        else:
+            params["groups"] = {
+                "cross": layers(cross, g),
+                "self": stack_layers([pick(layers(blocks, p_self), None)
+                                      for _ in range(g)])}
+    elif freeze_layer is None:
+        params["blocks"] = init(blocks, (cfg.n_layers,))
     else:
-        params["blocks"] = stack_layers(
-            [freeze_layer(init(_block_shapes(cfg), 1))
-             for _ in range(cfg.n_layers)])
+        params["blocks"] = layers(blocks, cfg.n_layers)
     return params
 
 
@@ -158,16 +199,39 @@ def stack_layers(layers: list):
     return torch.cat(layers)
 
 
-def layer_params(params: dict, layer: int) -> dict:
-    """Views of layer `layer` of the stacked block leaves."""
-    def pick(_, p):
+def pick(tree, *idx):
+    """Views of the block at leading indices `idx` of stacked leaves (a
+    PackedWeight's words, thresholds and flips too); an index of None adds
+    a leading axis of 1 instead."""
+    def leaf(_, p):
         if isinstance(p, PackedWeight):
             return PackedWeight(
-                p.packed[layer], p.k, p.kind, p.conv_shape, p.orig_dtype,
-                thresh=None if p.thresh is None else p.thresh[layer],
-                flip=None if p.flip is None else p.flip[layer], fold=p.fold)
-        return p[layer]
-    return map_tree(pick, params["blocks"])
+                p.packed[idx], p.k, p.kind, p.conv_shape, p.orig_dtype,
+                thresh=None if p.thresh is None else p.thresh[idx],
+                flip=None if p.flip is None else p.flip[idx], fold=p.fold)
+        return p[idx]
+    return map_tree(leaf, tree)
+
+
+def layer_params(params: dict, layer: int) -> dict:
+    """Views of layer `layer` of the stacked block leaves."""
+    return pick(params["blocks"], layer)
+
+
+def layer_stack(params: dict, cfg: ModelConfig):
+    """The stack in order, as (kind, block views, index): ("self", layer
+    l, (l,)) for each layer; the vlm family's ("cross", group gi's cross
+    block, gi) before ("self", its self block j, (gi, j)) for each j. A
+    self block's index picks its cache leaves (K/V, V scale)."""
+    if cfg.family != "vlm":
+        for layer in range(cfg.n_layers):
+            yield "self", layer_params(params, layer), (layer,)
+        return
+    g, p_self = vlm_layout(cfg)
+    for gi in range(g):
+        yield "cross", pick(params["groups"]["cross"], gi), gi
+        for j in range(p_self):
+            yield "self", pick(params["groups"]["self"], gi, j), (gi, j)
 
 
 # ---------------------------------------------------------------------------
@@ -248,6 +312,49 @@ def _self_block(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
     return ffn_sublayer(p, y, cfg, mode, path=path, aux=aux), kv
 
 
+def image_kv(p: dict, img: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
+             path: str):
+    """K and V, each (B, n_img, Hkv, hd), of image tokens img (B, n_img,
+    d_vision) in the activation dtype under a cross block's attention
+    params `p`: frozen wk and wv read one shared sign-pack of img."""
+    b, ni, _ = img.shape
+    imgs = shared_pack(img, (p["wk"], p["wv"]), mode, path=path)
+    k = qmatmul(imgs, p["wk"], mode, path=path)
+    v = qmatmul(imgs, p["wv"], mode, path=path)
+    return (k.reshape(b, ni, cfg.n_kv_heads, cfg.head_dim),
+            v.reshape(b, ni, cfg.n_kv_heads, cfg.head_dim))
+
+
+def cross_query(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
+                path: str) -> torch.Tensor:
+    """The cross block's queries (B, S, Hq, hd) of the normed residual (a
+    float lhs: no shared pack, no rope)."""
+    xn = norm(p["ln1"], x, cfg)
+    q = qmatmul(xn, p["attn"]["wq"], mode, path=path)
+    return q.reshape(x.shape[0], x.shape[1], cfg.n_heads, cfg.head_dim)
+
+
+def cross_out(p: dict, x: torch.Tensor, out: torch.Tensor, cfg: ModelConfig,
+              mode: QuantMode, path: str) -> torch.Tensor:
+    """x + tanh(gate) * (out @ wo) in the activation dtype, then the cross
+    block's FFN sublayer. out: (B, S, Hq, hd) attention output."""
+    b, s = x.shape[:2]
+    y = qmatmul(out.reshape(b, s, cfg.n_heads * cfg.head_dim),
+                p["attn"]["wo"], mode, path=path)
+    gate = torch.tanh(p["attn"]["gate"]).to(y.dtype)
+    return ffn_sublayer(p, x + gate * y, cfg, mode, path=path)
+
+
+def cross_attn(p: dict, x: torch.Tensor, kv, cfg: ModelConfig,
+               mode: QuantMode, *, path: str = "auto") -> torch.Tensor:
+    """The vlm family's cross block over a whole sequence: gated
+    cross-attention of x (B, S, D) against the image K/V `kv` (`image_kv`)
+    with the float flash attention, non-causal, then its FFN sublayer."""
+    q = cross_query(p, x, cfg, mode, path)
+    out = flash_attention(q, *kv, False, 0, cfg.attn_chunk, 0)
+    return cross_out(p, x, out, cfg, mode, path)
+
+
 def pack_into(path: str, srcs, pools, rows: torch.Tensor) -> None:
     """Sign-pack the new K and V rows into their cache rows, in place: one
     launch of kernel 5's `pack_rows_into` ('auto'), or its plain version
@@ -310,16 +417,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None,
     with the sentinel pool_pages, and "v_scale" (kv_bits=1) stays (L,
     batch, Hkv). Each layer's pool is followed in memory by one more page,
     the sink, which only writes of inactive rows reach (`_with_sink`) and
-    nothing reads."""
+    nothing reads.
+
+    The vlm family's leading L is (g, xattn_group - 1) on "k", "v" and
+    "v_scale", and its image K/V "xk", "xv" (g, batch, n_img_tokens, Hkv,
+    w), with "xv_scale" (g, batch, Hkv) at kv_bits=1, stay per slot in
+    either layout."""
     _check_served(cfg)
     dtype, w = _kv_leaf(cfg)
     dev = resolve_device(device)
     hkv = cfg.n_kv_heads
+    lead = vlm_layout(cfg) if cfg.family == "vlm" else (cfg.n_layers,)
     cache = {}
     if page_size is None:
         if pool_pages is not None:
             raise ValueError("pool_pages needs page_size (the paged layout)")
-        shape = (cfg.n_layers, batch, max_len, hkv, w)
+        shape = lead + (batch, max_len, hkv, w)
         cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
         cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
     else:
@@ -328,26 +441,36 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None,
         n_pages = -(-max_len // page_size)
         pool = pool_pages if pool_pages is not None else batch * n_pages
         for name in ("k", "v"):
-            cache[name] = new_pool(cfg.n_layers, pool, page_size, hkv, w,
+            cache[name] = new_pool(*lead, pool, page_size, hkv, w,
                                    device=dev, dtype=dtype)
         cache["page_table"] = torch.full((batch, n_pages), pool,
                                          dtype=torch.int32, device=dev)
     if cfg.kv_bits == 1:
-        cache["v_scale"] = torch.zeros((cfg.n_layers, batch, hkv),
+        cache["v_scale"] = torch.zeros(lead + (batch, hkv),
                                        dtype=torch.float32, device=dev)
+    if cfg.family == "vlm":
+        g = lead[0]
+        for name in ("xk", "xv"):
+            cache[name] = torch.zeros((g, batch, cfg.n_img_tokens, hkv, w),
+                                      dtype=dtype, device=dev)
+        if cfg.kv_bits == 1:
+            cache["xv_scale"] = torch.zeros((g, batch, hkv),
+                                            dtype=torch.float32, device=dev)
     return cache
 
 
-def new_pool(n_layers: int, pool: int, page_size: int, hkv: int, w: int,
-             *, device, dtype: torch.dtype = torch.int32) -> torch.Tensor:
-    """Zeroed (L, pool, page_size, Hkv, w) page pools (int32 words, or the
-    float cache's dtype): a view of (L, pool + 1, ...) storage, so that
+def new_pool(*shape: int, device, dtype: torch.dtype = torch.int32
+             ) -> torch.Tensor:
+    """Zeroed (*lead, pool, page_size, Hkv, w) page pools (int32 words, or
+    the float cache's dtype; lead: (L,), or the vlm family's (g,
+    xattn_group - 1)): a view of (*lead, pool + 1, ...) storage, so that
     each layer's pool is followed by its sink page (see `_with_sink`)."""
+    *lead, pool, page_size, hkv, w = shape
     if pool < 1:
         raise ValueError(f"pool_pages must be >= 1, got {pool}")
-    storage = torch.zeros((n_layers, pool + 1, page_size, hkv, w),
-                          dtype=dtype, device=device)
-    return storage[:, :pool]
+    storage = torch.zeros((*lead, pool + 1, page_size, hkv, w), dtype=dtype,
+                          device=device)
+    return storage[..., :pool, :, :, :]
 
 
 def _with_sink(pool: torch.Tensor) -> torch.Tensor:
@@ -373,10 +496,48 @@ def _rows_view(panel: torch.Tensor) -> torch.Tensor:
 
 
 def cache_len_max(cache: dict) -> int:
-    """Positions one slot's cache holds: T contiguous, NP * ps paged."""
+    """Positions one slot's cache holds: T contiguous, NP * ps paged (the
+    K leaf's (..., B | P, T | ps, Hkv, w))."""
     if "page_table" in cache:
-        return cache["page_table"].shape[1] * cache["k"].shape[2]
-    return cache["k"].shape[2]
+        return cache["page_table"].shape[1] * cache["k"].shape[-3]
+    return cache["k"].shape[-3]
+
+
+def _image(cfg: ModelConfig, img_emb, batch: int, *, required: bool):
+    """img_emb (batch, n_img_tokens, d_vision) checked and cast to the
+    activation dtype, or None where no image is passed (the vlm family
+    needs one where `required`; other families take none)."""
+    if cfg.family != "vlm":
+        if img_emb is not None:
+            raise ValueError(f"img_emb is vlm-only (family is "
+                             f"{cfg.family!r})")
+        return None
+    if img_emb is None:
+        if required:
+            raise ValueError("the vlm family needs img_emb (B, "
+                             "n_img_tokens, d_vision)")
+        return None
+    want = (batch, cfg.n_img_tokens, cfg.d_vision)
+    if tuple(img_emb.shape) != want:
+        raise ValueError(f"img_emb shape {tuple(img_emb.shape)} != {want}")
+    return img_emb.to(cfg.activation_dtype)
+
+
+def _write_image_kv(cache: dict, gi: int, k: torch.Tensor, v: torch.Tensor,
+                    slot: int, cfg: ModelConfig, path: str) -> None:
+    """Store group gi's image K/V, each (B, n_img, Hkv, hd), in the image
+    rows of slots [slot, slot + B): kv_bits=1 packed in one launch of
+    kernel 5 (`pack_rows_into`), the V scale `v_cache_scale` over the
+    n_img rows; kv_bits=0 in the activation dtype."""
+    b, ni = k.shape[:2]
+    xk, xv = cache["xk"][gi], cache["xv"][gi]
+    if cfg.kv_bits == 1:
+        rows = torch.arange(slot * ni, (slot + b) * ni, device=k.device)
+        pack_into(path, (k.flatten(0, 1), v.flatten(0, 1)), (xk, xv), rows)
+        cache["xv_scale"][gi, slot:slot + b] = v_cache_scale(v)
+    else:
+        xk[slot:slot + b] = k.to(xk.dtype)
+        xv[slot:slot + b] = v.to(xv.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -438,14 +599,30 @@ def _decode_rows(cache: dict, pos: torch.Tensor, act: torch.Tensor):
     pt = cache.get("page_table")
     posc = pos.clamp(min=0).long()
     if pt is None:
-        t = cache["k"].shape[2]
+        t = cache["k"].shape[-3]
         base = torch.arange(b, device=pos.device) * t
         return torch.where(act, base + posc, -1)
-    p_pool, ps = cache["k"].shape[1], cache["k"].shape[2]
+    p_pool, ps = cache["k"].shape[-4], cache["k"].shape[-3]
     pidx = (posc // ps).clamp(max=pt.shape[1] - 1)
     slots = torch.arange(b, device=pos.device)
     wpage = torch.where(act, pt[slots, pidx].long(), p_pool)
     return wpage * ps + posc % ps
+
+
+def _decode_cross_block(bp, h, xk, xv, xvs, cfg, mode, path):
+    """The cross block of a decode step: each row's query against its slot's
+    cached image K/V, every one of the n_img rows (inactive rows too).
+    h: (B, 1, D); xk/xv: the group's (B, n_img, Hkv, w) image rows; xvs:
+    their (B, Hkv) V scales (kv_bits=1) or None."""
+    q = cross_query(bp, h, cfg, mode, path)
+    n_img = xk.shape[1]
+    if cfg.kv_bits == 1:
+        attend = decode_attention_packed if path == "auto" \
+            else decode_attention_packed_plain
+        out = attend(q, xk, xv, xvs, n_img)
+    else:
+        out = decode_attention(q, xk, xv, n_img)
+    return cross_out(bp, h, out, cfg, mode, path)
 
 
 def transformer_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
@@ -467,10 +644,15 @@ def transformer_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
     pt = cache.get("page_table")
     vs = cache.get("v_scale")
     h = embed(params, cfg, token[:, None], pos[:, None])
-    for layer in range(cfg.n_layers):
-        h = _decode_self_block(layer_params(params, layer), h,
-                               cache["k"][layer], cache["v"][layer],
-                               None if vs is None else vs[layer], cfg, mode,
+    for kind, bp, idx in layer_stack(params, cfg):
+        if kind == "cross":
+            h = _decode_cross_block(
+                bp, h, cache["xk"][idx], cache["xv"][idx],
+                cache["xv_scale"][idx] if cfg.kv_bits == 1 else None, cfg,
+                mode, path)
+            continue
+        h = _decode_self_block(bp, h, cache["k"][idx], cache["v"][idx],
+                               None if vs is None else vs[idx], cfg, mode,
                                pos, rows, path, pt)
     return head(params, cfg, h)[:, 0], cache
 
@@ -538,15 +720,34 @@ def _chunk_rows(cache: dict, pt_row, positions: torch.Tensor,
     live = torch.arange(positions.shape[0], device=positions.device) < n_valid
     t = positions.long()
     if pt_row is not None:
-        ps = cache["k"].shape[2]
+        ps = cache["k"].shape[-3]
         pidx = (t // ps).clamp(max=pt_row.shape[1] - 1)
         t = pt_row[0, pidx].long() * ps + t % ps
     return torch.where(live, t, -1)
 
 
+def _chunk_cross_block(bp, h, xk, xv, xvs, cfg, mode, path):
+    """The cross block of a prefill chunk: the chunk's queries against the
+    slot's cached image rows, all n_img of them, non-causal (kernel 8 at
+    kv_bits=1, q_pos 0; the float chunk attention at kv_bits=0). h: (1,
+    C, D); xk/xv: (1, n_img, Hkv, w) views of the slot's rows; xvs: their
+    (1, Hkv) V scale (kv_bits=1) or None."""
+    q = cross_query(bp, h, cfg, mode, path)
+    n_img = xk.shape[1]
+    if cfg.kv_bits == 1:
+        attend = prefill_attention_packed if path == "auto" \
+            else prefill_attention_packed_plain
+        out = attend(q, xk, xv, xvs, n_img, 0, causal=False)
+    else:
+        out = chunk_attention(q, xk, xv, n_img, 0, causal=False)
+    return cross_out(bp, h, out, cfg, mode, path)
+
+
 def transformer_prefill_chunk(params: dict, cfg: ModelConfig,
                               tokens: torch.Tensor, cache: dict, slot: int,
-                              pos: int, n_valid: int, *, path: str = "auto"
+                              pos: int, n_valid: int, *,
+                              img_emb: torch.Tensor | None = None,
+                              path: str = "auto"
                               ) -> tuple[torch.Tensor, dict]:
     """Advance one slot's prefill by one fixed-shape chunk.
 
@@ -555,9 +756,12 @@ def transformer_prefill_chunk(params: dict, cfg: ModelConfig,
     (tokens already written for this slot) and n_valid are host ints. K/V
     rows land at positions [pos, pos + n_valid) of the slot's row -- paged:
     at page pt[slot, t // ps], row t % ps, read from the device page table
-    (no host sync); rows whose entry is the sentinel write nothing.
-    Returns (logits (1, V) at the chunk's last real token, the cache,
-    updated in place)."""
+    (no host sync); rows whose entry is the sentinel write nothing. vlm:
+    img_emb (1, n_img_tokens, d_vision), passed with a request's first
+    chunk only, has each group's image K/V computed and written to the
+    slot's rows (`_write_image_kv`); every chunk cross-attends to those
+    rows. Returns (logits (1, V) at the chunk's last real token, the
+    cache, updated in place)."""
     _check_served(cfg)
     if not 1 <= n_valid <= tokens.shape[1]:
         raise ValueError(f"n_valid={n_valid} outside 1..{tokens.shape[1]}")
@@ -565,6 +769,7 @@ def transformer_prefill_chunk(params: dict, cfg: ModelConfig,
     if pos < 0 or pos + n_valid > t_max:
         raise ValueError(f"chunk rows [{pos}, {pos + n_valid}) outside the "
                          f"cache's {t_max} positions")
+    img = _image(cfg, img_emb, 1, required=False)
     mode = QuantMode(cfg.quant)
     c = tokens.shape[1]
     positions = torch.arange(c, dtype=torch.int32, device=tokens.device) + pos
@@ -572,17 +777,26 @@ def transformer_prefill_chunk(params: dict, cfg: ModelConfig,
         else None
     rows = _chunk_rows(cache, pt_row, positions, n_valid)
     vs = cache.get("v_scale")
+    sl = slice(slot, slot + 1)
     h = embed(params, cfg, tokens, positions)
-    for layer in range(cfg.n_layers):
+    for kind, bp, idx in layer_stack(params, cfg):
+        if kind == "cross":
+            if img is not None:
+                _write_image_kv(cache, idx, *image_kv(bp["attn"], img, cfg,
+                                                      mode, path),
+                                slot, cfg, path)
+            h = _chunk_cross_block(
+                bp, h, cache["xk"][idx, sl], cache["xv"][idx, sl],
+                cache["xv_scale"][idx, sl] if cfg.kv_bits == 1 else None,
+                cfg, mode, path)
+            continue
         if pt_row is None:
-            kc = cache["k"][layer, slot:slot + 1]
-            vc = cache["v"][layer, slot:slot + 1]
+            kc, vc = cache["k"][idx + (sl,)], cache["v"][idx + (sl,)]
         else:
-            kc, vc = cache["k"][layer], cache["v"][layer]
+            kc, vc = cache["k"][idx], cache["v"][idx]
         h = _chunk_self_block(
-            layer_params(params, layer), h, kc, vc,
-            None if vs is None else vs[layer, slot:slot + 1], cfg, mode,
-            positions, pos, n_valid, rows, path, pt_row)
+            bp, h, kc, vc, None if vs is None else vs[idx + (sl,)], cfg,
+            mode, positions, pos, n_valid, rows, path, pt_row)
     return head(params, cfg, h[:, n_valid - 1:n_valid])[:, 0], cache
 
 
@@ -590,43 +804,53 @@ def transformer_prefill_chunk(params: dict, cfg: ModelConfig,
 # Whole-prompt prefill and the inference forward
 # ---------------------------------------------------------------------------
 def transformer_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                        *, max_len: int | None = None,
+                        *, img_emb: torch.Tensor | None = None,
+                        max_len: int | None = None,
                         cache: dict | None = None, slot: int = 0,
                         path: str = "auto") -> tuple[torch.Tensor, dict]:
     """Run whole prompts: tokens (B, S) int. Every layer attends over the
     prompt with the float flash attention, then its K/V rows 0..S-1 land
     in cache rows [slot, slot + B) -- kv_bits=1: packed and stored in one
     launch of kernel 5 (`pack_rows_into`), the V scale `v_cache_scale`.
-    With `cache` None a new contiguous cache of B rows at max_len (default
-    S) is made, as the JAX package returns one; a given cache is written in
-    place (positions past S keep what they held: lengths mask them). A
-    paged cache fills through chunked prefill only (ValueError). Returns
-    (logits (B, V) at the last position, the cache)."""
+    vlm: img_emb (B, n_img_tokens, d_vision); each group's image K/V is
+    computed once, for the cross-attention (float, non-causal) and for its
+    cache rows (`_write_image_kv`). With `cache` None a new contiguous
+    cache of B rows at max_len (default S) is made, as the JAX package
+    returns one; a given cache is written in place (positions past S keep
+    what they held: lengths mask them). A paged cache fills through
+    chunked prefill only (ValueError). Returns (logits (B, V) at the last
+    position, the cache)."""
     _check_served(cfg)
     b, s = tokens.shape
+    img = _image(cfg, img_emb, b, required=True)
     if cache is None:
         cache = init_cache(cfg, b, max_len or s, device=tokens.device)
     elif "page_table" in cache:
         raise ValueError("a paged cache fills through chunked admission: "
                          "pass prefill_chunk")
-    t_max = cache["k"].shape[2]
-    if not (1 <= s <= t_max and 0 <= slot and slot + b <= cache["k"].shape[1]):
+    n_slots, t_max = cache["k"].shape[-4:-2]
+    if not (1 <= s <= t_max and 0 <= slot and slot + b <= n_slots):
         raise ValueError(f"prompt rows {s} x slots [{slot}, {slot + b}) "
-                         f"outside the cache's {tuple(cache['k'].shape[1:3])}")
+                         f"outside the cache's {(n_slots, t_max)}")
     mode = QuantMode(cfg.quant)
     if cfg.kv_bits == 1:
         dev = tokens.device
         rows = ((torch.arange(b, device=dev)[:, None] + slot) * t_max
                 + torch.arange(s, device=dev)[None]).reshape(-1)
     h = embed(params, cfg, tokens)
-    for layer in range(cfg.n_layers):
-        h, (k, v) = _self_block(layer_params(params, layer), h, cfg, mode,
-                                path=path, return_kv=True)
-        kc, vc = cache["k"][layer], cache["v"][layer]
+    for kind, bp, idx in layer_stack(params, cfg):
+        if kind == "cross":
+            kv = image_kv(bp["attn"], img, cfg, mode, path)
+            h = cross_attn(bp, h, kv, cfg, mode, path=path)
+            _write_image_kv(cache, idx, *kv, slot, cfg, path)
+            continue
+        h, (k, v) = _self_block(bp, h, cfg, mode, path=path, return_kv=True)
+        kc, vc = cache["k"][idx], cache["v"][idx]
         if cfg.kv_bits == 1:
             pack_into(path, (k.flatten(0, 1), v.flatten(0, 1)), (kc, vc),
                       rows)
-            cache["v_scale"][layer, slot:slot + b] = v_cache_scale(v)
+            cache["v_scale"][idx + (slice(slot, slot + b),)] = \
+                v_cache_scale(v)
         else:
             kc[slot:slot + b, :s] = k.to(kc.dtype)
             vc[slot:slot + b, :s] = v.to(vc.dtype)
@@ -634,17 +858,23 @@ def transformer_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def transformer_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                       *, path: str = "auto") -> tuple[torch.Tensor, dict]:
-    """Inference forward: tokens (B, S) -> (logits (B, S, V), {"lb_loss":
-    the MoE load-balance loss summed over the layers, 0 for a dense
-    stack}), causal float flash attention in every layer, no cache. (The
-    training forward and its loss come with the LM trainer, ROADMAP Queue
-    A.)"""
+                       *, img_emb: torch.Tensor | None = None,
+                       path: str = "auto") -> tuple[torch.Tensor, dict]:
+    """Inference forward: tokens (B, S) (vlm: and img_emb (B, n_img_tokens,
+    d_vision)) -> (logits (B, S, V), {"lb_loss": the MoE load-balance loss
+    summed over the layers, 0 for a dense stack}), causal float flash
+    attention in every self block, non-causal in every cross block, no
+    cache. (The training forward and its loss come with the LM trainer,
+    ROADMAP Queue A.)"""
     _check_served(cfg)
+    img = _image(cfg, img_emb, tokens.shape[0], required=True)
     mode = QuantMode(cfg.quant)
     h = embed(params, cfg, tokens)
     aux = {"lb_loss": torch.zeros((), dtype=torch.float32, device=h.device)}
-    for layer in range(cfg.n_layers):
-        h, _ = _self_block(layer_params(params, layer), h, cfg, mode,
-                           path=path, aux=aux)
+    for kind, bp, _ in layer_stack(params, cfg):
+        if kind == "cross":
+            h = cross_attn(bp, h, image_kv(bp["attn"], img, cfg, mode, path),
+                           cfg, mode, path=path)
+        else:
+            h, _ = _self_block(bp, h, cfg, mode, path=path, aux=aux)
     return head(params, cfg, h), aux

@@ -34,7 +34,11 @@ the JAX package. recurrentgemma-2b (`family="hybrid"`) serves from its
 rec layers' state and a ring of `local_window` K/V rows per attention
 layer (float, or packed at `kv_bits=1`, where decode attends through
 kernel 6); `page_size`, `pool_pages` and `prefix_cache` have no effect
-there, and its cache does not grow with `max_len`.
+there, and its cache does not grow with `max_len`. llama-3.2-vision
+(`family="vlm"`) serves through `generate` / `serve` with each request's
+image embeddings (`Request.img_emb`, (n_img_tokens, d_vision)): their K/V
+stay per slot beside the self-attention cache, and the prefix cache is off
+for it, as in the JAX package.
 
 Not ported yet, and raising NotImplementedError (ROADMAP Queue A): the
 mesh, the bounded queue and fault plans.
@@ -136,7 +140,7 @@ class ServingEngine:
             kind = "packed" if leaf.dtype == torch.int32 else "float"
             n = leaf.numel()
             if name in ("k", "v") and "page_table" in cache:
-                n += n // leaf.shape[1]              # the sink pages
+                n += n // leaf.shape[-4]             # the sink pages
             out[kind] += n * leaf.element_size()
         out["total"] = out["packed"] + out["float"]
         if self._sched is not None:
@@ -179,6 +183,9 @@ class ServingEngine:
         the device until one transfer at the end."""
         if not requests:
             raise ValueError("empty batch")
+        if self.cfg.family == "vlm":
+            raise ValueError("generate_static passes no image: serve the vlm "
+                             "family with generate or serve")
         lens = {len(r.prompt) for r in requests}
         if len(lens) != 1:
             raise ValueError("the static path batches same-length prompts")

@@ -47,6 +47,10 @@ taken at that page boundary (hence `page_size % prefill_chunk == 0`), and
 `Completion.cached_tokens` counts the pinned tokens (`ttft` charges only
 the suffix). Retirement offers the request's full prompt pages to the tree.
 Paging changes addressing only: tokens equal the contiguous cache's. The
+vlm family pages its self-attention K/V but never shares them (the prefix
+tree is off for it, as in the JAX scheduler: its image embeddings condition
+every K/V row, so equal token prefixes do not mean equal pages); its image
+K/V stay per slot. The
 Mamba stack (`ssm`) keeps O(1) recurrent state per slot, and the hybrid
 (`hybrid`) that and a ring of `local_window` K/V rows per attention layer:
 `page_size`, `pool_pages` and `prefix_cache` are ignored for them, as in
@@ -97,7 +101,7 @@ class Request:
     max_new_tokens: int = 16
     temperature: float = 0.0     # 0 => greedy
     eos_id: int | None = None    # stop early when this token is sampled
-    img_emb: np.ndarray | None = None   # vlm only (not ported)
+    img_emb: np.ndarray | None = None   # vlm only: (n_img_tokens, d_vision)
     deadline_s: float | None = None     # not ported
     priority: int = 0            # higher admits first; ties go by rid
 
@@ -188,7 +192,11 @@ class Scheduler:
         if prefix_cache and not self._paged and attn_fam:
             raise ValueError("prefix_cache needs the paged cache -- pass "
                              "page_size")
-        self._use_tree = bool(prefix_cache) and self._paged
+        # equal token prefixes do not mean equal pages for the vlm family:
+        # its image conditions every K/V row (its pools are paged, never
+        # shared)
+        self._use_tree = bool(prefix_cache) and self._paged and \
+            cfg.family != "vlm"
         if self._use_tree:
             # running V-scale snapshots are taken at chunk ends, so page
             # boundaries must land on chunk ends to be insertable
@@ -283,7 +291,15 @@ class Scheduler:
             raise RequestError(
                 f"prompt ({prompt.size}) + max_new_tokens "
                 f"({req.max_new_tokens}) exceeds max_len={self.max_len}")
-        if req.img_emb is not None:
+        if self.cfg.family == "vlm":
+            if req.img_emb is None:
+                raise RequestError("vlm request needs img_emb")
+            shape = np.asarray(req.img_emb).shape
+            want = (self.cfg.n_img_tokens, self.cfg.d_vision)
+            if shape != want:
+                raise RequestError(f"img_emb shape {shape} != {want} "
+                                   f"(n_img_tokens, d_vision)")
+        elif req.img_emb is not None:
             raise RequestError(
                 f"img_emb is vlm-only (family is {self.cfg.family!r})")
         if req.deadline_s is not None:
@@ -374,6 +390,15 @@ class Scheduler:
         self._pager.decref([p for p in pages if p not in taken])
         self._set_page_row(slot, [])
 
+    def _image_kw(self, req: Request) -> dict:
+        """The vlm family's image argument of a prefill call: the request's
+        img_emb as a (1, n_img_tokens, d_vision) float32 tensor on the
+        device (JAX's float32 array); none for other families."""
+        if self.cfg.family != "vlm":
+            return {}
+        img = np.asarray(req.img_emb, np.float32)[None]
+        return {"img_emb": torch.from_numpy(img).to(self.device)}
+
     # -- whole-prompt admission ---------------------------------------------
     def _admit(self, slot: int, rid: int, req: Request) -> None:
         """Prefill the whole prompt at batch 1 straight into `slot`'s cache
@@ -387,7 +412,8 @@ class Scheduler:
         tokens = torch.from_numpy(req.prompt[None].astype(np.int64)) \
             .to(self.device)
         logits, self._cache = self.model.prefill(self.params, tokens,
-                                                 cache=self._cache, slot=slot)
+                                                 cache=self._cache, slot=slot,
+                                                 **self._image_kw(req))
         self._first_token(slot, logits, plen, req)
         self._sync()                                  # honest prefill_s
         dt = time.time() - t0
@@ -458,8 +484,10 @@ class Scheduler:
         chunk = np.zeros((1, c), np.int64)
         chunk[0, :n_valid] = req.prompt[lo:lo + n_valid]
         tokens = torch.from_numpy(chunk).to(self.device)
+        # the vlm family's image K/V are written with the first chunk
+        img = self._image_kw(req) if adm.next == 0 else {}
         logits, self._cache = self.model.prefill_chunk(
-            self.params, tokens, self._cache, slot, lo, n_valid)
+            self.params, tokens, self._cache, slot, lo, n_valid, **img)
         if final:
             self._first_token(slot, logits, lo + n_valid, req)
         self._sync()                                  # honest prefill_s

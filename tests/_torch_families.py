@@ -1,12 +1,14 @@
 """Checks shared by tests/test_torch_dense_families.py (deepseek-67b,
-qwen2-72b, nemotron-4-15b) and tests/test_torch_audio.py (musicgen-large):
+qwen2-72b, nemotron-4-15b), tests/test_torch_audio.py (musicgen-large),
+the moe and the vlm tests:
 each family's smoke config served by the port's transformer against the
 JAX package's, on the same params.
 
 Params: one numpy tree per arch, drawn from a seed in the JAX init's
-shapes, every leaf N(0, 0.02^2). The norm scales and biases and the QKV
-bias are 0 in both packages' own init, so a path that dropped them would
-pass unseen; here each is non-zero. Both packages take the tree as it is
+shapes, every leaf N(0, 0.02^2) but the vlm family's cross-attention gates,
+N(0, 1). The norm scales and biases, the QKV bias and the gates are 0 in
+both packages' own init, so a path that dropped them would pass unseen;
+here each is non-zero. Both packages take the tree as it is
 (`np_to_jax`, `convert`) and each freezes it itself.
 
 Tolerances: logits atol 1e-4, rtol 1e-5, as tests/test_torch_transformer.py
@@ -60,6 +62,11 @@ def params(arch: str, seed: int = 0):
     tree = jax.tree.map(
         lambda s: (rng.normal(size=s.shape) * 0.02).astype(np.float32),
         shapes)
+    if jcfg.family == "vlm":
+        # the cross blocks' gates N(0, 1): tanh(gate) weighs the whole
+        # cross-attention path (0 at init, 0.02 where drawn as the rest)
+        attn = tree["groups"]["cross"]["attn"]
+        attn["gate"] = rng.normal(size=attn["gate"].shape).astype(np.float32)
     jp, pp = np_to_jax(tree), to_port(tree)
     return jcfg, cfg, jp, jm.freeze(jp), pp, get_model(cfg).freeze(pp)
 

@@ -1028,3 +1028,128 @@ def test_cuda_selective_scan_chains_and_passes_pads():
     with pytest.raises(ValueError, match="N=17"):
         ss.selective_scan(dt, xi, wide, wide, torch.zeros(8200, 17,
                                                           device="cuda"), None)
+
+
+# ---------------------------------------------------------------------------
+# The vlm family (llama-3.2-vision-11b): the image K/V GEMM, the image
+# pack, and the cross-attention over the image rows
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [33, 200, 1600])
+def test_cuda_binary_gemm_packed_at_the_image_kv(m):
+    """Kernel 1 on the image's words at K 1,280 (40 words, KW % 4 == 0 but
+    not a multiple of 64 words) and N 1,024, past the small-M edge (the
+    int8 tiles): equal to its plain version, one launch."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(m)
+    a = pack_bits(torch.randn(m, 1280, generator=g, device="cuda"))
+    b = pack_bits(torch.randn(1024, 1280, generator=g, device="cuda"))
+    bg.reset_launches()
+    got = bg.binary_gemm_packed(a, b, 1280)
+    torch.cuda.synchronize()
+    assert bg.launches["binary_gemm_packed"] == 1
+    assert torch.equal(got, bg.binary_gemm_packed_plain(a, b, 1280))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_pack_bits_at_the_image_width(dtype):
+    """Kernel 5 packing 1,600 image rows of 1,280 (whole 16-byte loads),
+    -0.0 and NaN among them, and their K|V rows (Hkv 8, hd 128) into slot 2
+    of a 4-slot image cache: equal to the plain version bit for bit."""
+    from repro_torch.kernels import pack as pk
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(1600, 1280, generator=g, device="cuda").to(dtype)
+    x.view(-1)[1::17] = -0.0
+    x.view(-1)[2::19] = float("nan")
+    got = pk.pack_bits_kernel(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pk.pack_bits_plain(x))
+    srcs = [torch.randn(1600, 8, 128, generator=g, device="cuda").to(dtype)
+            for _ in range(2)]
+    rows = torch.arange(2 * 1600, 3 * 1600, device="cuda")
+    pools = [torch.zeros(4, 1600, 8, 4, dtype=torch.int32, device="cuda")
+             for _ in range(4)]
+    pk.pack_rows_into(srcs, pools[:2], rows)
+    pk.pack_rows_into_plain(srcs, pools[2:], rows)
+    torch.cuda.synchronize()
+    assert torch.equal(pools[0], pools[2]) and torch.equal(pools[1], pools[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,hkv,g,hd", [(1, 32, 1600, 8, 4, 128),
+                                            (2, 7, 45, 2, 1, 33),
+                                            (3, 1, 1600, 8, 4, 128)])
+def test_cuda_prefill_attention_non_causal_matches_plain(dtype, b, s, t, hkv,
+                                                         g, hd):
+    """Kernel 8 with causal=False (the cross-attention of a chunk: every
+    row sees all kv_len positions): dots equal, outputs within TOL with
+    equal signs, q_pos ignored (0 and 20 equal); a one-row chunk equals
+    kernel 6's decode over the same length bit for bit."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import prefill_attention as pa
+    _need_card()
+    q, k, v, vs = (a.cuda() for a in _attention_case(s + t, b, t, hkv, g, hd,
+                                                     s))
+    q = q.to(dtype)
+    got, dots = pa.prefill_attention_packed(q, k, v, vs, t, 0, causal=False,
+                                            return_dots=True)
+    want, wdots = pa.prefill_attention_packed_plain(q, k, v, vs, t, 0,
+                                                    causal=False,
+                                                    return_dots=True)
+    moved = pa.prefill_attention_packed(q, k, v, vs, t, 20, causal=False)
+    served = pa.prefill_attention_packed(q, k, v, vs, t, 0, causal=False)
+    torch.cuda.synchronize()
+    assert torch.equal(dots, wdots)
+    tol = TOL[dtype]
+    torch.testing.assert_close(served.float(), want.float(), rtol=tol,
+                               atol=tol)
+    assert torch.equal(served >= 0, want >= 0)
+    assert torch.equal(moved, served) and torch.equal(got, served)
+    for i in range(s):
+        row = q[:, i:i + 1].contiguous()
+        assert torch.equal(
+            pa.prefill_attention_packed(row, k, v, vs, t, 0, causal=False),
+            da.decode_attention_packed(row, k, v, vs, t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits,chunk,page", [(1, 4, None), (0, None, None),
+                                                (1, 4, 4)])
+def test_cuda_vlm_engine_matches_plain(kv_bits, chunk, page):
+    """The smoke llama-3.2-vision-11b (two groups of a cross block and four
+    self blocks, norms and gates drawn non-zero) served on the card with an
+    image per request, through the kernels and through their plain
+    versions: greedy tokens equal; at kv_bits=1 kernels 6 and 8 run for the
+    cross-attention."""
+    from repro_torch.configs.smoke import smoke_config
+    from repro_torch.core.packed import map_tree
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import prefill_attention as pa
+    from repro_torch.models.api import get_model
+    from repro_torch.serving.engine import Request, ServingEngine
+    _need_card()
+    cfg = smoke_config("llama-3.2-vision-11b")
+    gen = torch.Generator().manual_seed(0)
+    params = map_tree(lambda name, p: p if p.ndim >= 2 else
+                      (1.0 if name == "gate" else 0.02)
+                      * torch.randn(p.shape, generator=gen),
+                      get_model(cfg).init(gen, device="cpu"))
+    params = map_tree(lambda _, p: p.cuda(), params)
+    rng = np.random.default_rng(1)
+    reqs = [Request(rng.integers(0, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=b, img_emb=rng.standard_normal(
+                        (cfg.n_img_tokens, cfg.d_vision)).astype(np.float32))
+            for n, b in ((19, 6), (5, 9), (11, 4))]
+    kw = dict(freeze=True, slots=2, max_len=32, kv_bits=kv_bits,
+              prefill_chunk=chunk, page_size=page)
+    da.reset_launches()
+    pa.reset_launches()
+    got = ServingEngine(cfg, params, **kw).generate(reqs)
+    assert (da.launches["decode_attention_packed"] > 0) == (kv_bits == 1)
+    assert (pa.launches["prefill_attention_packed"] > 0) == (kv_bits == 1)
+    want = ServingEngine(cfg, params, kernel_path="ref", **kw).generate(reqs)
+    for a, b in zip(got, want, strict=True):
+        np.testing.assert_array_equal(a, b)

@@ -49,15 +49,16 @@ def test_config_fields_equal_jax(arch):
 
 
 def test_registry_and_unported_families():
-    """The four dense-stack families and the two moe archs are registered
-    and the moe family serves; the vlm arch and family still raise."""
+    """Every arch of the JAX registry is registered in the port, the four
+    dense-stack families and the two moe archs among them; the moe and
+    vlm families serve."""
+    from repro.configs.base import list_archs as jax_list_archs
+    assert list_archs() == sorted(jax_list_archs())
     assert set(ARCHS) | {"musicgen-large", "dbrx-132b",
                          "llama4-scout-17b-a16e"} <= set(list_archs())
-    with pytest.raises(KeyError, match="ROADMAP Queue A"):
-        get_config("llama-3.2-vision-11b")
-    cfg = smoke_config("qwen2-72b")
-    with pytest.raises(NotImplementedError):
-        get_model(cfg.scaled(family="vlm"))
+    assert get_config("llama-3.2-vision-11b").family == "vlm"
+    vlm = smoke_config("llama-3.2-vision-11b")
+    assert get_model(vlm).cfg.xattn_group == 5
     assert get_model(smoke_config("dbrx-132b")).cfg.family == "moe"
 
 

@@ -246,7 +246,7 @@ def _rec_mix(layer):
     """The masters of rec layer `layer` of group 0 on both sides."""
     jp, _, pp, _ = _params()
     return (jax.tree.map(lambda a: a[0, layer], jp["groups"]["rec"])["mix"],
-            L._pick(pp["groups"]["rec"], 0, layer)["mix"])
+            L.pick(pp["groups"]["rec"], 0, layer)["mix"])
 
 
 @pytest.mark.parametrize("part", ["coeffs", "block", "chunk", "step"])

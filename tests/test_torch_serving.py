@@ -117,19 +117,21 @@ def _is_exact_tie(q, k, v, valid, b, s, h, d) -> bool:
 
 
 def _swap_in_jax_attention(mp, ties: list) -> None:
-    """Make the port's transformer take every attention output from the
-    JAX oracle (jitted, as the JAX engine's routes call it) on the port's
-    own inputs. Each element whose sign the port's plain version gives
-    otherwise, in a row with a valid position, must be an exact tie at
-    which the port outputs 0; it is appended to `ties` as (step, layer,
-    element, port value, JAX value)."""
+    """Make the port's transformer take every packed attention output from
+    the JAX oracle (jitted, as the JAX engine's routes call it) on the
+    port's own inputs (a decode length may be an int, a chunk non-causal:
+    the vlm family's cross-attention). Each element whose sign the port's
+    plain version gives otherwise, in a row with a valid position, must be
+    an exact tie at which the port outputs 0; it is appended to `ties` as
+    (step, layer, element, port value, JAX value)."""
     where = {"step": None, "layer": 0}
 
-    def compare(q, k, v, vs, kv_len, q_pos, window, theirs):
+    def compare(q, k, v, vs, kv_len, q_pos, window, theirs, causal=True):
         mine = port_ref.prefill_attention_packed_ref(q, k, v, vs, kv_len,
-                                                     q_pos, window=window)
+                                                     q_pos, window=window,
+                                                     causal=causal)
         valid = port_ref.chunk_valid_mask(q.shape[0], q.shape[1], k.shape[1],
-                                          kv_len, q_pos, window, True)
+                                          kv_len, q_pos, window, causal)
         differ = (mine >= 0) != (theirs >= 0)
         differ &= valid.any(-1)[:, :, None, None]
         for b, s, h, d in differ.nonzero().tolist():
@@ -147,17 +149,18 @@ def _swap_in_jax_attention(mp, ties: list) -> None:
                 jnp.asarray(words_to_numpy(v)), jnp.asarray(vs.numpy()))
 
     def decode(q, k, v, vs, cache_len, window=0):
-        lens = cache_len.to(torch.int32)
+        lens = torch.as_tensor(cache_len, dtype=torch.int32) \
+            .expand(q.shape[0])
         theirs = torch.from_numpy(np.array(_jax_decode(
             *operands(q, k, v, vs), jnp.asarray(lens.numpy()),
             window=window)))
         return compare(q, k, v, vs, lens, lens - 1, window, theirs)
 
-    def prefill(q, k, v, vs, kv_len, q_pos, window=0):
+    def prefill(q, k, v, vs, kv_len, q_pos, window=0, causal=True):
         theirs = torch.from_numpy(np.array(_jax_prefill(
             *operands(q, k, v, vs), jnp.int32(kv_len), jnp.int32(q_pos),
-            window=window)))
-        return compare(q, k, v, vs, kv_len, q_pos, window, theirs)
+            window=window, causal=causal)))
+        return compare(q, k, v, vs, kv_len, q_pos, window, theirs, causal)
 
     def labelled(fn, name):
         def call(params, cfg, tokens, cache, *args, **kw):

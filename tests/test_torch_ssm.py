@@ -34,7 +34,7 @@ from repro.models.api import cache_batch_axes as jax_cache_batch_axes
 from repro.models.api import get_model as jax_get_model
 from repro.serving.engine import ServingEngine as JaxEngine
 from repro.serving.scheduler import Request as JaxRequest
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import get_config, list_archs
 from repro_torch.configs.smoke import smoke_config
 from repro_torch.convert import (
     cache_from_numpy, cache_to_numpy, from_numpy_tree, to_numpy_tree,
@@ -210,8 +210,8 @@ def test_inactive_rows_keep_state_and_first_chunk_resets_it(models):
 
 def test_config_fields_equal_jax():
     """falcon-mamba-7b, full and smoke, field by field; the port's
-    registry serves it beside phi3-medium-14b and the moe archs, and the
-    configs of families it does not serve raise."""
+    registry holds every arch of the JAX registry, the vlm and moe archs
+    among them."""
     for port_cfg, jax_cfg in ((get_config(ARCH), jax_get_config(ARCH)),
                               (smoke_config(ARCH), jax_smoke(ARCH))):
         assert dataclasses.asdict(port_cfg) == dataclasses.asdict(jax_cfg)
@@ -222,8 +222,9 @@ def test_config_fields_equal_jax():
             full.dt_rank, full.d_conv, full.vocab) == \
         (64, 4096, 2, 16, 256, 4, 65024)
     assert not full.tie_embeddings and full.quant == "bbp_det"
-    with pytest.raises(KeyError, match="ROADMAP Queue A"):
-        get_config("llama-3.2-vision-11b")
+    from repro.configs.base import list_archs as jax_list_archs
+    assert list_archs() == sorted(jax_list_archs())
+    assert get_config("llama-3.2-vision-11b").family == "vlm"
     assert get_config("dbrx-132b").family == "moe"
 
 
@@ -400,9 +401,8 @@ def test_engine_options_behave_as_jax_for_ssm(models, jax_engine):
 def test_ssm_path_runs_the_plain_scan_on_cpu_and_unported_families_raise(
         models):
     """On the CPU, path 'auto' (kernel 10's wrapper) and 'ref' give the same
-    tokens and launch nothing; the vlm family still raises (the moe family
-    serves), and
-    the transformer's serving check refuses the ssm family. Whole-prompt
+    tokens and launch nothing; the vlm and moe families serve, and the
+    transformer's serving check refuses the ssm family. Whole-prompt
     prefill serves: `Model.prefill` gives the logits of the last chunk of a
     chunked admission of the same prompt, and the whole-prompt engine the
     chunked engine's tokens."""
@@ -415,8 +415,8 @@ def test_ssm_path_runs_the_plain_scan_on_cpu_and_unported_families_raise(
     for a, b in zip(auto, ref, strict=True):
         np.testing.assert_array_equal(a, b)
     assert ss.launches["selective_scan"] == 0
-    with pytest.raises(NotImplementedError):
-        get_model(cfg.scaled(family="vlm"))
+    assert get_model(smoke_config("llama-3.2-vision-11b")).cfg.family == \
+        "vlm"
     assert get_model(smoke_config("llama4-scout-17b-a16e")).cfg.family == \
         "moe"
     frozen = ServingEngine(cfg, pp, freeze=True, **ENGINE).params

@@ -172,9 +172,9 @@ def test_inactive_rows_and_pad_rows_write_nothing(models):
 def test_config_fields_equal_jax():
     from repro.configs.base import get_config as jax_get_config
     assert list_archs() == ["dbrx-132b", "deepseek-67b", "falcon-mamba-7b",
-                            "llama4-scout-17b-a16e", "musicgen-large",
-                            "nemotron-4-15b", ARCH, "qwen2-72b",
-                            "recurrentgemma-2b"]
+                            "llama-3.2-vision-11b", "llama4-scout-17b-a16e",
+                            "musicgen-large", "nemotron-4-15b", ARCH,
+                            "qwen2-72b", "recurrentgemma-2b"]
     for port_cfg, jax_cfg in ((get_config(ARCH), jax_get_config(ARCH)),
                               (smoke_config(ARCH), jax_smoke(ARCH))):
         assert dataclasses.asdict(port_cfg) == dataclasses.asdict(jax_cfg)
@@ -183,11 +183,13 @@ def test_config_fields_equal_jax():
 
 
 def test_unported_archs_raise():
-    """Unported archs and families (vlm) raise, the moe family serves; the
-    float cache (kv_bits=0, the config's default) is ported: K/V in the
-    activation dtype, no V scale, the JAX package's shapes."""
-    with pytest.raises(KeyError, match="ROADMAP Queue A"):
-        get_config("llama-3.2-vision-11b")
+    """Every arch of the JAX registry is registered in the port and every
+    transformer family serves (vlm and moe too); the float cache
+    (kv_bits=0, the config's default) is ported: K/V in the activation
+    dtype, no V scale, the JAX package's shapes."""
+    from repro.configs.base import list_archs as jax_list_archs
+    assert list_archs() == sorted(jax_list_archs())
+    assert get_config("llama-3.2-vision-11b").family == "vlm"
     assert get_config("dbrx-132b").family == "moe"
     cfg = smoke_config(ARCH)
     c = T.init_cache(cfg, 1, 8, device="cpu")
@@ -195,8 +197,12 @@ def test_unported_archs_raise():
     assert {k: tuple(v.shape) for k, v in c.items()} == \
         {k: v.shape for k, v in jc.items()}
     assert c["k"].dtype == cfg.activation_dtype and "v_scale" not in c
-    with pytest.raises(NotImplementedError):
-        get_model(cfg.scaled(family="vlm"))
+    vlm = smoke_config("llama-3.2-vision-11b")
+    assert get_model(vlm).cfg.family == "vlm"
+    c = T.init_cache(vlm, 1, 8, device="cpu")
+    jc = JT.init_cache(jax_smoke("llama-3.2-vision-11b"), 1, 8)
+    assert {k: tuple(v.shape) for k, v in c.items()} == \
+        {k: v.shape for k, v in jc.items()}
     assert get_model(smoke_config("dbrx-132b")).cfg.n_experts == 4
 
 
