@@ -240,13 +240,37 @@ Phases, each of which raises on failure (nothing is caught):
                kernel 6 bit for bit, kernel 6 over 1,600 full rows, kernel
                1 at the image K/V, kernel 5 on the image and its K|V rows
                into a slot, kernels 6-9 at G 4
+  14. lm train - phi3-medium-14b at full width, depth cut to 2 (1 if the
+               disk cannot hold two checkpoints), bf16 activations, fp32
+               masters, bbp_det, remat, S-AdaMax, through the Trainer on
+               SyntheticLM at batch 8 x 512 for 4 steps, checkpoints every
+               2 steps (keep 1) under build/lm_train (deleted after): a
+               straight run; a run stopped after 2 steps (the SIGTERM
+               path); a fresh Trainer resuming it, whose losses of steps
+               2-3 and final params and moments equal the straight run's
+               bit for bit; the gradients' largest magnitude per step (the
+               reference's binarized backward nears float32's range here);
+               step ms, tokens/s, peak memory, one profiled step, the
+               checkpoint's bytes and seconds to save and restore; the
+               trained masters saved with packed_binary=True, restored as
+               PackedWeights and served by phase 6's engine (tokens equal
+               the plain path's and freeze(masters)', launches as phase
+               6's); one train step each of llama4-scout-17b-a16e (depth
+               1), falcon-mamba-7b (2), recurrentgemma-2b (3) and
+               llama-3.2-vision-11b (5) at full width, batch 4 x 256: loss
+               finite, every gradient leaf finite or its overflow of
+               float32 proven from a 2^-100-scaled backward, every clip
+               key's gradient non-zero; each family's smoke step on the
+               card against the CPU (gradients and moments within 5e-5,
+               params held through the moments; the unroped families'
+               attention from the CPU, parting signs proven exact ties)
 Launch counts are set to 0 just before each main path (mlp, cnn, lm, paged
 lm, default lm, train, ssm chunked and whole-prompt, hybrid chunked and
-default, each family's, each MoE config's and the vlm's three engines)
-runs and read just after. The line before the last is
-{"kernels": [...]} (ten kernels); the last line is {"ok": true, "device":
-{...}}. Weights, BN statistics and
-inputs are random from the seed; image inputs are multiples of 1/128 in
+default, each family's, each MoE config's and the vlm's three engines,
+the trained checkpoint's engine) runs and read just after. The line
+before the last is {"kernels": [...]} (ten kernels); the last line is
+{"ok": true, "device": {...}}. Weights, BN statistics and inputs are
+random from the seed; image inputs are multiples of 1/128 in
 [-1, 1], like 8-bit pixels. Exits non-zero, printing no result, without a
 card or without the repo. It finds the port in the `src` beside it, else in
 the working directory's `src` (a copy of the script run from a checkout's
@@ -270,9 +294,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -394,6 +420,23 @@ MOE_CAPS = (1, 2, 10, 15, 62)
 # and four self blocks, so that a group-index fault shows) where tokens are
 # held to the plain path, all 40 layers in the timed run
 VLM_ARCH, VLM_CHECK_DEPTH = "llama-3.2-vision-11b", 10
+# the LM train path: phi3-medium-14b at full width (bf16 activations, fp32
+# masters, bbp_det, remat, S-AdaMax), depth cut to LM_TRAIN_DEPTH, through
+# the Trainer on SyntheticLM at LM_TRAIN_BATCH x LM_TRAIN_SEQ for
+# LM_TRAIN_STEPS steps; one step of each other family at full width (depth
+# cut so that masters, gradients and moments fit) at FAMILY_TRAIN_BATCH x
+# FAMILY_TRAIN_SEQ; every family's smoke step on the card against the CPU,
+# the unroped families' attention from the CPU (exact ties)
+LM_TRAIN_DEPTH, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 2, 8, 512, 4
+TRAIN_FAMILIES = (("llama4-scout-17b-a16e", 1), ("falcon-mamba-7b", 2),
+                  ("recurrentgemma-2b", 3), ("llama-3.2-vision-11b", 5))
+FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ = 4, 256
+SMOKE_TRAIN_ARCHS = ("phi3-medium-14b", "dbrx-132b", "musicgen-large",
+                     "llama-3.2-vision-11b", "falcon-mamba-7b",
+                     "recurrentgemma-2b")
+UNROPED_ARCHS = ("musicgen-large", "llama-3.2-vision-11b")
+GRAD_SCALE_EXP = 100         # the scaled backward's 2^-100 (family steps)
+LM_TRAIN_REL = 5e-5          # tests/test_torch_lm_train.py's GRAD_REL
 
 
 def smi(query: str) -> str:
@@ -1545,19 +1588,25 @@ def first_sign_difference(cfg, frozen, prompt, tokens, dev):
     return None
 
 
-def lm_engine_check(base_cfg, seed, dev):
-    """Full width, depth LM_CHECK_DEPTH: the engine's greedy tokens through
-    the kernels equal its tokens through the plain versions, on the card.
-    Returns the launch counts of the kernel run (the main path)."""
+def lm_engine_check(base_cfg, seed, dev, frozen=None, what="lm engine check"):
+    """Full width, depth LM_CHECK_DEPTH (or, given a frozen tree `frozen` to
+    serve instead of one drawn from the seed, base_cfg's depth): the
+    engine's greedy tokens through the kernels equal its tokens through the
+    plain versions, on the card. Returns the launch counts of the kernel
+    run (the main path), the prompt chunks, the requests and the tokens."""
     from repro_torch.models.api import get_model
     from repro_torch.serving.engine import Request
-    cfg = base_cfg.scaled(n_layers=LM_CHECK_DEPTH, kv_bits=1)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    masters = get_model(cfg).init(gen, device=dev)
-    eng = lm_engine(cfg, masters, freeze=True, seed=seed)
-    frozen = eng.params
-    del masters
-    torch.cuda.empty_cache()
+    depth = LM_CHECK_DEPTH if frozen is None else base_cfg.n_layers
+    cfg = base_cfg.scaled(n_layers=depth, kv_bits=1)
+    if frozen is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        masters = get_model(cfg).init(gen, device=dev)
+        eng = lm_engine(cfg, masters, freeze=True, seed=seed)
+        frozen = eng.params
+        del masters
+        torch.cuda.empty_cache()
+    else:
+        eng = lm_engine(cfg, frozen, seed=seed)
     plain = lm_engine(cfg, frozen, kernel_path="ref", seed=seed)
     prompts = lm_traffic(seed, cfg.vocab)
     alone = eng.generate([Request(prompts[5], max_new_tokens=LM_NEW)])[0]
@@ -1584,14 +1633,14 @@ def lm_engine_check(base_cfg, seed, dev):
     if any(len(t) != LM_NEW for i, t in enumerate(got) if i != 5):
         raise AssertionError("a request did not get its budget")
     n_chunks = sum(-(-len(p) // LM_CHUNK) for p in prompts)
-    if launches["prefill_attention_packed"] != n_chunks * LM_CHECK_DEPTH:
+    if launches["prefill_attention_packed"] != n_chunks * depth:
         raise AssertionError(f"prefill launches {launches} != "
-                             f"{n_chunks} chunks x {LM_CHECK_DEPTH} layers")
+                             f"{n_chunks} chunks x {depth} layers")
     # kernel 5 per layer and forward call: the two shared packs of the
     # normed residual and one launch packing the K and V rows into the cache
-    if launches["pack_bits"] != 3 * LM_CHECK_DEPTH * (n_chunks + steps):
+    if launches["pack_bits"] != 3 * depth * (n_chunks + steps):
         raise AssertionError(f"pack_bits launches {launches['pack_bits']} != "
-                             f"3 x {LM_CHECK_DEPTH} layers x ({n_chunks} "
+                             f"3 x {depth} layers x ({n_chunks} "
                              f"chunks + {steps} decode steps)")
     for kn in ("pack_bits", "decode_attention_packed", "binary_gemm_packed",
                "binary_gemm_packed_rhs"):
@@ -1599,15 +1648,15 @@ def lm_engine_check(base_cfg, seed, dev):
             raise AssertionError(f"the LM path launched no {kn}")
     if launches["binary_gemm_fused"]:
         raise AssertionError("the LM path has no fused-epilogue GEMM")
-    print(f"lm engine check: {LM_ARCH} full width, depth {LM_CHECK_DEPTH} "
+    print(f"{what}: {LM_ARCH} full width, depth {depth} "
           f"(cut from {base_cfg.n_layers}), {LM_REQUESTS} requests, prompts "
           f"{sorted(len(p) for p in prompts)}, {LM_NEW} new tokens, request 5 "
           f"stops at eos {eos} after {len(got[5])}: tokens equal the plain "
-          f"path's; pack_bits 3 x {LM_CHECK_DEPTH} layers x ({n_chunks} "
+          f"path's; pack_bits 3 x {depth} layers x ({n_chunks} "
           f"chunks + {steps} decode steps); launches {launches}")
     del eng, plain, frozen
     torch.cuda.empty_cache()
-    return launches, n_chunks
+    return launches, n_chunks, reqs, got
 
 
 def shared_prefix_traffic(seed, vocab):
@@ -2516,7 +2565,6 @@ def train_cpu_check(cfg, seed, dev):
     its sign is rounding), two AP2 factors AP2(1 / (u + eps)) that differ,
     or |dp| <= s |dm| AP2(1 / (u + eps)) through a shared factor."""
     import dataclasses
-    from repro_torch.core.ap2 import ap2_exponent
     from repro_torch.optim.base import tree_leaves
     from repro_torch.train import paper as tp
     small = dataclasses.replace(cfg, batch=CPU_BATCH)
@@ -2540,41 +2588,15 @@ def train_cpu_check(cfg, seed, dev):
     # S-AdaMax's first step: p - s * m * AP2(1 / (u + eps)), s = AP2(lr / 0.1)
     lr = torch.tensor(small.base_lr, dtype=torch.float64)
     s = float(2.0 ** torch.round(torch.log2(lr / (1 - 0.9))))
-    n_off = n_floor = n_ap2 = n_carried = 0
-    for p_g, p_c, m_g, m_c, u_g, u_c in zip(
-            tree_leaves(pg), tree_leaves(pc), tree_leaves(sg.m),
-            tree_leaves(sc.m), tree_leaves(sg.u), tree_leaves(sc.u)):
-        # each side's AP2 exponent of 1 / (u + eps), as its optimizer took it
-        e_g = ap2_exponent(1.0 / (u_g + 1e-8)).cpu()
-        e_c = ap2_exponent(1.0 / (u_c + 1e-8))
-        p_g, m_g, u_g = p_g.cpu(), m_g.cpu(), u_g.cpu()
-        diff = (p_g.double() - p_c).abs()
-        off = diff > TRAIN_REL * p_c.abs().max()
-        floor = TRAIN_REL * m_c.abs().max()
-        noise = (m_g.abs() <= floor) & (m_c.abs() <= floor)
-        ap2 = ~noise & (e_g != e_c)
-        carried = ~noise & (e_g == e_c) & (
-            diff <= s * (m_g.double() - m_c).abs() * 2.0 ** e_c.double()
-            * (1 + 1e-6) + TRAIN_REL * p_c.abs().max())
-        bad = off & ~noise & ~ap2 & ~carried
-        if bad.any():
-            for j in bad.flatten().nonzero()[:8, 0].tolist():
-                print("  unexplained:", [float(t.flatten()[j]) for t in
-                                         (p_g, p_c, m_g, m_c, u_g, u_c)],
-                      int(e_g.flatten()[j]), int(e_c.flatten()[j]))
-            raise AssertionError("card step vs CPU step: params differ beyond "
-                                 "what the moments' difference explains")
-        n_off += int(off.sum())
-        n_floor += int((off & noise).sum())
-        n_ap2 += int((off & ap2).sum())
-        n_carried += int((off & carried).sum())
+    counts = moments_parity((pg, sg), (pc, sc), TRAIN_REL, s)
     print(f"train CPU check: one deterministic step of {CPU_BATCH} images at "
           f"full width, card vs CPU: loss {float(lg):.6f} / {float(lc):.6f}, "
           f"loss, BN state and moments within {worst:.3g} of the largest "
           f"magnitude of each tensor (tolerance {TRAIN_REL}); params off by "
-          f"more in {n_off} elements: {n_floor} at the noise floor of their "
-          f"gradient, {n_ap2} at an AP2 boundary, {n_carried} by the "
-          f"moments' difference through a shared AP2 factor")
+          f"more in {sum(counts.values())} elements: {counts['noise_floor']} "
+          f"at the noise floor of their gradient, {counts['ap2']} at an AP2 "
+          f"boundary, {counts['carried']} by the moments' difference through "
+          f"a shared AP2 factor")
 
 
 def train_times(cfg, seed, dev, card, dev_gen):
@@ -4597,6 +4619,563 @@ def vlm_phase(seed, dev, card, dev_gen, popc_per_s, sms):
                       "timed": timed}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the LM trainer and checkpoints
+# ---------------------------------------------------------------------------
+def timed_calls(obj, name, record):
+    """Wrap obj.name so each call's seconds are appended to record."""
+    fn = getattr(obj, name)
+
+    def wrapped(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            record.append(time.perf_counter() - t0)
+    setattr(obj, name, wrapped)
+
+
+def lm_trainer(cfg, ckpt_dir, seed, dev, steps=LM_TRAIN_STEPS):
+    """A Trainer of `cfg` on SyntheticLM (batch LM_TRAIN_BATCH x
+    LM_TRAIN_SEQ), checkpoints every 2 steps into `ckpt_dir`, keep 1, its
+    checkpoint writes, save calls (the device-to-host copy) and restores
+    timed into trainer.ckpt_times."""
+    from repro_torch.train.step import default_optimizer
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    tc = TrainConfig(steps=steps, global_batch=LM_TRAIN_BATCH,
+                     seq_len=LM_TRAIN_SEQ, ckpt_every=2, keep=1,
+                     ckpt_dir=str(ckpt_dir), log_every=1, seed=seed)
+    seen = []
+    tr = Trainer(cfg, tc, device=dev, optimizer=inspecting(
+        default_optimizer(cfg, tc.lr), seen))
+    tr.grad_stats = seen
+    tr.ckpt_times = {"write": [], "save_call": [], "restore": []}
+    timed_calls(tr.ckpt, "_write", tr.ckpt_times["write"])
+    timed_calls(tr.ckpt, "save", tr.ckpt_times["save_call"])
+    timed_calls(tr.ckpt, "restore", tr.ckpt_times["restore"])
+    return tr
+
+
+def step_bytes(mgr, step: int) -> int:
+    """Bytes of checkpoint step `step` on disk."""
+    return sum(f.stat().st_size for f in (mgr.dir / f"step_{step}").iterdir())
+
+
+def ckpt_bytes_estimate(cfg) -> int:
+    """Bytes of one (fp32 masters, S-AdaMax m and u) checkpoint of a dense
+    cfg (untied head)."""
+    from repro_torch.models.transformer import _block_shapes, _norm_shapes
+
+    def count(shapes):
+        if isinstance(shapes, dict):
+            return sum(count(v) for v in shapes.values())
+        return int(np.prod(shapes))
+    n = 2 * cfg.vocab * cfg.d_model + count(_norm_shapes(cfg)) \
+        + cfg.n_layers * count(_block_shapes(cfg))
+    return 3 * 4 * n
+
+
+def lm_train_depth(base_cfg, root):
+    """LM_TRAIN_DEPTH, or 1 where the disk under `root` cannot hold the two
+    runs' checkpoints (two steps of one run at a time, plus the packed
+    one)."""
+    free = shutil.disk_usage(root).free
+    need = 2.2 * ckpt_bytes_estimate(base_cfg.scaled(n_layers=LM_TRAIN_DEPTH))
+    depth = LM_TRAIN_DEPTH if free >= need else 1
+    print(f"lm train: {free / 1e9:.1f} GB free under {root}, "
+          f"{need / 1e9:.1f} GB wanted at depth {LM_TRAIN_DEPTH}: depth {depth}")
+    return depth
+
+
+def lm_train_check(base_cfg, seed, dev, card, root):
+    """phi3-medium-14b at full width through the Trainer: the straight
+    LM_TRAIN_STEPS-step run; a run stopped after 2 steps (the SIGTERM
+    path: its final checkpoint is step 2); a fresh Trainer on that
+    directory restoring step 2 and running to the end, whose losses of
+    steps 2-3 and final params and moments must equal the straight run's
+    bit for bit. Returns (the resumed trainer, its config, report)."""
+    from repro_torch.checkpoint.manager import leaves_with_names
+    from repro_torch.optim.base import tree_leaves
+    depth = lm_train_depth(base_cfg, root)
+    cfg = base_cfg.scaled(n_layers=depth)
+    torch.cuda.reset_peak_memory_stats(dev)
+    straight = lm_trainer(cfg, root / "straight", seed, dev)
+    out = straight.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    ckpt_bytes = step_bytes(straight.ckpt, straight.ckpt.latest_step())
+    shutil.rmtree(root / "straight")
+    killed = lm_trainer(cfg, root / "resume", seed, dev)
+    orig = killed._batch
+
+    def stop_at_2(step):
+        if step == 1:            # as SIGTERM during step 1: 2 steps done
+            killed._stop = True
+        return orig(step)
+    killed._batch = stop_at_2
+    out_k = killed.run()
+    killed._batch = orig            # no cycle keeps its 20 GB of state
+    if not out_k["interrupted"] or out_k["final_step"] != 2 \
+            or killed.ckpt.latest_step() != 2:
+        raise AssertionError(f"the stopped run: {out_k}")
+    del killed
+    torch.cuda.empty_cache()
+    resumed = lm_trainer(cfg, root / "resume", seed, dev)
+    out_r = resumed.run()
+    if resumed.start_step != 2 or out_r["final_step"] != LM_TRAIN_STEPS:
+        raise AssertionError(f"the resumed run: {out_r}")
+    losses = {h["step"]: h["loss"] for h in out["history"]}
+    resumed_losses = {h["step"]: h["loss"] for h in out_r["history"]}
+    for step, loss in resumed_losses.items():
+        if loss != losses[step]:
+            raise AssertionError(f"resumed loss of step {step} {loss!r} != "
+                                 f"the straight run's {losses[step]!r}")
+    pairs = list(zip(tree_leaves((resumed.params, resumed.opt_state)),
+                     tree_leaves((straight.params, straight.opt_state)),
+                     strict=True))
+    if not all(same_bits(a, b) for a, b in pairs):
+        raise AssertionError("resumed params or moments differ from the "
+                             "straight run's")
+    nonfinite = {name: int((~torch.isfinite(x)).sum()) for name, x in
+                 leaves_with_names((straight.params, straight.opt_state))
+                 if x.is_floating_point() and not torch.isfinite(x).all()}
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"losses {losses}")
+    walls = list(straight.step_times)
+    step_s = sorted(walls[1:])[len(walls[1:]) // 2]
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    grads = grad_report(straight.grad_stats)
+    profiled = lm_train_profile(straight, card)
+    del straight
+    torch.cuda.empty_cache()
+    rep = {"depth": depth, "losses": losses, "grads": grads,
+           "trace": profiled,
+           "nonfinite_state": nonfinite,
+           "step_ms": step_s * 1e3, "step_ms_all": [t * 1e3 for t in walls],
+           "tokens_per_s": tokens / step_s, "peak_device_bytes": peak,
+           "ckpt_bytes": ckpt_bytes,
+           "ckpt_write_s": resumed.ckpt_times["write"],
+           "ckpt_save_call_s": resumed.ckpt_times["save_call"],
+           "ckpt_restore_s": resumed.ckpt_times["restore"]}
+    print(f"lm train on {card}: {LM_ARCH} full width (d {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), depth "
+          f"{depth} (cut from {base_cfg.n_layers}), {cfg.quant}, "
+          f"{cfg.dtype} activations, fp32 masters, remat {cfg.remat}, "
+          f"S-AdaMax, batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}: losses "
+          + ", ".join(f"step {k} {v:.6f}" for k, v in sorted(losses.items()))
+          + f"; step {rep['step_ms']:.1f} ms (median of steps 1-"
+          f"{LM_TRAIN_STEPS - 1}, wall, a checkpoint's device-to-host copy "
+          f"outside it), {rep['tokens_per_s']:.0f} tokens/s; peak device "
+          f"memory {peak / 1e9:.2f} GB; resumed at step 2 after a stopped "
+          f"run: losses of steps 2-3 and final params and moments equal "
+          f"the straight run's bit for bit")
+    for i, g in enumerate(grads):
+        print(f"  step {i}: largest |gradient| {g['max']:.3e} ({g['argmax']}),"
+              f" non-finite gradient leaves {g['nonfinite']}")
+    print(f"  non-finite elements in the final params and moments: "
+          f"{nonfinite or 'none'}")
+    print(f"  checkpoint (fp32 masters + S-AdaMax m, u) {ckpt_bytes / 1e9:.3f} "
+          f"GB; save call (device-to-host copy) "
+          + ", ".join(f"{t:.2f}" for t in rep["ckpt_save_call_s"])
+          + " s; write " + ", ".join(f"{t:.2f}" for t in rep["ckpt_write_s"])
+          + " s; restore " + ", ".join(f"{t:.2f}" for t in
+                                       rep["ckpt_restore_s"]) + " s")
+    return resumed, cfg, rep
+
+
+def lm_train_profile(tr, card):
+    """One more step of trainer `tr`, profiled (`trace`: two steps run,
+    which move its params on)."""
+    batch = tr._batch(LM_TRAIN_STEPS)
+
+    def step():
+        tr.params, tr.opt_state, _ = tr.train_step(tr.params, tr.opt_state,
+                                                   batch, None)
+    t = trace(step, top=8)
+    print_trace(f"trace lm train step on {card}", t)
+    return t
+
+
+def lm_trained_serve(tr, cfg, seed, dev, root):
+    """The trained masters saved with packed_binary=True, restored as
+    PackedWeights (no fp32 master rebuilt) and served by phase 6's engine
+    (`lm_engine_check`: tokens through the kernels equal the plain
+    versions', launches as phase 6's); the tokens must also equal those of
+    the engine on model.freeze(trained masters). Returns (launches,
+    report)."""
+    from repro_torch.core.packed import PackedWeight
+    mgr = tr.ckpt
+    mgr.async_save = False
+    step = LM_TRAIN_STEPS + 100
+    t0 = time.perf_counter()
+    mgr.save(step, tr.params, packed_binary=True)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    packed = mgr.restore(step, tr.params, device=dev)
+    restore_s = time.perf_counter() - t0
+    n_packed = sum(isinstance(x, PackedWeight)
+                   for x in [packed["blocks"]["attn"][k] for k in
+                             ("wq", "wk", "wv", "wo")]
+                   + [packed["blocks"]["ffn"][k] for k in
+                      ("w_gate", "w_up", "w_down")])
+    if n_packed != 7 or packed["embed"].dtype != torch.float32:
+        raise AssertionError("the packed checkpoint did not restore to "
+                             "PackedWeights")
+    packed_bytes = step_bytes(mgr, step)
+    launches, _, reqs, got = lm_engine_check(
+        cfg, seed, dev, frozen=packed, what="lm trained-checkpoint serve")
+    eng = lm_engine(cfg.scaled(kv_bits=1), tr.params, freeze=True, seed=seed)
+    want = eng.generate(reqs)
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"request {i}: restored-checkpoint tokens "
+                                 f"{a.tolist()} != freeze(masters)' "
+                                 f"{b.tolist()}")
+    del eng, packed
+    torch.cuda.empty_cache()
+    print(f"lm trained-checkpoint serve: packed_binary checkpoint "
+          f"{packed_bytes / 1e9:.3f} GB (saved in {save_s:.2f} s, restored "
+          f"to PackedWeights in {restore_s:.2f} s): tokens equal the plain "
+          f"path's and freeze(trained masters)'")
+    return launches, {"packed_ckpt_bytes": packed_bytes,
+                      "packed_save_s": save_s, "packed_restore_s": restore_s}
+
+
+def clip_key_path(name: str) -> bool:
+    from repro_torch.train.step import _CLIP_KEYS
+    return any(part in _CLIP_KEYS for part in name.split("/"))
+
+
+def inspecting(opt, seen):
+    """`opt` that records, per gradient leaf, whether it is finite and its
+    largest magnitude (device tensors, read later), before its update."""
+    from repro_torch.checkpoint.manager import leaves_with_names
+    from repro_torch.optim.base import Optimizer
+
+    def update(g, s, p, donate=False):
+        named = leaves_with_names(g)
+        seen.append(([n for n, _ in named],
+                     torch.stack([torch.isfinite(x).all() for _, x in named]),
+                     torch.stack([x.abs().max().float() for _, x in named])))
+        return opt.update(g, s, p, donate=donate)
+    return Optimizer(opt.init, update)
+
+
+def grad_report(seen) -> list[dict]:
+    """Per step: the non-finite gradient leaves, the largest |gradient|
+    and its leaf."""
+    out = []
+    for names, fin, top in seen:
+        fin, top = fin.tolist(), top.tolist()
+        i = max(range(len(top)), key=lambda j: top[j])
+        out.append({"nonfinite": [n for n, f in zip(names, fin) if not f],
+                    "max": top[i], "argmax": names[i],
+                    "zero": [n for n, t in zip(names, top) if t == 0.0]})
+    return out
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (NaN payloads included)."""
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def scaled_grads(model, params, batch):
+    """Per gradient leaf of the loss scaled by 2^-GRAD_SCALE_EXP (the
+    backward is linear in its seed and a power of two scales every float
+    exactly, short of underflow): (name, finite, largest |gradient| of the
+    unscaled loss in float64, this scaled maximum x 2^GRAD_SCALE_EXP)."""
+    from repro_torch.checkpoint.manager import leaves_with_names
+    from repro_torch.optim.base import tree_leaves, tree_unflatten_like
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    loss, _ = model.loss(tree_unflatten_like(params, leaves), batch)
+    grads = torch.autograd.grad(loss * 2.0 ** -GRAD_SCALE_EXP, leaves)
+    named = leaves_with_names(tree_unflatten_like(params, list(grads)))
+    fin = torch.stack([torch.isfinite(g).all() for _, g in named]).tolist()
+    top = torch.stack([g.abs().max().double() for _, g in named]).tolist()
+    return [(n, f, t * 2.0 ** GRAD_SCALE_EXP)
+            for (n, _), f, t in zip(named, fin, top)]
+
+
+def family_train_steps(seed, dev, card):
+    """One train step of each other family at full width, depth cut so
+    that masters, gradients and S-AdaMax's moments fit (the moments
+    allocated at the update, after the backward, `lazy_state`); the vlm's
+    image embeddings N(0, 1) from the seed. The loss must be finite. Every
+    gradient leaf of the step must be finite, or the step's backward must
+    be shown to overflow float32: the reference's binarized backward
+    multiplies the residual's gradient by ~sqrt(K) at each +-1 matmul,
+    unnormalized, so its size grows by orders of magnitude a block. The
+    proof is the same loss's backward from the same params scaled by
+    2^-GRAD_SCALE_EXP (`scaled_grads`): every leaf finite there, and the
+    embedding's largest |gradient| over the batch's B S positions (its
+    rows sum the residual's gradient at their positions) above float32's
+    largest value, so the residual's gradient overflows in the step. In
+    the scaled backward every leaf under train.step._CLIP_KEYS has a
+    non-zero gradient."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import LMDataConfig, SyntheticLM
+    from repro_torch.models.api import get_model, param_count
+    from repro_torch.train.step import default_optimizer, make_train_step
+    f32_max = float(torch.finfo(torch.float32).max)
+    rows, failed = [], []
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train steps: {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+          f"allocated before the first")
+    for arch, depth in TRAIN_FAMILIES:
+        base = get_config(arch)
+        cfg = base.scaled(n_layers=depth)
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = get_model(cfg)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = model.init(gen, device=dev)
+        if cfg.family == "vlm":    # the gates N(0, 1), as phase 13's: at
+            # its init's 0 no gradient reaches the cross-attention weights
+            params["groups"]["cross"]["attn"]["gate"].normal_(generator=gen)
+        n_params = param_count(params)
+        toks = SyntheticLM(LMDataConfig(
+            vocab=cfg.vocab, seq_len=FAMILY_TRAIN_SEQ,
+            global_batch=FAMILY_TRAIN_BATCH, seed=seed)).batch(0)["tokens"]
+        batch = {"tokens": torch.from_numpy(toks).to(dev)}
+        if cfg.family == "vlm":
+            batch["img_emb"] = torch.randn(
+                (FAMILY_TRAIN_BATCH, cfg.n_img_tokens, cfg.d_vision),
+                generator=gen, device=dev).to(cfg.activation_dtype)
+        scaled = scaled_grads(model, params, batch)
+        torch.cuda.empty_cache()
+        seen = []
+        step = make_train_step(model, inspecting(
+            lazy_state(default_optimizer(cfg)), seen))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, None, batch)
+        loss = float(m["loss"])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        g = grad_report(seen)[0]
+        true_max = {n: t for n, _, t in scaled}
+        zero = [n for n, _, t in scaled if clip_key_path(n) and t == 0.0]
+        bad = [n for n, f, _ in scaled if not f]
+        overflow = true_max["embed"] / (FAMILY_TRAIN_BATCH
+                                         * FAMILY_TRAIN_SEQ) > f32_max
+        if not np.isfinite(loss) or zero or bad \
+                or (g["nonfinite"] and not overflow):
+            failed.append(f"{arch}: loss {loss}, non-finite gradients "
+                          f"{g['nonfinite']} (scaled: {bad}), zero scaled "
+                          f"gradients under the clip keys {zero}")
+        n_clip = sum(clip_key_path(n) for n, _, _ in scaled)
+        top = max(scaled, key=lambda r: r[2])
+        rows.append({"arch": arch, "depth": depth, "params": n_params,
+                     "loss": loss, "step_ms": wall * 1e3, "grads": g,
+                     "true_max": true_max, "overflow": g["nonfinite"],
+                     "peak_device_bytes": peak})
+        print(f"train step {arch} on {card}: full width, depth {depth} (cut "
+              f"from {base.n_layers}), {n_params / 1e9:.3f} B params, batch "
+              f"{FAMILY_TRAIN_BATCH} x {FAMILY_TRAIN_SEQ}: loss {loss:.6f}; "
+              f"{len(scaled)} gradient leaves, non-zero under the "
+              f"{n_clip} clip keys; largest |gradient| {top[2]:.3e} "
+              f"({top[0]}; from the 2^-{GRAD_SCALE_EXP}-scaled backward, "
+              f"every leaf finite there); the step's non-finite leaves "
+              + (f"{g['nonfinite']}: float32 overflow (the embedding's "
+                 f"largest |gradient| {true_max['embed']:.3e} over "
+                 f"{FAMILY_TRAIN_BATCH * FAMILY_TRAIN_SEQ} positions > "
+                 f"{f32_max:.3e})" if g["nonfinite"] else "none")
+              + f"; step {wall * 1e3:.1f} ms (the model's first), peak "
+              f"device memory {peak / 1e9:.2f} GB")
+        del params, state, step, seen, batch, model
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return rows
+
+
+def lazy_state(opt):
+    """`opt` whose state is allocated at its first update (init gives
+    None), so that the first step's backward never holds it: S-AdaMax's
+    zero moments are the same whenever they are made."""
+    from repro_torch.optim.base import Optimizer
+
+    def update(g, s, p, donate=False):
+        return opt.update(g, opt.init(p) if s is None else s, p,
+                          donate=donate)
+    return Optimizer(lambda p: None, update)
+
+
+class CpuAttention(torch.autograd.Function):
+    """The float attention of a card run computed on the CPU (forward and
+    backward), so that a step of a family whose attention meets exact ties
+    compares with the CPU's; each sign the card's own attention output
+    disagrees on must lie within float32's rounding bound of 0 (an exact
+    tie: a sum of T terms p v, each rounded by 2^-24 at most)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk, q_offset, ties):
+        from repro_torch.models import attention as A
+        cpu = [x.detach().cpu().requires_grad_(True) for x in (q, k, v)]
+        with torch.enable_grad():
+            out = A.flash_attention(*cpu, causal, window, chunk, q_offset)
+        mine = A.flash_attention(q.detach(), k.detach(), v.detach(), causal,
+                                 window, chunk, q_offset).cpu()
+        part = (mine >= 0) != (out.detach() >= 0)
+        if part.any():
+            bound = k.shape[1] * 2.0 ** -23 * float(v.detach().abs().max())
+            if float(mine[part].abs().max()) > bound or \
+                    float(out.detach()[part].abs().max()) > bound:
+                raise AssertionError("card and CPU attention part beyond a "
+                                     "tie")
+            ties.append(int(part.sum()))
+        ctx.saved = (cpu, out)
+        return out.detach().to(q.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        cpu, out = ctx.saved
+        grads = torch.autograd.grad(out, cpu, g.cpu())
+        return (*(x.to(g.device) for x in grads), None, None, None, None,
+                None)
+
+
+def moments_parity(got, want, rel, scale):
+    """(params, AdaMaxState) after one S-AdaMax step on two devices: the
+    moments within rel of each tensor's largest magnitude, params there too
+    except where the per-element normalization carries the moments'
+    difference further (tests/_torch_moments.py: a noise-floor gradient, an
+    AP2 boundary, or through a shared AP2 factor). Returns the counts."""
+    from repro_torch.core.ap2 import ap2_exponent
+    from repro_torch.optim.base import tree_leaves
+    (pg, sg), (pc, sc) = got, want
+    for a, b in zip(tree_leaves((sg.m, sg.u)), tree_leaves((sc.m, sc.u)),
+                    strict=True):
+        if max_rel(a, b) > rel:
+            raise AssertionError(f"moments differ by {max_rel(a, b)} > {rel}")
+    counts = {"noise_floor": 0, "ap2": 0, "carried": 0}
+    for p_g, p_c, m_g, m_c, u_g, u_c in zip(
+            tree_leaves(pg), tree_leaves(pc), tree_leaves(sg.m),
+            tree_leaves(sc.m), tree_leaves(sg.u), tree_leaves(sc.u)):
+        e_g = ap2_exponent(1.0 / (u_g + 1e-8)).cpu()
+        e_c = ap2_exponent(1.0 / (u_c.cpu() + 1e-8))
+        p_g, p_c, m_g, m_c = (x.cpu().double() for x in (p_g, p_c, m_g, m_c))
+        diff = (p_g - p_c).abs()
+        top = float(p_c.abs().max())
+        off = diff > rel * top
+        floor = rel * float(m_c.abs().max())
+        noise = (m_g.abs() <= floor) & (m_c.abs() <= floor)
+        ap2 = ~noise & (e_g != e_c)
+        carried = ~noise & (e_g == e_c) & (
+            diff <= scale * (m_g - m_c).abs() * 2.0 ** e_c.double()
+            * (1 + 1e-6) + rel * top)
+        if (off & ~(noise | ap2 | carried)).any():
+            raise AssertionError("params differ beyond what the moments' "
+                                 "difference explains")
+        counts["noise_floor"] += int((off & noise).sum())
+        counts["ap2"] += int((off & ap2).sum())
+        counts["carried"] += int((off & carried).sum())
+    return counts
+
+
+def smoke_train_cpu_checks(seed, dev):
+    """Each family's smoke config (float32): one make_train_step step on the
+    card and on the CPU from the same params and batch: loss within 1e-5,
+    gradients and moments within LM_TRAIN_REL of each tensor's largest
+    magnitude, params held through the moments (`moments_parity`); the
+    unroped families' attention taken from the CPU on the card
+    (`CpuAttention`), every parting sign proved an exact tie."""
+    import unittest.mock
+    from repro_torch.configs.smoke import smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.base import Optimizer, tree_leaves, tree_map
+    from repro_torch.train.step import default_optimizer, make_train_step
+    lr = 1e-3
+    scale = float(2.0 ** np.round(np.log2(np.float32(lr) / np.float32(0.1))))
+    rows, failed = {}, []
+    for arch in SMOKE_TRAIN_ARCHS:
+        cfg = smoke_config(arch)
+        params = get_model(cfg).init(torch.Generator().manual_seed(seed),
+                                     device="cpu")
+        rng = np.random.default_rng(seed)
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, (2, 24)).astype(np.int32))}
+        if cfg.family == "vlm":
+            batch["img_emb"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.n_img_tokens, cfg.d_vision)).astype(np.float32))
+        ties, runs = [], []
+        for d in (dev, torch.device("cpu")):
+            opt = default_optimizer(cfg, lr)
+            seen = {}
+
+            def update(g, s, p, donate=False, opt=opt, seen=seen):
+                seen["g"] = tree_map(torch.clone, g)
+                return opt.update(g, s, p)
+            p = tree_map(lambda t: t.to(d), params)
+            swap = contextlib.nullcontext()
+            if d.type == "cuda" and arch in UNROPED_ARCHS:
+                swap = unittest.mock.patch.object(
+                    T, "flash_attention", lambda q, k, v, causal=True,
+                    window=0, chunk=512, q_offset=0: CpuAttention.apply(
+                        q, k, v, causal, window, chunk, q_offset, ties))
+            with swap:
+                p2, st, m = make_train_step(
+                    get_model(cfg), Optimizer(opt.init, update))(
+                    p, opt.init(p), {k: v.to(d) for k, v in batch.items()})
+            runs.append((p2, st, seen["g"], float(m["loss"])))
+        (pg, sg, gg, lg), (pc, sc, gc, lc) = runs
+        worst = max(max_rel(a, b) for a, b in zip(
+            tree_leaves(gg), tree_leaves(gc), strict=True))
+        try:
+            if abs(lg - lc) > 1e-5 * abs(lc):
+                raise AssertionError(f"card loss {lg!r} vs CPU {lc!r}")
+            if worst > LM_TRAIN_REL:
+                raise AssertionError(f"gradients differ by {worst}")
+            counts = moments_parity((pg, sg), (pc, sc), LM_TRAIN_REL, scale)
+        except AssertionError as e:
+            failed.append(f"{arch}: {e}")
+            print(f"train card vs CPU {arch}: FAILED {e} (loss {lg!r} / "
+                  f"{lc!r}, gradients within {worst:.3g}, ties {ties})")
+            continue
+        rows[arch] = {"loss_card": lg, "loss_cpu": lc, "grad_rel": worst,
+                      "params_off": counts, "ties": ties}
+        print(f"train card vs CPU {arch} (smoke, float32): loss {lg:.7f} / "
+              f"{lc:.7f}, gradients within {worst:.3g} (tolerance "
+              f"{LM_TRAIN_REL}), params off by more in {counts}"
+              + (f"; attention from the CPU, exact ties {ties}" if arch in
+                 UNROPED_ARCHS else ""))
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return rows
+
+
+def lm_train_phase(seed, dev, card):
+    """Phase 14: the phi3-medium-14b trainer run with its bit-exact resume,
+    one profiled step, the packed checkpoint served through the kernels,
+    one step of each other family at full width, and the smoke steps on
+    the card against the CPU. Returns (the serving run's launches,
+    report)."""
+    from repro_torch.configs.base import get_config
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "lm_train"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    try:
+        tr, cfg, rep = lm_train_check(get_config(LM_ARCH), seed, dev, card,
+                                      root)
+        tr.opt_state = None
+        torch.cuda.empty_cache()
+        launches, rep["serve"] = lm_trained_serve(tr, cfg, seed, dev, root)
+        del tr
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 14 lm train: {time.perf_counter() - t0:.1f} s")
+    rep["card_vs_cpu"] = smoke_train_cpu_checks(seed, dev)
+    rep["families"] = family_train_steps(seed, dev, card)
+    print(f"phase 14 (lm train): {time.perf_counter() - t0:.1f} s")
+    return launches, rep
+
+
 def attention_times(card, popc_per_s) -> int:
     """The attention kernels' times alone (`--attention-times`): the lm
     kernel times of kernels 5-9 at the main path's shapes, then the
@@ -4936,7 +5515,7 @@ def main() -> int:
     lap("phases 4-5 (mlp, cnn)")
 
     # ------------------------------------------------ lm: tokens vs plain
-    lm_launches, lm_chunks = lm_engine_check(lm_cfg, args.seed, dev)
+    lm_launches, lm_chunks, _, _ = lm_engine_check(lm_cfg, args.seed, dev)
     paged_launches = lm_paged_engine_check(lm_cfg, args.seed, dev)
     default_launches, report["lm_default"] = lm_default_engine_check(
         lm_cfg, args.seed, dev)
@@ -5120,6 +5699,12 @@ def main() -> int:
     for kn in REPLACES:
         path_launches[kn] += vlm_launches[kn]
 
+    # ------------------------------------------------------------- lm train
+    lm_train_launches, report["lm_train"] = lm_train_phase(args.seed, dev,
+                                                           card)
+    for kn in REPLACES:
+        path_launches[kn] += lm_train_launches[kn]
+
     kernels = []
     for kn in REPLACES:
         t = totals[kn]
@@ -5166,7 +5751,8 @@ def main() -> int:
           "the depth-2 runs of deepseek-67b, qwen2-72b, nemotron-4-15b, "
           "musicgen-large, dbrx-132b and llama4-scout-17b-a16e and the "
           "depth-10 runs of llama-3.2-vision-11b (chunked kv_bits=1, the "
-          "default engine, paged kv_bits=1 with the prefix cache)")
+          "default engine, paged kv_bits=1 with the prefix cache) and "
+          "phase 14's serve of the trained phi3-medium-14b checkpoint")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s after the build")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -12,15 +12,26 @@ At train time (`train=True` with a generator or noise) BC and BBP binarize
 stochastically (Eq. 2), BBP_DET deterministically; every binarizer carries
 the STE. Where JAX splits one key into a weight key and an activation key,
 `qmatmul` takes two independent draws from `gen`, the activation's first and
-the weight's second, or reads them from `noise["act"]` and `noise["w"]`.
+the weight's second, or reads them from `noise["act"]` and `noise["w"]`;
+`Draws` hands out a forward's noise by site name.
+
+At train time the binarized weight is one autograd node with the matmul
+(`_BinaryWeightMatmul`): the master is cast to the activation dtype and
+binarized in the forward, and the backward recomputes both from the master
+instead of keeping the cast and the +-1 copy of every weight alive until
+then (the same gradient: the STE through the cast, as JAX differentiates
+it).
 """
 from __future__ import annotations
 
 import enum
+from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.binarize import binarize, binary_act
+from repro_torch.core.binarize import (
+    binarize, binary_act, hard_sigmoid, ste_mask, uniform_noise,
+)
 from repro_torch.core.packed import PackedActivation, PackedWeight
 
 
@@ -33,6 +44,43 @@ class QuantMode(str, enum.Enum):
 
 def _stochastic(train: bool, gen, noise) -> bool:
     return train and (gen is not None or noise is not None)
+
+
+class Draws:
+    """The noise of each stochastic site of a train forward: noise[site]
+    when a dict is given, else a fresh U[0, 1) draw from `gen` of the
+    input's shape and dtype. Off (no draws) at inference, or with neither
+    a generator nor a dict (deterministic binarization, JAX's key=None)."""
+
+    def __init__(self, train: bool, gen: torch.Generator | None,
+                 noise: dict | None):
+        self.gen, self.noise = gen, noise
+        self.on = train and (gen is not None or noise is not None)
+
+    def __call__(self, site: str, like: torch.Tensor) -> torch.Tensor:
+        if self.noise is not None:
+            return self.noise[site]
+        return uniform_noise(like, self.gen)
+
+    def act(self, x: torch.Tensor, site: str, stochastic: bool):
+        """binary_act(x), stochastic from this site's draw where asked."""
+        return binary_act(x, stochastic=stochastic,
+                          noise=self(site, x) if stochastic else None)
+
+    def qmatmul(self, site: str, x: torch.Tensor, w: torch.Tensor,
+                qm: "QuantMode") -> dict | None:
+        """qmatmul's noise at train time: its input's draw (site.qact),
+        then its weight's (site.w, in the activation dtype, the weight's
+        cast), where the mode binarizes them stochastically."""
+        if not self.on:
+            return None
+        noise = {}
+        if qm == QuantMode.BBP:
+            noise["act"] = self(f"{site}.qact", x)
+        if qm in (QuantMode.BC, QuantMode.BBP):
+            noise["w"] = self(f"{site}.w", w.to(x.dtype) if self.noise is None
+                              else w)
+        return noise
 
 
 def quant_weights(w: torch.Tensor, mode: QuantMode, *, train: bool = False,
@@ -118,9 +166,95 @@ def qmatmul(x: torch.Tensor | PackedActivation, w: torch.Tensor | PackedWeight,
     noise = noise or {}
     xq = quant_acts(x, mode, train=train, gen=gen, noise=noise.get("act"))
     # the master is cast to the compute dtype before it is binarized
-    wq = quant_weights(w.to(xq.dtype), mode, train=train, gen=gen,
-                       noise=noise.get("w"))
-    return torch.matmul(xq, wq)
+    if mode == QuantMode.NONE:
+        return torch.matmul(xq, w.to(xq.dtype))
+    if not (train and torch.is_grad_enabled() and w.requires_grad):
+        wq = quant_weights(w.to(xq.dtype), mode, train=train, gen=gen,
+                           noise=noise.get("w"))
+        return torch.matmul(xq, wq)
+    u = None
+    if mode != QuantMode.BBP_DET and _stochastic(train, gen, noise.get("w")):
+        u = noise.get("w")
+        if u is None:
+            u = uniform_noise(w.to(xq.dtype), gen)
+    return _BinaryWeightMatmul.apply(xq, w, u)
+
+
+def _binary_weight(w: torch.Tensor, dtype: torch.dtype,
+                   u: torch.Tensor | None):
+    """(the master cast to `dtype`, its +-1 binarization): deterministic
+    sign, or +1 where u < hard_sigmoid (Eq. 2)."""
+    wc = w.to(dtype)
+    if u is None:
+        minus = wc < 0
+    elif u.shape != wc.shape:
+        raise ValueError(f"noise of shape {tuple(u.shape)} for a weight of "
+                         f"shape {tuple(wc.shape)}")
+    else:
+        minus = u >= hard_sigmoid(wc)
+    return wc, torch.ones_like(wc).masked_fill_(minus, -1.0)
+
+
+class _BinaryWeightMatmul(torch.autograd.Function):
+    """xq @ binarize(w.to(xq.dtype)) for an fp32 master w (K, N), or (E, K,
+    N) batched over experts; the backward recomputes the cast and the
+    binarization from w (and the draws u) and passes the STE: dw = ((xq^T
+    @ g) * 1[|w_cast| <= 1]) cast to w's dtype, dx = g @ w_b^T."""
+
+    @staticmethod
+    def forward(ctx, xq, w, u):
+        ctx.save_for_backward(xq, w, u)
+        return torch.matmul(xq, _binary_weight(w, xq.dtype, u)[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        xq, w, u = ctx.saved_tensors
+        wc, wb = _binary_weight(w, xq.dtype, u)
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.matmul(g, wb.transpose(-1, -2))
+        del wb
+        if ctx.needs_input_grad[1]:
+            if w.ndim == 2:
+                gw = torch.matmul(xq.reshape(-1, xq.shape[-1]).T,
+                                  g.reshape(-1, g.shape[-1]))
+            else:
+                gw = torch.matmul(xq.transpose(-1, -2), g)
+            gw = gw.mul_(ste_mask(wc)).to(w.dtype)
+        return gx, gw, None
+
+
+class DenseParams(NamedTuple):
+    w: torch.Tensor
+    b: torch.Tensor | None
+
+
+def init_dense(gen: torch.Generator, in_dim: int, out_dim: int, *,
+               bias: bool = True, dtype: torch.dtype = torch.float32,
+               binary_init: bool = False, device=None) -> DenseParams:
+    """Paper init: uniform(-1, 1) for binary nets; scaled Glorot
+    (N(0, 2 / (in + out))) otherwise. Draws come from `gen`, on its
+    device, and land on `device` (default: the generator's)."""
+    dev = gen.device if device is None else torch.device(device)
+    if binary_init:
+        w = torch.rand((in_dim, out_dim), generator=gen, dtype=dtype,
+                       device=gen.device) * 2.0 - 1.0
+    else:
+        scale = torch.sqrt(torch.tensor(2.0 / (in_dim + out_dim))).to(dtype)
+        w = torch.randn((in_dim, out_dim), generator=gen, dtype=dtype,
+                        device=gen.device) * scale.to(gen.device)
+    b = torch.zeros((out_dim,), dtype=dtype, device=dev) if bias else None
+    return DenseParams(w=w.to(dev), b=b)
+
+
+def dense(params: DenseParams, x: torch.Tensor, mode: QuantMode, *,
+          train: bool = False, gen: torch.Generator | None = None,
+          noise: dict | None = None, path: str = "auto") -> torch.Tensor:
+    y = qmatmul(x, params.w, mode, train=train, gen=gen, noise=noise,
+                path=path)
+    if params.b is not None:
+        y = y + params.b
+    return y
 
 
 def shared_pack(x: torch.Tensor, weights, mode: QuantMode, *,

@@ -1,16 +1,55 @@
-"""Deterministic synthetic image data (a numpy-only copy of the image half of
+"""Deterministic synthetic data (a numpy-only copy of
 `repro.data.synthetic`, kept here so the port imports nothing of the JAX
-package; `SyntheticLM` waits for the LM training slice).
+package): Markov-chain token streams for the LMs and class-prototype
+images for the paper's nets.
 
-Batches are a pure function of (seed, step): the same seed and step give
-the same batch here and in the JAX package, so a run restarts exactly and
-both packages train on the same images.
+Batches are a pure function of (seed, step) (and, for tokens, of the host's
+slice): the same arguments give the same batch here and in the JAX package,
+so a run restarts exactly and both packages train on the same data.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class LMDataConfig:
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    branching: int = 4      # out-degree of the Markov chain (predictability)
+
+
+class SyntheticLM:
+    """Markov-chain token stream: a fixed random chain over the vocab, each
+    state with `branching` successors, so a model can learn it.
+    batch(step) -> {"tokens": (B, S) int32 numpy}."""
+
+    def __init__(self, cfg: LMDataConfig):
+        self.cfg = cfg
+        rng = np.random.default_rng(cfg.seed)
+        self._succ = rng.integers(0, cfg.vocab,
+                                  size=(cfg.vocab, cfg.branching),
+                                  dtype=np.int32)
+
+    def batch(self, step: int, *, host_id: int = 0, n_hosts: int = 1
+              ) -> dict:
+        """This host's rows of the global batch of `step`."""
+        cfg = self.cfg
+        assert cfg.global_batch % n_hosts == 0
+        local_b = cfg.global_batch // n_hosts
+        rng = np.random.default_rng(
+            (cfg.seed * 1_000_003 + step) * 97 + host_id)
+        toks = np.empty((local_b, cfg.seq_len), np.int32)
+        toks[:, 0] = rng.integers(0, cfg.vocab, local_b)
+        choices = rng.integers(0, cfg.branching,
+                               size=(local_b, cfg.seq_len - 1))
+        for t in range(1, cfg.seq_len):
+            toks[:, t] = self._succ[toks[:, t - 1], choices[:, t - 1]]
+        return {"tokens": toks}
 
 
 @dataclasses.dataclass(frozen=True)

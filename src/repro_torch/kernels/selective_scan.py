@@ -76,8 +76,16 @@ def selective_scan(dt: torch.Tensor, xi: torch.Tensor, bmat: torch.Tensor,
     inputs; bmat, cmat: (B, T, N) float32; a_mat: (D, N) float32 (negative
     real A); h0: (B, D, N) float32 or None. A step with dt = 0 leaves the
     state as it was, bit for bit. Returns (y (B, T, D), h_final (B, D, N)),
-    float32. The kernel takes 1 <= N <= 16."""
+    float32. The kernel takes 1 <= N <= 16. It has no backward: inputs
+    that require a gradient raise (the train path takes
+    `models.ssm.mamba_chunk_scan`)."""
     check_operands(dt, xi, bmat, cmat, a_mat, h0)
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad
+            for x in (dt, xi, bmat, cmat, a_mat, h0)):
+        raise RuntimeError("selective_scan has no backward: an input "
+                           "requires a gradient (train through "
+                           "models.ssm.mamba_chunk_scan)")
     if dt.device.type == "cpu":
         return selective_scan_plain(dt, xi, bmat, cmat, a_mat, h0)
     if dt.device.type != "cuda":

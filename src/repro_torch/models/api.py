@@ -6,6 +6,7 @@ the Mamba stack, `ssm`, and the recurrentgemma hybrid, `hybrid`).
     params = model.init(gen)                 # fp32 masters
     frozen = model.freeze(params)            # 1-bit PackedWeights
     frozen = model.init_frozen(gen)          # the same, one layer at a time
+    loss, metrics = model.loss(params, batch, gen=gen)   # train forward
     logits, aux = model.logits(params, tokens)           # (B, S, V)
     cache = model.init_cache(slots, max_len)            # contiguous
     cache = model.init_cache(slots, max_len, page_size=P)   # paged (dense)
@@ -21,6 +22,13 @@ request's first chunk (`models.transformer`).
 `path` ('auto' | 'ref'), passed to get_model, picks the kernels or their
 plain versions for every call of the model (see `models.transformer`).
 
+`loss(params, batch, gen=None, noise=None)` is the training loss of fp32
+masters (`transformer_loss`, `mamba_loss` or `rg_loss`): batch {"tokens"
+(B, S), vlm "img_emb"}; `gen` draws the stochastic binarization of mode
+'bbp' (the train step passes one only in that mode, as the JAX package
+passes a key), `noise` feeds the draws by site. A frozen tree raises
+ValueError: 1-bit packed weights are inference only.
+
 The `ssm` family's "cache" is its recurrent state ({"conv", "h"},
 `models.ssm_lm`), O(1) per slot, and the `hybrid` family's its recurrent
 state and a ring of `local_window` K/V rows per attention layer: for both,
@@ -35,7 +43,10 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.packed import attach_ffn_act_thresholds, freeze_params
+from repro_torch.core.packed import (
+    PackedWeight, attach_ffn_act_thresholds, freeze_params, params_frozen,
+)
+from repro_torch.optim.base import tree_leaves
 from repro_torch.models import ssm_lm as S
 from repro_torch.models import transformer as T
 
@@ -49,6 +60,9 @@ ATTENTION_FAMILIES = ("dense", "moe", "audio", "vlm")
 class Model:
     cfg: ModelConfig
     init: Callable[..., Any]
+    # loss(params, batch, *, gen=None, noise=None) -> (loss, metrics): the
+    # training loss of fp32 masters
+    loss: Callable[..., tuple[torch.Tensor, dict]]
     # logits(params, tokens (B, S)) -> (logits (B, S, V), aux): the
     # inference forward
     logits: Callable[..., tuple[torch.Tensor, dict]]
@@ -105,14 +119,39 @@ class Model:
         return frozen
 
 
+def _guard_trainable(params, fn, *args, **kw):
+    if params_frozen(params):
+        raise ValueError("params are frozen to packed 1-bit form — "
+                         "inference only; restore the fp32 masters to train")
+    return fn(params, *args, **kw)
+
+
+def param_count(params) -> int:
+    """Elements of every leaf, as the JAX package counts them: a
+    PackedWeight's words, thresholds and flips."""
+    def numel(p):
+        if isinstance(p, PackedWeight):
+            return sum(t.numel() for t in (p.packed, p.thresh, p.flip)
+                       if t is not None)
+        return p.numel()
+    return sum(int(numel(p)) for p in tree_leaves(params))
+
+
 def get_model(cfg: ModelConfig, *, path: str = "auto") -> Model:
     if path not in ("auto", "ref"):
         raise ValueError(path)
+    loss_fn = {"ssm": S.mamba_loss, "hybrid": S.rg_loss}.get(
+        cfg.family, T.transformer_loss)
+
+    def loss(p, batch, gen=None, noise=None):
+        return _guard_trainable(p, loss_fn, cfg, batch, gen=gen, noise=noise,
+                                path=path)
     if cfg.family == "ssm":
         return Model(
             cfg=cfg,
             init=lambda gen, device=None: S.init_mamba_params(
                 gen, cfg, device=device),
+            loss=loss,
             logits=lambda p, tokens: S.mamba_logits(p, cfg, tokens,
                                                     path=path),
             prefill=lambda p, tokens, max_len=None, cache=None, slot=0:
@@ -131,6 +170,7 @@ def get_model(cfg: ModelConfig, *, path: str = "auto") -> Model:
             cfg=cfg,
             init=lambda gen, device=None: S.init_rg_params(
                 gen, cfg, device=device),
+            loss=loss,
             logits=lambda p, tokens: S.rg_logits(p, cfg, tokens, path=path),
             prefill=lambda p, tokens, max_len=None, cache=None, slot=0:
                 S.rg_prefill(p, cfg, tokens, cache=cache, slot=slot,
@@ -149,6 +189,7 @@ def get_model(cfg: ModelConfig, *, path: str = "auto") -> Model:
         cfg=cfg,
         init=lambda gen, device=None: T.init_transformer_params(
             gen, cfg, device=device),
+        loss=loss,
         logits=lambda p, tokens, img_emb=None: T.transformer_logits(
             p, cfg, tokens, img_emb=img_emb, path=path),
         prefill=lambda p, tokens, max_len=None, cache=None, slot=0,

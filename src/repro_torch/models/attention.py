@@ -14,8 +14,15 @@ taken on float32 copies (exact products, float32 sums), as JAX's
 `attention_ref`) are float32 throughout, as there. TF32 is never used.
 
 Shapes: q (B, S, Hq, d); k, v (B, T, Hkv, d); Hq = Hkv * G, head h =
-kv_head * G + g. Only the forward is ported (training comes with the LM
-trainer, ROADMAP Queue A).
+kv_head * G + g.
+
+Training: where q, k or v requires a gradient, `flash_attention` is a
+`torch.autograd.Function` whose backward is the JAX package's custom VJP
+(`_fa_bwd`): it recomputes each chunk's probabilities from the saved
+(out, lse), takes delta = sum(do * o) per row, casts p to the activation
+dtype for dv and ds = p * (dp - delta) to it too, with float32 products,
+chunk by chunk in order. Autograd never sees the forward's chunk loop, so
+no chunk's (S, C) scores are kept for the backward.
 """
 from __future__ import annotations
 
@@ -95,7 +102,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Blockwise attention with an online softmax over `chunk`-position K/V
     blocks (the JAX package's forward, `_attn_fwd_impl`): no (S, T) score
     matrix beyond one block. Queries sit at positions q_offset..; causal
-    masks t > q position, window masks t <= q position - window."""
+    masks t > q position, window masks t <= q position - window.
+    Differentiable in q, k and v (`_FlashAttention`)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, chunk, q_offset)
+    return _attn_fwd(q, k, v, causal, window, chunk, q_offset)[0]
+
+
+def _attn_fwd(q, k, v, causal, window, chunk, q_offset):
+    """(out (B, S, Hq, d) in q's dtype, lse (B, Hkv, G, S) float32)."""
     b, s, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     dt = q.dtype
@@ -121,7 +137,54 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * alpha[..., None] + _pv(p.to(dt).to(_F32), vj)
         m_run = m_new
     l_safe = torch.where(l_run > 0, l_run, 1.0)
-    return _merge(acc / l_safe[..., None]).to(q.dtype)
+    return (_merge(acc / l_safe[..., None]).to(q.dtype),
+            m_run + torch.log(l_safe))
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk, q_offset):
+        out, lse = _attn_fwd(q, k, v, causal, window, chunk, q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, chunk, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, chunk, q_offset = ctx.args
+        b, s, hq, d = q.shape
+        t, hkv = k.shape[1], k.shape[2]
+        dt, scale = q.dtype, _scale(d)
+        qf = _heads(q, hkv).to(_F32)                         # (B,Hkv,G,S,d)
+        do = _heads(dout.to(dt), hkv).to(_F32)
+        delta = (do * _heads(out, hkv).to(_F32)).sum(-1)     # (B,Hkv,G,S)
+        kc, vc = k.transpose(1, 2), v.transpose(1, 2)        # (B, Hkv, T, d)
+        qpos = torch.arange(s, device=q.device) + q_offset
+        g = hq // hkv
+        dq = torch.zeros((b, hkv, g, s, d), dtype=_F32, device=q.device)
+        dks, dvs = [], []
+        for lo in range(0, t, chunk):
+            kj = kc[:, :, lo:lo + chunk].to(_F32)            # (B, Hkv, C, d)
+            vj = vc[:, :, lo:lo + chunk].to(_F32)
+            c = kj.shape[2]
+            kpos = torch.arange(lo, lo + c, device=q.device)
+            valid = _chunk_mask(qpos, kpos, causal, window)
+            sc = _dots(qf, kj) * scale
+            p = torch.where(valid, torch.exp(sc - lse[..., None]), 0.0)
+            pb = p.to(dt).to(_F32).reshape(b, hkv, g * s, c)
+            dv_j = torch.matmul(pb.transpose(-1, -2),
+                                do.reshape(b, hkv, g * s, d))
+            dp = _dots(do, vj)
+            ds = (p * (dp - delta[..., None])).to(dt).to(_F32)
+            dq = dq + _pv(ds, kj) * scale
+            dk_j = torch.matmul(ds.reshape(b, hkv, g * s, c).transpose(-1, -2),
+                                qf.reshape(b, hkv, g * s, d)) * scale
+            dks.append(dk_j)
+            dvs.append(dv_j)
+        dk = torch.cat(dks, 2).transpose(1, 2).to(k.dtype)
+        dv = torch.cat(dvs, 2).transpose(1, 2).to(v.dtype)
+        return _merge(dq).to(q.dtype), dk, dv, None, None, None, None
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -4,6 +4,11 @@ the dense FFNs and the MoE sublayer (port of `repro.models.common`).
 Projections route through `core.layers.qmatmul`, so the paper's
 quantization is a config switch. `path` ('auto' | 'ref') picks the kernels
 or their plain versions for frozen weights, as in `kernels.ops`.
+
+Training (a `core.layers.Draws` passed as `draws`, fp32 masters): every
+projection binarizes with the STE (`qmatmul(train=True)`), stochastically
+where the draws hand out noise, by site: "{site}.{weight key}" (`.qact`
+for the input, `.w` for the weight).
 """
 from __future__ import annotations
 
@@ -13,8 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.layers import (
-    QuantMode, packed_qmatmul, packed_qmatmul_fused, qmatmul, quant_acts,
-    quant_weights, shared_pack,
+    Draws, QuantMode, packed_qmatmul, packed_qmatmul_fused, qmatmul,
+    shared_pack,
 )
 from repro_torch.core.packed import PackedWeight
 
@@ -63,8 +68,19 @@ def sinusoidal_pos(positions: torch.Tensor, d: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
+def site_qmm(x: torch.Tensor, w, mode: QuantMode, *, path: str = "auto",
+             draws: Draws | None = None, site: str = "") -> torch.Tensor:
+    """qmatmul at inference (draws None), or at train time with the draws
+    of site `site`."""
+    if draws is None:
+        return qmatmul(x, w, mode, path=path)
+    return qmatmul(x, w, mode, train=True, path=path,
+                   noise=draws.qmatmul(site, x, w, mode))
+
+
 def ffn(params: dict, x: torch.Tensor, kind: str, mode: QuantMode, *,
-        path: str = "auto") -> torch.Tensor:
+        path: str = "auto", draws: Draws | None = None,
+        site: str = "ffn") -> torch.Tensor:
     """kind 'swiglu' | 'geglu' (params {w_gate (D,F), w_up (D,F), w_down
     (F,D)}) or 'sq_relu' | 'gelu' (params {w_up, w_down}).
 
@@ -83,20 +99,23 @@ def ffn(params: dict, x: torch.Tensor, kind: str, mode: QuantMode, *,
             and mode in (QuantMode.BBP, QuantMode.BBP_DET)):
         h = packed_qmatmul_fused(x, w_up, mode, path=path)
         return packed_qmatmul(h, params["w_down"], mode, path=path)
+
+    def qmm(x, key):
+        return site_qmm(x, params[key], mode, path=path, draws=draws,
+                        site=f"{site}.{key}")
     if kind in ("swiglu", "geglu"):
         xs = shared_pack(x, (params["w_gate"], w_up), mode, path=path)
-        g = qmatmul(xs, params["w_gate"], mode, path=path)
-        u = qmatmul(xs, w_up, mode, path=path)
+        g, u = qmm(xs, "w_gate"), qmm(xs, "w_up")
         # jax.nn.gelu defaults to the tanh approximation
         act = F.silu(g) if kind == "swiglu" else F.gelu(g, approximate="tanh")
         h = act * u
     elif kind == "sq_relu":
-        h = torch.relu(qmatmul(x, w_up, mode, path=path)).square()
+        h = torch.relu(qmm(x, "w_up")).square()
     elif kind == "gelu":
-        h = F.gelu(qmatmul(x, w_up, mode, path=path), approximate="tanh")
+        h = F.gelu(qmm(x, "w_up"), approximate="tanh")
     else:
         raise ValueError(kind)
-    return qmatmul(h, params["w_down"], mode, path=path)
+    return qmm(h, "w_down")
 
 
 def ffn_param_shapes(d_model: int, d_ff: int, kind: str) -> dict:
@@ -144,7 +163,8 @@ def moe_route(router_w: torch.Tensor, xt: torch.Tensor, top_k: int,
 
 def moe_ffn(params: dict, x: torch.Tensor, kind: str, mode: QuantMode, *,
             top_k: int, capacity_factor: float = 1.25,
-            path: str = "auto") -> tuple[torch.Tensor, dict]:
+            path: str = "auto", draws: Draws | None = None,
+            site: str = "ffn") -> tuple[torch.Tensor, dict]:
     """params: {router (D, E), experts: {w_* with a leading E axis}}; x:
     (B, S, D). Returns (out (B, S, D), aux {lb_loss, drop_frac}).
 
@@ -157,7 +177,10 @@ def moe_ffn(params: dict, x: torch.Tensor, kind: str, mode: QuantMode, *,
     gates in x's dtype. Frozen binary experts: the buffer is sign-packed
     once for gate and up (kernel 5), each projection is one batched launch
     of kernel 1 over the experts, and the hidden is packed again for the
-    down-projection (`_batched_qmm`)."""
+    down-projection (`_batched_qmm`). Training: lb_loss is differentiable
+    through the router's probabilities, the outputs through the gates; the
+    routes' copies of a row are an expand (whose backward is a sum, with
+    no atomics)."""
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
@@ -165,21 +188,24 @@ def moe_ffn(params: dict, x: torch.Tensor, kind: str, mode: QuantMode, *,
     e, cap, keep = params["router"].shape[-1], r["cap"], r["keep"]
     expert, pos_c = r["expert"], torch.where(keep, r["pos"], 0)
 
-    src = xt.repeat_interleave(top_k, dim=0)                 # (T k, D)
+    src = xt[:, None].expand(t, top_k, d).reshape(t * top_k, d)   # (T k, D)
     src = torch.where(keep[:, None], src, torch.zeros_like(src))
     buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
     buf.index_put_((expert, pos_c), src, accumulate=True)
 
     ex = params["experts"]
+
+    def qmm(x, key):
+        return _batched_qmm(x, ex[key], mode, path, draws,
+                            f"{site}.experts.{key}")
     if kind in ("swiglu", "geglu"):
         bs = shared_pack(buf, (ex["w_gate"], ex["w_up"]), mode, path=path)
-        g = _batched_qmm(bs, ex["w_gate"], mode, path)
-        u = _batched_qmm(bs, ex["w_up"], mode, path)
+        g, u = qmm(bs, "w_gate"), qmm(bs, "w_up")
         act = F.silu(g) if kind == "swiglu" else F.gelu(g, approximate="tanh")
         h = act * u
     else:
-        h = torch.relu(_batched_qmm(buf, ex["w_up"], mode, path)).square()
-    out_buf = _batched_qmm(h, ex["w_down"], mode, path)      # (E, C, D)
+        h = torch.relu(qmm(buf, "w_up")).square()
+    out_buf = qmm(h, "w_down")                               # (E, C, D)
 
     gathered = out_buf[expert, pos_c]                        # (T k, D)
     gathered = torch.where(keep[:, None], gathered, torch.zeros_like(gathered))
@@ -195,7 +221,8 @@ def moe_ffn(params: dict, x: torch.Tensor, kind: str, mode: QuantMode, *,
     return combined.reshape(b, s, d), aux
 
 
-def _batched_qmm(x, w, mode: QuantMode, path: str) -> torch.Tensor:
+def _batched_qmm(x, w, mode: QuantMode, path: str,
+                 draws: Draws | None = None, site: str = "") -> torch.Tensor:
     """Per-expert quantized matmul: x (E, C, Din) (or, for frozen binary
     experts, a PackedActivation of it), w (E, Din, Dout) masters or a
     PackedWeight of (E, Dout, KW) words -> (E, C, Dout) in x's dtype.
@@ -204,7 +231,8 @@ def _batched_qmm(x, w, mode: QuantMode, path: str) -> torch.Tensor:
     words (`ops.packed_matmul_experts`), cast to the activation dtype as
     the JAX package casts them (bf16 rounds dots above 256). Frozen BC: the
     unpacked +-1 weights in a float batched matmul. Masters: the mode's
-    quantized activations and weights in a batched matmul."""
+    quantized activations and weights in a batched matmul (`qmatmul`, the
+    STE at train time)."""
     if isinstance(w, PackedWeight):
         if mode in (QuantMode.BBP, QuantMode.BBP_DET):
             from repro_torch.kernels.ops import packed_matmul_experts
@@ -212,9 +240,7 @@ def _batched_qmm(x, w, mode: QuantMode, path: str) -> torch.Tensor:
         if mode == QuantMode.BC:
             return torch.matmul(x, w.unpack(x.dtype))
         raise ValueError("packed experts require a binary quant mode")
-    xq = quant_acts(x, mode)
-    wq = quant_weights(w.to(xq.dtype), mode)
-    return torch.matmul(xq, wq)
+    return site_qmm(x, w, mode, path=path, draws=draws, site=site)
 
 
 def moe_param_shapes(d_model: int, d_ff: int, n_experts: int,

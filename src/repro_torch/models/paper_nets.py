@@ -43,11 +43,9 @@ import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
 from repro_torch.core.ap2 import ap2
-from repro_torch.core.binarize import (
-    binarize, binary_act, clip_weights, hard_tanh, uniform_noise,
-)
+from repro_torch.core.binarize import binarize, clip_weights, hard_tanh
 from repro_torch.core.layers import (
-    QuantMode, packed_qmatmul, packed_qmatmul_fused, qmatmul,
+    Draws, QuantMode, packed_qmatmul, packed_qmatmul_fused, qmatmul,
 )
 from repro_torch.core.packed import (
     PackedActivation, PackedWeight, fold_bias_sign_threshold,
@@ -58,39 +56,6 @@ from repro_torch.kernels.ops import MATMUL_PATHS, binary_conv2d, im2col
 from repro_torch.optim.base import tree_map_with_path
 
 _MODES = {"bbp": QuantMode.BBP, "bc": QuantMode.BC, "float": QuantMode.NONE}
-
-
-class _Draws:
-    """The noise of each stochastic site: noise[site] when a dict is given,
-    else a fresh U[0, 1) draw from `gen` of the input's shape."""
-
-    def __init__(self, train: bool, gen: torch.Generator | None,
-                 noise: dict | None):
-        self.gen, self.noise = gen, noise
-        self.on = train and (gen is not None or noise is not None)
-
-    def __call__(self, site: str, like: torch.Tensor) -> torch.Tensor:
-        if self.noise is not None:
-            return self.noise[site]
-        return uniform_noise(like, self.gen)
-
-    def act(self, x: torch.Tensor, site: str, stochastic: bool):
-        """binary_act(x), stochastic from this site's draw where asked."""
-        return binary_act(x, stochastic=stochastic,
-                          noise=self(site, x) if stochastic else None)
-
-    def qmatmul(self, site: str, x: torch.Tensor, w: torch.Tensor,
-                qm: QuantMode) -> dict | None:
-        """qmatmul's noise at train time: its input's draw, then its
-        weight's, where the mode binarizes them."""
-        if not self.on:
-            return None
-        noise = {}
-        if qm == QuantMode.BBP:
-            noise["act"] = self(f"{site}.qact", x)
-        if qm in (QuantMode.BC, QuantMode.BBP):
-            noise["w"] = self(f"{site}.w", w)
-        return noise
 
 
 def _frozen_path(kernel_path: str) -> str:
@@ -180,7 +145,7 @@ def mlp_forward(params: dict, x: torch.Tensor, *, mode: str = "bbp",
     packed_path = _frozen_path(kernel_path)
     if qm == QuantMode.BBP and not train and _mlp_bit_resident_ok(params):
         return _mlp_forward_bit_resident(params, x, packed_path, hidden)
-    draws = _Draws(train, gen, noise)
+    draws = Draws(train, gen, noise)
     stoch = draws.on and mode == "bbp"
     n = len(params["layers"])
     h = x
@@ -291,7 +256,7 @@ def cnn_forward(params: dict, bn_state: dict, x: torch.Tensor, *,
     qm = _MODES[mode]
     packed_path = _frozen_path(kernel_path)
     bn_fn = shift_batch_norm if bn_kind == "shift" else batch_norm
-    draws = _Draws(train, gen, noise)
+    draws = Draws(train, gen, noise)
     stoch = draws.on and mode == "bbp"
     new_bn: dict[str, Any] = {"convs": []}
     h = x

@@ -26,6 +26,14 @@ the JAX package computes both with jnp, outside any Pallas kernel.
 recurse on the odd elements, fix up the even ones) op for op, so the
 float32 operations and their order are the JAX package's, not a
 sequential loop's.
+
+Training (`draws` given: a `core.layers.Draws`, the masters' STE). The
+Mamba block trains through the JAX package's sequential chunk scan
+(`mamba_chunk_scan`, plain PyTorch under autograd, each chunk recomputed
+in the backward), never through kernel 10, which has no backward and
+refuses inputs that require a gradient. The RG-LRU block trains through
+`_seg_scan`'s recursion under autograd; neither package has a backward
+kernel for it.
 """
 from __future__ import annotations
 
@@ -33,13 +41,14 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.layers import QuantMode, qmatmul
+from repro_torch.core.layers import Draws, QuantMode, qmatmul
 from repro_torch.kernels.selective_scan import (
     selective_scan, selective_scan_plain,
 )
-from repro_torch.models.common import rms_norm
+from repro_torch.models.common import rms_norm, site_qmm
 
 
 def dt_rank(cfg: ModelConfig) -> int:
@@ -143,11 +152,14 @@ def scan(dt, xi, bmat, cmat, a_mat, h0, path: str):
 
 
 def _ssm_inputs(bp: dict, xi: torch.Tensor, cfg: ModelConfig,
-                mode: QuantMode, path: str):
+                mode: QuantMode, path: str, draws: Draws | None = None,
+                site: str = ""):
     """From the conv output xi (B, L, di): dt (B, L, di) float32 and B, C
-    (B, L, N) float32, contiguous (the kernel's operands), and A (di, N)."""
+    (B, L, N) float32, contiguous (the kernel's operands), and A (di, N).
+    `draws`: a `Draws` at train time (site "{site}x_proj")."""
     dtr, n = dt_rank(cfg), cfg.ssm_state
-    dbc = qmatmul(xi, bp["x_proj"], mode, path=path)
+    dbc = site_qmm(xi, bp["x_proj"], mode, path=path, draws=draws,
+                   site=f"{site}x_proj")
     dt_lr, bmat, cmat = dbc.split([dtr, n, n], dim=-1)
     dt = F.softplus(torch.matmul(dt_lr.to(torch.float32),
                                  bp["dt_w"].to(torch.float32)) + bp["dt_b"])
@@ -157,10 +169,12 @@ def _ssm_inputs(bp: dict, xi: torch.Tensor, cfg: ModelConfig,
 
 
 def _output(bp: dict, x: torch.Tensor, y: torch.Tensor, xi: torch.Tensor,
-            z: torch.Tensor, mode: QuantMode, path: str) -> torch.Tensor:
+            z: torch.Tensor, mode: QuantMode, path: str,
+            draws: Draws | None = None, site: str = "") -> torch.Tensor:
     y = (y + bp["D"] * xi.to(torch.float32)).to(x.dtype)
     y = y * F.silu(z)
-    return x + qmatmul(y, bp["out_proj"], mode, path=path)
+    return x + site_qmm(y, bp["out_proj"], mode, path=path, draws=draws,
+                        site=f"{site}out_proj")
 
 
 def mamba_block_chunk(bp: dict, x: torch.Tensor, conv_state: torch.Tensor,
@@ -204,6 +218,60 @@ def mamba_block_step(bp: dict, x: torch.Tensor, conv_state: torch.Tensor,
     dt, bmat, cmat, a_mat = _ssm_inputs(bp, xi, cfg, mode, path)
     y, h = scan(dt, xi.contiguous(), bmat, cmat, a_mat, h, path)
     return _output(bp, x, y, xi, z, mode, path), conv_state, h
+
+
+def _scan_steps(a_mat, h, dt, xi, bmat, cmat):
+    """The sequential time loop of one chunk (the JAX package's `step`):
+    h = exp(dt A) h + (dt xi) B, y = sum_n h C. Returns (h, y (B, Q, D))."""
+    ys = []
+    for t in range(dt.shape[1]):
+        a = torch.exp(dt[:, t, :, None] * a_mat)
+        h = a * h + (dt[:, t] * xi[:, t].to(torch.float32))[..., None] \
+            * bmat[:, t, None, :]
+        ys.append((h * cmat[:, t, None, :]).sum(-1))
+    return h, torch.stack(ys, 1)
+
+
+def mamba_chunk_scan(a_log: torch.Tensor, dt: torch.Tensor, xi: torch.Tensor,
+                     bmat: torch.Tensor, cmat: torch.Tensor, chunk: int,
+                     h0: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training scan (the JAX package's `_mamba_chunk_scan`): chunks of
+    min(chunk, L) steps, each a sequential loop whose per-step state is (B,
+    D, N) only, recomputed in the backward (`torch.utils.checkpoint`); the
+    state is carried across chunks. dt (B, L, D) float32; xi (B, L, D);
+    bmat, cmat (B, L, N) float32. Returns (y (B, L, D), h_final (B, D, N))
+    float32."""
+    b, length, d = dt.shape
+    q = min(chunk, length)
+    a_mat = -torch.exp(a_log.to(torch.float32))
+    h = h0 if h0 is not None else torch.zeros(
+        (b, d, bmat.shape[-1]), dtype=torch.float32, device=dt.device)
+    ys = []
+    for lo in range(0, length, q):
+        sl = slice(lo, lo + q)
+        h, y = torch.utils.checkpoint.checkpoint(
+            _scan_steps, a_mat, h, dt[:, sl], xi[:, sl], bmat[:, sl],
+            cmat[:, sl], use_reentrant=False, preserve_rng_state=False)
+        ys.append(y)
+    return torch.cat(ys, 1), h
+
+
+def mamba_block_train(bp: dict, x: torch.Tensor, cfg: ModelConfig,
+                      mode: QuantMode, draws: Draws, *, site: str = "",
+                      chunk: int = 256, path: str = "auto") -> torch.Tensor:
+    """The Mamba block over whole sequences x (B, L, D) at train time (the
+    JAX package's `mamba_block(train=True)`): in_proj, x_proj and out_proj
+    binarized with the STE (draws at "{site}in_proj" etc.), the scan
+    `mamba_chunk_scan`."""
+    xn = rms_norm(x, bp["ln"]["scale"])
+    xi, z = site_qmm(xn, bp["in_proj"], mode, path=path, draws=draws,
+                     site=f"{site}in_proj").chunk(2, dim=-1)
+    xi, _ = causal_conv1d(xi, bp["conv_w"], bp["conv_b"])
+    xi = F.silu(xi)
+    dt, bmat, cmat, _ = _ssm_inputs(bp, xi, cfg, mode, path, draws, site)
+    y, _ = mamba_chunk_scan(bp["A_log"], dt, xi, bmat, cmat, chunk)
+    return _output(bp, x, y, xi, z, mode, path, draws, site)
 
 
 # ---------------------------------------------------------------------------
@@ -302,27 +370,30 @@ def _rglru_coeffs(bp: dict, xi: torch.Tensor):
     return a, b
 
 
-def _rglru_in(bp: dict, x: torch.Tensor, mode: QuantMode, path: str):
+def _rglru_in(bp: dict, x: torch.Tensor, mode: QuantMode, path: str,
+              draws: Draws | None = None, site: str = ""):
     """The normed input's two projections: (x-branch, gelu gate)."""
+    def qmm(x, key):
+        return site_qmm(x, bp[key], mode, path=path, draws=draws,
+                        site=f"{site}{key}")
     xn = rms_norm(x, bp["ln"]["scale"])
-    xi = qmatmul(xn, bp["w_x"], mode, path=path)
-    gate = F.gelu(qmatmul(xn, bp["w_gate"], mode, path=path),
-                  approximate="tanh")
-    return xi, gate
+    return qmm(xn, "w_x"), F.gelu(qmm(xn, "w_gate"), approximate="tanh")
 
 
 def rglru_block_chunk(bp: dict, x: torch.Tensor, conv_state: torch.Tensor,
                       h0: torch.Tensor, n_valid: int, cfg: ModelConfig,
                       mode: QuantMode, *, chunk: int = 256,
-                      path: str = "auto"
+                      path: str = "auto", draws: Draws | None = None,
+                      site: str = ""
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """RG-LRU sublayer over one prefill chunk from explicit state. x: (B, C,
     D), right-padded past n_valid (a host int); conv_state: (B, K-1, W);
     h0: (B, W) float32. Pads are masked out of the recurrence (a = 1, b = 0)
     and out of the conv history, so chained chunks give the whole prompt's
-    recurrence. Returns (y (B, C, D), conv_state', h')."""
+    recurrence. `draws`: a `Draws` at train time (sites "{site}w_x" etc.).
+    Returns (y (B, C, D), conv_state', h')."""
     c = x.shape[1]
-    xi_pre, gate = _rglru_in(bp, x, mode, path)
+    xi_pre, gate = _rglru_in(bp, x, mode, path, draws, site)
     xi, _ = causal_conv1d(xi_pre, bp["conv_w"], bp["conv_b"], conv_state)
     new_conv = _conv_state_at(conv_state, xi_pre, n_valid, cfg.d_conv)
     a, b = _rglru_coeffs(bp, xi)
@@ -332,21 +403,25 @@ def rglru_block_chunk(bp: dict, x: torch.Tensor, conv_state: torch.Tensor,
         b = b * msk
     y, h_fin = chunked_diag_scan(a, b, h0, chunk)
     y = y.to(x.dtype) * gate
-    return x + qmatmul(y, bp["w_out"], mode, path=path), new_conv, h_fin
+    out = site_qmm(y, bp["w_out"], mode, path=path, draws=draws,
+                   site=f"{site}w_out")
+    return x + out, new_conv, h_fin
 
 
 def rglru_block(bp: dict, x: torch.Tensor, cfg: ModelConfig,
-                mode: QuantMode, *, chunk: int = 256, path: str = "auto"
+                mode: QuantMode, *, chunk: int = 256, path: str = "auto",
+                draws: Draws | None = None, site: str = ""
                 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """RG-LRU sublayer over whole sequences x (B, L, D) from zero state (the
-    chunk block with every row real: its masks are then no-ops). Returns
-    (y, (conv_state, h_final))."""
+    chunk block with every row real: its masks are then no-ops), at train
+    time too (`draws`). Returns (y, (conv_state, h_final))."""
     w = cfg.lru_width or cfg.d_model
     conv0 = torch.zeros((x.shape[0], cfg.d_conv - 1, w), dtype=x.dtype,
                         device=x.device)
     h0 = torch.zeros((x.shape[0], w), dtype=torch.float32, device=x.device)
     y, conv, h = rglru_block_chunk(bp, x, conv0, h0, x.shape[1], cfg, mode,
-                                   chunk=chunk, path=path)
+                                   chunk=chunk, path=path, draws=draws,
+                                   site=site)
     return y, (conv, h)
 
 

@@ -34,7 +34,13 @@ flash attention with the window; a prefill chunk attends over the ring and
 its own rows with the plain `packed_masked_attention_ref` or
 `masked_chunk_attention`, as the JAX package does with its jnp cores.
 
-Not ported yet (ROADMAP Queue A): training.
+Training (`mamba_logits` / `rg_logits` with train=True, `mamba_loss`,
+`rg_loss`): fp32 masters through the blocks' train paths (`models.ssm`),
+stochastic draws from `gen` or the dict `noise` by site ("blocks.{l}.
+in_proj.w"; the hybrid's "groups.{g}.rec.{j}.mix.w_x.qact", "groups.{g}.
+attn.mix.attn.wq.w", "groups.{g}.attn.ffn.w_up.w", "tail.{j}.mix.w_out.w");
+under cfg.remat each Mamba block, each hybrid group and each tail layer
+is recomputed in the backward, as the JAX package remats them.
 """
 from __future__ import annotations
 
@@ -43,7 +49,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bitpack import packed_width
-from repro_torch.core.layers import QuantMode, qmatmul
+from repro_torch.core.layers import Draws, QuantMode, qmatmul
 from repro_torch.kernels.decode_attention import (
     decode_attention_packed, decode_attention_packed_plain,
 )
@@ -53,12 +59,13 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.common import ffn_param_shapes, rms_norm, rope
 from repro_torch.models.ssm import (
-    init_mamba_blocks, mamba_block_chunk, mamba_block_step, rglru_block,
-    rglru_block_chunk, rglru_block_shapes, rglru_block_step,
+    init_mamba_blocks, mamba_block_chunk, mamba_block_step,
+    mamba_block_train, rglru_block, rglru_block_chunk, rglru_block_shapes,
+    rglru_block_step,
 )
 from repro_torch.models.transformer import (
-    embed, ffn_sublayer, head, layer_params, pack_into, pick, qkv, self_attn,
-    stack_layers,
+    embed, ffn_sublayer, head, layer_params, next_token_nll, pack_into, pick,
+    qkv, remat, self_attn, stack_layers, unstack,
 )
 
 
@@ -210,11 +217,32 @@ def mamba_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 
 def mamba_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-                 path: str = "auto") -> tuple[torch.Tensor, dict]:
-    """Inference forward: tokens (B, S) -> (logits (B, S, V), {}). (The
-    training forward comes with the LM trainer, ROADMAP Queue A.)"""
+                 train: bool = False, gen: torch.Generator | None = None,
+                 noise: dict | None = None, path: str = "auto"
+                 ) -> tuple[torch.Tensor, dict]:
+    """The forward over whole sequences: tokens (B, S) -> (logits (B, S, V),
+    {}). train=True: the training forward of fp32 masters (the module
+    doc)."""
     _check_served(cfg)
-    return head(params, cfg, _whole_sequence(params, cfg, tokens, path)), {}
+    if not train:
+        return head(params, cfg, _whole_sequence(params, cfg, tokens,
+                                                 path)), {}
+    mode, draws = QuantMode(cfg.quant), Draws(True, gen, noise)
+    h = embed(params, cfg, tokens)
+    for layer, bp in enumerate(unstack(params["blocks"])):
+        h = remat(cfg, draws, lambda x, bp=bp, layer=layer: mamba_block_train(
+            bp, x, cfg, mode, draws, site=f"blocks.{layer}.", path=path), h)
+    return head(params, cfg, h), {}
+
+
+def mamba_loss(params: dict, cfg: ModelConfig, batch: dict, *,
+               gen: torch.Generator | None = None, noise: dict | None = None,
+               path: str = "auto") -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy of the training forward; (loss, {"nll"})."""
+    logits, _ = mamba_logits(params, cfg, batch["tokens"], train=True,
+                             gen=gen, noise=noise, path=path)
+    nll = next_token_nll(logits, batch["tokens"])
+    return nll, {"nll": nll}
 
 
 # ===========================================================================
@@ -426,11 +454,54 @@ def rg_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 
 def rg_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-              path: str = "auto") -> tuple[torch.Tensor, dict]:
-    """Inference forward: tokens (B, S) -> (logits (B, S, V), {}). (The
-    training forward comes with the LM trainer, ROADMAP Queue A.)"""
+              train: bool = False, gen: torch.Generator | None = None,
+              noise: dict | None = None, path: str = "auto"
+              ) -> tuple[torch.Tensor, dict]:
+    """The forward over whole sequences: tokens (B, S) -> (logits (B, S, V),
+    {}). train=True: the training forward of fp32 masters (the module
+    doc): each group's rec layers, then its local attention (the float
+    flash attention with the window), each followed by its MLP."""
     _check_hybrid(cfg)
-    return head(params, cfg, _rg_whole(params, cfg, tokens, path)), {}
+    if not train:
+        return head(params, cfg, _rg_whole(params, cfg, tokens, path)), {}
+    mode, draws = QuantMode(cfg.quant), Draws(True, gen, noise)
+
+    def rec(lp, site, h):
+        h, _ = rglru_block(lp["mix"], h, cfg, mode, path=path, draws=draws,
+                           site=f"{site}mix.")
+        return ffn_sublayer(lp, h, cfg, mode, path=path, draws=draws,
+                            site=site)
+
+    def group(recs, ap, gi, h):
+        for j, lp in enumerate(recs):
+            h = rec(lp, f"groups.{gi}.rec.{j}.", h)
+        site = f"groups.{gi}.attn."
+        h = self_attn(ap["mix"], h, cfg, mode, path=path, draws=draws,
+                      site=f"{site}mix.")
+        return ffn_sublayer(ap, h, cfg, mode, path=path, draws=draws,
+                            site=site)
+
+    h = embed(params, cfg, tokens)
+    recs = [unstack(g) for g in unstack(params["groups"]["rec"])]
+    for gi, (rs, ap) in enumerate(zip(recs,
+                                      unstack(params["groups"]["attn"]))):
+        h = remat(cfg, draws, lambda x, rs=rs, ap=ap, gi=gi:
+                  group(rs, ap, gi, x), h)
+    if "tail" in params:
+        for j, lp in enumerate(unstack(params["tail"])):
+            h = remat(cfg, draws, lambda x, lp=lp, j=j:
+                      rec(lp, f"tail.{j}.", x), h)
+    return head(params, cfg, h), {}
+
+
+def rg_loss(params: dict, cfg: ModelConfig, batch: dict, *,
+            gen: torch.Generator | None = None, noise: dict | None = None,
+            path: str = "auto") -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy of the training forward; (loss, {"nll"})."""
+    logits, _ = rg_logits(params, cfg, batch["tokens"], train=True, gen=gen,
+                          noise=noise, path=path)
+    nll = next_token_nll(logits, batch["tokens"])
+    return nll, {"nll": nll}
 
 
 def _rg_rec_step(lp, h, cs, hs, live, cfg, mode, path):

@@ -56,16 +56,22 @@ device decides: a CPU tensor runs the plain version) or the plain PyTorch
 version on any device. The float attention is plain PyTorch on both. It is
 the caller's explicit choice; nothing falls back on its own.
 
-Not ported yet (ROADMAP Queue A): training.
+Training (`transformer_logits(train=True)`, `transformer_loss`): the fp32
+masters through the binarized forward with the STE, the float attention's
+custom backward (`models.attention`), each block (vlm: each group)
+recomputed in the backward under cfg.remat; the loss is the next-token
+cross-entropy plus 0.01 of the MoE load-balance loss, as in the JAX
+package.
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bitpack import packed_width
-from repro_torch.core.layers import QuantMode, qmatmul, shared_pack
+from repro_torch.core.layers import Draws, QuantMode, qmatmul, shared_pack
 from repro_torch.core.packed import PackedWeight, map_tree
 from repro_torch.kernels.decode_attention import (
     decode_attention_packed_paged_plain, decode_attention_packed_plain,
@@ -82,7 +88,7 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.common import (
     ffn, ffn_param_shapes, layer_norm, moe_ffn, moe_param_shapes, rms_norm,
-    rope, sinusoidal_pos,
+    rope, site_qmm, sinusoidal_pos,
 )
 
 
@@ -249,15 +255,15 @@ def norm(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # Sublayers
 # ---------------------------------------------------------------------------
 def qkv(p: dict, xn: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
-        path: str):
+        path: str, draws: Draws | None = None, site: str = "attn"):
     """Q, K, V of the normed residual; frozen weights read one shared
     sign-pack of it. The QKV bias (cfg.qkv_bias) is added in the
-    activation dtype, before any rope."""
+    activation dtype, before any rope. `draws`: a `core.layers.Draws` at
+    train time (None at inference), sites "{site}.wq" etc."""
     b, s, _ = xn.shape
     xs = shared_pack(xn, (p["wq"], p["wk"], p["wv"]), mode, path=path)
-    q = qmatmul(xs, p["wq"], mode, path=path)
-    k = qmatmul(xs, p["wk"], mode, path=path)
-    v = qmatmul(xs, p["wv"], mode, path=path)
+    q, k, v = (site_qmm(xs, p[key], mode, path=path, draws=draws,
+                        site=f"{site}.{key}") for key in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
@@ -269,14 +275,16 @@ def qkv(p: dict, xn: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
 
 def ffn_sublayer(p: dict, x: torch.Tensor, cfg: ModelConfig,
                  mode: QuantMode, *, path: str = "auto",
-                 aux: dict | None = None) -> torch.Tensor:
+                 aux: dict | None = None, draws: Draws | None = None,
+                 site: str = "") -> torch.Tensor:
     """x + FFN(norm(x)): the dense FFN, or the MoE sublayer, whose lb_loss
     is added to aux["lb_loss"] when `aux` is given (serving drops it)."""
     xn = norm(p["ln2"], x, cfg)
+    kw = dict(path=path, draws=draws, site=f"{site}ffn")
     if not cfg.n_experts:
-        return x + ffn(p["ffn"], xn, cfg.mlp, mode, path=path)
+        return x + ffn(p["ffn"], xn, cfg.mlp, mode, **kw)
     out, moe_aux = moe_ffn(p["ffn"], xn, cfg.mlp, mode, top_k=cfg.top_k,
-                           capacity_factor=cfg.capacity_factor, path=path)
+                           capacity_factor=cfg.capacity_factor, **kw)
     if aux is not None:
         aux["lb_loss"] = aux["lb_loss"] + moe_aux["lb_loss"]
     return x + out
@@ -284,13 +292,14 @@ def ffn_sublayer(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def self_attn(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
               *, path: str = "auto", pos_offset: int = 0,
-              return_kv: bool = False):
+              return_kv: bool = False, draws: Draws | None = None,
+              site: str = ""):
     """Causal self-attention sublayer over a whole sequence (x: (B, S, D)
     at positions pos_offset..), float flash attention over the rope'd
     K/V. With `return_kv` also returns (k, v), each (B, S, Hkv, hd), for
-    the cache."""
+    the cache. `site` prefixes the draws' site names ("blocks.3.")."""
     xn = norm(p["ln1"], x, cfg)
-    q, k, v = qkv(p["attn"], xn, cfg, mode, path)
+    q, k, v = qkv(p["attn"], xn, cfg, mode, path, draws, f"{site}attn")
     if cfg.pos == "rope":
         positions = torch.arange(x.shape[1], device=x.device) + pos_offset
         q = rope(q, positions, cfg.rope_theta)
@@ -298,61 +307,70 @@ def self_attn(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
     out = flash_attention(q, k, v, True, cfg.local_window, cfg.attn_chunk,
                           pos_offset)
     out = out.reshape(x.shape[0], x.shape[1], cfg.n_heads * cfg.head_dim)
-    y = x + qmatmul(out, p["attn"]["wo"], mode, path=path)
+    y = x + site_qmm(out, p["attn"]["wo"], mode, path=path, draws=draws,
+                     site=f"{site}attn.wo")
     return (y, (k, v)) if return_kv else y
 
 
 def _self_block(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
                 *, path: str = "auto", pos_offset: int = 0,
-                return_kv: bool = False, aux: dict | None = None):
+                return_kv: bool = False, aux: dict | None = None,
+                draws: Draws | None = None, site: str = ""):
     """self_attn then the FFN sublayer; returns (y, (k, v) or None)."""
     res = self_attn(p, x, cfg, mode, path=path, pos_offset=pos_offset,
-                    return_kv=return_kv)
+                    return_kv=return_kv, draws=draws, site=site)
     y, kv = res if return_kv else (res, None)
-    return ffn_sublayer(p, y, cfg, mode, path=path, aux=aux), kv
+    return ffn_sublayer(p, y, cfg, mode, path=path, aux=aux, draws=draws,
+                        site=site), kv
 
 
 def image_kv(p: dict, img: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
-             path: str):
+             path: str, draws: Draws | None = None, site: str = "attn"):
     """K and V, each (B, n_img, Hkv, hd), of image tokens img (B, n_img,
     d_vision) in the activation dtype under a cross block's attention
     params `p`: frozen wk and wv read one shared sign-pack of img."""
     b, ni, _ = img.shape
     imgs = shared_pack(img, (p["wk"], p["wv"]), mode, path=path)
-    k = qmatmul(imgs, p["wk"], mode, path=path)
-    v = qmatmul(imgs, p["wv"], mode, path=path)
+    k, v = (site_qmm(imgs, p[key], mode, path=path, draws=draws,
+                     site=f"{site}.{key}") for key in ("wk", "wv"))
     return (k.reshape(b, ni, cfg.n_kv_heads, cfg.head_dim),
             v.reshape(b, ni, cfg.n_kv_heads, cfg.head_dim))
 
 
 def cross_query(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
-                path: str) -> torch.Tensor:
+                path: str, draws: Draws | None = None,
+                site: str = "") -> torch.Tensor:
     """The cross block's queries (B, S, Hq, hd) of the normed residual (a
     float lhs: no shared pack, no rope)."""
     xn = norm(p["ln1"], x, cfg)
-    q = qmatmul(xn, p["attn"]["wq"], mode, path=path)
+    q = site_qmm(xn, p["attn"]["wq"], mode, path=path, draws=draws,
+                 site=f"{site}attn.wq")
     return q.reshape(x.shape[0], x.shape[1], cfg.n_heads, cfg.head_dim)
 
 
 def cross_out(p: dict, x: torch.Tensor, out: torch.Tensor, cfg: ModelConfig,
-              mode: QuantMode, path: str) -> torch.Tensor:
+              mode: QuantMode, path: str, draws: Draws | None = None,
+              site: str = "") -> torch.Tensor:
     """x + tanh(gate) * (out @ wo) in the activation dtype, then the cross
     block's FFN sublayer. out: (B, S, Hq, hd) attention output."""
     b, s = x.shape[:2]
-    y = qmatmul(out.reshape(b, s, cfg.n_heads * cfg.head_dim),
-                p["attn"]["wo"], mode, path=path)
+    y = site_qmm(out.reshape(b, s, cfg.n_heads * cfg.head_dim),
+                 p["attn"]["wo"], mode, path=path, draws=draws,
+                 site=f"{site}attn.wo")
     gate = torch.tanh(p["attn"]["gate"]).to(y.dtype)
-    return ffn_sublayer(p, x + gate * y, cfg, mode, path=path)
+    return ffn_sublayer(p, x + gate * y, cfg, mode, path=path, draws=draws,
+                        site=site)
 
 
 def cross_attn(p: dict, x: torch.Tensor, kv, cfg: ModelConfig,
-               mode: QuantMode, *, path: str = "auto") -> torch.Tensor:
+               mode: QuantMode, *, path: str = "auto",
+               draws: Draws | None = None, site: str = "") -> torch.Tensor:
     """The vlm family's cross block over a whole sequence: gated
     cross-attention of x (B, S, D) against the image K/V `kv` (`image_kv`)
     with the float flash attention, non-causal, then its FFN sublayer."""
-    q = cross_query(p, x, cfg, mode, path)
+    q = cross_query(p, x, cfg, mode, path, draws, site)
     out = flash_attention(q, *kv, False, 0, cfg.attn_chunk, 0)
-    return cross_out(p, x, out, cfg, mode, path)
+    return cross_out(p, x, out, cfg, mode, path, draws, site)
 
 
 def pack_into(path: str, srcs, pools, rows: torch.Tensor) -> None:
@@ -859,18 +877,30 @@ def transformer_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def transformer_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                        *, img_emb: torch.Tensor | None = None,
-                       path: str = "auto") -> tuple[torch.Tensor, dict]:
-    """Inference forward: tokens (B, S) (vlm: and img_emb (B, n_img_tokens,
-    d_vision)) -> (logits (B, S, V), {"lb_loss": the MoE load-balance loss
-    summed over the layers, 0 for a dense stack}), causal float flash
-    attention in every self block, non-causal in every cross block, no
-    cache. (The training forward and its loss come with the LM trainer,
-    ROADMAP Queue A.)"""
+                       train: bool = False, gen: torch.Generator | None = None,
+                       noise: dict | None = None, path: str = "auto"
+                       ) -> tuple[torch.Tensor, dict]:
+    """The forward over whole sequences: tokens (B, S) (vlm: and img_emb (B,
+    n_img_tokens, d_vision)) -> (logits (B, S, V), {"lb_loss": the MoE
+    load-balance loss summed over the layers, 0 for a dense stack}), causal
+    float flash attention in every self block, non-causal in every cross
+    block, no cache.
+
+    train=True: the training forward of fp32 masters (Algorithm 1: every
+    projection binarized with the STE; stochastically in the modes that
+    draw, from `gen` in the order the forward visits the sites or from the
+    dict `noise` by site name, "blocks.{l}.attn.wq.qact", "blocks.{l}.ffn.
+    w_up.w", vlm "groups.{g}.cross.attn.wk.w", "groups.{g}.self.{j}.ffn.
+    experts.w_down.qact"). With cfg.remat each block (vlm: each group) is
+    recomputed in the backward (`remat`)."""
     _check_served(cfg)
     img = _image(cfg, img_emb, tokens.shape[0], required=True)
     mode = QuantMode(cfg.quant)
     h = embed(params, cfg, tokens)
     aux = {"lb_loss": torch.zeros((), dtype=torch.float32, device=h.device)}
+    if train:
+        return _train_forward(params, cfg, h, img, Draws(True, gen, noise),
+                              path, aux)
     for kind, bp, _ in layer_stack(params, cfg):
         if kind == "cross":
             h = cross_attn(bp, h, image_kv(bp["attn"], img, cfg, mode, path),
@@ -878,3 +908,100 @@ def transformer_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         else:
             h, _ = _self_block(bp, h, cfg, mode, path=path, aux=aux)
     return head(params, cfg, h), aux
+
+
+def unstack(tree) -> list:
+    """The per-layer trees of a tree of stacked masters: each leaf unbound
+    along its leading axis (one backward node per leaf, which stacks the
+    layers' gradients)."""
+    if isinstance(tree, dict):
+        subs = {k: unstack(v) for k, v in tree.items()}
+        n = len(next(iter(subs.values())))
+        return [{k: sub[i] for k, sub in subs.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def remat(cfg: ModelConfig, draws: Draws, fn, *args):
+    """fn(*args), recomputed in the backward under cfg.remat
+    (`torch.utils.checkpoint`, non-reentrant). The recomputation draws the
+    same noise as the forward: a generator the draws come from is set back
+    to its state at the region's start for the recomputation, and to where
+    it was after it (checkpoint's own RNG handling covers the global
+    generators only)."""
+    if not cfg.remat:
+        return fn(*args)
+    gen = draws.gen if draws.on and draws.noise is None else None
+    run = fn
+    if gen is not None:
+        start, calls = gen.get_state(), [0]
+
+        def run(*a):
+            calls[0] += 1
+            if calls[0] == 1:
+                return fn(*a)
+            end = gen.get_state()
+            gen.set_state(start)
+            try:
+                return fn(*a)
+            finally:
+                gen.set_state(end)
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
+
+
+def _train_forward(params, cfg, h, img, draws: Draws, path: str, aux: dict):
+    mode = QuantMode(cfg.quant)
+
+    def block(bp, site, h):
+        a = {"lb_loss": torch.zeros((), dtype=torch.float32, device=h.device)}
+        h, _ = _self_block(bp, h, cfg, mode, path=path, aux=a, draws=draws,
+                           site=site)
+        return h, a["lb_loss"]
+
+    def group(cp, sps, gi, h):
+        site = f"groups.{gi}.cross."
+        kv = image_kv(cp["attn"], img, cfg, mode, path, draws, f"{site}attn")
+        h = cross_attn(cp, h, kv, cfg, mode, path=path, draws=draws,
+                       site=site)
+        lb = torch.zeros((), dtype=torch.float32, device=h.device)
+        for j, sp in enumerate(sps):
+            h, lb_j = block(sp, f"groups.{gi}.self.{j}.", h)
+            lb = lb + lb_j
+        return h, lb
+
+    if cfg.family == "vlm":
+        cross = unstack(params["groups"]["cross"])
+        selfs = [unstack(g) for g in unstack(params["groups"]["self"])]
+        for gi, (cp, sps) in enumerate(zip(cross, selfs)):
+            h, lb = remat(cfg, draws, lambda x, cp=cp, sps=sps, gi=gi:
+                          group(cp, sps, gi, x), h)
+            aux["lb_loss"] = aux["lb_loss"] + lb
+    else:
+        for layer, bp in enumerate(unstack(params["blocks"])):
+            h, lb = remat(cfg, draws, lambda x, bp=bp, layer=layer:
+                          block(bp, f"blocks.{layer}.", x), h)
+            aux["lb_loss"] = aux["lb_loss"] + lb
+    return head(params, cfg, h), aux
+
+
+def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of logits[:, :-1] (in float32) against tokens[:,
+    1:], the JAX package's logsumexp - gold."""
+    logits = logits[:, :-1].to(torch.float32)
+    gold = torch.take_along_dim(logits, tokens[:, 1:, None].long(), dim=-1)
+    return (torch.logsumexp(logits, dim=-1) - gold[..., 0]).mean()
+
+
+def transformer_loss(params: dict, cfg: ModelConfig, batch: dict, *,
+                     gen: torch.Generator | None = None,
+                     noise: dict | None = None, path: str = "auto"
+                     ) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy plus 0.01 lb_loss of the training forward.
+    batch: {"tokens" (B, S), ["img_emb"]}. Returns (loss, {"nll",
+    "lb_loss"})."""
+    tokens = batch["tokens"]
+    logits, aux = transformer_logits(params, cfg, tokens,
+                                     img_emb=batch.get("img_emb"), train=True,
+                                     gen=gen, noise=noise, path=path)
+    nll = next_token_nll(logits, tokens)
+    return nll + 0.01 * aux["lb_loss"], {"nll": nll, **aux}

@@ -7,10 +7,19 @@ An Optimizer is (init, update):
 
 Trees are the port's param trees: dicts, lists, tuples and NamedTuples
 (`BNParams`, `AdaMaxState`) with tensors at the leaves, walked in a fixed
-order (dict insertion order) as `jax.tree_util` walks the JAX package's.
-A leaf's path is the tuple of dict keys, sequence indices and NamedTuple
-field names above it. The functions run under the caller's grad mode; the
-train step calls them under `torch.no_grad()`.
+order (dict insertion order; `jax.tree_util` sorts dict keys, which
+`checkpoint.manager` reproduces where the order is written down). None
+is an empty subtree, as in JAX (sgd's state without momentum). A leaf's
+path is the tuple of dict keys, sequence indices and NamedTuple field names
+above it. The functions run under the caller's grad mode; the train step
+calls them under `torch.no_grad()`.
+
+`update(grads, state, params, donate=False)`: with donate=True the port's
+optimizers write the new state into `state`'s tensors and the updates into
+`grads`' (the inputs are consumed, as a jitted JAX step donates them), a
+slice of each leaf at a time (`slices`), so that neither a second
+optimizer state nor an update tree nor a whole leaf's temporaries are ever
+resident; the values are the same bit for bit (every op is elementwise).
 """
 from __future__ import annotations
 
@@ -33,6 +42,8 @@ def _is_namedtuple(node) -> bool:
 def tree_map_with_path(fn: Callable, tree, *rest, path: tuple = ()):
     """fn(path, leaf, *leaves of `rest` at the same place) over every leaf;
     `rest` trees have `tree`'s structure."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map_with_path(fn, v, *(r[k] for r in rest),
                                       path=path + (k,))
@@ -65,6 +76,17 @@ def tree_unflatten_like(tree, leaves):
     return tree_map(lambda _: next(it), tree)
 
 
+SLICE = 1 << 24          # elements of a donated update's slice
+
+
+def slices(*tensors: torch.Tensor):
+    """Matching flat slices (views) of SLICE elements of contiguous
+    tensors of one shape."""
+    flat = [t.view(-1) for t in tensors]
+    for lo in range(0, flat[0].numel(), SLICE):
+        yield [f[lo:lo + SLICE] for f in flat]
+
+
 def apply_updates(params, updates):
     return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
 
@@ -86,8 +108,8 @@ def chain_weight_clip(opt: Optimizer, lo: float = -1.0, hi: float = 1.0,
     """Wrap an optimizer so updated params are clipped into [lo, hi] (paper
     Algorithm 1's clip(W - dW)). `predicate(path)` may restrict the clip to
     binarized weight leaves."""
-    def update(grads, state, params):
-        updates, state = opt.update(grads, state, params)
+    def update(grads, state, params, donate: bool = False):
+        updates, state = opt.update(grads, state, params, donate=donate)
 
         def clip_update(path, p, u):
             if predicate is not None and not predicate(path):

@@ -11,6 +11,8 @@ learning rate with its bias correction is snapped to AP2 (and decayed by
 right-shifts), and 1/u_t is replaced by AP2(1/u_t), a shift. No weight
 decay, no classic momentum (paper). The op order is the JAX package's; the
 step count and every factor stay on the params' device (no host sync).
+`donate=True` writes the new moments into the old ones and the updates into
+the gradients, with the same rounding (`optim.base`).
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.core.ap2 import pow2, ap2
-from repro_torch.optim.base import Optimizer, tree_leaves, tree_map
+from repro_torch.optim.base import Optimizer, slices, tree_leaves, tree_map
 
 
 class AdaMaxState(NamedTuple):
@@ -44,17 +46,36 @@ def _lr_fn(lr) -> Callable[[torch.Tensor], torch.Tensor]:
 
 
 def _moments(grads, state: AdaMaxState, b1: float, b2: float):
-    step = state.step + 1
     m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.to(torch.float32),
                  state.m, grads)
     u = tree_map(lambda u_, g: torch.maximum(b2 * u_,
                                              g.to(torch.float32).abs()),
                  state.u, grads)
-    # the bias correction 1 - b1^t in float32, as the JAX package takes it
-    corr = 1 - torch.pow(torch.full((), b1, dtype=torch.float32,
+    return m, u
+
+
+def _corr(step: torch.Tensor, b1: float) -> torch.Tensor:
+    """The bias correction 1 - b1^t in float32, as the JAX package takes
+    it."""
+    return 1 - torch.pow(torch.full((), b1, dtype=torch.float32,
                                     device=step.device),
                          step.to(torch.float32))
-    return step, m, u, corr
+
+
+def _donated(grads, state: AdaMaxState, b1: float, b2: float, upd):
+    """The moments and updates written into state.m, state.u and the
+    gradients, slice by slice: m = b1 m + (1 - b1) g, u = max(b2 u, |g|),
+    g = upd(m, u). Returns (updates, new state)."""
+    def leaf(m_, u_, g):
+        g = g.contiguous()
+        for m, u, gs in slices(m_, u_, g):
+            g32 = gs.to(torch.float32)
+            m.mul_(b1).add_((1 - b1) * g32)
+            torch.maximum(u.mul_(b2), g32.abs(), out=u)
+            gs.copy_(upd(m, u))
+        return g
+    updates = tree_map(leaf, state.m, state.u, grads)
+    return updates, AdaMaxState(m=state.m, u=state.u, step=state.step + 1)
 
 
 def adamax(lr: float | Callable[[torch.Tensor], torch.Tensor], b1: float = 0.9,
@@ -62,11 +83,16 @@ def adamax(lr: float | Callable[[torch.Tensor], torch.Tensor], b1: float = 0.9,
     """Exact AdaMax baseline."""
     lr_fn = _lr_fn(lr)
 
-    def update(grads, state, params=None):
-        step, m, u, corr = _moments(grads, state, b1, b2)
-        scale = lr_fn(step) / corr
-        updates = tree_map(lambda m_, u_: -scale * m_ / (u_ + eps), m, u)
-        return updates, AdaMaxState(m=m, u=u, step=step)
+    def update(grads, state, params=None, donate: bool = False):
+        step = state.step + 1
+        scale = lr_fn(step) / _corr(step, b1)
+
+        def upd(m_, u_):
+            return -scale * m_ / (u_ + eps)
+        if donate:
+            return _donated(grads, state, b1, b2, upd)
+        m, u = _moments(grads, state, b1, b2)
+        return tree_map(upd, m, u), AdaMaxState(m=m, u=u, step=step)
 
     return Optimizer(init=_init_like, update=update)
 
@@ -77,14 +103,18 @@ def shift_adamax(lr: float | Callable[[torch.Tensor], torch.Tensor],
     """The paper's S-AdaMax: all scalings are AP2 power-of-2 shifts."""
     lr_fn = _lr_fn(lr)
 
-    def update(grads, state, params=None):
-        step, m, u, corr = _moments(grads, state, b1, b2)
+    def update(grads, state, params=None, donate: bool = False):
+        step = state.step + 1
         # lr (incl. bias correction) snapped to a single power-of-2 shift
-        scale = ap2(lr_fn(step) / corr)
-        # 1/u replaced by its AP2 proxy: a per-parameter shift, not a divide
-        updates = tree_map(lambda m_, u_: -scale * m_ * ap2(1.0 / (u_ + eps)),
-                           m, u)
-        return updates, AdaMaxState(m=m, u=u, step=step)
+        scale = ap2(lr_fn(step) / _corr(step, b1))
+
+        def upd(m_, u_):
+            # 1/u replaced by its AP2 proxy: a per-parameter shift
+            return -scale * m_ * ap2(1.0 / (u_ + eps))
+        if donate:
+            return _donated(grads, state, b1, b2, upd)
+        m, u = _moments(grads, state, b1, b2)
+        return tree_map(upd, m, u), AdaMaxState(m=m, u=u, step=step)
 
     return Optimizer(init=_init_like, update=update)
 

@@ -45,7 +45,8 @@ class PagePool:
         assert n_pages >= 1
         if fault_plan is not None:
             raise NotImplementedError("fault plans are not ported yet "
-                                      "(ROADMAP Queue A, serving/faults.py)")
+                                      "(ROADMAP Queue A item 4, "
+                                      "serving/faults.py)")
         self.n_pages = n_pages
         self.refs = np.zeros((n_pages,), np.int32)
         # LIFO free stack, lowest ids on top: deterministic ids

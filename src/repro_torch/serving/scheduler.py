@@ -139,9 +139,9 @@ class _Admission:
     start: int = 0      # prompt tokens served from the prefix cache
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A, "
-                               "serving/scheduler.py)")
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A "
+                               f"item {item}, serving/scheduler.py)")
 
 
 class Scheduler:
@@ -158,10 +158,11 @@ class Scheduler:
                  pool_pages: int | None = None, prefix_cache: bool = False,
                  mesh=None, queue_cap: int | None = None,
                  fault_plan=None):
-        for name, value in (("the mesh", mesh), ("queue_cap", queue_cap),
-                            ("fault plans", fault_plan)):
+        for name, value, item in (("the mesh", mesh, 6),
+                                  ("queue_cap", queue_cap, 4),
+                                  ("fault plans", fault_plan, 4)):
             if value is not None:
-                raise _not_ported(name)
+                raise _not_ported(name, item)
         if (prefill_chunk is not None and prefill_chunk < 1) \
                 or interleave_steps < 0:
             raise ValueError("prefill_chunk >= 1 (or None: whole-prompt "
@@ -303,7 +304,7 @@ class Scheduler:
             raise RequestError(
                 f"img_emb is vlm-only (family is {self.cfg.family!r})")
         if req.deadline_s is not None:
-            raise _not_ported("deadlines (deadline_s)")
+            raise _not_ported("deadlines (deadline_s)", 4)
         if self._paged:
             need = -(-(int(prompt.size) + req.max_new_tokens - 1)
                      // self.page_size)

@@ -1153,3 +1153,145 @@ def test_cuda_vlm_engine_matches_plain(kv_bits, chunk, page):
     want = ServingEngine(cfg, params, kernel_path="ref", **kw).generate(reqs)
     for a, b in zip(got, want, strict=True):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the LM trainer on the card
+# ---------------------------------------------------------------------------
+TRAIN_REL = 5e-5        # tests/test_torch_lm_train.py's GRAD_REL
+
+
+def _smoke_step(arch, dev, params, batch):
+    """One make_train_step step (S-AdaMax at lr 1e-3) of the smoke config on
+    `dev` from `params`: (params, opt state, gradients, loss)."""
+    from repro_torch.configs.smoke import smoke_config
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.base import Optimizer, tree_map
+    from repro_torch.train.step import default_optimizer, make_train_step
+    cfg = smoke_config(arch)
+    opt = default_optimizer(cfg, 1e-3)
+    seen = {}
+
+    def update(g, s, p, donate=False):
+        seen["g"] = tree_map(torch.clone, g)
+        return opt.update(g, s, p)
+    to = (lambda t: t.to(dev))
+    p = tree_map(to, params)
+    p2, st, m = make_train_step(get_model(cfg), Optimizer(opt.init, update))(
+        p, opt.init(p), {k: to(v) for k, v in batch.items()})
+    return p2, st, seen["g"], float(m["loss"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["phi3-medium-14b", "falcon-mamba-7b"])
+def test_cuda_train_step_matches_cpu(arch):
+    """The smoke config's train step on the card and on the CPU from the
+    same params and batch: loss, gradients and moments within TRAIN_REL of
+    each tensor's largest magnitude, params held through the moments."""
+    from _torch_moments import first_step_scale, held_through_moments
+    from repro_torch.configs.smoke import smoke_config
+    from repro_torch.core.ap2 import ap2_exponent
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.base import tree_leaves
+    _need_card()
+    cfg = smoke_config(arch)
+    params = get_model(cfg).init(torch.Generator().manual_seed(0),
+                                 device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 24)).astype(np.int32))
+    runs = [_smoke_step(arch, d, params, {"tokens": tokens})
+            for d in ("cuda", "cpu")]
+    (pg, sg, gg, lg), (pc, sc, gc, lc) = runs
+    assert lg == pytest.approx(lc, rel=1e-5, abs=0)
+    for a, b in zip(tree_leaves((gg, sg.m, sg.u)), tree_leaves((gc, sc.m, sc.u)),
+                    strict=True):
+        a, b = a.cpu().double(), b.double()
+        assert float((a - b).abs().max()) <= TRAIN_REL * float(b.abs().max())
+    e = (lambda s: [ap2_exponent(1.0 / (u.cpu() + 1e-8)).numpy()
+                    for u in tree_leaves(s.u)])
+    npl = (lambda t: [x.cpu().numpy() for x in tree_leaves(t)])
+    held_through_moments(npl(pg), npl(pc), npl(sg.m), npl(sc.m), e(sg), e(sc),
+                         TRAIN_REL, first_step_scale(1e-3))
+
+
+@pytest.mark.cuda
+def test_cuda_trainer_resumes_bit_exact(tmp_path):
+    """Six steps straight against three, a restart, and three more, on the
+    card: final params and optimizer state and the losses bit for bit."""
+    from repro_torch.configs.smoke import smoke_config
+    from repro_torch.optim.base import tree_leaves
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    _need_card()
+    cfg = smoke_config("dbrx-132b")
+    tc = (lambda d, n: TrainConfig(steps=n, global_batch=4, seq_len=32,
+                                   ckpt_every=3, ckpt_dir=str(tmp_path / d),
+                                   log_every=1, lr=1e-2))
+    straight = Trainer(cfg, tc("a", 6))
+    out = straight.run()
+    Trainer(cfg, tc("b", 3)).run()
+    resumed = Trainer(cfg, tc("b", 6))
+    out2 = resumed.run()
+    assert [h["loss"] for h in out["history"][3:]] == \
+        [h["loss"] for h in out2["history"]]
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves((straight.params, straight.opt_state)),
+        tree_leaves((resumed.params, resumed.opt_state)), strict=True))
+
+
+@pytest.mark.cuda
+def test_cuda_selective_scan_refuses_inputs_that_require_a_gradient():
+    from repro_torch.kernels import selective_scan as ss
+    _need_card()
+    b, t, d, n = 1, 4, 64, 16
+    dt = torch.rand(b, t, d, device="cuda", requires_grad=True)
+    args = (torch.randn(b, t, d, device="cuda"),
+            torch.randn(b, t, n, device="cuda"),
+            torch.randn(b, t, n, device="cuda"),
+            -torch.rand(d, n, device="cuda"))
+    ss.reset_launches()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ss.selective_scan(dt, *args)
+    assert ss.launches["selective_scan"] == 0
+    with torch.no_grad():
+        y, _ = ss.selective_scan(dt, *args)
+    assert ss.launches["selective_scan"] == 1 and not y.requires_grad
+
+
+@pytest.mark.cuda
+def test_cuda_restored_packed_checkpoint_serves_through_the_kernels(tmp_path):
+    """Two train steps of the smoke phi3-medium-14b on the card, the masters
+    saved with packed_binary=True and restored as PackedWeights: served
+    chunked at kv_bits=1 through the kernels, greedy tokens equal the plain
+    versions' and an engine's on freeze(masters)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.smoke import smoke_config
+    from repro_torch.core.packed import PackedWeight
+    from repro_torch.kernels import binary_gemm as bg
+    from repro_torch.kernels import pack as pk
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    _need_card()
+    cfg = smoke_config("phi3-medium-14b")
+    tr = Trainer(cfg, TrainConfig(steps=2, global_batch=4, seq_len=32,
+                                  ckpt_dir=str(tmp_path / "run")))
+    tr.run()
+    mgr = CheckpointManager(tmp_path / "packed", async_save=False)
+    mgr.save(2, tr.params, packed_binary=True)
+    packed = mgr.restore(2, tr.params)
+    assert isinstance(packed["blocks"]["attn"]["wq"], PackedWeight)
+    assert packed["blocks"]["attn"]["wq"].packed.is_cuda
+    rng = np.random.default_rng(3)
+    reqs = [Request(rng.integers(0, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=b) for n, b in ((19, 6), (5, 9), (11, 4))]
+    kw = dict(slots=2, max_len=32, kv_bits=1, prefill_chunk=4)
+    scfg = cfg.scaled(kv_bits=1)
+    bg.reset_launches()
+    pk.reset_launches()
+    got = ServingEngine(scfg, packed, **kw).generate(reqs)
+    assert bg.launches["binary_gemm_packed"] > 0
+    assert pk.launches["pack_bits"] > 0
+    plain = ServingEngine(scfg, packed, kernel_path="ref", **kw).generate(reqs)
+    frozen = ServingEngine(scfg, tr.params, freeze=True, **kw).generate(reqs)
+    for a, b, c in zip(got, plain, frozen, strict=True):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
