@@ -117,7 +117,13 @@ Phases, each of which raises on failure (nothing is caught):
                tokens equal; then the default engine (whole prompt, float
                cache) on the same weights and traffic: decode tokens/s,
                TTFT, ITL, cache bytes beside the packed cache's, one
-               profiled decode step; the float attention (plain PyTorch)
+               profiled decode step; the same weights in float32 (float
+               leaves cast up), whole-prompt against chunked admission of
+               the default engine on phase 6's traffic: requests and
+               leading tokens in common, and for the first request that
+               parts each layer's K/V rows after prefill (the first layer
+               whose K rows differ is where the two paths part; printed,
+               not held); the float attention (plain PyTorch)
                beside SDPA at the decode step and a 200-token prefill;
                what a kernel-5 wrapper call's time is made of
   8. train   - kernel 4 (binary_gemm_mxu: w sign-packed along K, then
@@ -264,10 +270,34 @@ Phases, each of which raises on failure (nothing is caught):
                card against the CPU (gradients and moments within 5e-5,
                params held through the moments; the unroped families'
                attention from the CPU, parting signs proven exact ties)
+  15. lifecycle - phase 6's weights (phi3-medium-14b full width, depth 2)
+               through phase 6b's paged kv_bits=1 engine with the prefix
+               cache and the invariant watchdog on phase 6's 8 requests
+               plus two: fault-free (tokens equal phase 6's plain path's),
+               then under a plan arming every single-device fault site
+               (LIFECYCLE_PLAN: two failed burst attempts, a 50 ms stall,
+               a NaN and a poisoned admission, two exhausted allocs, a
+               corrupted prefix tree) with a blocking queue of 3 and two
+               requests whose deadlines pass in the queue: every rid
+               resolves once, statuses 6 / 2 / 2 (completed / shed /
+               error), every armed fault fired, 2 burst retries, 1
+               invariant violation degraded to cache bypass, survivors'
+               tokens equal the fault-free run's bit for bit, the pool
+               audits clean; phase 6's chunked engine built with the float
+               cache and switched live by freeze(kv_bits=1) gives phase 6's
+               tokens through kernels 6 and 8; the default engine admits a
+               prompt whole behind NaN V rows left past it and gives a
+               clean engine's tokens; the serving CLI in a subprocess on
+               the smoke config (paged, prefix cache, queue cap 3, CLI_PLAN)
+               exits 0 with the plan's status lines; printed: decode tok/s
+               faulted against fault-free, audit() host ms per burst on the
+               64-page pool, the zero fill per whole-prompt admission
+               (device ms at 40 layers, max_len 512) beside its bound
 Launch counts are set to 0 just before each main path (mlp, cnn, lm, paged
 lm, default lm, train, ssm chunked and whole-prompt, hybrid chunked and
 default, each family's, each MoE config's and the vlm's three engines,
-the trained checkpoint's engine) runs and read just after. The line
+the trained checkpoint's engine, the lifecycle's fault-free, faulted and
+switched engines) runs and read just after. The line
 before the last is {"kernels": [...]} (ten kernels); the last line is
 {"ok": true, "device": {...}}. Weights, BN statistics and inputs are
 random from the seed; image inputs are multiples of 1/128 in
@@ -302,6 +332,7 @@ import shutil
 import subprocess
 import sys
 import time
+import unittest.mock
 from pathlib import Path
 
 import numpy as np
@@ -437,6 +468,20 @@ SMOKE_TRAIN_ARCHS = ("phi3-medium-14b", "dbrx-132b", "musicgen-large",
 UNROPED_ARCHS = ("musicgen-large", "llama-3.2-vision-11b")
 GRAD_SCALE_EXP = 100         # the scaled backward's 2^-100 (family steps)
 LM_TRAIN_REL = 5e-5          # tests/test_torch_lm_train.py's GRAD_REL
+# the serving lifecycle (phase 15): phase 6b's paged kv_bits=1 engine with
+# the prefix cache and the invariant watchdog, on phase 6's requests plus
+# two more, fault-free and under LIFECYCLE_PLAN, which arms every
+# single-device fault site (two failed burst attempts, a stall, a NaN and a
+# poisoned admission, two exhausted allocs after the NaN admission's, a
+# corrupted prefix tree), with a blocking queue of LIFECYCLE_CAP and the
+# requests LIFECYCLE_LATE carrying deadlines that pass while they are
+# queued; LIFECYCLE_STATUSES (completed, shed, error) follow; the CLI runs
+# the smoke config under CLI_PLAN on a queue capped at 3 of CLI_BATCH
+LIFECYCLE_PLAN = ("device_error@burst:1*2,slow@burst:3:0.05,nan@admit:2,"
+                  "poison@admit:5,exhaust@alloc:3*2,corrupt@audit:4")
+LIFECYCLE_CAP, LIFECYCLE_LATE, LIFECYCLE_WAIT = 3, (1, 6), 0.02
+LIFECYCLE_STATUSES = (6, 2, 2)
+CLI_PLAN, CLI_BATCH = "nan@admit:1,device_error@burst:0*2", 5
 
 
 def smi(query: str) -> str:
@@ -5176,6 +5221,375 @@ def lm_train_phase(seed, dev, card):
     return launches, rep
 
 
+def lifecycle_checks(cfg, frozen, reqs6, tokens6, seed, dev):
+    """Phase 15's serving checks on `frozen` (cfg at kv_bits=1): the
+    fault-free and the faulted run of the paged engine with the prefix
+    cache and the watchdog, freeze(kv_bits=1) on a live float-cache engine,
+    and whole-prompt admission behind stale NaN V rows. Raises on any
+    difference; returns (the main path's launch counts, report)."""
+    import dataclasses
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.faults import parse_plan
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    rng = np.random.default_rng(seed + 15)
+    reqs = list(reqs6) + [
+        Request(rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
+                max_new_tokens=LM_NEW)
+        for n in rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, 2)]
+    kw = dict(seed=seed, page_size=LM_PAGE, prefix_cache=True,
+              check_invariants=True)
+    launches = {kn: 0 for kn in REPLACES}
+
+    def count():
+        sync()
+        for kn, n in all_launches().items():
+            launches[kn] += n
+
+    def decode_rate(st):
+        return (st["tokens_out"] - st["completed"]) / st["decode_s"]
+
+    # fault-free, each audit timed on the host, after a warm-up request on
+    # an engine of its own (the first calls at each shape would otherwise
+    # land in this run's decode_s alone, not in the faulted run's)
+    lm_engine(cfg, frozen, **kw).generate(
+        [Request(reqs[0].prompt[:40], max_new_tokens=4)])
+    clean = lm_engine(cfg, frozen, **kw)
+    sched = clean.scheduler()
+    audit_s = []
+    audit = sched.audit
+
+    def timed_audit():
+        t = time.perf_counter()
+        out = audit()
+        audit_s.append(time.perf_counter() - t)
+        return out
+    sched.audit = timed_audit
+    reset_all_launches()
+    base = clean.serve(reqs)
+    count()
+    if any(c.status != "completed" for c in base):
+        raise AssertionError("a fault-free lifecycle request did not complete")
+    for i, (c, want) in enumerate(zip(base, tokens6)):
+        if not np.array_equal(c.tokens, want):
+            raise AssertionError(f"lifecycle request {i}: fault-free tokens "
+                                 f"{c.tokens.tolist()} != phase 6's "
+                                 f"{want.tolist()}")
+    st0 = dict(sched.stats)
+
+    # the faulted run
+    plan = parse_plan(LIFECYCLE_PLAN)
+    eng = lm_engine(cfg, frozen, fault_plan=plan, queue_cap=LIFECYCLE_CAP,
+                    overflow="block", **kw)
+    fs = eng.scheduler()
+    reset_all_launches()
+    rids = []
+    for i, r in enumerate(reqs):
+        late = i in LIFECYCLE_LATE
+        rids.append(fs.submit(dataclasses.replace(r, deadline_s=1e-3)
+                              if late else r))
+        if late:
+            time.sleep(LIFECYCLE_WAIT)   # its deadline passes in the queue
+    comps = fs.run()
+    count()
+    fired = set(plan.fired)
+    missed = [(f.site, i, f.kind) for f in plan.faults
+              for i in range(f.index, f.index + f.times)
+              if (f.site, i, f.kind) not in fired]
+    statuses = [comps[r].status for r in rids]
+    tally = tuple(statuses.count(k) for k in ("completed", "shed", "error"))
+    if sorted(comps) != sorted(rids):
+        raise AssertionError(f"faulted run: rids {sorted(comps)} resolved, "
+                             f"{rids} submitted")
+    if tally != LIFECYCLE_STATUSES or missed:
+        raise AssertionError(f"faulted run: statuses {statuses} (completed, "
+                             f"shed, error {tally}, want "
+                             f"{LIFECYCLE_STATUSES}); faults not fired "
+                             f"{missed}")
+    for i, r in enumerate(rids):
+        if i in LIFECYCLE_LATE and statuses[i] != "shed":
+            raise AssertionError(f"faulted run: late request {i} {statuses[i]}")
+        if statuses[i] == "completed" and \
+                not np.array_equal(comps[r].tokens, base[i].tokens):
+            raise AssertionError(f"faulted run: request {i} tokens "
+                                 f"{comps[r].tokens.tolist()} != fault-free "
+                                 f"{base[i].tokens.tolist()}")
+    st = dict(fs.stats)
+    if st["burst_retries"] != 2 or st["invariant_violations"] != 1 \
+            or fs._use_tree:
+        raise AssertionError(f"faulted run: stats {st}, tree on "
+                             f"{fs._use_tree}")
+    violations = fs.audit()
+    fs._pager.check()
+    if violations or fs._pager.allocated != 0:
+        raise AssertionError(f"faulted run: pool {fs.page_stats()}, audit "
+                             f"{violations}")
+    errors = sorted({comps[r].error for r in rids if comps[r].error})
+
+    # freeze(kv_bits=1) on phase 6's engine built with the float cache
+    sw = ServingEngine(cfg.scaled(kv_bits=0), frozen, kv_bits=0,
+                       prefill_chunk=LM_CHUNK, slots=LM_SLOTS,
+                       max_len=LM_MAX_LEN, seed=seed)
+    sw.generate(reqs6[:2])
+    sw.freeze(kv_bits=1)
+    reset_all_launches()
+    switched = sw.generate(reqs6)
+    sync()
+    sw_launches = all_launches()
+    count()
+    for i, (a, b) in enumerate(zip(switched, tokens6, strict=True)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"freeze(kv_bits=1) request {i}: tokens "
+                                 f"{a.tolist()} != a fresh kv_bits=1 "
+                                 f"engine's {b.tolist()}")
+    for kn in ("decode_attention_packed", "prefill_attention_packed"):
+        if dev.type == "cuda" and not sw_launches[kn]:
+            raise AssertionError(f"freeze(kv_bits=1): no {kn} launch")
+    del sw
+
+    # whole-prompt admission behind stale NaN V rows (the default engine)
+    cfg0 = cfg.scaled(kv_bits=0)
+    by_len = sorted(reqs6, key=lambda r: len(r.prompt))
+    nxt = Request(by_len[0].prompt, max_new_tokens=LM_NEW)
+    s = len(nxt.prompt)
+    stale = ServingEngine(cfg0, frozen, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                          seed=seed)
+    stale.generate([Request(r.prompt, max_new_tokens=4)
+                    for r in by_len[-LM_SLOTS:]])
+    stale.scheduler()._cache["v"][..., s:, :, :] = float("nan")
+    got = stale.serve([nxt])[0]
+    want = ServingEngine(cfg0, frozen, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                         seed=seed).generate([nxt])[0]
+    if got.status != "completed" or not np.array_equal(got.tokens, want):
+        raise AssertionError(f"stale NaN V: {got.status} {got.error} "
+                             f"tokens {got.tokens.tolist()} != clean "
+                             f"{want.tolist()}")
+    del stale
+    rep = {
+        "requests": len(reqs), "statuses": statuses, "errors": errors,
+        "fired": [list(f) for f in plan.fired],
+        "faulted_stats": {k: st[k] for k in (
+            "burst_retries", "invariant_violations", "shed", "errors",
+            "rejected", "prefix_hits", "bursts", "decode_s")},
+        "fault_free_decode_tok_per_s": decode_rate(st0),
+        "faulted_decode_tok_per_s": decode_rate(st),
+        "audits": len(audit_s), "bursts": st0["bursts"],
+        "audit_host_ms_mean": 1e3 * float(np.mean(audit_s)),
+        "audit_host_ms_max": 1e3 * float(np.max(audit_s)),
+        "switch_launches": sw_launches, "stale_prompt_len": s}
+    return launches, rep
+
+
+def lm_f32_whole_vs_chunked(cfg, frozen, seed, dev, card):
+    """The default engine's whole-prompt admission against chunked
+    admission at all layers in float32 (the float leaves of the timed
+    run's frozen weights cast up), on phase 6's traffic: the share of equal
+    requests and leading tokens in common, and for the first request that
+    parts, each layer's K/V cache rows after prefill, whole against
+    chunked: entries that differ and the largest difference. A layer whose
+    K rows are equal took equal signs in (its input is binarized), so the
+    first layer with a differing K row is where the two paths part; the
+    first attention output (the float input of wo's binarized matmul)
+    whose sign differs is printed with both values and its row's scale."""
+    from repro_torch.core.packed import map_tree
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = cfg.scaled(kv_bits=0, dtype="float32")
+    f32 = map_tree(lambda _, p: p.float() if isinstance(p, torch.Tensor)
+                   and p.is_floating_point() else p, frozen)
+    prompts = lm_traffic(seed, cfg.vocab)
+    reqs = [Request(p, max_new_tokens=LM_NEW) for p in prompts]
+    base = dict(slots=LM_SLOTS, max_len=LM_MAX_LEN, seed=seed)
+    t0 = time.perf_counter()
+    whole = ServingEngine(cfg, f32, **base).generate(reqs)
+    chunked = ServingEngine(cfg, f32, prefill_chunk=LM_CHUNK,
+                            **base).generate(reqs)
+    same = [int(np.array_equal(a, b)) for a, b in zip(whole, chunked)]
+    lead = [int(np.argmin(np.r_[a == b, False]))
+            for a, b in zip(whole, chunked)]
+    layers, flip = [], None
+    parted = [i for i, ok in enumerate(same) if not ok]
+    if parted:
+        p = prompts[parted[0]]
+        tok = torch.from_numpy(p[None].astype(np.int64)).to(dev)
+        cw = T.init_cache(cfg, 1, LM_MAX_LEN, device=dev)
+        cc = T.init_cache(cfg, 1, LM_MAX_LEN, device=dev)
+        # each layer's float attention output, the one float input of a
+        # binarized matmul (wo) that the two admissions compute apart
+        outs = {"whole": [], "chunked": []}
+
+        def capture(fn, key):
+            def call(*a, **k):
+                out = fn(*a, **k)
+                outs[key].append(out.float().reshape(out.shape[1], -1))
+                return out
+            return call
+        with unittest.mock.patch.object(
+                T, "flash_attention", capture(T.flash_attention, "whole")), \
+                unittest.mock.patch.object(
+                    T, "chunk_attention",
+                    capture(T.chunk_attention, "chunked")):
+            T.transformer_prefill(f32, cfg, tok, cache=cw)
+            nvs = []
+            for lo in range(0, len(p), LM_CHUNK):
+                nv = min(LM_CHUNK, len(p) - lo)
+                ch = torch.zeros((1, LM_CHUNK), dtype=torch.int64, device=dev)
+                ch[0, :nv] = tok[0, lo:lo + nv]
+                T.transformer_prefill_chunk(f32, cfg, ch, cc, 0, lo, nv)
+                nvs.append(nv)
+        n = cfg.n_layers
+        for layer in range(n):
+            a = outs["whole"][layer]
+            b = torch.cat([outs["chunked"][c * n + layer][:nv]
+                           for c, nv in enumerate(nvs)])
+            differ = (a >= 0) != (b >= 0)
+            if differ.any():
+                pos, j = (int(i) for i in differ.nonzero()[0])
+                flip = {"layer": layer, "position": pos, "element": j,
+                        "signs_differing": int(differ.sum()),
+                        "whole": float(a[pos, j]), "chunked": float(b[pos, j]),
+                        "row_max_abs": float(a[pos].abs().max()),
+                        "layer_max_diff": float((a - b).abs().max()),
+                        "layer_max_abs": float(a.abs().max())}
+                break
+        del outs
+        for layer in range(cfg.n_layers):
+            row = {"layer": layer}
+            for name in ("k", "v"):
+                a = cw[name][layer, 0, :len(p)]
+                b = cc[name][layer, 0, :len(p)]
+                row[f"{name}_differ"] = int((a != b).sum())
+                row[f"{name}_max_diff"] = float((a - b).abs().max())
+                row[f"{name}_max_abs"] = float(a.abs().max())
+                row[f"{name}_positions"] = int((a != b).flatten(1).any(1)
+                                               .sum())
+            layers.append(row)
+        del cw, cc
+    first = next((r["layer"] for r in layers if r["k_differ"]), None)
+    rep = {"equal_requests": same, "leading_tokens_in_common": lead,
+           "first_parting_request": parted[0] if parted else None,
+           "first_layer_k_differs": first, "first_sign_flip": flip,
+           "layers": layers,
+           "seconds": time.perf_counter() - t0}
+    print(f"lm float32 whole-prompt against chunked on {card}: {LM_ARCH} "
+          f"{cfg.n_layers} layers, float32 activations and cache, phase 6's "
+          f"traffic: {sum(same)} of {len(same)} requests equal, leading "
+          f"tokens in common {lead} ({rep['seconds']:.1f} s)")
+    if parted:
+        diffs = [(r["layer"], r["k_positions"], r["k_differ"],
+                  r["v_differ"], f"{r['v_max_diff']:.3g}") for r in layers
+                 if r["k_differ"] or r["v_differ"]][:6]
+        print(f"  request {parted[0]} (prompt {len(prompts[parted[0]])}) "
+              f"after prefill, whole against chunked: first layer whose K "
+              f"rows differ {first}; (layer, positions whose K differs, K "
+              f"entries differing, V entries differing, V max diff) of the "
+              f"first differing layers {diffs}")
+        print(f"  the first float attention output (wo's binarized input) "
+              f"whose sign differs, whole against chunked: {flip}")
+    del f32
+    torch.cuda.empty_cache()
+    return rep
+
+
+def lifecycle_phase(base_cfg, seed, dev, card, reqs6, tokens6):
+    """Phase 15, the serving lifecycle: phase 6's weights (full width,
+    depth LM_CHECK_DEPTH, the same draw) through `lifecycle_checks`; the
+    zero fill of a whole-prompt admission timed at all 40 layers; the
+    serving CLI once on the card under CLI_PLAN. Returns (launches,
+    report)."""
+    from repro_torch.models.api import get_model
+    t0 = time.perf_counter()
+    cfg = base_cfg.scaled(n_layers=LM_CHECK_DEPTH, kv_bits=1)
+    model = get_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)      # phase 6's
+    frozen = model.freeze(model.init(gen, device=dev))
+    torch.cuda.empty_cache()
+    launches, rep = lifecycle_checks(cfg, frozen, reqs6, tokens6, seed, dev)
+    del frozen
+    torch.cuda.empty_cache()
+
+    # the zero fill of a whole-prompt admission, at all layers: K and V rows
+    # [s, max_len) of one slot, s the shortest prompt of the traffic
+    shape = (base_cfg.n_layers, LM_SLOTS, LM_MAX_LEN, base_cfg.n_kv_heads,
+             base_cfg.head_dim)
+    kv = [torch.ones(shape, dtype=base_cfg.activation_dtype, device=dev)
+          for _ in range(2)]
+    s = LM_PROMPT[0]
+
+    def fill():
+        for c in kv:
+            c[..., 0:1, s:, :, :].zero_()
+    fill_ms = device_ms(fill)
+    fill_bytes = 2 * base_cfg.n_layers * (LM_MAX_LEN - s) * \
+        base_cfg.n_kv_heads * base_cfg.head_dim * kv[0].element_size()
+    del kv
+    torch.cuda.empty_cache()
+
+    # the serving CLI in a process of its own, on the card
+    import repro_torch
+    src = str(Path(repro_torch.__file__).resolve().parents[1])
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    argv = ["--arch", LM_ARCH, "--smoke", "--freeze", "--kv-bits", "1",
+            "--queue", "--prefill-chunk", "4", "--page-size", "4",
+            "--prefix-cache", "--queue-cap", "3", "--batch", str(CLI_BATCH),
+            "--prompt-len", "12", "--max-new", "8", "--inject-faults",
+            CLI_PLAN]
+    t_cli = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          *argv], env=env, capture_output=True, text=True,
+                         timeout=300)
+    cli_s = time.perf_counter() - t_cli
+    lines = run.stdout.splitlines()
+    if run.returncode:
+        raise AssertionError(f"serve CLI exited {run.returncode}: "
+                             f"{run.stderr[-2000:]}")
+    want = {"REJECT": CLI_BATCH - 3, "ERROR  rid=1": 1, "done   rid=0": 1,
+            "done   rid=2": 1}
+    got = {k: sum(k in ln for ln in lines) for k in want}
+    res = [ln for ln in lines if ln.startswith("resilience:")]
+    want_res = (f"resilience: 0 shed, 1 errored, {CLI_BATCH - 3} rejected at "
+                f"cap, 2 burst retries, 0 invariant violations (degraded to "
+                f"cache bypass)")
+    if got != want or res != [want_res]:
+        raise AssertionError(f"serve CLI lines {got} != {want}, {res}: "
+                             + "\n".join(lines))
+    rep.update({"zero_fill_ms": fill_ms, "zero_fill_bytes": fill_bytes,
+                "zero_fill_bound_ms": fill_bytes / HBM_BYTES_PER_S * 1e3,
+                "cli_s": cli_s, "cli_lines": lines,
+                "seconds": time.perf_counter() - t0})
+    print(f"lifecycle (phase 15) on {card}: {LM_ARCH} full width, depth "
+          f"{LM_CHECK_DEPTH}, paged kv_bits=1 + prefix cache + watchdog, "
+          f"{rep['requests']} requests; faulted under {LIFECYCLE_PLAN!r}, "
+          f"queue cap {LIFECYCLE_CAP} (block), requests {LIFECYCLE_LATE} "
+          f"late: statuses {rep['statuses']}, errors {rep['errors']}; "
+          f"survivors' tokens equal the fault-free run's, whose equal phase "
+          f"6's; stats {rep['faulted_stats']}; pool audits clean")
+    print(f"  decode tok/s faulted {rep['faulted_decode_tok_per_s']:.2f} "
+          f"against fault-free {rep['fault_free_decode_tok_per_s']:.2f} "
+          f"(decode_s holds the injected stall and the retries' backoff)")
+    print(f"  audit() host ms on the {LM_POOL}-page pool: mean "
+          f"{rep['audit_host_ms_mean']:.4f}, max "
+          f"{rep['audit_host_ms_max']:.4f} over {rep['audits']} calls in "
+          f"{rep['bursts']} bursts (one per burst)")
+    print(f"  zero fill per whole-prompt admission ({base_cfg.n_layers} "
+          f"layers, max_len {LM_MAX_LEN}, rows [{s}, {LM_MAX_LEN}) of K and "
+          f"V): device {fill_ms:.4f} ms, {fill_bytes / 1e6:.1f} MB written, "
+          f"bound {rep['zero_fill_bound_ms']:.4f} ms")
+    print(f"  freeze(kv_bits=1) on a live float-cache engine: tokens equal a "
+          f"fresh kv_bits=1 engine's, launches {rep['switch_launches']}; "
+          f"whole-prompt admission behind NaN V rows past {s} tokens: "
+          f"tokens equal a clean engine's")
+    print(f"  serve CLI ({cli_s:.1f} s, exit 0): "
+          + "; ".join(ln.strip() for ln in lines if "rid=" in ln
+                      or "REJECT" in ln or ln.startswith("resilience")))
+    print(f"phase 15 (lifecycle): {rep['seconds']:.1f} s")
+    return launches, rep
+
+
 def attention_times(card, popc_per_s) -> int:
     """The attention kernels' times alone (`--attention-times`): the lm
     kernel times of kernels 5-9 at the main path's shapes, then the
@@ -5515,7 +5929,8 @@ def main() -> int:
     lap("phases 4-5 (mlp, cnn)")
 
     # ------------------------------------------------ lm: tokens vs plain
-    lm_launches, lm_chunks, _, _ = lm_engine_check(lm_cfg, args.seed, dev)
+    lm_launches, lm_chunks, lm_reqs, lm_tokens = lm_engine_check(
+        lm_cfg, args.seed, dev)
     paged_launches = lm_paged_engine_check(lm_cfg, args.seed, dev)
     default_launches, report["lm_default"] = lm_default_engine_check(
         lm_cfg, args.seed, dev)
@@ -5654,6 +6069,8 @@ def main() -> int:
         lm_cfg.scaled(kv_bits=1), eng.params, args.seed, dev, card)
     report["lm_default_timed"] = lm_default_timed_run(
         lm_cfg, eng.params, args.seed, dev, card, timed["cache_packed_bytes"])
+    report["lm_f32_whole_vs_chunked"] = lm_f32_whole_vs_chunked(
+        lm_cfg, eng.params, args.seed, dev, card)
     del eng, sched
     torch.cuda.empty_cache()
     report["float_attention"] = float_attention_times(lm_cfg, dev_gen, dev,
@@ -5705,6 +6122,12 @@ def main() -> int:
     for kn in REPLACES:
         path_launches[kn] += lm_train_launches[kn]
 
+    # ------------------------------------------------------------ lifecycle
+    lifecycle_launches, report["lifecycle"] = lifecycle_phase(
+        lm_cfg, args.seed, dev, card, lm_reqs, lm_tokens)
+    for kn in REPLACES:
+        path_launches[kn] += lifecycle_launches[kn]
+
     kernels = []
     for kn in REPLACES:
         t = totals[kn]
@@ -5752,7 +6175,9 @@ def main() -> int:
           "musicgen-large, dbrx-132b and llama4-scout-17b-a16e and the "
           "depth-10 runs of llama-3.2-vision-11b (chunked kv_bits=1, the "
           "default engine, paged kv_bits=1 with the prefix cache) and "
-          "phase 14's serve of the trained phi3-medium-14b checkpoint")
+          "phase 14's serve of the trained phi3-medium-14b checkpoint "
+          "and phase 15's lifecycle runs (fault-free, faulted, and the "
+          "engine switched by freeze(kv_bits=1))")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s after the build")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -834,13 +834,18 @@ def transformer_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     computed once, for the cross-attention (float, non-causal) and for its
     cache rows (`_write_image_kv`). With `cache` None a new contiguous
     cache of B rows at max_len (default S) is made, as the JAX package
-    returns one; a given cache is written in place (positions past S keep
-    what they held: lengths mask them). A paged cache fills through
-    chunked prefill only (ValueError). Returns (logits (B, V) at the last
-    position, the cache)."""
+    returns one; a given cache is written in place, and at kv_bits=0 its
+    rows' positions past S are zeroed (one fill each of K and V over every
+    layer), as the JAX scheduler overwrites a slot's whole row: lengths
+    mask those positions, but a masked weight 0 times a non-finite V that
+    the slot's last occupant left would be NaN (sign words hold no NaN and
+    the V scale is rewritten). A paged cache fills through chunked prefill
+    only (ValueError). Returns (logits (B, V) at the last position, the
+    cache)."""
     _check_served(cfg)
     b, s = tokens.shape
     img = _image(cfg, img_emb, b, required=True)
+    given = cache is not None
     if cache is None:
         cache = init_cache(cfg, b, max_len or s, device=tokens.device)
     elif "page_table" in cache:
@@ -855,6 +860,9 @@ def transformer_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         dev = tokens.device
         rows = ((torch.arange(b, device=dev)[:, None] + slot) * t_max
                 + torch.arange(s, device=dev)[None]).reshape(-1)
+    elif given and s < t_max:
+        for name in ("k", "v"):
+            cache[name][..., slot:slot + b, s:, :, :].zero_()
     h = embed(params, cfg, tokens)
     for kind, bp, idx in layer_stack(params, cfg):
         if kind == "cross":

@@ -40,8 +40,13 @@ image embeddings (`Request.img_emb`, (n_img_tokens, d_vision)): their K/V
 stay per slot beside the self-attention cache, and the prefix cache is off
 for it, as in the JAX package.
 
-Not ported yet, and raising NotImplementedError (ROADMAP Queue A): the
-mesh, the bounded queue and fault plans.
+`queue_cap` / `overflow`, `fault_plan` (`serving.faults`),
+`check_invariants`, `burst_retries` and `backoff_s` pass to the scheduler
+(the serving lifecycle: backpressure, deadline shedding, poison isolation,
+burst retries and the invariant watchdog; `serving.scheduler`); `serve`
+returns each request's `Completion` with its status. `freeze(kv_bits=1)`
+switches an idle engine to the packed cache. The mesh is not ported yet:
+`mesh=` raises NotImplementedError (ROADMAP Queue A item 6).
 """
 from __future__ import annotations
 
@@ -69,7 +74,9 @@ class ServingEngine:
                  prefill_chunk: int | None = None,
                  interleave_steps: int = 8, page_size: int | None = None,
                  pool_pages: int | None = None, prefix_cache: bool = False,
-                 queue_cap: int | None = None, fault_plan=None,
+                 queue_cap: int | None = None, overflow: str = "reject",
+                 fault_plan=None, check_invariants: bool | None = None,
+                 burst_retries: int = 3, backoff_s: float = 0.01,
                  kernel_path: str = "auto"):
         if kv_bits is not None:
             if kv_bits not in (0, 1):
@@ -88,7 +95,11 @@ class ServingEngine:
         self.page_size, self.pool_pages = page_size, pool_pages
         self._sched_kw = dict(page_size=page_size, pool_pages=pool_pages,
                               prefix_cache=prefix_cache, mesh=mesh,
-                              queue_cap=queue_cap, fault_plan=fault_plan)
+                              queue_cap=queue_cap, overflow=overflow,
+                              fault_plan=fault_plan,
+                              check_invariants=check_invariants,
+                              burst_retries=burst_retries,
+                              backoff_s=backoff_s)
         self.frozen = params_frozen(params)
         self._sched: Scheduler | None = None
         self._gen: torch.Generator | None = None
@@ -96,18 +107,33 @@ class ServingEngine:
                       "prefill_s": 0.0, "decode_s": 0.0}
         if freeze:
             self.freeze()
-        self.scheduler()      # raises now for what is not ported
+        self.scheduler()      # raises now for the mesh
 
-    def freeze(self) -> "ServingEngine":
+    def freeze(self, kv_bits: int | None = None) -> "ServingEngine":
         """Freeze fp32 masters to packed 1-bit weights, in place (load-time
-        quantization). Idempotent; returns self."""
+        quantization). `kv_bits=1` also switches the KV cache to packed
+        sign bitplanes (0 back to the float cache): the model and the
+        scheduler are rebuilt with the new cache, so, like freezing the
+        weights, it needs an idle engine (RuntimeError with requests in
+        flight). Idempotent; returns self."""
+        busy = self._sched is not None and not self._sched.idle
         if not self.frozen:
-            if self._sched is not None and not self._sched.idle:
+            if busy:
                 raise RuntimeError("cannot freeze with requests in flight — "
                                    "drain the scheduler (run()) first")
             self.params = self.model.freeze(self.params)
             self.frozen = True
             self._sched = None     # rebuild over the frozen params
+        if kv_bits is not None and kv_bits != self.cfg.kv_bits:
+            if kv_bits not in (0, 1):
+                raise ValueError(f"kv_bits must be 0 or 1, got {kv_bits}")
+            if busy:
+                raise RuntimeError("cannot change kv_bits with requests in "
+                                   "flight — drain the scheduler (run()) "
+                                   "first")
+            self.cfg = self.cfg.scaled(kv_bits=kv_bits)
+            self.model = get_model(self.cfg, path=self.kernel_path)
+            self._sched = None     # the cache layout changed: rebuild
         return self
 
     def resident_weight_bytes(self) -> dict:

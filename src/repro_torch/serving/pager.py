@@ -30,8 +30,10 @@ touches device memory. Ownership model:
 Invariants: refcounts never go negative, a page is free iff its refcount is
 0, and no operation ever frees a page that still has a holder. `audit()`
 returns violations as strings; `check()` asserts them (tests call it).
-Fault plans (the JAX package's `serving.faults`) are not ported: passing
-one raises NotImplementedError (ROADMAP Queue A).
+Pass `fault_plan` (`serving.faults`) to make `alloc` consult the 'alloc'
+site: an armed 'exhaust' fault makes it return None exactly as if the pool
+were full, which is how admission's evict-and-retry and requeue paths are
+exercised deterministically.
 """
 from __future__ import annotations
 
@@ -43,14 +45,11 @@ __all__ = ["PagePool"]
 class PagePool:
     def __init__(self, n_pages: int, fault_plan=None):
         assert n_pages >= 1
-        if fault_plan is not None:
-            raise NotImplementedError("fault plans are not ported yet "
-                                      "(ROADMAP Queue A item 4, "
-                                      "serving/faults.py)")
         self.n_pages = n_pages
         self.refs = np.zeros((n_pages,), np.int32)
         # LIFO free stack, lowest ids on top: deterministic ids
         self._free = list(range(n_pages - 1, -1, -1))
+        self.fault_plan = fault_plan
 
     def free_count(self) -> int:
         return len(self._free)
@@ -62,6 +61,9 @@ class PagePool:
     def alloc(self, n: int) -> list[int] | None:
         """n fresh pages at refcount 1, or None (all-or-nothing)."""
         assert n >= 0
+        if self.fault_plan is not None:
+            if any(f.kind == "exhaust" for f in self.fault_plan.tick("alloc")):
+                return None        # injected exhaustion: the pool is "full"
         if n > len(self._free):
             return None
         pages = [self._free.pop() for _ in range(n)]

@@ -195,6 +195,16 @@ class PrefixCache:
         self.root = {}
         return freed
 
+    def corrupt(self) -> None:
+        """Fault injection (`FaultPlan` kind 'corrupt'): graft a node whose
+        page the pool counts no reference for -- the inconsistency a faulty
+        insert / evict interleaving would leave, and what `audit()` exists
+        to catch. Never called outside injection."""
+        free = np.nonzero(self.pool.refs == 0)[0]
+        page = int(free[0]) if free.size else self.pool.n_pages
+        self.root[("corrupt",) * self.page_size] = \
+            _Node(page, None, self._tick())
+
     # -- introspection ------------------------------------------------------
     @property
     def n_pages(self) -> int:

@@ -72,12 +72,42 @@ Sampling (temperature > 0) draws Gumbel noise from one generator seeded
 from the engine (`serving.sampling`): greedy outputs are the JAX package's,
 sampled ones are not its draws.
 
-Not ported yet, and raising NotImplementedError naming ROADMAP Queue A:
-the mesh, fault plans, the bounded queue and deadlines.
+Resilience (`serving.faults`), as in the JAX package: `submit` validates a
+request up front and raises a typed `RequestError`; a bounded admission
+queue (`queue_cap`) applies backpressure -- `submit` raises `QueueFull`
+(`overflow="reject"`) or serves until the queue has room
+(`overflow="block"`; what completes meanwhile is delivered by the next
+`poll`); a request whose `deadline_s` (TTFT, from submit) passed while it
+was queued is shed at admission, before any prefill (`Completion.status ==
+"shed"`); a poisoned request -- non-finite logits, an injected admission
+fault, or pages the pool can never give it -- retires alone with status
+"error" while every other slot decodes as it would have. A `FaultPlan`
+fires faults at the hook sites by occurrence, as the JAX scheduler ticks
+them, so one plan fires the same faults in both packages: 'admit' once per
+admission attempt ('nan' adds NaN to that admission's first-token logits,
+'poison' errors it before it takes a slot), 'burst' once per decode-burst
+attempt, before its first step is queued ('slow' sleeps, 'device_error'
+raises `TransientDeviceError`, retried `burst_retries` times with backoff:
+no step of the failed attempt ran, so the retry is bit-identical), 'alloc'
+in the page pool ('exhaust'), and 'audit' in the invariant watchdog
+('corrupt' grafts a bad prefix-tree node). The watchdog (`check_invariants`,
+default `REPRO_CHECK_INVARIANTS == "1"`) audits the pool, the tree and the
+refcount ledger (`audit()`) at burst boundaries; on a violation it drops
+the prefix tree (cache bypass) and raises `InvariantViolation` only if the
+ledger is still inconsistent.
+
+Whole-prompt admission writes the slot's K/V rows past the prompt too (the
+float cache's are zeroed, as the JAX scheduler overwrites the slot's whole
+row): rows the last occupant left are masked by length, but a masked row's
+softmax weight 0 times a non-finite V is NaN.
+
+The mesh is not ported yet: `mesh=` raises NotImplementedError naming
+ROADMAP Queue A item 6.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from collections import deque
 
@@ -86,13 +116,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.api import ATTENTION_FAMILIES, Model
+from repro_torch.serving.faults import (FaultPlan, InvariantViolation,
+                                        QueueFull, RequestError,
+                                        TransientDeviceError)
 from repro_torch.serving.pager import PagePool
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.sampling import sample_tokens
-
-
-class RequestError(ValueError):
-    """A malformed request, rejected at submit."""
 
 
 @dataclasses.dataclass
@@ -102,7 +131,9 @@ class Request:
     temperature: float = 0.0     # 0 => greedy
     eos_id: int | None = None    # stop early when this token is sampled
     img_emb: np.ndarray | None = None   # vlm only: (n_img_tokens, d_vision)
-    deadline_s: float | None = None     # not ported
+    # TTFT deadline in seconds from submit: a request still queued when it
+    # expires is shed at admission instead of taking prefill compute
+    deadline_s: float | None = None
     priority: int = 0            # higher admits first; ties go by rid
 
 
@@ -116,8 +147,10 @@ class Completion:
     cached_tokens: int = 0       # prompt tokens served from the prefix cache
     itl: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros((0,)))
-    # "completed" | "error" (non-finite logits, or a page pool that cannot
-    # take the request with nothing in flight)
+    # how the rid resolved, exactly once: "completed", "shed" (its deadline
+    # passed before admission; no compute spent) or "error" (non-finite
+    # logits, an injected admission fault, or a page pool that cannot take
+    # the request with nothing in flight)
     status: str = "completed"
     error: str | None = None
 
@@ -137,11 +170,7 @@ class _Admission:
     n_chunks: int
     next: int = 0
     start: int = 0      # prompt tokens served from the prefix cache
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A "
-                               f"item {item}, serving/scheduler.py)")
+    poison: float = 0.0  # injected NaN added to the first-token logits
 
 
 class Scheduler:
@@ -157,16 +186,33 @@ class Scheduler:
                  seed: int = 0, page_size: int | None = None,
                  pool_pages: int | None = None, prefix_cache: bool = False,
                  mesh=None, queue_cap: int | None = None,
-                 fault_plan=None):
-        for name, value, item in (("the mesh", mesh, 6),
-                                  ("queue_cap", queue_cap, 4),
-                                  ("fault plans", fault_plan, 4)):
-            if value is not None:
-                raise _not_ported(name, item)
+                 overflow: str = "reject",
+                 fault_plan: FaultPlan | None = None,
+                 check_invariants: bool | None = None,
+                 burst_retries: int = 3, backoff_s: float = 0.01):
+        if mesh is not None:
+            raise NotImplementedError("the mesh is not ported yet (ROADMAP "
+                                      "Queue A item 6, serving/scheduler.py)")
         if (prefill_chunk is not None and prefill_chunk < 1) \
                 or interleave_steps < 0:
             raise ValueError("prefill_chunk >= 1 (or None: whole-prompt "
                              "admission) and interleave_steps >= 0")
+        if overflow not in ("reject", "block"):
+            raise ValueError(f"overflow must be 'reject' or 'block', got "
+                             f"{overflow!r}")
+        if queue_cap is not None and queue_cap < 1:
+            raise ValueError(f"queue_cap must be >= 1, got {queue_cap}")
+        self.queue_cap, self.overflow = queue_cap, overflow
+        self._faults = fault_plan
+        self.burst_retries, self.backoff_s = burst_retries, backoff_s
+        # the invariant watchdog: an explicit argument wins, else the
+        # environment's switch (the test suite sets it)
+        self._check_inv = (check_invariants if check_invariants is not None
+                           else os.environ.get("REPRO_CHECK_INVARIANTS") == "1")
+        self.last_violations: list[str] = []
+        # completions harvested inside a blocking submit, delivered by the
+        # next poll()
+        self._done_buf: list[Completion] = []
         # paging, the prefix cache and the V scale apply to the attention
         # families only: a recurrent family's state is O(1) per slot and
         # stays slot-resident, so page_size, pool_pages and prefix_cache
@@ -185,7 +231,7 @@ class Scheduler:
             self.pool_pages = (pool_pages if pool_pages is not None
                                else n_slots * self.n_pages)
             cache_kw = {"page_size": page_size, "pool_pages": self.pool_pages}
-            self._pager = PagePool(self.pool_pages)
+            self._pager = PagePool(self.pool_pages, fault_plan=fault_plan)
             self._slot_pages: dict[int, list[int]] = {}
         elif pool_pages is not None and attn_fam:
             raise ValueError("pool_pages needs the paged cache -- pass "
@@ -238,7 +284,9 @@ class Scheduler:
                       "decode_s": 0.0, "tokens_out": 0, "completed": 0,
                       "max_admit_stall_tokens": 0, "errors": 0,
                       "decode_steps": 0, "host_syncs": 0,
-                      "prefill_tokens_saved": 0, "prefix_hits": 0}
+                      "prefill_tokens_saved": 0, "prefix_hits": 0,
+                      "shed": 0, "rejected": 0, "burst_retries": 0,
+                      "invariant_violations": 0}
 
         self._cache = model.init_cache(n_slots, max_len, device=self.device,
                                        **cache_kw)
@@ -303,8 +351,9 @@ class Scheduler:
         elif req.img_emb is not None:
             raise RequestError(
                 f"img_emb is vlm-only (family is {self.cfg.family!r})")
-        if req.deadline_s is not None:
-            raise _not_ported("deadlines (deadline_s)", 4)
+        if req.deadline_s is not None and req.deadline_s < 0:
+            raise RequestError(f"deadline_s must be >= 0, got "
+                               f"{req.deadline_s}")
         if self._paged:
             need = -(-(int(prompt.size) + req.max_new_tokens - 1)
                      // self.page_size)
@@ -315,6 +364,16 @@ class Scheduler:
 
     def submit(self, req: Request) -> int:
         prompt = self._validate(req)
+        if self.queue_cap is not None and len(self._queue) >= self.queue_cap:
+            if self.overflow == "reject":
+                self.stats["rejected"] += 1
+                raise QueueFull(
+                    f"admission queue at capacity ({self.queue_cap}); "
+                    f"resubmit later or construct with overflow='block'")
+            # "block": serve until the queue has room; what completes here
+            # is buffered for the caller's next poll()
+            while len(self._queue) >= self.queue_cap:
+                self._done_buf.extend(self._poll_impl(False))
         rid = self._next_rid
         self._next_rid += 1
         self._queue.append((rid, dataclasses.replace(req, prompt=prompt)))
@@ -401,7 +460,8 @@ class Scheduler:
         return {"img_emb": torch.from_numpy(img).to(self.device)}
 
     # -- whole-prompt admission ---------------------------------------------
-    def _admit(self, slot: int, rid: int, req: Request) -> None:
+    def _admit(self, slot: int, rid: int, req: Request,
+               poison: float = 0.0) -> None:
         """Prefill the whole prompt at batch 1 straight into `slot`'s cache
         rows, sample the first token and arm the slot (in-flight slots
         stall for the whole prefill)."""
@@ -415,7 +475,7 @@ class Scheduler:
         logits, self._cache = self.model.prefill(self.params, tokens,
                                                  cache=self._cache, slot=slot,
                                                  **self._image_kw(req))
-        self._first_token(slot, logits, plen, req)
+        self._first_token(slot, logits, plen, req, poison)
         self._sync()                                  # honest prefill_s
         dt = time.time() - t0
         self.stats["prefill_s"] += dt
@@ -426,7 +486,8 @@ class Scheduler:
         self._note_first_token(slot, rid)
 
     # -- chunked admission --------------------------------------------------
-    def _start_admission(self, slot: int, rid: int, req: Request) -> bool:
+    def _start_admission(self, slot: int, rid: int, req: Request,
+                         poison: float = 0.0) -> bool:
         """Reserve `slot` and queue the request's chunked admission. Paged:
         allocate every page the request can reach (decode never runs out
         mid-flight), after pinning the longest cached full-page prefix from
@@ -467,7 +528,7 @@ class Scheduler:
         n_chunks = max(1, -(-(int(req.prompt.size) - start)
                             // self.prefill_chunk))
         self._admitting.append(_Admission(slot, rid, req, n_chunks,
-                                          start=start))
+                                          start=start, poison=poison))
         return True
 
     def _advance_admission(self) -> None:
@@ -490,7 +551,7 @@ class Scheduler:
         logits, self._cache = self.model.prefill_chunk(
             self.params, tokens, self._cache, slot, lo, n_valid, **img)
         if final:
-            self._first_token(slot, logits, lo + n_valid, req)
+            self._first_token(slot, logits, lo + n_valid, req, adm.poison)
         self._sync()                                  # honest prefill_s
         dt = time.time() - t0
         self.stats["prefill_s"] += dt
@@ -516,9 +577,13 @@ class Scheduler:
             self._note_first_token(slot, adm.rid)
 
     def _first_token(self, slot: int, logits1: torch.Tensor, prompt_len: int,
-                     req: Request) -> None:
+                     req: Request, poison: float = 0.0) -> None:
         """Sample the first token from the last chunk's logits and arm the
-        slot, on the device (no host sync)."""
+        slot, on the device (no host sync). `poison` (NaN when a fault plan
+        poisons this admission) is added to the logits: the slot finishes
+        at once with its error flag set."""
+        if poison != 0.0:
+            logits1 = logits1 + poison
         st = self._state
         temp = torch.full((1,), float(req.temperature), device=self.device)
         tok = sample_tokens(logits1, temp,
@@ -583,8 +648,28 @@ class Scheduler:
         has), or for at most `max_steps` steps (> 0 while an admission is
         mid-flight). The stop flag of step i is read after step i+1 is
         queued (the MoE family: before it): one host sync per step, never
-        one per token per slot."""
+        one per token per slot.
+
+        The 'burst' fault site ticks once per attempt, before the attempt's
+        first step is queued (state changes at that first step), so a
+        failed attempt ran nothing and its retry is bit-identical.
+        Injected stalls and backoff sleeps count in decode_s."""
         t0 = time.time()
+        for attempt in range(self.burst_retries + 1):
+            try:
+                for f in self._plan_tick("burst"):
+                    if f.kind == "slow":
+                        time.sleep(f.param)       # a straggler
+                    elif f.kind == "device_error":
+                        raise TransientDeviceError(
+                            f"injected device error (burst attempt "
+                            f"{attempt})")
+                break
+            except TransientDeviceError:
+                self.stats["burst_retries"] += 1
+                if attempt == self.burst_retries:
+                    raise
+                time.sleep(self.backoff_s * (2 ** attempt))
         steps, prev = 0, None
         while not (max_steps and steps >= max_steps):
             stop = self._step(drain)
@@ -663,31 +748,118 @@ class Scheduler:
         self._state["err"][idx] = False
         return completed
 
+    # -- faults and the invariant watchdog ----------------------------------
+    def _plan_tick(self, site: str) -> list:
+        """Consult the fault plan at a hook site (none: no faults)."""
+        return self._faults.tick(site) if self._faults is not None else []
+
+    def _resolve(self, rid: int, status: str,
+                 error: str | None = None) -> Completion:
+        """The no-token completion of a request that never reached a slot:
+        shed (deadline) or error (poison, pages it can never get). Counts
+        the rid once, as a harvested completion."""
+        self.stats["shed" if status == "shed" else "errors"] += 1
+        return Completion(rid, np.zeros((0,), np.int32),
+                          time.time() - self._submit_time.pop(rid),
+                          status=status, error=error)
+
+    def audit(self) -> list[str]:
+        """Invariant audit, as violation strings (empty: consistent): the
+        page pool's own (`PagePool.audit`), the prefix tree's
+        (`PrefixCache.audit`), and the refcount ledger -- every pool page's
+        refcount equals the references the slot page tables and the tree's
+        nodes hold. A contiguous cache has nothing to audit."""
+        if not self._paged:
+            return []
+        out = self._pager.audit()
+        tree_pages: list[int] = []
+        if self._use_tree:
+            out += self._ptree.audit()
+            tree_pages = self._ptree.pages()
+        if out:
+            # structurally corrupt (a node on a freed or out-of-range page):
+            # the ledger would only report it again
+            return out
+        expect = np.zeros((self.pool_pages,), np.int64)
+        for pages in self._slot_pages.values():
+            for p in pages:
+                expect[p] += 1
+        for p in tree_pages:
+            expect[p] += 1
+        return [f"page {int(p)}: pool refcount "
+                f"{int(self._pager.refs[p])} != {int(expect[p])} "
+                f"references held (slot tables + prefix tree)"
+                for p in np.nonzero(expect != self._pager.refs)[0]]
+
+    def _watchdog(self) -> None:
+        """The invariant watchdog, at burst boundaries when enabled. The
+        'audit' site ticks here ('corrupt' corrupts the tree first). On a
+        violation it degrades rather than crashes: the prefix tree is
+        dropped (cache bypass: slots hold their own page references) and
+        serving goes on; only a ledger still inconsistent after that raises
+        InvariantViolation."""
+        if not (self._check_inv and self._paged):
+            return
+        for f in self._plan_tick("audit"):
+            if f.kind == "corrupt" and self._use_tree:
+                self._ptree.corrupt()
+        violations = self.audit()
+        if not violations:
+            return
+        self.stats["invariant_violations"] += 1
+        self.last_violations = violations
+        if self._use_tree:
+            self._ptree.clear()
+            self._use_tree = False
+            if not self.audit():
+                return                   # degraded cleanly: tree bypassed
+        raise InvariantViolation("\n".join(violations))
+
     # -- the loop -----------------------------------------------------------
     def poll(self, drain: bool = False) -> list[Completion]:
         """One round: admit into free slots (whole-prompt, or start chunked
         admissions and advance the head one by one chunk), harvest, else
         decode until the next completion event (bounded to
-        `interleave_steps` while an admission is mid-flight). A request the page pool cannot take yet goes back to
-        its place at the head of the queue until running requests retire
-        pages; with nothing in flight it could never be taken, and it
-        completes alone with status 'error'."""
+        `interleave_steps` while an admission is mid-flight), then run the
+        watchdog. A request whose deadline passed is shed before it ticks
+        the 'admit' site. A request the page pool cannot take yet goes back
+        to its place at the head of the queue until running requests
+        retire pages; with nothing in flight it could never be taken, and
+        it completes alone with status 'error'. Every submitted rid
+        resolves exactly once across the polls; completions buffered by a
+        blocking submit come first."""
+        out, self._done_buf = self._done_buf, []
+        return out + self._poll_impl(drain)
+
+    def _poll_impl(self, drain: bool) -> list[Completion]:
         completed: list[Completion] = []
         while self._queue and self._free:
             rid, req = self._pop_next()
-            slot = self._free.pop(0)
-            if self.prefill_chunk is None:
-                self._admit(slot, rid, req)
+            if req.deadline_s is not None and \
+                    time.time() - self._submit_time[rid] > req.deadline_s:
+                completed.append(self._resolve(rid, "shed"))
                 continue
-            if not self._start_admission(slot, rid, req):
+            slot = self._free.pop(0)
+            poison, injected = 0.0, False
+            for f in self._plan_tick("admit"):
+                if f.kind == "nan":
+                    poison = float("nan")
+                elif f.kind == "poison":
+                    injected = True
+            if injected:
+                self._free.insert(0, slot)
+                completed.append(self._resolve(
+                    rid, "error", "injected poison fault at admission"))
+                continue
+            if self.prefill_chunk is None:
+                self._admit(slot, rid, req, poison)
+                continue
+            if not self._start_admission(slot, rid, req, poison):
                 self._free.insert(0, slot)
                 if not self._running and not self._admitting:
-                    self.stats["errors"] += 1
-                    completed.append(Completion(
-                        rid, np.zeros((0,), np.int32),
-                        time.time() - self._submit_time.pop(rid),
-                        status="error",
-                        error="page pool exhausted with nothing in flight"))
+                    completed.append(self._resolve(
+                        rid, "error",
+                        "page pool exhausted with nothing in flight"))
                     continue
                 self._queue.appendleft((rid, req))
                 break
@@ -698,13 +870,18 @@ class Scheduler:
             bounded = self.interleave_steps if self._admitting else 0
             dr = drain and not self._queue and not self._admitting
             self._run_burst(dr, bounded)
+            self._watchdog()
             completed += self._harvest()
         return completed
 
     def run(self) -> dict[int, Completion]:
-        """Poll until every submitted request has completed."""
+        """Poll until every submitted request has resolved."""
         out: dict[int, Completion] = {}
-        while not self.idle:
+        while not self.idle or self._done_buf:
             for c in self.poll(drain=True):
                 out[c.rid] = c
         return out
+
+    def decode_steps(self) -> int:
+        """Decode steps run so far (every slot steps together)."""
+        return self.stats["decode_steps"]

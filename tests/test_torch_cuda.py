@@ -1295,3 +1295,127 @@ def test_cuda_restored_packed_checkpoint_serves_through_the_kernels(tmp_path):
     for a, b, c in zip(got, plain, frozen, strict=True):
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(a, c)
+
+
+# ---------------------------------------------------------------------------
+# the serving lifecycle on the card (tests/test_torch_faults.py and
+# tests/test_torch_engine_lifecycle.py hold it to the JAX package)
+# ---------------------------------------------------------------------------
+def _lifecycle_params(arch="phi3-medium-14b"):
+    """Smoke params on the card, norms drawn non-zero."""
+    from repro_torch.configs.smoke import smoke_config
+    from repro_torch.core.packed import map_tree
+    from repro_torch.models.api import get_model
+    cfg = smoke_config(arch)
+    gen = torch.Generator().manual_seed(0)
+    params = map_tree(lambda _, p: p if p.ndim >= 2 else
+                      0.02 * torch.randn(p.shape, generator=gen),
+                      get_model(cfg).init(gen, device="cpu"))
+    return cfg, map_tree(lambda _, p: p.cuda(), params)
+
+
+def _lifecycle_requests(cfg, lens_budgets, seed=1):
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rng.integers(0, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=b) for n, b in lens_budgets]
+
+
+@pytest.mark.cuda
+def test_cuda_faulted_run_survivors_equal_the_fault_free_run():
+    """The paged kv_bits=1 engine with the prefix cache and the watchdog,
+    through the kernels, under a plan arming every single-device site (a
+    retried burst, a stall, a NaN and a poisoned admission, two exhausted
+    allocs, a corrupted tree) and a blocking queue of 2: every rid resolves
+    once, survivors' tokens equal the fault-free run's and the plain
+    versions' bit for bit, the pool audits clean."""
+    import dataclasses
+    import time
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import prefill_attention as pa
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.faults import parse_plan
+    _need_card()
+    cfg, params = _lifecycle_params()
+    reqs = _lifecycle_requests(cfg, [(9, 4), (13, 3), (5, 5), (8, 2),
+                                     (12, 4), (6, 3), (10, 2), (7, 4)])
+    kw = dict(freeze=True, slots=2, max_len=32, kv_bits=1, prefill_chunk=4,
+              page_size=4, prefix_cache=True, check_invariants=True)
+    clean = ServingEngine(cfg, params, **kw).generate(reqs)
+    plain = ServingEngine(cfg, params, kernel_path="ref", **kw).generate(reqs)
+    for a, b in zip(clean, plain, strict=True):
+        np.testing.assert_array_equal(a, b)
+    plan = parse_plan("device_error@burst:1*2,slow@burst:3:0.01,"
+                      "nan@admit:1,poison@admit:4,exhaust@alloc:3*2,"
+                      "corrupt@audit:2")
+    eng = ServingEngine(cfg, params, fault_plan=plan, queue_cap=2,
+                        overflow="block", backoff_s=0.001, **kw)
+    sched = eng.scheduler()
+    late = {2, 6}
+    timed = [dataclasses.replace(r, deadline_s=0.001) if i in late else r
+             for i, r in enumerate(reqs)]
+    da.reset_launches()
+    pa.reset_launches()
+    rids = []
+    for i, r in enumerate(timed):
+        rids.append(sched.submit(r))
+        if i in late:
+            time.sleep(0.02)            # its deadline passes in the queue
+    comps = sched.run()
+    assert sorted(comps) == sorted(rids)
+    statuses = [comps[r].status for r in rids]
+    assert statuses.count("shed") == 2 and statuses.count("error") == 2
+    for i, r in enumerate(rids):
+        if comps[r].status == "completed":
+            np.testing.assert_array_equal(comps[r].tokens, clean[i])
+    assert sched.stats["burst_retries"] == 2
+    assert sched.stats["invariant_violations"] == 1 and not sched._use_tree
+    assert {k for _, _, k in plan.fired} == {"device_error", "slow", "nan",
+                                              "poison", "exhaust", "corrupt"}
+    assert da.launches["decode_attention_packed_paged"] > 0
+    assert pa.launches["prefill_attention_packed_paged"] > 0
+    assert sched.audit() == []
+
+
+@pytest.mark.cuda
+def test_cuda_freeze_kv_bits_equals_a_fresh_packed_engine():
+    """freeze(kv_bits=1) on a live float-cache engine on the card gives a
+    fresh kv_bits=1 engine's tokens, through kernels 6 and 8."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import prefill_attention as pa
+    from repro_torch.serving.engine import ServingEngine
+    _need_card()
+    cfg, params = _lifecycle_params()
+    reqs = _lifecycle_requests(cfg, [(19, 6), (5, 9), (11, 4)])
+    kw = dict(freeze=True, slots=2, max_len=32, prefill_chunk=4)
+    eng = ServingEngine(cfg, params, kv_bits=0, **kw)
+    eng.generate(reqs)
+    eng.freeze(kv_bits=1)
+    da.reset_launches()
+    pa.reset_launches()
+    got = eng.generate(reqs)
+    assert da.launches["decode_attention_packed"] > 0
+    assert pa.launches["prefill_attention_packed"] > 0
+    want = ServingEngine(cfg, params, kv_bits=1, **kw).generate(reqs)
+    for a, b in zip(got, want, strict=True):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_whole_prompt_admission_ignores_stale_nan_v():
+    """The default engine on the card (whole prompt, float cache): NaN in
+    every slot's V rows past the next prompt, left by earlier requests,
+    does not reach that prompt's tokens."""
+    from repro_torch.serving.engine import ServingEngine
+    _need_card()
+    cfg, params = _lifecycle_params()
+    first = _lifecycle_requests(cfg, [(20, 4), (22, 4)])
+    (nxt,) = _lifecycle_requests(cfg, [(7, 6)], seed=2)
+    eng = ServingEngine(cfg, params, freeze=True, slots=2, max_len=32)
+    eng.generate(first)
+    eng.scheduler()._cache["v"][..., 7:, :, :] = float("nan")
+    got = eng.serve([nxt])[0]
+    assert got.status == "completed", got.error
+    want = ServingEngine(cfg, params, freeze=True, slots=2,
+                         max_len=32).generate([nxt])[0]
+    np.testing.assert_array_equal(got.tokens, want)

@@ -45,6 +45,7 @@ from repro_torch.kernels.prefill_attention import (
 from repro_torch.models import transformer as T
 from repro_torch.models.api import PAGED, cache_batch_axes, get_model
 from repro_torch.serving.engine import Request, RequestError, ServingEngine
+from repro_torch.serving.faults import FaultPlan
 
 from _torch_parity import jax_to_np, to_port
 
@@ -471,5 +472,7 @@ def test_paging_options_are_checked(models):
         paged_engine(cfg, pp, page_size=6, prefix_cache=True)
     with pytest.raises(ValueError, match="page_size"):
         paged_engine(cfg, pp, pool_pages=4)
-    with pytest.raises(NotImplementedError, match="fault plans"):
-        paged_engine(cfg, pp, page_size=4, fault_plan=object())
+    # a fault plan reaches the page pool (the 'alloc' site)
+    plan = FaultPlan()
+    eng = paged_engine(cfg, pp, page_size=4, fault_plan=plan)
+    assert eng.scheduler()._pager.fault_plan is plan

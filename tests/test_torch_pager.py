@@ -229,8 +229,18 @@ def test_tree_and_slots_interleaved_never_free_pinned(seed=0):
 
 
 def test_fault_plan_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        PagePool(4, fault_plan=object())
+    """The pool's fault site, once not ported (the name is kept): with a
+    plan, `alloc` ticks 'alloc' on every call and an armed 'exhaust'
+    returns None as a full pool would, taking no page."""
+    from repro_torch.serving.faults import Fault, FaultPlan
+    plan = FaultPlan([Fault("exhaust", "alloc", 1, times=2)])
+    pool = PagePool(4, fault_plan=plan)
+    got = [pool.alloc(1) for _ in range(4)]
+    assert got == [[0], None, None, [1]]
+    assert plan.occurrences("alloc") == 4
+    assert plan.fired == [("alloc", 1, "exhaust"), ("alloc", 2, "exhaust")]
+    pool.check()
+    assert pool.allocated == 2
 
 
 def _tree_state(tree) -> dict:

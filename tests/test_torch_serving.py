@@ -37,6 +37,7 @@ from repro_torch.core.bitpack import unpack_bits
 from repro_torch.kernels import ref as port_ref
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import Request, RequestError, ServingEngine
+from repro_torch.serving.faults import FaultPlan
 from repro_torch.serving.sampling import gumbel_noise, sample_tokens
 
 from _torch_parity import jax_to_np, to_port
@@ -298,13 +299,14 @@ def test_resident_bytes(masters):
 
 
 def test_unported_options_raise(masters):
-    """What is not ported raises NotImplementedError, a fault plan with
-    paging on included. Whole-prompt admission (prefill_chunk=None) and the
-    float cache (kv_bits=0) are ported: each serves the packed chunked
-    engine's prompts to their budgets. Paging is ported: page_size=8
-    serves (the same tokens as the contiguous cache), and prefix_cache=True
-    without page_size is the caller's error, a ValueError as the JAX
-    scheduler's assertion."""
+    """What is not ported raises NotImplementedError: the mesh alone now.
+    Whole-prompt admission (prefill_chunk=None) and the float cache
+    (kv_bits=0) are ported: each serves the packed chunked engine's prompts
+    to their budgets. Paging is ported: page_size=8 serves (the same tokens
+    as the contiguous cache), and prefix_cache=True without page_size is
+    the caller's error, a ValueError as the JAX scheduler's assertion. The
+    serving lifecycle is ported (tests/test_torch_faults.py): a fault plan
+    with paging on, a bounded queue and a deadline serve."""
     _, cfg, _, pp = masters
     served = [Request(p, max_new_tokens=b) for p, b in traffic()[:2]]
     for kw in (dict(prefill_chunk=None), dict(kv_bits=0)):
@@ -312,12 +314,13 @@ def test_unported_options_raise(masters):
         args.update(kw)
         got = ServingEngine(cfg, pp, **args).generate(served)
         assert [len(t) for t in got] == [r.max_new_tokens for r in served]
-    for kw in (dict(page_size=8, fault_plan=object()),
-               dict(queue_cap=2), dict(mesh=object())):
-        args = dict(freeze=True, kv_bits=1, prefill_chunk=4, max_len=32)
-        args.update(kw)
-        with pytest.raises(NotImplementedError):
-            ServingEngine(cfg, pp, **args)
+    args = dict(freeze=True, kv_bits=1, prefill_chunk=4, max_len=32)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        ServingEngine(cfg, pp, mesh=object(), **args)
+    for kw in (dict(page_size=8, fault_plan=FaultPlan()),
+               dict(queue_cap=2)):
+        got = ServingEngine(cfg, pp, **args, **kw).generate(served)
+        assert [len(t) for t in got] == [r.max_new_tokens for r in served]
     with pytest.raises(ValueError, match="prefix_cache needs the paged"):
         ServingEngine(cfg, pp, freeze=True, kv_bits=1, prefill_chunk=4,
                       max_len=32, prefix_cache=True)
@@ -326,8 +329,8 @@ def test_unported_options_raise(masters):
                          port_engine(cfg, pp).generate(reqs), strict=True):
         np.testing.assert_array_equal(got, want)
     eng = port_engine(cfg, pp)
-    with pytest.raises(NotImplementedError):
-        eng.generate([Request(np.array([1, 2]), deadline_s=1.0)])
+    got = eng.serve([Request(np.array([1, 2]), deadline_s=60.0)])
+    assert got[0].status == "completed"
 
 
 def test_submit_validates(masters):
