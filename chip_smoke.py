@@ -293,6 +293,29 @@ Phases, each of which raises on failure (nothing is caught):
                faulted against fault-free, audit() host ms per burst on the
                64-page pool, the zero fill per whole-prompt admission
                (device ms at 40 layers, max_len 512) beside its bound
+  16. route table - `python -m repro_torch.kernels.tune --check` on the
+               card's table (a gap fails the run); every bucket of the
+               card's standard shapes launched through dispatch (route
+               None: the table's winner, or the fixed rule where the real
+               shape clamps it) at the shape the bucket was tuned at (a
+               card bucket's recorded main-path shape) and at a ragged
+               shape inside it, K off a word, against the plain version
+               (GEMMs bit for bit; attention dots bit for bit, outputs
+               within the tolerance with equal signs); where the winner is
+               not the fixed rule's launch, both timed at the shape the
+               bucket was tuned at; per kernel: buckets,
+               how many differ, the largest rule/tuned ratio; the buckets
+               this run launched that the table lacks; host µs of a plan
+               choice (memo hit against the fixed rule computed per call);
+               phase 15's CLI `kernel route` lines, each a `cuda` launch
+Every GEMM and packed attention of phases 4-16 takes its launch from the
+card's route table (`kernels/tune.py`); phase 3 pins every route to the
+fixed rule (`gemm_plan`, `attention_plan`: its checks hold one entry point
+to another bit for bit at one plan, and force splits by explicit routes).
+Phase 6's engines print their `kernel_routes()`; phase 7 also times phi3's
+decode step at all layers with the table and pinned to the fixed rule.
+`--record-shapes PATH` writes the buckets this run's launches resolved
+through the table (the card's standard shapes, `tuned/card_shapes.json`).
 Launch counts are set to 0 just before each main path (mlp, cnn, lm, paged
 lm, default lm, train, ssm chunked and whole-prompt, hybrid chunked and
 default, each family's, each MoE config's and the vlm's three engines,
@@ -323,6 +346,7 @@ decode, chunk and 4,096-step prefill shapes.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import gc
 import importlib.util
@@ -360,10 +384,15 @@ def find_port() -> str:
 
 import torch  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
-INT8_TC_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor cores
-FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
-POPC_PER_CLOCK_PER_SM = 16         # 32-bit popc issue rate, compute 9.0
+# every route-table kernel pinned to the fixed rule's launch
+# (`tune.route_override`; `cuda` with no params is `gemm_plan` /
+# `attention_plan`)
+# phase 16's ragged GEMMs: K this far below a whole last word
+ROUTE_K_SHORT = 7
+FIXED_RULE = dict.fromkeys(("binary_gemm", "binary_gemm_fused",
+                            "decode_attention", "prefill_attention",
+                            "decode_attention_paged",
+                            "prefill_attention_paged"), "cuda")
 EXP_PER_CLOCK_PER_SM = 16          # SFU exp issue rate, compute 9.0
 FP64_PER_CLOCK_PER_SM = 64         # float64 FMA issue rate, compute 9.0
 FP64_OPS_PER_EXP = 17              # float64 instructions of CUDA's double
@@ -393,7 +422,6 @@ REPLACES = {"binary_gemm_packed": "src/repro/kernels/binary_gemm.py:107",
             SCAN: "src/repro/kernels/selective_scan.py:64"}
 PAGED_KERNELS = ("decode_attention_packed_paged",
                  "prefill_attention_packed_paged")
-SPIN_CYCLES_PER_S = 1.98e9         # H100 SXM max SM clock (torch.cuda._sleep)
 RAGGED = [(9, 100, 48), (17, 64, 10), (3, 37, 33), (130, 257, 129)]
 # the LM serving path: phi3-medium-14b at full width, kv_bits=1, chunked
 # admission; depth cut to LM_CHECK_DEPTH where the tokens are held against
@@ -482,6 +510,29 @@ LIFECYCLE_PLAN = ("device_error@burst:1*2,slow@burst:3:0.05,nan@admit:2,"
 LIFECYCLE_CAP, LIFECYCLE_LATE, LIFECYCLE_WAIT = 3, (1, 6), 0.02
 LIFECYCLE_STATUSES = (6, 2, 2)
 CLI_PLAN, CLI_BATCH = "nan@admit:1,device_error@burst:0*2", 5
+
+
+# the buckets the serving and paper-net paths resolved (`tune.seen`), kept
+# before phase 16's own launches add theirs
+SERVED_SHAPES: dict = {}
+
+
+def write_shapes(path: Path, card: str) -> None:
+    """The buckets this run's launches resolved through the route table
+    outside a route override before phase 16, each as the real shape of
+    its first launch, by kernel, as `tune.card_shapes()` reads them."""
+    from repro_torch.kernels import tune
+    seen = SERVED_SHAPES or tune.seen
+    out = {"_meta": {"source": "chip_smoke.py --record-shapes: every bucket "
+                               "a launch resolved through the route table "
+                               "outside a route override in one run, as "
+                               "the real shape of its first launch",
+                     "card": card}}
+    for (kernel, _), shape in sorted(seen.items()):
+        out.setdefault(kernel, []).append(shape)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(out, indent=1, sort_keys=True) + "\n")
+    print(f"recorded {len(seen)} buckets to {path}")
 
 
 def smi(query: str) -> str:
@@ -578,40 +629,17 @@ def cuda_ms(fn, *, warmup=3, budget_s=0.05, max_iters=500) -> float:
 
 
 def device_ms(fn, iters: int = 20, wrapper: str | None = None) -> float:
-    """Device time of one fn() call in ms, host dispatch hidden: CUDA events
-    around `iters` calls queued behind a spin kernel, so the card runs them
-    back to back after the spin. The spin must outlast the host's enqueuing
-    (the start event still pending when the last call returns), else it is
-    made longer and the calls run again. With `wrapper` given, its launch
-    count must grow by exactly one per call. (The profiler's trace is not
-    used: it misses launches now and then, once all 20 of a kernel's.)"""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    spin_s = 2 * (time.perf_counter() - t0) + 1e-3
-    start, end = torch.cuda.Event(enable_timing=True), \
-        torch.cuda.Event(enable_timing=True)
-    for _ in range(4):
-        before = all_launches()[wrapper] if wrapper else 0
-        torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        hidden = not start.query()
-        torch.cuda.synchronize()
-        if hidden:
-            break
-        spin_s *= 4
-    else:
-        raise AssertionError(f"{wrapper or 'library call'}: {iters} calls "
-                             f"took longer to enqueue than a {spin_s:.3f} s spin")
-    if wrapper and all_launches()[wrapper] - before != iters:
-        raise AssertionError(f"{wrapper}: not one launch per call")
-    return start.elapsed_time(end) / iters
+    """Device time of one fn() call in ms, host dispatch hidden
+    (`tune.device_ms`: CUDA events around `iters` calls queued behind a
+    spin kernel). With `wrapper` given, its launch count must grow by
+    exactly one per call. (The profiler's trace is not used: it misses
+    launches now and then, once all 20 of a kernel's.)"""
+    from repro_torch.kernels import tune
+    try:
+        return tune.device_ms(fn, iters, (lambda: all_launches()[wrapper])
+                              if wrapper else None)
+    except AssertionError as e:
+        raise AssertionError(f"{wrapper or 'library call'}: {e}") from e
 
 
 def trace(fn, top=6):
@@ -653,25 +681,16 @@ def library_call(op: Operands):
     return "torch.matmul fp32", (lambda: torch.matmul(xs, wt))
 
 
+# this script's lhs labels as `tune.gemm_bound` names the lhs forms
+LHS_FORM = {"float": "float32", "bf16": "bfloat16", "packed": "packed"}
+
+
 def bound(kernel, lhs, m, k, n, popc_per_s):
-    """Least time for the work: the larger of the bytes (each operand read
-    once, the output written once; a float32 lhs 4 bytes a value, bf16 2,
-    packed words 4 per 32) over the HBM rate and the operations, the faster
-    of the two ways the card computes the +-1 dots: popc words over its popc
-    rate, or 2*M*N*K int8 ops over its int8 tensor-core rate."""
-    kw = (k + 31) // 32
-    a_bytes = {"float": m * k * 4, "bf16": m * k * 2, "packed": m * kw * 4}[lhs]
-    out_bytes = m * ((n + 31) // 32) * 4 if kernel == "binary_gemm_fused" \
-        else m * n * 4
-    extra = 2 * n * 4 if kernel == "binary_gemm_fused" else 0
-    nbytes = a_bytes + n * kw * 4 + extra + out_bytes
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_popc = m * n * kw / popc_per_s * 1e3
-    t_tc = 2 * m * n * k / INT8_TC_OPS_PER_S * 1e3
-    t_ops = min(t_popc, t_tc)
-    return {"bytes": nbytes, "popc": m * n * kw, "bytes_ms": t_bytes,
-            "popc_ms": t_popc, "int8_tc_ms": t_tc, "ops_ms": t_ops,
-            "bound_ms": max(t_bytes, t_ops)}
+    """Least time for the work (`tune.gemm_bound`): the larger of the bytes
+    over the HBM rate and the faster of the popc and int8 tensor-core
+    ways to compute the +-1 dots."""
+    from repro_torch.kernels import tune
+    return tune.gemm_bound(kernel, LHS_FORM[lhs], m, k, n, popc_per_s)
 
 
 def bound_by(row):
@@ -925,19 +944,17 @@ def attention_case(gen, b, s, t, hkv, g, hd, dtype, dev):
 
 
 def attention_bound(valid, s, hq, hkv, hd, elt, popc_per_s):
-    """Least time of one packed-attention call: the bytes it must move
-    (q, out, the K/V rows up to each row's last valid position, v_scale)
-    over HBM rate, and its operations over their peaks: hd/32 popcs and hd
-    V adds per valid (query head, position) pair."""
+    """Least time of one packed-attention call (`tune.attention_bound`),
+    counted from its (B, S, T) `valid` mask: the valid (query head,
+    position) pairs, and the K/V rows up to each row's last valid
+    position."""
+    from repro_torch.kernels import tune
     b, _, t = valid.shape
-    hdw = (hd + 31) // 32
-    pairs = int(valid.sum()) * hq
     last = valid.any(dim=1).int() * torch.arange(1, t + 1, device=valid.device)
-    kv_rows = int(last.amax(dim=1).sum())
-    nbytes = 2 * b * s * hq * hd * elt + 2 * kv_rows * hkv * hdw * 4 + b * hkv * 8
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(pairs * hdw / popc_per_s, pairs * hd / FP32_OPS_PER_S) * 1e3
-    return {"bytes_ms": t_bytes, "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops)}
+    bnd = tune.attention_bound(int(valid.sum()) * hq,
+                               int(last.amax(dim=1).sum()), b, s, hq, hkv, hd,
+                               elt, popc_per_s)
+    return {k: bnd[k] for k in ("bytes_ms", "ops_ms", "bound_ms")}
 
 
 def sdpa_call(q, k, v, vs, valid):
@@ -963,16 +980,11 @@ def sdpa_call(q, k, v, vs, valid):
     return lambda: call().transpose(1, 2)
 
 
-# attention outputs, kernel against plain version: the sums are exact in
-# both, exp may differ by an ulp between the CUDA math library and torch's
-ATTN_TOL = {torch.bfloat16: 2.0 ** -7,     # one bf16 ulp at 1
-            torch.float32: 1e-6}           # 8 float32 ulps at 1
-
-
 def check_close(what, got, want, dtype):
     """Attention outputs: within ATTN_TOL of their type (rtol = atol), and
     the same sign everywhere (all that the next projection reads)."""
-    eps = ATTN_TOL[dtype]
+    from repro_torch.kernels import tune
+    eps = tune.ATTN_TOL[dtype]
     err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
     torch.testing.assert_close(got.float(), want.float(), rtol=eps, atol=eps,
                                msg=lambda m: f"{what}: {m}")
@@ -1371,7 +1383,6 @@ def prefill_split_sweep(cfg, dev_gen, dev, sms):
     of a 4,096-position one, beside the split `attention_plan` picks: the
     measurement its rule rests on. Outputs are held equal across splits
     within ATTN_TOL (the sums' order changes with the split)."""
-    from unittest import mock
     _, _, _, pa, _ = lm_modules()
     hkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
     rows = []
@@ -1379,17 +1390,16 @@ def prefill_split_sweep(cfg, dev_gen, dev, sms):
         q, k, v, vs = attention_case(dev_gen, 1, LM_CHUNK, t, hkv, g, hd,
                                      torch.bfloat16, dev)
         plan = pa.attention_plan(1, LM_CHUNK, t, hkv, g, hd, sms)
-        call = (lambda: pa.prefill_attention_packed(q, k, v, vs, qp + LM_CHUNK,
-                                                    qp))
-        want = call()
+        want = pa.prefill_attention_packed(q, k, v, vs, qp + LM_CHUNK, qp,
+                                           route="cuda")
         ms = {}
         for split in (1, 2, 4, 8):
-            forced = pa.AttentionPlan(plan.bq, split, plan.blocks
-                                      // plan.split * split)
-            with mock.patch.object(pa, "attention_plan",
-                                   lambda *a, forced=forced: forced):
-                check_close(f"split {split}", call(), want, torch.bfloat16)
-                ms[split] = device_ms(call, wrapper="prefill_attention_packed")
+            def call(split=split):
+                return pa.prefill_attention_packed(
+                    q, k, v, vs, qp + LM_CHUNK, qp, route="cuda", split=split,
+                    block_rows=plan.bq)
+            check_close(f"split {split}", call(), want, torch.bfloat16)
+            ms[split] = device_ms(call, wrapper="prefill_attention_packed")
         rows.append({"T": t, "q_pos": qp, "plan_split": plan.split, "ms": ms})
     return rows
 
@@ -1533,7 +1543,6 @@ def decode_split_sweep(cfg, dev_gen, dev, sms):
     32-position pages), beside the split `attention_plan` picks: the
     measurement the decode rule rests on. Outputs are held equal across
     splits within ATTN_TOL (the sums' order changes with the split)."""
-    from unittest import mock
     _, _, da, pa, _ = lm_modules()
     hkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
     rows = []
@@ -1545,20 +1554,17 @@ def decode_split_sweep(cfg, dev_gen, dev, sms):
         plan = pa.attention_plan(LM_SLOTS, 1, t, hkv, g, hd, sms)
         for kn, call in (
                 ("decode_attention_packed",
-                 lambda: da.decode_attention_packed(q, kg, vg, vs, kv)),
+                 lambda **r: da.decode_attention_packed(q, kg, vg, vs, kv,
+                                                        route="cuda", **r)),
                 ("decode_attention_packed_paged",
-                 lambda: da.decode_attention_packed_paged(q, k, v, vs, pt,
-                                                          kv))):
+                 lambda **r: da.decode_attention_packed_paged(
+                     q, k, v, vs, pt, kv, route="cuda", **r))):
             want = call()
             ms = {}
             for split in (1, 2, 4, 8):
-                forced = pa.AttentionPlan(plan.bq, split, plan.blocks
-                                          // plan.split * split)
-                with mock.patch.object(da, "attention_plan",
-                                       lambda *a, forced=forced: forced):
-                    check_close(f"{kn} split {split}", call(), want,
-                                torch.bfloat16)
-                    ms[split] = device_ms(call, wrapper=kn)
+                check_close(f"{kn} split {split}", call(split=split), want,
+                            torch.bfloat16)
+                ms[split] = device_ms(lambda: call(split=split), wrapper=kn)
             rows.append({"kernel": kn, "T": t, "lens": list(lens),
                          "plan_split": plan.split, "ms": ms})
     return rows
@@ -1699,6 +1705,7 @@ def lm_engine_check(base_cfg, seed, dev, frozen=None, what="lm engine check"):
           f"stops at eos {eos} after {len(got[5])}: tokens equal the plain "
           f"path's; pack_bits 3 x {depth} layers x ({n_chunks} "
           f"chunks + {steps} decode steps); launches {launches}")
+    print_routes(what, eng)
     del eng, plain, frozen
     torch.cuda.empty_cache()
     return launches, n_chunks, reqs, got
@@ -1713,6 +1720,17 @@ def shared_prefix_traffic(seed, vocab):
     lens = rng.integers(LM_SUFFIX[0], LM_SUFFIX[1] + 1, LM_REQUESTS)
     return [np.concatenate([prefix, rng.integers(0, vocab, n)]).astype(np.int32)
             for n in lens]
+
+
+def print_routes(what, eng):
+    """An engine's `kernel_routes()`, as the serving CLI prints them: on the
+    card each a `cuda` launch and its fields."""
+    routes = eng.kernel_routes()
+    for name, (route, params) in routes.items():
+        if route != "cuda":
+            raise AssertionError(f"{what}: kernel route {name} is {route}")
+        print(f"  {what}: kernel route {name}: {route} {params}")
+    return routes
 
 
 def lm_paged_engine_check(base_cfg, seed, dev):
@@ -1777,6 +1795,7 @@ def lm_paged_engine_check(base_cfg, seed, dev):
           f"{st['prefill_tokens']} = {total}; cached per request "
           f"{[c.cached_tokens for c in comps]}; pool {pool}; launches "
           f"{launches}")
+    print_routes("lm paged engine check", main)
     del main, others, frozen
     torch.cuda.empty_cache()
     return launches
@@ -2031,6 +2050,7 @@ def float_attention_times(cfg, dev_gen, dev, card):
     time (`device_ms`) and CUDA-event time of back-to-back calls; the bytes
     each must move over HBM rate beside them. Outputs agree within bf16
     rounding (atol 5e-2 on outputs of size ~1)."""
+    from repro_torch.kernels import tune
     import torch.nn.functional as F
     from repro_torch.models import attention as A
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -2076,7 +2096,8 @@ def float_attention_times(cfg, dev_gen, dev, card):
                                  f"SDPA by {err}")
         r = {"where": where, "ms": device_ms(fn), "wall_ms": cuda_ms(fn),
              "sdpa_ms": device_ms(lib), "sdpa_wall_ms": cuda_ms(lib),
-             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "max_abs_diff": err}
+             "bytes_ms": nbytes / tune.HBM_BYTES_PER_S * 1e3,
+             "max_abs_diff": err}
         out.append(r)
     print(f"float attention times on {card} (bf16; plain PyTorch, "
           f"models/attention.py; ms: device time, wall = CUDA events over "
@@ -2197,13 +2218,14 @@ def pack_times(cfg, dev_gen, dev):
     as `shape_times`. Bound: the bytes each call moves (values read,
     words written, destination rows read) over HBM rate, or one compare a
     value at the fp32 rate."""
+    from repro_torch.kernels import tune
     _, pk, _, _, _ = lm_modules()
     hkv, hd, t = cfg.n_kv_heads, cfg.head_dim, LM_MAX_LEN
     rows = []
 
     def bound(nbytes, values):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = values / FP32_OPS_PER_S * 1e3
+        t_bytes = nbytes / tune.HBM_BYTES_PER_S * 1e3
+        t_ops = values / tune.FP32_OPS_PER_S * 1e3
         return {"bytes_ms": t_bytes, "ops_ms": t_ops,
                 "bound_ms": max(t_bytes, t_ops)}
 
@@ -2415,7 +2437,8 @@ def lm_paged_kernel_times(cfg, dev_gen, dev, popc_per_s):
 
 def paged_bound(bnd, table):
     """`attention_bound` plus the page table's bytes read once."""
-    extra = table.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    from repro_torch.kernels import tune
+    extra = table.numel() * 4 / tune.HBM_BYTES_PER_S * 1e3
     out = dict(bnd, bytes_ms=bnd["bytes_ms"] + extra)
     out["bound_ms"] = max(out["bytes_ms"], out["ops_ms"])
     return out
@@ -2468,9 +2491,10 @@ MXU_REGIMES = [(4, 1024, 300), (32, 8190, 200), (17, 300, 48),
 def mxu_bound(m, k, n, x_bytes=4):
     """Least time of sign(x) @ sign(w): x, w read once and the float32
     output written once over HBM rate, or the 2MNK int8 tensor-core ops."""
+    from repro_torch.kernels import tune
     nbytes = m * k * x_bytes + k * n * 4 + m * n * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * m * n * k / INT8_TC_OPS_PER_S * 1e3
+    t_bytes = nbytes / tune.HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * n * k / tune.INT8_TC_OPS_PER_S * 1e3
     return {"bytes": nbytes, "ops": 2 * m * n * k, "bytes_ms": t_bytes,
             "ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops)}
 
@@ -3007,9 +3031,10 @@ def scan_bound(b, t, d, n, h0, xi_bytes, exp_per_s, fp64_per_s):
     over the card's exp rate (16 per clock per SM). Beside it the floor of
     the exact design, `fp64_ms`: each exp a float64 exp (FP64_OPS_PER_EXP
     float64 instructions) on the card's float64 lanes."""
+    from repro_torch.kernels import tune
     nbytes = b * t * d * (4 + xi_bytes + 4) + 2 * b * t * n * 4 + d * n * 4 \
         + (2 if h0 else 1) * b * d * n * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = nbytes / tune.HBM_BYTES_PER_S * 1e3
     t_ops = b * t * d * n / exp_per_s * 1e3
     return {"bytes_ms": t_bytes, "ops_ms": t_ops,
             "bound_ms": max(t_bytes, t_ops),
@@ -4265,7 +4290,6 @@ def vlm_cross_attention_checks(cfg, dev_gen, dev, sms):
     and a one-row non-causal chunk against kernel 6 bit for bit. Dots
     equal, outputs within ATTN_TOL with equal signs, one launch a call.
     Returns the largest error of kernels 6 and 8."""
-    from unittest import mock
     _, _, da, pa, _ = lm_modules()
     hkv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
     t = cfg.n_img_tokens
@@ -4300,28 +4324,27 @@ def vlm_cross_attention_checks(cfg, dev_gen, dev, sms):
             q, k, v, vs, t, 0, causal=False, return_dots=True)
         plan = pa.attention_plan(1, LM_CHUNK, t, hkv, g, hd, sms)
         for split in (plan.split, 1, 2, 4, 8):
-            forced = pa.AttentionPlan(plan.bq, split,
-                                      plan.blocks // plan.split * split)
-            with mock.patch.object(pa, "attention_plan",
-                                   lambda *a, forced=forced: forced):
-                for qp in (0, LM_MAX_LEN - LM_CHUNK):
-                    before = pa.launches["prefill_attention_packed"]
-                    got, dots = pa.prefill_attention_packed(
-                        q, k, v, vs, t, qp, causal=False, return_dots=True)
-                    served = pa.prefill_attention_packed(q, k, v, vs, t, qp,
-                                                         causal=False)
-                    torch.cuda.synchronize()
-                    if pa.launches["prefill_attention_packed"] - before != 2:
-                        raise AssertionError("cross prefill: not one launch "
-                                             "a call")
-                    what = (f"cross prefill C {LM_CHUNK} T {t} q_pos {qp} "
-                            f"split {split} {dtype}")
-                    if not torch.equal(dots, wdots):
-                        raise AssertionError(f"{what}: dots differ")
-                    e = check_close(what, served, want, dtype)
-                    check_equal(f"{what}: with dots vs served", got, served)
-                    err["prefill_attention_packed"] = max(
-                        err["prefill_attention_packed"], e)
+            forced = dict(route="cuda", split=split, block_rows=plan.bq)
+            for qp in (0, LM_MAX_LEN - LM_CHUNK):
+                before = pa.launches["prefill_attention_packed"]
+                got, dots = pa.prefill_attention_packed(
+                    q, k, v, vs, t, qp, causal=False, return_dots=True,
+                    **forced)
+                served = pa.prefill_attention_packed(q, k, v, vs, t, qp,
+                                                     causal=False,
+                                                     **forced)
+                torch.cuda.synchronize()
+                if pa.launches["prefill_attention_packed"] - before != 2:
+                    raise AssertionError("cross prefill: not one launch "
+                                         "a call")
+                what = (f"cross prefill C {LM_CHUNK} T {t} q_pos {qp} "
+                        f"split {split} {dtype}")
+                if not torch.equal(dots, wdots):
+                    raise AssertionError(f"{what}: dots differ")
+                e = check_close(what, served, want, dtype)
+                check_equal(f"{what}: with dots vs served", got, served)
+                err["prefill_attention_packed"] = max(
+                    err["prefill_attention_packed"], e)
             # a share of <= 32 KB of K and V words is held whole (served
             # calls; a call with dots streams), longer ones stream
             share, hold = -(-t // split), 32 * 1024 // (hd // 4) // 64 * 64
@@ -4510,6 +4533,7 @@ def vlm_times(cfg, dev_gen, dev, popc_per_s, sms):
     6 on 4 slots' decode step over the image rows and kernel 8 non-causal
     on a 32-row chunk over them (SDPA over sign(q) and the unpacked +-1
     K/V, no mask)."""
+    from repro_torch.kernels import tune
     _, pk, da, pa, _ = lm_modules()
     n, hkv, hd = cfg.n_img_tokens, cfg.n_kv_heads, cfg.head_dim
     g = cfg.n_heads // hkv
@@ -4525,8 +4549,8 @@ def vlm_times(cfg, dev_gen, dev, popc_per_s, sms):
              "library": None,
              **shape_times(lambda: pk.pack_bits_kernel(x), "pack_bits",
                            lambda: pk.pack_bits_plain(x)),
-             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": 0.0,
-             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}]
+             "bytes_ms": nbytes / tune.HBM_BYTES_PER_S * 1e3, "ops_ms": 0.0,
+             "bound_ms": nbytes / tune.HBM_BYTES_PER_S * 1e3}]
     rows = []
     q, k, v, vs = attention_case(dev_gen, LM_SLOTS, 1, n, hkv, g, hd,
                                  torch.bfloat16, dev)
@@ -5393,7 +5417,12 @@ def lm_f32_whole_vs_chunked(cfg, frozen, seed, dev, card):
     K rows are equal took equal signs in (its input is binarized), so the
     first layer with a differing K row is where the two paths part; the
     first attention output (the float input of wo's binarized matmul)
-    whose sign differs is printed with both values and its row's scale."""
+    whose sign differs is printed with both values and its row's scale.
+    Printed, not held: the parting is the reference's semantics (the flash
+    formula's float32 sums of scaled products against the chunked
+    formula's exact integer dots; JAX parts alike,
+    tests/test_torch_attention_order.py; ROADMAP Queue C's recorded
+    differences)."""
     from repro_torch.core.packed import map_tree
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import Request, ServingEngine
@@ -5474,7 +5503,9 @@ def lm_f32_whole_vs_chunked(cfg, frozen, seed, dev, card):
            "first_layer_k_differs": first, "first_sign_flip": flip,
            "layers": layers,
            "seconds": time.perf_counter() - t0}
-    print(f"lm float32 whole-prompt against chunked on {card}: {LM_ARCH} "
+    print(f"lm float32 whole-prompt against chunked on {card} (a recorded "
+          f"difference of the reference, not a port fault: flash sums "
+          f"scaled products, chunks sum exact integer dots): {LM_ARCH} "
           f"{cfg.n_layers} layers, float32 activations and cache, phase 6's "
           f"traffic: {sum(same)} of {len(same)} requests equal, leading "
           f"tokens in common {lead} ({rep['seconds']:.1f} s)")
@@ -5500,6 +5531,7 @@ def lifecycle_phase(base_cfg, seed, dev, card, reqs6, tokens6):
     zero fill of a whole-prompt admission timed at all 40 layers; the
     serving CLI once on the card under CLI_PLAN. Returns (launches,
     report)."""
+    from repro_torch.kernels import tune
     from repro_torch.models.api import get_model
     t0 = time.perf_counter()
     cfg = base_cfg.scaled(n_layers=LM_CHECK_DEPTH, kv_bits=1)
@@ -5558,7 +5590,7 @@ def lifecycle_phase(base_cfg, seed, dev, card, reqs6, tokens6):
         raise AssertionError(f"serve CLI lines {got} != {want}, {res}: "
                              + "\n".join(lines))
     rep.update({"zero_fill_ms": fill_ms, "zero_fill_bytes": fill_bytes,
-                "zero_fill_bound_ms": fill_bytes / HBM_BYTES_PER_S * 1e3,
+                "zero_fill_bound_ms": fill_bytes / tune.HBM_BYTES_PER_S * 1e3,
                 "cli_s": cli_s, "cli_lines": lines,
                 "seconds": time.perf_counter() - t0})
     print(f"lifecycle (phase 15) on {card}: {LM_ARCH} full width, depth "
@@ -5588,6 +5620,180 @@ def lifecycle_phase(base_cfg, seed, dev, card, reqs6, tokens6):
                       or "REJECT" in ln or ln.startswith("resilience")))
     print(f"phase 15 (lifecycle): {rep['seconds']:.1f} s")
     return launches, rep
+
+
+def route_table_step(step, cfg, card, steps=10):
+    """One decode step of phi3 at all layers with the route table and with
+    every route pinned to the fixed rule (`tune.route_override`), in turns
+    table, rule, rule, table in this run: device busy ms and launches (one
+    profiled step), host wall ms (the mean of `steps` synchronised steps)
+    and tok/s = slots / wall; and the kernels whose device ms in a step
+    moved most between the two (summed over each mode's two steps). A
+    measurement, not a claim."""
+    from repro_torch.kernels import tune
+    rows, by_kernel = [], {}
+    for mode in ("table", "fixed rule", "fixed rule", "table"):
+        pin = tune.route_override(**FIXED_RULE) if mode == "fixed rule" \
+            else contextlib.nullcontext()
+        with pin:
+            t = trace(step, top=40)
+            for name, _, ms in t["top"]:
+                by_kernel.setdefault(name, {"table": 0.0, "fixed rule": 0.0})
+                by_kernel[name][mode] += ms / 2
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / steps * 1e3
+        rows.append({"mode": mode, "busy_ms": t["busy_ms"], "wall_ms": wall,
+                     "launches": t["launches"],
+                     "tok_per_s": LM_SLOTS / wall * 1e3})
+    print(f"lm decode step (depth {cfg.n_layers}, {LM_SLOTS} slots at "
+          f"position 300) on {card}, route table against the fixed rule, in "
+          f"turns:")
+    for r in rows:
+        print(f"  {r['mode']:10s} busy {r['busy_ms']:.4f} ms, wall "
+              f"{r['wall_ms']:.4f} ms, {r['launches']} launches, "
+              f"{r['tok_per_s']:.2f} tok/s")
+    moved = sorted(by_kernel.items(),
+                   key=lambda kv: -abs(kv[1]["table"] - kv[1]["fixed rule"]))
+    for name, ms in moved[:6]:
+        print(f"  {name[:60]:60s} table {ms['table']:.4f} ms, fixed rule "
+              f"{ms['fixed rule']:.4f} ms a step")
+    return {"rows": rows, "by_kernel": by_kernel}
+
+
+def entry_plan(kernel, shape, params, sms):
+    """The launch a table entry names at a real `shape`, or None where
+    dispatch clamps it to the fixed rule."""
+    from repro_torch.kernels import binary_gemm as bg
+    from repro_torch.kernels import prefill_attention as pa
+    from repro_torch.kernels import tune
+    if kernel in ("binary_gemm", "binary_gemm_fused"):
+        kn = tune._gemm_kernel(kernel, shape)
+        k = 32 * shape["kw"] - (ROUTE_K_SHORT if shape["kw"] > 1 else 0)
+        return bg.plan_from_params(kn, shape["m"], shape["n"], k, sms, True,
+                                   params)
+    t = shape["t"]
+    if "ps" in shape:
+        t = max(1, -(-t // shape["ps"])) * shape["ps"]
+    return pa.plan_from_params(shape["b"], shape.get("s", 1), t, shape["hkv"],
+                               shape["g"], shape["hd"], params)
+
+
+def dispatch_host_us(sms, calls=20000):
+    """Host µs a launch spends choosing its plan, at phi3's decode-step
+    shapes: the route table's memo hit (`routed_plan`, this tree) against
+    the fixed rule computed on every call (`gemm_plan` / `attention_plan`,
+    what the parent tree's wrappers ran)."""
+    from repro_torch.kernels import binary_gemm as bg
+    from repro_torch.kernels import prefill_attention as pa
+    cases = {
+        "binary_gemm_packed (4, 5120 -> 1280)": (
+            lambda: bg.routed_plan("binary_gemm_packed", LM_SLOTS, 1280, 5120,
+                                   sms, True, torch.int32),
+            lambda: bg.gemm_plan("binary_gemm_packed", LM_SLOTS, 1280, 5120,
+                                 sms, True)),
+        "decode_attention (4, T 512)": (
+            lambda: pa.routed_plan("decode_attention", LM_SLOTS, 1,
+                                   LM_MAX_LEN, 10, 4, 128, sms, None, {}),
+            lambda: pa.attention_plan(LM_SLOTS, 1, LM_MAX_LEN, 10, 4, 128,
+                                      sms))}
+    out = {}
+    for name, fns in cases.items():
+        us = []
+        for fn in fns:
+            fn()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            us.append((time.perf_counter() - t0) / calls * 1e6)
+        out[name] = {"table_us": us[0], "rule_us": us[1]}
+    return out
+
+
+def route_table_phase(card, sms, cli_lines):
+    """Phase 16, the route table on the card: `tune --check` (a gap fails
+    the run); for every bucket of the card's standard shapes the table's
+    winner launched through dispatch (route None) at a ragged shape inside
+    the bucket (K off a word) and held to the plain version (GEMMs bit for
+    bit; attention dots bit for bit, outputs within ATTN_TOL with equal
+    signs), and at the shape the bucket was tuned at (a card bucket's
+    recorded main-path shape); where the winner is not the fixed rule's
+    launch, both timed at that shape (device µs, `tune.device_ms`); the
+    buckets this run's launches resolved that the table lacks; the host µs of a plan choice;
+    and the serving CLI's `kernel route` lines from phase 15's run."""
+    from repro_torch.kernels import tune
+    t0 = time.perf_counter()
+    if tune.main(["--check"]) != 0:
+        raise AssertionError("the card's route table misses standard buckets")
+    table = tune.load_cache()
+    SERVED_SHAPES.update(tune.seen)
+    resolved = len(tune.seen)
+    gap = sorted(f"{k} {key}" for k, key in tune.seen
+                 if key not in table.get(k, {}))
+    per, rows = {}, []
+    for kernel, shapes in tune.standard_shapes().items():
+        stats = per.setdefault(kernel, {"buckets": 0, "differ": 0,
+                                        "clamped": 0, "max_ratio": 1.0})
+        for shape in shapes:
+            key = tune.bucket_key(shape)
+            entry = table[kernel][key]
+            rule = tune.rule_params(kernel, shape, sms)
+            cut = tune.ragged(shape)
+            _, check, _ = tune.problem(kernel, cut, k_short=ROUTE_K_SHORT)
+            check(None, {})
+            call, check, _ = tune.problem(kernel, shape)
+            check(None, {})
+            stats["buckets"] += 1
+            stats["clamped"] += entry_plan(kernel, cut, entry["params"],
+                                           sms) is None
+            row = {"kernel": kernel, "key": key, "params": entry["params"],
+                   "rule": rule, "ragged": cut}
+            if entry["params"] != rule:
+                row["tuned_us"] = 1e3 * device_ms(
+                    lambda: call("cuda", entry["params"]))
+                row["rule_us"] = 1e3 * device_ms(lambda: call("cuda", {}))
+                stats["differ"] += 1
+                stats["max_ratio"] = max(stats["max_ratio"],
+                                         row["rule_us"] / row["tuned_us"])
+            del call, check
+            rows.append(row)
+    torch.cuda.empty_cache()
+    print(f"route table (phase 16) on {card}: {tune.cache_path().name}, "
+          f"`tune --check` exit 0; each bucket's winner at the shape it "
+          f"was tuned at and at a ragged shape inside it through dispatch "
+          f"equals the plain version (GEMMs bit "
+          f"for bit, attention dots bit for bit and outputs within "
+          f"ATTN_TOL); winner against the fixed rule at the shape the bucket "
+          f"was tuned at, device µs:")
+    for kernel, st in per.items():
+        print(f"  {kernel:24s} {st['buckets']:4d} buckets, {st['differ']:4d} "
+              f"differ from the fixed rule, largest rule/tuned "
+              f"{st['max_ratio']:.3f}, {st['clamped']} ragged launches "
+              f"clamped to the rule")
+    for r in rows:
+        if "tuned_us" in r:
+            print(f"    {r['kernel']:24s} {r['key']:40s} tuned {r['params']} "
+                  f"{r['tuned_us']:.2f} us, rule {r['rule']} "
+                  f"{r['rule_us']:.2f} us")
+    print(f"  buckets this run's launches resolved before this phase: "
+          f"{resolved}, not in the table (fixed rule): {len(gap)} {gap[:8]}")
+    host = dispatch_host_us(sms)
+    for name, h in host.items():
+        print(f"  plan choice per launch, {name}: route table (memo hit) "
+              f"{h['table_us']:.3f} host µs, fixed rule computed "
+              f"{h['rule_us']:.3f} host µs")
+    routes = [ln for ln in cli_lines if ln.startswith("kernel route ")]
+    if not routes or any(": cuda" not in ln for ln in routes):
+        raise AssertionError(f"serve CLI kernel route lines: {routes}")
+    for ln in routes:
+        print(f"  serve CLI: {ln}")
+    rep = {"buckets": per, "rows": rows, "gap": gap, "host_us": host,
+           "cli_routes": routes, "seconds": time.perf_counter() - t0}
+    print(f"phase 16 (route table): {rep['seconds']:.1f} s")
+    return rep
 
 
 def attention_times(card, popc_per_s) -> int:
@@ -5697,6 +5903,11 @@ def main() -> int:
                          "(binary_gemm_packed at its LM and output-layer "
                          "shapes, selective_scan at its decode, chunk and "
                          "long-prefill shapes), then stop")
+    ap.add_argument("--record-shapes", type=Path, default=None,
+                    help="write every route-table bucket this run resolves "
+                         "outside a fixed-rule pin (the serving and "
+                         "paper-net paths) to this JSON file at exit: the "
+                         "card's standard shapes of kernels.tune")
     ap.add_argument("--port-src", type=Path, default=None,
                     help="import the port from this src directory instead "
                          "of the checkout's (with --attention-times or "
@@ -5714,6 +5925,7 @@ def main() -> int:
     from repro_torch.configs.bnn_paper import BNN_CIFAR10, BNN_MNIST
     from repro_torch.kernels import _build
     from repro_torch.kernels import binary_gemm as bg
+    from repro_torch.kernels import tune
     from repro_torch.models import paper_nets as pn
 
     dev = torch.device("cuda", 0)
@@ -5722,7 +5934,7 @@ def main() -> int:
     card = smi("name,power.limit")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     max_mhz = float(smi("clocks.max.sm").split()[0])
-    popc_per_s = sms * POPC_PER_CLOCK_PER_SM * max_mhz * 1e6
+    popc_per_s = sms * tune.POPC_PER_CLOCK_PER_SM * max_mhz * 1e6
     exp_per_s = sms * EXP_PER_CLOCK_PER_SM * max_mhz * 1e6
     fp64_per_s = sms * FP64_PER_CLOCK_PER_SM * max_mhz * 1e6
     print(f"device: {name}, count {count}, {sms} SMs, max SM clock "
@@ -5731,6 +5943,8 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     report = {"card": card, "device": name, "kernels": {}, "forwards": {}}
+    if args.record_shapes is not None:
+        atexit.register(write_shapes, args.record_shapes, card)
 
     # ----------------------------------------------------------------- build
     t0 = time.perf_counter()
@@ -5760,79 +5974,82 @@ def main() -> int:
         return gemm_scan_times(card, popc_per_s, exp_per_s, fp64_per_s, sms)
 
     # --------------------------------------------- kernels vs plain on card
-    gen = torch.Generator().manual_seed(args.seed)
-    shapes = main_path_shapes(BNN_MNIST, BNN_CIFAR10)
-    checks = [(kn, lhs, m, k, n, where) for kn, lhs, m, k, n, where in shapes]
-    for m, k, n in RAGGED:
-        checks += [("binary_gemm_packed", "packed", m, k, n, "ragged"),
-                   ("binary_gemm_packed_rhs", "float", m, k, n, "ragged"),
-                   ("binary_gemm_fused", "float", m, k, n, "ragged"),
-                   ("binary_gemm_fused", "packed", m, k, n, "ragged")]
-    # the LM's GEMMs at chunk and decode rows (phi3's and falcon-mamba's),
-    # then kernels 2 and 3 at the edges of their dispatch rule
-    for m, where in ((LM_CHUNK, "lm.chunk"), (LM_SLOTS, "lm.decode")):
-        checks += [(kn, lhs, m, k, n, where) for kn, lhs, k, n, _ in LM_GEMMS]
-        checks.append(("binary_gemm_fused", "bf16", m, 300, 77, "ragged"))
-    # the hybrid's GEMMs at decode and chunk rows and a 200-row prompt
-    from repro_torch.configs.base import get_config
-    hyb_cfg = get_config(HYBRID_ARCH)
-    for m, where in ((LM_SLOTS, "rg.decode"), (LM_CHUNK, "rg.chunk"),
-                     (200, "rg.prompt")):
-        checks += [(kn, lhs, m, k, n, where)
-                   for kn, lhs, k, n, _ in hybrid_gemms(hyb_cfg)]
-    # the other dense-stack families' GEMMs at decode, chunk and prompt rows
-    fam_cfgs = [get_config(arch) for arch in FAMILY_ARCHS]
-    checks += family_gemm_checks(fam_cfgs)
-    # the MoE configs' attention GEMMs (their FFN GEMMs are batched, below)
-    moe_cfgs = [get_config(arch) for arch in MOE_ARCHS]
-    checks += [ch for ch in family_gemm_checks(moe_cfgs)
-               if not ch[5].endswith((".gate", ".down"))]
-    # the vlm family's: its self blocks', the cross q / wo, the image K/V
-    vlm_cfg = get_config(VLM_ARCH)
-    checks += vlm_gemm_checks(vlm_cfg)
-    checks += [(*edge, "edge") for edge in REGIME_EDGES]
-    checks += [("binary_gemm_packed", "packed", m, k, n, "edge")
-               for m, k, n in PACKED_EDGES]
-    err = {kn: 0 for kn in REPLACES}
-    dev_gen = torch.Generator(device=dev).manual_seed(args.seed)
-    operands = {}
-    for kn, lhs, m, k, n, where in checks:
-        if (m, k, n) not in operands:
-            operands[(m, k, n)] = Operands(dev_gen, m, k, n)
-        err[kn] = max(err[kn], check_gemm(operands[(m, k, n)], kn, lhs,
-                                          where, sms))
-    main_keys = {(m, k, n) for _, _, m, k, n, _ in shapes}
-    for key in [key for key in operands if key not in main_keys]:
-        del operands[key]                  # kept: the main paths' operands
-    packed_split_checks(dev_gen, sms)
-    lm_cfg = get_config(LM_ARCH)
-    err.update(lm_kernel_checks(lm_cfg, dev_gen, dev))
-    err["pack_bits"] = max(err["pack_bits"],
-                           pack_rows_checks(pack_rows_cases(lm_cfg), dev_gen,
-                                            dev))
-    err.update(lm_paged_kernel_checks(lm_cfg, dev_gen, args.seed, dev))
-    for kn, e in lm_long_prefill_checks(lm_cfg, dev_gen, args.seed, dev,
-                                        sms).items():
-        err[kn] = max(err[kn], e)
-    for kn, e in lm_long_decode_checks(lm_cfg, dev_gen, args.seed, dev,
+    # each kernel at the fixed rule's launch (`gemm_plan`, `attention_plan`):
+    # the checks hold one entry point to another bit for bit at one plan
+    with tune.route_override(**FIXED_RULE):
+        gen = torch.Generator().manual_seed(args.seed)
+        shapes = main_path_shapes(BNN_MNIST, BNN_CIFAR10)
+        checks = [(kn, lhs, m, k, n, where) for kn, lhs, m, k, n, where in shapes]
+        for m, k, n in RAGGED:
+            checks += [("binary_gemm_packed", "packed", m, k, n, "ragged"),
+                       ("binary_gemm_packed_rhs", "float", m, k, n, "ragged"),
+                       ("binary_gemm_fused", "float", m, k, n, "ragged"),
+                       ("binary_gemm_fused", "packed", m, k, n, "ragged")]
+        # the LM's GEMMs at chunk and decode rows (phi3's and falcon-mamba's),
+        # then kernels 2 and 3 at the edges of their dispatch rule
+        for m, where in ((LM_CHUNK, "lm.chunk"), (LM_SLOTS, "lm.decode")):
+            checks += [(kn, lhs, m, k, n, where) for kn, lhs, k, n, _ in LM_GEMMS]
+            checks.append(("binary_gemm_fused", "bf16", m, 300, 77, "ragged"))
+        # the hybrid's GEMMs at decode and chunk rows and a 200-row prompt
+        from repro_torch.configs.base import get_config
+        hyb_cfg = get_config(HYBRID_ARCH)
+        for m, where in ((LM_SLOTS, "rg.decode"), (LM_CHUNK, "rg.chunk"),
+                         (200, "rg.prompt")):
+            checks += [(kn, lhs, m, k, n, where)
+                       for kn, lhs, k, n, _ in hybrid_gemms(hyb_cfg)]
+        # the other dense-stack families' GEMMs at decode, chunk and prompt rows
+        fam_cfgs = [get_config(arch) for arch in FAMILY_ARCHS]
+        checks += family_gemm_checks(fam_cfgs)
+        # the MoE configs' attention GEMMs (their FFN GEMMs are batched, below)
+        moe_cfgs = [get_config(arch) for arch in MOE_ARCHS]
+        checks += [ch for ch in family_gemm_checks(moe_cfgs)
+                   if not ch[5].endswith((".gate", ".down"))]
+        # the vlm family's: its self blocks', the cross q / wo, the image K/V
+        vlm_cfg = get_config(VLM_ARCH)
+        checks += vlm_gemm_checks(vlm_cfg)
+        checks += [(*edge, "edge") for edge in REGIME_EDGES]
+        checks += [("binary_gemm_packed", "packed", m, k, n, "edge")
+                   for m, k, n in PACKED_EDGES]
+        err = {kn: 0 for kn in REPLACES}
+        dev_gen = torch.Generator(device=dev).manual_seed(args.seed)
+        operands = {}
+        for kn, lhs, m, k, n, where in checks:
+            if (m, k, n) not in operands:
+                operands[(m, k, n)] = Operands(dev_gen, m, k, n)
+            err[kn] = max(err[kn], check_gemm(operands[(m, k, n)], kn, lhs,
+                                              where, sms))
+        main_keys = {(m, k, n) for _, _, m, k, n, _ in shapes}
+        for key in [key for key in operands if key not in main_keys]:
+            del operands[key]                  # kept: the main paths' operands
+        packed_split_checks(dev_gen, sms)
+        lm_cfg = get_config(LM_ARCH)
+        err.update(lm_kernel_checks(lm_cfg, dev_gen, dev))
+        err["pack_bits"] = max(err["pack_bits"],
+                               pack_rows_checks(pack_rows_cases(lm_cfg), dev_gen,
+                                                dev))
+        err.update(lm_paged_kernel_checks(lm_cfg, dev_gen, args.seed, dev))
+        for kn, e in lm_long_prefill_checks(lm_cfg, dev_gen, args.seed, dev,
+                                            sms).items():
+            err[kn] = max(err[kn], e)
+        for kn, e in lm_long_decode_checks(lm_cfg, dev_gen, args.seed, dev,
+                                           sms).items():
+            err[kn] = max(err[kn], e)
+        err["decode_attention_packed"] = max(
+            err["decode_attention_packed"],
+            hybrid_kernel_checks(hyb_cfg, dev_gen, dev, sms))
+        err["pack_bits"] = max(
+            err["pack_bits"],
+            pack_checks(hybrid_pack_check_shapes(hyb_cfg), dev_gen, dev),
+            pack_rows_checks(hybrid_pack_rows_cases(hyb_cfg), dev_gen, dev))
+        for kn, e in family_kernel_checks(fam_cfgs, dev_gen, args.seed, dev,
+                                          sms).items():
+            err[kn] = max(err[kn], e)
+        for kn, e in moe_kernel_checks(moe_cfgs, dev_gen, args.seed, dev,
                                        sms).items():
-        err[kn] = max(err[kn], e)
-    err["decode_attention_packed"] = max(
-        err["decode_attention_packed"],
-        hybrid_kernel_checks(hyb_cfg, dev_gen, dev, sms))
-    err["pack_bits"] = max(
-        err["pack_bits"],
-        pack_checks(hybrid_pack_check_shapes(hyb_cfg), dev_gen, dev),
-        pack_rows_checks(hybrid_pack_rows_cases(hyb_cfg), dev_gen, dev))
-    for kn, e in family_kernel_checks(fam_cfgs, dev_gen, args.seed, dev,
-                                      sms).items():
-        err[kn] = max(err[kn], e)
-    for kn, e in moe_kernel_checks(moe_cfgs, dev_gen, args.seed, dev,
-                                   sms).items():
-        err[kn] = max(err[kn], e)
-    for kn, e in vlm_kernel_checks(vlm_cfg, dev_gen, args.seed, dev,
-                                   sms).items():
-        err[kn] = max(err[kn], e)
+            err[kn] = max(err[kn], e)
+        for kn, e in vlm_kernel_checks(vlm_cfg, dev_gen, args.seed, dev,
+                                       sms).items():
+            err[kn] = max(err[kn], e)
     lap("phase 3 (kernels)")
 
     # ------------------------------------------------------------------ mlp
@@ -6064,6 +6281,9 @@ def main() -> int:
     print_trace(f"trace lm decode step (depth {lm_cfg.n_layers}, {LM_SLOTS} "
                 f"slots at position 300) on {card}", step)
     timed["decode_step_trace"] = step
+    timed["route_table_step"] = route_table_step(
+        lambda: sched.model.decode(sched.params, sched._state["cur"],
+                                   sched._cache, pos), lm_cfg, card)
     report["lm_timed"] = timed
     report["lm_paged_timed"] = lm_paged_timed_run(
         lm_cfg.scaled(kv_bits=1), eng.params, args.seed, dev, card)
@@ -6127,6 +6347,10 @@ def main() -> int:
         lm_cfg, args.seed, dev, card, lm_reqs, lm_tokens)
     for kn in REPLACES:
         path_launches[kn] += lifecycle_launches[kn]
+
+    # ----------------------------------------------------------- route table
+    report["route_table"] = route_table_phase(
+        card, sms, report["lifecycle"]["cli_lines"])
 
     kernels = []
     for kn in REPLACES:

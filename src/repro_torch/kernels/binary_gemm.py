@@ -41,8 +41,17 @@ A batched call's grid holds E times a GEMM's blocks (the y axis is the
 expert): the plan counts them all. Where any would launch too few blocks
 for the card, K is split over a thread-block cluster and the partial dots
 are summed through distributed shared memory, inside the same launch:
-every call is one launch. There is
-no tuning cache and no fallback: a launch that fails raises.
+every call is one launch. There is no fallback: a launch that fails raises.
+
+The dispatch entry points (`dispatch_binary_gemm{,_fused}`, which the ops
+call) take each launch from the route table of `kernels.tune`, as the JAX
+package's do: `route=None` asks `tune.get_route` for the call's shape, and
+a table entry's `small_m`, `block_n` and `split` become the plan
+(`plan_from_params`) where the fixed rule's own checks hold at the real
+shape; where they do not, or the table has no entry, the call takes
+`gemm_plan`. The plan is kept per exact call shape (`_ROUTED`), so a hit
+costs one dict lookup. The wrappers called directly, the batched expert
+GEMM and `binary_gemm_mxu` keep `gemm_plan`.
 
 A wrapper launches its kernel on CUDA tensors, or raises; it runs the plain
 version only because its inputs lie on the CPU. `launches[name]` counts the
@@ -58,7 +67,7 @@ import torch
 
 from repro_torch._device import sm_count
 from repro_torch.core.bitpack import pack_bits, packed_width
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, ref, tune
 
 launches = {"binary_gemm_packed": 0, "binary_gemm_packed_rhs": 0,
             "binary_gemm_fused": 0, "binary_gemm_mxu": 0}
@@ -187,13 +196,119 @@ def gemm_plan(kernel: str, m: int, n: int, k: int, sms: int,
     return GemmPlan(False, split, _TC_BN, tiles * split)
 
 
+def _aligned(kernel: str, a: torch.Tensor, b: torch.Tensor) -> bool:
+    return b.data_ptr() % 16 == 0 and (
+        kernel != "binary_gemm_packed" or a.data_ptr() % 16 == 0)
+
+
 def _plan(kernel: str, a: torch.Tensor, b: torch.Tensor, k: int) -> GemmPlan:
     """The plan of a call: a (M, ·) or (E, M, ·), b (N, KW) or (E, N, KW)."""
-    aligned = b.data_ptr() % 16 == 0 and (
-        kernel != "binary_gemm_packed" or a.data_ptr() % 16 == 0)
     batch = a.shape[0] if a.ndim == 3 else 1
     return gemm_plan(kernel, a.shape[-2], b.shape[-2], k, sm_count(a.device),
-                     aligned, batch)
+                     _aligned(kernel, a, b), batch)
+
+
+def _k_shares(units: int, split: int) -> bool:
+    """Every block of a `split` cluster keeps at least one of `units`."""
+    return (split - 1) * -(-units // split) < units
+
+
+def plan_from_params(kernel: str, m: int, n: int, k: int, sms: int,
+                     aligned: bool, params: dict, *,
+                     clamp: bool = True) -> GemmPlan | None:
+    """The launch that `params` (`small_m`, `block_n`, `split`: a route
+    table's fields) name for one call, or None where the kernel cannot take
+    them at this shape: a split of 1, 2, 4 or 8 that leaves every block of
+    the cluster some K (4-word units for the small-M kernels, tensor-core
+    stages for the tiles); small-M only at M <= SMALL_M_ROWS on 16-byte
+    aligned words (KW % 4 == 0) whose slice fits in shared memory, 32 to 256
+    channels a block for kernel 1's and 32 or 64 for the float lhs's; tiles
+    of 128 channels, or 256 for the dots without a split. With `clamp`
+    (a table entry, tuned at its bucket's shape), kernel 3 takes the
+    small-M kernel only at M <= FUSED_SMALL_M_ROWS, as `gemm_plan` does.
+    The same fields as `gemm_plan`'s give `gemm_plan`'s plan."""
+    if kernel not in PLANNED:
+        raise ValueError(f"no plan for {kernel}")
+    small_m, block_n, split = (bool(params["small_m"]), int(params["block_n"]),
+                               int(params["split"]))
+    if split not in (1, 2, 4, 8):
+        return None
+    kw = packed_width(k)
+    dots = kernel != "binary_gemm_fused"
+    if small_m:
+        rows = SMALL_M_ROWS if dots or not clamp else FUSED_SMALL_M_ROWS
+        widths = (32, 64, 128, 256) if kernel == "binary_gemm_packed" \
+            else (32, 64)
+        if (m > rows or kw % 4 or not aligned or block_n not in widths
+                or not _k_shares(kw // 4, split)):
+            return None
+        ks = -(-kw // (4 * split)) * 4
+        lhs = _packed_lhs_stride(ks) if kernel == "binary_gemm_packed" else ks
+        if 4 * m * (lhs + block_n) > _SMEM_BYTES:
+            return None
+        return GemmPlan(True, split, block_n, -(-n // block_n) * split)
+    if block_n not in (_TC_BN, _TC_WIDE_BN) or (
+            block_n == _TC_WIDE_BN and (split != 1 or not dots)):
+        return None
+    if not _k_shares(-(-k // _TC_BK), split):
+        return None
+    return GemmPlan(False, split, block_n,
+                    -(-m // _TC_BM) * -(-n // block_n) * split)
+
+
+def plan_params(plan: GemmPlan) -> dict:
+    """A plan's launch fields, as a route table holds them."""
+    return {"small_m": int(plan.small_m), "block_n": plan.block_n,
+            "split": plan.split}
+
+
+# the plan of each exact call shape that dispatch has resolved: (kernel, M,
+# N, K, aligned, SMs, lhs dtype) -> GemmPlan (kernel 3 takes both lhs forms,
+# which the table keys apart); `tune` empties it when the table or a route
+# override changes
+_ROUTED: dict[tuple, GemmPlan] = {}
+tune.PLAN_MEMOS.append(_ROUTED)
+# the table's name of each kernel and the lhs form it is keyed by (pl)
+_TABLE = {"binary_gemm_packed": ("binary_gemm", 1),
+          "binary_gemm_packed_rhs": ("binary_gemm", 0),
+          "binary_gemm_fused": ("binary_gemm_fused", None)}
+
+
+def routed_plan(kernel: str, m: int, n: int, k: int, sms: int, aligned: bool,
+                lhs: torch.dtype, route: str | None = None,
+                params: dict | None = None) -> GemmPlan:
+    """The plan dispatch launches: with `route` None, the route table's
+    entry for the shape (`tune.get_route`; `pl` 1 for an int32 `lhs`, the
+    packed words, else 0) where `plan_from_params` takes it, else
+    `gemm_plan`; an explicit route bypasses the table, and its
+    params must name a launch the kernel takes ('cuda' with no params:
+    `gemm_plan`). A route that names no kernel ('xla', 'float', ...)
+    raises: on the card every route is a kernel launch."""
+    from repro_torch.kernels import tune
+    if route is None:
+        key = (kernel, m, n, k, aligned, sms, lhs)
+        plan = _ROUTED.get(key)
+        if plan is None:
+            name, pl = _TABLE[kernel]
+            shape = dict(m=m, n=n, kw=packed_width(k),
+                         pl=int(lhs == torch.int32) if pl is None else pl)
+            tune.note_dispatch(name, shape, lhs)
+            route, params = tune.get_route(name, **shape)
+            tune.check_card_route(name, route)
+            plan = (params and plan_from_params(kernel, m, n, k, sms, aligned,
+                                                params)) \
+                or gemm_plan(kernel, m, n, k, sms, aligned)
+            _ROUTED[key] = plan
+        return plan
+    tune.check_card_route(_TABLE[kernel][0], route)
+    if not params:
+        return gemm_plan(kernel, m, n, k, sms, aligned)
+    plan = plan_from_params(kernel, m, n, k, sms, aligned, params,
+                            clamp=False)
+    if plan is None:
+        raise ValueError(f"{kernel} cannot launch {params} at M={m} N={n} "
+                         f"K={k} (aligned {aligned})")
+    return plan
 
 
 def _vec(a: torch.Tensor, k: int) -> int:
@@ -295,12 +410,13 @@ def _launch(name: str, a: torch.Tensor, *args) -> None:
     launches[name] += 1
 
 
-def binary_gemm_packed(a: torch.Tensor, b: torch.Tensor,
-                       k: int) -> torch.Tensor:
+def binary_gemm_packed(a: torch.Tensor, b: torch.Tensor, k: int, *,
+                       plan: GemmPlan | None = None) -> torch.Tensor:
     """a: (M, KW) int32 words, b: (N, KW) int32 words -> (M, N) int32
     sign-dot over the original K (pad bits cancel in the xor). Batched: a
     (E, M, KW), b (E, N, KW) -> (E, M, N), expert e's rows against expert
-    e's weights, every expert in one launch."""
+    e's weights, every expert in one launch. `plan` (dispatch's) replaces
+    `gemm_plan`'s."""
     if a.ndim == 3 or b.ndim == 3:
         if a.ndim != 3 or b.ndim != 3 or a.shape[0] != b.shape[0]:
             raise ValueError(f"a batched call takes (E, M, KW) and (E, N, KW)"
@@ -315,15 +431,15 @@ def binary_gemm_packed(a: torch.Tensor, b: torch.Tensor,
     m, (n, kw) = a.shape[-2], b.shape[-2:]
     out = torch.empty(a.shape[:-1] + (n,), dtype=torch.int32, device=a.device)
     if batch and m and n:
-        plan = _plan("binary_gemm_packed", a, b, k)
+        plan = plan or _plan("binary_gemm_packed", a, b, k)
         _launch("binary_gemm_packed", a, a.data_ptr(), b.data_ptr(),
                 out.data_ptr(), batch, m, n, kw, k, int(plan.small_m),
                 plan.split, plan.block_n)
     return out
 
 
-def binary_gemm_packed_rhs(a: torch.Tensor, b: torch.Tensor,
-                           k: int) -> torch.Tensor:
+def binary_gemm_packed_rhs(a: torch.Tensor, b: torch.Tensor, k: int, *,
+                           plan: GemmPlan | None = None) -> torch.Tensor:
     """a: (M, K) float32 or bf16 activations, b: (N, KW) int32 frozen weights ->
     (M, N) int32 = sign(a) . sign-rows(b). a is signed inside the kernel
     that `gemm_plan` picks (+1 where a >= 0; NaN is -1)."""
@@ -333,7 +449,7 @@ def binary_gemm_packed_rhs(a: torch.Tensor, b: torch.Tensor,
     m, (n, kw) = a.shape[0], b.shape
     out = torch.empty((m, n), dtype=torch.int32, device=a.device)
     if m and n:
-        plan = _plan("binary_gemm_packed_rhs", a, b, k)
+        plan = plan or _plan("binary_gemm_packed_rhs", a, b, k)
         _launch("binary_gemm_packed_rhs", a, a.data_ptr(), _LHS_KIND[a.dtype],
                 _vec(a, k), b.data_ptr(), out.data_ptr(), m, n, kw, k,
                 int(plan.small_m), plan.split, plan.block_n)
@@ -341,7 +457,8 @@ def binary_gemm_packed_rhs(a: torch.Tensor, b: torch.Tensor,
 
 
 def binary_gemm_fused(a: torch.Tensor, b: torch.Tensor, thresh: torch.Tensor,
-                      flip: torch.Tensor, k: int) -> torch.Tensor:
+                      flip: torch.Tensor, k: int, *,
+                      plan: GemmPlan | None = None) -> torch.Tensor:
     """a: (M, KW) int32 words or (M, K) float32 / bf16; b: (N, KW) int32 words;
     thresh/flip: (N,) int32. Returns (M, ceil(N/32)) int32 words with
     bit_n = (dot_n >= thresh_n) XOR flip_n and pad bits 1, i.e. the lhs of
@@ -357,7 +474,7 @@ def binary_gemm_fused(a: torch.Tensor, b: torch.Tensor, thresh: torch.Tensor,
     m, kw = a.shape[0], b.shape[1]
     out = torch.empty((m, packed_width(n)), dtype=torch.int32, device=a.device)
     if m and n:
-        plan = _plan("binary_gemm_fused", a, b, k)
+        plan = plan or _plan("binary_gemm_fused", a, b, k)
         _launch("binary_gemm_fused", a, a.data_ptr(),
                 0 if packed_lhs else _LHS_KIND[a.dtype], _vec(a, k),
                 b.data_ptr(), thresh.data_ptr(), flip.data_ptr(),
@@ -400,21 +517,43 @@ def binary_gemm_mxu(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # Dispatch: the entry points the ops call, with the JAX package's argument
-# order. The lhs form picks the kernel; the device picks kernel or plain.
+# order and route arguments. The lhs form picks the kernel; the device picks
+# kernel or plain; the route table picks the launch.
 # ---------------------------------------------------------------------------
+def _dispatch_plan(kernel: str, a: torch.Tensor, b: torch.Tensor, k: int,
+                   route: str | None, params: dict) -> GemmPlan | None:
+    """The routed plan of a call on the card; None on the CPU, where every
+    route runs the plain version (`tune.check_route` still names it)."""
+    if a.device.type != "cuda":
+        tune.check_route(_TABLE[kernel][0], route)
+        return None
+    return routed_plan(kernel, a.shape[0], b.shape[0], k, sm_count(a.device),
+                       _aligned(kernel, a, b), a.dtype, route, params)
+
+
 def dispatch_binary_gemm(a: torch.Tensor, b_packed: torch.Tensor,
-                         k_true: int) -> torch.Tensor:
-    """Packed-rhs binary GEMM. a: (M, K) float32 / bf16 or (M, KW) int32 words;
-    b_packed: (N, KW) int32. Returns (M, N) int32, the exact sign-dot."""
+                         k_true: int, *, route: str | None = None,
+                         **params) -> torch.Tensor:
+    """Packed-rhs binary GEMM with per-shape routes. a: (M, K) float32 /
+    bf16 or (M, KW) int32 words; b_packed: (N, KW) int32. Returns (M, N)
+    int32, the exact sign-dot, whichever route runs. route=None consults
+    the route table (`tune.get_route('binary_gemm', m, n, kw, pl)`); an
+    explicit route (+ `small_m`, `block_n`, `split`) bypasses it."""
     if a.dtype == torch.int32:
-        return binary_gemm_packed(a, b_packed, k_true)
-    return binary_gemm_packed_rhs(a, b_packed, k_true)
+        return binary_gemm_packed(a, b_packed, k_true, plan=_dispatch_plan(
+            "binary_gemm_packed", a, b_packed, k_true, route, params))
+    return binary_gemm_packed_rhs(a, b_packed, k_true, plan=_dispatch_plan(
+        "binary_gemm_packed_rhs", a, b_packed, k_true, route, params))
 
 
 def dispatch_binary_gemm_fused(a: torch.Tensor, b_packed: torch.Tensor,
                                thresh: torch.Tensor, flip: torch.Tensor,
-                               k_true: int) -> torch.Tensor:
-    """Fused-epilogue binary GEMM (bit-resident chain step); same contract
-    as `binary_gemm_fused`."""
-    return binary_gemm_fused(a, b_packed, thresh, flip, k_true)
-
+                               k_true: int, *, route: str | None = None,
+                               **params) -> torch.Tensor:
+    """Fused-epilogue binary GEMM (bit-resident chain step) with per-shape
+    routes; same contract as `binary_gemm_fused`, routes as
+    `dispatch_binary_gemm`'s (`tune.get_route('binary_gemm_fused', ...)`)."""
+    return binary_gemm_fused(a, b_packed, thresh, flip, k_true,
+                             plan=_dispatch_plan("binary_gemm_fused", a,
+                                                 b_packed, k_true, route,
+                                                 params))

@@ -12,10 +12,10 @@ the TPU kernel `decode_attention_packed`
 (src/repro/kernels/decode_attention.py:137). On CUDA tensors it launches the
 attention body of `csrc/attention.cu` on a one-row chunk at q_pos =
 cache_len - 1 (the kernel reads that position from the length), with the
-launch plan of `prefill_attention.attention_plan`, or raises; it runs the
-plain version only because its inputs lie on the CPU. There is no route
-table: the device decides. Any T is taken. `launches["decode_attention_packed"]`
-counts kernel launches.
+launch the route table gives its shape (`prefill_attention.routed_plan`:
+a tuned `split`, else `attention_plan`'s), or raises; it runs the plain
+version only because its inputs lie on the CPU. Any T is taken.
+`launches["decode_attention_packed"]` counts kernel launches.
 
 `decode_attention_packed_paged` is its paged twin (replaces
 src/repro/kernels/decode_attention.py:214): K/V rows live in a (P, ps, Hkv,
@@ -30,9 +30,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch._device import sm_count
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, ref, tune
 from repro_torch.kernels.prefill_attention import (
-    _Q_BF16, attention_plan, check_operands, row_lengths,
+    _Q_BF16, check_operands, routed_plan, row_lengths,
 )
 
 launches = {"decode_attention_packed": 0, "decode_attention_packed_paged": 0}
@@ -63,7 +63,8 @@ def decode_attention_packed_plain(q, k_packed, v_packed, v_scale, cache_len,
 def decode_attention_packed(q: torch.Tensor, k_packed: torch.Tensor,
                             v_packed: torch.Tensor, v_scale: torch.Tensor,
                             cache_len, *, window: int = 0,
-                            return_dots: bool = False):
+                            return_dots: bool = False,
+                            route: str | None = None, **params):
     """Single-token decode attention against a bit-resident KV cache.
 
     q: (B, 1, Hq, hd) float32 | bf16 (sign-packed in the kernel);
@@ -74,18 +75,23 @@ def decode_attention_packed(q: torch.Tensor, k_packed: torch.Tensor,
     cache_len 0 weighs all T positions alike, as the JAX oracle does
     (`ref.packed_masked_attention_ref`). Returns (B, 1, Hq, hd) in q.dtype,
     and with
-    `return_dots` also the kernel's (B, Hkv, G, T) int32 score dots."""
+    `return_dots` also the kernel's (B, Hkv, G, T) int32 score dots.
+    route=None launches the route table's `split` for the shape
+    (`tune.get_route('decode_attention', b, t, hkv, g, hd)`); an explicit
+    route (+ `split`) bypasses it."""
     check_operands(q, k_packed, v_packed, v_scale)
     if q.shape[1] != 1:
         raise ValueError(f"decode takes one query row, got S={q.shape[1]}")
     if q.device.type == "cpu":
+        tune.check_route("decode_attention", route)
         return decode_attention_packed_plain(q, k_packed, v_packed, v_scale,
                                              cache_len, window=window,
                                              return_dots=return_dots)
     b, t, hkv, _ = k_packed.shape
     hd = q.shape[-1]
     g = q.shape[2] // hkv
-    plan = attention_plan(b, 1, t, hkv, g, hd, sm_count(q.device))
+    plan = routed_plan("decode_attention", b, 1, t, hkv, g, hd,
+                       sm_count(q.device), route, params)
     lens = row_lengths(cache_len, b, q.device)
     out = torch.empty_like(q)
     dots = (torch.empty((b, hkv, g, t), dtype=torch.int32, device=q.device)
@@ -119,7 +125,8 @@ def decode_attention_packed_paged_plain(q, k_pool, v_pool, v_scale,
 def decode_attention_packed_paged(q: torch.Tensor, k_pool: torch.Tensor,
                                   v_pool: torch.Tensor, v_scale: torch.Tensor,
                                   page_table: torch.Tensor, cache_len, *,
-                                  window: int = 0, return_dots: bool = False):
+                                  window: int = 0, return_dots: bool = False,
+                                  route: str | None = None, **params):
     """Single-token decode attention against a paged bit-resident cache.
 
     q: (B, 1, Hq, hd) float32 | bf16; k_pool, v_pool: (P, ps, Hkv,
@@ -128,11 +135,14 @@ def decode_attention_packed_paged(q: torch.Tensor, k_pool: torch.Tensor,
     (P: unallocated, clipped to page P-1 and masked by the length);
     v_scale: (B, Hkv) float32; cache_len: int or (B,). Returns (B, 1, Hq,
     hd) in q.dtype, and with `return_dots` the (B, Hkv, G, NP*ps) int32
-    dots: those of `decode_attention_packed` on the gathered pages."""
+    dots: those of `decode_attention_packed` on the gathered pages.
+    Routes as `decode_attention_packed`'s, keyed also by ps and the pool's
+    P ('decode_attention_paged')."""
     check_operands(q, k_pool, v_pool, v_scale, page_table)
     if q.shape[1] != 1:
         raise ValueError(f"decode takes one query row, got S={q.shape[1]}")
     if q.device.type == "cpu":
+        tune.check_route("decode_attention_paged", route)
         return decode_attention_packed_paged_plain(
             q, k_pool, v_pool, v_scale, page_table, cache_len, window=window,
             return_dots=return_dots)
@@ -141,7 +151,8 @@ def decode_attention_packed_paged(q: torch.Tensor, k_pool: torch.Tensor,
     t = n_pages * ps
     hd = q.shape[-1]
     g = q.shape[2] // hkv
-    plan = attention_plan(b, 1, t, hkv, g, hd, sm_count(q.device))
+    plan = routed_plan("decode_attention_paged", b, 1, t, hkv, g, hd,
+                       sm_count(q.device), route, params, ps, pool)
     lens = row_lengths(cache_len, b, q.device)
     out = torch.empty_like(q)
     dots = (torch.empty((b, hkv, g, t), dtype=torch.int32, device=q.device)

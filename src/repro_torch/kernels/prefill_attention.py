@@ -24,6 +24,14 @@ keeps no (rows, T) score panel, so any T is taken. `attention_plan` is the
 fixed rule of its launch (chunk rows per block, split); `block_positions`
 and `rank_positions` are the positions a block reads, as the kernel
 computes them. The operand checks the wrappers share live here too.
+
+Each wrapper takes `route=None, **params`, as the JAX package's entry
+points do: `route=None` asks the route table (`kernels.tune.get_route`,
+keyed by b, s, t, hkv, g, hd and, paged, ps and p) and launches its
+entry's `split` and `block_rows` where `attention_plan`'s own checks hold
+at the real shape (`plan_from_params`), else `attention_plan`; an explicit
+route bypasses the table. `routed_plan` keeps the plan per exact call
+shape.
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ import torch
 
 from repro_torch._device import sm_count
 from repro_torch.core.bitpack import packed_width
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, ref, tune
 
 launches = {"prefill_attention_packed": 0, "prefill_attention_packed_paged": 0}
 _Q_BF16 = {torch.float32: 0, torch.bfloat16: 1}
@@ -154,6 +162,76 @@ def attention_plan(b: int, s: int, t: int, hkv: int, g: int, hd: int,
     return AttentionPlan(bq, split, base * split)
 
 
+def plan_from_params(b: int, s: int, t: int, hkv: int, g: int, hd: int,
+                     params: dict, *, clamp: bool = True
+                     ) -> AttentionPlan | None:
+    """The launch `params` (`split`, and `block_rows` for a chunk; a route
+    table's fields) name, or None where the kernel cannot take them: a
+    split of 1, 2, 4 or 8, at most 32 query rows a block (block_rows is cut
+    to S, as `block_rows` cuts it). With `clamp` (a table entry, tuned at
+    its bucket's shape) also `attention_plan`'s check that a split leaves
+    each block at least its body's least positions (64 narrow, 256 wide).
+    The fields of `attention_plan`'s plan give that plan."""
+    split = int(params["split"])
+    bq = min(int(params.get("block_rows", 1)), s)
+    if split not in (1, 2, 4, 8) or bq < 1 or bq * g > _MAX_ROWS \
+            or hd > _MAX_HD:
+        return None
+    if clamp and split > 1 and \
+            t < split * _MIN_SPLIT_POSITIONS[bq * g <= _NARROW_ROWS]:
+        return None
+    return AttentionPlan(bq, split, b * hkv * -(-s // bq) * split)
+
+
+def plan_params(plan: AttentionPlan, s: int) -> dict:
+    """A plan's launch fields, as a route table holds them (a decode step
+    has no block_rows)."""
+    return {"split": plan.split} if s == 1 and plan.bq == 1 else \
+        {"block_rows": plan.bq, "split": plan.split}
+
+
+# the plan of each exact call shape that the wrappers have resolved:
+# (table kernel, B, S, T, Hkv, G, hd, ps, P, SMs) -> AttentionPlan; `tune`
+# empties it when the table or a route override changes
+_ROUTED: dict[tuple, AttentionPlan] = {}
+tune.PLAN_MEMOS.append(_ROUTED)
+
+
+def routed_plan(kernel: str, b: int, s: int, t: int, hkv: int, g: int,
+                hd: int, sms: int, route: str | None, params: dict,
+                ps: int = 0, pool: int = 0) -> AttentionPlan:
+    """The plan an attention wrapper launches for table kernel `kernel`
+    ('decode_attention', 'prefill_attention' or a '_paged' twin): with
+    `route` None the table's entry where `plan_from_params` takes it, else
+    `attention_plan`; an explicit route bypasses the table ('cuda' with no
+    params: `attention_plan`) and its params must name a launch the kernel
+    takes. A route that names no kernel raises."""
+    if route is None:
+        key = (kernel, b, s, t, hkv, g, hd, ps, pool, sms)
+        plan = _ROUTED.get(key)
+        if plan is None:
+            shape = dict(b=b, t=t, hkv=hkv, g=g, hd=hd)
+            if kernel.startswith("prefill"):
+                shape["s"] = s
+            if ps:
+                shape.update(ps=ps, p=pool)
+            tune.note_dispatch(kernel, shape)
+            route, params = tune.get_route(kernel, **shape)
+            tune.check_card_route(kernel, route)
+            plan = (params and plan_from_params(b, s, t, hkv, g, hd, params)) \
+                or attention_plan(b, s, t, hkv, g, hd, sms)
+            _ROUTED[key] = plan
+        return plan
+    tune.check_card_route(kernel, route)
+    if not params:
+        return attention_plan(b, s, t, hkv, g, hd, sms)
+    plan = plan_from_params(b, s, t, hkv, g, hd, params, clamp=False)
+    if plan is None:
+        raise ValueError(f"{kernel} cannot launch {params} at B={b} S={s} "
+                         f"T={t} G={g} hd={hd}")
+    return plan
+
+
 def block_positions(kv_len: int, q_pos: int, i0: int, i1: int, t: int, *,
                     window: int = 0, causal: bool = True) -> tuple[int, int]:
     """[lo, hi): the positions chunk rows [i0, i1) of one cache row can
@@ -191,7 +269,8 @@ def prefill_attention_packed_plain(q, k_packed, v_packed, v_scale, kv_len,
 def prefill_attention_packed(q: torch.Tensor, k_packed: torch.Tensor,
                              v_packed: torch.Tensor, v_scale: torch.Tensor,
                              kv_len, q_pos, *, window: int = 0,
-                             causal: bool = True, return_dots: bool = False):
+                             causal: bool = True, return_dots: bool = False,
+                             route: str | None = None, **params):
     """Chunked-prefill attention against a bit-resident KV cache.
 
     q: (B, S, Hq, hd) float32 | bf16 query chunk (sign-packed in the
@@ -200,16 +279,19 @@ def prefill_attention_packed(q: torch.Tensor, k_packed: torch.Tensor,
     (the chunk's rows included); q_pos: int or (B,) global position of
     q[:, 0]. Masks t >= kv_len, t > q_pos + i (when `causal`) and, when
     window > 0, t <= q_pos + i - window. Returns (B, S, Hq, hd) in q.dtype,
-    and with `return_dots` also the (B, Hkv, S, G, T) int32 score dots."""
+    and with `return_dots` also the (B, Hkv, S, G, T) int32 score dots.
+    `route`, `params`: the launch (module docstring)."""
     check_operands(q, k_packed, v_packed, v_scale)
     if q.device.type == "cpu":
+        tune.check_route("prefill_attention", route)
         return prefill_attention_packed_plain(
             q, k_packed, v_packed, v_scale, kv_len, q_pos, window=window,
             causal=causal, return_dots=return_dots)
     b, t, hkv, _ = k_packed.shape
     s, hd = q.shape[1], q.shape[-1]
     g = q.shape[2] // hkv
-    plan = attention_plan(b, s, t, hkv, g, hd, sm_count(q.device))
+    plan = routed_plan("prefill_attention", b, s, t, hkv, g, hd,
+                       sm_count(q.device), route, params)
     lens = row_lengths(kv_len, b, q.device)
     qpos = row_lengths(q_pos, b, q.device)
     out = torch.empty_like(q)
@@ -249,7 +331,8 @@ def prefill_attention_packed_paged(q: torch.Tensor, k_pool: torch.Tensor,
                                    v_scale: torch.Tensor,
                                    page_table: torch.Tensor, kv_len, q_pos, *,
                                    window: int = 0, causal: bool = True,
-                                   return_dots: bool = False):
+                                   return_dots: bool = False,
+                                   route: str | None = None, **params):
     """Chunked-prefill attention against a paged bit-resident cache.
 
     q: (B, S, Hq, hd) float32 | bf16; k_pool, v_pool: (P, ps, Hkv,
@@ -257,9 +340,11 @@ def prefill_attention_packed_paged(q: torch.Tensor, k_pool: torch.Tensor,
     P unallocated); v_scale, kv_len, q_pos, window, causal as in
     `prefill_attention_packed`, over T = NP*ps positions. Returns (B, S,
     Hq, hd) in q.dtype, and with `return_dots` the (B, Hkv, S, G, T) int32
-    dots: those of the contiguous kernel on the gathered panel."""
+    dots: those of the contiguous kernel on the gathered panel. `route`,
+    `params`: the launch (module docstring)."""
     check_operands(q, k_pool, v_pool, v_scale, page_table)
     if q.device.type == "cpu":
+        tune.check_route("prefill_attention_paged", route)
         return prefill_attention_packed_paged_plain(
             q, k_pool, v_pool, v_scale, page_table, kv_len, q_pos,
             window=window, causal=causal, return_dots=return_dots)
@@ -268,7 +353,8 @@ def prefill_attention_packed_paged(q: torch.Tensor, k_pool: torch.Tensor,
     t = n_pages * ps
     s, hd = q.shape[1], q.shape[-1]
     g = q.shape[2] // hkv
-    plan = attention_plan(b, s, t, hkv, g, hd, sm_count(q.device))
+    plan = routed_plan("prefill_attention_paged", b, s, t, hkv, g, hd,
+                       sm_count(q.device), route, params, ps, pool)
     lens = row_lengths(kv_len, b, q.device)
     qpos = row_lengths(q_pos, b, q.device)
     out = torch.empty_like(q)

@@ -17,9 +17,13 @@ it the weights are drawn from --seed (`Model.init`; at full size with
 are numpy draws from --seed, the JAX launcher's, so on the same checkpoint
 both print the same `req i:` lines.
 
+With frozen weights it prints, as the JAX launcher does, one `kernel route`
+line per entry of `ServingEngine.kernel_routes()`: the route table's answer
+for the engine's shapes (`kernels.tune`; on the card `cuda` and the
+launch's fields).
+
 Not ported yet: --mesh and --replicas raise NotImplementedError (ROADMAP
-Queue A item 6), and the `kernel route` lines wait for `kernel_routes`
-(item 5).
+Queue A item 6).
 """
 from __future__ import annotations
 
@@ -152,6 +156,9 @@ def main(argv=None) -> int:
             print(f"page pool: {pp['pages']} pages x {pp['page_size']} "
                   f"tokens = {pp['allocated']} allocated "
                   f"({pinned} pinned by prefix tree) + {pp['free']} free")
+        for name, (route, params) in eng.kernel_routes().items():
+            extra = f" {params}" if params else ""
+            print(f"kernel route {name}: {route}{extra}")
     rng = np.random.default_rng(args.seed)
 
     if args.queue:

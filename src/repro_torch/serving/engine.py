@@ -151,6 +151,55 @@ class ServingEngine:
                 "pool_pages": (self.pool_pages if self.pool_pages is not None
                                else self.slots * n_pages)}
 
+    def kernel_routes(self) -> dict:
+        """Resolved kernel routes (`kernels.tune`) for this engine's
+        characteristic shapes, the JAX package's keys: the fused GEMMs at
+        `slots` rows for both lhs forms (packed words after the chain's
+        entry, float at it), decode attention over `max_len` (paged: over
+        the slot's pages, keyed by page size and pool) and, with chunked
+        admission, prefill attention over a chunk. Each value is what
+        `tune.get_route` resolves: on the CPU the JAX package's table
+        (every route runs the plain version there), on the card `cuda`
+        and the launch's fields. Diagnostic only: dispatch resolves the
+        same table per call shape."""
+        from repro_torch.core.bitpack import packed_width
+        from repro_torch.kernels import tune
+        cfg, m, out = self.cfg, self.slots, {}
+        for k, n in [(cfg.d_model, cfg.d_model), (cfg.d_model, cfg.d_ff),
+                     (cfg.d_ff, cfg.d_model)]:
+            if k and n:
+                for pl, tag in ((1, "bits"), (0, "f32")):
+                    out[f"binary_gemm_fused[{m}x{k}->{n}|{tag}]"] = \
+                        tune.get_route("binary_gemm_fused", m=m, n=n,
+                                       kw=packed_width(k), pl=pl)
+        if cfg.n_kv_heads:
+            g = max(1, cfg.n_heads // cfg.n_kv_heads)
+            shape = dict(hkv=cfg.n_kv_heads, g=g, hd=cfg.head_dim)
+            paged = self._cache_kw()
+            if paged:
+                ps = self.page_size
+                t = -(-self.max_len // ps) * ps
+                pool = paged["pool_pages"]
+                out[f"decode_attention_paged[b{m}_t{t}_ps{ps}]"] = \
+                    tune.get_route("decode_attention_paged", b=m, t=t, ps=ps,
+                                   p=pool, **shape)
+                if self.prefill_chunk:
+                    out[f"prefill_attention_paged[b{m}"
+                        f"_s{self.prefill_chunk}_t{t}_ps{ps}]"] = \
+                        tune.get_route("prefill_attention_paged", b=m,
+                                       s=self.prefill_chunk, t=t, ps=ps,
+                                       p=pool, **shape)
+            else:
+                out[f"decode_attention[b{m}_t{self.max_len}]"] = \
+                    tune.get_route("decode_attention", b=m, t=self.max_len,
+                                   **shape)
+                if self.prefill_chunk:
+                    out[f"prefill_attention[b{m}_s{self.prefill_chunk}"
+                        f"_t{self.max_len}]"] = tune.get_route(
+                        "prefill_attention", b=m, s=self.prefill_chunk,
+                        t=self.max_len, **shape)
+        return out
+
     def resident_cache_bytes(self) -> dict:
         """Bytes of the slot cache (`slots` rows at `max_len`, or the page
         pool), split `packed` (int32 sign bitplanes, and int32 page tables)

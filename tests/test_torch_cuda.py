@@ -1419,3 +1419,76 @@ def test_cuda_whole_prompt_admission_ignores_stale_nan_v():
     want = ServingEngine(cfg, params, freeze=True, slots=2,
                          max_len=32).generate([nxt])[0]
     np.testing.assert_array_equal(got.tokens, want)
+
+
+# ---------------------------------------------------------------------------
+# The route table on the card (kernels/tune.py; tests/test_torch_tune.py
+# holds its CPU side to the JAX package's)
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_cuda_route_table_covers_the_standard_buckets():
+    """The card's committed table, named from the device, covers both
+    lists of standard buckets with `cuda` routes only."""
+    from repro_torch.kernels import tune
+    _need_card()
+    assert tune.cache_path().name != "cpu.json"
+    assert tune.missing() == []
+    table = tune.load_cache()
+    assert table["_meta"]["device"] == torch.cuda.get_device_name(0)
+    for kernel in tune.KERNELS:
+        for key, entry in table.get(kernel, {}).items():
+            assert entry["route"] == "cuda", (kernel, key)
+    for kernel, shapes in tune.standard_shapes().items():
+        for shape in shapes:
+            route, params = tune.get_route(kernel, **shape)
+            assert route == "cuda" and params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["binary_gemm", "binary_gemm_fused",
+                                    "decode_attention", "prefill_attention",
+                                    "decode_attention_paged",
+                                    "prefill_attention_paged"])
+def test_cuda_route_table_winners_equal_plain_on_ragged_shapes(kernel):
+    """Every JAX standard bucket's winner, launched through dispatch (route
+    None) at a ragged shape inside the bucket with K off a word, equals the
+    plain version: GEMMs bit for bit, attention dots bit for bit and
+    outputs within the kernel checks' tolerance with equal signs."""
+    from repro_torch.kernels import tune
+    _need_card()
+    for shape in tune.STANDARD_SHAPES[kernel]:
+        for cut in (shape, tune.ragged(shape)):
+            _, check, _ = tune.problem(kernel, cut, k_short=7)
+            check(None, {})
+            torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_a_miss_launches_the_fixed_rule():
+    """A bucket the table lacks, and every route pinned by
+    `route_override`, launch exactly `gemm_plan`'s / `attention_plan`'s
+    plan."""
+    from repro_torch._device import sm_count
+    from repro_torch.kernels import prefill_attention as pa
+    from repro_torch.kernels import tune
+    _need_card()
+    sms = sm_count(torch.device("cuda"))
+    kn, m, n, k = "binary_gemm_packed_rhs", 3, 1000, 3 * 32 * 1024 - 5
+    assert tune.bucket_key(dict(m=m, n=n, kw=-(-k // 32), pl=0)) not in \
+        tune.load_cache().get("binary_gemm", {})
+    tune.forget_plans()
+    assert bg.routed_plan(kn, m, n, k, sms, True, torch.bfloat16) == \
+        bg.gemm_plan(kn, m, n, k, sms)
+    with tune.route_override(binary_gemm="cuda", decode_attention="cuda"):
+        for kn, m, n, k in (("binary_gemm_packed", 4, 1280, 5120),
+                            ("binary_gemm_packed_rhs", 32, 5120, 17920)):
+            lhs = torch.int32 if kn == "binary_gemm_packed" \
+                else torch.bfloat16
+            assert bg.routed_plan(kn, m, n, k, sms, True, lhs) == \
+                bg.gemm_plan(kn, m, n, k, sms)
+        assert pa.routed_plan("decode_attention", 4, 1, 512, 10, 4, 128, sms,
+                              None, {}) == \
+            pa.attention_plan(4, 1, 512, 10, 4, 128, sms)
+    with pytest.raises(ValueError, match="launches no kernel"):
+        with tune.route_override(binary_gemm="xla"):
+            bg.routed_plan(kn, m, n, k, sms, True, torch.bfloat16)
