@@ -204,8 +204,8 @@ Phases, each of which raises on failure (nothing is caught):
                torch._int_mm and its bound, and its small-M kernel against
                its tiles at 1-32 rows on four shapes (words equal; the
                ground of gemm_plan's FUSED_SMALL_M_ROWS); then each family
-               at all its
-               layers (drawn and frozen one at a time), chunked kv_bits=1
+               at all its layers (drawn and frozen one at a time; cut to
+               40 when the script runs late), chunked kv_bits=1
                and the default engine: decode tokens/s, TTFT, ITL, weight
                and cache bytes, peak memory, one profiled decode step with
                its kernel launches asserted
@@ -221,7 +221,8 @@ Phases, each of which raises on failure (nothing is caught):
                reference's semantics), generate_static against the plain
                versions; the batched kernel 1 timed at the experts' shapes
                and capacity rows beside its bound, plain version and
-               torch._int_mm / torch.bmm; each config at all its layers,
+               torch._int_mm / torch.bmm; each config at all its layers
+               (as phase 11's, cut to 40 when the script runs late),
                chunked kv_bits=1 and the default engine, as phase 11
   13. vlm   - llama-3.2-vision-11b (40 layers in 8 groups of a gated
                cross-attention block and four self blocks; 1,600 image
@@ -308,6 +309,30 @@ Phases, each of which raises on failure (nothing is caught):
                this run launched that the table lacks; host µs of a plan
                choice (memo hit against the fixed rule computed per call);
                phase 15's CLI `kernel route` lines, each a `cuda` launch
+  17. mesh    - the tensor-parallel wrappers (`kernels/sharded.py`) on a
+               (1, M) mesh of the card: binary_gemm_tp at phi3's q (packed
+               lhs) and w_down (bf16 lhs) at 4 and 32 rows and
+               binary_gemm_fused_tp at the MNIST MLP's chain step (200 x
+               1,024 -> 1,024), over 2 and 4 shards; the four attention
+               wrappers at phi3's heads (B 4, Hkv 10, G 4, hd 128, T 512, a
+               decode step and a 32-row chunk, contiguous and paged) over 2
+               and 5 shards: one launch per shard per call, GEMM dots and
+               words bit for bit, attention dots bit for bit and outputs
+               within ATTN_TOL with equal signs against the unsharded
+               launch; device ms of the wrapper, of its shards' launches
+               alone and of the unsharded launch. Phase 6's engine and
+               weights on `make_serving_mesh(2, 2, devices=[cuda:0] * 4)`:
+               phase 6's 8 requests plus 2 at temperature 0.8 give the
+               single-device engine's tokens (the greedy ones phase 6's);
+               per-shard residency, decode tok/s and a profiled decode step
+               (busy ms, launches) beside one device's; phase 6b's paged
+               engine with the prefix cache on a data=4 mesh gives the
+               single-device engine's tokens on phase 6b's traffic, its
+               pool replicas equal; two replicas on the card
+               (`ReplicaServer`) give phase 6's tokens, and again with
+               replica 0 killed at its second poll (one failover round);
+               the serving CLI's `--mesh 2,2` and `--replicas 2` at smoke
+               size on the card, two processes, exit 0
 Every GEMM and packed attention of phases 4-16 takes its launch from the
 card's route table (`kernels/tune.py`); phase 3 pins every route to the
 fixed rule (`gemm_plan`, `attention_plan`: its checks hold one entry point
@@ -320,7 +345,7 @@ Launch counts are set to 0 just before each main path (mlp, cnn, lm, paged
 lm, default lm, train, ssm chunked and whole-prompt, hybrid chunked and
 default, each family's, each MoE config's and the vlm's three engines,
 the trained checkpoint's engine, the lifecycle's fault-free, faulted and
-switched engines) runs and read just after. The line
+switched engines, the mesh's 2 x 2 engine) runs and read just after. The line
 before the last is {"kernels": [...]} (ten kernels); the last line is
 {"ok": true, "device": {...}}. Weights, BN statistics and inputs are
 random from the seed; image inputs are multiples of 1/128 in
@@ -342,6 +367,14 @@ one call to compare them on one card).
 does the same for kernels 1 and 10: kernel 1 at phi3's q, K|V and gate|up
 at 4 and 32 rows and at the MLP and CNN output layers, kernel 10 at the
 decode, chunk and 4,096-step prefill shapes.
+
+    python3 chip_smoke.py --decode-times N [--port-src DIR]
+
+builds the kernels and serves only phase 7's timed run (phi3-medium-14b
+at full width and depth, chunked kv_bits=1, one device) N times, printing
+each serve's decode tokens/s and ms per step on one `decode times` JSON
+line: processes of the parent's tree and of the change, alternated in one
+call, compare the host-bound decode loop.
 """
 from __future__ import annotations
 
@@ -461,10 +494,16 @@ HYBRID_WRAP, HYBRID_MAX_LEN = (2100, 24), 2176
 # and traffic: depth cut to FAMILY_CHECK_DEPTH where tokens are held to the
 # plain path, every layer in the timed runs (drawn and frozen one layer at
 # a time); their GEMMs checked at FAMILY_ROWS rows (a decode step, a chunk,
-# a 200-token prompt)
+# a 200-token prompt). A host slower than usual cuts the timed runs of
+# phases 11 and 12 to FAMILY_TIMED_DEPTH (phi3's 40) layers, so that the
+# script ends inside its time limit: late means phase 11 starts more than
+# FAMILY_LATE_S after the build (on an H100 host ~200-215 s usually and
+# 266-272 s in the slowest whole runs, which then took ~1,125 s of the
+# 1,200 at all depths); the printed depth says which
 FAMILY_ARCHS = ("deepseek-67b", "qwen2-72b", "nemotron-4-15b",
                 "musicgen-large")
 FAMILY_CHECK_DEPTH, FAMILY_ROWS = 2, (LM_SLOTS, LM_CHUNK, 200)
+FAMILY_TIMED_DEPTH, FAMILY_LATE_S = 40, 240
 # the MoE family, each at full width on phase 6's engine and traffic (the
 # dense families' helpers, depth FAMILY_CHECK_DEPTH where tokens are held to
 # the plain path); the batched kernel 1 checked at the experts' capacity
@@ -3930,14 +3969,25 @@ def family_engine_check(base_cfg, seed, dev):
     return total, rep
 
 
+def timed_config(arch, late):
+    """`arch` at full width and depth, or at most FAMILY_TIMED_DEPTH layers
+    when the script runs `late`."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    if not late:
+        return cfg
+    return cfg.scaled(n_layers=min(cfg.n_layers, FAMILY_TIMED_DEPTH))
+
+
 def family_timed_run(cfg, seed, dev, card):
-    """The family at full width and all its layers, drawn and
+    """The family at full width and `cfg`'s layers, drawn and
     frozen one layer at a time, norms and biases non-zero, on phase 6's
     traffic through the chunked kv_bits=1 engine and the default engine:
     decode tokens/s, TTFT, ITL, weight bytes (binary, other), cache bytes
     (packed against bf16), peak device memory, and one profiled decode
     step at position 300 with its launches of kernels 1-3, 5 and 6 held to
     `family_expected`."""
+    from repro_torch.configs.base import get_config
     from repro_torch.models.api import get_model
     from repro_torch.serving.engine import ServingEngine
     gen = torch.Generator(device=dev).manual_seed(seed + 31)
@@ -3982,9 +4032,13 @@ def family_timed_run(cfg, seed, dev, card):
                                              per_step.items() if n},
                     "decode_step_trace": step})
         out[name] = rep
-        print(f"{cfg.name} timed run on {card}, {name}: full width and "
-              f"depth ({cfg.n_layers} layers, drawn and frozen layer by "
-              f"layer in {init_s:.1f} s), {LM_REQUESTS} "
+        full = get_config(cfg.name).n_layers
+        depth = (f"full width and depth ({cfg.n_layers} layers"
+                 if cfg.n_layers == full else
+                 f"full width, depth {cfg.n_layers} (cut from {full}: the "
+                 f"script ran late")
+        print(f"{cfg.name} timed run on {card}, {name}: {depth}, drawn and "
+              f"frozen layer by layer in {init_s:.1f} s), {LM_REQUESTS} "
               f"requests, {LM_SLOTS} slots, max_len {LM_MAX_LEN}; peak device "
               f"memory {rep['peak_device_bytes'] / 1e9:.2f} GB")
         print_serve_report(rep)
@@ -4038,11 +4092,12 @@ def fused_plan_sweep(dev_gen, sms):
     return rows
 
 
-def family_phase(seed, dev, card, dev_gen, popc_per_s, sms):
+def family_phase(seed, dev, card, dev_gen, popc_per_s, sms, late):
     """Phase 11: each family at full width and depth FAMILY_CHECK_DEPTH
     through three engines against the plain versions, kernel 3 timed at
     nemotron's up-projection and its small-M rows swept, then each family's
-    timed run at all its layers. Returns (the depth-2 runs' launches summed, report)."""
+    timed run at all its layers (at most FAMILY_TIMED_DEPTH when `late`).
+    Returns (the depth-2 runs' launches summed, report)."""
     from repro_torch.configs.base import get_config
     t0 = time.perf_counter()
     launches = {kn: 0 for kn in REPLACES}
@@ -4073,8 +4128,8 @@ def family_phase(seed, dev, card, dev_gen, popc_per_s, sms):
     rep["fused_plan_sweep"] = sweep
     for arch in FAMILY_ARCHS:
         t1 = time.perf_counter()
-        rep["timed"][arch] = family_timed_run(get_config(arch), seed, dev,
-                                              card)
+        rep["timed"][arch] = family_timed_run(timed_config(arch, late), seed,
+                                              dev, card)
         print(f"{arch} timed: {time.perf_counter() - t1:.1f} s")
     print(f"phase 11 (dense families): {time.perf_counter() - t0:.1f} s")
     return launches, rep
@@ -4214,13 +4269,13 @@ def moe_gemm_times(cfgs, dev_gen, popc_per_s, sms):
     return rows
 
 
-def moe_phase(seed, dev, card, dev_gen, popc_per_s, sms):
+def moe_phase(seed, dev, card, dev_gen, popc_per_s, sms, late):
     """Phase 12: each MoE config at full width and depth FAMILY_CHECK_DEPTH
     through three engines against the plain versions, launches held per
     layer and call (`family_engine_check`, `family_per_call`), the share
     of dropped routes printed per engine; the batched kernel 1 timed at the
-    experts' shapes; then each config's timed run at all its layers
-    (`family_timed_run`). Returns (the depth-2 runs' launches summed,
+    experts' shapes; then each config's timed run at all its layers (at
+    most FAMILY_TIMED_DEPTH when `late`; `family_timed_run`). Returns (the depth-2 runs' launches summed,
     report)."""
     from repro_torch.configs.base import get_config
     t0 = time.perf_counter()
@@ -4247,8 +4302,8 @@ def moe_phase(seed, dev, card, dev_gen, popc_per_s, sms):
     rep["expert_gemms"] = rows
     for arch in MOE_ARCHS:
         t1 = time.perf_counter()
-        rep["timed"][arch] = family_timed_run(get_config(arch), seed, dev,
-                                              card)
+        rep["timed"][arch] = family_timed_run(timed_config(arch, late), seed,
+                                              dev, card)
         print(f"{arch} timed: {time.perf_counter() - t1:.1f} s")
     print(f"phase 12 (moe): {time.perf_counter() - t0:.1f} s")
     return launches, rep
@@ -5796,6 +5851,382 @@ def route_table_phase(card, sms, cli_lines):
     return rep
 
 
+# the mesh (phase 17): the tensor-parallel wrappers at phi3's shapes (q and
+# w_down at decode and chunk rows over MESH_GEMM_PARTS shards, the MLP's
+# chain step for the fused GEMM, attention at B 4 / Hkv 10 / G 4 / hd 128 /
+# T 512 over MESH_ATTN_PARTS); phase 6's engine on a 2 x 2 mesh of one card
+# on phase 6's traffic plus MESH_SAMPLED requests at temperature 0.8, phase
+# 6b's paged engine on a data-4 mesh, two replicas on the card and the
+# CLI's --mesh / --replicas
+MESH_GEMM_PARTS, MESH_ATTN_PARTS = (2, 4), (2, 5)
+MESH_SAMPLED, MESH_TEMP = 2, 0.8
+MESH_POS = 300                 # the profiled decode step's position
+
+
+def card_mesh(dev, data, model=1):
+    from repro_torch.launch.mesh import make_serving_mesh
+    return make_serving_mesh(data, model, devices=[dev] * (data * model))
+
+
+def tp_row(what, tp, one, parts, shard_calls, equal):
+    """One wrapper against its unsharded launch: `equal(got, want)` checks
+    the values, the launches of one call must be `parts`; device ms of the
+    wrapper (with its split and join), of its shards' launches alone on
+    pieces cut beforehand, and of the unsharded launch."""
+    before = sum(all_launches().values())
+    got = tp()
+    torch.cuda.synchronize()
+    launches = sum(all_launches().values()) - before
+    if launches != parts:
+        raise AssertionError(f"{what}: {launches} launches for {parts} "
+                             f"shards")
+    err = equal(got, one())
+    return {"what": what, "parts": parts, "launches": launches,
+            "max_abs_err": err, "tp_ms": device_ms(tp),
+            "shards_ms": device_ms(shard_calls), "one_ms": device_ms(one)}
+
+
+def tp_gemm_checks(dev_gen, dev, cfg):
+    """binary_gemm_tp at phi3's q (packed lhs, kernel 1) and w_down (bf16
+    lhs, kernel 2) at 4 and 32 rows, binary_gemm_fused_tp at the MNIST
+    MLP's chain step (packed lhs, kernel 3), over MESH_GEMM_PARTS shards:
+    dots and words bit for bit."""
+    from repro_torch.configs.bnn_paper import BNN_MNIST
+    from repro_torch.kernels import binary_gemm as bg
+    from repro_torch.kernels import sharded as S
+    rows = []
+    gemms = [("phi3.q", "packed", cfg.d_model, cfg.n_heads * cfg.head_dim),
+             ("phi3.w_down", "bf16", cfg.d_ff, cfg.d_model)]
+    for parts in MESH_GEMM_PARTS:
+        mesh = card_mesh(dev, 1, parts)
+        for m in (LM_SLOTS, LM_CHUNK):
+            for where, lhs, k, n in gemms:
+                op = Operands(dev_gen, m, k, n)
+                a = op.a if lhs == "packed" else op.x_bf16
+                cut = n // parts
+                pieces = [op.b[i * cut:(i + 1) * cut] for i in range(parts)]
+                rows.append(tp_row(
+                    f"binary_gemm_tp {where} M={m}",
+                    lambda: S.binary_gemm_tp(a, op.b, k, mesh=mesh),
+                    lambda: bg.dispatch_binary_gemm(a, op.b, k), parts,
+                    lambda: [bg.dispatch_binary_gemm(a, p, k)
+                             for p in pieces],
+                    lambda x, y: check_equal(f"{where} tp dots", x, y)
+                    or max_abs_diff(x, y, False)))
+        cfgm = BNN_MNIST
+        op = Operands(dev_gen, cfgm.batch, cfgm.hidden, cfgm.hidden)
+        cut = cfgm.hidden // parts
+        pieces = [(op.b[i * cut:(i + 1) * cut], op.thresh[i * cut:(i + 1) * cut],
+                   op.flip[i * cut:(i + 1) * cut]) for i in range(parts)]
+        rows.append(tp_row(
+            f"binary_gemm_fused_tp mlp.chain M={cfgm.batch}",
+            lambda: S.binary_gemm_fused_tp(op.a, op.b, op.thresh, op.flip,
+                                           op.k, mesh=mesh),
+            lambda: bg.dispatch_binary_gemm_fused(op.a, op.b, op.thresh,
+                                                  op.flip, op.k), parts,
+            lambda: [bg.dispatch_binary_gemm_fused(op.a, b, t, f, op.k)
+                     for b, t, f in pieces],
+            lambda x, y: check_equal("mlp chain tp words", x, y)
+            or max_abs_diff(x, y, True)))
+    return rows
+
+
+def tp_attention_checks(dev_gen, dev, cfg, seed):
+    """The four attention wrappers at phi3's heads over MESH_ATTN_PARTS
+    shards, a decode step and a 32-row chunk, contiguous and paged (pages
+    of LM_PAGE, LM_POOL of them): dots bit for bit, outputs within
+    ATTN_TOL with equal signs against the unsharded launch."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import prefill_attention as pa
+    from repro_torch.kernels import sharded as S
+    rng = np.random.default_rng(seed)
+    b, t, hkv, hd = LM_SLOTS, LM_MAX_LEN, cfg.n_kv_heads, cfg.head_dim
+    g = cfg.n_heads // hkv
+    dt = cfg.activation_dtype
+    lens = torch.tensor([512, 300, 100, 17], dtype=torch.int32, device=dev)
+    q1, kc, vc, vs = attention_case(dev_gen, b, 1, t, hkv, g, hd, dt, dev)
+    qs = torch.randint(-6, 7, (b, LM_CHUNK, hkv * g, hd), generator=dev_gen,
+                       device=dev).to(dt)
+    _, kp, vp, _, table = paged_case(dev_gen, rng, b, 1, LM_PAGE,
+                                     t // LM_PAGE, LM_POOL, hkv, g, hd,
+                                     [256, 300, 100, 17], dt, dev)
+    plens = torch.tensor([256, 300, 100, 17], dtype=torch.int32, device=dev)
+    pos = (lens - LM_CHUNK).clamp(min=0)
+    ppos = (plens - LM_CHUNK).clamp(min=0)
+    cases = [("decode_attention_packed_tp", da.decode_attention_packed,
+              S.decode_attention_packed_tp, (q1, kc, vc, vs, lens)),
+             ("decode_attention_packed_paged_tp",
+              da.decode_attention_packed_paged,
+              S.decode_attention_packed_paged_tp,
+              (q1, kp, vp, vs, table, plens)),
+             ("prefill_attention_packed_tp", pa.prefill_attention_packed,
+              S.prefill_attention_packed_tp,
+              (qs, kc, vc, vs, pos + LM_CHUNK, pos)),
+             ("prefill_attention_packed_paged_tp",
+              pa.prefill_attention_packed_paged,
+              S.prefill_attention_packed_paged_tp,
+              (qs, kp, vp, vs, table, ppos + LM_CHUNK, ppos))]
+    rows = []
+    for parts in MESH_ATTN_PARTS:
+        mesh = card_mesh(dev, 1, parts)
+        for name, one, tp, args in cases:
+            heads = hkv // parts
+            q = args[0]
+            pieces = [(q[:, :, i * heads * g:(i + 1) * heads * g]
+                       .contiguous(),
+                       args[1][:, :, i * heads:(i + 1) * heads].contiguous(),
+                       args[2][:, :, i * heads:(i + 1) * heads].contiguous(),
+                       args[3][:, i * heads:(i + 1) * heads].contiguous())
+                      for i in range(parts)]
+
+            def equal(got, want, name=name, args=args, tp=tp, one=one,
+                      mesh=mesh):
+                _, dots = tp(*args, mesh=mesh, return_dots=True)
+                _, want_dots = one(*args, return_dots=True)
+                check_equal(f"{name} dots", dots, want_dots)
+                return check_close(f"{name} output", got, want, dt)
+
+            rows.append(tp_row(
+                f"{name} T={t}", lambda tp=tp, args=args, mesh=mesh:
+                tp(*args, mesh=mesh), lambda one=one, args=args: one(*args),
+                parts, lambda one=one, args=args, pieces=pieces:
+                [one(*p, *args[4:]) for p in pieces], equal))
+    return rows
+
+
+def mesh_decode_trace(sched, dev):
+    """One profiled decode step of every shard of `sched` at MESH_POS."""
+    def step():
+        for sh in sched._shards:
+            pos = torch.full((sh.rows,), MESH_POS, dtype=torch.int32,
+                             device=dev)
+            sched.model.decode(sh.params, sh.state["cur"], sh.cache, pos)
+    return trace(step)
+
+
+def mesh_serving_checks(base_cfg, seed, dev, card, reqs6, tokens6):
+    """phi3-medium-14b at full width, depth LM_CHECK_DEPTH (phase 6's
+    weights and engine) on a 2 x 2 mesh of the card: phase 6's requests
+    plus MESH_SAMPLED sampled ones give the single-device engine's tokens
+    (phase 6's for the greedy ones); the paged + prefix engine on a data-4
+    mesh gives phase 6b's engine's tokens on phase 6b's traffic; two
+    replicas on the card give phase 6's tokens, and again with replica 0
+    killed at its second poll. Returns (launches of the mesh run, report)."""
+    from repro_torch.models.api import get_model
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.faults import Fault, FaultPlan
+    from repro_torch.serving.replica import ReplicaServer
+    cfg = base_cfg.scaled(n_layers=LM_CHECK_DEPTH, kv_bits=1)
+    model = get_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)      # phase 6's
+    frozen = model.freeze(model.init(gen, device=dev))
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed + 17)
+    sampled = [Request(rng.integers(0, cfg.vocab, n).astype(np.int32),
+                       max_new_tokens=LM_NEW, temperature=MESH_TEMP)
+               for n in rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1,
+                                     MESH_SAMPLED)]
+    reqs = list(reqs6) + sampled
+    one = lm_engine(cfg, frozen, seed=seed)
+    want = one.generate(reqs)
+    for i, (a, b) in enumerate(zip(want[:len(tokens6)], tokens6)):
+        check_equal(f"single-device request {i} vs phase 6",
+                    torch.from_numpy(a), torch.from_numpy(b))
+    mesh = card_mesh(dev, 2, 2)
+    eng = lm_engine(cfg, frozen, seed=seed, mesh=mesh)
+    sched = eng.scheduler()
+    steps0 = sched.stats["decode_steps"]
+    reset_all_launches()
+    got = eng.generate(reqs)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    steps = sched.stats["decode_steps"] - steps0
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"mesh request {i}: {a.tolist()} != one "
+                                 f"device's {b.tolist()}")
+    resident = eng.resident_bytes_per_device()
+    prompts = [r.prompt for r in reqs6]
+    rep_one, _, sched_one = serve_report(one, prompts, LM_NEW)
+    rep_mesh, _, _ = serve_report(eng, prompts, LM_NEW)
+    step_one = trace(lambda: sched_one.model.decode(
+        sched_one.params, sched_one._state["cur"], sched_one._cache,
+        torch.full((LM_SLOTS,), MESH_POS, dtype=torch.int32, device=dev)))
+    step_mesh = mesh_decode_trace(sched, dev)
+    del eng, one, sched, sched_one
+    torch.cuda.empty_cache()
+
+    # paged + prefix on a data-4 mesh, phase 6b's weights and traffic
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)  # phase 6b's
+    frozen_p = model.init_frozen(gen, device=dev)
+    preqs = [Request(p, max_new_tokens=LM_NEW)
+             for p in shared_prefix_traffic(seed, cfg.vocab)]
+    kw = dict(seed=seed, page_size=LM_PAGE, prefix_cache=True)
+    pwant = lm_engine(cfg, frozen_p, **kw).generate(preqs)
+    peng = lm_engine(cfg, frozen_p, mesh=card_mesh(dev, 4), **kw)
+    reset_all_launches()
+    pgot = peng.serve(preqs)
+    torch.cuda.synchronize()
+    paged_launches = all_launches()
+    for i, (a, b) in enumerate(zip(pgot, pwant, strict=True)):
+        if not np.array_equal(a.tokens, b):
+            raise AssertionError(f"paged mesh request {i}: "
+                                 f"{a.tokens.tolist()} != {b.tolist()}")
+    psched = peng.scheduler()
+    first = psched._shards[0].cache
+    if not all(torch.equal(sh.cache[n], first[n])
+               for sh in psched._shards[1:] for n in ("k", "v")):
+        raise AssertionError("the paged mesh's pool replicas differ")
+    pstats = dict(psched.stats)
+    president = peng.resident_bytes_per_device()
+    if pstats["prefix_hits"] < 1:
+        raise AssertionError("the paged mesh served no prefix hit")
+    del peng, psched, frozen_p
+    torch.cuda.empty_cache()
+
+    # two replicas on the card, then replica 0 killed at its second poll
+    kw = dict(kv_bits=1, prefill_chunk=LM_CHUNK, slots=LM_SLOTS,
+              max_len=LM_MAX_LEN, seed=seed)
+    stats = {}
+    for name, plan in (("fault-free", None),
+                       ("death@replica0:1",
+                        FaultPlan([Fault("death", "replica0", 1)]))):
+        srv = ReplicaServer(cfg, frozen, devices=[dev, dev], fault_plan=plan,
+                            **kw)
+        t0 = time.perf_counter()
+        out = srv.generate(list(reqs6))
+        wall = time.perf_counter() - t0
+        for i, (a, b) in enumerate(zip(out, tokens6, strict=True)):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"replicas ({name}) request {i}: "
+                                     f"{a.tolist()} != phase 6's "
+                                     f"{b.tolist()}")
+        st = srv.stats()
+        want_health = 2 if plan is None else 1
+        if st["healthy"] != want_health or \
+                st["failovers"] != (plan is not None):
+            raise AssertionError(f"replicas ({name}): stats {st}")
+        stats[name] = {"wall_s": wall, "tokens_out": st["tokens_out"],
+                       "healthy": st["healthy"],
+                       "failovers": st["failovers"],
+                       "per_replica": [
+                           {k: e[k] for k in ("device", "healthy")}
+                           | {"completed": e.get("scheduler", {}).get(
+                               "completed", 0)} for e in st["per_replica"]]}
+        del srv
+    torch.cuda.empty_cache()
+    rep = {"steps": steps, "launches_per_step": step_mesh["launches"],
+           "resident": resident, "one": rep_one, "mesh": rep_mesh,
+           "step_one": step_one, "step_mesh": step_mesh,
+           "paged_stats": pstats, "paged_resident": president,
+           "paged_launches": paged_launches, "replicas": stats,
+           "sampled_tokens": [t.tolist() for t in got[len(reqs6):]]}
+    return launches, rep
+
+
+def mesh_cli(dev):
+    """The serving CLI's --mesh 2,2 and --replicas 2 at smoke size on the
+    card, in two processes started together: each must exit 0 and print
+    the single-device `req i:` lines' count and its own lines."""
+    import repro_torch
+    src = str(Path(repro_torch.__file__).resolve().parents[1])
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+            LM_ARCH, "--smoke", "--freeze", "--kv-bits", "1", "--batch", "3",
+            "--prompt-len", "12", "--max-new", "8", "--device", str(dev)]
+    t0 = time.perf_counter()
+    procs = {flag: subprocess.Popen(base + flag.split(), env=env, text=True,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE)
+             for flag in ("--mesh 2,2", "--replicas 2")}
+    out = {}
+    for flag, p in procs.items():
+        stdout, stderr = p.communicate(timeout=300)
+        if p.returncode:
+            raise AssertionError(f"serve CLI {flag} exited {p.returncode}: "
+                                 f"{stderr[-2000:]}")
+        out[flag] = stdout.splitlines()
+    mesh_lines, rep_lines = out["--mesh 2,2"], out["--replicas 2"]
+    shard_lines = [ln for ln in mesh_lines if "(data " in ln]
+    if not any(ln.startswith("serving mesh: data=2 x model=2")
+               for ln in mesh_lines) or len(shard_lines) != 4 \
+            or sum(ln.startswith("req ") for ln in mesh_lines) != 3:
+        raise AssertionError("serve CLI --mesh lines:\n"
+                             + "\n".join(mesh_lines))
+    if not rep_lines[0].startswith("2 replicas (2 healthy") \
+            or sum(ln.startswith("req ") for ln in rep_lines) != 3:
+        raise AssertionError("serve CLI --replicas lines:\n"
+                             + "\n".join(rep_lines))
+    return {"seconds": time.perf_counter() - t0, "mesh": mesh_lines,
+            "replicas": rep_lines}
+
+
+def mesh_phase(base_cfg, seed, dev, card, dev_gen, reqs6, tokens6):
+    """Phase 17, serving over a mesh on the card: the TP wrappers against
+    their unsharded launches, the mesh engines and the replicas against one
+    device's tokens, the CLI. Returns (launches of the mesh run, report)."""
+    t0 = time.perf_counter()
+    gemm_rows = tp_gemm_checks(dev_gen, dev, base_cfg)
+    attn_rows = tp_attention_checks(dev_gen, dev, base_cfg, seed)
+    torch.cuda.empty_cache()
+    print(f"tensor-parallel wrappers (phase 17) on {card}: one launch per "
+          f"shard; GEMM dots and words bit for bit, attention dots bit for "
+          f"bit and outputs within ATTN_TOL (largest error beside); device "
+          f"ms of the wrapper (split and join included), of its shards' "
+          f"launches on pieces cut beforehand, and of the unsharded launch:")
+    for r in gemm_rows + attn_rows:
+        print(f"  {r['what']:48s} parts {r['parts']}  wrapper "
+              f"{r['tp_ms']:.4f}  shards {r['shards_ms']:.4f}  unsharded "
+              f"{r['one_ms']:.4f}  (err {r['max_abs_err']})")
+    launches, rep = mesh_serving_checks(base_cfg, seed, dev, card, reqs6,
+                                        tokens6)
+    per_step = {k: v / max(1, rep["steps"]) for k, v in launches.items()
+                if v}
+    print(f"mesh serving (phase 17) on {card}: {LM_ARCH} full width, depth "
+          f"{LM_CHECK_DEPTH}, kv_bits=1, chunk {LM_CHUNK}, {LM_SLOTS} slots, "
+          f"max_len {LM_MAX_LEN}, mesh data=2 x model=2 of {dev} x 4: "
+          f"{LM_REQUESTS} greedy + {MESH_SAMPLED} requests at temperature "
+          f"{MESH_TEMP}: tokens equal the single-device engine's (phase 6's "
+          f"for the greedy ones); sampled {rep['sampled_tokens']}; launches "
+          f"{launches} over {rep['steps']} decode steps (per step, chunks "
+          f"included: {per_step})")
+    for shard, b in rep["resident"].items():
+        print(f"  {shard}: {b['total'] / 1e6:.3f} MB = weights "
+              f"{b['weights'] / 1e6:.3f} + cache {b['cache'] / 1e6:.3f} + "
+              f"state {b['state'] / 1e6:.6f}")
+    for name in ("one", "mesh"):
+        print(f"  {name} device, phase 6's traffic:")
+        print_serve_report(rep[name])
+    print_trace(f"  decode step, one device ({LM_SLOTS} slots at "
+                f"{MESH_POS})", rep["step_one"])
+    print_trace(f"  decode step, mesh (2 shards of {LM_SLOTS // 2} slots at "
+                f"{MESH_POS})", rep["step_mesh"])
+    ps = rep["paged_stats"]
+    print(f"  paged + prefix cache on a data=4 mesh, phase 6b's traffic: "
+          f"tokens equal one device's; pool replicas equal; prefix hits "
+          f"{ps['prefix_hits']}, tokens saved {ps['prefill_tokens_saved']}; "
+          f"launches {rep['paged_launches']}; per shard "
+          + ", ".join(f"{k}: {v['total'] / 1e6:.3f} MB"
+                      for k, v in rep["paged_resident"].items()))
+    for name, st in rep["replicas"].items():
+        print(f"  2 replicas on {dev}, {name}: tokens equal phase 6's; "
+              f"{st['healthy']} healthy, {st['failovers']} failover rounds, "
+              f"{st['tokens_out']} tokens in {st['wall_s']:.3f} s; "
+              f"{st['per_replica']}")
+    cli = mesh_cli(dev)
+    print(f"  serve CLI --mesh 2,2 and --replicas 2 on {dev} "
+          f"({cli['seconds']:.1f} s, exit 0):")
+    for ln in cli["mesh"] + cli["replicas"]:
+        if "(data " in ln or ln.startswith(("serving mesh", "req ")) \
+                or "replicas (" in ln or ln.startswith("  cuda"):
+            print(f"    {ln}")
+    rep.update({"tp_gemm": gemm_rows, "tp_attention": attn_rows, "cli": cli,
+                "seconds": time.perf_counter() - t0})
+    print(f"phase 17 (mesh): {rep['seconds']:.1f} s")
+    return launches, rep
+
+
 def attention_times(card, popc_per_s) -> int:
     """The attention kernels' times alone (`--attention-times`): the lm
     kernel times of kernels 5-9 at the main path's shapes, then the
@@ -5814,6 +6245,28 @@ def attention_times(card, popc_per_s) -> int:
     print_attention_rows(f"lm long-context decode times on {card} (ms):",
                          lm_long_decode_times(cfg, dev_gen, dev, popc_per_s),
                          40)
+    return 0
+
+
+def decode_times(card, seed, repeats) -> int:
+    """Phase 7's timed run alone (`--decode-times N`): phi3-medium-14b at
+    full width and depth on phase 6's chunked kv_bits=1 engine, one device,
+    served N times on phase 7's traffic; prints each serve's decode tokens/s
+    and ms per decode step as one JSON line, with the port imported from the
+    checkout or from `--port-src` (so that processes of a parent tree and of
+    the change can alternate in one call)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.serving import scheduler
+    dev = torch.device("cuda", 0)
+    rep, eng = lm_timed_run(get_config(LM_ARCH), seed, dev, card)
+    prompts = lm_traffic(seed, eng.cfg.vocab)
+    runs = [rep] + [serve_report(eng, prompts, LM_NEW)[0]
+                    for _ in range(repeats - 1)]
+    print("decode times " + json.dumps({
+        "port": str(Path(scheduler.__file__).parents[2]), "card": card,
+        "decode_tok_per_s": [r["decode_tok_per_s"] for r in runs],
+        "decode_ms_per_step": [1e3 * r["decode_s"] / r["decode_steps"]
+                               for r in runs]}))
     return 0
 
 
@@ -5903,6 +6356,10 @@ def main() -> int:
                          "(binary_gemm_packed at its LM and output-layer "
                          "shapes, selective_scan at its decode, chunk and "
                          "long-prefill shapes), then stop")
+    ap.add_argument("--decode-times", type=int, default=0, metavar="N",
+                    help="only build the kernels and serve phase 7's timed "
+                         "run N times (decode tokens/s and ms per step of "
+                         "each serve), then stop")
     ap.add_argument("--record-shapes", type=Path, default=None,
                     help="write every route-table bucket this run resolves "
                          "outside a fixed-rule pin (the serving and "
@@ -5910,9 +6367,9 @@ def main() -> int:
                          "card's standard shapes of kernels.tune")
     ap.add_argument("--port-src", type=Path, default=None,
                     help="import the port from this src directory instead "
-                         "of the checkout's (with --attention-times or "
-                         "--gemm-scan-times: time another tree's kernels, "
-                         "such as a parent commit's, in the same call)")
+                         "of the checkout's (with --attention-times, "
+                         "--gemm-scan-times or --decode-times: time another "
+                         "tree, such as a parent commit's, in the same call)")
     args = ap.parse_args()
     if args.port_src is not None:
         sys.path.insert(0, str(args.port_src.resolve()))
@@ -5972,6 +6429,8 @@ def main() -> int:
         return attention_times(card, popc_per_s)
     if args.gemm_scan_times:
         return gemm_scan_times(card, popc_per_s, exp_per_s, fp64_per_s, sms)
+    if args.decode_times:
+        return decode_times(card, args.seed, args.decode_times)
 
     # --------------------------------------------- kernels vs plain on card
     # each kernel at the fixed rule's launch (`gemm_plan`, `attention_plan`):
@@ -6319,14 +6778,15 @@ def main() -> int:
         path_launches[kn] += hybrid_launches[kn]
 
     # ------------------------------------------------------ dense families
+    late = time.perf_counter() - start > FAMILY_LATE_S
     family_launches, report["families"] = family_phase(
-        args.seed, dev, card, dev_gen, popc_per_s, sms)
+        args.seed, dev, card, dev_gen, popc_per_s, sms, late)
     for kn in REPLACES:
         path_launches[kn] += family_launches[kn]
 
     # ------------------------------------------------------------------ moe
     moe_launches, report["moe"] = moe_phase(args.seed, dev, card, dev_gen,
-                                            popc_per_s, sms)
+                                            popc_per_s, sms, late)
     for kn in REPLACES:
         path_launches[kn] += moe_launches[kn]
 
@@ -6352,6 +6812,12 @@ def main() -> int:
     report["route_table"] = route_table_phase(
         card, sms, report["lifecycle"]["cli_lines"])
 
+    # ----------------------------------------------------------------- mesh
+    mesh_launches, report["mesh"] = mesh_phase(
+        lm_cfg, args.seed, dev, card, dev_gen, lm_reqs, lm_tokens)
+    for kn in REPLACES:
+        path_launches[kn] += mesh_launches[kn]
+
     kernels = []
     for kn in REPLACES:
         t = totals[kn]
@@ -6376,7 +6842,7 @@ def main() -> int:
                           "lm_default": default_launches, "ssm": ssm_launches,
                           "hybrid": hybrid_launches,
                           "families": family_launches, "moe": moe_launches,
-                          "vlm": vlm_launches}
+                          "vlm": vlm_launches, "mesh": mesh_launches}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))
@@ -6401,7 +6867,8 @@ def main() -> int:
           "default engine, paged kv_bits=1 with the prefix cache) and "
           "phase 14's serve of the trained phi3-medium-14b checkpoint "
           "and phase 15's lifecycle runs (fault-free, faulted, and the "
-          "engine switched by freeze(kv_bits=1))")
+          "engine switched by freeze(kv_bits=1)) and phase 17's run of "
+          "phase 6's engine on a 2 x 2 mesh of the card")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s after the build")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

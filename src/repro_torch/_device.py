@@ -1,6 +1,7 @@
 """Where the port's entry points put their tensors, and what the card has."""
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -30,3 +31,12 @@ def sm_count(device: torch.device) -> int:
     plans fill the card by it)."""
     index = torch.device(device).index
     return _sms(torch.cuda.current_device() if index is None else index)
+
+
+def on_device(device: torch.device):
+    """The context that makes CUDA `device` current for the calling thread
+    (the kernels launch on the current device); nothing for the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

@@ -308,6 +308,15 @@ def unfreeze_params(params, dtype=None):
                     if isinstance(p, PackedWeight) else p, params)
 
 
+def params_to(params, device):
+    """The tree with every tensor and PackedWeight on `device` (a tensor
+    already there is itself, so a tree placed on its own device shares
+    every tensor)."""
+    return map_tree(lambda _, p: p.to(device)
+                    if isinstance(p, (torch.Tensor, PackedWeight)) else p,
+                    params)
+
+
 def params_frozen(params) -> bool:
     """True if the tree contains any PackedWeight leaf."""
     found = []

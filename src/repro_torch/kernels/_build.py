@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
@@ -72,6 +73,11 @@ class Built:
 
 
 _loaded: dict[str, Built] = {}
+# one build at a time (two threads' first launches would both compile and
+# write one temporary file), and one count at a time: the launch tables are
+# process-wide and a replica's worker thread counts into them too
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -125,19 +131,28 @@ def _load(name: str, path: Path, log: str) -> Built:
 def build_all() -> dict[str, Built]:
     """Compile every source at once (one nvcc each, started together) and
     load them all."""
-    todo = [n for n in SOURCES if n not in _loaded]
-    with ThreadPoolExecutor(max_workers=max(1, len(todo))) as pool:
-        results = list(pool.map(_compile, todo))
-    for name, (path, log) in zip(todo, results):
-        _load(name, path, log)
-    return dict(_loaded)
+    with _BUILD_LOCK:
+        todo = [n for n in SOURCES if n not in _loaded]
+        with ThreadPoolExecutor(max_workers=max(1, len(todo))) as pool:
+            results = list(pool.map(_compile, todo))
+        for name, (path, log) in zip(todo, results):
+            _load(name, path, log)
+        return dict(_loaded)
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library `name`, built first if need be."""
-    if name not in _loaded:
-        _load(name, *_compile(name))
-    return _loaded[name].lib
+    built = _loaded.get(name)
+    if built is None:
+        with _BUILD_LOCK:
+            built = _loaded.get(name) or _load(name, *_compile(name))
+    return built.lib
+
+
+def count(launches: dict[str, int], name: str) -> None:
+    """Add one launch of kernel `name` to a module's `launches` table."""
+    with _COUNT_LOCK:
+        launches[name] += 1
 
 
 def check(name: str, code: int, fn: str) -> None:

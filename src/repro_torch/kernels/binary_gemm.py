@@ -288,7 +288,9 @@ def routed_plan(kernel: str, m: int, n: int, k: int, sms: int, aligned: bool,
     if route is None:
         key = (kernel, m, n, k, aligned, sms, lhs)
         plan = _ROUTED.get(key)
-        if plan is None:
+        if plan is not None:
+            return plan
+        with tune.LOCK:           # a miss resolves under the current pins
             name, pl = _TABLE[kernel]
             shape = dict(m=m, n=n, kw=packed_width(k),
                          pl=int(lhs == torch.int32) if pl is None else pl)
@@ -407,7 +409,7 @@ def _launch(name: str, a: torch.Tensor, *args) -> None:
     fn = getattr(_build.library("binary_gemm"), name)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     _build.check("binary_gemm", fn(*args, stream), name)
-    launches[name] += 1
+    _build.count(launches, name)
 
 
 def binary_gemm_packed(a: torch.Tensor, b: torch.Tensor, k: int, *,

@@ -106,7 +106,7 @@ def decode_attention_packed(q: torch.Tensor, k_packed: torch.Tensor,
         out.data_ptr(), None if dots is None else dots.data_ptr(),
         b, t, hkv, g, hd, plan.split, int(window), 1.0 / float(hd) ** 0.5,
         stream), "decode_attention_packed")
-    launches["decode_attention_packed"] += 1
+    _build.count(launches, "decode_attention_packed")
     return (out, dots) if return_dots else out
 
 
@@ -167,5 +167,5 @@ def decode_attention_packed_paged(q: torch.Tensor, k_pool: torch.Tensor,
         out.data_ptr(), None if dots is None else dots.data_ptr(),
         b, n_pages, ps, pool, hkv, g, hd, plan.split, int(window),
         1.0 / float(hd) ** 0.5, stream), "decode_attention_packed_paged")
-    launches["decode_attention_packed_paged"] += 1
+    _build.count(launches, "decode_attention_packed_paged")
     return (out, dots) if return_dots else out

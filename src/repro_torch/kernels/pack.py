@@ -77,7 +77,7 @@ def pack_bits_kernel(x: torch.Tensor) -> torch.Tensor:
                                    out.data_ptr(), m, k, _stream(x))
         if code:
             _build.check("pack", code, "pack_bits")
-        launches["pack_bits"] += 1
+        _build.count(launches, "pack_bits")
     return out
 
 
@@ -156,5 +156,5 @@ def pack_rows_into(srcs, dst_pools, dst_rows: torch.Tensor) -> None:
         dst_rows.data_ptr(), n, per, k, rows, _stream(x0))
     if code:
         _build.check("pack", code, "pack_rows_into")
-    launches["pack_bits"] += 1
+    _build.count(launches, "pack_bits")
     return None

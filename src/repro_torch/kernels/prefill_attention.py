@@ -209,7 +209,9 @@ def routed_plan(kernel: str, b: int, s: int, t: int, hkv: int, g: int,
     if route is None:
         key = (kernel, b, s, t, hkv, g, hd, ps, pool, sms)
         plan = _ROUTED.get(key)
-        if plan is None:
+        if plan is not None:
+            return plan
+        with tune.LOCK:           # a miss resolves under the current pins
             shape = dict(b=b, t=t, hkv=hkv, g=g, hd=hd)
             if kernel.startswith("prefill"):
                 shape["s"] = s
@@ -310,7 +312,7 @@ def prefill_attention_packed(q: torch.Tensor, k_packed: torch.Tensor,
         b, s, t, hkv, g, hd, plan.bq, plan.split, int(window),
         int(bool(causal)), 1.0 / float(hd) ** 0.5, stream),
         "prefill_attention_packed")
-    launches["prefill_attention_packed"] += 1
+    _build.count(launches, "prefill_attention_packed")
     return (out, dots) if return_dots else out
 
 
@@ -373,5 +375,5 @@ def prefill_attention_packed_paged(q: torch.Tensor, k_pool: torch.Tensor,
         b, s, n_pages, ps, pool, hkv, g, hd, plan.bq, plan.split,
         int(window), int(bool(causal)), 1.0 / float(hd) ** 0.5, stream),
         "prefill_attention_packed_paged")
-    launches["prefill_attention_packed_paged"] += 1
+    _build.count(launches, "prefill_attention_packed_paged")
     return (out, dots) if return_dots else out

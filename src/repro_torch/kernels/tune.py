@@ -74,6 +74,7 @@ import json
 import os
 import re
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Any
@@ -185,11 +186,16 @@ def cache_path(backend: str | None = None) -> Path:
 # otherwise (a new table on disk, a persisted entry, a route override)
 PLAN_MEMOS: list[dict] = []
 _seen_table: list[tuple[str, float]] = []
+# held while a memo is read and filled and while the pins change, so that a
+# plan resolved in one thread (a replica's worker) cannot land in a memo
+# another thread just emptied for its route override
+LOCK = threading.RLock()
 
 
 def forget_plans() -> None:
-    for memo in PLAN_MEMOS:
-        memo.clear()
+    with LOCK:
+        for memo in PLAN_MEMOS:
+            memo.clear()
 
 
 @functools.lru_cache(maxsize=4)
@@ -282,24 +288,26 @@ misses: dict[tuple[str, str], dict[str, int]] = {}
 seen: dict[tuple[str, str], dict[str, int]] = {}
 
 # Active route pins (kernel name -> route), installed by `route_override`.
-# Highest dispatch priority: consulted before the table.
+# Highest dispatch priority: consulted before the table. Process-wide, as
+# the JAX package's are: a pin holds in every thread while it is on.
 _ROUTE_OVERRIDE: dict[str, str] = {}
-
 
 @contextlib.contextmanager
 def route_override(**kernel_routes: str):
     """Pin `kernel -> route` for every get_route call inside the context
     (params {}: on the card, the fixed rule's launch). Nests; inner
     contexts win on conflicts and restore the outer pins on exit."""
-    old = dict(_ROUTE_OVERRIDE)
-    _ROUTE_OVERRIDE.update(kernel_routes)
-    forget_plans()
+    with LOCK:
+        old = dict(_ROUTE_OVERRIDE)
+        _ROUTE_OVERRIDE.update(kernel_routes)
+        forget_plans()
     try:
         yield
     finally:
-        _ROUTE_OVERRIDE.clear()
-        _ROUTE_OVERRIDE.update(old)
-        forget_plans()
+        with LOCK:
+            _ROUTE_OVERRIDE.clear()
+            _ROUTE_OVERRIDE.update(old)
+            forget_plans()
 
 
 def check_route(kernel: str, route: str | None) -> None:

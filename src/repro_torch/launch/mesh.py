@@ -1,0 +1,120 @@
+"""Serving meshes (port of `repro.launch.mesh`'s serving part).
+
+A `Mesh` is a grid of devices with named axes, ('data', 'model') for
+serving: the scheduler shards its slot batch over 'data', and 'model' is
+the axis the tensor-parallel kernel wrappers (`kernels.sharded`) split.
+The JAX package's mesh is one controller driving every device; so is this
+one: one process holds every shard's tensors, each on its own device, and
+steps through the shards in turn. A device may repeat, so one card can
+hold a whole mesh (`devices=[torch.device("cuda", 0)] * 4`, the port's
+analogue of the JAX tests' forced host device count), and the CPU tests
+build theirs over `["cpu"] * 4`.
+
+    mesh = make_serving_mesh(2, 2)              # four cards, one per shard
+    mesh = make_serving_mesh(2, 2, devices=["cuda:0"] * 4)   # one card
+    data, model = parse_mesh("data=2,model=1")
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+
+@dataclass(frozen=True, eq=False)
+class Mesh:
+    """Devices on a grid: `devices` an object ndarray of torch.device whose
+    shape is the axes' sizes in `axis_names` order."""
+    devices: np.ndarray
+    axis_names: tuple[str, ...]
+
+    def __post_init__(self):
+        if self.devices.ndim != len(self.axis_names):
+            raise ValueError(f"a {self.devices.ndim}-D device grid for axes "
+                             f"{self.axis_names}")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """Axis name -> size, as a JAX mesh's `shape`."""
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    def device(self, **index: int) -> torch.device:
+        """The device at the named axes' indices (0 for an axis not
+        given)."""
+        return self.devices[tuple(index.get(a, 0) for a in self.axis_names)]
+
+    def shard_name(self, index: tuple[int, ...]) -> str:
+        """`"cuda:0 (data 0, model 1)"`: a shard's device and place, which
+        tells repeated devices apart."""
+        where = ", ".join(f"{a} {i}" for a, i in zip(self.axis_names, index))
+        return f"{self.devices[index]} ({where})"
+
+
+def visible_devices() -> list[torch.device]:
+    """One entry per visible CUDA card (none without a card)."""
+    if not torch.cuda.is_available():
+        return []
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _grid(devices, shape: tuple[int, ...]) -> np.ndarray:
+    grid = np.empty(shape, dtype=object)
+    flat = [torch.device(d) for d in devices]
+    for i, d in enumerate(flat):
+        grid.flat[i] = d
+    return grid
+
+
+def make_host_mesh(model: int = 1, devices=None) -> Mesh:
+    """('data', 'model') mesh over every device of `devices` (default: the
+    visible cards)."""
+    devs = visible_devices() if devices is None else list(devices)
+    n = len(devs)
+    if not n or n % model:
+        raise ValueError(f"{n} devices do not split into model={model}")
+    return Mesh(_grid(devs, (n // model, model)), ("data", "model"))
+
+
+def parse_mesh(spec: str) -> tuple[int, int]:
+    """Parse a `--mesh` flag value into (data, model) axis sizes.
+
+    Accepts bare sizes ('2,1', '4') or named ('data=2,model=1' in either
+    order); a single number is the data axis with model=1. A bad spec
+    raises ValueError."""
+    parts = [p.strip() for p in spec.split(",") if p.strip()]
+    if not parts:
+        raise ValueError(f"empty mesh spec: {spec!r}")
+    if any("=" in p for p in parts):
+        kv = dict(p.split("=", 1) for p in parts)
+        unknown = set(kv) - {"data", "model"}
+        if unknown:
+            raise ValueError(f"unknown mesh axes {sorted(unknown)} in "
+                             f"{spec!r}")
+        return int(kv.get("data", 1)), int(kv.get("model", 1))
+    if len(parts) > 2:
+        raise ValueError(f"mesh spec has >2 axes: {spec!r}")
+    data = int(parts[0])
+    model = int(parts[1]) if len(parts) == 2 else 1
+    return data, model
+
+
+def make_serving_mesh(data: int = 1, model: int = 1, devices=None) -> Mesh:
+    """('data', 'model') mesh over the first data*model of `devices`
+    (default: the visible cards, one per shard). Unlike `make_host_mesh` it
+    need not cover every device, so a serving job can pin a sub-mesh.
+    Raises ValueError when there are fewer devices than shards."""
+    if data < 1 or model < 1:
+        raise ValueError(f"mesh axes must be >= 1, got {data}x{model}")
+    devs = visible_devices() if devices is None else list(devices)
+    need = data * model
+    if need > len(devs):
+        raise ValueError(
+            f"mesh {data}x{model} needs {need} devices, have {len(devs)} "
+            f"(pass devices=, which may repeat one device)")
+    return Mesh(_grid(devs[:need], (data, model)), ("data", "model"))
+
+
+def batch_axes(mesh: Mesh) -> tuple[str, ...]:
+    """Mesh axes the global batch is sharded over."""
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))

@@ -22,8 +22,16 @@ line per entry of `ServingEngine.kernel_routes()`: the route table's answer
 for the engine's shapes (`kernels.tune`; on the card `cuda` and the
 launch's fields).
 
-Not ported yet: --mesh and --replicas raise NotImplementedError (ROADMAP
-Queue A item 6).
+--mesh D,M (or 'data=D,model=M', or 'D') serves over a mesh of D*M shards
+(`launch.mesh`): the scheduler splits its slots over the data axis and
+prints, after the JAX launcher's `serving mesh` line, each shard's resident
+bytes (a data row's 'model' 0 shard holds the row; the other shards 0).
+--replicas R fans one queue of mixed-length requests out to R
+single-device engines (`serving.replica`) and prints the JAX launcher's
+replica lines, its fit line with --freeze, and each request's tokens as
+`req i:` lines. With --device D every shard or replica sits on D (the CPU,
+or one card holding them all); without it, each gets a card of its own,
+and there must be enough cards.
 """
 from __future__ import annotations
 
@@ -73,9 +81,16 @@ def main(argv=None) -> int:
     ap.add_argument("--slots", type=int, default=4,
                     help="decode slots")
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
-                    help="serve over a device mesh (not ported yet)")
+                    help="serve over a device mesh: 'data=D,model=M' (or "
+                         "'D,M'/'D'). The scheduler shards its slots over "
+                         "the data axis; a model axis replicates serving "
+                         "state and is reserved for the tensor-parallel "
+                         "kernel wrappers. With --device every shard sits "
+                         "on that device")
     ap.add_argument("--replicas", type=int, default=0,
-                    help="data-parallel replica serving (not ported yet)")
+                    help="data-parallel replica serving: one request queue "
+                         "fans out to this many single-device engines "
+                         "(serving.replica; exclusive with --mesh/--queue)")
     ap.add_argument("--deadline", type=float, default=0.0,
                     help="per-request TTFT deadline in seconds (--queue "
                          "mode): requests still queued past it are shed "
@@ -92,10 +107,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="cpu, cuda, ...; default: the CUDA card")
     args = ap.parse_args(argv)
-    for flag, value in (("--mesh", args.mesh), ("--replicas", args.replicas)):
-        if value:
-            raise NotImplementedError(f"{flag}: sharded and replica serving "
-                                      f"wait for ROADMAP Queue A item 6")
 
     import torch
 
@@ -125,10 +136,25 @@ def main(argv=None) -> int:
     else:
         params = model.init(gen, device=dev)
 
+    if args.replicas:
+        _serve_replicas(cfg, params, args, fault_plan)
+        return 0
+
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import (make_serving_mesh, parse_mesh,
+                                             visible_devices)
+        data, model_ax = parse_mesh(args.mesh)
+        devices = ([dev] * (data * model_ax) if args.device is not None
+                   else visible_devices())
+        mesh = make_serving_mesh(data, model_ax, devices=devices)
+        print(f"serving mesh: data={data} x model={model_ax} over "
+              f"{data * model_ax} of {len(devices)} devices")
+
     eng = ServingEngine(cfg, params,
                         max_len=args.prompt_len + args.max_new + 1,
                         freeze=args.freeze, slots=args.slots, seed=args.seed,
-                        kv_bits=args.kv_bits,
+                        kv_bits=args.kv_bits, mesh=mesh,
                         prefill_chunk=args.prefill_chunk or None,
                         page_size=args.page_size or None,
                         pool_pages=args.pool_pages or None,
@@ -156,6 +182,15 @@ def main(argv=None) -> int:
             print(f"page pool: {pp['pages']} pages x {pp['page_size']} "
                   f"tokens = {pp['allocated']} allocated "
                   f"({pinned} pinned by prefix tree) + {pp['free']} free")
+        if mesh is not None:
+            # each shard's residency: a data row's 'model' 0 shard holds
+            # the params on its device, the row's cache / pool replica and
+            # serving state; the row's other shards nothing
+            for shard, b in eng.resident_bytes_per_device().items():
+                print(f"  {shard}: {b['total']/1e6:.3f} MB resident = "
+                      f"{b['weights']/1e6:.3f} MB weights + "
+                      f"{b['cache']/1e6:.3f} MB cache/pool + "
+                      f"{b['state']/1e6:.3f} MB serving state")
         for name, (route, params) in eng.kernel_routes().items():
             extra = f" {params}" if params else ""
             print(f"kernel route {name}: {route}{extra}")
@@ -174,6 +209,68 @@ def main(argv=None) -> int:
         print(f"req {i}: {o.tolist()}")
     print("stats:", eng.scheduler().stats)
     return 0
+
+
+def _serve_replicas(cfg, params, args, fault_plan) -> None:
+    """Replica fan-out: one queue of `--batch` mixed-length requests
+    round-robins over `--replicas` single-device engines
+    (serving.replica)."""
+    from repro_torch.launch.mesh import visible_devices
+    from repro_torch.models.api import param_count
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.replica import ReplicaServer, devices_needed
+
+    if args.device is not None:
+        devs = [params["embed"].device] * args.replicas
+    else:
+        devs = visible_devices()
+        if args.replicas > len(devs):
+            raise ValueError(f"--replicas {args.replicas} > {len(devs)} "
+                             f"cards (pass --device to put every replica "
+                             f"on one)")
+        devs = devs[:args.replicas]
+    srv = ReplicaServer(cfg, params, devices=devs,
+                        fault_plan=fault_plan,
+                        max_len=args.prompt_len + args.max_new + 1,
+                        freeze=args.freeze, slots=args.slots, seed=args.seed,
+                        kv_bits=args.kv_bits,
+                        prefill_chunk=args.prefill_chunk or None,
+                        page_size=args.page_size or None,
+                        pool_pages=args.pool_pages or None,
+                        prefix_cache=args.prefix_cache)
+    rng = np.random.default_rng(args.seed)
+    lo = max(1, args.prompt_len // 4)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab,
+                                        int(rng.integers(lo, args.prompt_len + 1)),
+                                        dtype=np.int32),
+                    max_new_tokens=args.max_new)
+            for _ in range(args.batch)]
+    t0 = time.time()
+    outs = srv.generate(reqs)
+    wall = time.time() - t0
+    st = srv.stats()
+    print(f"{st['replicas']} replicas ({st['healthy']} healthy, "
+          f"{st['failovers']} failover rounds) served {len(outs)} requests "
+          f"in {wall:.3f}s | {st['tokens_out']/wall:.1f} tok/s aggregate")
+    for e in st["per_replica"]:
+        line = (f"  {e['device']}: {e['weight_bytes']/1e6:.2f} MB weights + "
+                f"{e['cache_bytes']/1e6:.3f} MB cache")
+        s = e.get("scheduler")
+        if s:
+            line += (f" | {s['completed']} reqs, {s['tokens_out']} tokens, "
+                     f"decode {s['decode_s']:.3f}s")
+        print(line)
+    if args.freeze:
+        # the fit argument, in device units: a per-device budget sized so
+        # the fp32 masters would need 8 devices vs what packed needs
+        wb = st["per_replica"][0]["weight_bytes"]
+        unpacked = param_count(params) * 4
+        budget = -(-unpacked // 8)
+        print(f"fit at a {budget/1e6:.2f} MB/device budget (float needs "
+              f"{devices_needed(unpacked, budget)}): packed replica fits in "
+              f"{devices_needed(wb, budget)} device(s)")
+    for i, o in enumerate(outs):
+        print(f"req {i}: {o.tolist()}")
 
 
 def _serve_queue(eng, cfg, rng, args) -> None:

@@ -45,8 +45,12 @@ for it, as in the JAX package.
 (the serving lifecycle: backpressure, deadline shedding, poison isolation,
 burst retries and the invariant watchdog; `serving.scheduler`); `serve`
 returns each request's `Completion` with its status. `freeze(kv_bits=1)`
-switches an idle engine to the packed cache. The mesh is not ported yet:
-`mesh=` raises NotImplementedError (ROADMAP Queue A item 6).
+switches an idle engine to the packed cache.
+
+`mesh=` (`launch.mesh.make_serving_mesh(data, model, devices=...)`) shards
+the slot batch over the mesh's 'data' axis (`serving.scheduler`; `slots`
+must divide over it): tokens, greedy and sampled, are the single-device
+engine's. `resident_bytes_per_device()` reports what each shard holds.
 """
 from __future__ import annotations
 
@@ -93,6 +97,7 @@ class ServingEngine:
         self.prefill_chunk = prefill_chunk
         self.interleave_steps = interleave_steps
         self.page_size, self.pool_pages = page_size, pool_pages
+        self.mesh = mesh
         self._sched_kw = dict(page_size=page_size, pool_pages=pool_pages,
                               prefix_cache=prefix_cache, mesh=mesh,
                               queue_cap=queue_cap, overflow=overflow,
@@ -107,7 +112,7 @@ class ServingEngine:
                       "prefill_s": 0.0, "decode_s": 0.0}
         if freeze:
             self.freeze()
-        self.scheduler()      # raises now for the mesh
+        self.scheduler()      # a bad mesh or paging argument raises now
 
     def freeze(self, kv_bits: int | None = None) -> "ServingEngine":
         """Freeze fp32 masters to packed 1-bit weights, in place (load-time
@@ -208,30 +213,53 @@ class ServingEngine:
         Paged, `packed` also counts each layer's sink page, and a
         `page_pool` section holds the scheduler's `page_stats()`: pages,
         allocated, free, pinned by the prefix tree, the tree's counters."""
-        cache = self.model.init_cache(self.slots, self.max_len, device="meta",
-                                      **self._cache_kw())
-        out = {"packed": 0, "float": 0}
-        for name, leaf in cache.items():
-            kind = "packed" if leaf.dtype == torch.int32 else "float"
-            n = leaf.numel()
-            if name in ("k", "v") and "page_table" in cache:
-                n += n // leaf.shape[-4]             # the sink pages
-            out[kind] += n * leaf.element_size()
-        out["total"] = out["packed"] + out["float"]
+        out = _cache_bytes(self.model.init_cache(
+            self.slots, self.max_len, device="meta", **self._cache_kw()))
         if self._sched is not None:
             stats = self._sched.page_stats()
             if stats is not None:
                 out["page_pool"] = stats
         return out
 
+    def resident_bytes_per_device(self) -> dict:
+        """What each shard of the mesh holds, in bytes: {shard: {"weights",
+        "cache", "state", "total"}}, keyed `"cuda:0 (data 0, model 1)"` so
+        that repeated devices stay apart. A data row's 'model' 0 shard
+        holds the params placed on its device (shards on one device share
+        that tree), the row's cache (paged: a whole pool replica) and its
+        slots' serving state; the row's other 'model' shards hold nothing,
+        as the engine runs no tensor parallelism yet. Builds the scheduler
+        if need be (placement happens there)."""
+        if self.mesh is None:
+            raise ValueError("resident_bytes_per_device needs a mesh")
+        sched = self.scheduler()
+        data = self.mesh.axis_names.index("data")
+        out = {}
+        for index in np.ndindex(*self.mesh.devices.shape):
+            b = dict.fromkeys(("weights", "cache", "state"), 0)
+            if not any(i for a, i in enumerate(index) if a != data):
+                shard = sched._shards[index[data]]
+                wb = resident_weight_bytes(shard.params)
+                b = {"weights": wb["binary"] + wb["other"],
+                     "cache": _cache_bytes(shard.cache)["total"],
+                     "state": sum(x.numel() * x.element_size()
+                                  for x in shard.state.values())}
+            b["total"] = b["weights"] + b["cache"] + b["state"]
+            out[self.mesh.shard_name(index)] = b
+        return out
+
     def scheduler(self) -> Scheduler:
-        """The engine's continuous-batching scheduler (built lazily)."""
+        """The engine's continuous-batching scheduler (built lazily). On a
+        mesh the engine then serves its other paths from the first shard's
+        placement of the params, as the JAX engine does."""
         if self._sched is None:
             self._sched = Scheduler(
                 self.cfg, self.model, self.params, n_slots=self.slots,
                 max_len=self.max_len, prefill_chunk=self.prefill_chunk,
                 interleave_steps=self.interleave_steps, seed=self.seed,
                 **self._sched_kw)
+            if self.mesh is not None:
+                self.params = self._sched.params
         return self._sched
 
     def serve(self, requests: list[Request]) -> list[Completion]:
@@ -299,6 +327,20 @@ class ServingEngine:
         self.stats["decode_s"] += time.time() - t0
         return [out[j, :r.max_new_tokens].astype(np.int32)
                 for j, r in enumerate(requests)]
+
+
+def _cache_bytes(cache: dict) -> dict:
+    """A cache's bytes, split `packed` (int32 words and page tables) vs
+    `float`; a paged pool counts each layer's sink page too."""
+    out = {"packed": 0, "float": 0}
+    for name, leaf in cache.items():
+        kind = "packed" if leaf.dtype == torch.int32 else "float"
+        n = leaf.numel()
+        if name in ("k", "v") and "page_table" in cache:
+            n += n // leaf.shape[-4]                 # the sink pages
+        out[kind] += n * leaf.element_size()
+    out["total"] = out["packed"] + out["float"]
+    return out
 
 
 def _sync(device: torch.device) -> None:

@@ -101,8 +101,32 @@ float cache's are zeroed, as the JAX scheduler overwrites the slot's whole
 row): rows the last occupant left are masked by length, but a masked row's
 softmax weight 0 times a non-finite V is NaN.
 
-The mesh is not ported yet: `mesh=` raises NotImplementedError naming
-ROADMAP Queue A item 6.
+The mesh (`mesh=`, a `launch.mesh.Mesh` with a 'data' axis; the JAX
+scheduler's `_init_mesh` and `_sharded_burst`): the slots split into
+contiguous blocks, one per 'data' shard (as `P("data")` on the batch axis
+gives; `n_slots` must divide, else ValueError). Each shard holds its rows of
+the slot state and of every cache leaf (along `cache_batch_axes`), the
+params placed on its device (`.to(device)`: on a repeated device the same
+tensors), and, paged, its own replica of the page pools. One process steps
+through the shards in turn, each on its own device. Admission runs at batch
+1 on the owning shard through the route table, as on one device (the JAX
+package pins its admission to plain XLA because `pallas_call` is opaque to
+GSPMD; a shard's operands here are whole tensors on one device, so nothing
+needs that pin); a decode step runs every shard's model on its own rows,
+so a MoE router sees exactly its shard's rows, as under JAX's `shard_map`.
+The shards run in lockstep: one stop flag over every row (JAX's per-device
+loops may stop apart, which moves burst boundaries and never tokens), and
+a step's Gumbel noise drawn once for the whole slot batch and split by
+rows, so greedy and sampled tokens are the single-device scheduler's. A
+write to a replicated pool reaches every replica before any shard reads
+it: after each admission chunk its pages, and after each burst the running
+slots' decode pages, are copied from the writing shard to the others
+(JAX's exact masked `psum`), so a prefix-cache hit may pin pages another
+shard wrote. A data row's tensors live on its 'model' 0 device only: the
+engine does not split its layers over 'model' yet (tensor parallelism is
+the `kernels.sharded` wrappers, ROADMAP Queue A item 6c), so the other
+'model' devices hold nothing of it. The fault sites tick once per event,
+as on one device.
 """
 from __future__ import annotations
 
@@ -110,18 +134,22 @@ import dataclasses
 import os
 import time
 from collections import deque
+from typing import Any
 
 import numpy as np
 import torch
 
+from repro_torch._device import on_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.api import ATTENTION_FAMILIES, Model
+from repro_torch.core.packed import params_to
+from repro_torch.models.api import (ATTENTION_FAMILIES, PAGED, Model,
+                                    cache_batch_axes)
 from repro_torch.serving.faults import (FaultPlan, InvariantViolation,
                                         QueueFull, RequestError,
                                         TransientDeviceError)
 from repro_torch.serving.pager import PagePool
 from repro_torch.serving.prefix_cache import PrefixCache
-from repro_torch.serving.sampling import sample_tokens
+from repro_torch.serving.sampling import gumbel_noise, sample_tokens
 
 
 @dataclasses.dataclass
@@ -163,6 +191,19 @@ class _Running:
 
 
 @dataclasses.dataclass
+class _Shard:
+    """One 'data' shard of the slot batch: slots [lo, lo + rows), their
+    state and cache rows (paged: and a replica of the pools), and the
+    params, all on `device`."""
+    device: torch.device
+    params: Any
+    lo: int
+    rows: int
+    state: dict
+    cache: dict
+
+
+@dataclasses.dataclass
 class _Admission:
     slot: int
     rid: int
@@ -190,9 +231,13 @@ class Scheduler:
                  fault_plan: FaultPlan | None = None,
                  check_invariants: bool | None = None,
                  burst_retries: int = 3, backoff_s: float = 0.01):
-        if mesh is not None:
-            raise NotImplementedError("the mesh is not ported yet (ROADMAP "
-                                      "Queue A item 6, serving/scheduler.py)")
+        if mesh is not None and "data" not in mesh.axis_names:
+            raise ValueError(f"a serving mesh needs a 'data' axis, got "
+                             f"{mesh.axis_names}")
+        dp = 1 if mesh is None else mesh.shape["data"]
+        if n_slots % dp:
+            raise ValueError(f"n_slots={n_slots} must divide over the data "
+                             f"axis ({dp})")
         if (prefill_chunk is not None and prefill_chunk < 1) \
                 or interleave_steps < 0:
             raise ValueError("prefill_chunk >= 1 (or None: whole-prompt "
@@ -253,7 +298,7 @@ class Scheduler:
                     f"by prefill_chunk ({page_size} % {prefill_chunk})")
             self._ptree = PrefixCache(self._pager, page_size)
         self._needs_vs = cfg.kv_bits == 1 and attn_fam
-        self.cfg, self.model, self.params = cfg, model, params
+        self.cfg, self.model = cfg, model
         self.n_slots, self.max_len = n_slots, max_len
         self.max_out = max_len
         self.prefill_chunk = prefill_chunk
@@ -261,7 +306,16 @@ class Scheduler:
         # MoE rows share expert capacity: a step queued ahead of the host's
         # read of the stop flag would run on another batch than JAX's burst
         self._flag_lag = not cfg.n_experts
-        self.device = params["embed"].device     # the model's device
+        if mesh is None:
+            devices = [params["embed"].device]   # the model's device
+            placed = {devices[0]: params}
+        else:
+            devices = [mesh.device(data=d) for d in range(dp)]
+            # the params on every data shard's device (one tree per
+            # distinct device); nothing runs on the other 'model' devices
+            placed = {dev: params_to(params, dev)
+                      for dev in dict.fromkeys(devices)}
+        self.device = devices[0]       # the noise generator's device
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._next_rid = 0
         self._queue: deque[tuple[int, Request]] = deque()
@@ -288,37 +342,90 @@ class Scheduler:
                       "shed": 0, "rejected": 0, "burst_retries": 0,
                       "invariant_violations": 0}
 
-        self._cache = model.init_cache(n_slots, max_len, device=self.device,
-                                       **cache_kw)
-        z = dict(dtype=torch.int32, device=self.device)
-        self._state = {
-            "cur": torch.zeros((n_slots,), **z),
-            "pos": torch.zeros((n_slots,), **z),
-            "active": torch.zeros((n_slots,), dtype=torch.bool,
-                                  device=self.device),
-            "out_len": torch.zeros((n_slots,), **z),
-            "budget": torch.ones((n_slots,), **z),
-            "temp": torch.zeros((n_slots,), dtype=torch.float32,
-                                device=self.device),
-            "eos": torch.full((n_slots,), -1, **z),
-            "outs": torch.zeros((n_slots, self.max_out), **z),
-            "done": torch.zeros((n_slots,), dtype=torch.bool,
-                                device=self.device),
-            "err": torch.zeros((n_slots,), dtype=torch.bool,
-                               device=self.device),
+        rows = n_slots // dp
+        self._rows = rows
+        self._shards = [
+            _Shard(dev, placed[dev], d * rows, rows,
+                   self._new_state(rows, dev),
+                   model.init_cache(rows, max_len, device=dev, **cache_kw))
+            for d, dev in enumerate(devices)]
+        # the pool leaves a shard's write must reach every replica of
+        self._pools = [] if dp == 1 or not self._paged else \
+            [name for name, ax in cache_batch_axes(model, max_len,
+                                                   **cache_kw).items()
+             if ax == PAGED]
+
+    def _new_state(self, n: int, device: torch.device) -> dict:
+        z = dict(dtype=torch.int32, device=device)
+        return {
+            "cur": torch.zeros((n,), **z),
+            "pos": torch.zeros((n,), **z),
+            "active": torch.zeros((n,), dtype=torch.bool, device=device),
+            "out_len": torch.zeros((n,), **z),
+            "budget": torch.ones((n,), **z),
+            "temp": torch.zeros((n,), dtype=torch.float32, device=device),
+            "eos": torch.full((n,), -1, **z),
+            "outs": torch.zeros((n, self.max_out), **z),
+            "done": torch.zeros((n,), dtype=torch.bool, device=device),
+            "err": torch.zeros((n,), dtype=torch.bool, device=device),
         }
 
-    # -- helpers ------------------------------------------------------------
-    def _sync(self) -> None:
-        """Wait for the device, so a host clock reads compute, not
-        dispatch."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    # the first shard's (without a mesh: the whole slot batch's) params,
+    # state and cache
+    @property
+    def params(self):
+        return self._shards[0].params
 
-    def _generator(self, temps) -> torch.Generator | None:
-        """The noise generator when some row samples, else None (greedy
-        rows draw nothing)."""
-        return self._gen if any(t > 0 for t in temps) else None
+    @property
+    def _state(self) -> dict:
+        return self._shards[0].state
+
+    @property
+    def _cache(self) -> dict:
+        return self._shards[0].cache
+
+    # -- helpers ------------------------------------------------------------
+    def _owner(self, slot: int) -> tuple[_Shard, int]:
+        """The shard holding `slot`, and the slot's row in it."""
+        sh = self._shards[slot // self._rows]
+        return sh, slot - sh.lo
+
+    def _host(self, key: str) -> np.ndarray:
+        """State leaf `key` of every slot, on the host (one transfer per
+        shard)."""
+        parts = [sh.state[key].cpu().numpy() for sh in self._shards]
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+    def _share_pages(self, src: _Shard, pages) -> None:
+        """Copy pool pages `pages` of `src`'s replica to every other
+        shard's (a no-op without a mesh or a paged cache)."""
+        if not self._pools or not pages:
+            return
+        idx = torch.as_tensor(sorted(set(pages)), dtype=torch.long,
+                              device=src.device)
+        for name in self._pools:
+            leaf = src.cache[name]
+            ax = leaf.ndim - 4                 # (..., P, ps, Hkv, w)
+            rows = leaf.index_select(ax, idx)
+            for sh in self._shards:
+                if sh is not src:
+                    sh.cache[name].index_copy_(ax, idx.to(sh.device),
+                                               rows.to(sh.device))
+
+    def _sync(self) -> None:
+        """Wait for the devices, so a host clock reads compute, not
+        dispatch."""
+        for dev in dict.fromkeys(sh.device for sh in self._shards):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    def _noise(self, temps, shape, device) -> torch.Tensor | None:
+        """Gumbel noise of `shape` from the engine's generator when some
+        row samples, on `device`; None when every row is greedy (nothing
+        is drawn)."""
+        if not any(t > 0 for t in temps):
+            return None
+        return gumbel_noise(shape, self._gen, self.device).to(device)
 
     # -- submission ---------------------------------------------------------
     def _validate(self, req: Request) -> np.ndarray:
@@ -404,7 +511,8 @@ class Scheduler:
         sentinel pool_pages beyond (unallocated: kernels clip and mask)."""
         row = np.full((self.n_pages,), self.pool_pages, np.int32)
         row[:len(pages)] = pages
-        self._cache["page_table"][slot] = torch.from_numpy(row).to(self.device)
+        sh, ls = self._owner(slot)
+        sh.cache["page_table"][ls] = torch.from_numpy(row).to(sh.device)
 
     def _alloc_pages(self, n: int) -> list[int] | None:
         """All-or-nothing page allocation, evicting cold prefix-tree
@@ -450,14 +558,14 @@ class Scheduler:
         self._pager.decref([p for p in pages if p not in taken])
         self._set_page_row(slot, [])
 
-    def _image_kw(self, req: Request) -> dict:
+    def _image_kw(self, req: Request, device: torch.device) -> dict:
         """The vlm family's image argument of a prefill call: the request's
-        img_emb as a (1, n_img_tokens, d_vision) float32 tensor on the
-        device (JAX's float32 array); none for other families."""
+        img_emb as a (1, n_img_tokens, d_vision) float32 tensor on `device`
+        (JAX's float32 array); none for other families."""
         if self.cfg.family != "vlm":
             return {}
         img = np.asarray(req.img_emb, np.float32)[None]
-        return {"img_emb": torch.from_numpy(img).to(self.device)}
+        return {"img_emb": torch.from_numpy(img).to(device)}
 
     # -- whole-prompt admission ---------------------------------------------
     def _admit(self, slot: int, rid: int, req: Request,
@@ -470,12 +578,14 @@ class Scheduler:
             self.stats["max_admit_stall_tokens"] = max(
                 self.stats["max_admit_stall_tokens"], plen)
         t0 = time.time()
+        sh, ls = self._owner(slot)
         tokens = torch.from_numpy(req.prompt[None].astype(np.int64)) \
-            .to(self.device)
-        logits, self._cache = self.model.prefill(self.params, tokens,
-                                                 cache=self._cache, slot=slot,
-                                                 **self._image_kw(req))
-        self._first_token(slot, logits, plen, req, poison)
+            .to(sh.device)
+        with on_device(sh.device):
+            logits, sh.cache = self.model.prefill(
+                sh.params, tokens, cache=sh.cache, slot=ls,
+                **self._image_kw(req, sh.device))
+            self._first_token(slot, logits, plen, req, poison)
         self._sync()                                  # honest prefill_s
         dt = time.time() - t0
         self.stats["prefill_s"] += dt
@@ -524,7 +634,8 @@ class Scheduler:
             self._vs_snaps[rid] = {(i + 1) * ps: payloads[i]
                                    for i in range(len(payloads))}
             if start and self._needs_vs:
-                self._cache["v_scale"][:, slot] = payloads[-1]
+                sh, ls = self._owner(slot)
+                sh.cache["v_scale"][:, ls] = payloads[-1].to(sh.device)
         n_chunks = max(1, -(-(int(req.prompt.size) - start)
                             // self.prefill_chunk))
         self._admitting.append(_Admission(slot, rid, req, n_chunks,
@@ -543,15 +654,22 @@ class Scheduler:
             self.stats["max_admit_stall_tokens"] = max(
                 self.stats["max_admit_stall_tokens"], n_valid)
         t0 = time.time()
+        sh, ls = self._owner(slot)
         chunk = np.zeros((1, c), np.int64)
         chunk[0, :n_valid] = req.prompt[lo:lo + n_valid]
-        tokens = torch.from_numpy(chunk).to(self.device)
+        tokens = torch.from_numpy(chunk).to(sh.device)
         # the vlm family's image K/V are written with the first chunk
-        img = self._image_kw(req) if adm.next == 0 else {}
-        logits, self._cache = self.model.prefill_chunk(
-            self.params, tokens, self._cache, slot, lo, n_valid, **img)
-        if final:
-            self._first_token(slot, logits, lo + n_valid, req, adm.poison)
+        img = self._image_kw(req, sh.device) if adm.next == 0 else {}
+        with on_device(sh.device):
+            logits, sh.cache = self.model.prefill_chunk(
+                sh.params, tokens, sh.cache, ls, lo, n_valid, **img)
+            if final:
+                self._first_token(slot, logits, lo + n_valid, req,
+                                  adm.poison)
+        if self._paged:       # the chunk's pages, to every pool replica
+            ps = self.page_size
+            self._share_pages(sh, self._slot_pages[slot][
+                lo // ps:(lo + n_valid - 1) // ps + 1])
         self._sync()                                  # honest prefill_s
         dt = time.time() - t0
         self.stats["prefill_s"] += dt
@@ -567,7 +685,7 @@ class Scheduler:
             # there (a device copy, no host sync), so the page can enter
             # the tree at retirement and a hit can resume from it
             self._vs_snaps[adm.rid][end] = (
-                self._cache["v_scale"][:, slot].clone()
+                sh.cache["v_scale"][:, ls].clone()
                 if self._needs_vs else None)
         if final:
             self._admitting.popleft()
@@ -584,24 +702,25 @@ class Scheduler:
         at once with its error flag set."""
         if poison != 0.0:
             logits1 = logits1 + poison
-        st = self._state
-        temp = torch.full((1,), float(req.temperature), device=self.device)
-        tok = sample_tokens(logits1, temp,
-                            generator=self._generator([req.temperature]))[0]
+        sh, ls = self._owner(slot)
+        st = sh.state
+        temp = torch.full((1,), float(req.temperature), device=sh.device)
+        tok = sample_tokens(logits1, temp, gumbel=self._noise(
+            [req.temperature], logits1.shape, sh.device))[0]
         eos = -1 if req.eos_id is None else int(req.eos_id)
         bad = ~torch.isfinite(logits1).all()
         finished = bad | (tok == eos) | (req.max_new_tokens <= 1)
-        st["cur"][slot] = tok
-        st["pos"][slot] = prompt_len
-        st["active"][slot] = ~finished
-        st["out_len"][slot] = 1
-        st["budget"][slot] = req.max_new_tokens
-        st["temp"][slot] = float(req.temperature)
-        st["eos"][slot] = eos
-        st["outs"][slot] = 0
-        st["outs"][slot, 0] = tok
-        st["done"][slot] = finished
-        st["err"][slot] = bad
+        st["cur"][ls] = tok
+        st["pos"][ls] = prompt_len
+        st["active"][ls] = ~finished
+        st["out_len"][ls] = 1
+        st["budget"][ls] = req.max_new_tokens
+        st["temp"][ls] = float(req.temperature)
+        st["eos"][ls] = eos
+        st["outs"][ls] = 0
+        st["outs"][ls, 0] = tok
+        st["done"][ls] = finished
+        st["err"][ls] = bad
         self._temps[slot] = float(req.temperature)
 
     def _note_first_token(self, slot: int, rid: int) -> None:
@@ -614,34 +733,56 @@ class Scheduler:
 
     # -- decode -------------------------------------------------------------
     def _step(self, drain: bool) -> torch.Tensor:
-        """One decode step of every slot; returns the device flag 'stop
-        the burst after this step'."""
-        st = self._state
-        act = st["active"]
-        pos = torch.where(act, st["pos"], -1)
-        logits, self._cache = self.model.decode(self.params, st["cur"],
-                                                self._cache, pos)
-        gen = self._generator(self._temps[s] for s in self._running)
-        nxt = sample_tokens(logits, st["temp"], generator=gen)
-        nxt = torch.where(act, nxt, st["cur"])
-        # per-row poison isolation: non-finite logits finish that row now
-        bad = act & ~torch.isfinite(logits).all(dim=-1)
-        rows = torch.arange(self.n_slots, device=self.device)
-        idx = st["out_len"].clamp(max=self.max_out - 1).long()
-        old = st["outs"][rows, idx]
-        st["outs"][rows, idx] = torch.where(act, nxt, old)
-        out_len = st["out_len"] + act.to(torch.int32)
-        finished = act & (bad | (nxt == st["eos"]) | (out_len >= st["budget"]))
-        st["cur"] = nxt
-        st["pos"] = st["pos"] + act.to(torch.int32)
-        st["active"] = act & ~finished
-        st["out_len"] = out_len
-        st["done"] = st["done"] | finished
-        st["err"] = st["err"] | bad
-        stop = ~st["active"].any()
+        """One decode step of every slot (each shard's model on its own
+        rows, the step's noise drawn once for all of them); returns the
+        device flag 'stop the burst after this step'."""
+        temps = [self._temps[s] for s in self._running]
+        noise, active, done = None, [], []
+        for sh in self._shards:
+            with on_device(sh.device):
+                st = sh.state
+                act = st["active"]
+                pos = torch.where(act, st["pos"], -1)
+                logits, sh.cache = self.model.decode(sh.params, st["cur"],
+                                                     sh.cache, pos)
+                if noise is None:
+                    noise = self._noise(temps, (self.n_slots,
+                                                logits.shape[-1]),
+                                        self.device)
+                nxt = sample_tokens(logits, st["temp"], gumbel=None
+                                    if noise is None else
+                                    noise[sh.lo:sh.lo + sh.rows].to(
+                                        sh.device))
+                nxt = torch.where(act, nxt, st["cur"])
+                # per-row poison isolation: non-finite logits finish that
+                # row now
+                bad = act & ~torch.isfinite(logits).all(dim=-1)
+                rows = torch.arange(sh.rows, device=sh.device)
+                idx = st["out_len"].clamp(max=self.max_out - 1).long()
+                old = st["outs"][rows, idx]
+                st["outs"][rows, idx] = torch.where(act, nxt, old)
+                out_len = st["out_len"] + act.to(torch.int32)
+                finished = act & (bad | (nxt == st["eos"])
+                                  | (out_len >= st["budget"]))
+                st["cur"] = nxt
+                st["pos"] = st["pos"] + act.to(torch.int32)
+                st["active"] = act & ~finished
+                st["out_len"] = out_len
+                st["done"] = st["done"] | finished
+                st["err"] = st["err"] | bad
+                active.append(st["active"].any())
+                if not drain:
+                    done.append(st["done"].any())
+        stop = ~self._any(active)
         if not drain:
-            stop = stop | st["done"].any()
+            stop = stop | self._any(done)
         return stop
+
+    def _any(self, flags: list[torch.Tensor]) -> torch.Tensor:
+        """The shards' device flags OR-ed, on the first shard's device."""
+        if len(flags) == 1:
+            return flags[0]
+        return torch.stack([f.to(self.device) for f in flags]).any()
 
     def _run_burst(self, drain: bool, max_steps: int) -> None:
         """Decode until some slot completes (with `drain`: until every slot
@@ -681,6 +822,11 @@ class Scheduler:
                 if bool(prev):
                     break
             prev = stop
+        if self._pools:         # the decode pages, to every pool replica
+            for slot, info in self._running.items():
+                sh, _ = self._owner(slot)
+                self._share_pages(sh, self._slot_pages[slot][
+                    info.prompt_len // self.page_size:])
         self._sync()
         self.stats["decode_s"] += time.time() - t0
         self.stats["decode_steps"] += steps
@@ -693,7 +839,7 @@ class Scheduler:
         lands on its first token's interval."""
         now = time.time()
         dur = now - t_start
-        out_len = self._state["out_len"].cpu().numpy()
+        out_len = self._host("out_len")
         for slot, info in self._running.items():
             rid = info.rid
             n = int(out_len[slot] - self._prev_out_len[slot])
@@ -710,12 +856,12 @@ class Scheduler:
         A slot with non-finite logits retires with status 'error'."""
         if not self._running:
             return []
-        done = self._state["done"].cpu().numpy()
+        done = self._host("done")
         if not done.any():
             return []
-        out_len = self._state["out_len"].cpu().numpy()
-        outs = self._state["outs"].cpu().numpy()
-        errf = self._state["err"].cpu().numpy()
+        out_len = self._host("out_len")
+        outs = self._host("outs")
+        errf = self._host("err")
         slots = [int(s) for s in np.nonzero(done)[0] if int(s) in self._running]
         completed = []
         now = time.time()
@@ -743,9 +889,13 @@ class Scheduler:
                 itl=np.asarray(self._itl.pop(rid, [])),
                 status="error" if bad else "completed",
                 error="non-finite logits" if bad else None))
-        idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
-        self._state["done"][idx] = False
-        self._state["err"][idx] = False
+        for sh in self._shards:
+            mine = [s - sh.lo for s in slots if sh.lo <= s < sh.lo + sh.rows]
+            if mine:
+                idx = torch.as_tensor(mine, dtype=torch.long,
+                                      device=sh.device)
+                sh.state["done"][idx] = False
+                sh.state["err"][idx] = False
         return completed
 
     # -- faults and the invariant watchdog ----------------------------------
@@ -883,5 +1033,6 @@ class Scheduler:
         return out
 
     def decode_steps(self) -> int:
-        """Decode steps run so far (every slot steps together)."""
+        """Decode steps run so far: every slot steps together, and a mesh's
+        shards in lockstep, so this is also the busiest shard's count."""
         return self.stats["decode_steps"]

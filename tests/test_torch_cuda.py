@@ -1492,3 +1492,166 @@ def test_cuda_a_miss_launches_the_fixed_rule():
     with pytest.raises(ValueError, match="launches no kernel"):
         with tune.route_override(binary_gemm="xla"):
             bg.routed_plan(kn, m, n, k, sms, True, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# serving over a mesh on the card (tests/test_torch_mesh_serving.py,
+# tests/test_torch_sharded_kernels.py and tests/test_torch_replica.py hold
+# the same paths on repeated CPU devices)
+# ---------------------------------------------------------------------------
+def _card_mesh(data, model=1):
+    from repro_torch.launch.mesh import make_serving_mesh
+    return make_serving_mesh(data, model,
+                             devices=[torch.device("cuda", 0)] * (data * model))
+
+
+def _launch_counts():
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import prefill_attention as pa
+    return {**bg.launches, **da.launches, **pa.launches}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [2, 4])
+def test_cuda_gemm_tp_equals_the_unsharded_launch(parts):
+    """binary_gemm_tp / binary_gemm_fused_tp on `parts` shards of one card:
+    dots and words bit for bit against the unsharded launch, one launch
+    per shard."""
+    from repro_torch.kernels import sharded as S
+    _need_card()
+    mesh = _card_mesh(1, parts)
+    for m, k, n in ((4, 5120, 5120), (32, 17920, 5120), (9, 300, 256)):
+        x, w, thresh, flip = _case(m + n, m, k, n)
+        b = pack_bits(_t(w.T)).cuda()
+        for lhs in (_t(x).cuda(), pack_bits(_t(x)).cuda()):
+            before = dict(_launch_counts())
+            got = S.binary_gemm_tp(lhs, b, k, mesh=mesh)
+            after = _launch_counts()
+            assert sum(after.values()) - sum(before.values()) == parts
+            np.testing.assert_array_equal(
+                got.cpu(), bg.dispatch_binary_gemm(lhs, b, k).cpu())
+            args = (lhs, b, _t(thresh).cuda(), _t(flip).cuda(), k)
+            np.testing.assert_array_equal(
+                S.binary_gemm_fused_tp(*args, mesh=mesh).cpu(),
+                bg.dispatch_binary_gemm_fused(*args).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [2, 5])
+def test_cuda_attention_tp_equals_the_unsharded_launch(parts):
+    """The four attention wrappers at phi3's heads (Hkv 10, G 4, hd 128)
+    over `parts` shards of one card: dots bit for bit against the
+    unsharded launch, outputs too with both pinned to one T split, one
+    launch per shard."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import prefill_attention as pa
+    from repro_torch.kernels import sharded as S
+    _need_card()
+    mesh = _card_mesh(1, parts)
+    gen = torch.Generator().manual_seed(parts)
+    b, t, hkv, g, hd, ps, s = 4, 512, 10, 4, 128, 32, 32
+    kw = packed_width(hd)
+    words = lambda *shape: torch.randint(  # noqa: E731
+        -2 ** 31, 2 ** 31 - 1, shape, generator=gen, dtype=torch.int32).cuda()
+    kc, vc = words(b, t, hkv, kw), words(b, t, hkv, kw)
+    pool = b * (t // ps)
+    kp, vp = words(pool, ps, hkv, kw), words(pool, ps, hkv, kw)
+    table = torch.randperm(pool, generator=gen).reshape(b, t // ps) \
+        .to(torch.int32).cuda()
+    vs = torch.rand(b, hkv, generator=gen).cuda() + 0.5
+    lens = torch.tensor([512, 300, 17, 1], dtype=torch.int32).cuda()
+    q1 = torch.randn(b, 1, hkv * g, hd, generator=gen).cuda()
+    qs = torch.randn(b, s, hkv * g, hd, generator=gen).cuda()
+    pos = (lens - s).clamp(min=0)
+    cases = [(da.decode_attention_packed, S.decode_attention_packed_tp,
+              (q1, kc, vc, vs, lens)),
+             (da.decode_attention_packed_paged,
+              S.decode_attention_packed_paged_tp, (q1, kp, vp, vs, table,
+                                                   lens)),
+             (pa.prefill_attention_packed, S.prefill_attention_packed_tp,
+              (qs, kc, vc, vs, pos + s, pos)),
+             (pa.prefill_attention_packed_paged,
+              S.prefill_attention_packed_paged_tp,
+              (qs, kp, vp, vs, table, pos + s, pos))]
+    for kernel, tp, args in cases:
+        before = sum(_launch_counts().values())
+        got, dots = tp(*args, mesh=mesh, return_dots=True)
+        assert sum(_launch_counts().values()) - before == parts
+        want, want_dots = kernel(*args, return_dots=True)
+        np.testing.assert_array_equal(dots.cpu(), want_dots.cpu())
+        np.testing.assert_allclose(got.cpu(), want.cpu(), atol=1e-6,
+                                   rtol=1e-6)
+        pinned = dict(route="cuda", split=1)
+        np.testing.assert_array_equal(
+            tp(*args, mesh=mesh, **pinned).cpu(),
+            kernel(*args, **pinned).cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_engine_equals_one_device():
+    """A smoke phi3 engine on a 2 x 2 mesh of one card, chunked kv_bits=1
+    and paged + prefix at data=4: tokens (greedy and sampled) equal the
+    single-device engine's, through the kernels."""
+    from repro_torch.serving.engine import ServingEngine
+    _need_card()
+    cfg, params = _lifecycle_params()
+    reqs = _lifecycle_requests(cfg, [(7, 6), (12, 5), (3, 8), (9, 4), (5, 7)])
+    reqs[1].temperature = 0.8
+    for mesh, extra in ((_card_mesh(2, 2), {}),
+                        (_card_mesh(4), dict(page_size=4,
+                                             prefix_cache=True))):
+        kw = dict(freeze=True, kv_bits=1, prefill_chunk=4, slots=4,
+                  max_len=32, seed=3, **extra)
+        want = ServingEngine(cfg, params, **kw).generate(reqs)
+        got = ServingEngine(cfg, params, mesh=mesh, **kw).generate(reqs)
+        for a, b in zip(want, got, strict=True):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_two_replicas_on_one_card():
+    """Two replicas on cuda:0 give one engine's greedy tokens; replica 0
+    killed at its second poll fails over with the same tokens."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.faults import Fault, FaultPlan
+    from repro_torch.serving.replica import ReplicaServer
+    _need_card()
+    cfg, params = _lifecycle_params()
+    reqs = _lifecycle_requests(cfg, [(7, 6), (12, 5), (3, 8), (9, 4), (5, 7)])
+    kw = dict(freeze=True, kv_bits=1, prefill_chunk=4, slots=2, max_len=32)
+    want = ServingEngine(cfg, params, **kw).generate(reqs)
+    for plan in (None, FaultPlan([Fault("death", "replica0", 1)])):
+        srv = ReplicaServer(cfg, params, devices=["cuda:0"] * 2,
+                            fault_plan=plan, backoff_s=0.001, **kw)
+        for a, b in zip(want, srv.generate(reqs), strict=True):
+            np.testing.assert_array_equal(a, b)
+        assert srv.health == ([True, True] if plan is None
+                              else [False, True])
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_admission_launches_the_table_route():
+    """A 2 x 2 mesh of one card admits through the route table as one
+    device does: no route pin is on while a shard prefills, and every
+    chunk launches kernel 8."""
+    import dataclasses
+    from repro_torch.kernels import prefill_attention as pa
+    from repro_torch.kernels import tune
+    from repro_torch.serving.engine import ServingEngine
+    _need_card()
+    cfg, params = _lifecycle_params()
+    reqs = _lifecycle_requests(cfg, [(7, 6), (12, 5), (3, 8), (9, 4)])
+    eng = ServingEngine(cfg, params, freeze=True, kv_bits=1, prefill_chunk=4,
+                        slots=4, max_len=32, mesh=_card_mesh(2, 2))
+    sched, pins = eng.scheduler(), []
+    real = sched.model.prefill_chunk
+
+    def chunk(*a, **kw):
+        pins.append(dict(tune._ROUTE_OVERRIDE))
+        return real(*a, **kw)
+    sched.model = dataclasses.replace(sched.model, prefill_chunk=chunk)
+    before = pa.launches["prefill_attention_packed"]
+    eng.generate(reqs)
+    assert pins and all(p == {} for p in pins)
+    assert pa.launches["prefill_attention_packed"] - before \
+        == len(pins) * cfg.n_layers

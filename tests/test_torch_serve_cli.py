@@ -69,10 +69,21 @@ def test_queue_under_faults_resolves_as_jax(ckpt, capsys, monkeypatch):
     assert any(ln.startswith("page pool:") for ln in port)
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2,1"], ["--replicas", "2"]])
-def test_mesh_and_replicas_raise(flag):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        serve.main(BASE + flag + ["--device", "cpu"])
+@pytest.mark.parametrize("flag", [["--mesh", "2,1", "--slots", "3",
+                                   "--device", "cpu"], ["--replicas", "2"]])
+def test_mesh_and_replicas_raise(flag, monkeypatch):
+    """--mesh and --replicas serve (tests/test_torch_mesh_serving.py,
+    tests/test_torch_replica.py); they raise where the devices cannot hold
+    them: slots that do not divide over the data axis, and without
+    --device more replicas than cards (none here: the default device is
+    stubbed to the CPU, so the launcher reaches the count)."""
+    from repro_torch import _device
+    from repro_torch.launch import mesh
+    monkeypatch.setattr(_device, "resolve_device",
+                        lambda d=None: torch.device(d or "cpu"))
+    monkeypatch.setattr(mesh, "visible_devices", lambda: [])
+    with pytest.raises(ValueError, match="divide|cards"):
+        serve.main(BASE + flag)
 
 
 def test_defaults_to_the_card():

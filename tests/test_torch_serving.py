@@ -299,8 +299,9 @@ def test_resident_bytes(masters):
 
 
 def test_unported_options_raise(masters):
-    """What is not ported raises NotImplementedError: the mesh alone now.
-    Whole-prompt admission (prefill_chunk=None) and the float cache
+    """Nothing of the serving engine raises NotImplementedError now: a mesh
+    serves (tests/test_torch_mesh_serving.py), and one without a 'data'
+    axis is the caller's error, a ValueError. Whole-prompt admission (prefill_chunk=None) and the float cache
     (kv_bits=0) are ported: each serves the packed chunked engine's prompts
     to their budgets. Paging is ported: page_size=8 serves (the same tokens
     as the contiguous cache), and prefix_cache=True without page_size is
@@ -315,8 +316,13 @@ def test_unported_options_raise(masters):
         got = ServingEngine(cfg, pp, **args).generate(served)
         assert [len(t) for t in got] == [r.max_new_tokens for r in served]
     args = dict(freeze=True, kv_bits=1, prefill_chunk=4, max_len=32)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ServingEngine(cfg, pp, mesh=object(), **args)
+    from repro_torch.launch.mesh import Mesh, make_serving_mesh
+    with pytest.raises(ValueError, match="'data' axis"):
+        ServingEngine(cfg, pp, mesh=Mesh(np.array(
+            [torch.device("cpu")], dtype=object), ("model",)), **args)
+    got = ServingEngine(cfg, pp, mesh=make_serving_mesh(
+        2, devices=["cpu"] * 2), **args).generate(served)
+    assert [len(t) for t in got] == [r.max_new_tokens for r in served]
     for kw in (dict(page_size=8, fault_plan=FaultPlan()),
                dict(queue_cap=2)):
         got = ServingEngine(cfg, pp, **args, **kw).generate(served)
