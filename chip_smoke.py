@@ -333,6 +333,25 @@ Phases, each of which raises on failure (nothing is caught):
                replica 0 killed at its second poll (one failover round);
                the serving CLI's `--mesh 2,2` and `--replicas 2` at smoke
                size on the card, two processes, exit 0
+  18. mesh train - phi3-medium-14b at full width, depth 2, bbp_det,
+               S-AdaMax, 8 x 512: step 0 on a data-2 mesh of the card
+               (`make_train_step(mesh=)`) against one device's from the
+               same init: loss within MESH_LOSS_REL, moments within
+               MESH_GRAD_REL, params held through the moments; one
+               profiled step of each (busy share, launches).
+               musicgen-large at full width, depth cut to 8 of 48, through
+               `Trainer(mesh=)` on data 2 at 8 x 256: a straight 4-step run,
+               a run stopped after 2 (its step-2 checkpoint the one alive
+               under build/mesh_train), resumed on data 4 and on one device
+               (every restored leaf byte-equal to the saved state, losses
+               within MESH_LOSS_REL) and on data 2 (losses, params and
+               moments equal the straight run's bit for bit); per-shard
+               resident bytes; EF-SignSGD (`train/compressed.py`) over
+               data 2 against the dense step, 6 steps of SGD(0.02), each
+               loss within 0.08, residuals non-zero, compressed_bytes; the
+               trained masters' packed_binary checkpoint served at
+               kv_bits=1, chunk 32 on a 2 x 1 mesh and on one device
+               (greedy tokens equal; kernels 1, 2, 5, 6 and 8 launched)
 Every GEMM and packed attention of phases 4-16 takes its launch from the
 card's route table (`kernels/tune.py`); phase 3 pins every route to the
 fixed rule (`gemm_plan`, `attention_plan`: its checks hold one entry point
@@ -2591,11 +2610,22 @@ def leaves_equal(a, b) -> bool:
                zip(tree_leaves(a), tree_leaves(b), strict=True))
 
 
+def slice_pairs(a: torch.Tensor, b: torch.Tensor, n: int = 1 << 24):
+    """Matching flat float64 slices of two tensors of one shape on a's
+    device, b's moved there (a full-width leaf in float64 at once would not
+    fit beside a train step's state on the card)."""
+    fa, fb = a.reshape(-1), b.reshape(-1)
+    for lo in range(0, fa.numel(), n):
+        yield fa[lo:lo + n].double(), fb[lo:lo + n].to(fa.device).double()
+
+
 def max_rel(got, want) -> float:
-    """max |got - want| / max |want| over one tensor (0 for equal zeros)."""
-    got, want = got.double().cpu(), want.double().cpu()
-    scale = float(want.abs().max()) if want.numel() else 0.0
-    err = float((got - want).abs().max()) if want.numel() else 0.0
+    """max |got - want| / max |want| over one tensor (0 for equal zeros),
+    a slice at a time on got's device."""
+    scale = err = 0.0
+    for x, y in slice_pairs(got, want):
+        scale = max(scale, float(y.abs().max()))
+        err = max(err, float((x - y).abs().max()))
     return err / scale if scale else (0.0 if err == 0 else float("inf"))
 
 
@@ -5166,7 +5196,8 @@ def moments_parity(got, want, rel, scale):
     moments within rel of each tensor's largest magnitude, params there too
     except where the per-element normalization carries the moments'
     difference further (tests/_torch_moments.py: a noise-floor gradient, an
-    AP2 boundary, or through a shared AP2 factor). Returns the counts."""
+    AP2 boundary, or through a shared AP2 factor). A slice at a time on
+    got's device. Returns the counts."""
     from repro_torch.core.ap2 import ap2_exponent
     from repro_torch.optim.base import tree_leaves
     (pg, sg), (pc, sc) = got, want
@@ -5177,25 +5208,28 @@ def moments_parity(got, want, rel, scale):
     counts = {"noise_floor": 0, "ap2": 0, "carried": 0}
     for p_g, p_c, m_g, m_c, u_g, u_c in zip(
             tree_leaves(pg), tree_leaves(pc), tree_leaves(sg.m),
-            tree_leaves(sc.m), tree_leaves(sg.u), tree_leaves(sc.u)):
-        e_g = ap2_exponent(1.0 / (u_g + 1e-8)).cpu()
-        e_c = ap2_exponent(1.0 / (u_c.cpu() + 1e-8))
-        p_g, p_c, m_g, m_c = (x.cpu().double() for x in (p_g, p_c, m_g, m_c))
-        diff = (p_g - p_c).abs()
+            tree_leaves(sc.m), tree_leaves(sg.u), tree_leaves(sc.u),
+            strict=True):
         top = float(p_c.abs().max())
-        off = diff > rel * top
         floor = rel * float(m_c.abs().max())
-        noise = (m_g.abs() <= floor) & (m_c.abs() <= floor)
-        ap2 = ~noise & (e_g != e_c)
-        carried = ~noise & (e_g == e_c) & (
-            diff <= scale * (m_g - m_c).abs() * 2.0 ** e_c.double()
-            * (1 + 1e-6) + rel * top)
-        if (off & ~(noise | ap2 | carried)).any():
-            raise AssertionError("params differ beyond what the moments' "
-                                 "difference explains")
-        counts["noise_floor"] += int((off & noise).sum())
-        counts["ap2"] += int((off & ap2).sum())
-        counts["carried"] += int((off & carried).sum())
+        for (pa, pb), (ma, mb), (ua, ub) in zip(
+                slice_pairs(p_g, p_c), slice_pairs(m_g, m_c),
+                slice_pairs(u_g, u_c)):
+            e_g = ap2_exponent(1.0 / (ua.float() + 1e-8))
+            e_c = ap2_exponent(1.0 / (ub.float() + 1e-8))
+            diff = (pa - pb).abs()
+            off = diff > rel * top
+            noise = (ma.abs() <= floor) & (mb.abs() <= floor)
+            ap2 = ~noise & (e_g != e_c)
+            carried = ~noise & (e_g == e_c) & (
+                diff <= scale * (ma - mb).abs() * 2.0 ** e_c.double()
+                * (1 + 1e-6) + rel * top)
+            if bool((off & ~(noise | ap2 | carried)).any()):
+                raise AssertionError("params differ beyond what the "
+                                     "moments' difference explains")
+            counts["noise_floor"] += int((off & noise).sum())
+            counts["ap2"] += int((off & ap2).sum())
+            counts["carried"] += int((off & carried).sum())
     return counts
 
 
@@ -6227,6 +6261,409 @@ def mesh_phase(base_cfg, seed, dev, card, dev_gen, reqs6, tokens6):
     return launches, rep
 
 
+# the mesh train (phase 18): phi3-medium-14b at full width, depth
+# LM_TRAIN_DEPTH, one step on a data-2 mesh of the card against one
+# device's step from the same init; musicgen-large at full width, depth cut
+# to MESH_TRAIN_DEPTH (checkpoint bytes and script time), through the
+# Trainer on data 2 (MESH_TRAIN_STEPS steps, a checkpoint every 2), resumed
+# on data 2, data 4 and one device; EF-SignSGD's compressed step against
+# the dense step for MESH_EF_STEPS steps of SGD(MESH_EF_LR); the trained
+# masters' packed checkpoint served on a 2 x 1 mesh and on one device
+MESH_TRAIN_ARCH, MESH_TRAIN_DEPTH, MESH_TRAIN_STEPS = "musicgen-large", 8, 4
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 8, 256
+MESH_EF_STEPS, MESH_EF_LR, MESH_EF_BOUND = 6, 0.02, 0.08
+# a shard's weight gradient is its bf16 GEMM over its rows, rounded once
+# to bf16, and the shards' are summed in float32; one device's is one bf16
+# GEMM over every row: they agree to bf16's rounding (2^-8 of an element)
+# where the halves do not cancel, so moments are held to MESH_GRAD_REL of
+# each tensor's largest magnitude, and params through the moments
+MESH_GRAD_REL = 2.0 ** -6
+MESH_LOSS_REL = 1e-3         # a mean of the shards' means, bf16 logits
+# S-AdaMax's first-step scale AP2(lr / (1 - b1)) at lr 1e-3
+MESH_ADAMAX_SCALE = float(2.0 ** np.round(np.log2(np.float32(1e-3)
+                                                  / np.float32(0.1))))
+
+
+def mesh_step_check(seed, dev, card):
+    """phi3-medium-14b at full width, depth LM_TRAIN_DEPTH, bbp_det,
+    S-AdaMax, batch LM_TRAIN_BATCH x LM_TRAIN_SEQ: step 0 on a data-2 mesh
+    of the card against one device's from the same init (only step 0: the
+    reference's backward reaches inf from step 2, ROADMAP Queue C); then
+    one profiled step of each. Returns the report."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import LMDataConfig, SyntheticLM
+    from repro_torch.launch.shardings import place
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.base import tree_leaves, tree_map
+    from repro_torch.train.step import default_optimizer, make_train_step
+    cfg = get_config(LM_ARCH).scaled(n_layers=LM_TRAIN_DEPTH)
+    model, opt = get_model(cfg), default_optimizer(cfg, 1e-3)
+    data = SyntheticLM(LMDataConfig(vocab=cfg.vocab, seq_len=LM_TRAIN_SEQ,
+                                    global_batch=LM_TRAIN_BATCH, seed=seed))
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch(0).items()}
+    mesh = card_mesh(dev, 2)
+    runs = {}
+    for name in ("one", "mesh"):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        p = model.init(gen, device=dev)
+        st = opt.init(p)
+        step = make_train_step(model, opt, mesh=mesh if name == "mesh"
+                               else None)
+        if name == "mesh":
+            p, st = (tree_map(lambda x: place(x, mesh, ()), t)
+                     for t in (p, st))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, st, m = step(p, st, batch)
+        loss = float(m["loss"])
+        wall = (time.perf_counter() - t0) * 1e3
+        if name == "mesh":
+            p, st = (tree_map(lambda a: a[0, 0], t) for t in (p, st))
+        runs[name] = (p, st, loss, wall)
+    (p1, s1, l1, w1), (p2, s2, l2, w2) = runs["one"], runs["mesh"]
+    if not np.isfinite(l2) or abs(l2 - l1) > MESH_LOSS_REL * abs(l1):
+        raise AssertionError(f"data-2 loss {l2!r} against one device's "
+                             f"{l1!r}")
+    worst = max(max_rel(a, b) for a, b in zip(
+        tree_leaves((s2.m, s2.u)), tree_leaves((s1.m, s1.u)), strict=True))
+    counts = moments_parity((p2, s2), (p1, s1), MESH_GRAD_REL,
+                            MESH_ADAMAX_SCALE)
+    traces = {}
+    for name in ("one", "mesh"):
+        p, st = runs[name][:2]
+        if name == "mesh":
+            p, st = (tree_map(lambda x: place(x, mesh, ()), t)
+                     for t in (p, st))
+        step = make_train_step(model, opt, mesh=mesh if name == "mesh"
+                               else None)
+        box = [p, st]
+
+        def one_step():
+            box[0], box[1], _ = step(box[0], box[1], batch)
+        traces[name] = trace(one_step, top=6)
+        del box, p, st
+    del runs, p1, s1, p2, s2
+    torch.cuda.empty_cache()
+    rep = {"loss_one": l1, "loss_mesh": l2,
+           "loss_rel": abs(l2 - l1) / abs(l1), "moments_max_rel": worst,
+           "params_parted": counts, "first_step_wall_ms": {"one": w1,
+                                                          "mesh": w2},
+           "trace": traces}
+    print(f"mesh train step (phase 18) on {card}: {LM_ARCH} full width, "
+          f"depth {LM_TRAIN_DEPTH}, {cfg.quant}, {cfg.dtype} activations, "
+          f"S-AdaMax, batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, step 0 from "
+          f"one init: data 2 over {dev} x 2 loss {l2:.6f} against one "
+          f"device's {l1:.6f} (rel {rep['loss_rel']:.3e}, limit "
+          f"{MESH_LOSS_REL}); moments within {worst:.3e} (limit "
+          f"{MESH_GRAD_REL}); params held through the moments, parted "
+          f"{counts}; first step wall {w2:.1f} ms against {w1:.1f} ms")
+    for name in ("one", "mesh"):
+        print_trace(f"  train step, {name} (a later step)", traces[name])
+    return rep
+
+
+def mesh_trainer(cfg, ckpt_dir, seed, ckpt_every=2, **kw):
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    tc = TrainConfig(steps=MESH_TRAIN_STEPS, global_batch=MESH_TRAIN_BATCH,
+                     seq_len=MESH_TRAIN_SEQ, ckpt_every=ckpt_every, keep=1,
+                     ckpt_dir=str(ckpt_dir), log_every=1, seed=seed)
+    return Trainer(cfg, tc, **kw)
+
+
+def state_equal(a, b) -> bool:
+    from repro_torch.optim.base import tree_leaves
+    return all(same_bits(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b),
+                                                strict=True))
+
+
+def mesh_train_depth(base_cfg, root):
+    """MESH_TRAIN_DEPTH, or 2 where the disk under `root` cannot hold one
+    checkpoint being written beside another (fp32 masters, S-AdaMax m and
+    u) and the packed one."""
+    free = shutil.disk_usage(root).free
+    need = 2.2 * ckpt_bytes_estimate(base_cfg.scaled(
+        n_layers=MESH_TRAIN_DEPTH))
+    depth = MESH_TRAIN_DEPTH if free >= need else 2
+    print(f"mesh train: {free / 1e9:.1f} GB free under {root}, "
+          f"{need / 1e9:.1f} GB wanted at depth {MESH_TRAIN_DEPTH}: depth "
+          f"{depth}")
+    return depth
+
+
+def mesh_trainer_checks(base_cfg, seed, dev, card, root):
+    """musicgen-large at full width through the Trainer on data 2 of the
+    card: a straight MESH_TRAIN_STEPS-step run (its one checkpoint, the
+    final save, deleted); a
+    run stopped after 2 steps (the SIGTERM path: its checkpoint is step 2,
+    the one alive); resumed on data 4 and on one device (every restored
+    leaf byte-equal to the stopped run's state; steps 2-3 taken by the
+    trainer's step, the losses within MESH_LOSS_REL of the straight run's);
+    resumed on data 2 by `run` (the checkpoint deleted once restored):
+    losses of steps 2-3 and final params and moments equal the straight
+    run's bit for bit. Returns (the straight trainer, its config, report)."""
+    from repro_torch.optim.base import tree_leaves
+    depth = mesh_train_depth(base_cfg, root)
+    cfg = base_cfg.scaled(n_layers=depth)
+    straight = mesh_trainer(cfg, root / "straight", seed,
+                            ckpt_every=MESH_TRAIN_STEPS,
+                            mesh=card_mesh(dev, 2))
+    out = straight.run()
+    shutil.rmtree(root / "straight")
+    losses = {h["step"]: h["loss"] for h in out["history"]}
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"mesh train losses {losses}")
+    killed = mesh_trainer(cfg, root / "resume", seed, mesh=card_mesh(dev, 2))
+    orig = killed._batch
+
+    def stop_at_2(step):
+        if step == 1:
+            killed._stop = True
+        return orig(step)
+    killed._batch = stop_at_2
+    out_k = killed.run()
+    killed._batch = orig
+    if not out_k["interrupted"] or killed.ckpt.latest_step() != 2:
+        raise AssertionError(f"the stopped mesh run: {out_k}")
+    saved = killed.full_state()
+    resumed = {}
+    for name, kw in (("data 4", dict(mesh=card_mesh(dev, 4))),
+                     ("one device", dict(device=dev))):
+        tr = mesh_trainer(cfg, root / "resume", seed, **kw)
+        t0 = time.perf_counter()
+        if not tr.maybe_restore() or tr.start_step != 2:
+            raise AssertionError(f"{name}: no step-2 checkpoint restored")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if not state_equal(tr.full_state(), saved):
+            raise AssertionError(f"{name}: a restored leaf differs from the "
+                                 f"saved state")
+        got = {}
+        for step in range(2, MESH_TRAIN_STEPS):
+            tr.params, tr.opt_state, m = tr.train_step(
+                tr.params, tr.opt_state, tr._batch(step))
+            got[step] = float(m["loss"])
+        rel = max(abs(got[s] - losses[s]) / abs(losses[s]) for s in got)
+        if rel > MESH_LOSS_REL:
+            raise AssertionError(f"{name}: losses {got} against the straight "
+                                 f"run's {losses}")
+        worst = max(max_rel(a, b) for a, b in zip(
+            *(tree_leaves(t[1]) for t in (tr.full_state(),
+                                          straight.full_state()))))
+        resumed[name] = {"losses": got, "loss_rel": rel,
+                         "restore_s": restore_s, "moments_max_rel": worst}
+        del tr
+        torch.cuda.empty_cache()
+    del killed, saved
+    torch.cuda.empty_cache()
+    tr = mesh_trainer(cfg, root / "resume", seed, mesh=card_mesh(dev, 2))
+    if not tr.maybe_restore() or tr.start_step != 2:
+        raise AssertionError("data 2: no step-2 checkpoint restored")
+    shutil.rmtree(root / "resume" / "step_2")     # one checkpoint alive
+    out_r = tr.run()
+    got = {h["step"]: h["loss"] for h in out_r["history"]}
+    if sorted(got) != [2, 3] or any(got[s] != losses[s] for s in got):
+        raise AssertionError(f"resumed on data 2: losses {got} != the "
+                             f"straight run's {losses}")
+    if not state_equal(tr.full_state(), straight.full_state()):
+        raise AssertionError("resumed on data 2: params or moments differ "
+                             "from the straight run's")
+    ckpt_bytes = step_bytes(tr.ckpt, MESH_TRAIN_STEPS)
+    resident = tr.resident_bytes_per_device()
+    del tr
+    shutil.rmtree(root / "resume")
+    torch.cuda.empty_cache()
+    walls = list(straight.step_times)
+    rep = {"depth": depth, "losses": losses, "resumed": resumed,
+           "step_ms": sorted(walls[1:])[len(walls[1:]) // 2] * 1e3,
+           "step_ms_all": [t * 1e3 for t in walls],
+           "ckpt_bytes": ckpt_bytes, "resident": resident}
+    print(f"mesh trainer (phase 18) on {card}: {cfg.name} full width (d "
+          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}), depth {depth} (cut from "
+          f"{base_cfg.n_layers}), {cfg.quant}, {cfg.dtype} activations, "
+          f"S-AdaMax, batch {MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ}, data 2 "
+          f"over {dev} x 2: losses "
+          + ", ".join(f"step {k} {v:.6f}" for k, v in sorted(losses.items()))
+          + f"; step {rep['step_ms']:.1f} ms (median of steps 1-"
+          f"{MESH_TRAIN_STEPS - 1}, wall); checkpoint {ckpt_bytes / 1e9:.3f} "
+          f"GB; resumed on data 2 at step 2: losses of steps 2-3 and final "
+          f"params and moments equal the straight run's bit for bit")
+    for name, r in resumed.items():
+        print(f"  resumed on {name}: every restored leaf byte-equal to the "
+              f"saved state ({r['restore_s']:.2f} s); losses "
+              + ", ".join(f"step {k} {v:.6f}" for k, v in r["losses"].items())
+              + f" (rel {r['loss_rel']:.3e}, limit {MESH_LOSS_REL}); final "
+              f"moments within {r['moments_max_rel']:.3e} of the straight "
+              f"run's")
+    for shard, b in resident.items():
+        print(f"  {shard}: {b['total'] / 1e9:.3f} GB = params "
+              f"{b['params'] / 1e9:.3f} + optimizer state "
+              f"{b['opt_state'] / 1e9:.3f} (shards on one device share it)")
+    return straight, cfg, rep
+
+
+def compressed_check(cfg, seed, dev, card):
+    """EF-SignSGD over data 2 of the card against the dense single-device
+    step, MESH_EF_STEPS steps of SGD(MESH_EF_LR) from one init on random
+    batches of MESH_TRAIN_BATCH x MESH_TRAIN_SEQ: every step's loss within
+    MESH_EF_BOUND of the dense step's (the JAX package's bound,
+    tests/test_compressed.py), the residuals non-zero. Returns the
+    report."""
+    from repro_torch.launch.shardings import join, place
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.adamw import sgd
+    from repro_torch.optim.base import tree_leaves, tree_map
+    from repro_torch.optim.ef_signsgd import compressed_bytes
+    from repro_torch.train.compressed import (
+        init_ef_sharded, make_compressed_train_step,
+    )
+    from repro_torch.train.step import make_train_step
+    model, opt, mesh = get_model(cfg), sgd(MESH_EF_LR), card_mesh(dev, 2)
+    gen = torch.Generator(device=dev).manual_seed(seed + 40)
+    p = model.init(gen, device=dev)
+    dense = tree_map(torch.clone, p)
+    od = opt.init(dense)
+    pc = tree_map(lambda x: place(x, mesh, ()), p)
+    oc = tree_map(lambda x: place(x, mesh, ()), opt.init(p))
+    ef = init_ef_sharded(p, mesh)
+    cstep = make_compressed_train_step(model, opt, mesh)
+    dstep = make_train_step(model, opt)
+    rng = np.random.default_rng(seed + 41)
+    losses, walls = [], []
+    for _ in range(MESH_EF_STEPS):
+        b = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, (MESH_TRAIN_BATCH, MESH_TRAIN_SEQ)).astype(
+                np.int32)).to(dev)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pc, oc, ef, mc = cstep(pc, oc, ef, b)
+        lc = float(mc["loss"])
+        walls.append((time.perf_counter() - t0) * 1e3)
+        dense, od, md = dstep(dense, od, b)
+        losses.append((lc, float(md["loss"])))
+        if not abs(lc - losses[-1][1]) < MESH_EF_BOUND:
+            raise AssertionError(f"compressed loss {lc} against dense "
+                                 f"{losses[-1][1]}")
+    resid = sum(float(join(e, mesh, ("data",)).abs().sum())
+                for e in tree_leaves(ef))
+    if not resid > 0:
+        raise AssertionError("the EF residuals stayed zero")
+    wire = compressed_bytes(p)
+    dense_bytes = sum(x.numel() * 4 for x in tree_leaves(p))
+    del p, dense, od, pc, oc, ef
+    torch.cuda.empty_cache()
+    rep = {"losses": losses, "residual_abs_sum": resid,
+           "compressed_bytes": wire, "float32_grad_bytes": dense_bytes,
+           "step_ms": sorted(walls[1:])[len(walls[1:]) // 2]}
+    print(f"compressed step (phase 18) on {card}: {cfg.name} depth "
+          f"{cfg.n_layers}, EF-SignSGD over data 2 of {dev} against the "
+          f"dense step, SGD({MESH_EF_LR}), {MESH_EF_STEPS} steps: losses "
+          + ", ".join(f"{a:.5f}/{b:.5f}" for a, b in losses)
+          + f" (compressed/dense, each within {MESH_EF_BOUND}); residuals "
+          f"|e| sum {resid:.4e}; compressed_bytes {wire} per worker per "
+          f"step against {dense_bytes} of float32 gradients; step "
+          f"{rep['step_ms']:.1f} ms (median, wall)")
+    return rep
+
+
+def mesh_trained_serve(tr, cfg, seed, dev, root):
+    """The trained masters saved with packed_binary=True, restored as
+    PackedWeights and served at kv_bits=1, chunk LM_CHUNK on a 2 x 1 mesh
+    of the card and on one device: greedy tokens equal; one device's
+    launches as `family_expected` counts them, the mesh run's through
+    kernels 1, 2, 5, 6 and 8 and no other. Returns (the mesh run's
+    launches, report)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.packed import PackedWeight
+    from repro_torch.serving.engine import Request
+    mgr = CheckpointManager(root / "packed", async_save=False)
+    step = MESH_TRAIN_STEPS + 100
+    params = tr.full_state()[0]
+    mgr.save(step, params, packed_binary=True)
+    packed = mgr.restore(step, params, device=dev)
+    if not isinstance(packed["blocks"]["attn"]["wq"], PackedWeight):
+        raise AssertionError("the packed checkpoint did not restore to "
+                             "PackedWeights")
+    packed_bytes = step_bytes(mgr, step)
+    scfg = cfg.scaled(kv_bits=1)
+    prompts = lm_traffic(seed, cfg.vocab)
+    reqs = [Request(p, max_new_tokens=LM_NEW) for p in prompts]
+    one = lm_engine(scfg, packed, seed=seed)
+    sched = one.scheduler()
+    reset_all_launches()
+    comps = one.serve(reqs)
+    torch.cuda.synchronize()
+    counts_one = all_launches()
+    steps = sched.stats["decode_steps"]
+    chunks = sum(-(-len(p) // LM_CHUNK) for p in prompts)
+    want = family_expected(scfg, cfg.n_layers, chunks + steps, chunks, steps,
+                           False)
+    if counts_one != want:
+        raise AssertionError(f"one-device serve launches {counts_one} != "
+                             f"{want}")
+    mesh = lm_engine(scfg, packed, seed=seed, mesh=card_mesh(dev, 2))
+    reset_all_launches()
+    got = mesh.generate(reqs)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    for i, (a, c) in enumerate(zip(got, comps, strict=True)):
+        if not np.array_equal(a, c.tokens):
+            raise AssertionError(f"mesh-trained checkpoint, request {i}: 2 x 1 "
+                                 f"mesh {a.tolist()} != one device's "
+                                 f"{c.tokens.tolist()}")
+    path = {"binary_gemm_packed", "binary_gemm_packed_rhs", "pack_bits",
+            "decode_attention_packed", "prefill_attention_packed"}
+    if any(bool(launches[kn]) != (kn in path) for kn in REPLACES):
+        raise AssertionError(f"mesh serve launches {launches}")
+    del one, mesh, sched, packed
+    shutil.rmtree(root / "packed")
+    torch.cuda.empty_cache()
+    print(f"mesh-trained checkpoint serve (phase 18): packed_binary "
+          f"{packed_bytes / 1e6:.1f} MB, restored to PackedWeights; "
+          f"kv_bits=1, chunk {LM_CHUNK}, {len(reqs)} requests: greedy tokens "
+          f"on a 2 x 1 mesh of {dev} equal one device's; one device's "
+          f"launches {dict((k, v) for k, v in counts_one.items() if v)} "
+          f"({chunks} chunks, {steps} decode steps, {cfg.n_layers} layers); "
+          f"the mesh's {dict((k, v) for k, v in launches.items() if v)}")
+    return launches, {"packed_ckpt_bytes": packed_bytes,
+                      "one_launches": counts_one, "mesh_launches": launches}
+
+
+def mesh_train_phase(seed, dev, card):
+    """Phase 18, training over a mesh of the card: phi3's data-2 step
+    against one device's, the musicgen Trainer across meshes, EF-SignSGD
+    against the dense step, the mesh-trained checkpoint served. Returns
+    (the mesh serve's launches, report)."""
+    from repro_torch.configs.base import get_config
+    t0 = time.perf_counter()
+    parts = {}
+    rep = {"step": mesh_step_check(seed, dev, card)}
+    parts["phi3 step"] = time.perf_counter() - t0
+    root = ROOT / "build" / "mesh_train"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    try:
+        tr, cfg, rep["trainer"] = mesh_trainer_checks(
+            get_config(MESH_TRAIN_ARCH), seed, dev, card, root)
+        parts["musicgen trainer"] = time.perf_counter() - t0 - sum(
+            parts.values())
+        rep["compressed"] = compressed_check(cfg, seed, dev, card)
+        parts["compressed"] = time.perf_counter() - t0 - sum(parts.values())
+        launches, rep["serve"] = mesh_trained_serve(tr, cfg, seed, dev, root)
+        del tr
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    parts["serve"] = time.perf_counter() - t0 - sum(parts.values())
+    rep["seconds"], rep["parts_s"] = time.perf_counter() - t0, parts
+    print(f"phase 18 parts on {card}: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+    print(f"phase 18 (mesh train): {rep['seconds']:.1f} s")
+    return launches, rep
+
+
 def attention_times(card, popc_per_s) -> int:
     """The attention kernels' times alone (`--attention-times`): the lm
     kernel times of kernels 5-9 at the main path's shapes, then the
@@ -6818,6 +7255,12 @@ def main() -> int:
     for kn in REPLACES:
         path_launches[kn] += mesh_launches[kn]
 
+    # ------------------------------------------------------------ mesh train
+    mesh_train_launches, report["mesh_train"] = mesh_train_phase(
+        args.seed, dev, card)
+    for kn in REPLACES:
+        path_launches[kn] += mesh_train_launches[kn]
+
     kernels = []
     for kn in REPLACES:
         t = totals[kn]
@@ -6842,7 +7285,8 @@ def main() -> int:
                           "lm_default": default_launches, "ssm": ssm_launches,
                           "hybrid": hybrid_launches,
                           "families": family_launches, "moe": moe_launches,
-                          "vlm": vlm_launches, "mesh": mesh_launches}
+                          "vlm": vlm_launches, "mesh": mesh_launches,
+                          "mesh_train": mesh_train_launches}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))
@@ -6868,7 +7312,9 @@ def main() -> int:
           "phase 14's serve of the trained phi3-medium-14b checkpoint "
           "and phase 15's lifecycle runs (fault-free, faulted, and the "
           "engine switched by freeze(kv_bits=1)) and phase 17's run of "
-          "phase 6's engine on a 2 x 2 mesh of the card")
+          "phase 6's engine on a 2 x 2 mesh of the card and phase 18's "
+          "serve of the mesh-trained musicgen-large checkpoint on a 2 x 1 "
+          "mesh of the card")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s after the build")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -21,6 +21,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return torch.device(device)
 
 
+def draw_device(gen: torch.Generator, device: torch.device) -> torch.device:
+    """Where an init draws from `gen`: on the generator's device, or on the
+    meta device when the tensors go there (shapes only: nothing is drawn
+    or allocated, and the generator does not move)."""
+    return device if device.type == "meta" else gen.device
+
+
 @functools.lru_cache(maxsize=None)
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count

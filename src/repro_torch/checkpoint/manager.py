@@ -31,6 +31,13 @@ returns those leaves as `PackedWeight`s, never rebuilding fp32 masters;
 `unpack=True` gives +-1 floats in the logical shape instead. Checkpoints
 of the older layout (sign bits packed along the last logical axis, no
 "format" key) restore as +-1 floats.
+
+Sharded trees (`launch.shardings`): a leaf may be the object ndarray of
+per-shard pieces that `place` gives. `save(..., shardings=)` joins such
+leaves into whole logical arrays first, so a checkpoint never records the
+mesh it was written from, and `restore(..., shardings=)` places every
+leaf onto the Shardings given: a restart on another mesh, or on one
+device, reshards on restore (elastic restore).
 """
 from __future__ import annotations
 
@@ -47,6 +54,8 @@ from repro_torch.core.bitpack import unpack_bits
 from repro_torch.core.packed import (
     BINARY_WEIGHT_KEYS, PackedWeight, freeze_params,
 )
+from repro_torch.launch.shardings import join_leaf, place_leaf
+from repro_torch.optim.base import tree_map
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64,
@@ -116,13 +125,17 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree, *, packed_binary: bool = False,
-             binary_keys: set[str] | None = None) -> None:
+             binary_keys: set[str] | None = None, shardings=None) -> None:
         """Write `tree` as step `step`: on a thread when async_save (at most
         one outstanding; its device-to-host copy happens here, before the
         call returns), else before returning. packed_binary: store the sign
         bits of the binary-weight leaves (`core.packed.freeze_params`, exact
         key match; default keys: the weights the forward serves binarized),
-        the paper's deployment format."""
+        the paper's deployment format. shardings: a tree of
+        `launch.shardings.Sharding` (or None) matching `tree`, whose placed
+        leaves (pieces) are joined into whole arrays before anything else."""
+        if shardings is not None:
+            tree = tree_map(join_leaf, tree, shardings)
         if packed_binary:
             tree = freeze_params(tree, frozenset(binary_keys)
                                  if binary_keys is not None
@@ -193,17 +206,27 @@ class CheckpointManager:
     def restore(self, step: int, like, shardings=None, *,
                 unpack: bool = False, device=None):
         """Restore step `step` into the structure of `like` (a tree of
-        tensors or PackedWeights; shapes and dtypes come from the
-        checkpoint), by leaf name. Each leaf lands on `device`, or on the
-        device of `like`'s leaf at its place when None.
+        tensors, PackedWeights or placed pieces; shapes and dtypes come
+        from the checkpoint), by leaf name. Each leaf lands on `device`, or
+        on the device of `like`'s leaf at its place when None (the CPU for
+        pieces).
 
         Packed-binary leaves come back as PackedWeight (words int32, the
         kernels' operand; no fp32 master is rebuilt), or with unpack=True
-        as +-1 floats of the master's dtype in the logical shape."""
-        if shardings is not None:
-            raise NotImplementedError("restoring onto shardings waits for "
-                                      "the sharded trainer (ROADMAP Queue A "
-                                      "item 6)")
+        as +-1 floats of the master's dtype in the logical shape.
+
+        shardings: a tree of `launch.shardings.Sharding` matching `like`
+        (None at a leaf: the plain leaf). Each leaf is then placed on its
+        mesh (`launch.shardings.place_leaf`): the object ndarray of its
+        per-shard pieces. A PackedWeight's spec applies to its wire words,
+        (..., N, ceil(K / 32)), not the logical (K, N) weight; its
+        threshold and flip stay replicated."""
+        tree = self._restore(step, like, unpack, device)
+        if shardings is None:
+            return tree
+        return tree_map(place_leaf, tree, shardings)
+
+    def _restore(self, step: int, like, unpack: bool, device):
         path = self.dir / f"step_{step}"
         manifest = json.loads((path / "manifest.json").read_text())
         entries = {e["name"]: e for e in manifest["leaves"]}

@@ -1,5 +1,5 @@
-"""Config system: a jax-free copy of `repro.configs.base` (ModelConfig and
-the arch registry).
+"""Config system: a jax-free copy of `repro.configs.base` (ModelConfig, the
+input-shape cells and the arch registry).
 
 The fields, their defaults and their meaning are the JAX package's, so a
 config compares field by field across the two packages; only
@@ -26,6 +26,23 @@ _ARCH_MODULES = ("repro_torch.configs.phi3_medium_14b",
                  "repro_torch.configs.falcon_mamba_7b",
                  "repro_torch.configs.recurrentgemma_2b",
                  "repro_torch.configs.llama_3_2_vision_11b")
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned input-shape cell."""
+    name: str                 # train_4k / prefill_32k / decode_32k / long_500k
+    kind: str                 # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
 
 
 @dataclass(frozen=True)

@@ -13,7 +13,9 @@ stochastically (Eq. 2), BBP_DET deterministically; every binarizer carries
 the STE. Where JAX splits one key into a weight key and an activation key,
 `qmatmul` takes two independent draws from `gen`, the activation's first and
 the weight's second, or reads them from `noise["act"]` and `noise["w"]`;
-`Draws` hands out a forward's noise by site name.
+`Draws` hands out a forward's noise by site name. A forward of one shard's
+rows of a global batch (`BatchShard`, the data-parallel train step) draws
+what the global batch's forward draws and takes its rows.
 
 At train time the binarized weight is one autograd node with the matmul
 (`_BinaryWeightMatmul`): the master is cast to the activation dtype and
@@ -25,6 +27,7 @@ it).
 from __future__ import annotations
 
 import enum
+from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import torch
@@ -46,37 +49,64 @@ def _stochastic(train: bool, gen, noise) -> bool:
     return train and (gen is not None or noise is not None)
 
 
+@dataclass
+class BatchShard:
+    """A train forward over rows [lo, hi) of a global batch of `rows` rows
+    (one shard of the data-parallel step). Its `Draws` draw each batch-major
+    site at the global batch's shape and hand out these rows, so that the
+    shards together draw what one forward of the global batch draws. Its
+    MoE sublayers take the global batch's routes from `routes` by site
+    (`models.common.moe_ffn`): a forward of the whole global batch with
+    `record` fills them (the capacity and the drops count every row)."""
+    lo: int
+    hi: int
+    rows: int
+    routes: dict = field(default_factory=dict)
+    record: bool = False
+
+
 class Draws:
     """The noise of each stochastic site of a train forward: noise[site]
     when a dict is given, else a fresh U[0, 1) draw from `gen` of the
-    input's shape and dtype. Off (no draws) at inference, or with neither
-    a generator nor a dict (deterministic binarization, JAX's key=None)."""
+    input's shape and dtype (with a `shard`, of the global batch's shape
+    at a batch-major site, of which the shard's rows are handed out). Off
+    (no draws) at inference, or with neither a generator nor a dict
+    (deterministic binarization, JAX's key=None)."""
 
     def __init__(self, train: bool, gen: torch.Generator | None,
-                 noise: dict | None):
-        self.gen, self.noise = gen, noise
+                 noise: dict | None, shard: BatchShard | None = None):
+        self.gen, self.noise, self.shard = gen, noise, shard
         self.on = train and (gen is not None or noise is not None)
 
-    def __call__(self, site: str, like: torch.Tensor) -> torch.Tensor:
+    def __call__(self, site: str, like: torch.Tensor,
+                 per_row: bool = False) -> torch.Tensor:
+        """`per_row`: like's leading axis is the batch's rows."""
         if self.noise is not None:
             return self.noise[site]
-        return uniform_noise(like, self.gen)
+        sh = self.shard
+        if sh is None or not per_row or (sh.lo, sh.hi) == (0, sh.rows):
+            return uniform_noise(like, self.gen)
+        u = torch.rand((sh.rows,) + tuple(like.shape[1:]),
+                       generator=self.gen, dtype=like.dtype,
+                       device=like.device)
+        return u[sh.lo:sh.hi]
 
     def act(self, x: torch.Tensor, site: str, stochastic: bool):
         """binary_act(x), stochastic from this site's draw where asked."""
         return binary_act(x, stochastic=stochastic,
-                          noise=self(site, x) if stochastic else None)
+                          noise=self(site, x, True) if stochastic else None)
 
     def qmatmul(self, site: str, x: torch.Tensor, w: torch.Tensor,
-                qm: "QuantMode") -> dict | None:
-        """qmatmul's noise at train time: its input's draw (site.qact),
-        then its weight's (site.w, in the activation dtype, the weight's
-        cast), where the mode binarizes them stochastically."""
+                qm: "QuantMode", per_row: bool = True) -> dict | None:
+        """qmatmul's noise at train time: its input's draw (site.qact; x
+        batch-major unless `per_row` is False), then its weight's (site.w,
+        in the activation dtype, the weight's cast), where the mode
+        binarizes them stochastically."""
         if not self.on:
             return None
         noise = {}
         if qm == QuantMode.BBP:
-            noise["act"] = self(f"{site}.qact", x)
+            noise["act"] = self(f"{site}.qact", x, per_row)
         if qm in (QuantMode.BC, QuantMode.BBP):
             noise["w"] = self(f"{site}.w", w.to(x.dtype) if self.noise is None
                               else w)

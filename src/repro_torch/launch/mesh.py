@@ -1,8 +1,10 @@
-"""Serving meshes (port of `repro.launch.mesh`'s serving part).
+"""Meshes (port of `repro.launch.mesh`).
 
-A `Mesh` is a grid of devices with named axes, ('data', 'model') for
-serving: the scheduler shards its slot batch over 'data', and 'model' is
-the axis the tensor-parallel kernel wrappers (`kernels.sharded`) split.
+A `Mesh` is a grid of devices with named axes, ('data', 'model'), or
+('pod', 'data', 'model') for the multi-pod production mesh: the serving
+scheduler shards its slot batch and the train step its batch rows over the
+batch axes ('pod', 'data'), and 'model' is the axis the tensor-parallel
+kernel wrappers (`kernels.sharded`) split.
 The JAX package's mesh is one controller driving every device; so is this
 one: one process holds every shard's tensors, each on its own device, and
 steps through the shards in turn. A device may repeat, so one card can
@@ -13,9 +15,11 @@ build theirs over `["cpu"] * 4`.
     mesh = make_serving_mesh(2, 2)              # four cards, one per shard
     mesh = make_serving_mesh(2, 2, devices=["cuda:0"] * 4)   # one card
     data, model = parse_mesh("data=2,model=1")
+    mesh = make_production_mesh(multi_pod=True, devices=["cpu"] * 512)
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -64,6 +68,23 @@ def _grid(devices, shape: tuple[int, ...]) -> np.ndarray:
     for i, d in enumerate(flat):
         grid.flat[i] = d
     return grid
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
+    """The JAX package's production mesh: (16, 16) as ('data', 'model'), or
+    (2, 16, 16) as ('pod', 'data', 'model') with `multi_pod` ('pod' is pure
+    data parallelism across pods). Over the first 256 (512) of `devices`
+    (default: the visible cards); raises ValueError when there are fewer."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    devs = visible_devices() if devices is None else list(devices)
+    need = math.prod(shape)
+    if need > len(devs):
+        raise ValueError(
+            f"the production mesh {'x'.join(map(str, shape))} {axes} needs "
+            f"{need} devices, have {len(devs)} (pass devices=, which may "
+            f"repeat one device)")
+    return Mesh(_grid(devs[:need], shape), axes)
 
 
 def make_host_mesh(model: int = 1, devices=None) -> Mesh:

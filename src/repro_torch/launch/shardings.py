@@ -239,12 +239,19 @@ def _slices(shape, mesh: Mesh, spec: tuple, index: tuple[int, ...]):
 
 def place(x: torch.Tensor, mesh: Mesh, spec: tuple) -> np.ndarray:
     """x cut by `spec`: an object ndarray of the mesh's shape holding each
-    shard's piece, contiguous on its shard's device (on a device x already
-    lies on, a replicated piece is x itself)."""
+    shard's piece, contiguous on its shard's device. A piece is moved to a
+    device once: shards on one device that hold the same slice share one
+    tensor (on a device x already lies on, a replicated piece is x
+    itself), so a mesh that repeats a device holds one replica there, as
+    a JAX array is one buffer per device."""
     out = np.empty(mesh.devices.shape, dtype=object)
+    memo: dict = {}
     for index in np.ndindex(*mesh.devices.shape):
-        piece = x[_slices(x.shape, mesh, spec, index)]
-        out[index] = piece.to(mesh.devices[index]).contiguous()
+        cut = _slices(x.shape, mesh, spec, index)
+        key = (mesh.devices[index], tuple((c.start, c.stop) for c in cut))
+        if key not in memo:
+            memo[key] = x[cut].to(mesh.devices[index]).contiguous()
+        out[index] = memo[key]
     return out
 
 
@@ -260,4 +267,80 @@ def join(pieces: np.ndarray, mesh: Mesh, spec: tuple) -> torch.Tensor:
         if any(i and a not in used for a, i in zip(mesh.axis_names, index)):
             continue                       # a replica of a piece already in
         out[_slices(shape, mesh, spec, index)] = pieces[index]
+    return out
+
+
+# -- trees ------------------------------------------------------------------
+def _words_spec(sh: Sharding, w: PackedWeight) -> tuple:
+    """The spec of a PackedWeight's words: the Sharding's spec, or the
+    first of its children's specs where the Sharding is param_shardings'
+    (the tuple `spec_for` gives a PackedWeight)."""
+    sp = sh.spec
+    kids = (len(sp) == 3 and isinstance(sp[0], tuple)
+            and len(sp[0]) == w.packed.ndim
+            and all(k is None or isinstance(k, tuple) for k in sp[1:]))
+    return sp[0] if kids else sp
+
+
+def place_leaf(x, sh: Sharding | None):
+    """`place` of one tree leaf: a tensor by its spec; a PackedWeight's
+    words by its words' spec (`_words_spec`), its threshold and flip
+    replicated, as the JAX package's restore puts them (an object ndarray
+    of PackedWeights); None (no sharding) gives the leaf back."""
+    if sh is None:
+        return x
+    if not isinstance(x, PackedWeight):
+        return place(x, sh.mesh, sh.spec)
+    words = place(x.packed, sh.mesh, _words_spec(sh, x))
+    rep = [None if t is None else place(t, sh.mesh, ())
+           for t in (x.thresh, x.flip)]
+    out = np.empty(words.shape, dtype=object)
+    for index in np.ndindex(*words.shape):
+        t, f = (None if r is None else r[index] for r in rep)
+        out[index] = PackedWeight(words[index], x.k, x.kind, x.conv_shape,
+                                  x.orig_dtype, thresh=t, flip=f, fold=x.fold)
+    return out
+
+
+def join_leaf(pieces, sh: Sharding | None):
+    """The leaf whose `place_leaf` gives `pieces` (a leaf that is not an
+    object ndarray is returned as it is)."""
+    if sh is None or not isinstance(pieces, np.ndarray):
+        return pieces
+    first = pieces.flat[0]
+    if not isinstance(first, PackedWeight):
+        return join(pieces, sh.mesh, sh.spec)
+    words = np.empty(pieces.shape, dtype=object)
+    for index in np.ndindex(*pieces.shape):
+        words[index] = pieces[index].packed
+    return PackedWeight(join(words, sh.mesh, _words_spec(sh, first)),
+                        first.k, first.kind, first.conv_shape,
+                        first.orig_dtype, thresh=first.thresh,
+                        flip=first.flip, fold=first.fold)
+
+
+def replicated(mesh: Mesh, tree) -> Any:
+    """The tree of Shardings that replicate every leaf of `tree` over
+    `mesh` (spec ())."""
+    return tree_map(lambda _: Sharding(mesh, ()), tree)
+
+
+def devices_of(mesh: Mesh) -> list[torch.device]:
+    """The mesh's distinct devices, in mesh order."""
+    return list(dict.fromkeys(mesh.devices.flat))
+
+
+def batch_shards(mesh: Mesh) -> list[tuple[int, ...]]:
+    """The mesh index of each batch shard in batch order: the batch axes'
+    indices row-major in mesh axis order (as a spec entry ('pod', 'data')
+    splits rows), at index 0 of every other axis."""
+    axes = mesh.axis_names
+    ba = [i for i, a in enumerate(axes) if a in batch_axes(mesh)]
+    sizes = [mesh.devices.shape[i] for i in ba]
+    out = []
+    for sub in np.ndindex(*sizes):
+        index = [0] * len(axes)
+        for i, j in zip(ba, sub):
+            index[i] = j
+        out.append(tuple(index))
     return out

@@ -7,7 +7,17 @@ loop: S-AdaMax through the STE, clip(W), checkpoints, resume).
 --smoke takes the reduced same-family config (small enough for the CPU);
 without it the arch trains at its full size. Without --device the run is
 on the CUDA card (and raises if there is none). A checkpoint directory
-that holds steps resumes from the latest. Prints the run's summary as JSON.
+that holds steps resumes from the latest, whatever mesh wrote it. Prints
+the run's summary as JSON.
+
+--mesh, the JAX launcher's choices: `none` (one device), `host` (a data
+mesh over every visible card, or one shard on --device), `production`
+(16 x 16 'data' x 'model') and `multipod` (2 x 16 x 16 'pod' x 'data' x
+'model'), which raise ValueError on a machine with fewer cards. The mesh
+trains data-parallel (`train.step.make_train_step(mesh=)`):
+
+    python -m repro_torch.launch.train --arch phi3-medium-14b --smoke \
+        --steps 4 --batch 8 --seq 64 --mesh host --device cpu
 """
 from __future__ import annotations
 
@@ -37,21 +47,28 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="cpu, cuda, ...; default: the CUDA card")
     args = ap.parse_args(argv)
-    if args.mesh != "none":
-        raise NotImplementedError(f"--mesh {args.mesh}: sharded training "
-                                  "waits for ROADMAP Queue A item 6")
+    if args.device is not None and args.mesh in ("production", "multipod"):
+        ap.error(f"--mesh {args.mesh} spans the visible cards; --device "
+                 "goes with --mesh none or host")
 
     from repro_torch.configs.base import get_config
     from repro_torch.configs.smoke import smoke_config
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
     from repro_torch.train.trainer import TrainConfig, Trainer
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.quant:
         cfg = cfg.scaled(quant=args.quant)
+    mesh, device = None, args.device
+    if args.mesh == "host":
+        mesh = make_host_mesh(devices=None if device is None else [device])
+        device = None
+    elif args.mesh in ("production", "multipod"):
+        mesh = make_production_mesh(multi_pod=args.mesh == "multipod")
     tc = TrainConfig(steps=args.steps, global_batch=args.batch,
                      seq_len=args.seq, lr=args.lr, accum=args.accum,
                      ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
-    out = Trainer(cfg, tc, device=args.device).run()
+    out = Trainer(cfg, tc, mesh=mesh, device=device).run()
     print(json.dumps(out, indent=2))
     return 0
 

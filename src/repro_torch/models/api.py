@@ -22,11 +22,13 @@ request's first chunk (`models.transformer`).
 `path` ('auto' | 'ref'), passed to get_model, picks the kernels or their
 plain versions for every call of the model (see `models.transformer`).
 
-`loss(params, batch, gen=None, noise=None)` is the training loss of fp32
-masters (`transformer_loss`, `mamba_loss` or `rg_loss`): batch {"tokens"
-(B, S), vlm "img_emb"}; `gen` draws the stochastic binarization of mode
-'bbp' (the train step passes one only in that mode, as the JAX package
-passes a key), `noise` feeds the draws by site. A frozen tree raises
+`loss(params, batch, gen=None, noise=None, shard=None)` is the training
+loss of fp32 masters (`transformer_loss`, `mamba_loss` or `rg_loss`):
+batch {"tokens" (B, S), vlm "img_emb"}; `gen` draws the stochastic
+binarization of mode 'bbp' (the train step passes one only in that mode,
+as the JAX package passes a key), `noise` feeds the draws by site, and
+`shard` (a `core.layers.BatchShard`) makes it one data-parallel shard's
+forward over its rows of a global batch. A frozen tree raises
 ValueError: 1-bit packed weights are inference only.
 
 The `ssm` family's "cache" is its recurrent state ({"conv", "h"},
@@ -60,8 +62,8 @@ ATTENTION_FAMILIES = ("dense", "moe", "audio", "vlm")
 class Model:
     cfg: ModelConfig
     init: Callable[..., Any]
-    # loss(params, batch, *, gen=None, noise=None) -> (loss, metrics): the
-    # training loss of fp32 masters
+    # loss(params, batch, *, gen=None, noise=None, shard=None) -> (loss,
+    # metrics): the training loss of fp32 masters
     loss: Callable[..., tuple[torch.Tensor, dict]]
     # logits(params, tokens (B, S)) -> (logits (B, S, V), aux): the
     # inference forward
@@ -143,9 +145,9 @@ def get_model(cfg: ModelConfig, *, path: str = "auto") -> Model:
     loss_fn = {"ssm": S.mamba_loss, "hybrid": S.rg_loss}.get(
         cfg.family, T.transformer_loss)
 
-    def loss(p, batch, gen=None, noise=None):
+    def loss(p, batch, gen=None, noise=None, shard=None):
         return _guard_trainable(p, loss_fn, cfg, batch, gen=gen, noise=noise,
-                                path=path)
+                                shard=shard, path=path)
     if cfg.family == "ssm":
         return Model(
             cfg=cfg,

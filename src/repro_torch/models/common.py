@@ -69,13 +69,15 @@ def sinusoidal_pos(positions: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def site_qmm(x: torch.Tensor, w, mode: QuantMode, *, path: str = "auto",
-             draws: Draws | None = None, site: str = "") -> torch.Tensor:
+             draws: Draws | None = None, site: str = "",
+             per_row: bool = True) -> torch.Tensor:
     """qmatmul at inference (draws None), or at train time with the draws
-    of site `site`."""
+    of site `site` (x's leading axis the batch's rows unless `per_row` is
+    False)."""
     if draws is None:
         return qmatmul(x, w, mode, path=path)
     return qmatmul(x, w, mode, train=True, path=path,
-                   noise=draws.qmatmul(site, x, w, mode))
+                   noise=draws.qmatmul(site, x, w, mode, per_row))
 
 
 def ffn(params: dict, x: torch.Tensor, kind: str, mode: QuantMode, *,
@@ -145,8 +147,9 @@ def moe_route(router_w: torch.Tensor, xt: torch.Tensor, top_k: int,
     floor(T k cf / E)) shared by all T rows of the call; each route's
     position in its expert's buffer counted over the routes flattened
     token-major, k-minor; routes at position >= C are dropped. Returns
-    probs (T, E), gate_vals / gate_idx (T, k), expert, pos, keep (T k,)
-    and cap."""
+    probs (T, E), gate_vals / gate_idx (T, k), expert, pos, keep (T k,),
+    cap, frac_tokens (E,), the share of rows whose first choice is each
+    expert, and drop_frac, the share of routes dropped."""
     t = xt.shape[0]
     e = router_w.shape[-1]
     cap = int(max(1, (t * top_k * capacity_factor) // e))
@@ -157,8 +160,35 @@ def moe_route(router_w: torch.Tensor, xt: torch.Tensor, top_k: int,
     expert = gate_idx.reshape(t * top_k)
     onehot = F.one_hot(expert, e).to(torch.int32)            # (T k, E)
     pos = (onehot.cumsum(dim=0) * onehot - 1).amax(dim=-1)   # (T k,)
+    keep = pos < cap
     return {"probs": probs, "gate_vals": gate_vals, "gate_idx": gate_idx,
-            "expert": expert, "pos": pos, "keep": pos < cap, "cap": cap}
+            "expert": expert, "pos": pos, "keep": keep, "cap": cap,
+            "frac_tokens": F.one_hot(gate_idx[:, 0], e).to(torch.float32)
+            .mean(dim=0),
+            "drop_frac": 1.0 - keep.to(torch.float32).mean()}
+
+
+def shard_route(router_w: torch.Tensor, xt: torch.Tensor, top_k: int,
+                whole: dict, t0: int) -> dict:
+    """`moe_route`'s dict for tokens [t0, t0 + T) of a batch whose whole
+    route is `whole` (the routes of a `core.layers.BatchShard`): the
+    experts, positions, keep mask and capacity, the share of tokens per
+    expert and of dropped routes are the whole batch's; probs are these
+    rows' own (the router's gradient flows through them) and the gates
+    their probs at the whole route's experts, renormalised over the k."""
+    t = xt.shape[0]
+    logits = torch.matmul(xt.to(torch.float32), router_w.to(torch.float32))
+    probs = torch.softmax(logits, dim=-1)
+    dev = xt.device
+    gate_idx = whole["gate_idx"][t0:t0 + t].to(dev)
+    gate_vals = probs.gather(-1, gate_idx)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    routes = slice(t0 * top_k, (t0 + t) * top_k)
+    return dict({k: whole[k].to(dev) for k in ("frac_tokens", "drop_frac")},
+                probs=probs, gate_vals=gate_vals, gate_idx=gate_idx,
+                cap=whole["cap"],
+                **{k: whole[k][routes].to(dev)
+                   for k in ("expert", "pos", "keep")})
 
 
 def moe_ffn(params: dict, x: torch.Tensor, kind: str, mode: QuantMode, *,
@@ -180,11 +210,27 @@ def moe_ffn(params: dict, x: torch.Tensor, kind: str, mode: QuantMode, *,
     down-projection (`_batched_qmm`). Training: lb_loss is differentiable
     through the router's probabilities, the outputs through the gates; the
     routes' copies of a row are an expand (whose backward is a sum, with
-    no atomics)."""
+    no atomics).
+
+    One shard of the data-parallel step (`draws.shard`, a
+    `core.layers.BatchShard`) routes by the global batch's routes
+    (`shard_route`): its buffer has the global capacity and holds its own
+    kept routes at their global positions, so each expert's FFN runs at
+    the global shape and draws; its lb_loss is E sum(frac_tokens x its
+    rows' mean probs), which the step weighs by the shard's share of
+    rows."""
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
-    r = moe_route(params["router"], xt, top_k, capacity_factor)
+    shard = None if draws is None else draws.shard
+    if shard is not None and not shard.record:
+        r = shard_route(params["router"], xt, top_k, shard.routes[site],
+                        shard.lo * s)
+    else:
+        r = moe_route(params["router"], xt, top_k, capacity_factor)
+        if shard is not None:
+            shard.routes[site] = {k: v.detach() if torch.is_tensor(v) else v
+                                  for k, v in r.items()}
     e, cap, keep = params["router"].shape[-1], r["cap"], r["keep"]
     expert, pos_c = r["expert"], torch.where(keep, r["pos"], 0)
 
@@ -213,11 +259,8 @@ def moe_ffn(params: dict, x: torch.Tensor, kind: str, mode: QuantMode, *,
                 * r["gate_vals"][..., None].to(x.dtype)).sum(dim=1)
 
     # Switch-style load-balance loss and the share of routes dropped
-    frac_tokens = F.one_hot(r["gate_idx"][:, 0], e).to(torch.float32) \
-        .mean(dim=0)
-    frac_probs = r["probs"].mean(dim=0)
-    aux = {"lb_loss": e * (frac_tokens * frac_probs).sum(),
-           "drop_frac": 1.0 - keep.to(torch.float32).mean()}
+    aux = {"lb_loss": e * (r["frac_tokens"] * r["probs"].mean(dim=0)).sum(),
+           "drop_frac": r["drop_frac"]}
     return combined.reshape(b, s, d), aux
 
 
@@ -240,7 +283,8 @@ def _batched_qmm(x, w, mode: QuantMode, path: str,
         if mode == QuantMode.BC:
             return torch.matmul(x, w.unpack(x.dtype))
         raise ValueError("packed experts require a binary quant mode")
-    return site_qmm(x, w, mode, path=path, draws=draws, site=site)
+    return site_qmm(x, w, mode, path=path, draws=draws, site=site,
+                    per_row=False)
 
 
 def moe_param_shapes(d_model: int, d_ff: int, n_experts: int,

@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch._device import draw_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.layers import Draws, QuantMode, qmatmul
 from repro_torch.kernels.selective_scan import (
@@ -121,14 +122,16 @@ def init_mamba_blocks(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
             a = torch.arange(1, cfg.ssm_state + 1, dtype=torch.float32)
             return torch.log(a).expand(full).contiguous().to(device)
         if name == "dt_b":
-            u = torch.rand(full, generator=gen, device=gen.device)
+            u = torch.rand(full, generator=gen,
+                           device=draw_device(gen, device))
             u = math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3))
             dt = torch.exp(u)
             return (dt + torch.log(-torch.expm1(-dt))).to(device)
         if name == "D":
             return torch.ones(full, dtype=torch.float32, device=device)
         if len(shp) >= 2:
-            return (torch.randn(full, generator=gen, device=gen.device)
+            return (torch.randn(full, generator=gen,
+                                device=draw_device(gen, device))
                     * 0.02).to(device)
         return torch.zeros(full, dtype=torch.float32, device=device)
 

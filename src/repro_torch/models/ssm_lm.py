@@ -46,10 +46,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch._device import resolve_device
+from repro_torch._device import draw_device, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bitpack import packed_width
-from repro_torch.core.layers import Draws, QuantMode, qmatmul
+from repro_torch.core.layers import BatchShard, Draws, QuantMode, qmatmul
 from repro_torch.kernels.decode_attention import (
     decode_attention_packed, decode_attention_packed_plain,
 )
@@ -89,7 +89,8 @@ def init_mamba_params(gen: torch.Generator, cfg: ModelConfig, *,
     dev = resolve_device(device)
 
     def normal(shape):
-        return (torch.randn(shape, generator=gen, device=gen.device)
+        return (torch.randn(shape, generator=gen,
+                            device=draw_device(gen, dev))
                 * 0.02).to(dev)
 
     params = {"embed": normal((cfg.vocab, cfg.d_model)),
@@ -218,7 +219,8 @@ def mamba_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def mamba_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                  train: bool = False, gen: torch.Generator | None = None,
-                 noise: dict | None = None, path: str = "auto"
+                 noise: dict | None = None, shard: BatchShard | None = None,
+                 path: str = "auto"
                  ) -> tuple[torch.Tensor, dict]:
     """The forward over whole sequences: tokens (B, S) -> (logits (B, S, V),
     {}). train=True: the training forward of fp32 masters (the module
@@ -227,7 +229,7 @@ def mamba_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     if not train:
         return head(params, cfg, _whole_sequence(params, cfg, tokens,
                                                  path)), {}
-    mode, draws = QuantMode(cfg.quant), Draws(True, gen, noise)
+    mode, draws = QuantMode(cfg.quant), Draws(True, gen, noise, shard)
     h = embed(params, cfg, tokens)
     for layer, bp in enumerate(unstack(params["blocks"])):
         h = remat(cfg, draws, lambda x, bp=bp, layer=layer: mamba_block_train(
@@ -237,10 +239,11 @@ def mamba_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def mamba_loss(params: dict, cfg: ModelConfig, batch: dict, *,
                gen: torch.Generator | None = None, noise: dict | None = None,
+               shard: BatchShard | None = None,
                path: str = "auto") -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy of the training forward; (loss, {"nll"})."""
     logits, _ = mamba_logits(params, cfg, batch["tokens"], train=True,
-                             gen=gen, noise=noise, path=path)
+                             gen=gen, noise=noise, shard=shard, path=path)
     nll = next_token_nll(logits, batch["tokens"])
     return nll, {"nll": nll}
 
@@ -303,7 +306,8 @@ def init_rg_params(gen: torch.Generator, cfg: ModelConfig, *, device=None,
     n_rec = _n_rec(cfg)
 
     def normal(shape):
-        return (torch.randn(shape, generator=gen, device=gen.device)
+        return (torch.randn(shape, generator=gen,
+                            device=draw_device(gen, dev))
                 * 0.02).to(dev)
 
     def init(shapes, prefix):
@@ -455,7 +459,8 @@ def rg_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def rg_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
               train: bool = False, gen: torch.Generator | None = None,
-              noise: dict | None = None, path: str = "auto"
+              noise: dict | None = None, shard: BatchShard | None = None,
+              path: str = "auto"
               ) -> tuple[torch.Tensor, dict]:
     """The forward over whole sequences: tokens (B, S) -> (logits (B, S, V),
     {}). train=True: the training forward of fp32 masters (the module
@@ -464,7 +469,7 @@ def rg_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     _check_hybrid(cfg)
     if not train:
         return head(params, cfg, _rg_whole(params, cfg, tokens, path)), {}
-    mode, draws = QuantMode(cfg.quant), Draws(True, gen, noise)
+    mode, draws = QuantMode(cfg.quant), Draws(True, gen, noise, shard)
 
     def rec(lp, site, h):
         h, _ = rglru_block(lp["mix"], h, cfg, mode, path=path, draws=draws,
@@ -496,10 +501,11 @@ def rg_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def rg_loss(params: dict, cfg: ModelConfig, batch: dict, *,
             gen: torch.Generator | None = None, noise: dict | None = None,
+            shard: BatchShard | None = None,
             path: str = "auto") -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy of the training forward; (loss, {"nll"})."""
     logits, _ = rg_logits(params, cfg, batch["tokens"], train=True, gen=gen,
-                          noise=noise, path=path)
+                          noise=noise, shard=shard, path=path)
     nll = next_token_nll(logits, batch["tokens"])
     return nll, {"nll": nll}
 

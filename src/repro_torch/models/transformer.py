@@ -68,10 +68,12 @@ from __future__ import annotations
 import torch
 import torch.utils.checkpoint
 
-from repro_torch._device import resolve_device
+from repro_torch._device import draw_device, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bitpack import packed_width
-from repro_torch.core.layers import Draws, QuantMode, qmatmul, shared_pack
+from repro_torch.core.layers import (
+    BatchShard, Draws, QuantMode, qmatmul, shared_pack,
+)
 from repro_torch.core.packed import PackedWeight, map_tree
 from repro_torch.kernels.decode_attention import (
     decode_attention_packed_paged_plain, decode_attention_packed_plain,
@@ -150,7 +152,8 @@ def init_transformer_params(gen: torch.Generator, cfg: ModelConfig, *,
     dev = resolve_device(device)
 
     def normal(shape):
-        return (torch.randn(shape, generator=gen, device=gen.device)
+        return (torch.randn(shape, generator=gen,
+                            device=draw_device(gen, dev))
                 * 0.02).to(dev)
 
     def init(shapes, prefix):
@@ -886,7 +889,8 @@ def transformer_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def transformer_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                        *, img_emb: torch.Tensor | None = None,
                        train: bool = False, gen: torch.Generator | None = None,
-                       noise: dict | None = None, path: str = "auto"
+                       noise: dict | None = None,
+                       shard: BatchShard | None = None, path: str = "auto"
                        ) -> tuple[torch.Tensor, dict]:
     """The forward over whole sequences: tokens (B, S) (vlm: and img_emb (B,
     n_img_tokens, d_vision)) -> (logits (B, S, V), {"lb_loss": the MoE
@@ -907,8 +911,8 @@ def transformer_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     h = embed(params, cfg, tokens)
     aux = {"lb_loss": torch.zeros((), dtype=torch.float32, device=h.device)}
     if train:
-        return _train_forward(params, cfg, h, img, Draws(True, gen, noise),
-                              path, aux)
+        return _train_forward(params, cfg, h, img,
+                              Draws(True, gen, noise, shard), path, aux)
     for kind, bp, _ in layer_stack(params, cfg):
         if kind == "cross":
             h = cross_attn(bp, h, image_kv(bp["attn"], img, cfg, mode, path),
@@ -1002,7 +1006,8 @@ def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def transformer_loss(params: dict, cfg: ModelConfig, batch: dict, *,
                      gen: torch.Generator | None = None,
-                     noise: dict | None = None, path: str = "auto"
+                     noise: dict | None = None,
+                     shard: BatchShard | None = None, path: str = "auto"
                      ) -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy plus 0.01 lb_loss of the training forward.
     batch: {"tokens" (B, S), ["img_emb"]}. Returns (loss, {"nll",
@@ -1010,6 +1015,7 @@ def transformer_loss(params: dict, cfg: ModelConfig, batch: dict, *,
     tokens = batch["tokens"]
     logits, aux = transformer_logits(params, cfg, tokens,
                                      img_emb=batch.get("img_emb"), train=True,
-                                     gen=gen, noise=noise, path=path)
+                                     gen=gen, noise=noise, shard=shard,
+                                     path=path)
     nll = next_token_nll(logits, tokens)
     return nll + 0.01 * aux["lb_loss"], {"nll": nll, **aux}

@@ -1,7 +1,6 @@
-"""EF-SignSGD: 1-bit gradient compression with error feedback (port of the
-numerics of `repro.optim.ef_signsgd`; the data-parallel collective that
-reduces the signs belongs to the compressed train step, ROADMAP Queue A
-item 6).
+"""EF-SignSGD: 1-bit gradient compression with error feedback (port of
+`repro.optim.ef_signsgd`; the data-parallel step that reduces the signs
+is `train.compressed`).
 
 Each worker sends sign(g + e) (1 bit per parameter) and one float32 scale
 per tensor, mean |g + e|, and keeps the residual e = (g + e) - scale *

@@ -41,9 +41,8 @@ Sites and the fault kinds each one honors:
     replica<i>    ReplicaServer worker i, per      death (raise
                   scheduler poll                   ReplicaDead)
 
-The port has no `ReplicaServer` yet (ROADMAP Queue A item 6): the
-`replica<i>` site and `ReplicaDead` are defined here for it, and no
-single-device path consults them.
+The `replica<i>` site and `ReplicaDead` belong to `serving.replica`'s
+`ReplicaServer`; no single-device path consults them.
 
 Spec strings (`launch/serve.py --inject-faults`) are comma-separated
 `kind@site:index[*times][:param]` entries, e.g.

@@ -16,25 +16,39 @@
     out = trainer.run()          # {"final_step", "history", "stragglers",
                                  #  "interrupted"}
 
-The model runs on `device` (None: the CUDA card; it raises without one).
-A sharded run over a mesh waits for ROADMAP Queue A item 6.
+The model runs on `device` (None: the CUDA card; it raises without one),
+or over `mesh` (a `launch.mesh.Mesh`): the data-parallel step
+(`train.step.make_train_step(mesh=)`), params and optimizer state
+replicated on each distinct device of the mesh as placed trees
+(`launch.shardings.place(x, mesh, ())`), initialised once from the seed on
+the mesh's first device, as on one device, and copied to the others. Its
+checkpoints hold whole logical arrays, so a run resumes on any mesh, or on
+one device, from a checkpoint written on any other (elastic restore), and
+continues bit for bit on the mesh it was written from.
+
+    trainer = Trainer(cfg, tc, mesh=make_host_mesh(devices=["cpu"] * 2))
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import signal
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.synthetic import LMDataConfig, SyntheticLM
+from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.shardctx import activation_sharding
+from repro_torch.launch.shardings import join_leaf, place_leaf, replicated
 from repro_torch.models.api import get_model
-from repro_torch.optim.base import Optimizer
+from repro_torch.optim.base import Optimizer, tree_leaves, tree_map
 from repro_torch.train.step import default_optimizer, make_train_step
 
 
@@ -63,14 +77,17 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 class Trainer:
-    def __init__(self, cfg: ModelConfig, tc: TrainConfig, *, mesh=None,
+    def __init__(self, cfg: ModelConfig, tc: TrainConfig, *,
+                 mesh: Mesh | None = None,
                  optimizer: Optimizer | None = None, device=None):
-        if mesh is not None:
-            raise NotImplementedError("training over a mesh waits for the "
-                                      "sharded trainer (ROADMAP Queue A "
-                                      "item 6)")
-        self.cfg, self.tc = cfg, tc
-        self.device = resolve_device(device)
+        """`device` runs a single-device trainer; with a `mesh` it must be
+        None (the mesh names its devices)."""
+        if mesh is not None and device is not None:
+            raise ValueError("pass a mesh or a device, not both: the mesh "
+                             "names its devices")
+        self.cfg, self.tc, self.mesh = cfg, tc, mesh
+        self.device = resolve_device(device) if mesh is None \
+            else mesh.devices.flat[0]
         self.model = get_model(cfg)
         self.opt = optimizer or default_optimizer(cfg, tc.lr)
         self.ckpt = CheckpointManager(tc.ckpt_dir, keep=tc.keep)
@@ -85,8 +102,13 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(tc.seed)
         self.params = self.model.init(gen, device=self.device)
         self.opt_state = self.opt.init(self.params)
+        self.shardings = None
+        if mesh is not None:
+            self.shardings = replicated(mesh, (self.params, self.opt_state))
+            self.params, self.opt_state = tree_map(
+                place_leaf, (self.params, self.opt_state), self.shardings)
         self.train_step = make_train_step(self.model, self.opt,
-                                          accum=tc.accum)
+                                          accum=tc.accum, mesh=mesh)
         self.start_step = 0
         self._saved_step: int | None = None
 
@@ -96,9 +118,37 @@ class Trainer:
         if latest is None:
             return False
         self.params, self.opt_state = self.ckpt.restore(
-            latest, (self.params, self.opt_state))
+            latest, (self.params, self.opt_state), self.shardings)
         self.start_step = self._saved_step = latest
         return True
+
+    def full_state(self) -> tuple:
+        """(params, opt_state) as whole tensors (over a mesh, the first
+        device's replica)."""
+        if self.mesh is None:
+            return self.params, self.opt_state
+        return tree_map(join_leaf, (self.params, self.opt_state),
+                        self.shardings)
+
+    def resident_bytes_per_device(self) -> dict:
+        """What each shard of the mesh holds, in bytes: {shard: {"params",
+        "opt_state", "total"}}, keyed `"cuda:0 (data 0, model 1)"` (repeated
+        devices stay apart). Every shard holds its device's replica of the
+        params and the optimizer state, which the shards on one device
+        share (counted at each)."""
+        if self.mesh is None:
+            raise ValueError("resident_bytes_per_device needs a mesh")
+
+        def nbytes(tree, index):
+            return sum(a[index].numel() * a[index].element_size()
+                       for a in tree_leaves(tree))
+        out = {}
+        for index in np.ndindex(*self.mesh.devices.shape):
+            b = {"params": nbytes(self.params, index),
+                 "opt_state": nbytes(self.opt_state, index)}
+            b["total"] = b["params"] + b["opt_state"]
+            out[self.mesh.shard_name(index)] = b
+        return out
 
     def _install_signal_handlers(self) -> dict:
         def handler(signum, frame):
@@ -112,18 +162,26 @@ class Trainer:
         return old
 
     def _batch(self, step: int) -> dict:
+        """The global batch of `step` on the (first) device; the mesh step
+        cuts each shard's rows from it (`train.step.split_rows`)."""
         return {k: torch.from_numpy(v).to(self.device)
                 for k, v in self.data.batch(step).items()}
 
     def _save(self, step: int) -> None:
-        self.ckpt.save(step, (self.params, self.opt_state))
+        self.ckpt.save(step, (self.params, self.opt_state),
+                       shardings=self.shardings)
         self._saved_step = step
 
     # ----------------------------------------------------------------- run
     def run(self) -> dict:
+        """The loop from the latest checkpoint (over a mesh inside its
+        `launch.shardctx.activation_sharding`, as the JAX trainer runs)."""
         old = self._install_signal_handlers()
+        ctx = contextlib.nullcontext() if self.mesh is None \
+            else activation_sharding(self.mesh)
         try:
-            return self._run()
+            with ctx:
+                return self._run()
         finally:
             for sig, h in old.items():
                 signal.signal(sig, h)

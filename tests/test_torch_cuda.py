@@ -1655,3 +1655,169 @@ def test_cuda_mesh_admission_launches_the_table_route():
     assert pins and all(p == {} for p in pins)
     assert pa.launches["prefill_attention_packed"] - before \
         == len(pins) * cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# training over a mesh of the card (tests/test_torch_mesh_train.py's and
+# tests/test_torch_compressed.py's twins)
+# ---------------------------------------------------------------------------
+def _mesh_step(cfg, params, batch, mesh, gen_seed=None, accum=1):
+    """One port step on the card (over `mesh`, or on one device when None)
+    from CPU `params`, with the gradients it took: (params, opt state,
+    gradients, loss) as whole CPU tensors."""
+    from repro_torch.launch.shardings import join, place
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.base import Optimizer, tree_map
+    from repro_torch.train.step import default_optimizer, make_train_step
+    opt = default_optimizer(cfg, 1e-3)
+    seen = {}
+
+    def update(g, s, p, donate=False):
+        seen["g"] = tree_map(torch.clone, g)
+        return opt.update(g, s, p)
+    stash = Optimizer(opt.init, update)
+    dev = torch.device("cuda", 0)
+    p = tree_map(lambda t: t.to(dev), params)
+    s = stash.init(p)
+    gen = None if gen_seed is None else \
+        torch.Generator(device=dev).manual_seed(gen_seed)
+    step = make_train_step(get_model(cfg), stash, accum=accum, mesh=mesh)
+    b = {k: v.to(dev) for k, v in batch.items()}
+    if mesh is not None:
+        rep = (lambda t: tree_map(lambda x: place(x, mesh, ()), t))
+        p, s = rep(p), rep(s)
+    p, s, m = step(p, s, b, gen)
+    if mesh is not None:
+        p, s = (tree_map(lambda a: join(a, mesh, ()), t) for t in (p, s))
+    cpu = (lambda t: tree_map(lambda x: x.cpu(), t))
+    return cpu(p), cpu(s), cpu(seen["g"]), float(m["loss"])
+
+
+def _smoke_masters(arch, **over):
+    from repro_torch.configs.smoke import smoke_config
+    from repro_torch.models.api import get_model
+    cfg = smoke_config(arch).scaled(**over)
+    params = get_model(cfg).init(torch.Generator().manual_seed(0),
+                                 device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (8, 16)).astype(np.int32))
+    return cfg, params, {"tokens": tokens}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,over", [("phi3-medium-14b", {"quant": "bbp"}),
+                                       ("dbrx-132b", {"capacity_factor": 1.0})])
+def test_cuda_one_shard_mesh_step_is_the_single_device_step(arch, over):
+    """On the card a one-shard mesh step equals the single-device step bit
+    for bit (mode 'bbp' draws from a card generator; accum 2)."""
+    from repro_torch.optim.base import tree_leaves
+    _need_card()
+    cfg, params, batch = _smoke_masters(arch, **over)
+    want = _mesh_step(cfg, params, batch, None, gen_seed=4, accum=2)
+    got = _mesh_step(cfg, params, batch, _card_mesh(1), gen_seed=4, accum=2)
+    assert got[3] == want[3]
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(got[:3]), tree_leaves(want[:3]), strict=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,over", [("phi3-medium-14b", {"quant": "bbp"}),
+                                       ("dbrx-132b", {"capacity_factor": 1.0})])
+def test_cuda_mesh_step_matches_the_single_device_step(arch, over):
+    """A 2 x 2 mesh of one card against one device's step: the loss,
+    gradients and moments within TRAIN_REL, params held through the
+    moments (the shards' float32 sums run in another order)."""
+    from _torch_moments import first_step_scale, held_through_moments
+    from repro_torch.core.ap2 import ap2_exponent
+    from repro_torch.optim.base import tree_leaves
+    _need_card()
+    cfg, params, batch = _smoke_masters(arch, **over)
+    pg, sg, gg, lg = _mesh_step(cfg, params, batch, _card_mesh(2, 2),
+                                gen_seed=4)
+    pc, sc, gc, lc = _mesh_step(cfg, params, batch, None, gen_seed=4)
+    assert lg == pytest.approx(lc, rel=1e-5, abs=0)
+    for a, b in zip(tree_leaves((gg, sg.m, sg.u)),
+                    tree_leaves((gc, sc.m, sc.u)), strict=True):
+        a, b = a.double(), b.double()
+        assert float((a - b).abs().max()) <= TRAIN_REL * float(b.abs().max())
+    e = (lambda s: [ap2_exponent(1.0 / (u + 1e-8)).numpy()
+                    for u in tree_leaves(s.u)])
+    npl = (lambda t: [x.numpy() for x in tree_leaves(t)])
+    held_through_moments(npl(pg), npl(pc), npl(sg.m), npl(sc.m), e(sg), e(sc),
+                         TRAIN_REL, first_step_scale(1e-3))
+
+
+@pytest.mark.cuda
+def test_cuda_compressed_step_tracks_dense():
+    """EF-SignSGD over data 2 of the card, musicgen-large smoke, SGD(0.02),
+    6 steps: each loss within 0.08 of the dense step's (the JAX package's
+    bound); the residuals non-zero."""
+    from repro_torch.launch.shardings import join, place
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.adamw import sgd
+    from repro_torch.optim.base import tree_leaves, tree_map
+    from repro_torch.train.compressed import (
+        init_ef_sharded, make_compressed_train_step,
+    )
+    from repro_torch.train.step import make_train_step
+    _need_card()
+    cfg, params, _ = _smoke_masters("musicgen-large")
+    mesh, opt, model = _card_mesh(2), sgd(0.02), get_model(cfg)
+    p = tree_map(lambda t: t.cuda(), params)
+    pd, od = tree_map(torch.clone, p), opt.init(p)
+    pc = tree_map(lambda x: place(x, mesh, ()), p)
+    oc = tree_map(lambda x: place(x, mesh, ()), opt.init(p))
+    ef = init_ef_sharded(p, mesh)
+    cstep = make_compressed_train_step(model, opt, mesh)
+    dstep = make_train_step(model, opt)
+    rng = np.random.default_rng(0)
+    for _ in range(6):
+        b = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, (16, 32)).astype(np.int32)).cuda()}
+        pc, oc, ef, mc = cstep(pc, oc, ef, b)
+        pd, od, md = dstep(pd, od, b)
+        assert abs(float(mc["loss"]) - float(md["loss"])) < 0.08
+    assert sum(float(join(e, mesh, ("data",)).abs().sum())
+               for e in tree_leaves(ef)) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_trainer_on_a_mesh_resumes(tmp_path):
+    """The Trainer on data 2 of the card: a run stopped after 2 steps and
+    resumed on data 2 ends bit for bit where a straight run does; resumed
+    on one device it restores every leaf byte for byte."""
+    import shutil
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.smoke import smoke_config
+    from repro_torch.optim.base import tree_leaves
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    _need_card()
+    cfg = smoke_config("musicgen-large")
+    tc = (lambda d: TrainConfig(steps=4, global_batch=8, seq_len=16,
+                                ckpt_every=2, ckpt_dir=str(tmp_path / d),
+                                log_every=1, lr=1e-2, keep=1))
+    straight = Trainer(cfg, tc("s"), mesh=_card_mesh(2))
+    out = straight.run()
+    killed = Trainer(cfg, tc("k"), mesh=_card_mesh(2))
+    orig = killed._batch
+
+    def stop(step):
+        if step == 1:
+            killed._stop = True
+        return orig(step)
+    killed._batch = stop
+    assert killed.run()["final_step"] == 2
+    shutil.copytree(tmp_path / "k", tmp_path / "one")
+    saved = CheckpointManager(tmp_path / "k").restore(
+        2, straight.full_state(), device="cpu")
+    resumed = Trainer(cfg, tc("k"), mesh=_card_mesh(2))
+    out2 = resumed.run()
+    assert [h["loss"] for h in out["history"][2:]] == \
+        [h["loss"] for h in out2["history"]]
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(resumed.full_state()),
+        tree_leaves(straight.full_state()), strict=True))
+    one = Trainer(cfg, tc("one"), device="cuda")
+    assert one.maybe_restore()
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(
+        tree_leaves(one.full_state()), tree_leaves(saved), strict=True))

@@ -258,12 +258,31 @@ def test_binary_weights_stay_clipped(tmp_path):
 
 
 def test_mesh_and_shardings_name_the_sharded_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Trainer(smoke_config(LM), _tc(tmp_path), mesh=object(), device="cpu")
+    """The two sharded entry points: Trainer(mesh=) over a one-shard mesh
+    trains as one device does, bit for bit; restore(shardings=) places a
+    leaf by its Sharding (a None entry: the plain leaf), and join gives it
+    back."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.shardings import Sharding, join
+    cfg = smoke_config(LM)
+    tr = Trainer(cfg, _tc(tmp_path / "m", steps=3),
+                 mesh=make_host_mesh(devices=["cpu"]))
+    one = Trainer(cfg, _tc(tmp_path / "o", steps=3), device="cpu")
+    losses = [[h["loss"] for h in t.run()["history"]] for t in (tr, one)]
+    assert losses[0] == losses[1]
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(tr.full_state()), tree_leaves((one.params,
+                                                   one.opt_state)),
+        strict=True))
     mgr = CheckpointManager(tmp_path, async_save=False)
-    mgr.save(1, {"w": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="item 6"):
-        mgr.restore(1, {"w": torch.zeros(2)}, shardings={"w": None})
+    mgr.save(1, {"w": torch.arange(8.0).reshape(4, 2), "v": torch.zeros(2)})
+    mesh = make_host_mesh(devices=["cpu"] * 2)
+    out = mgr.restore(1, {"w": torch.zeros(4, 2), "v": torch.zeros(2)},
+                      shardings={"w": Sharding(mesh, ("data",)), "v": None})
+    assert out["w"].shape == (2, 1) and out["w"][1, 0].shape == (2, 2)
+    assert torch.equal(join(out["w"], mesh, ("data",)),
+                       torch.arange(8.0).reshape(4, 2))
+    assert isinstance(out["v"], torch.Tensor)
 
 
 # ---------------------------------------------------------------------------
