@@ -340,18 +340,36 @@ Phases, each of which raises on failure (nothing is caught):
                MESH_GRAD_REL, params held through the moments; one
                profiled step of each (busy share, launches).
                musicgen-large at full width, depth cut to 8 of 48, through
-               `Trainer(mesh=)` on data 2 at 8 x 256: a straight 4-step run,
-               a run stopped after 2 (its step-2 checkpoint the one alive
-               under build/mesh_train), resumed on data 4 and on one device
-               (every restored leaf byte-equal to the saved state, losses
-               within MESH_LOSS_REL) and on data 2 (losses, params and
-               moments equal the straight run's bit for bit); per-shard
-               resident bytes; EF-SignSGD (`train/compressed.py`) over
-               data 2 against the dense step, 6 steps of SGD(0.02), each
-               loss within 0.08, residuals non-zero, compressed_bytes; the
-               trained masters' packed_binary checkpoint served at
-               kv_bits=1, chunk 32 on a 2 x 1 mesh and on one device
+               `Trainer(mesh=)` (placed by the JAX specs) at 8 x 256: a
+               straight 4-step run on data 2 and on 2 x 2, a run on 2 x 2
+               stopped after 2 (its step-2 checkpoint the one alive under
+               build/mesh_train), restored on data 4, data 2 and one
+               device (every restored leaf byte-equal to the saved state,
+               losses within MESH_LOSS_REL) and resumed on 2 x 2 (losses,
+               params and moments equal the straight run's bit for bit);
+               per-position resident bytes; EF-SignSGD
+               (`train/compressed.py`) over data 2 against the dense step,
+               6 steps of SGD(0.02), each loss within 0.08, residuals
+               non-zero, compressed_bytes; the 2 x 2-trained masters'
+               packed_binary checkpoint served at kv_bits=1, chunk 32 on
+               one device, on a 2 x 1 mesh and through the plain versions
                (greedy tokens equal; kernels 1, 2, 5, 6 and 8 launched)
+  19. placed train - the JAX package's placement over data x model
+               (`param_specs`: masters and S-AdaMax state in pieces, each
+               weight gathered per use, gradients reduced onto the pieces,
+               projections, vocabulary and experts over 'model'):
+               phi3-medium-14b at full width, depth 2, 8 x 512, step 0 on
+               a 2 x 2 mesh of the card against one device's, with float32
+               activations (loss within 1e-5, moments within 5e-5) and at
+               the config's bfloat16 (loss within MESH_LOSS_REL, moments
+               within PLACED_BF16_REL), params held through the moments;
+               the bf16 limit's witness without a mesh (one device's step
+               with its +-1 products, then also their dx, as two column
+               halves, as a 'model' 2 column split takes them, against its
+               plain step; reported); each position's
+               bytes against the whole; peak memory above the step's
+               inputs beside one device's and phase 18's data-2 step's;
+               one profiled later step (busy share, launches)
 Every GEMM and packed attention of phases 4-16 takes its launch from the
 card's route table (`kernels/tune.py`); phase 3 pins every route to the
 fixed rule (`gemm_plan`, `attention_plan`: its checks hold one entry point
@@ -6265,13 +6283,22 @@ def mesh_phase(base_cfg, seed, dev, card, dev_gen, reqs6, tokens6):
 # LM_TRAIN_DEPTH, one step on a data-2 mesh of the card against one
 # device's step from the same init; musicgen-large at full width, depth cut
 # to MESH_TRAIN_DEPTH (checkpoint bytes and script time), through the
-# Trainer on data 2 (MESH_TRAIN_STEPS steps, a checkpoint every 2), resumed
-# on data 2, data 4 and one device; EF-SignSGD's compressed step against
-# the dense step for MESH_EF_STEPS steps of SGD(MESH_EF_LR); the trained
-# masters' packed checkpoint served on a 2 x 1 mesh and on one device
+# Trainer (placed by the JAX specs) on data 2 and 2 x 2 (MESH_TRAIN_STEPS
+# steps), stopped at step 2 on 2 x 2, resumed there and restored on data
+# 4, data 2 and one device; EF-SignSGD's compressed step against the dense
+# step for MESH_EF_STEPS steps of SGD(MESH_EF_LR); the 2 x 2-trained
+# masters' packed checkpoint served on one device, on a 2 x 1 mesh and
+# through the plain versions
 MESH_TRAIN_ARCH, MESH_TRAIN_DEPTH, MESH_TRAIN_STEPS = "musicgen-large", 8, 4
 MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 8, 256
 MESH_EF_STEPS, MESH_EF_LR, MESH_EF_BOUND = 6, 0.02, 0.08
+# the Trainer's layouts: straight runs on each of MESH_TRAIN_STRAIGHT, the
+# stopped run and the bit-for-bit resume on MESH_TRAIN_STOPPED, its
+# checkpoint restored on each of MESH_TRAIN_RESTORE
+MESH_TRAIN_STRAIGHT = ("data 2", "2 x 2")
+MESH_TRAIN_STOPPED = "2 x 2"
+MESH_TRAIN_RESTORE = ("data 4", "data 2", "one device")
+MESH_SERVE_PLAIN = 4     # requests of the trained serve held to the plain path
 # a shard's weight gradient is its bf16 GEMM over its rows, rounded once
 # to bf16, and the shards' are summed in float32; one device's is one bf16
 # GEMM over every row: they agree to bf16's rounding (2^-8 of an element)
@@ -6303,7 +6330,7 @@ def mesh_step_check(seed, dev, card):
     batch = {k: torch.from_numpy(v).to(dev)
              for k, v in data.batch(0).items()}
     mesh = card_mesh(dev, 2)
-    runs = {}
+    runs, peaks = {}, {}
     for name in ("one", "mesh"):
         gen = torch.Generator(device=dev).manual_seed(seed)
         p = model.init(gen, device=dev)
@@ -6314,10 +6341,13 @@ def mesh_step_check(seed, dev, card):
             p, st = (tree_map(lambda x: place(x, mesh, ()), t)
                      for t in (p, st))
         torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         p, st, m = step(p, st, batch)
         loss = float(m["loss"])
         wall = (time.perf_counter() - t0) * 1e3
+        peaks[name] = torch.cuda.max_memory_allocated() - base_bytes
         if name == "mesh":
             p, st = (tree_map(lambda a: a[0, 0], t) for t in (p, st))
         runs[name] = (p, st, loss, wall)
@@ -6349,7 +6379,7 @@ def mesh_step_check(seed, dev, card):
            "loss_rel": abs(l2 - l1) / abs(l1), "moments_max_rel": worst,
            "params_parted": counts, "first_step_wall_ms": {"one": w1,
                                                           "mesh": w2},
-           "trace": traces}
+           "peak_above_inputs_bytes": peaks, "trace": traces}
     print(f"mesh train step (phase 18) on {card}: {LM_ARCH} full width, "
           f"depth {LM_TRAIN_DEPTH}, {cfg.quant}, {cfg.dtype} activations, "
           f"S-AdaMax, batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, step 0 from "
@@ -6357,16 +6387,18 @@ def mesh_step_check(seed, dev, card):
           f"device's {l1:.6f} (rel {rep['loss_rel']:.3e}, limit "
           f"{MESH_LOSS_REL}); moments within {worst:.3e} (limit "
           f"{MESH_GRAD_REL}); params held through the moments, parted "
-          f"{counts}; first step wall {w2:.1f} ms against {w1:.1f} ms")
+          f"{counts}; first step wall {w2:.1f} ms against {w1:.1f} ms; "
+          f"peak above the step's inputs {peaks['mesh'] / 1e9:.3f} GB "
+          f"against {peaks['one'] / 1e9:.3f} GB")
     for name in ("one", "mesh"):
         print_trace(f"  train step, {name} (a later step)", traces[name])
     return rep
 
 
-def mesh_trainer(cfg, ckpt_dir, seed, ckpt_every=2, **kw):
+def mesh_trainer(cfg, ckpt_dir, seed, **kw):
     from repro_torch.train.trainer import TrainConfig, Trainer
     tc = TrainConfig(steps=MESH_TRAIN_STEPS, global_batch=MESH_TRAIN_BATCH,
-                     seq_len=MESH_TRAIN_SEQ, ckpt_every=ckpt_every, keep=1,
+                     seq_len=MESH_TRAIN_SEQ, ckpt_every=2, keep=1,
                      ckpt_dir=str(ckpt_dir), log_every=1, seed=seed)
     return Trainer(cfg, tc, **kw)
 
@@ -6391,29 +6423,57 @@ def mesh_train_depth(base_cfg, root):
     return depth
 
 
+def train_layout(dev, name):
+    """The Trainer's keywords for a layout of the card: "one device",
+    "data N" or "D x M" (data x model, placed by the JAX specs)."""
+    if name == "one device":
+        return dict(device=dev)
+    if name.startswith("data "):
+        return dict(mesh=card_mesh(dev, int(name[5:])))
+    data, model = (int(n) for n in name.split(" x "))
+    return dict(mesh=card_mesh(dev, data, model))
+
+
 def mesh_trainer_checks(base_cfg, seed, dev, card, root):
-    """musicgen-large at full width through the Trainer on data 2 of the
-    card: a straight MESH_TRAIN_STEPS-step run (its one checkpoint, the
-    final save, deleted); a
-    run stopped after 2 steps (the SIGTERM path: its checkpoint is step 2,
-    the one alive); resumed on data 4 and on one device (every restored
+    """musicgen-large at full width through the Trainer on meshes of the
+    card, every one placed by the JAX specs: a straight
+    MESH_TRAIN_STEPS-step run on each of MESH_TRAIN_STRAIGHT (writing no
+    checkpoint); a run on MESH_TRAIN_STOPPED
+    stopped after 2 steps (the SIGTERM path: its checkpoint is step 2, the
+    one alive); restored on each of MESH_TRAIN_RESTORE (every restored
     leaf byte-equal to the stopped run's state; steps 2-3 taken by the
-    trainer's step, the losses within MESH_LOSS_REL of the straight run's);
-    resumed on data 2 by `run` (the checkpoint deleted once restored):
-    losses of steps 2-3 and final params and moments equal the straight
-    run's bit for bit. Returns (the straight trainer, its config, report)."""
+    trainer's step, the losses within MESH_LOSS_REL of the straight run's
+    on the stopped layout); resumed on MESH_TRAIN_STOPPED by `run` (the
+    checkpoint deleted once restored): losses of steps 2-3 and final
+    params and moments equal its straight run's bit for bit. Returns (the
+    stopped layout's straight trainer, its config, report)."""
     from repro_torch.optim.base import tree_leaves
     depth = mesh_train_depth(base_cfg, root)
     cfg = base_cfg.scaled(n_layers=depth)
-    straight = mesh_trainer(cfg, root / "straight", seed,
-                            ckpt_every=MESH_TRAIN_STEPS,
-                            mesh=card_mesh(dev, 2))
-    out = straight.run()
-    shutil.rmtree(root / "straight")
-    losses = {h["step"]: h["loss"] for h in out["history"]}
-    if not all(np.isfinite(v) for v in losses.values()):
-        raise AssertionError(f"mesh train losses {losses}")
-    killed = mesh_trainer(cfg, root / "resume", seed, mesh=card_mesh(dev, 2))
+    runs = {}
+    for name in MESH_TRAIN_STRAIGHT:
+        tr = mesh_trainer(cfg, root / "straight", seed,
+                          **train_layout(dev, name))
+        # the reference runs write no checkpoint: the stopped and the
+        # resumed runs' saves are the ones read back
+        tr._save = lambda step: None
+        out = tr.run()
+        shutil.rmtree(root / "straight")
+        losses = {h["step"]: h["loss"] for h in out["history"]}
+        if not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"{name} train losses {losses}")
+        walls = list(tr.step_times)
+        runs[name] = {"losses": losses,
+                      "step_ms": sorted(walls[1:])[len(walls[1:]) // 2] * 1e3,
+                      "step_ms_all": [t * 1e3 for t in walls],
+                      "resident": tr.resident_bytes_per_device()}
+        if name == MESH_TRAIN_STOPPED:
+            straight = tr
+        del tr
+        torch.cuda.empty_cache()
+    losses = runs[MESH_TRAIN_STOPPED]["losses"]
+    killed = mesh_trainer(cfg, root / "resume", seed,
+                          **train_layout(dev, MESH_TRAIN_STOPPED))
     orig = killed._batch
 
     def stop_at_2(step):
@@ -6424,12 +6484,13 @@ def mesh_trainer_checks(base_cfg, seed, dev, card, root):
     out_k = killed.run()
     killed._batch = orig
     if not out_k["interrupted"] or killed.ckpt.latest_step() != 2:
-        raise AssertionError(f"the stopped mesh run: {out_k}")
+        raise AssertionError(f"the stopped {MESH_TRAIN_STOPPED} run: {out_k}")
     saved = killed.full_state()
+    del killed
     resumed = {}
-    for name, kw in (("data 4", dict(mesh=card_mesh(dev, 4))),
-                     ("one device", dict(device=dev))):
-        tr = mesh_trainer(cfg, root / "resume", seed, **kw)
+    for name in MESH_TRAIN_RESTORE:
+        tr = mesh_trainer(cfg, root / "resume", seed,
+                          **train_layout(dev, name))
         t0 = time.perf_counter()
         if not tr.maybe_restore() or tr.start_step != 2:
             raise AssertionError(f"{name}: no step-2 checkpoint restored")
@@ -6454,52 +6515,58 @@ def mesh_trainer_checks(base_cfg, seed, dev, card, root):
                          "restore_s": restore_s, "moments_max_rel": worst}
         del tr
         torch.cuda.empty_cache()
-    del killed, saved
+    del saved
     torch.cuda.empty_cache()
-    tr = mesh_trainer(cfg, root / "resume", seed, mesh=card_mesh(dev, 2))
+    tr = mesh_trainer(cfg, root / "resume", seed,
+                      **train_layout(dev, MESH_TRAIN_STOPPED))
+    t0 = time.perf_counter()
     if not tr.maybe_restore() or tr.start_step != 2:
-        raise AssertionError("data 2: no step-2 checkpoint restored")
+        raise AssertionError(f"{MESH_TRAIN_STOPPED}: no step-2 checkpoint "
+                             f"restored")
+    restore_s = time.perf_counter() - t0
     shutil.rmtree(root / "resume" / "step_2")     # one checkpoint alive
     out_r = tr.run()
     got = {h["step"]: h["loss"] for h in out_r["history"]}
     if sorted(got) != [2, 3] or any(got[s] != losses[s] for s in got):
-        raise AssertionError(f"resumed on data 2: losses {got} != the "
-                             f"straight run's {losses}")
+        raise AssertionError(f"resumed on {MESH_TRAIN_STOPPED}: losses {got} "
+                             f"!= the straight run's {losses}")
     if not state_equal(tr.full_state(), straight.full_state()):
-        raise AssertionError("resumed on data 2: params or moments differ "
-                             "from the straight run's")
+        raise AssertionError(f"resumed on {MESH_TRAIN_STOPPED}: params or "
+                             f"moments differ from the straight run's")
     ckpt_bytes = step_bytes(tr.ckpt, MESH_TRAIN_STEPS)
-    resident = tr.resident_bytes_per_device()
     del tr
     shutil.rmtree(root / "resume")
     torch.cuda.empty_cache()
-    walls = list(straight.step_times)
-    rep = {"depth": depth, "losses": losses, "resumed": resumed,
-           "step_ms": sorted(walls[1:])[len(walls[1:]) // 2] * 1e3,
-           "step_ms_all": [t * 1e3 for t in walls],
-           "ckpt_bytes": ckpt_bytes, "resident": resident}
+    rep = {"depth": depth, "straight": runs, "stopped": MESH_TRAIN_STOPPED,
+           "resumed": resumed, "restore_stopped_s": restore_s,
+           "ckpt_bytes": ckpt_bytes}
     print(f"mesh trainer (phase 18) on {card}: {cfg.name} full width (d "
           f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, d_ff "
           f"{cfg.d_ff}, vocab {cfg.vocab}), depth {depth} (cut from "
           f"{base_cfg.n_layers}), {cfg.quant}, {cfg.dtype} activations, "
-          f"S-AdaMax, batch {MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ}, data 2 "
-          f"over {dev} x 2: losses "
-          + ", ".join(f"step {k} {v:.6f}" for k, v in sorted(losses.items()))
-          + f"; step {rep['step_ms']:.1f} ms (median of steps 1-"
-          f"{MESH_TRAIN_STEPS - 1}, wall); checkpoint {ckpt_bytes / 1e9:.3f} "
-          f"GB; resumed on data 2 at step 2: losses of steps 2-3 and final "
-          f"params and moments equal the straight run's bit for bit")
+          f"S-AdaMax, batch {MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ}, meshes "
+          f"of {dev} placed by JAX's param_specs; checkpoint "
+          f"{ckpt_bytes / 1e9:.3f} GB; resumed on {MESH_TRAIN_STOPPED} at "
+          f"step 2 ({restore_s:.2f} s): losses of steps 2-3 and final params "
+          f"and moments equal the straight run's bit for bit")
+    for name, r in runs.items():
+        print(f"  straight on {name}: losses "
+              + ", ".join(f"step {k} {v:.6f}"
+                          for k, v in sorted(r["losses"].items()))
+              + f"; step {r['step_ms']:.1f} ms (median of steps 1-"
+              f"{MESH_TRAIN_STEPS - 1}, wall)")
+        for shard, b in r["resident"].items():
+            print(f"    {shard}: {b['total'] / 1e9:.3f} GB = params "
+                  f"{b['params'] / 1e9:.3f} + optimizer state "
+                  f"{b['opt_state'] / 1e9:.3f} (its pieces by the JAX specs)")
     for name, r in resumed.items():
-        print(f"  resumed on {name}: every restored leaf byte-equal to the "
-              f"saved state ({r['restore_s']:.2f} s); losses "
+        print(f"  {MESH_TRAIN_STOPPED}'s step 2 restored on {name}: every "
+              f"restored leaf byte-equal to the saved state "
+              f"({r['restore_s']:.2f} s); losses "
               + ", ".join(f"step {k} {v:.6f}" for k, v in r["losses"].items())
               + f" (rel {r['loss_rel']:.3e}, limit {MESH_LOSS_REL}); final "
               f"moments within {r['moments_max_rel']:.3e} of the straight "
               f"run's")
-    for shard, b in resident.items():
-        print(f"  {shard}: {b['total'] / 1e9:.3f} GB = params "
-              f"{b['params'] / 1e9:.3f} + optimizer state "
-              f"{b['opt_state'] / 1e9:.3f} (shards on one device share it)")
     return straight, cfg, rep
 
 
@@ -6569,11 +6636,12 @@ def compressed_check(cfg, seed, dev, card):
 
 def mesh_trained_serve(tr, cfg, seed, dev, root):
     """The trained masters saved with packed_binary=True, restored as
-    PackedWeights and served at kv_bits=1, chunk LM_CHUNK on a 2 x 1 mesh
-    of the card and on one device: greedy tokens equal; one device's
-    launches as `family_expected` counts them, the mesh run's through
-    kernels 1, 2, 5, 6 and 8 and no other. Returns (the mesh run's
-    launches, report)."""
+    PackedWeights and served at kv_bits=1, chunk LM_CHUNK on one device
+    and on a 2 x 1 mesh of the card (greedy tokens equal), and its first
+    MESH_SERVE_PLAIN requests through the kernels and the plain versions
+    (greedy tokens equal); one device's launches as `family_expected`
+    counts them, the mesh run's through kernels 1, 2, 5, 6 and 8 and no
+    other. Returns (the mesh run's launches, report)."""
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.core.packed import PackedWeight
     from repro_torch.serving.engine import Request
@@ -6616,13 +6684,22 @@ def mesh_trained_serve(tr, cfg, seed, dev, root):
             "decode_attention_packed", "prefill_attention_packed"}
     if any(bool(launches[kn]) != (kn in path) for kn in REPLACES):
         raise AssertionError(f"mesh serve launches {launches}")
-    del one, mesh, sched, packed
+    few = reqs[:MESH_SERVE_PLAIN]
+    plain = lm_engine(scfg, packed, kernel_path="ref", seed=seed)
+    for i, (a, b) in enumerate(zip(plain.generate(few), one.generate(few),
+                                   strict=True)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"mesh-trained checkpoint, request {i}: "
+                                 f"plain path {a.tolist()} != the kernels' "
+                                 f"{b.tolist()}")
+    del one, mesh, plain, sched, packed
     shutil.rmtree(root / "packed")
     torch.cuda.empty_cache()
     print(f"mesh-trained checkpoint serve (phase 18): packed_binary "
           f"{packed_bytes / 1e6:.1f} MB, restored to PackedWeights; "
           f"kv_bits=1, chunk {LM_CHUNK}, {len(reqs)} requests: greedy tokens "
-          f"on a 2 x 1 mesh of {dev} equal one device's; one device's "
+          f"on a 2 x 1 mesh of {dev} equal one device's, and the plain "
+          f"versions' one device's on the first {len(few)}; one device's "
           f"launches {dict((k, v) for k, v in counts_one.items() if v)} "
           f"({chunks} chunks, {steps} decode steps, {cfg.n_layers} layers); "
           f"the mesh's {dict((k, v) for k, v in launches.items() if v)}")
@@ -6662,6 +6739,344 @@ def mesh_train_phase(seed, dev, card):
           + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
     print(f"phase 18 (mesh train): {rep['seconds']:.1f} s")
     return launches, rep
+
+
+# the placed train (phase 19): the JAX package's placement over data x model
+# (`launch.shardings.param_specs`: masters and S-AdaMax state in pieces,
+# each weight gathered per use, gradients reduced onto the pieces,
+# projections, vocabulary and experts over 'model'), every mesh `cuda:0`
+# repeated: phi3-medium-14b at full width, depth LM_TRAIN_DEPTH, one step
+# on a 2 x 2 mesh against one device's from the same init. (The musicgen
+# Trainer on 2 x 2, its resume and restores and its served checkpoint are
+# phase 18's: `Trainer(mesh=)` places by the specs on every mesh.)
+# float32 activations: the placed step is the one-device step's function,
+# its sums in another order (measured 7.6e-8 / 8.2e-6 on the card)
+PLACED_F32_LOSS_REL = 1e-5
+# bfloat16 (the config): set after the first card run, not predicted. The
+# 2 x 2 step moves wq / wk's moments by 2.17e-2 of their largest; the
+# witness without a mesh (one device's step with the head's dx split as
+# 'model' 2 splits lm_head's vocabulary, `HalvesHead`) moves them by the
+# same 2.174e-2 / 2.092e-2: the float32 sum of the two vocabulary halves'
+# dx differs from one bf16 GEMM's over all 100,352 columns by bf16 ulps,
+# and wq / wk's moments carry it most. `--bf16-witness` runs every split
+# (the +-1 products, their dx, the head's dx); data 2 alone gives 6.2e-3
+# (phase 18's 2^-6)
+PLACED_WITNESS = ("head's dx by vocabulary",)
+PLACED_BF16_REL = 2.0 ** -5
+
+
+def placed_bytes(params, st, mesh):
+    """({position: params + S-AdaMax state bytes of its pieces}, the
+    whole's bytes, the sharded leaves' whole bytes (params and moments:
+    float32 masters, so m and u are each a master's bytes)."""
+    from repro_torch.core.placed import _axes, whole_shape
+    from repro_torch.launch.shardings import param_specs, resident_bytes
+    from repro_torch.optim.base import tree_leaves, tree_map
+    per = resident_bytes((params, st), mesh)
+    specs = []
+    tree_map(lambda _, sp: specs.append(sp), params,
+             param_specs(tree_map(lambda a: a.flat[0], params)))
+    whole = sharded = 0
+    for a, sp in zip(tree_leaves(params), specs):
+        n = int(np.prod(whole_shape(a, mesh, sp))) * a.flat[0].element_size()
+        whole += 3 * n                     # the master, m and u
+        if any(mesh.shape[x] > 1 for e in sp for x in _axes(e)):
+            sharded += 3 * n
+    whole += st.step.flat[0].numel() * st.step.flat[0].element_size()
+    return per, whole, sharded
+
+
+def halves_forward(ctx, xq, w, u):
+    """`core.layers._BinaryWeightMatmul`'s forward as two column halves,
+    each its own GEMM, concatenated: the products of a 'model' 2 column
+    split, on one device (a witness of `--bf16-witness`)."""
+    from repro_torch.core.layers import _binary_weight
+    ctx.save_for_backward(xq, w, u)
+    wb = _binary_weight(w, xq.dtype, u)[1]
+    h = wb.shape[-1] // 2
+    return torch.cat([torch.matmul(xq, wb[..., :h].contiguous()),
+                      torch.matmul(xq, wb[..., h:].contiguous())], dim=-1)
+
+
+def k_halves_forward(ctx, xq, w, u):
+    """`_BinaryWeightMatmul`'s forward as two K halves' float32 products
+    summed in float32 and cast once: the products of a 'model' 2 row split
+    (wo, w_down), on one device (a witness of `--bf16-witness`)."""
+    from repro_torch.core.layers import _binary_weight
+    ctx.save_for_backward(xq, w, u)
+    wb = _binary_weight(w, xq.dtype, u)[1]
+    h = wb.shape[-2] // 2
+    return (torch.matmul(xq[..., :h].float(), wb[..., :h, :].float())
+            + torch.matmul(xq[..., h:].float(), wb[..., h:, :].float())
+            ).to(xq.dtype)
+
+
+def halves_backward(ctx, g):
+    """`core.layers._BinaryWeightMatmul`'s backward with dx as the two
+    column halves' float32 products summed in float32 and cast once (a
+    'model' 2 column split's order), dw as it is: phase 19's witness for
+    its bf16 limit, on one device."""
+    from repro_torch.core.layers import _binary_weight, _masked_weight_grad
+    xq, w, u = ctx.saved_tensors
+    wc, wb = _binary_weight(w, xq.dtype, u)
+    gx = gw = None
+    if ctx.needs_input_grad[0]:
+        h = wb.shape[-1] // 2
+        gx = (torch.matmul(g[..., :h].float(),
+                           wb[..., :h].float().transpose(-1, -2))
+              + torch.matmul(g[..., h:].float(),
+                             wb[..., h:].float().transpose(-1, -2))
+              ).to(g.dtype)
+    del wb
+    if ctx.needs_input_grad[1]:
+        gw = _masked_weight_grad(xq, g, wc, True).to(w.dtype)
+    return gx, gw, None
+
+
+class HalvesHead(torch.autograd.Function):
+    """x @ w.to(x.dtype), the head's float product, with dx as the two
+    vocabulary halves' float32 products summed in float32 and cast once
+    (a 'model' 2 split of the head), dw autograd's: phase 19's witness,
+    on one device."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.matmul(x, w.to(x.dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        with torch.enable_grad():
+            leaf = w.detach().requires_grad_(True)
+            gw, = torch.autograd.grad(torch.matmul(x, leaf.to(x.dtype)),
+                                      leaf, g)
+        wc, h = w.to(x.dtype), w.shape[-1] // 2
+        gx = (torch.matmul(g[..., :h].float(),
+                           wc[..., :h].float().transpose(-1, -2))
+              + torch.matmul(g[..., h:].float(),
+                             wc[..., h:].float().transpose(-1, -2))
+              ).to(x.dtype)
+        return gx, gw
+
+
+def placed_pair(cfg, seed, dev, shape=(2, 2), profile=False, witness=()):
+    """Step 0 of `cfg` (batch LM_TRAIN_BATCH x LM_TRAIN_SEQ, S-AdaMax) on one
+    device and on a `shape` mesh of the card placed by the JAX specs, from
+    one init: (losses, per-leaf moment differences (max |diff| / max |one
+    device's|), parted params counted by `moments_parity` at `rel`, first
+    step walls, peaks above each step's inputs, positions' bytes, the
+    trace of a later placed step or None; for each name in `witness`, the
+    moment differences from one device's plain step of one device's step
+    with that sum split in two as a 'model' 2 split takes it: the +-1
+    products by columns or by K (`halves_forward`, `k_halves_forward`),
+    their dx (`halves_backward`), the head's dx (`HalvesHead`)). The
+    moments are checked by the caller."""
+    from repro_torch.data.synthetic import LMDataConfig, SyntheticLM
+    from repro_torch.launch.shardings import join, param_specs, place
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.base import (
+        tree_leaves, tree_map, tree_map_with_path,
+    )
+    from repro_torch.train.step import (
+        default_optimizer, init_placed_state, make_train_step,
+        state_shardings,
+    )
+    model, opt = get_model(cfg), default_optimizer(cfg, 1e-3)
+    data = SyntheticLM(LMDataConfig(vocab=cfg.vocab, seq_len=LM_TRAIN_SEQ,
+                                    global_batch=LM_TRAIN_BATCH, seed=seed))
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch(0).items()}
+    mesh = card_mesh(dev, *shape)
+
+    def timed(step, p, st):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p, st, m = step(p, st, batch)
+        loss = float(m["loss"])
+        return p, st, loss, (time.perf_counter() - t0) * 1e3, \
+            torch.cuda.max_memory_allocated() - base
+    p = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    p1, s1, l1, w1, k1 = timed(make_train_step(model, opt), p,
+                               opt.init(p))
+    names = []
+    tree_map_with_path(lambda path, _: names.append("/".join(map(str, path))),
+                       p1)
+
+    def moment_rels(st_got):
+        return {f"{what} {name}": max_rel(a, b)
+                for what, a_t, b_t in (("m", st_got.m, s1.m),
+                                       ("u", st_got.u, s1.u))
+                for name, a, b in zip(names, tree_leaves(a_t),
+                                      tree_leaves(b_t), strict=True)}
+    from repro_torch.core import layers
+    from repro_torch.models import transformer
+    cls = layers._BinaryWeightMatmul
+    splits = {"+-1 products by columns": [(cls, "forward",
+                                           staticmethod(halves_forward))],
+              "+-1 products by K": [(cls, "forward",
+                                     staticmethod(k_halves_forward))],
+              "+-1 products' dx by columns": [
+                  (cls, "backward", staticmethod(halves_backward))],
+              "head's dx by vocabulary": [(transformer, "float_matmul",
+                                           HalvesHead.apply)]}
+    wrels = {}
+    for name in witness:
+        patches = splits[name]
+        plain = [(obj, attr, obj.__dict__[attr]) for obj, attr, _ in patches]
+        for obj, attr, fn in patches:
+            setattr(obj, attr, fn)
+        try:
+            p = model.init(torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+            _, sw, _ = make_train_step(model, opt)(p, opt.init(p), batch)
+        finally:
+            for obj, attr, fn in plain:
+                setattr(obj, attr, fn)
+        wrels[name] = moment_rels(sw)
+        del p, sw
+        torch.cuda.empty_cache()
+    p = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    specs = param_specs(p)
+    pp = tree_map(lambda x, sp: place(x, mesh, sp), p, specs)
+    del p
+    st = init_placed_state(opt, pp, mesh)
+    per, whole, sharded = placed_bytes(pp, st, mesh)
+    step = make_train_step(model, opt, mesh=mesh, specs=specs)
+    pp, st, l2, w2, k2 = timed(step, pp, st)
+    p2 = tree_map(lambda a, sp: join(a, mesh, sp), pp, specs)
+    s2 = tree_map(lambda a, sp: join(a, mesh, sp), st,
+                  state_shardings(st, pp, specs, ()))
+    rels = moment_rels(s2)
+    rep = {"dtype": cfg.dtype, "loss_one": l1, "loss_placed": l2,
+           "loss_rel": abs(l2 - l1) / abs(l1), "moments_rel": rels,
+           "moments_max_rel": max(rels.values()),
+           "first_step_wall_ms": {"one": w1, "placed": w2},
+           "peak_above_inputs_bytes": {"one": k1, "placed": k2},
+           "resident": per, "whole_bytes": whole, "sharded_bytes": sharded,
+           "witness_rel": wrels, "moments": ((p2, s2), (p1, s1))}
+    del p1, s1, p2, s2
+    torch.cuda.empty_cache()
+    rep["trace"] = None
+    if profile:
+        box = [pp, st]
+
+        def one_step():
+            box[0], box[1], _ = step(box[0], box[1], batch)
+        reset_all_launches()
+        rep["trace"] = trace(one_step, top=6)
+        if any(all_launches().values()):
+            raise AssertionError(f"the train step launched a serving "
+                                 f"kernel: {all_launches()}")
+        del box
+    del pp, st
+    torch.cuda.empty_cache()
+    return rep
+
+
+def placed_step_check(seed, dev, card, data2_peak):
+    """phi3-medium-14b at full width, depth LM_TRAIN_DEPTH, bbp_det,
+    S-AdaMax, batch LM_TRAIN_BATCH x LM_TRAIN_SEQ, step 0 on a 2 x 2 mesh of
+    the card placed by the JAX specs against one device's from the same
+    init (`placed_pair`): with float32 activations the function's check
+    (loss within PLACED_F32_LOSS_REL, moments within LM_TRAIN_REL, params
+    held through the moments); at the config's bfloat16 the same at
+    MESH_LOSS_REL and PLACED_BF16_REL; each position's bytes; the bf16
+    step's peak memory above its inputs beside one device's and phase
+    18's data-2 step's; one profiled later bf16 step; the bf16 limit's
+    witness without a mesh (PLACED_WITNESS; reported, not gated).
+    Returns the report."""
+    from repro_torch.configs.base import get_config
+    base = get_config(LM_ARCH).scaled(n_layers=LM_TRAIN_DEPTH)
+    rep = {}
+    for cfg, loss_rel, rel in (
+            (base.scaled(dtype="float32"), PLACED_F32_LOSS_REL, LM_TRAIN_REL),
+            (base, MESH_LOSS_REL, PLACED_BF16_REL)):
+        r = placed_pair(cfg, seed, dev, profile=cfg.dtype == base.dtype,
+                        witness=PLACED_WITNESS if cfg.dtype == base.dtype
+                        else ())
+        got, want = r.pop("moments")
+        top = sorted(r["moments_rel"].items(), key=lambda kv: -kv[1])[:4]
+        print(f"placed train step (phase 19) on {card}: {LM_ARCH} full "
+              f"width, depth {LM_TRAIN_DEPTH}, {cfg.quant}, {cfg.dtype} "
+              f"activations, S-AdaMax, batch {LM_TRAIN_BATCH} x "
+              f"{LM_TRAIN_SEQ}, step 0 from one init: 2 x 2 over {dev} x 4 "
+              f"(JAX's param_specs) loss {r['loss_placed']:.6f} against one "
+              f"device's {r['loss_one']:.6f} (rel {r['loss_rel']:.3e}, limit "
+              f"{loss_rel}); moments within {r['moments_max_rel']:.3e} of "
+              f"each tensor's largest (limit {rel}; largest "
+              + ", ".join(f"{k} {v:.3e}" for k, v in top) + f"); first step "
+              f"wall {r['first_step_wall_ms']['placed']:.1f} ms against "
+              f"{r['first_step_wall_ms']['one']:.1f} ms; peak above the "
+              f"step's inputs "
+              f"{r['peak_above_inputs_bytes']['placed'] / 1e9:.3f} GB "
+              f"against one device's "
+              f"{r['peak_above_inputs_bytes']['one'] / 1e9:.3f} GB")
+        if not np.isfinite(r["loss_placed"]) or r["loss_rel"] > loss_rel \
+                or r["moments_max_rel"] > rel:
+            raise AssertionError(f"{cfg.dtype} 2 x 2 step against one "
+                                 f"device's: loss rel {r['loss_rel']}, "
+                                 f"moments {r['moments_max_rel']}")
+        r["params_parted"] = moments_parity(got, want, rel, MESH_ADAMAX_SCALE)
+        print(f"  params held through the moments, parted "
+              f"{r['params_parted']}")
+        for name, wr in r["witness_rel"].items():
+            wtop = sorted(wr.items(), key=lambda kv: -kv[1])[:4]
+            print(f"  witness, no mesh: one device's step with its "
+                  f"{name} split in two as 'model' 2 splits them, against "
+                  f"its plain step: moments within {max(wr.values()):.3e} "
+                  f"(largest "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in wtop) + ")")
+        del got, want
+        torch.cuda.empty_cache()
+        rep[cfg.dtype] = r
+    r = rep[base.dtype]
+    r["peak_above_inputs_bytes"]["data2 (phase 18)"] = data2_peak
+    print(f"  phase 18's data-2 step (bfloat16): peak above its inputs "
+          + (f"{data2_peak / 1e9:.3f} GB" if data2_peak else "not run"))
+    print(f"  params + S-AdaMax state {r['whole_bytes'] / 1e9:.3f} GB whole, "
+          f"of it sharded leaves {r['sharded_bytes'] / 1e9:.3f} GB (a "
+          f"quarter {r['sharded_bytes'] / 4e9:.3f} GB)")
+    for shard, b in r["resident"].items():
+        print(f"  {shard}: {b / 1e9:.3f} GB "
+              f"({b / r['whole_bytes']:.4f} of the whole)")
+    print_trace("  train step, 2 x 2 placed, bfloat16 (a later step)",
+                r["trace"])
+    return rep
+
+
+def bf16_witness(card, seed, dev) -> int:
+    """`--bf16-witness`: phi3 (full width, depth LM_TRAIN_DEPTH, bf16) step
+    0 on 2 x 2 against one device's, beside one device's steps with each
+    split of `placed_pair`'s witnesses; prints each one's moments."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(LM_ARCH).scaled(n_layers=LM_TRAIN_DEPTH)
+    r = placed_pair(cfg, seed, dev, witness=(
+        "+-1 products by columns", "+-1 products by K",
+        "+-1 products' dx by columns", "head's dx by vocabulary"))
+    print(f"bf16 witnesses on {card}: {LM_ARCH} depth {LM_TRAIN_DEPTH}, "
+          f"2 x 2 against one device: moments within "
+          f"{r['moments_max_rel']:.3e}")
+    for name, wr in r["witness_rel"].items():
+        top = sorted(wr.items(), key=lambda kv: -kv[1])[:2]
+        print(f"  one device, {name} split in two: moments within "
+              f"{max(wr.values()):.3e} ("
+              + ", ".join(f"{k} {v:.3e}" for k, v in top) + ")")
+    return 0
+
+
+def placed_train_phase(seed, dev, card, data2_peak=None):
+    """Phase 19, training over data x model as the JAX package places it,
+    on a mesh of the card: phi3's 2 x 2 step against one device's, with
+    the bf16 limit's witness. Returns the report (the train step launches
+    no kernel of the kernels line)."""
+    t0 = time.perf_counter()
+    rep = {"step": placed_step_check(seed, dev, card, data2_peak)}
+    rep["seconds"] = time.perf_counter() - t0
+    print(f"phase 19 (placed train): {rep['seconds']:.1f} s")
+    return rep
 
 
 def attention_times(card, popc_per_s) -> int:
@@ -6788,6 +7203,11 @@ def main() -> int:
                     help="only build the kernels and time the attention "
                          "kernels (the lm kernel, long-context prefill and "
                          "long-context decode times), then stop")
+    ap.add_argument("--bf16-witness", action="store_true",
+                    help="only build the kernels and run phase 19's bf16 "
+                         "2 x 2 step beside one device's steps with each "
+                         "sum a 'model' 2 split reorders split in two "
+                         "(the witnesses of PLACED_BF16_REL), then stop")
     ap.add_argument("--gemm-scan-times", action="store_true",
                     help="only build the kernels and time kernels 1 and 10 "
                          "(binary_gemm_packed at its LM and output-layer "
@@ -6868,6 +7288,8 @@ def main() -> int:
         return gemm_scan_times(card, popc_per_s, exp_per_s, fp64_per_s, sms)
     if args.decode_times:
         return decode_times(card, args.seed, args.decode_times)
+    if args.bf16_witness:
+        return bf16_witness(card, args.seed, dev)
 
     # --------------------------------------------- kernels vs plain on card
     # each kernel at the fixed rule's launch (`gemm_plan`, `attention_plan`):
@@ -7261,6 +7683,11 @@ def main() -> int:
     for kn in REPLACES:
         path_launches[kn] += mesh_train_launches[kn]
 
+    # ---------------------------------------------------------- placed train
+    report["placed_train"] = placed_train_phase(
+        args.seed, dev, card,
+        report["mesh_train"]["step"]["peak_above_inputs_bytes"]["mesh"])
+
     kernels = []
     for kn in REPLACES:
         t = totals[kn]
@@ -7313,7 +7740,7 @@ def main() -> int:
           "and phase 15's lifecycle runs (fault-free, faulted, and the "
           "engine switched by freeze(kv_bits=1)) and phase 17's run of "
           "phase 6's engine on a 2 x 2 mesh of the card and phase 18's "
-          "serve of the mesh-trained musicgen-large checkpoint on a 2 x 1 "
+          "serve of the 2 x 2-trained musicgen-large checkpoint on a 2 x 1 "
           "mesh of the card")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s after the build")
     print(json.dumps({"kernels": kernels}))

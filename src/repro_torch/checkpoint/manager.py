@@ -44,6 +44,7 @@ from __future__ import annotations
 import json
 import shutil
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -79,6 +80,9 @@ def leaves_with_names(tree, path: tuple = ()) -> list[tuple[str, object]]:
         return [x for i, v in enumerate(tree)
                 for x in leaves_with_names(v, path + (str(i),))]
     return [("/".join(path), tree)]
+
+
+_READERS = 4               # threads reading a checkpoint's leaves
 
 
 def _rebuild(like, fetch, path: tuple = ()):
@@ -230,17 +234,34 @@ class CheckpointManager:
         path = self.dir / f"step_{step}"
         manifest = json.loads((path / "manifest.json").read_text())
         entries = {e["name"]: e for e in manifest["leaves"]}
-        with np.load(path / "arrays.npz") as data:
-            def fetch(name, like_leaf):
-                if name not in entries:
-                    raise KeyError(f"step {step} has no leaf {name!r}")
-                dev = device
-                if dev is None:
-                    ref = like_leaf.packed if isinstance(like_leaf, PackedWeight) \
-                        else like_leaf
-                    dev = ref.device if isinstance(ref, torch.Tensor) else "cpu"
-                return self._leaf(entries[name], data, dev, unpack)
-            return _rebuild(like, fetch)
+        # the leaves are read by _READERS threads, each through its own
+        # handle on the file (a zip handle is not safe to share): a read's
+        # CRC and copies run outside the GIL
+        local, handles = threading.local(), []
+
+        def fetch(item):
+            name, like_leaf = item
+            if name not in entries:
+                raise KeyError(f"step {step} has no leaf {name!r}")
+            dev = device
+            if dev is None:
+                ref = like_leaf.packed if isinstance(like_leaf, PackedWeight) \
+                    else like_leaf
+                dev = ref.device if isinstance(ref, torch.Tensor) else "cpu"
+            if not hasattr(local, "data"):
+                local.data = np.load(path / "arrays.npz")
+                handles.append(local.data)
+            return self._leaf(entries[name], local.data, dev, unpack)
+        wanted = []
+        _rebuild(like, lambda name, leaf: wanted.append((name, leaf)))
+        try:
+            with ThreadPoolExecutor(_READERS) as pool:
+                got = dict(zip((name for name, _ in wanted),
+                               pool.map(fetch, wanted)))
+        finally:
+            for data in handles:
+                data.close()
+        return _rebuild(like, lambda name, _: got[name])
 
     @staticmethod
     def _leaf(entry: dict, data, dev, unpack: bool):

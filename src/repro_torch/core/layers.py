@@ -23,6 +23,22 @@ binarized in the forward, and the backward recomputes both from the master
 instead of keeping the cast and the +-1 copy of every weight alive until
 then (the same gradient: the STE through the cast, as JAX differentiates
 it).
+
+A master placed over a mesh (`core.placed.Placed`, the train step's
+handle on its pieces) runs through `_PlacedMatmul`, which keeps only the
+pieces for the backward: the forward gathers the weight over its FSDP axes
+('data', 'pod') and the backward gathers it again (ZeRO-3's reshard after
+forward), so no gathered weight lives from a layer's forward to its
+backward. Where the spec splits a dim over 'model', each 'model' device
+computes its part: columns (`(..., 'data', 'model')`) give `x @ w_m`,
+concatenated on the row's device; rows (`('model', 'data')`: wo, w_down,
+out_proj, w_out, x_proj) take x's K-slice, and the partial products are
+summed in float32 in 'model' order and cast once; experts (`('model',
+...)` on the leading E of a batched weight) take their slice of the
+buffer. The backward is the transpose (the columns' dx summed in float32
+in 'model' order). A weight's draws are taken at its whole shape and each
+part takes its slice, so a mesh draws what one device draws.
+`embedding_rows` and `float_matmul` (the head) take a placed table too.
 """
 from __future__ import annotations
 
@@ -36,6 +52,7 @@ from repro_torch.core.binarize import (
     binarize, binary_act, hard_sigmoid, ste_mask, uniform_noise,
 )
 from repro_torch.core.packed import PackedActivation, PackedWeight
+from repro_torch.core.placed import Placed, join_pieces, split_grad
 
 
 class QuantMode(str, enum.Enum):
@@ -108,9 +125,19 @@ class Draws:
         if qm == QuantMode.BBP:
             noise["act"] = self(f"{site}.qact", x, per_row)
         if qm in (QuantMode.BC, QuantMode.BBP):
-            noise["w"] = self(f"{site}.w", w.to(x.dtype) if self.noise is None
-                              else w)
+            like = w
+            if self.noise is None:
+                like = _Like(w.shape, x.dtype, x.device) \
+                    if isinstance(w, Placed) else w.to(x.dtype)
+            noise["w"] = self(f"{site}.w", like)
         return noise
+
+
+class _Like(NamedTuple):
+    """What a draw reads of the tensor it is shaped like."""
+    shape: tuple
+    dtype: torch.dtype
+    device: torch.device
 
 
 def quant_weights(w: torch.Tensor, mode: QuantMode, *, train: bool = False,
@@ -195,6 +222,8 @@ def qmatmul(x: torch.Tensor | PackedActivation, w: torch.Tensor | PackedWeight,
                          "PackedWeight rhs")
     noise = noise or {}
     xq = quant_acts(x, mode, train=train, gen=gen, noise=noise.get("act"))
+    if isinstance(w, Placed):
+        return _placed_matmul(xq, w, mode, train, gen, noise.get("w"))
     # the master is cast to the compute dtype before it is binarized
     if mode == QuantMode.NONE:
         return torch.matmul(xq, w.to(xq.dtype))
@@ -245,13 +274,247 @@ class _BinaryWeightMatmul(torch.autograd.Function):
             gx = torch.matmul(g, wb.transpose(-1, -2))
         del wb
         if ctx.needs_input_grad[1]:
-            if w.ndim == 2:
-                gw = torch.matmul(xq.reshape(-1, xq.shape[-1]).T,
-                                  g.reshape(-1, g.shape[-1]))
-            else:
-                gw = torch.matmul(xq.transpose(-1, -2), g)
-            gw = gw.mul_(ste_mask(wc)).to(w.dtype)
+            gw = _masked_weight_grad(xq, g, wc, True).to(w.dtype)
         return gx, gw, None
+
+
+def _placed_matmul(xq, w: Placed, mode: QuantMode, train: bool, gen,
+                   u: torch.Tensor | None) -> torch.Tensor:
+    """qmatmul's product for a placed master: `_PlacedMatmul` when the
+    gradient flows; else (a forward without gradient, such as the MoE
+    step's routing forward) the whole master gathered and the unplaced
+    path."""
+    if not (train and torch.is_grad_enabled()
+            and any(p.requires_grad for p in w.tensors())):
+        with torch.no_grad():
+            wg = w.gather().to(xq.dtype)
+        if mode == QuantMode.NONE:
+            return torch.matmul(xq, wg)
+        return torch.matmul(xq, quant_weights(wg, mode, train=train, gen=gen,
+                                              noise=u))
+    binary = mode != QuantMode.NONE
+    if (u is None and binary and mode != QuantMode.BBP_DET
+            and _stochastic(train, gen, None)):
+        u = uniform_noise(_Like(w.shape, xq.dtype, xq.device), gen)
+    return _PlacedMatmul.apply(xq, u, w, binary, *w.tensors())
+
+
+def float_matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w.to(x.dtype), a float product (the LM head); w may be a placed
+    master (its 'model' parts are vocabulary columns)."""
+    if isinstance(w, Placed):
+        return _placed_matmul(x, w, QuantMode.NONE, True, None, None)
+    return torch.matmul(x, w.to(x.dtype))
+
+
+def embedding_rows(table, ids: torch.Tensor) -> torch.Tensor:
+    """table[ids]. A placed table (spec `('model', 'data')`: vocabulary
+    rows over 'model') is gathered over 'data'; with 'model' > 1 each
+    'model' device looks up the ids in its rows, masked, and the parts are
+    summed on the row's device (exact: one of them is non-zero)."""
+    if not isinstance(table, Placed):
+        return table[ids]
+    if table.model_dim() != 0:
+        return table.gather()[ids]
+    out = None
+    for m in range(table.mesh.shape["model"]):
+        part = table.gather(m)
+        lo, n = m * part.shape[0], part.shape[0]
+        local = ids.to(part.device) - lo
+        hit = (local >= 0) & (local < n)
+        rows = part[local.clamp(0, n - 1)]
+        rows = torch.where(hit[..., None], rows, torch.zeros_like(rows))
+        rows = rows.to(table.device)
+        out = rows if out is None else out + rows
+    return out
+
+
+class _PlacedMatmul(torch.autograd.Function):
+    """xq @ q(w) for a placed master w (`core.placed.Placed`), q the
+    +-1 binarization (`binary`, with the STE) or the cast to xq's dtype:
+    the module doc's columns / rows / experts over 'model', or, where the
+    spec splits no dim over 'model', the whole weight on the row's
+    device. Saves xq, the pieces and the draws cut as the pieces are
+    (`_spread`); the weight and its draws are gathered again in the
+    backward. dw goes to each piece, on its device."""
+
+    @staticmethod
+    def forward(ctx, xq, u, w: Placed, binary: bool, *pieces):
+        ctx.w, ctx.binary, ctx.drawn = w, binary, u is not None
+        ctx.save_for_backward(xq, *pieces,
+                              *([] if u is None else _spread(u, w, pieces)))
+        md, row = w.model_dim(), w.device
+        if md is None:
+            wq = _operand(join_pieces(w.layout(), pieces), w, xq.dtype, u,
+                          binary)[1]
+            return torch.matmul(xq, wq)
+        kind = _kind(w, md)
+        wd, xd, _ = _CUTS[kind]
+        outs = []
+        for m in range(w.mesh.shape["model"]):
+            lay = w.layout(m)
+            wm = join_pieces(lay, pieces)
+            um = None if u is None else _cut(u, wd, m, w).to(lay.device)
+            wq = _operand(wm, w, xq.dtype, um, binary)[1]
+            xm = _cut(xq, xd, m, w).to(lay.device)
+            if kind == "rows":
+                outs.append(torch.matmul(xm.float(), wq.float()).to(row))
+            else:
+                outs.append(torch.matmul(xm, wq).to(row))
+        if kind == "rows":
+            return _sum_f32(outs).to(xq.dtype)
+        return torch.cat(outs, dim=-1 if kind == "cols" else 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, binary = ctx.w, ctx.binary
+        xq, *rest = ctx.saved_tensors
+        n = len(w.tensors())
+        pieces, drawn = rest[:n], rest[n:] if ctx.drawn else None
+        need_x = ctx.needs_input_grad[0]
+        grads = [None] * len(pieces)
+        md, row = w.model_dim(), w.device
+        if md is None:
+            lay = w.layout()
+            wm = join_pieces(lay, pieces)
+            u = _gathered_draws(drawn, lay, w)
+            if not binary:
+                gx, gw = _float_grads(xq, wm, w, g, need_x)
+                _to_pieces(grads, lay, gw, pieces, wm.dtype)
+                return (gx, None, None, None, *grads)
+            wc, wq = _operand(wm, w, xq.dtype, u, True)
+            gx = torch.matmul(g, wq.transpose(-1, -2)) if need_x else None
+            del wq
+            gw = _masked_weight_grad(xq, g, wc, True)
+            _to_pieces(grads, lay, _stored(gw, w), pieces, wm.dtype)
+            return (gx, None, None, None, *grads)
+        kind = _kind(w, md)
+        wd, xd, gd = _CUTS[kind]
+        gxs = []
+        for m in range(w.mesh.shape["model"]):
+            lay = w.layout(m)
+            wm = join_pieces(lay, pieces)
+            um = _gathered_draws(drawn, lay, w)
+            wc, wq = _operand(wm, w, xq.dtype, um, binary)
+            gm = _cut(g, gd, m, w).to(lay.device)
+            if need_x:
+                if kind == "cols":
+                    gxs.append(torch.matmul(gm.float(), wq.float()
+                                            .transpose(-1, -2)).to(row))
+                else:
+                    gxs.append(torch.matmul(gm, wq.transpose(-1, -2))
+                               .to(row))
+            del wq
+            xm = _cut(xq, xd, m, w).to(lay.device)
+            gw = _masked_weight_grad(xm, gm, wc, binary)
+            _to_pieces(grads, lay, _stored(gw, w), pieces, wm.dtype)
+        gx = None
+        if need_x:
+            gx = _sum_f32(gxs).to(xq.dtype) if kind == "cols" else \
+                torch.cat(gxs, dim=-1 if kind == "rows" else 0)
+        return (gx, None, None, None, *grads)
+
+
+# per kind, the dim of (a weight-shaped tensor, the lhs, the output) that
+# 'model' part m takes its slice of (None: the whole tensor)
+_CUTS = {"cols": (-1, None, -1), "rows": (-2, -1, None),
+         "experts": (0, 0, 0)}
+
+
+def _kind(w: Placed, md: int) -> str:
+    """Which dim 'model' splits: 'cols' (N), 'rows' (K) or 'experts' (the
+    leading E of a batched weight)."""
+    if md == w.ndim - 1:
+        return "cols"
+    if md == w.ndim - 2:
+        return "rows"
+    if w.ndim == 3 and md == 0:
+        return "experts"
+    raise ValueError(f"no tensor-parallel matmul splits dim {md} of a "
+                     f"{w.ndim}-D weight (spec {w.view_spec})")
+
+
+def _cut(t: torch.Tensor, dim: int | None, m: int, w: Placed) -> torch.Tensor:
+    """'model' part m of t along `dim` (t itself where dim is None)."""
+    if dim is None:
+        return t
+    n, parts = t.shape[dim], w.mesh.shape["model"]
+    return t.narrow(dim, m * n // parts, n // parts)
+
+
+def _spread(u: torch.Tensor, w: Placed, pieces) -> list[torch.Tensor]:
+    """A weight's draws u (its whole shape, the consumer's orientation)
+    cut as the master is: each piece's slice, a copy on the piece's
+    device, so that no whole-shape draw is kept for the backward."""
+    st, lay = _stored(u, w), w.layout()
+    parts = {k: st[cut].clone(memory_format=torch.contiguous_format)
+             .to(pieces[k].device) for k, cut in zip(lay.take, lay.cuts)}
+    return [parts[k] for k in range(len(pieces))]
+
+
+def _gathered_draws(drawn, lay, w: Placed) -> torch.Tensor | None:
+    """The draws of `lay`'s gather (the consumer's orientation), joined
+    from `_spread`'s slices; None where nothing was drawn."""
+    return None if drawn is None else _stored(join_pieces(lay, drawn), w)
+
+
+def _sum_f32(parts: list[torch.Tensor]) -> torch.Tensor:
+    """The parts summed in float32 in order."""
+    out = parts[0].to(torch.float32)
+    for p in parts[1:]:
+        out = out + p.to(torch.float32)
+    return out
+
+
+def _operand(wm: torch.Tensor, w: Placed, dtype: torch.dtype,
+             u: torch.Tensor | None, binary: bool):
+    """(the gathered weight cast to `dtype`, the matmul's operand: its
+    +-1 binarization, or the cast), in the consumer's orientation."""
+    if w.transposed:
+        wm = wm.transpose(-1, -2)
+    if binary:
+        return _binary_weight(wm, dtype, u)
+    wc = wm.to(dtype)
+    return wc, wc
+
+
+def _masked_weight_grad(x: torch.Tensor, g: torch.Tensor, wc: torch.Tensor,
+                        binary: bool) -> torch.Tensor:
+    """dw = x^T g over every row, times the STE mask where binary."""
+    if wc.ndim == 2:
+        gw = torch.matmul(x.reshape(-1, x.shape[-1]).T,
+                          g.reshape(-1, g.shape[-1]))
+    else:
+        gw = torch.matmul(x.transpose(-1, -2), g)
+    return gw.mul_(ste_mask(wc)) if binary else gw
+
+
+def _float_grads(xq, wm, w: Placed, g, need_x: bool):
+    """(dx, dw) of torch.matmul(xq, w.to(xq.dtype)) for the whole gathered
+    weight, by autograd on a recomputed product: the gradients of the
+    unplaced float product bit for bit."""
+    with torch.enable_grad():
+        x = xq.detach().requires_grad_(need_x)
+        leaf = wm.detach().requires_grad_(True)
+        wv = leaf.transpose(-1, -2) if w.transposed else leaf
+        y = torch.matmul(x, wv.to(x.dtype))
+        ins = (x, leaf) if need_x else (leaf,)
+        out = torch.autograd.grad(y, ins, g)
+    return (out[0], out[1]) if need_x else (None, out[0])
+
+
+def _stored(t: torch.Tensor, w: Placed) -> torch.Tensor:
+    """t of the consumer's orientation in the stored one."""
+    return t.transpose(-1, -2) if w.transposed else t
+
+
+def _to_pieces(grads: list, lay, gw: torch.Tensor, pieces,
+               dtype: torch.dtype) -> None:
+    """Hand each piece of `lay` its slice of gw (stored orientation), cast
+    to the master's dtype."""
+    for k, t in split_grad(lay, gw.to(dtype),
+                           [p.device for p in pieces]).items():
+        grads[k] = t
 
 
 class DenseParams(NamedTuple):

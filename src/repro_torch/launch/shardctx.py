@@ -11,6 +11,18 @@ would name: `current().residual(shape)` and its siblings give the spec
 tuple (`launch.shardings`' form) by the JAX package's rules, or None where
 the hint names none.
 
+Where the placed train step (`train.step`, masters placed by
+`launch.shardings.param_specs`) computes matches two of the hints: an
+FFN's hidden is computed in column parts over 'model' (`ffn_hidden`'s F
+over 'model'), and a MoE buffer's experts run on their 'model' devices
+(`expert_buf`'s E over 'model'); in both the parts are joined on the data
+row's device after each product (`core.layers`). The others do not:
+`residual`'s sequence sharding over 'model' (Megatron-SP) and `attn_q`'s
+heads over 'model' name layouts the port does not compute (the residual
+stream and the attention run whole on the row's device; ROADMAP), and
+`gathered` and `batch_only` name the batch split that every shard's own
+rows already are.
+
     with activation_sharding(mesh, global_batch=8) as hints:
         hints.residual((8, 128, 512))      # ('data', 'model', None)
 """

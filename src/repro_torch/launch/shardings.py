@@ -20,7 +20,11 @@ in the JAX package's pytree order (packed words, thresh, flip; None for a
 child it lacks), each matched as the path plus "/0", "/1", "/2".
 
 `place` cuts a tensor into its per-shard pieces by a spec and puts each on
-its shard's device; `join` puts the pieces back together.
+its shard's device; `join` puts the pieces back together. A spec that does
+not divide a dim raises ValueError, as JAX's `device_put` and `jit(...,
+out_shardings=)` do for such a `NamedSharding`.
+The slicing itself (`_slices`) and the train step's handle on a placed
+master (`Placed`) live in `core.placed`, which the model's ops import.
 """
 from __future__ import annotations
 
@@ -33,8 +37,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.packed import PackedWeight
+from repro_torch.core.placed import _axes, _slices
 from repro_torch.launch.mesh import Mesh, batch_axes
-from repro_torch.optim.base import tree_map, tree_map_with_path
+from repro_torch.optim.base import tree_leaves, tree_map, tree_map_with_path
 
 # (regex on path, spec for the *trailing* dims of the leaf)
 _RULES: list[tuple[str, tuple | None]] = [
@@ -210,33 +215,6 @@ def cache_shardings(mesh: Mesh, cache: dict, family: str,
 
 
 # -- placement --------------------------------------------------------------
-def _axes(entry) -> tuple[str, ...]:
-    if entry is None:
-        return ()
-    return (entry,) if isinstance(entry, str) else tuple(entry)
-
-
-def _slices(shape, mesh: Mesh, spec: tuple, index: tuple[int, ...]):
-    """The slice of each dim that the shard at mesh `index` holds."""
-    out = []
-    for dim, size in enumerate(shape):
-        names = _axes(spec[dim]) if dim < len(spec) else ()
-        parts, rank = 1, 0
-        for name in names:
-            if name not in mesh.axis_names:
-                raise ValueError(f"axis {name!r} is not one of the mesh's "
-                                 f"{mesh.axis_names}")
-            n = mesh.shape[name]
-            parts, rank = parts * n, rank * n + index[
-                mesh.axis_names.index(name)]
-        if size % parts:
-            raise ValueError(f"dim {dim} of {tuple(shape)} does not divide "
-                             f"over {parts} shards ({names})")
-        local = size // parts
-        out.append(slice(rank * local, (rank + 1) * local))
-    return tuple(out)
-
-
 def place(x: torch.Tensor, mesh: Mesh, spec: tuple) -> np.ndarray:
     """x cut by `spec`: an object ndarray of the mesh's shape holding each
     shard's piece, contiguous on its shard's device. A piece is moved to a
@@ -343,4 +321,16 @@ def batch_shards(mesh: Mesh) -> list[tuple[int, ...]]:
         for i, j in zip(ba, sub):
             index[i] = j
         out.append(tuple(index))
+    return out
+
+
+def resident_bytes(tree, mesh: Mesh) -> dict:
+    """{shard name: bytes of the pieces it holds} of a placed tree (every
+    leaf an object ndarray of the mesh's shape); shards on one device that
+    share a piece count it each."""
+    out = {}
+    for index in np.ndindex(*mesh.devices.shape):
+        out[mesh.shard_name(index)] = sum(
+            a[index].numel() * a[index].element_size()
+            for a in tree_leaves(tree))
     return out

@@ -10,14 +10,17 @@ on the CUDA card (and raises if there is none). A checkpoint directory
 that holds steps resumes from the latest, whatever mesh wrote it. Prints
 the run's summary as JSON.
 
---mesh, the JAX launcher's choices: `none` (one device), `host` (a data
-mesh over every visible card, or one shard on --device), `production`
+--mesh, the JAX launcher's choices: `none` (one device), `host` (a
+'data' x 'model' mesh over every visible card, --model of them on the
+'model' axis; with --device, --model shards of that device), `production`
 (16 x 16 'data' x 'model') and `multipod` (2 x 16 x 16 'pod' x 'data' x
-'model'), which raise ValueError on a machine with fewer cards. The mesh
-trains data-parallel (`train.step.make_train_step(mesh=)`):
+'model'), which raise ValueError on a machine with fewer cards. The
+Trainer places the params and the optimizer state by the JAX package's
+specs (`launch.shardings.param_specs`) and the summary adds each
+position's resident bytes (`resident_bytes_per_device`):
 
     python -m repro_torch.launch.train --arch phi3-medium-14b --smoke \
-        --steps 4 --batch 8 --seq 64 --mesh host --device cpu
+        --steps 4 --batch 8 --seq 64 --mesh host --model 2 --device cpu
 """
 from __future__ import annotations
 
@@ -44,6 +47,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--mesh", default="none",
                     choices=["none", "host", "production", "multipod"])
+    ap.add_argument("--model", type=int, default=1,
+                    help="the 'model' axis of --mesh host")
     ap.add_argument("--device", default=None,
                     help="cpu, cuda, ...; default: the CUDA card")
     args = ap.parse_args(argv)
@@ -60,15 +65,21 @@ def main(argv=None) -> int:
     if args.quant:
         cfg = cfg.scaled(quant=args.quant)
     mesh, device = None, args.device
+    if args.model != 1 and args.mesh != "host":
+        ap.error("--model sizes the 'model' axis of --mesh host")
     if args.mesh == "host":
-        mesh = make_host_mesh(devices=None if device is None else [device])
+        mesh = make_host_mesh(args.model, devices=None if device is None
+                              else [device] * args.model)
         device = None
     elif args.mesh in ("production", "multipod"):
         mesh = make_production_mesh(multi_pod=args.mesh == "multipod")
     tc = TrainConfig(steps=args.steps, global_batch=args.batch,
                      seq_len=args.seq, lr=args.lr, accum=args.accum,
                      ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
-    out = Trainer(cfg, tc, mesh=mesh, device=device).run()
+    trainer = Trainer(cfg, tc, mesh=mesh, device=device)
+    out = trainer.run()
+    if mesh is not None:
+        out["resident_bytes_per_device"] = trainer.resident_bytes_per_device()
     print(json.dumps(out, indent=2))
     return 0
 

@@ -33,7 +33,11 @@ Mamba block trains through the JAX package's sequential chunk scan
 in the backward), never through kernel 10, which has no backward and
 refuses inputs that require a gradient. The RG-LRU block trains through
 `_seg_scan`'s recursion under autograd; neither package has a backward
-kernel for it.
+kernel for it. Over a mesh (placed masters, `core.placed.Placed`)
+the projections run through `qmatmul`'s tensor-parallel parts; the
+per-channel leaves (conv taps and bias, dt_w / dt_b, A_log, D, the RG-LRU
+gates) are gathered whole for the data row (`_gathered`) and their
+gradients go back to their pieces: the scan is not split over channels.
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ from repro_torch.core.layers import Draws, QuantMode, qmatmul
 from repro_torch.kernels.selective_scan import (
     selective_scan, selective_scan_plain,
 )
+from repro_torch.core.placed import whole
 from repro_torch.models.common import rms_norm, site_qmm
 
 
@@ -260,6 +265,15 @@ def mamba_chunk_scan(a_log: torch.Tensor, dt: torch.Tensor, xi: torch.Tensor,
     return torch.cat(ys, 1), h
 
 
+_PROJECTIONS = {"in_proj", "x_proj", "out_proj", "w_x", "w_gate", "w_out"}
+
+
+def _gathered(bp: dict) -> dict:
+    """bp with every leaf but the projections whole (`launch.shardings.
+    whole`: a placed one gathered once for the block)."""
+    return {k: v if k in _PROJECTIONS else whole(v) for k, v in bp.items()}
+
+
 def mamba_block_train(bp: dict, x: torch.Tensor, cfg: ModelConfig,
                       mode: QuantMode, draws: Draws, *, site: str = "",
                       chunk: int = 256, path: str = "auto") -> torch.Tensor:
@@ -267,6 +281,7 @@ def mamba_block_train(bp: dict, x: torch.Tensor, cfg: ModelConfig,
     JAX package's `mamba_block(train=True)`): in_proj, x_proj and out_proj
     binarized with the STE (draws at "{site}in_proj" etc.), the scan
     `mamba_chunk_scan`."""
+    bp = _gathered(bp)
     xn = rms_norm(x, bp["ln"]["scale"])
     xi, z = site_qmm(xn, bp["in_proj"], mode, path=path, draws=draws,
                      site=f"{site}in_proj").chunk(2, dim=-1)
@@ -419,6 +434,7 @@ def rglru_block(bp: dict, x: torch.Tensor, cfg: ModelConfig,
     chunk block with every row real: its masks are then no-ops), at train
     time too (`draws`). Returns (y, (conv_state, h_final))."""
     w = cfg.lru_width or cfg.d_model
+    bp = _gathered(bp)
     conv0 = torch.zeros((x.shape[0], cfg.d_conv - 1, w), dtype=x.dtype,
                         device=x.device)
     h0 = torch.zeros((x.shape[0], w), dtype=torch.float32, device=x.device)

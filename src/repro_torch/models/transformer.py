@@ -72,7 +72,8 @@ from repro_torch._device import draw_device, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bitpack import packed_width
 from repro_torch.core.layers import (
-    BatchShard, Draws, QuantMode, qmatmul, shared_pack,
+    BatchShard, Draws, QuantMode, embedding_rows, float_matmul, qmatmul,
+    shared_pack,
 )
 from repro_torch.core.packed import PackedWeight, map_tree
 from repro_torch.kernels.decode_attention import (
@@ -82,6 +83,7 @@ from repro_torch.kernels.pack import pack_rows_into, pack_rows_into_plain
 from repro_torch.kernels.prefill_attention import (
     prefill_attention_packed_paged_plain, prefill_attention_packed_plain,
 )
+from repro_torch.core.placed import whole
 from repro_torch.models.attention import (
     chunk_attention, chunk_attention_paged, decode_attention,
     decode_attention_packed, decode_attention_packed_paged,
@@ -268,9 +270,9 @@ def qkv(p: dict, xn: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
     q, k, v = (site_qmm(xs, p[key], mode, path=path, draws=draws,
                         site=f"{site}.{key}") for key in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
-        q = q + p["bq"].to(q.dtype)
-        k = k + p["bk"].to(k.dtype)
-        v = v + p["bv"].to(v.dtype)
+        q = q + whole(p["bq"]).to(q.dtype)
+        k = k + whole(p["bk"]).to(k.dtype)
+        v = v + whole(p["bv"]).to(v.dtype)
     return (q.reshape(b, s, cfg.n_heads, cfg.head_dim),
             k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim),
             v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim))
@@ -393,8 +395,11 @@ def embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
           positions: torch.Tensor | None = None) -> torch.Tensor:
     """Token embeddings (B, S, D) in the activation dtype; with sinusoidal
     positions (cfg.pos) plus the embedding of `positions`, which broadcast
-    against tokens (default 0..S-1)."""
-    h = params["embed"][tokens.long()].to(cfg.activation_dtype)
+    against tokens (default 0..S-1). A placed embedding (the train step
+    over a mesh) is looked up vocabulary-parallel
+    (`core.layers.embedding_rows`)."""
+    h = embedding_rows(params["embed"], tokens.long()).to(
+        cfg.activation_dtype)
     if cfg.pos == "sinusoidal":
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -405,10 +410,12 @@ def embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def head(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     """Final norm and the LM head, a plain matmul in the activation dtype
-    (`freeze` casts the head once, so this cast is then a no-op)."""
+    (`freeze` casts the head once, so this cast is then a no-op); a placed
+    head gives each 'model' device's vocabulary columns
+    (`core.layers.float_matmul`)."""
     h = norm(params["final_norm"], h, cfg)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return torch.matmul(h, w.to(h.dtype))
+    return float_matmul(h, w)
 
 
 # ---------------------------------------------------------------------------

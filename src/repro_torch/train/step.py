@@ -6,14 +6,22 @@ optimizer's update (S-AdaMax by default for the binary modes, AdamW for
 quant='none'), `apply_updates`, then clip(W) on every binarized
 projection weight.
 
-`make_train_step(..., mesh=)` is the data-parallel step over a
+`make_train_step(..., mesh=, specs=)` is the step over a
 `launch.mesh.Mesh`: the JAX package's sharded step is GSPMD over its
 param shardings, which computes the single-device step's function; the
 port computes that function with one process driving every shard, as its
 serving mesh does (a device may repeat). The batch axes ('pod', 'data')
-split the batch's rows; 'model' holds nothing in training (tensor
-parallelism inside the model is ROADMAP Queue A item 6c). See
-`_mesh_train_step`.
+split the batch's rows. The params and the optimizer state are placed by
+`specs` (`launch.shardings.param_specs`: rows over 'data', ZeRO-3;
+columns, rows or experts over 'model'), or replicated where `specs` is
+None. Each batch shard's forward gathers a weight only while it uses it
+and computes its 'model' parts on the 'model' devices of its row
+(`core.layers`); each piece's gradient comes back to it and the batch
+shards' are summed there (the reduce-scatter); the optimizer updates each
+piece once, on its device. See `_mesh_train_step`. No optimizer path of
+the step reaches `optim.base.global_norm` (S-AdaMax, AdaMax, AdamW and SGD
+are elementwise), so the update of a piece is the update of its slice of
+the whole leaf.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.binarize import clip_weights
 from repro_torch.core.layers import BatchShard
 from repro_torch.launch.mesh import Mesh
+from repro_torch.core.placed import Placed, _axes, slice_key, whole_shape
 from repro_torch.launch.shardings import batch_shards, devices_of
 from repro_torch.models.api import Model
 from repro_torch.optim.adamw import adamw
@@ -63,6 +72,23 @@ def clip_binary_weights(params, *, inplace: bool = False):
     return _clip_tree(params, False, inplace)
 
 
+def clipped_leaves(params) -> list[bool]:
+    """Whether `clip_binary_weights` clips each leaf, in leaf order."""
+    out: list[bool] = []
+
+    def walk(node, clip: bool):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, clip or k in _CLIP_KEYS)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v, clip)
+        elif node is not None:
+            out.append(clip)
+    walk(params, False)
+    return out
+
+
 def default_optimizer(cfg: ModelConfig, lr: float = 1e-3) -> Optimizer:
     if cfg.quant == "none":
         return adamw(lr, weight_decay=0.1)
@@ -78,10 +104,11 @@ def _split(batch: dict, accum: int) -> list[dict]:
 
 
 def make_train_step(model: Model, opt: Optimizer, *, accum: int = 1,
-                    mesh: Mesh | None = None) -> Callable:
+                    mesh: Mesh | None = None, specs=None) -> Callable:
     """Returns train_step(params, opt_state, batch, gen=None) -> (params,
-    opt_state, metrics {nll, [lb_loss], loss}); over `mesh` the
-    data-parallel step (`_mesh_train_step`).
+    opt_state, metrics {nll, [lb_loss], loss}); over `mesh` the step of
+    params and state placed by `specs` (a tree of specs matching params,
+    `launch.shardings.param_specs`; None: replicated), `_mesh_train_step`.
 
     `gen` draws the stochastic binarization and is used in mode 'bbp' only
     (the JAX step passes its key in that mode only). accum > 1: gradient
@@ -93,7 +120,7 @@ def make_train_step(model: Model, opt: Optimizer, *, accum: int = 1,
     update and the clip in place), so that one copy of each is resident,
     as the JAX trainer's jitted step donates them."""
     if mesh is not None:
-        return _mesh_train_step(model, opt, accum, mesh)
+        return _mesh_train_step(model, opt, accum, mesh, specs)
     cfg = model.cfg
     grads_of = _grads_of(model)
 
@@ -123,36 +150,162 @@ def make_train_step(model: Model, opt: Optimizer, *, accum: int = 1,
     return train_step
 
 
-def apply_step(opt: Optimizer, clip: bool, params, opt_state, grads):
+def apply_step(opt: Optimizer, clip: bool, params, opt_state, grads,
+               clipped: list[bool] | None = None):
     """The optimizer's donated update from `grads` (leaves in params'
     order, consumed), added to params in place, then the clip where
-    `clip`: (params, opt_state)."""
+    `clip`: (params, opt_state). `clipped`: which leaves the clip takes
+    (default `clipped_leaves(params)`; a flat list of pieces has no keys
+    to read)."""
     with torch.no_grad():
         updates, opt_state = opt.update(tree_unflatten_like(params, grads),
                                         opt_state, params, donate=True)
         tree_map(lambda p, u: p.add_(u), params, updates)
         del updates
         if clip:
-            params = clip_binary_weights(params, inplace=True)
+            flags = clipped_leaves(params) if clipped is None else clipped
+            for p, f in zip(tree_leaves(params), flags, strict=True):
+                if f:
+                    p.clamp_(-1.0, 1.0)
     return params, opt_state
 
 
 def update_replicas(opt: Optimizer, clip: bool, mesh: Mesh, params,
                     opt_state, grads):
-    """`apply_step` once per distinct device of `mesh`, on its replica of
-    the placed params and state, from `grads` (leaves on the mesh's first
-    device, consumed; copied to the other devices first). Returns the
-    placed (params, opt_state)."""
-    devices = devices_of(mesh)
-    per = {d: grads if i == 0 else [g.to(d, copy=True) for g in grads]
-           for i, d in enumerate(devices)}
+    """`update_placed` of params and state replicated over `mesh` (spec
+    ()), from `grads` (leaves in params' order on the mesh's first
+    device, consumed)."""
+    specs = [()] * len(grads)
+    keys = _slice_keys(tree_leaves(params), specs, mesh)
+    first = (0,) * mesh.devices.ndim
+    return update_placed(opt, clip, mesh, params, opt_state, {
+        (i, keys[i][first]): g for i, g in enumerate(grads)}, keys)
+
+
+def _skeleton(tree):
+    return tree_map(lambda _: 0, tree)
+
+
+def _device_state(state, pskel, pick, one):
+    """state's structure with each params-shaped subtree a list,
+    pick(its leaves), and every other leaf one(leaf)."""
+    if state is None:
+        return None
+    if _skeleton(state) == pskel:
+        return pick(tree_leaves(state))
+    if isinstance(state, dict):
+        return {k: _device_state(v, pskel, pick, one)
+                for k, v in state.items()}
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(_device_state(v, pskel, pick, one)
+                             for v in state))
+    if isinstance(state, (list, tuple)):
+        return type(state)(_device_state(v, pskel, pick, one)
+                           for v in state)
+    return one(state)
+
+
+def _merge(nodes: dict, entries: dict, where: dict, params, mesh: Mesh):
+    """The placed tree of per-device trees `nodes` ({device: tree}, one
+    structure): a list of the device's distinct pieces (`entries[d]`, the
+    skeleton of its flat param list) becomes a params-shaped subtree whose
+    arrays hold at each mesh index the entry of the piece params hold
+    there (shared where the pieces are); any other leaf is the device's at
+    every index of the device (`where[d]`)."""
+    first = next(iter(nodes.values()))
+    if first is None:
+        return None
+    if all(_skeleton(n) == [0] * len(entries[d]) for d, n in nodes.items()):
+        flat = tree_leaves(params)
+        arrays = [np.empty(mesh.devices.shape, dtype=object) for _ in flat]
+        for d, lst in nodes.items():
+            mine = {id(flat[i][ix]): t for (i, ix), t in zip(entries[d], lst)}
+            for i, arr in enumerate(arrays):
+                for ix in where[d]:
+                    arr[ix] = mine[id(flat[i][ix])]
+        return tree_unflatten_like(params, arrays)
+    if isinstance(first, dict):
+        return {k: _merge({d: n[k] for d, n in nodes.items()}, entries,
+                          where, params, mesh) for k in first}
+    if isinstance(first, (list, tuple)):
+        kids = [_merge({d: n[j] for d, n in nodes.items()}, entries, where,
+                       params, mesh) for j in range(len(first))]
+        return type(first)(*kids) if hasattr(first, "_fields") \
+            else type(first)(kids)
+    arr = np.empty(mesh.devices.shape, dtype=object)
+    for d, n in nodes.items():
+        for ix in where[d]:
+            arr[ix] = n
+    return arr
+
+
+def _placement(params, mesh: Mesh):
+    """({device: [(leaf i, mesh index)] of the distinct pieces on it, in
+    leaf then mesh order (shards on one device may share a piece)},
+    {device: its mesh indices})."""
+    owned = {d: [] for d in devices_of(mesh)}
+    seen = set()
+    for i, arr in enumerate(tree_leaves(params)):
+        for index in np.ndindex(*mesh.devices.shape):
+            if id(arr[index]) not in seen:
+                seen.add(id(arr[index]))
+                owned[mesh.devices[index]].append((i, index))
+    where = {d: [ix for ix in np.ndindex(*mesh.devices.shape)
+                 if mesh.devices[ix] == d] for d in owned}
+    return owned, where
+
+
+def update_placed(opt: Optimizer, clip: bool, mesh: Mesh, params, opt_state,
+                  grads: dict, keys: list[dict]):
+    """The optimizer's update of placed params and state: per distinct
+    device, one `apply_step` over the flat list of the distinct pieces it
+    holds, each with its slice's gradient (`grads[(leaf i, slice key)]`,
+    float32 on the first device holding that slice, consumed; copied to
+    the other devices holding it first) and its moments' pieces; the
+    counters update once per device. `keys[i]`: leaf i's slice key at
+    each mesh index. Returns the placed (params, opt_state), new object
+    arrays holding the updated pieces (pieces shared before stay
+    shared). The optimizer sees flat lists of pieces: it must update each
+    leaf on its own (every optimizer of `optim` does; `chain_weight_clip`'s
+    path predicate would see list indices)."""
+    flat, pskel = tree_leaves(params), _skeleton(params)
+    clipped = clipped_leaves(params)
+    owned, where = _placement(params, mesh)
+    per = {}                   # every copy is made before any update
+    for d, entries in owned.items():
+        per[d] = []
+        for i, index in entries:
+            g = grads[(i, keys[i][index])]
+            per[d].append(g if g.device == d else g.to(d, copy=True))
     new_p, new_s = {}, {}
-    for d in devices:
-        ix = next(i for i in np.ndindex(*mesh.devices.shape)
-                  if mesh.devices[i] == d)
-        new_p[d], new_s[d] = apply_step(opt, clip, piece_at(params, ix),
-                                        piece_at(opt_state, ix), per.pop(d))
-    return gather_pieces(new_p, mesh), gather_pieces(new_s, mesh)
+    for d, entries in owned.items():
+        ps = [flat[i][ix] for i, ix in entries]
+        st = _device_state(opt_state, pskel,
+                           lambda ls: [ls[i][ix] for i, ix in entries],
+                           lambda a: a[where[d][0]])
+        new_p[d], new_s[d] = apply_step(opt, clip, ps, st, per.pop(d),
+                                        [clipped[i] for i, _ in entries])
+    return (_merge(new_p, owned, where, params, mesh),
+            _merge(new_s, owned, where, params, mesh))
+
+
+def state_shardings(opt_state, params, shardings, replicate):
+    """The shardings of an optimizer state: each subtree shaped as params
+    (the moments) takes `shardings` (params'), any other leaf (a counter)
+    `replicate`."""
+    return _device_state(opt_state, _skeleton(params),
+                         lambda _: shardings, lambda _: replicate)
+
+
+def init_placed_state(opt: Optimizer, params, mesh: Mesh):
+    """The optimizer's state of placed params, placed as they are: per
+    distinct device, `opt.init` of the flat list of the distinct pieces
+    it holds (the moments mirror their pieces, shared where the pieces
+    are; a counter per device). No whole state is made."""
+    owned, where = _placement(params, mesh)
+    flat = tree_leaves(params)
+    return _merge({d: opt.init([flat[i][ix] for i, ix in e])
+                   for d, e in owned.items()}, owned, where, params, mesh)
 
 
 def _grads_of(model: Model) -> Callable:
@@ -175,20 +328,6 @@ def piece_at(tree, index: tuple[int, ...]):
     """The tree of the pieces at mesh `index` of a placed tree (leaves
     object ndarrays of the mesh's shape, `launch.shardings.place`)."""
     return tree_map(lambda a: a[index], tree)
-
-
-def gather_pieces(trees: dict, mesh: Mesh):
-    """The placed tree whose pieces at each mesh index are the leaves of
-    `trees[that index's device]` (one tree per distinct device)."""
-    flat = {d: tree_leaves(t) for d, t in trees.items()}
-    first = next(iter(trees.values()))
-    out = []
-    for j in range(len(flat[next(iter(flat))])):
-        arr = np.empty(mesh.devices.shape, dtype=object)
-        for index in np.ndindex(*mesh.devices.shape):
-            arr[index] = flat[mesh.devices[index]][j]
-        out.append(arr)
-    return tree_unflatten_like(first, out)
 
 
 def split_rows(mesh: Mesh, batch: dict, accum: int = 1) -> list[list]:
@@ -219,32 +358,76 @@ def _clone(gen: torch.Generator | None, device) -> torch.Generator | None:
     return g
 
 
+def _slice_keys(flat: list, specs: list, mesh: Mesh) -> list[dict]:
+    """Per leaf, {mesh index: the slice it holds} (`launch.shardings.
+    slice_key`): equal keys are replicas of one piece."""
+    return [{ix: slice_key(whole_shape(a, mesh, sp), mesh, sp, ix)
+             for ix in np.ndindex(*mesh.devices.shape)}
+            for a, sp in zip(flat, specs)]
+
+
+def _shard_view(flat: list, specs: list, keys: list[dict], mesh: Mesh,
+                row: tuple[int, ...]):
+    """The leaves the batch shard at mesh index `row` gives `model.loss`:
+    where a spec names a mesh axis of more than one device, a
+    `core.placed.Placed` over the pieces the shard reads; else the
+    shard's own piece (the whole leaf). Returns (those leaves, the
+    autograd leaves (one per distinct piece read), each one's gradient key
+    (leaf i, slice key))."""
+    out, leaves, grad_keys = [], [], []
+    for i, (arr, spec) in enumerate(zip(flat, specs)):
+        if all(mesh.shape.get(a, 1) == 1 for e in spec for a in _axes(e)):
+            t = arr[row].detach().requires_grad_(True)
+            out.append(t)
+            leaves.append(t)
+            grad_keys.append((i, keys[i][row]))
+            continue
+        handle = Placed.of(arr, mesh, spec, row)
+        pieces, mine = np.empty(arr.shape, dtype=object), {}
+        for ix in handle.order:
+            src = arr[ix]
+            if id(src) not in mine:
+                mine[id(src)] = src.detach().requires_grad_(True)
+                leaves.append(mine[id(src)])
+                grad_keys.append((i, keys[i][ix]))
+            pieces[ix] = mine[id(src)]
+        out.append(Placed(pieces, mesh, handle.spec, row))
+    return out, leaves, grad_keys
+
+
 def _mesh_train_step(model: Model, opt: Optimizer, accum: int,
-                     mesh: Mesh) -> Callable:
-    """The data-parallel train step over `mesh`: train_step(params,
-    opt_state, batch, gen=None) -> (params, opt_state, metrics), params and
-    opt_state placed trees replicated over the mesh (every leaf the object
-    ndarray `launch.shardings.place(x, mesh, ())` gives: one replica per
-    distinct device, which shards on that device share), batch the global
-    batch's whole tensors on any device.
+                     mesh: Mesh, specs) -> Callable:
+    """The train step over `mesh`: train_step(params, opt_state, batch,
+    gen=None) -> (params, opt_state, metrics), params and opt_state placed
+    trees (every leaf the object ndarray `launch.shardings.place` gives:
+    the params by `specs`, or replicated where it is None; the state's
+    moments as their params, its counters replicated: `Trainer`,
+    `init_placed_state`), batch the global batch's whole tensors on any
+    device.
 
     Per microbatch (`split_rows`), each batch shard runs `grads_of` on its
     rows on its own device (the mesh index of its batch axes at 'model'
-    0) as a `core.layers.BatchShard`: its draws are its rows of the global
+    0) as a `core.layers.BatchShard`, over its view of the params
+    (`_shard_view`): a placed master is gathered by the ops that use it
+    and its 'model' parts run on the row's 'model' devices; a replicated
+    one is the shard's replica. Its draws are its rows of the global
     batch's (each shard draws from its own copy of `gen`, so each draws
-    the global sequence), and a MoE model first routes the whole
-    microbatch (a forward without gradient on the first shard's device),
-    whose routes the shards take (`models.common.moe_ffn`). A shard's loss,
-    metrics and gradients are weighted by its share of the microbatch's
-    rows (the loss is a mean over tokens, and over rows of equal length);
-    the gradients are summed in float32 in shard order on the first
-    shard's device (then as the single-device step sums microbatches).
-    The sum is copied to each distinct device, where the optimizer's
-    update, apply_updates and the clip run once on that device's replica,
-    in place. On a one-shard mesh the step is the single-device step bit
-    for bit; over more shards it computes its function, the gradients'
-    sums taken in another order. `gen` ends where the single-device step
-    leaves it."""
+    the global sequence; a weight's draw is its whole shape), and a MoE
+    model first routes the whole microbatch (a forward without gradient
+    on the first shard's device), whose routes the shards take
+    (`models.common.moe_ffn`). A shard's loss, metrics and gradients are
+    weighted by its share of the microbatch's rows (the loss is a mean
+    over tokens, and over rows of equal length); each piece's gradient is
+    summed in float32 in shard order on the first device that holds its
+    slice (the reduce-scatter; then as the single-device step sums
+    microbatches). `update_placed` updates each distinct piece once, on
+    its device, in place. On a one-shard mesh the step is the
+    single-device step bit for bit, and on a mesh whose 'model' axis is 1
+    the placed step is the replicated one bit for bit (a gather is a copy,
+    a piece's gradient a slice of the shard's, the sums in one order);
+    over more shards it computes its function, the gradients' sums (and
+    over 'model' the split products') taken in another order. `gen` ends
+    where the single-device step leaves it."""
     cfg = model.cfg
     grads_of = _grads_of(model)
     shards = batch_shards(mesh)
@@ -258,58 +441,74 @@ def _mesh_train_step(model: Model, opt: Optimizer, accum: int,
         mb, weight = b * len(shards), 1.0 / len(shards)
         gens = [_clone(gen, mesh.devices[ix]) for ix in shards]
         route_gen = _clone(gen, dev0) if routes_first else None
-        trees = []
+        flat = tree_leaves(params)
+        sp = [()] * len(flat) if specs is None else _spec_leaves(params,
+                                                                 specs)
+        keys = _slice_keys(flat, sp, mesh)
+        home = {}
+        for i, by_ix in enumerate(keys):
+            for ix, key in by_ix.items():
+                home.setdefault((i, key), mesh.devices[ix])
+        views = []
         for ix in shards:
-            tree = piece_at(params, ix)
-            leaves = [p.detach().requires_grad_(True)
-                      for p in tree_leaves(tree)]
-            trees.append((tree_unflatten_like(tree, leaves), leaves))
-        acc, losses, mets = None, [], []
+            out, leaves, gkeys = _shard_view(flat, sp, keys, mesh, ix)
+            views.append((tree_unflatten_like(params, out), leaves, gkeys))
+        acc, losses, mets = {}, [], []
         for i, rows in enumerate(parts):
             routes = {}
             if routes_first:
                 whole = {k: torch.cat([r[k].to(dev0) for r in rows])
                          for k in rows[0]}
                 with torch.no_grad():
-                    model.loss(trees[0][0], whole, gen=route_gen,
+                    model.loss(views[0][0], whole, gen=route_gen,
                                shard=BatchShard(0, mb, mb, routes, True))
             loss_i, met_i = None, None
-            for j, (masters, leaves) in enumerate(trees):
+            for j, (masters, leaves, gkeys) in enumerate(views):
                 shard = None if one else BatchShard(j * b, (j + 1) * b, mb,
                                                     routes)
                 loss, m, g = grads_of(masters, leaves, rows[j], gens[j],
                                       shard)
-                g = [x.to(dev0, torch.float32) for x in g]
                 if weight != 1.0:
-                    g = [x.mul_(weight) for x in g]
                     loss = loss * weight
                     m = {k: v * weight for k, v in m.items()}
-                loss, m = loss.to(dev0), {k: v.to(dev0) for k, v in m.items()}
-                if acc is None and accum == 1:
-                    acc = g
-                else:
-                    if acc is None:
-                        acc = [torch.zeros_like(x) for x in g]
-                    acc = [a.add_(x) for a, x in zip(acc, g)]
+                for key, x in zip(gkeys, g):
+                    x = x.to(home[key], torch.float32)
+                    if weight != 1.0:
+                        x = x.mul_(weight)
+                    if key not in acc and accum == 1:
+                        acc[key] = x
+                    else:
+                        if key not in acc:
+                            acc[key] = torch.zeros_like(x)
+                        acc[key] = acc[key].add_(x)
                 del g
+                loss, m = loss.to(dev0), {k: v.to(dev0) for k, v in m.items()}
                 loss_i = loss if loss_i is None else loss_i + loss
                 met_i = m if met_i is None else {
                     k: met_i[k] + v for k, v in m.items()}
             losses.append(loss_i)
             mets.append(met_i)
-        del trees
+        del views
         if accum > 1:
-            acc = [a / accum for a in acc]
+            acc = {k: a / accum for k, a in acc.items()}
         loss = losses[0] if accum == 1 else torch.stack(losses).mean()
         metrics = mets[0] if accum == 1 else {
             k: torch.stack([m[k] for m in mets]).mean() for k in mets[0]}
         if gen is not None:
             gen.set_state(gens[0].get_state())
-        params, opt_state = update_replicas(opt, cfg.quant != "none", mesh,
-                                            params, opt_state, acc)
+        params, opt_state = update_placed(opt, cfg.quant != "none", mesh,
+                                          params, opt_state, acc, keys)
         return params, opt_state, dict(metrics, loss=loss)
 
     return train_step
+
+
+def _spec_leaves(params, specs) -> list[tuple]:
+    """Each leaf's spec, in params' leaf order (a spec is a tuple: walked
+    along params, not flattened)."""
+    out: list = []
+    tree_map(lambda _, sp: out.append(tuple(sp)), params, specs)
+    return out
 
 
 def make_eval_step(model: Model) -> Callable:

@@ -17,14 +17,16 @@
                                  #  "interrupted"}
 
 The model runs on `device` (None: the CUDA card; it raises without one),
-or over `mesh` (a `launch.mesh.Mesh`): the data-parallel step
-(`train.step.make_train_step(mesh=)`), params and optimizer state
-replicated on each distinct device of the mesh as placed trees
-(`launch.shardings.place(x, mesh, ())`), initialised once from the seed on
-the mesh's first device, as on one device, and copied to the others. Its
-checkpoints hold whole logical arrays, so a run resumes on any mesh, or on
-one device, from a checkpoint written on any other (elastic restore), and
-continues bit for bit on the mesh it was written from.
+or over `mesh` (a `launch.mesh.Mesh`), as the JAX trainer places it: the
+params drawn once from the seed on the mesh's first device, as on one
+device, and placed by `launch.shardings.param_shardings` (rows over
+'data', ZeRO-3; columns, rows or experts over 'model'); the optimizer
+state initialised on the pieces, so its moments mirror their params and
+its counters replicate (`train.step.init_placed_state`); the step
+`train.step.make_train_step(mesh=, specs=)`. Its checkpoints hold whole
+logical arrays, so a run resumes on any mesh, or on one device, from a
+checkpoint written on any other (elastic restore; also a replicated
+layout's), and continues bit for bit on the mesh it was written from.
 
     trainer = Trainer(cfg, tc, mesh=make_host_mesh(devices=["cpu"] * 2))
 """
@@ -37,7 +39,6 @@ import signal
 import tempfile
 import time
 
-import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
@@ -46,10 +47,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data.synthetic import LMDataConfig, SyntheticLM
 from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.shardctx import activation_sharding
-from repro_torch.launch.shardings import join_leaf, place_leaf, replicated
+from repro_torch.launch.shardings import (
+    Sharding, join_leaf, param_shardings, param_specs, place_leaf,
+    resident_bytes,
+)
 from repro_torch.models.api import get_model
-from repro_torch.optim.base import Optimizer, tree_leaves, tree_map
-from repro_torch.train.step import default_optimizer, make_train_step
+from repro_torch.optim.base import Optimizer, tree_map
+from repro_torch.train.step import (
+    default_optimizer, init_placed_state, make_train_step, state_shardings,
+)
 
 
 @dataclasses.dataclass
@@ -101,14 +107,19 @@ class Trainer:
         self.history: list[dict] = []
         gen = torch.Generator(device=self.device).manual_seed(tc.seed)
         self.params = self.model.init(gen, device=self.device)
-        self.opt_state = self.opt.init(self.params)
-        self.shardings = None
-        if mesh is not None:
-            self.shardings = replicated(mesh, (self.params, self.opt_state))
-            self.params, self.opt_state = tree_map(
-                place_leaf, (self.params, self.opt_state), self.shardings)
+        self.shardings, specs = None, None
+        if mesh is None:
+            self.opt_state = self.opt.init(self.params)
+        else:
+            specs = param_specs(self.params)
+            p_sh = param_shardings(mesh, self.params)
+            self.params = tree_map(place_leaf, self.params, p_sh)
+            self.opt_state = init_placed_state(self.opt, self.params, mesh)
+            self.shardings = (p_sh, state_shardings(
+                self.opt_state, self.params, p_sh, Sharding(mesh, ())))
         self.train_step = make_train_step(self.model, self.opt,
-                                          accum=tc.accum, mesh=mesh)
+                                          accum=tc.accum, mesh=mesh,
+                                          specs=specs)
         self.start_step = 0
         self._saved_step: int | None = None
 
@@ -123,8 +134,8 @@ class Trainer:
         return True
 
     def full_state(self) -> tuple:
-        """(params, opt_state) as whole tensors (over a mesh, the first
-        device's replica)."""
+        """(params, opt_state) as whole tensors (over a mesh, the pieces
+        joined on the first piece's device)."""
         if self.mesh is None:
             return self.params, self.opt_state
         return tree_map(join_leaf, (self.params, self.opt_state),
@@ -133,22 +144,14 @@ class Trainer:
     def resident_bytes_per_device(self) -> dict:
         """What each shard of the mesh holds, in bytes: {shard: {"params",
         "opt_state", "total"}}, keyed `"cuda:0 (data 0, model 1)"` (repeated
-        devices stay apart). Every shard holds its device's replica of the
-        params and the optimizer state, which the shards on one device
-        share (counted at each)."""
+        devices stay apart): its own pieces (a piece that shards on one
+        device share, such as a replicated leaf's, counted at each)."""
         if self.mesh is None:
             raise ValueError("resident_bytes_per_device needs a mesh")
-
-        def nbytes(tree, index):
-            return sum(a[index].numel() * a[index].element_size()
-                       for a in tree_leaves(tree))
-        out = {}
-        for index in np.ndindex(*self.mesh.devices.shape):
-            b = {"params": nbytes(self.params, index),
-                 "opt_state": nbytes(self.opt_state, index)}
-            b["total"] = b["params"] + b["opt_state"]
-            out[self.mesh.shard_name(index)] = b
-        return out
+        p = resident_bytes(self.params, self.mesh)
+        s = resident_bytes(self.opt_state, self.mesh)
+        return {k: {"params": p[k], "opt_state": s[k],
+                    "total": p[k] + s[k]} for k in p}
 
     def _install_signal_handlers(self) -> dict:
         def handler(signum, frame):

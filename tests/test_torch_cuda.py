@@ -1661,14 +1661,35 @@ def test_cuda_mesh_admission_launches_the_table_route():
 # training over a mesh of the card (tests/test_torch_mesh_train.py's and
 # tests/test_torch_compressed.py's twins)
 # ---------------------------------------------------------------------------
-def _mesh_step(cfg, params, batch, mesh, gen_seed=None, accum=1):
+def _mesh_step(cfg, params, batch, mesh, gen_seed=None, accum=1,
+               placed=False):
     """One port step on the card (over `mesh`, or on one device when None)
     from CPU `params`, with the gradients it took: (params, opt state,
-    gradients, loss) as whole CPU tensors."""
-    from repro_torch.launch.shardings import join, place
+    gradients, loss) as whole CPU tensors. `placed`: params and state
+    placed by the JAX specs (the gradients are then None: the optimizer
+    sees each device's pieces)."""
+    from repro_torch.launch.shardings import join, param_specs, place
     from repro_torch.models.api import get_model
     from repro_torch.optim.base import Optimizer, tree_map
-    from repro_torch.train.step import default_optimizer, make_train_step
+    from repro_torch.train.step import (
+        default_optimizer, init_placed_state, make_train_step,
+        state_shardings,
+    )
+    if placed:
+        opt = default_optimizer(cfg, 1e-3)
+        dev = torch.device("cuda", 0)
+        specs = param_specs(params)
+        p = tree_map(lambda t, sp: place(t.to(dev), mesh, sp), params, specs)
+        s = init_placed_state(opt, p, mesh)
+        gen = None if gen_seed is None else \
+            torch.Generator(device=dev).manual_seed(gen_seed)
+        step = make_train_step(get_model(cfg), opt, accum=accum, mesh=mesh,
+                               specs=specs)
+        p, s, m = step(p, s, {k: v.to(dev) for k, v in batch.items()}, gen)
+        ssp = state_shardings(s, p, specs, ())
+        p = tree_map(lambda a, sp: join(a, mesh, sp).cpu(), p, specs)
+        s = tree_map(lambda a, sp: join(a, mesh, sp).cpu(), s, ssp)
+        return p, s, None, float(m["loss"])
     opt = default_optimizer(cfg, 1e-3)
     seen = {}
 
@@ -1745,6 +1766,80 @@ def test_cuda_mesh_step_matches_the_single_device_step(arch, over):
     npl = (lambda t: [x.numpy() for x in tree_leaves(t)])
     held_through_moments(npl(pg), npl(pc), npl(sg.m), npl(sc.m), e(sg), e(sc),
                          TRAIN_REL, first_step_scale(1e-3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,over", [("phi3-medium-14b", {"quant": "bbp"}),
+                                       ("dbrx-132b", {"capacity_factor": 1.0}),
+                                       ("falcon-mamba-7b", {})])
+def test_cuda_placed_step_matches_the_single_device_step(arch, over):
+    """Params and S-AdaMax state placed by the JAX specs on a 2 x 2 mesh of
+    one card (projections, vocabulary and experts over 'model', rows over
+    'data') against one device's step: the loss, moments within TRAIN_REL,
+    params held through the moments; on data 2 ('model' 1) the placed step
+    equals the replicated one bit for bit."""
+    from _torch_moments import first_step_scale, held_through_moments
+    from repro_torch.core.ap2 import ap2_exponent
+    from repro_torch.optim.base import tree_leaves
+    _need_card()
+    cfg, params, batch = _smoke_masters(arch, **over)
+    pg, sg, _, lg = _mesh_step(cfg, params, batch, _card_mesh(2, 2),
+                               gen_seed=4, placed=True)
+    pc, sc, _, lc = _mesh_step(cfg, params, batch, None, gen_seed=4)
+    assert lg == pytest.approx(lc, rel=1e-5, abs=0)
+    for a, b in zip(tree_leaves((sg.m, sg.u)), tree_leaves((sc.m, sc.u)),
+                    strict=True):
+        a, b = a.double(), b.double()
+        assert float((a - b).abs().max()) <= TRAIN_REL * float(b.abs().max())
+    e = (lambda s: [ap2_exponent(1.0 / (u + 1e-8)).numpy()
+                    for u in tree_leaves(s.u)])
+    npl = (lambda t: [x.numpy() for x in tree_leaves(t)])
+    held_through_moments(npl(pg), npl(pc), npl(sg.m), npl(sc.m), e(sg), e(sc),
+                         TRAIN_REL, first_step_scale(1e-3))
+    got = _mesh_step(cfg, params, batch, _card_mesh(2), gen_seed=4,
+                     placed=True)
+    want = _mesh_step(cfg, params, batch, _card_mesh(2), gen_seed=4)
+    assert got[3] == want[3]
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(got[:2]), tree_leaves(want[:2]), strict=True))
+
+
+@pytest.mark.cuda
+def test_cuda_trainer_on_2x2_resumes(tmp_path):
+    """The Trainer on a 2 x 2 mesh of the card (placed by the JAX specs): a
+    run stopped after 2 steps and resumed on 2 x 2 ends bit for bit where
+    a straight run does; each position holds a quarter of the sharded
+    leaves."""
+    from repro_torch.configs.smoke import smoke_config
+    from repro_torch.optim.base import tree_leaves
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    _need_card()
+    cfg = smoke_config("musicgen-large")
+    tc = (lambda d: TrainConfig(steps=4, global_batch=8, seq_len=16,
+                                ckpt_every=2, ckpt_dir=str(tmp_path / d),
+                                log_every=1, lr=1e-2, keep=1))
+    straight = Trainer(cfg, tc("s"), mesh=_card_mesh(2, 2))
+    out = straight.run()
+    killed = Trainer(cfg, tc("k"), mesh=_card_mesh(2, 2))
+    orig = killed._batch
+
+    def stop(step):
+        if step == 1:
+            killed._stop = True
+        return orig(step)
+    killed._batch = stop
+    assert killed.run()["final_step"] == 2
+    resumed = Trainer(cfg, tc("k"), mesh=_card_mesh(2, 2))
+    out2 = resumed.run()
+    assert [h["loss"] for h in out["history"][2:]] == \
+        [h["loss"] for h in out2["history"]]
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(resumed.full_state()),
+        tree_leaves(straight.full_state()), strict=True))
+    per = resumed.resident_bytes_per_device()
+    whole = sum(x.numel() * x.element_size()
+                for x in tree_leaves(resumed.full_state()))
+    assert len(per) == 4 and all(b["total"] < whole / 3 for b in per.values())
 
 
 @pytest.mark.cuda
