@@ -370,6 +370,17 @@ Phases, each of which raises on failure (nothing is caught):
                bytes against the whole; peak memory above the step's
                inputs beside one device's and phase 18's data-2 step's;
                one profiled later step (busy share, launches)
+  20. dry run - the dry run's counter (`roofline.count`, fake devices)
+               on this host's CPU at shapes measured above: phase 14's
+               step's roofline bound (H100 SXM datasheet peaks) at most
+               its profiled busy time, with the useful-FLOP share; phase
+               19's one-device step's predicted peak above its inputs
+               within DRYRUN_TEMP_REL of the card's; phase 19's 2 x 2
+               step: each position's params + S-AdaMax bytes equal to
+               phase 19's, its cross-device bytes predicted; the
+               kernel-repetition analysis of phase 8's trained CNN
+               (`apply_dedup` on the card equal to the CPU's bit for
+               bit); the paper's energy table (`core.energy`)
 Every GEMM and packed attention of phases 4-16 takes its launch from the
 card's route table (`kernels/tune.py`); phase 3 pins every route to the
 fixed rule (`gemm_plan`, `attention_plan`: its checks hold one entry point
@@ -2872,7 +2883,19 @@ def train_phase(seed, dev, card, dev_gen):
         raise AssertionError(f"bnn-mnist losses {mnist}")
     print(f"train {BNN_MNIST.name}: full width, batch {BNN_MNIST.batch}, "
           f"{TRAIN_STEPS} steps on the card, losses {mnist}")
-    losses = tp.train(cfg, CONVERGE_STEPS, seed=seed, device=dev)
+    trained = {}
+    make_step = tp.make_train_step
+
+    def kept_step(*a, **kw):       # the same step; its last params kept
+        step = make_step(*a, **kw)
+
+        def run(*args):
+            out = step(*args)
+            trained["params"] = out[0]
+            return out
+        return run
+    with unittest.mock.patch.object(tp, "make_train_step", kept_step):
+        losses = tp.train(cfg, CONVERGE_STEPS, seed=seed, device=dev)
     first, last = np.mean(losses[:5]), np.mean(losses[-5:])
     print(f"train convergence: {cfg.name} on SyntheticImages (img {cfg.img}, "
           f"{cfg.in_ch} channels, noise {tp.DATA_NOISE}), {CONVERGE_STEPS} "
@@ -2885,7 +2908,10 @@ def train_phase(seed, dev, card, dev_gen):
     return err, launches.get(MXU, 0), rows, {"route_launches": route_launches,
                                  "mnist_losses": mnist,
                                  "converge_losses": losses, "steps": steps,
-                                 "shapes": rows}
+                                 "shapes": rows,
+                                 "trained_convs": [
+                                     c["w"].detach().cpu()
+                                     for c in trained["params"]["convs"]]}
 
 
 # ---------------------------------------------------------------------------
@@ -3119,13 +3145,13 @@ def scan_bound(b, t, d, n, h0, xi_bytes, exp_per_s, fp64_per_s):
     the exact design, `fp64_ms`: each exp a float64 exp (FP64_OPS_PER_EXP
     float64 instructions) on the card's float64 lanes."""
     from repro_torch.kernels import tune
-    nbytes = b * t * d * (4 + xi_bytes + 4) + 2 * b * t * n * 4 + d * n * 4 \
-        + (2 if h0 else 1) * b * d * n * 4
-    t_bytes = nbytes / tune.HBM_BYTES_PER_S * 1e3
-    t_ops = b * t * d * n / exp_per_s * 1e3
+    from repro_torch.kernels.selective_scan import scan_cost
+    cost = scan_cost(b, t, d, n, h0, xi_bytes)
+    t_bytes = cost["bytes"] / tune.HBM_BYTES_PER_S * 1e3
+    t_ops = cost["exps"] / exp_per_s * 1e3
     return {"bytes_ms": t_bytes, "ops_ms": t_ops,
             "bound_ms": max(t_bytes, t_ops),
-            "fp64_ms": b * t * d * n * FP64_OPS_PER_EXP / fp64_per_s * 1e3}
+            "fp64_ms": cost["exps"] * FP64_OPS_PER_EXP / fp64_per_s * 1e3}
 
 
 def scan_kernel_times(dev_gen, dev, card, exp_per_s, fp64_per_s, di, n):
@@ -7194,6 +7220,208 @@ def gemm_scan_times(card, popc_per_s, exp_per_s, fp64_per_s, sms) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the dry run's counter beside the card's measurements, the
+# kernel-repetition analysis and the paper's energy table
+# ---------------------------------------------------------------------------
+# (b): the counter's peak live bytes above the step's inputs against the
+# card's peak above its inputs (the same autograd graph runs in both; the
+# gap is cuBLAS workspaces and the allocator's rounding)
+DRYRUN_TEMP_REL = 0.15
+# the paper nets' layers as benchmarks/bench_energy.py composes them:
+# CIFAR-10 CNN convs (cin, cout, k, h, w) and fully connected (m, k, n)
+ENERGY_CNN_CONVS = [(3, 128, 3, 32, 32), (128, 128, 3, 32, 32),
+                    (128, 256, 3, 16, 16), (256, 256, 3, 16, 16),
+                    (256, 512, 3, 8, 8), (512, 512, 3, 8, 8)]
+ENERGY_CNN_FCS = [(1, 8192, 1024), (1, 1024, 1024), (1, 1024, 10)]
+ENERGY_MLP = [(1, 784, 1024), (1, 1024, 1024), (1, 1024, 1024),
+              (1, 1024, 10)]
+ENERGY_DEDUP = 0.37          # the paper's unique-kernel share (§4.2)
+
+
+def dryrun_count(cfg, shape=None):
+    """The dry run's count (`roofline.count`, on this host's CPU) of cfg's
+    train step (S-AdaMax, a fresh state, batch LM_TRAIN_BATCH x
+    LM_TRAIN_SEQ) on one fake device, or on a `shape` mesh of fake devices
+    placed by JAX's specs (the mesh of phase 19), the batch on the host.
+    Returns (the count, the mesh or None)."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.launch.shardings import param_specs, place
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.base import tree_map
+    from repro_torch.roofline import count as C
+    from repro_torch.train.step import (
+        default_optimizer, init_placed_state, make_train_step,
+    )
+    model, opt = get_model(cfg), default_optimizer(cfg, 1e-3)
+    with C.fake_mode():
+        host = torch.device("cpu")
+        batch = {"tokens": torch.zeros((LM_TRAIN_BATCH, LM_TRAIN_SEQ),
+                                       dtype=torch.int32, device=host)}
+        if shape is None:
+            dev = torch.device("meta", 0)
+            p = model.init(torch.Generator(), device=dev)
+            rep = C.count(make_train_step(model, opt), p, opt.init(p),
+                          {k: v.to(dev) for k, v in batch.items()})
+            mesh = None
+        else:
+            mesh = make_serving_mesh(*shape, devices=C.fake_devices(
+                shape[0] * shape[1], shape[1]))
+            p = model.init(torch.Generator(), device=host)
+            specs = param_specs(p)
+            pp = tree_map(lambda x, sp: place(x, mesh, sp), p, specs)
+            del p
+            rep = C.count(make_train_step(model, opt, mesh=mesh,
+                                          specs=specs),
+                          pp, init_placed_state(opt, pp, mesh), batch,
+                          mesh=mesh)
+        del rep["result"]
+    return rep, mesh
+
+
+def energy_table() -> dict:
+    """The paper's energy table (`core.energy`, Horowitz 45 nm pJ) of the
+    MLP and the CNN in fp32, fp16, BinaryConnect and BBP, and the CNN's
+    BBP with ENERGY_DEDUP unique kernels, as benchmarks/bench_energy.py
+    composes it: {net: {mode: pJ}}."""
+    from repro_torch.core.energy import conv_layer_energy, dense_layer_energy
+
+    def net(mode, name, dedup=1.0):
+        total = 0.0
+        if name == "cnn":
+            for cin, cout, k, h, w in ENERGY_CNN_CONVS:
+                total += conv_layer_energy(cin, cout, k, h, w, mode=mode,
+                                           unique_kernel_fraction=dedup
+                                           ).total_pj()
+        for m, kk, n in ENERGY_CNN_FCS if name == "cnn" else ENERGY_MLP:
+            total += dense_layer_energy(m, kk, n, mode=mode).total_pj()
+        return total
+    out = {name: {mode: net(mode, name) for mode in ("fp32", "fp16", "bc",
+                                                     "bbp")}
+           for name in ("mlp", "cnn")}
+    out["cnn"][f"bbp dedup {ENERGY_DEDUP}"] = net("bbp", "cnn", ENERGY_DEDUP)
+    return out
+
+
+def dedup_check(convs, seed, dev) -> dict:
+    """The kernel-repetition analysis (`core.kernel_dedup`) of the trained
+    CNN's conv weights: each layer's unique 2D-kernel share and the
+    XNOR-popcount reduction 1 / mean, as examples/train_bnn_cifar10.py
+    prints them; each layer's `apply_dedup` on the card against the CPU's
+    on the same inputs, bit for bit."""
+    from repro_torch.core.kernel_dedup import (
+        apply_dedup, dedup_plan, unique_kernel_fraction,
+    )
+    fracs = [unique_kernel_fraction(w.numpy()) for w in convs]
+    gen = torch.Generator().manual_seed(seed)
+    for i, w in enumerate(convs):
+        plan = dedup_plan(w.numpy())
+        x = torch.randn((2, 8, 8, plan["n_unique"]), generator=gen)
+        want = apply_dedup(x, plan)
+        got = apply_dedup(x.to(dev), plan)
+        check_equal(f"apply_dedup conv {i}", got.cpu(), want)
+    print("unique 2D kernels/layer (phase 8's trained bnn-cifar10):",
+          [f"{100 * f:.0f}%" for f in fracs])
+    print(f"=> XNOR-popcount op reduction {1 / np.mean(fracs):.2f}x (§4.2); "
+          f"apply_dedup on the card equals the CPU's bit for bit, every "
+          f"conv")
+    return {"unique_fraction": fracs, "reduction": 1 / float(np.mean(fracs))}
+
+
+def dryrun_phase(card, seed, dev, lm_train, placed, convs) -> dict:
+    """Phase 20: the dry run's counter (`roofline.count`) on this host's
+    CPU, at shapes the card measured earlier: (a) phase 14's step's
+    roofline bound (H100 SXM datasheet peaks) at most its profiled busy
+    time, and its useful-FLOP share; (b) phase 19's one-device step's
+    predicted peak above its inputs within DRYRUN_TEMP_REL of the card's;
+    (c) phase 19's 2 x 2 step: each position's predicted params and
+    S-AdaMax bytes equal to phase 19's, and its predicted cross-device
+    bytes (one card cannot measure them); (d) the kernel-repetition
+    analysis of phase 8's CNN; (e) the paper's energy table. Returns the
+    report."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import mesh as M
+    from repro_torch.roofline import count as C
+    t0 = time.perf_counter()
+    rep = {"energy_pj": energy_table()}
+    e = rep["energy_pj"]
+    print("energy (pJ, Horowitz 45 nm, core.energy; as "
+          "benchmarks/bench_energy.py): " + "; ".join(
+              f"{net} " + ", ".join(f"{m} {v:.4g}" for m, v in modes.items())
+              for net, modes in e.items())
+          + f"; fp32/bbp mlp {e['mlp']['fp32'] / e['mlp']['bbp']:.0f}x, cnn "
+          f"{e['cnn']['fp32'] / e['cnn']['bbp']:.0f}x; bbp/dedup cnn "
+          f"{e['cnn']['bbp'] / e['cnn'][f'bbp dedup {ENERGY_DEDUP}']:.2f}x")
+    # (a), (b): one device
+    cfg = get_config(LM_ARCH).scaled(n_layers=lm_train["depth"])
+    one, _ = dryrun_count(cfg)
+    d = one["devices"]["meta:0"]
+    terms = {"compute": d["flops"] / M.PEAK_FLOPS_BF16,
+             "memory": d["hbm_bytes"] / M.HBM_BW,
+             "collective": d["collectives"]["total_bytes"] / M.LINK_BW}
+    bound_ms = max(terms.values()) * 1e3
+    busy_ms = lm_train["trace"]["busy_ms"]
+    useful = 6.0 * cfg.n_active_params() * LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    peak = placed["bfloat16"]["peak_above_inputs_bytes"]["one"]
+    temp = d["memory"]["temp_size_in_bytes"]
+    rep["one"] = {"flops": d["flops"], "hbm_bytes": d["hbm_bytes"],
+                  "terms_ms": {k: v * 1e3 for k, v in terms.items()},
+                  "bound_ms": bound_ms, "busy_ms": busy_ms,
+                  "bound_over_busy": bound_ms / busy_ms,
+                  "useful_flops_ratio": useful / d["flops"],
+                  "temp_bytes": temp, "peak_above_inputs_bytes": peak,
+                  "temp_rel": (temp - peak) / peak}
+    print(f"dry run (phase 20) of phase 14's step ({LM_ARCH} depth "
+          f"{lm_train['depth']}, {cfg.dtype}, {cfg.quant}, remat "
+          f"{cfg.remat}, S-AdaMax, {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, one "
+          f"device), counted on this host's CPU: {d['flops']:.4e} FLOPs, "
+          f"{d['hbm_bytes']:.4e} bytes (each aten op's operands and "
+          f"results, unfused); priced at H100 SXM datasheet peaks "
+          f"(not measured): compute {terms['compute'] * 1e3:.3f} ms, memory "
+          f"{terms['memory'] * 1e3:.3f} ms; bound {bound_ms:.3f} ms against "
+          f"phase 14's profiled busy {busy_ms:.3f} ms on {card} (ratio "
+          f"{bound_ms / busy_ms:.4f}); useful FLOPs (6 N T) / counted "
+          f"{useful / d['flops']:.4f}")
+    if not bound_ms <= busy_ms:
+        raise AssertionError(f"the roofline bound {bound_ms} ms exceeds the "
+                             f"measured busy time {busy_ms} ms")
+    print(f"  predicted peak above the step's inputs {temp / 1e9:.3f} GB "
+          f"against phase 19's one-device step on the card {peak / 1e9:.3f} "
+          f"GB (rel {(temp - peak) / peak:+.4f}, limit {DRYRUN_TEMP_REL})")
+    if abs(temp - peak) > DRYRUN_TEMP_REL * peak:
+        raise AssertionError(f"predicted temp {temp} against the card's "
+                             f"peak above the inputs {peak}")
+    # (c): the 2 x 2 placed step
+    placed_rep, mesh = dryrun_count(cfg, (2, 2))
+    card_bytes = {name.split(" (", 1)[1]: b
+                  for name, b in placed["bfloat16"]["resident"].items()}
+    rep["placed"] = {}
+    for ix in np.ndindex(*mesh.devices.shape):
+        where = mesh.shard_name(ix).split(" (", 1)[1]
+        r = placed_rep["devices"][str(mesh.devices[ix])]
+        args = r["memory"]["argument_size_in_bytes"]
+        coll = r["collectives"]
+        rep["placed"][where] = {"argument_bytes": args,
+                                "card_bytes": card_bytes[where],
+                                "cross_device_bytes": coll}
+        print(f"  2 x 2 ({where}: predicted params + S-AdaMax bytes {args} "
+              f"(phase 19: {card_bytes[where]}), cross-device bytes in "
+              f"{coll['total_bytes']} {coll['per_op']} (predicted; one card "
+              f"cannot measure them), temp "
+              f"{r['memory']['temp_size_in_bytes'] / 1e9:.3f} GB")
+        if args != card_bytes[where]:
+            raise AssertionError(f"{where}: predicted argument bytes {args} "
+                                 f"against phase 19's {card_bytes[where]}")
+    if placed_rep["host"]["ops"]:
+        print(f"  ops whose output lands on the host (kept apart): "
+              f"{placed_rep['host']['ops']}")
+    # (d)
+    rep["dedup"] = dedup_check(convs, seed, dev)
+    rep["seconds"] = time.perf_counter() - t0
+    print(f"phase 20 (dry run): {rep['seconds']:.1f} s")
+    return rep
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7619,6 +7847,7 @@ def main() -> int:
     # ----------------------------------------------------------------- train
     err[MXU], train_launches, mxu_rows, report["train"] = train_phase(
         args.seed, dev, card, dev_gen)
+    trained_convs = report["train"].pop("trained_convs")
     path_launches[MXU] += train_launches
     for row in mxu_rows:
         for key in totals[MXU]:
@@ -7687,6 +7916,12 @@ def main() -> int:
     report["placed_train"] = placed_train_phase(
         args.seed, dev, card,
         report["mesh_train"]["step"]["peak_above_inputs_bytes"]["mesh"])
+
+    # --------------------------------------------------------------- dry run
+    report["dryrun"] = dryrun_phase(card, args.seed, dev,
+                                    report["lm_train"],
+                                    report["placed_train"]["step"],
+                                    trained_convs)
 
     kernels = []
     for kn in REPLACES:

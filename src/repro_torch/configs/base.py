@@ -97,6 +97,44 @@ class ModelConfig:
     def scaled(self, **overrides) -> "ModelConfig":
         return dataclasses.replace(self, **overrides)
 
+    def n_params(self) -> int:
+        """Approximate parameter count (embeddings + blocks), the JAX
+        package's formula."""
+        d, f, v, l = self.d_model, self.d_ff, self.vocab, self.n_layers
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":
+            di = self.expand * d
+            dtr = self.dt_rank or max(1, d // 16)
+            per = (d * 2 * di + self.d_conv * di + di * (dtr + 2 * self.ssm_state)
+                   + dtr * di + di * self.ssm_state + di + di * d)
+            return emb + l * per
+        attn = d * (self.n_heads + 2 * self.n_kv_heads) * self.head_dim \
+            + self.n_heads * self.head_dim * d
+        ffn_mult = 3 if self.mlp in ("swiglu", "geglu") else 2
+        if self.n_experts:
+            ff = self.n_experts * ffn_mult * d * f + d * self.n_experts
+        else:
+            ff = ffn_mult * d * f
+        per = attn + ff
+        if self.family == "hybrid":
+            # crude split: attn layers vs recurrent layers
+            pat = self.block_pattern or ("rec", "rec", "attn")
+            n_attn = sum(1 for i in range(l) if pat[i % len(pat)] == "attn")
+            n_rec = l - n_attn
+            w = self.lru_width or d
+            rec_per = 2 * d * w + 4 * w + w * d + ffn_mult * d * f
+            return emb + n_attn * per + n_rec * rec_per
+        return emb + l * per
+
+    def n_active_params(self) -> int:
+        """Per-token active params (MoE counts top_k experts only)."""
+        if not self.n_experts:
+            return self.n_params()
+        d, f, l = self.d_model, self.d_ff, self.n_layers
+        ffn_mult = 3 if self.mlp in ("swiglu", "geglu") else 2
+        inactive = l * (self.n_experts - self.top_k) * ffn_mult * d * f
+        return self.n_params() - inactive
+
 
 _REGISTRY: dict[str, Any] = {}
 

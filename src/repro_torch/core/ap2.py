@@ -2,7 +2,8 @@
 
 AP2(z) rounds |z| to the nearest power of two and keeps the sign, so
 multiplications become binary shifts. Here, as in the JAX package, the
-numerics are realized (values constrained to +-2^k) as exact multiplies.
+numerics are realized (values constrained to +-2^k) as exact multiplies;
+the energy win of shift-vs-multiply is modeled in `core.energy`.
 """
 from __future__ import annotations
 

@@ -281,11 +281,17 @@ class _BinaryWeightMatmul(torch.autograd.Function):
 def _placed_matmul(xq, w: Placed, mode: QuantMode, train: bool, gen,
                    u: torch.Tensor | None) -> torch.Tensor:
     """qmatmul's product for a placed master: `_PlacedMatmul` when the
-    gradient flows; else (a forward without gradient, such as the MoE
-    step's routing forward) the whole master gathered and the unplaced
-    path."""
-    if not (train and torch.is_grad_enabled()
-            and any(p.requires_grad for p in w.tensors())):
+    gradient flows, and at inference (no piece requires a gradient: the
+    prefill and decode steps over a mesh), where its forward computes the
+    'model' parts as in training; else (a forward without gradient of
+    pieces that train, the MoE step's routing forward) the whole master
+    gathered and the unplaced path."""
+    infer = not any(p.requires_grad for p in w.tensors())
+    if infer and w.model_dim() is not None:
+        with torch.no_grad():
+            return _PlacedMatmul.apply(xq, None, w, mode != QuantMode.NONE,
+                                       *w.tensors())
+    if not (train and torch.is_grad_enabled() and not infer):
         with torch.no_grad():
             wg = w.gather().to(xq.dtype)
         if mode == QuantMode.NONE:

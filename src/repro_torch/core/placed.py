@@ -25,6 +25,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.roofline.count import charge_copies, counting
+
 
 def _axes(entry) -> tuple[str, ...]:
     if entry is None:
@@ -79,11 +81,17 @@ class Layout:
 
 
 def join_pieces(lay: Layout, pieces) -> torch.Tensor:
-    """The gathered tensor of `lay` from the Placed's pieces (its order)."""
+    """The gathered tensor of `lay` from the Placed's pieces (its order).
+    Inside the dry run's count (`roofline.count`) each piece's copy is
+    charged as its copy op would be, not dispatched."""
     chosen = [pieces[k] for k in lay.take]
     if len(chosen) == 1 and chosen[0].device == lay.device:
         return chosen[0]
     out = torch.empty(lay.shape, dtype=chosen[0].dtype, device=lay.device)
+    if counting(lay.device):
+        charge_copies([(p, lay.device, p.numel() * p.element_size())
+                       for p in chosen], "gather")
+        return out
     for cut, p in zip(lay.cuts, chosen):
         out[cut] = p
     return out
@@ -91,7 +99,22 @@ def join_pieces(lay: Layout, pieces) -> torch.Tensor:
 
 def split_grad(lay: Layout, g: torch.Tensor, devices: list) -> dict:
     """{piece index: its slice of g (the gathered gradient), on its
-    device (`devices`, by piece index)}."""
+    device (`devices`, by piece index)}. Inside the dry run's count the
+    copy of each slice to another device is charged, not dispatched
+    (`join_pieces`)."""
+    if counting(g.device):
+        out = {}
+        for k, cut in zip(lay.take, lay.cuts):
+            if devices[k] == g.device:
+                out[k] = g[cut].contiguous()
+                continue
+            shape = [len(range(*c.indices(n))) for c, n in zip(cut, g.shape)]
+            out[k] = torch.empty(shape + list(g.shape[len(cut):]),
+                                 dtype=g.dtype, device=devices[k])
+            charge_copies([(g, devices[k],
+                            out[k].numel() * out[k].element_size())],
+                          "reduce")
+        return out
     return {k: g[cut].to(devices[k]).contiguous()
             for k, cut in zip(lay.take, lay.cuts)}
 

@@ -13,7 +13,10 @@ takes an initial state `h0` besides, as the JAX package's
 `models.ssm._mamba_chunk_scan` does. On CUDA tensors it launches the kernel
 of `csrc/selective_scan.cu`, or raises (N above 16 included); it runs the
 plain version only because its inputs lie on the CPU.
-`launches["selective_scan"]` counts kernel launches.
+`launches["selective_scan"]` counts kernel launches. `scan_cost` is the
+kernel's own work (bytes moved, float ops and exps), which the card's
+roofline and the dry run (`roofline.count`, where a meta tensor stands for
+the card's) both read.
 """
 from __future__ import annotations
 
@@ -28,6 +31,18 @@ MAX_N = 16          # states per channel the kernel holds in registers
 
 def reset_launches() -> None:
     launches["selective_scan"] = 0
+
+
+def scan_cost(b: int, t: int, d: int, n: int, h0: bool,
+              xi_bytes: int) -> dict:
+    """The work of one scan of (B, T, D) steps of N states: `bytes` it must
+    move (dt, xi, B, C, A and h0 read once, y and h_final written once),
+    `exps` (one per state and step) and `flops`, the other float ops per
+    state and step (dt A, a h, the input term's multiply-add, y's
+    multiply-add: 5)."""
+    nbytes = b * t * d * (4 + xi_bytes + 4) + 2 * b * t * n * 4 + d * n * 4 \
+        + (2 if h0 else 1) * b * d * n * 4
+    return {"bytes": nbytes, "exps": b * t * d * n, "flops": 5 * b * t * d * n}
 
 
 def selective_scan_plain(dt, xi, bmat, cmat, a_mat, h0=None):
@@ -88,10 +103,18 @@ def selective_scan(dt: torch.Tensor, xi: torch.Tensor, bmat: torch.Tensor,
                            "models.ssm.mamba_chunk_scan)")
     if dt.device.type == "cpu":
         return selective_scan_plain(dt, xi, bmat, cmat, a_mat, h0)
-    if dt.device.type != "cuda":
-        raise ValueError(f"no selective-scan kernel for device {dt.device}")
     b, t, d = dt.shape
     n = bmat.shape[-1]
+    if dt.device.type != "cuda":
+        from repro_torch.roofline.count import counting, kernel_call
+        if counting(dt.device):
+            # the dry run's fake card: the kernel's own work, counted
+            cost = scan_cost(b, t, d, n, h0 is not None, xi.element_size())
+            return tuple(kernel_call(
+                "selective_scan", dt.device, flops=cost["flops"],
+                nbytes=cost["bytes"], outputs=[((b, t, d), torch.float32),
+                                               ((b, d, n), torch.float32)]))
+        raise ValueError(f"no selective-scan kernel for device {dt.device}")
     if not 1 <= n <= MAX_N:
         raise ValueError(f"the selective-scan kernel holds 1..{MAX_N} states "
                          f"per channel, got N={n}")

@@ -16,6 +16,9 @@ build theirs over `["cpu"] * 4`.
     mesh = make_serving_mesh(2, 2, devices=["cuda:0"] * 4)   # one card
     data, model = parse_mesh("data=2,model=1")
     mesh = make_production_mesh(multi_pod=True, devices=["cpu"] * 512)
+
+The roofline's per-card peaks are the H100 SXM 80GB's (the JAX package
+keeps a TPU v5e's here): datasheet figures, not measurements.
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.tune import HBM_BYTES_PER_S
 
 
 @dataclass(frozen=True, eq=False)
@@ -139,3 +144,14 @@ def make_serving_mesh(data: int = 1, model: int = 1, devices=None) -> Mesh:
 def batch_axes(mesh: Mesh) -> tuple[str, ...]:
     """Mesh axes the global batch is sharded over."""
     return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+# H100 SXM 80GB peaks used by the roofline analysis (per card; NVIDIA H100
+# Tensor Core GPU datasheet). Datasheet peaks, not measurements: a number
+# priced with them is an upper bound on rate, never a reading. The link
+# term assumes a collective stays inside one NVLink domain (NVLink 4: 900
+# GB/s both ways, 450 GB/s each way), as the JAX package's assumes one ICI
+# link.
+PEAK_FLOPS_BF16 = 989.4e12    # dense bf16 tensor-core FLOP/s
+HBM_BW = HBM_BYTES_PER_S      # B/s of HBM3 (kernels.tune, one source)
+LINK_BW = 450e9               # B/s per direction of NVLink 4

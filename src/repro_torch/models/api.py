@@ -195,11 +195,11 @@ def get_model(cfg: ModelConfig, *, path: str = "auto") -> Model:
         logits=lambda p, tokens, img_emb=None: T.transformer_logits(
             p, cfg, tokens, img_emb=img_emb, path=path),
         prefill=lambda p, tokens, max_len=None, cache=None, slot=0,
-        img_emb=None: T.transformer_prefill(
+        img_emb=None, shard=None: T.transformer_prefill(
             p, cfg, tokens, img_emb=img_emb, max_len=max_len, cache=cache,
-            slot=slot, path=path),
-        decode=lambda p, token, cache, pos: T.transformer_decode(
-            p, cfg, token, cache, pos, path=path),
+            slot=slot, path=path, shard=shard),
+        decode=lambda p, token, cache, pos, shard=None: T.transformer_decode(
+            p, cfg, token, cache, pos, path=path, shard=shard),
         init_cache=lambda batch, max_len, device=None, **kw: T.init_cache(
             cfg, batch, max_len, device=device, **kw),
         prefill_chunk=lambda p, tokens, cache, slot, pos, n_valid,

@@ -33,8 +33,9 @@ Mamba block trains through the JAX package's sequential chunk scan
 in the backward), never through kernel 10, which has no backward and
 refuses inputs that require a gradient. The RG-LRU block trains through
 `_seg_scan`'s recursion under autograd; neither package has a backward
-kernel for it. Over a mesh (placed masters, `core.placed.Placed`)
-the projections run through `qmatmul`'s tensor-parallel parts; the
+kernel for it. Over a mesh (placed masters, `core.placed.Placed`: the
+train step, and the prefill and decode steps of `train.step`) the
+projections run through `qmatmul`'s tensor-parallel parts; the
 per-channel leaves (conv taps and bias, dt_w / dt_b, A_log, D, the RG-LRU
 gates) are gathered whole for the data row (`_gathered`) and their
 gradients go back to their pieces: the scan is not split over channels.
@@ -198,6 +199,7 @@ def mamba_block_chunk(bp: dict, x: torch.Tensor, conv_state: torch.Tensor,
     chained chunks give the whole prompt's recurrence step for step.
     Returns (y (1, C, D), conv_state', h')."""
     c = x.shape[1]
+    bp = _gathered(bp)
     xn = rms_norm(x, bp["ln"]["scale"])
     xz = qmatmul(xn, bp["in_proj"], mode, path=path)
     xi_pre, z = xz.chunk(2, dim=-1)
@@ -218,6 +220,7 @@ def mamba_block_step(bp: dict, x: torch.Tensor, conv_state: torch.Tensor,
     """Single-token step. x: (B, 1, D); conv_state: (B, K-1, di); h: (B,
     di, N) float32. The recurrence is the scan at T = 1 from h. Returns
     (y (B, 1, D), new conv_state, new h)."""
+    bp = _gathered(bp)
     xn = rms_norm(x, bp["ln"]["scale"])
     xz = qmatmul(xn, bp["in_proj"], mode, path=path)
     xi, z = xz.chunk(2, dim=-1)
@@ -411,6 +414,7 @@ def rglru_block_chunk(bp: dict, x: torch.Tensor, conv_state: torch.Tensor,
     recurrence. `draws`: a `Draws` at train time (sites "{site}w_x" etc.).
     Returns (y (B, C, D), conv_state', h')."""
     c = x.shape[1]
+    bp = _gathered(bp)
     xi_pre, gate = _rglru_in(bp, x, mode, path, draws, site)
     xi, _ = causal_conv1d(xi_pre, bp["conv_w"], bp["conv_b"], conv_state)
     new_conv = _conv_state_at(conv_state, xi_pre, n_valid, cfg.d_conv)
@@ -450,6 +454,7 @@ def rglru_block_step(bp: dict, x: torch.Tensor, conv_state: torch.Tensor,
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-token step. x: (B, 1, D); conv_state: (B, K-1, W); h: (B, W)
     float32. Returns (y (B, 1, D), new conv_state, new h)."""
+    bp = _gathered(bp)
     xi, gate = _rglru_in(bp, x, mode, path)
     xi, conv_state = causal_conv1d(xi, bp["conv_w"], bp["conv_b"], conv_state)
     a, b = _rglru_coeffs(bp, xi)

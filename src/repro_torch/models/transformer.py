@@ -281,9 +281,15 @@ def qkv(p: dict, xn: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
 def ffn_sublayer(p: dict, x: torch.Tensor, cfg: ModelConfig,
                  mode: QuantMode, *, path: str = "auto",
                  aux: dict | None = None, draws: Draws | None = None,
-                 site: str = "") -> torch.Tensor:
+                 site: str = "", shard: BatchShard | None = None
+                 ) -> torch.Tensor:
     """x + FFN(norm(x)): the dense FFN, or the MoE sublayer, whose lb_loss
-    is added to aux["lb_loss"] when `aux` is given (serving drops it)."""
+    is added to aux["lb_loss"] when `aux` is given (serving drops it).
+    `shard`: a batch shard of an inference step over a mesh, whose MoE
+    sublayer routes by the whole batch's routes at `site`
+    (`models.common.moe_ffn`); it draws nothing."""
+    if shard is not None and cfg.n_experts and draws is None:
+        draws = Draws(False, None, None, shard)
     xn = norm(p["ln2"], x, cfg)
     kw = dict(path=path, draws=draws, site=f"{site}ffn")
     if not cfg.n_experts:
@@ -320,13 +326,19 @@ def self_attn(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
 def _self_block(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
                 *, path: str = "auto", pos_offset: int = 0,
                 return_kv: bool = False, aux: dict | None = None,
-                draws: Draws | None = None, site: str = ""):
+                draws: Draws | None = None, site: str = "",
+                shard: BatchShard | None = None):
     """self_attn then the FFN sublayer; returns (y, (k, v) or None)."""
     res = self_attn(p, x, cfg, mode, path=path, pos_offset=pos_offset,
                     return_kv=return_kv, draws=draws, site=site)
     y, kv = res if return_kv else (res, None)
     return ffn_sublayer(p, y, cfg, mode, path=path, aux=aux, draws=draws,
-                        site=site), kv
+                        site=site, shard=shard), kv
+
+
+def _site(idx) -> str:
+    """A self block's site prefix from its `layer_stack` index."""
+    return "blocks." + ".".join(map(str, idx)) + "."
 
 
 def image_kv(p: dict, img: torch.Tensor, cfg: ModelConfig, mode: QuantMode,
@@ -572,7 +584,7 @@ def _write_image_kv(cache: dict, gi: int, k: torch.Tensor, v: torch.Tensor,
 # Decode: one token per row against the cache
 # ---------------------------------------------------------------------------
 def _decode_self_block(bp, h, kc, vc, vs, cfg, mode, pos, rows, path,
-                       pt=None):
+                       pt=None, shard=None, site=""):
     """One-token block. h: (B, 1, D); kc/vc: (B, T, Hkv, w) views of the
     layer's cache, or with the page table `pt` the layer's (P, ps, Hkv, w)
     pools; vs: the layer's (B, Hkv) V scales (kv_bits=1) or None; pos: (B,)
@@ -614,7 +626,7 @@ def _decode_self_block(bp, h, kc, vc, vs, cfg, mode, pos, rows, path,
         out = decode_attention_paged(q, kc, vc, pt, pos + 1, window=window)
     out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim)
     h = h + qmatmul(out, bp["attn"]["wo"], mode, path=path)
-    return ffn_sublayer(bp, h, cfg, mode, path=path)
+    return ffn_sublayer(bp, h, cfg, mode, path=path, shard=shard, site=site)
 
 
 def _decode_rows(cache: dict, pos: torch.Tensor, act: torch.Tensor):
@@ -654,13 +666,16 @@ def _decode_cross_block(bp, h, xk, xv, xvs, cfg, mode, path):
 
 
 def transformer_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
-                       cache: dict, pos, *, path: str = "auto"
+                       cache: dict, pos, *, path: str = "auto",
+                       shard: BatchShard | None = None
                        ) -> tuple[torch.Tensor, dict]:
     """One decode step. token: (B,) int; pos: int or (B,) int32 tensor (per
     row write position = tokens already in that row's context; pos < 0
     marks a row inactive: it computes but writes nothing to the cache).
     The cache is contiguous or paged (`init_cache`). Returns (logits (B, V),
-    the cache, updated in place)."""
+    the cache, updated in place). `shard`: these rows as a batch shard of
+    a step over a mesh (its MoE sublayers route by the whole batch's
+    routes, `ffn_sublayer`)."""
     _check_served(cfg)
     mode = QuantMode(cfg.quant)
     b = token.shape[0]
@@ -681,7 +696,7 @@ def transformer_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
             continue
         h = _decode_self_block(bp, h, cache["k"][idx], cache["v"][idx],
                                None if vs is None else vs[idx], cfg, mode,
-                               pos, rows, path, pt)
+                               pos, rows, path, pt, shard, _site(idx))
     return head(params, cfg, h)[:, 0], cache
 
 
@@ -835,7 +850,8 @@ def transformer_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                         *, img_emb: torch.Tensor | None = None,
                         max_len: int | None = None,
                         cache: dict | None = None, slot: int = 0,
-                        path: str = "auto") -> tuple[torch.Tensor, dict]:
+                        path: str = "auto", shard: BatchShard | None = None
+                        ) -> tuple[torch.Tensor, dict]:
     """Run whole prompts: tokens (B, S) int. Every layer attends over the
     prompt with the float flash attention, then its K/V rows 0..S-1 land
     in cache rows [slot, slot + B) -- kv_bits=1: packed and stored in one
@@ -851,7 +867,7 @@ def transformer_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     the slot's last occupant left would be NaN (sign words hold no NaN and
     the V scale is rewritten). A paged cache fills through chunked prefill
     only (ValueError). Returns (logits (B, V) at the last position, the
-    cache)."""
+    cache). `shard`: as in `transformer_decode`."""
     _check_served(cfg)
     b, s = tokens.shape
     img = _image(cfg, img_emb, b, required=True)
@@ -880,7 +896,8 @@ def transformer_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             h = cross_attn(bp, h, kv, cfg, mode, path=path)
             _write_image_kv(cache, idx, *kv, slot, cfg, path)
             continue
-        h, (k, v) = _self_block(bp, h, cfg, mode, path=path, return_kv=True)
+        h, (k, v) = _self_block(bp, h, cfg, mode, path=path, return_kv=True,
+                                shard=shard, site=_site(idx))
         kc, vc = cache["k"][idx], cache["v"][idx]
         if cfg.kv_bits == 1:
             pack_into(path, (k.flatten(0, 1), v.flatten(0, 1)), (kc, vc),

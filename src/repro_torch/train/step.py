@@ -33,9 +33,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.binarize import clip_weights
 from repro_torch.core.layers import BatchShard
-from repro_torch.launch.mesh import Mesh
-from repro_torch.core.placed import Placed, _axes, slice_key, whole_shape
-from repro_torch.launch.shardings import batch_shards, devices_of
+from repro_torch.core.placed import (
+    Placed, _axes, _slices, slice_key, whole_shape,
+)
+from repro_torch.launch.mesh import Mesh, batch_axes
+from repro_torch.launch.shardings import (
+    batch_shards, cache_shardings, devices_of, div_batch_axes,
+)
 from repro_torch.models.api import Model
 from repro_torch.optim.adamw import adamw
 from repro_torch.optim.base import (
@@ -87,6 +91,21 @@ def clipped_leaves(params) -> list[bool]:
             out.append(clip)
     walk(params, False)
     return out
+
+
+# The dry run's hook on work that repeats one shape per unit (a batch
+# shard's forward and backward, a device's optimizer update):
+# `roofline.count` sets it while it counts a step (it may trace one unit
+# and replay the rest); None otherwise, where every unit runs as it is.
+repeat_hook = None
+
+
+def _repeat(kind: str, j, fn: Callable, *args):
+    """Unit j's fn(*args) (through `repeat_hook` while counted): a batch
+    shard's ("shard", j its number) or a device's ("device", j its
+    name)."""
+    return fn(*args) if repeat_hook is None else repeat_hook(kind, j, fn,
+                                                             args)
 
 
 def default_optimizer(cfg: ModelConfig, lr: float = 1e-3) -> Optimizer:
@@ -283,8 +302,9 @@ def update_placed(opt: Optimizer, clip: bool, mesh: Mesh, params, opt_state,
         st = _device_state(opt_state, pskel,
                            lambda ls: [ls[i][ix] for i, ix in entries],
                            lambda a: a[where[d][0]])
-        new_p[d], new_s[d] = apply_step(opt, clip, ps, st, per.pop(d),
-                                        [clipped[i] for i, _ in entries])
+        new_p[d], new_s[d] = _repeat("device", str(d), apply_step, opt,
+                                     clip, ps, st, per.pop(d),
+                                     [clipped[i] for i, _ in entries])
     return (_merge(new_p, owned, where, params, mesh),
             _merge(new_s, owned, where, params, mesh))
 
@@ -449,10 +469,47 @@ def _mesh_train_step(model: Model, opt: Optimizer, accum: int,
         for i, by_ix in enumerate(keys):
             for ix, key in by_ix.items():
                 home.setdefault((i, key), mesh.devices[ix])
-        views = []
-        for ix in shards:
-            out, leaves, gkeys = _shard_view(flat, sp, keys, mesh, ix)
-            views.append((tree_unflatten_like(params, out), leaves, gkeys))
+        views: dict = {}
+
+        def view(j):
+            """Batch shard j's view (`_shard_view`), made at its first use
+            and kept for the step."""
+            if j not in views:
+                out, leaves, gkeys = _shard_view(flat, sp, keys, mesh,
+                                                 shards[j])
+                views[j] = (tree_unflatten_like(params, out), leaves, gkeys)
+            return views[j]
+
+        def sum_into(acc, key, x):
+            x = x.to(home[key], torch.float32)
+            if weight != 1.0:
+                x = x.mul_(weight)
+            if key not in acc and accum == 1:
+                acc[key] = x
+            else:
+                if key not in acc:
+                    acc[key] = torch.zeros_like(x)
+                acc[key] = acc[key].add_(x)
+
+        def shard_unit(j, rows_j, gen_j, shard, acc):
+            """Batch shard j's loss and metrics (weighted), its weighted
+            gradients summed into `acc` where they lie on their piece's
+            home device, and the others' (key, gradient) to be summed
+            there. Each key's sum runs in shard order either way."""
+            masters, leaves, gkeys = view(j)
+            loss, m, g = grads_of(masters, leaves, rows_j, gen_j, shard)
+            if weight != 1.0:
+                loss = loss * weight
+                m = {k: v * weight for k, v in m.items()}
+            rest = []
+            for key, x in zip(gkeys, g):
+                if x.device == home[key]:
+                    sum_into(acc, key, x)
+                else:
+                    rest.append((key, x))
+            del g
+            return loss, m, rest
+
         acc, losses, mets = {}, [], []
         for i, rows in enumerate(parts):
             routes = {}
@@ -460,35 +517,24 @@ def _mesh_train_step(model: Model, opt: Optimizer, accum: int,
                 whole = {k: torch.cat([r[k].to(dev0) for r in rows])
                          for k in rows[0]}
                 with torch.no_grad():
-                    model.loss(views[0][0], whole, gen=route_gen,
+                    model.loss(view(0)[0], whole, gen=route_gen,
                                shard=BatchShard(0, mb, mb, routes, True))
             loss_i, met_i = None, None
-            for j, (masters, leaves, gkeys) in enumerate(views):
+            for j in range(len(shards)):
                 shard = None if one else BatchShard(j * b, (j + 1) * b, mb,
                                                     routes)
-                loss, m, g = grads_of(masters, leaves, rows[j], gens[j],
-                                      shard)
-                if weight != 1.0:
-                    loss = loss * weight
-                    m = {k: v * weight for k, v in m.items()}
-                for key, x in zip(gkeys, g):
-                    x = x.to(home[key], torch.float32)
-                    if weight != 1.0:
-                        x = x.mul_(weight)
-                    if key not in acc and accum == 1:
-                        acc[key] = x
-                    else:
-                        if key not in acc:
-                            acc[key] = torch.zeros_like(x)
-                        acc[key] = acc[key].add_(x)
-                del g
+                loss, m, rest = _repeat("shard", j, shard_unit, j, rows[j],
+                                        gens[j], shard, acc)
+                for key, x in rest:
+                    sum_into(acc, key, x)
+                del rest
                 loss, m = loss.to(dev0), {k: v.to(dev0) for k, v in m.items()}
                 loss_i = loss if loss_i is None else loss_i + loss
                 met_i = m if met_i is None else {
                     k: met_i[k] + v for k, v in m.items()}
             losses.append(loss_i)
             mets.append(met_i)
-        del views
+        views.clear()
         if accum > 1:
             acc = {k: a / accum for k, a in acc.items()}
         loss = losses[0] if accum == 1 else torch.stack(losses).mean()
@@ -509,6 +555,252 @@ def _spec_leaves(params, specs) -> list[tuple]:
     out: list = []
     tree_map(lambda _, sp: out.append(tuple(sp)), params, specs)
     return out
+
+
+def _prefill_kw(model: Model, batch: dict, max_len: int | None) -> dict:
+    kw: dict = {}
+    if model.cfg.family == "vlm":
+        kw["img_emb"] = batch["img_emb"]
+    if model.cfg.family in ("dense", "moe", "audio", "vlm") and max_len:
+        kw["max_len"] = max_len
+    return kw
+
+
+def make_prefill_step(model: Model, max_len: int | None = None, *,
+                      mesh: Mesh | None = None, specs=None) -> Callable:
+    """prefill_step(params, batch {"tokens" (B, S), vlm "img_emb"}) ->
+    (logits (B, V) at the last position, the new cache of max_len
+    positions (attention families; default S)), no gradient: the JAX
+    package's `make_prefill_step`. Over `mesh`, params placed by `specs`
+    (None: replicated) and the cache returned placed by
+    `launch.shardings.cache_shardings` (`_mesh_infer_step`)."""
+    if mesh is not None:
+        return _mesh_infer_step(model, mesh, specs, max_len, prefill=True)
+
+    def prefill_step(params, batch):
+        with torch.no_grad():
+            return model.prefill(params, batch["tokens"],
+                                 **_prefill_kw(model, batch, max_len))
+    return prefill_step
+
+
+def make_decode_step(model: Model, *, mesh: Mesh | None = None,
+                     specs=None) -> Callable:
+    """decode_step(params, token (B,), cache, pos (B,)) -> (logits (B, V),
+    the cache, updated in place), no gradient: the JAX package's
+    `make_decode_step`. Over `mesh`, params placed by `specs` and the
+    cache placed by `launch.shardings.cache_shardings`
+    (`_mesh_infer_step`)."""
+    if mesh is not None:
+        return _mesh_infer_step(model, mesh, specs, None, prefill=False)
+
+    def decode_step(params, token, cache, pos):
+        with torch.no_grad():
+            return model.decode(params, token, cache, pos)
+    return decode_step
+
+
+def _row_shards(mesh: Mesh, b: int) -> list[tuple[int, ...]]:
+    """The batch shards of an inference batch of b rows: the mesh indices
+    of the batch axes that divide b (`div_batch_axes`) row-major, 0 on
+    every other axis (one shard where none divides)."""
+    axes = div_batch_axes(mesh, b)
+    at = [i for i, a in enumerate(mesh.axis_names) if a in axes]
+    out = []
+    for sub in np.ndindex(*[mesh.devices.shape[i] for i in at]):
+        index = [0] * mesh.devices.ndim
+        for i, j in zip(at, sub):
+            index[i] = j
+        out.append(tuple(index))
+    return out
+
+
+def _row_spec(mesh: Mesh, spec: tuple) -> tuple:
+    """A spec with the batch axes taken out: how one batch shard's rows
+    are cut over the other axes."""
+    drop = set(batch_axes(mesh))
+    out = []
+    for e in spec:
+        keep = tuple(a for a in _axes(e) if a not in drop)
+        out.append(None if not keep else keep[0] if len(keep) == 1 else keep)
+    return tuple(out)
+
+
+def _infer_view(flat: list, specs: list, mesh: Mesh, row: tuple[int, ...]):
+    """The leaves the batch shard at `row` gives the model at inference:
+    `_shard_view`'s, over the pieces themselves (no gradient)."""
+    return [arr[row] if all(mesh.shape.get(a, 1) == 1
+                            for e in spec for a in _axes(e))
+            else Placed.of(arr, mesh, spec, row)
+            for arr, spec in zip(flat, specs)]
+
+
+def _place_rows(mesh: Mesh, shards: list, caches: list[dict], family: str,
+                b: int) -> dict:
+    """The placed cache (per leaf an object ndarray of the mesh's shape)
+    of the shards' caches, each its rows' whole cache on its row's
+    device: each mesh index holds its shard's rows cut as
+    `cache_shardings` cuts them over the other axes, a copy on its device
+    (shared by the indices of one device and slice)."""
+    specs = cache_shardings(mesh, caches[0], family, b)
+    kept = [i for i, a in enumerate(mesh.axis_names)
+            if a in div_batch_axes(mesh, b)]
+    owner = {tuple(r[i] for i in kept): j for j, r in enumerate(shards)}
+    out = {}
+    for name in caches[0]:
+        spec = _row_spec(mesh, specs[name].spec)
+        arr = np.empty(mesh.devices.shape, dtype=object)
+        memo: dict = {}
+        for index in np.ndindex(*mesh.devices.shape):
+            j = owner[tuple(index[i] for i in kept)]
+            x = caches[j][name]
+            cut = _slices(x.shape, mesh, spec, index)
+            key = (j, mesh.devices[index], slice_key(x.shape, mesh, spec,
+                                                     index))
+            if key not in memo:
+                memo[key] = x[cut].to(mesh.devices[index], copy=True) \
+                    .contiguous()
+            arr[index] = memo[key]
+        out[name] = arr
+    return out
+
+
+def _gather_rows(mesh: Mesh, cache: dict, row: tuple[int, ...], family: str,
+                 b: int, whole: bool = False) -> dict:
+    """One batch shard's cache (its rows, every other axis joined) on its
+    row's device from a placed cache, or with `whole` every row of it."""
+    specs = cache_shardings(mesh, {k: a.flat[0] for k, a in cache.items()},
+                            family, b)
+    out = {}
+    for name, arr in cache.items():
+        spec = specs[name].spec if whole else _row_spec(mesh,
+                                                        specs[name].spec)
+        out[name] = Placed.of(arr, mesh, spec, row).gather()
+    return out
+
+
+def _put_rows(mesh: Mesh, cache: dict, rows: dict, row: tuple[int, ...],
+              family: str, b: int) -> None:
+    """Write one batch shard's updated cache back into the placed cache's
+    pieces (a piece that is the shard's own tensor is already written)."""
+    specs = cache_shardings(mesh, {k: a.flat[0] for k, a in cache.items()},
+                            family, b)
+    for name, arr in cache.items():
+        spec = _row_spec(mesh, specs[name].spec)
+        handle = Placed.of(arr, mesh, spec, row)
+        lay = handle.layout()
+        for k, cut in zip(lay.take, lay.cuts):
+            piece = handle.pieces[handle.order[k]]
+            if piece is not rows[name]:
+                piece.copy_(rows[name][cut])
+
+
+def _on_device(tree, device):
+    """A MoE routes dict with every tensor moved to `device`."""
+    if isinstance(tree, dict):
+        return {k: _on_device(v, device) for k, v in tree.items()}
+    return tree.to(device) if torch.is_tensor(tree) else tree
+
+
+def _mesh_infer_step(model: Model, mesh: Mesh, specs, max_len: int | None,
+                     prefill: bool) -> Callable:
+    """The prefill (decode) step over `mesh`, as the JAX package's dry run
+    places it: params placed by `specs` (`param_specs`; None replicated),
+    the cache by `cache_shardings`, the batch's rows over the batch axes
+    that divide it (`_row_shards`). Each batch shard runs its rows, in
+    turn, through `model.prefill` (`model.decode`) on its row's device
+    over the same `core.placed.Placed` handles the train step gives its
+    shards, without gradient: a weight gathered per use, its 'model'
+    parts computed on the row's 'model' devices (`core.layers`). A decode
+    shard joins its rows' cache pieces on its device and writes them
+    back after the step. A MoE model first runs the whole batch on the
+    first shard's device, whose routes the shards take
+    (`models.common.moe_ffn`), each on its own device. Logits are
+    concatenated on the first shard's device; the prefill's cache comes
+    back placed (`_place_rows`). On a mesh whose 'model' axis is 1 the
+    outputs are the single-device step's bit for bit (a gather is a copy);
+    over 'model' the split products sum in another order."""
+    cfg = model.cfg
+    moe = bool(cfg.n_experts)
+
+    def shards_of(params, b):
+        shards = _row_shards(mesh, b)
+        flat = tree_leaves(params)
+        sp = [()] * len(flat) if specs is None else _spec_leaves(params,
+                                                                 specs)
+        views = [tree_unflatten_like(params, _infer_view(flat, sp, mesh, ix))
+                 for ix in shards]
+        return shards, views
+
+    def run(shards, views, fn, parts, whole):
+        """Each shard's fn(view, rows, batch shard) in turn (the MoE
+        routing run first on the whole batch)."""
+        n, b = len(shards), next(iter(parts[0].values())).shape[0]
+        routes: dict = {}
+        if moe and n > 1:
+            fn(views[0], whole, BatchShard(0, n * b, n * b, routes, True))
+        outs = []
+        for j, (ix, view, rows) in enumerate(zip(shards, views, parts)):
+            sh = None
+            if moe and n > 1:
+                sh = BatchShard(j * b, (j + 1) * b, n * b,
+                                _on_device(routes, mesh.devices[ix]))
+            outs.append(_repeat("shard", j, fn, view, rows, sh))
+        return outs
+
+    def cut(batch, shards):
+        n = len(shards)
+        return [{k: v[j * (v.shape[0] // n):(j + 1) * (v.shape[0] // n)]
+                 .to(mesh.devices[ix]) for k, v in batch.items()}
+                for j, ix in enumerate(shards)]
+
+    def prefill_step(params, batch):
+        b = batch["tokens"].shape[0]
+        shards, views = shards_of(params, b)
+        dev0 = mesh.devices[shards[0]]
+
+        def one(view, rows, sh):
+            kw = _prefill_kw(model, rows, max_len)
+            if sh is not None:
+                kw["shard"] = sh
+            return model.prefill(view, rows["tokens"], **kw)
+        with torch.no_grad():
+            outs = run(shards, views, one, cut(batch, shards),
+                       {k: v.to(dev0) for k, v in batch.items()})
+            logits = torch.cat([lg.to(dev0) for lg, _ in outs])
+            cache = _place_rows(mesh, shards, [c for _, c in outs],
+                                cfg.family, b)
+        return logits, cache
+
+    def decode_step(params, token, cache, pos):
+        b = token.shape[0]
+        shards, views = shards_of(params, b)
+        dev0 = mesh.devices[shards[0]]
+        parts = cut({"token": token, "pos": pos}, shards)
+
+        def one(view, rows, sh):
+            kw = {} if sh is None else {"shard": sh}
+            c = rows["cache"] if "cache" in rows else _gather_rows(
+                mesh, cache, rows["row"], cfg.family, b)
+            logits, c = model.decode(view, rows["token"], c, rows["pos"],
+                                     **kw)
+            if "cache" not in rows:
+                _put_rows(mesh, cache, c, rows["row"], cfg.family, b)
+            return logits
+        for rows, ix in zip(parts, shards):
+            rows["row"] = ix
+        whole = {"token": token.to(dev0), "pos": pos.to(dev0),
+                 "cache": None}
+        with torch.no_grad():
+            if moe and len(shards) > 1:
+                whole["cache"] = _gather_rows(mesh, cache, shards[0],
+                                              cfg.family, b, whole=True)
+            outs = run(shards, views, one, parts, whole)
+            del whole
+            logits = torch.cat([lg.to(dev0) for lg in outs])
+        return logits, cache
+
+    return prefill_step if prefill else decode_step
 
 
 def make_eval_step(model: Model) -> Callable:
